@@ -1,0 +1,61 @@
+"""Edge-vector gathers with a gather-based backward (counterpart of
+``pair_allegro_tpu/ops/scatter.py:25-108``).
+
+The plain gather's transpose is a scatter-add of the (N*K, 3) edge-vector
+cotangent into (N, 3).  The TABLE is symmetric (one scalar build cutoff),
+so the edges into atom a are the reverses of a's own row, located by
+``reverse_table``:
+
+  dpos[a] = sum_k' dvec_masked_flat[rev[a, k']] - sum_k dvec_masked[a, k]
+
+which is a row gather and a reduction.  Padded slots map to the appended
+zero row.  Only valid when the table rows are all atoms.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _vec_cotangent_to_atoms(dvec, rev_idx, edge_mask):
+    n, k = rev_idx.shape
+    dm = dvec * edge_mask.to(dvec.dtype).unsqueeze(-1)
+    dflat = torch.cat([dm.reshape(n * k, 3), dm.new_zeros(1, 3)], dim=0)
+    return dflat[rev_idx].sum(dim=1) - dm.sum(dim=1)
+
+
+class _TableEdgeVec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, positions, j_idx, rev_idx, edge_mask):
+        ctx.save_for_backward(rev_idx, edge_mask)
+        return positions[j_idx] - positions.unsqueeze(1)
+
+    @staticmethod
+    def backward(ctx, dvec):
+        rev_idx, edge_mask = ctx.saved_tensors
+        return _vec_cotangent_to_atoms(dvec, rev_idx, edge_mask), None, None, None
+
+
+class _TableEdgeVecTyped(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pos_t, j_idx, rev_idx, edge_mask):
+        ctx.save_for_backward(rev_idx, edge_mask)
+        ext = pos_t[j_idx]
+        return ext[..., :3] - pos_t[:, None, :3], ext[..., 3]
+
+    @staticmethod
+    def backward(ctx, dvec, _dtj):
+        rev_idx, edge_mask = ctx.saved_tensors
+        dpos = _vec_cotangent_to_atoms(dvec, rev_idx, edge_mask)
+        return torch.cat([dpos, dpos.new_zeros(dpos.shape[0], 1)], dim=1), None, None, None
+
+
+def table_edge_vec(positions, j_idx, rev_idx, edge_mask):
+    """vec[i, k] = positions[j_idx[i, k]] - positions[i]."""
+    return _TableEdgeVec.apply(positions, j_idx, rev_idx, edge_mask)
+
+
+def table_edge_vec_typed(pos_t, j_idx, rev_idx, edge_mask):
+    """(vec, t_j as float): ``pos_t`` carries the type as a 4th column, which
+    the model consumes only through comparisons (no cotangent)."""
+    return _TableEdgeVecTyped.apply(pos_t, j_idx, rev_idx, edge_mask)

@@ -1,0 +1,101 @@
+"""Channelwise tensor products on the uniform irreps layout (counterpart of
+``pair_allegro_tpu/ops/tp.py`` and ``ops/pallas_tp._nonzeros``).
+
+Layout: features (..., C, D) with D = (lmax+1)^2; every channel carries one
+copy of each l = 0..lmax.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from pair_allegro_tpu_torch.ops.so3 import real_wigner_3j, sh_slice
+
+
+@functools.lru_cache(maxsize=None)
+def tp_paths(lmax_in1: int, lmax_in2: int, lmax_out: int, parity: bool = False):
+    """Triangle-valid (l1, l2, l3) paths; parity=True drops odd l1+l2+l3."""
+    paths = []
+    for l1 in range(lmax_in1 + 1):
+        for l2 in range(lmax_in2 + 1):
+            for l3 in range(abs(l1 - l2), min(lmax_out, l1 + l2) + 1):
+                if parity and (l1 + l2 + l3) % 2:
+                    continue
+                paths.append((l1, l2, l3))
+    return tuple(paths)
+
+
+@functools.lru_cache(maxsize=None)
+def paths_to_l(lmax_in1: int, lmax_in2: int, l3: int, parity: bool = False):
+    return tuple(
+        (l1, l2)
+        for (l1, l2, l) in tp_paths(lmax_in1, lmax_in2, max(l3, lmax_in1), parity)
+        if l == l3  # noqa: E741
+    )
+
+
+def num_paths_per_l(lmax_in1: int, lmax_in2: int, lmax_out: int, parity: bool = False):
+    return [len(paths_to_l(lmax_in1, lmax_in2, l3, parity)) for l3 in range(lmax_out + 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _nonzeros(lmax: int, parity: bool = False):
+    """Per l3: tuple of (p, i, j, k, w) nonzero 3j entries (global SH
+    indices i of the first operand, j of the second)."""
+    table = {}
+    for l3 in range(lmax + 1):
+        entries = []
+        for p, (l1, l2) in enumerate(paths_to_l(lmax, lmax, l3, parity)):
+            C = real_wigner_3j(l1, l2, l3)
+            for i, j, k in zip(*np.nonzero(C)):
+                entries.append(
+                    (p, int(i) + sh_slice(l1).start, int(j) + sh_slice(l2).start,
+                     int(k), float(C[i, j, k]))
+                )
+        table[l3] = tuple(entries)
+    return table
+
+
+def uniform_tp(x: torch.Tensor, y: torch.Tensor, lmax_out: int, parity: bool = False):
+    """Channelwise TP: x (..., C, D1), y (..., C, D2) or (..., D2).
+    Returns a list over l3 of (..., C, P_l3, 2*l3+1)."""
+    lx = math.isqrt(x.shape[-1]) - 1
+    if y.dim() == x.dim() - 1:
+        y = y.unsqueeze(-2)
+    ly = math.isqrt(y.shape[-1]) - 1
+    out = []
+    for l3 in range(lmax_out + 1):
+        blocks = []
+        for (l1, l2) in paths_to_l(lx, ly, l3, parity):
+            C = torch.as_tensor(real_wigner_3j(l1, l2, l3), dtype=x.dtype, device=x.device)
+            blocks.append(
+                torch.einsum("...ci,...cj,ijk->...ck", x[..., sh_slice(l1)], y[..., sh_slice(l2)], C)
+            )
+        out.append(torch.stack(blocks, dim=-2) if blocks else None)
+    return out
+
+
+def tp_mix_apply(ws: dict, tp_out: list) -> torch.Tensor:
+    """Per-l3 (channel, path) -> channel mix; weights have c-major rows
+    (row = c*P + p, the ``tp_mix_init`` contract).  Returns (..., C_out, D)."""
+    pieces = []
+    for l3, t in enumerate(tp_out):
+        if t is None:
+            continue
+        w = ws[f"l{l3}"]
+        c_in, p = t.shape[-3], t.shape[-2]
+        t = torch.movedim(t, -1, -3)  # (..., k, c, p)
+        t = t.reshape(*t.shape[:-2], c_in * p)
+        m = (t @ w.to(t.dtype)) * (1.0 / math.sqrt(c_in * p))
+        pieces.append(torch.movedim(m, -1, -2))
+    return torch.cat(pieces, dim=-1)
+
+
+def scalar_part(tp_out: list) -> torch.Tensor:
+    """The l3=0 invariants as (..., C*P0), c-major."""
+    t = tp_out[0][..., 0]
+    return t.reshape(*t.shape[:-2], -1)
