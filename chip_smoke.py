@@ -3,26 +3,31 @@
 NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 
 Phases, each of which must pass (any failure exits non-zero):
-  1. the card's name and power limit; the build of K1 (csrc/fused_layer.cu)
-     with nvcc for sm_90a;
+  1. the card's name and power limit; the builds of K1 (csrc/fused_layer.cu)
+     and K3 (csrc/nequip_conv.cu) with nvcc for sm_90a, started together;
   2. K1 parity: the CUDA kernel against its plain PyTorch version, f32,
      forward and backward, for the first / middle / last forms, at flagship
      widths (ns=64, C=32, l_max=2) on a 500-atom FCC Cu neighbor table;
-  3. model parity on the same 500 atoms with the charge head: the kernel
-     path on the card against the plain path (the CPU), max|dF| and max|dq|
-     below 5e-4;
-  4. the main path: 5,324-atom FCC Cu, Allegro l_max=2 / 3 layers / 64
+  3. K3 parity: the same for the NequIP convolution at (l_max, tracks) in
+     {1, 2} x {1, 2}, C=64, on the 500-atom table at the engine's K;
+  4. model parity on the same 500 atoms, the kernel path on the card against
+     the plain path (the CPU): Allegro with the charge head (max|dF|, max|dq|
+     below 5e-4), NequIP with one and with two species (max|dF| below 5e-4);
+  5. the Allegro main path: 5,324-atom FCC Cu, l_max=2 / 3 layers / 64
      scalar and 32 tensor features, AllegroEngine(skin=0.4) with regrow, NVE
      at 2 fs from 50 K, a 60-step warmup chunk and a timed 60-step chunk;
-     K1's launch counts are read from this phase alone;
-  5. K1 timings at the main path's shapes (CUDA events, warm), beside the
-     plain version's and the least time the card could take (bound), and
-     K1 parity at those shapes as in phase 2.
+  6. the NequIP main path: the same system and run with NequIP l_max=1,
+     parity, 3 layers, 64 features, 2x32 radial MLP, NequIPEngine(skin=0.4);
+     the launch counts of each main path are read from its phase alone;
+  7. K1 and K3 timings at their main path's shapes (CUDA events, warm),
+     beside the plain versions' and the least time the card could take
+     (bound), and kernel parity at those shapes as in phases 2 and 3.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.  Weights are random, made from a seed.
 
 ``python3 chip_smoke.py --profile`` instead prints where the device time of
-a main-path MD step goes (torch.profiler).
+an Allegro main-path MD step goes (torch.profiler); ``--profile nequip`` the
+same for the NequIP main path.
 """
 
 from __future__ import annotations
@@ -38,6 +43,38 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FORMS = {"first": (True, False), "middle": (False, False), "last": (False, True)}
 SEED = 0
+
+
+def nequip_cfg(species=1, l_max=1, parity=True):
+    """The NequIP config of record (bench.py:nequip_line); two species add a
+    per-edge-type cutoff."""
+    from pair_allegro_tpu_torch.models.nequip import NequIPConfig
+
+    kw = {} if species == 1 else dict(per_edge_type_cutoff=((4.5, 4.2), (4.2, 4.0)))
+    return NequIPConfig(
+        type_names=("Cu", "Ag")[:species], r_max=4.5, l_max=l_max, num_layers=3,
+        num_features=64, radial_mlp_depth=2, radial_mlp_width=32, avg_num_neighbors=12.0,
+        parity=parity, **kw,
+    )
+
+
+def make_nequip_case(n_rep, device, species=1, l_max=1, parity=True):
+    """(cfg, params, system) for NequIP on FCC Cu of n_rep^3 cells; with two
+    species the types are drawn from a seed."""
+    import numpy as np
+    import torch
+
+    from pair_allegro_tpu_torch.models.nequip import nequip_init_numpy, nequip_params_from_numpy
+    from pair_allegro_tpu_torch.system import System, fcc_lattice
+
+    cfg = nequip_cfg(species, l_max, parity)
+    params = nequip_params_from_numpy(nequip_init_numpy(cfg, SEED), cfg, device=device)
+    pos, cell = fcc_lattice(n_rep)
+    n = pos.shape[0]
+    types = np.random.RandomState(SEED + 1).randint(0, species, n)
+    system = System.create(pos, types, cell=cell, masses=np.where(types == 0, 63.546, 107.87),
+                           dtype=torch.float32, device=device)
+    return cfg, params, system
 
 
 def flagship_cfg(output_charges=False):
@@ -144,20 +181,24 @@ def max_err(a, b):
 TOLS = {"fwd": (1e-4, 1e-4), "bwd": (1e-4, 1e-3)}  # atol, rtol on max|plain|
 
 
-def check(label, kind, got, ref):
+def check(kernel, label, kind, names, got, ref):
     """Hold kernel results against the plain version's; returns the max
     abs error, raises beyond atol + rtol * max|plain|."""
     atol, rtol = TOLS[kind]
     worst = 0.0
-    for name, a, b in zip(("x", "V", "Y", "u"), got, ref):
+    for name, a, b in zip(names, got, ref):
         err = max_err(a, b)
         tol = atol + rtol * float(b.detach().abs().max())
-        print(f"K1 parity {label} {kind} {name}: max|kernel-plain| {err:.3e} "
+        print(f"{kernel} parity {label} {kind} {name}: max|kernel-plain| {err:.3e} "
               f"(tolerance {tol:.3e} = {atol:g} + {rtol:g} max|plain|)")
         if not err <= tol:
-            raise RuntimeError(f"K1 {kind} {label} {name} disagrees with its plain version")
+            raise RuntimeError(f"{kernel} {kind} {label} {name} disagrees with its plain version")
         worst = max(worst, err)
     return worst
+
+
+K1_NAMES = ("x", "V", "Y", "u")
+K3_NAMES = ("hj", "bessel", "u", "Y")
 
 
 def k1_parity(cfg, params, system, eng):
@@ -181,7 +222,8 @@ def k1_parity(cfg, params, system, eng):
         g_r = torch.autograd.grad(out_r, ins, cots)
         torch.cuda.synchronize()
         for kind, got, ref in (("fwd", out_k, out_r), ("bwd", g_k, g_r)):
-            errs[kind] = max(errs[kind], check(f"{form:6s} 500 atoms", kind, got, ref))
+            errs[kind] = max(errs[kind], check("K1", f"{form:6s} 500 atoms", kind, K1_NAMES,
+                                                 got, ref))
     return errs
 
 
@@ -203,47 +245,61 @@ def model_parity():
         raise RuntimeError("model parity gate failed")
 
 
-def main_path():
-    """Phase 4: the bench.py:main workload on the port."""
+def main_path(model="allegro"):
+    """Phases 5 and 6: the bench.py:main (Allegro) or bench.py:nequip_line
+    (NequIP) workload on the port.  Every kernel's counts are set to 0 just
+    before the run and read just after it."""
     import torch
 
-    from pair_allegro_tpu_torch.engine import AllegroEngine
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
     from pair_allegro_tpu_torch.md.integrate import Simulation
     from pair_allegro_tpu_torch.ops import fused_layer as fl
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
     from pair_allegro_tpu_torch.system import Units
 
-    fl.launches.reset()
-    cfg, params, system = make_case(11, None)
-    eng = AllegroEngine(cfg, params, system, skin=0.4)
+    if model == "allegro":
+        cfg, params, system = make_case(11, None)
+        eng = AllegroEngine(cfg, params, system, skin=0.4)
+        kernel, mod = "K1", fl
+    else:
+        cfg, params, system = make_nequip_case(11, None)
+        eng = NequIPEngine(cfg, params, system, skin=0.4)
+        kernel, mod = "K3", k3
     n_eval = [0]
 
     def force_fn(s, nb):
         n_eval[0] += 1
         return eng.force_fn(s, nb)
 
+    fl.launches.reset()
+    k3.launches.reset()
     dt_fs, n_steps = 2.0, 60
     sim = Simulation(system, force_fn, eng.rebuild_fn, dt=dt_fs * Units.fs, grow_fn=eng.grow)
     sim.init_velocities(50.0, seed=SEED)
     sim.run(n_steps, log_every=n_steps)  # warmup chunk
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rows = sim.run(n_steps, log_every=n_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"fwd": fl.launches.fwd, "bwd": fl.launches.bwd}
+    counts = {"fwd": mod.launches.fwd, "bwd": mod.launches.bwd}
+    peak = torch.cuda.max_memory_allocated() / 2**30
     st = sim.state
     finite = bool(torch.isfinite(st.forces).all()) and math.isfinite(rows[-1]["etotal"])
     steps_per_s = n_steps / wall
-    print(f"main path: {system.n_atoms} atoms, K={eng.spec.max_neighbors}, regrows {sim.regrows}, "
-          f"force evaluations {n_eval[0]}, K1 launches fwd {counts['fwd']} bwd {counts['bwd']}")
-    print(f"main path: {steps_per_s:.4f} steps/s, {steps_per_s * dt_fs * 1e-6 * 86400.0:.4f} ns/day "
-          f"({wall * 1e3 / n_steps:.3f} ms/step), T {rows[-1]['temp']:.1f} K, "
-          f"etotal {rows[-1]['etotal']:.4f} eV, finite {finite}")
+    print(f"{model} main path: {system.n_atoms} atoms, K={eng.spec.max_neighbors}, "
+          f"E={system.n_atoms * eng.spec.max_neighbors}, regrows {sim.regrows}, force evaluations "
+          f"{n_eval[0]}, {kernel} launches fwd {counts['fwd']} bwd {counts['bwd']}")
+    print(f"{model} main path: {steps_per_s:.4f} steps/s, "
+          f"{steps_per_s * dt_fs * 1e-6 * 86400.0:.4f} ns/day ({wall * 1e3 / n_steps:.3f} ms/step), "
+          f"T {rows[-1]['temp']:.1f} K, etotal {rows[-1]['etotal']:.4f} eV, finite {finite}, "
+          f"peak device memory of the timed chunk {peak:.2f} GiB")
     if not finite:
-        raise RuntimeError("main path produced non-finite values")
+        raise RuntimeError(f"{model} main path produced non-finite values")
     want = cfg.num_layers * n_eval[0]
     if not (counts["fwd"] == want and counts["bwd"] == want):
-        raise RuntimeError(f"K1 launches {counts} != {cfg.num_layers} per force evaluation")
+        raise RuntimeError(f"{kernel} launches {counts} != {cfg.num_layers} per force evaluation")
     return cfg, params, system, eng, counts
 
 
@@ -278,9 +334,10 @@ def k1_timings(cfg, params, system, eng, errs):
         g_k = fl._kernel_bwd(x, V, Y, u, w, k, inv_avg, first_v, last, dxo, dvo)
         torch.cuda.synchronize()
         label = f"{form:6s} main path"
-        errs["fwd"] = max(errs["fwd"], check(label, "fwd", (out_k,) if last else out_k, outs))
+        errs["fwd"] = max(errs["fwd"], check("K1", label, "fwd", K1_NAMES,
+                                             (out_k,) if last else out_k, outs))
         g_r = torch.autograd.grad(outs, ins, cots)
-        errs["bwd"] = max(errs["bwd"], check(label, "bwd", g_k, g_r))
+        errs["bwd"] = max(errs["bwd"], check("K1", label, "bwd", K1_NAMES, g_k, g_r))
         del out, outs, ins, out_k, g_k, g_r
         torch.cuda.empty_cache()
         for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
@@ -296,21 +353,195 @@ def k1_timings(cfg, params, system, eng, errs):
     return res
 
 
-def profile_steps(n_steps=10):
-    """``--profile``: where one main-path MD step's device time goes.
-    torch.profiler over n_steps after a 20-step warmup; kernel time summed by
-    name per step, and the device's idle share of the wall time."""
+def k3_operands(cfg, params, system, eng, seed=SEED):
+    """K3 operands of the system's neighbor table: (hj, bessel, u, Y) on the
+    edge-major layout, hj gathered through the table from seeded random node
+    rows (the model's own rows are mostly zero in the first layer), and the
+    first layer's kernel weights and K."""
+    import torch
+
+    from pair_allegro_tpu_torch.models.edges import table_edges
+    from pair_allegro_tpu_torch.ops.nequip_conv import prepare_radial, radial_cl
+    from pair_allegro_tpu_torch.ops.tp import tp_num_paths
+
+    nb = eng.rebuild_fn(system, None)
+    n, k = nb.edge_index.shape
+    d = cfg.feature_dim
+    with torch.no_grad():
+        geo = table_edges(cfg, system.positions, system.types, nb.edge_index, cell=system.cell,
+                          edge_shifts=nb.edge_shifts, edge_mask=nb.edge_mask)
+        gen = torch.Generator(device=system.device).manual_seed(seed)
+        h = torch.randn((n, d * cfg.n_tracks * cfg.num_features), generator=gen,
+                        device=system.device)
+        hj = h[nb.edge_index].reshape(n * k, -1)
+    ops = (hj, geo["bessel"].reshape(n * k, -1), geo["u"].reshape(n * k, 1), geo["Y"].reshape(n * k, d))
+    c, T = cfg.num_features, cfg.n_tracks
+    ws = radial_cl(params["layers"][0]["radial_mlp"]["w"], c, tp_num_paths(cfg.l_max), T)
+    return ops, prepare_radial(ws, c, T, cfg.l_max), k
+
+
+def k3_cost(w, e, k, bwd):
+    """(flops, bytes) one K3 call needs at E edge slots, counted from the
+    kernel's code: the radial MLP (recomputed in the backward), the TP
+    entries (4 operations each in the forward, 9 in the backward), the
+    backward's du, dw * u and the product back through the radial MLP; each
+    input read once, each output written once (f32), weights included."""
+    from pair_allegro_tpu_torch.ops.tp import tp_entry_table
+
+    dims = w.dims
+    c, T = w.C, w.n_tracks
+    n_ent = sum(len(ents) for _, rows in tp_entry_table(w.lmax) for *_, ents in rows)
+    d = (w.lmax + 1) ** 2
+    df, tpc, b = d * T * c, dims[-1], dims[0]
+    hidden = sum(2 * a * o + 5 * o for a, o in zip(dims[:-2], dims[1:-1]))
+    radial = hidden + 2 * dims[-2] * tpc + tpc
+    if not bwd:
+        per = radial + 4 * n_ent * T * c
+        io = (df + b + 1 + d) * e + df * (e // k)
+    else:
+        back = 2 * tpc * dims[-2] + sum(2 * a * o + 8 * o for a, o in zip(dims[:-2], dims[1:-1]))
+        per = radial + 9 * n_ent * T * c + 3 * tpc + back
+        io = 2 * (df + b + 1 + d) * e + df * (e // k)
+    n_w = sum(t.numel() for t in w.tensors())
+    return per * e, 4 * (io + n_w)
+
+
+def k3_compare(label, ops, w, k, avg, gen):
+    """K3 against its plain version on ``ops``, forward and backward (a
+    random cotangent); returns the max abs errors."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
+
+    ins = [t.detach().clone().requires_grad_(True) for t in ops]
+    out_k = k3.nequip_conv(*ins, w, k, avg)
+    out_r = k3.nequip_conv_reference(*ins, w, k, 1.0 / math.sqrt(avg))
+    cot = torch.randn(out_r.shape, generator=gen, device=out_r.device)
+    g_k = torch.autograd.grad(out_k, ins, cot)
+    g_r = torch.autograd.grad(out_r, ins, cot)
+    torch.cuda.synchronize()
+    errs = {"fwd": check("K3", label, "fwd", ("agg",), (out_k,), (out_r,)),
+            "bwd": check("K3", label, "bwd", K3_NAMES, g_k, g_r)}
+    del ins, out_k, out_r, g_k, g_r
+    torch.cuda.empty_cache()
+    return errs
+
+
+def k3_parity():
+    """Phase 3: K3 against its plain version for each (l_max, tracks) on the
+    500-atom table, fwd and bwd."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import NequIPEngine
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for lmax in (1, 2):
+        for parity in (False, True):
+            cfg, params, system = make_nequip_case(5, None, l_max=lmax, parity=parity)
+            eng = NequIPEngine(cfg, params, system)
+            ops, w, k = k3_operands(cfg, params, system, eng)
+            gen = torch.Generator(device=system.device).manual_seed(SEED)
+            e = k3_compare(f"l_max={lmax} T={cfg.n_tracks} C={cfg.num_features} 500 atoms K={k}",
+                           ops, w, k, cfg.avg_num_neighbors, gen)
+            errs = {kind: max(errs[kind], e[kind]) for kind in errs}
+    return errs
+
+
+def nequip_model_parity():
+    """Phase 4 (NequIP): forces, kernel path (card) vs plain path (CPU), one
+    and two species."""
+    from pair_allegro_tpu_torch.engine import NequIPEngine
+
+    for species in (1, 2):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            cfg, params, system = make_nequip_case(5, dev, species=species)
+            eng = NequIPEngine(cfg, params, system, device=dev)
+            o = eng.force_fn(system, eng.rebuild_fn(system, None))
+            outs.append((o.forces.cpu(), o.total_energy.cpu()))
+        (f_k, e_k), (f_p, e_p) = outs
+        df = max_err(f_k, f_p)
+        print(f"NequIP model parity (500 atoms, {species} species): max|dF| {df:.3e} eV/A "
+              f"(max|F| {float(f_p.abs().max()):.3f}), E {float(e_k):.6f} vs {float(e_p):.6f} eV, "
+              f"dE {abs(float(e_k) - float(e_p)):.3e} eV (gate 5e-4 on dF)")
+        if not df < 5e-4:
+            raise RuntimeError("NequIP model parity gate failed")
+
+
+def k3_timings(cfg, params, system, eng, errs):
+    """Phase 7 (K3): fwd/bwd time of kernel and plain version at the NequIP
+    main path's shapes, with the bound, and parity at those shapes (into
+    ``errs``)."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
+
+    ops, w, k = k3_operands(cfg, params, system, eng)
+    e = ops[0].shape[0]
+    inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
+    dagg = torch.randn((e // k, ops[0].shape[1]), generator=gen, device=system.device)
+    k_f = cuda_ms(lambda: k3._kernel_fwd(*ops, w, k, inv_avg), 10)
+    k_b = cuda_ms(lambda: k3._kernel_bwd(*ops, w, k, inv_avg, dagg), 10)
+    with torch.no_grad():
+        p_f = cuda_ms(lambda: k3.nequip_conv_reference(*ops, w, k, inv_avg), 2)
+    ins = [t.detach().clone().requires_grad_(True) for t in ops]
+    out = k3.nequip_conv_reference(*ins, w, k, inv_avg)
+    p_b = cuda_ms(lambda: torch.autograd.grad(out, ins, dagg, retain_graph=True), 2)
+    del ins, out
+    torch.cuda.empty_cache()
+    e2 = k3_compare(f"l_max={w.lmax} T={w.n_tracks} C={w.C} main path E={e}", ops, w, k,
+                    cfg.avg_num_neighbors, gen)
+    errs = {kind: max(errs[kind], e2[kind]) for kind in errs}
+    res = {}
+    for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
+        flops, nbytes = k3_cost(w, e, k, kind == "bwd")
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        res[kind] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        r = res[kind]
+        print(f"K3 {kind} E={e}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB), "
+              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved")
+    return res, errs
+
+
+def _kind_of(name):
+    """A coarse class of a device kernel's name, for the profile's summary."""
+    n = name.lower()
+    for key, kind in (("k3_", "K3 (nequip_conv)"), ("k1_", "K1 (fused_layer)"),
+                      ("index", "gather / index_select"), ("gather", "gather / index_select"),
+                      ("scatter", "scatter"), ("gemm", "matmul (torch)"), ("xmma", "matmul (torch)"),
+                      ("cutlass", "matmul (torch)"), ("reduce", "reductions (sum)"),
+                      ("memcpy", "copies"), ("copy", "copies"), ("cat", "copies"),
+                      ("fill", "fills"), ("sort", "neighbor build (sort/topk)"),
+                      ("topk", "neighbor build (sort/topk)")):
+        if key in n:
+            return kind
+    return "elementwise and other glue"
+
+
+def profile_steps(model="allegro", n_steps=10):
+    """``--profile [nequip]``: where one main-path MD step's device time
+    goes.  torch.profiler over n_steps after a 20-step warmup; kernel time
+    summed by name and by class per step, and the device's idle share of the
+    wall time."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from pair_allegro_tpu_torch.engine import AllegroEngine
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
     from pair_allegro_tpu_torch.md.integrate import Simulation
     from pair_allegro_tpu_torch.system import Units
 
-    cfg, params, system = make_case(11, None)
-    eng = AllegroEngine(cfg, params, system, skin=0.4)
+    if model == "allegro":
+        cfg, params, system = make_case(11, None)
+        eng = AllegroEngine(cfg, params, system, skin=0.4)
+    else:
+        cfg, params, system = make_nequip_case(11, None)
+        eng = NequIPEngine(cfg, params, system, skin=0.4)
     sim = Simulation(system, eng.force_fn, eng.rebuild_fn, dt=2.0 * Units.fs, grow_fn=eng.grow)
     sim.init_velocities(50.0, seed=SEED)
     sim.run(20, log_every=20)
@@ -322,19 +553,31 @@ def profile_steps(n_steps=10):
         wall = time.perf_counter() - t0
     per = collections.Counter()
     calls = collections.Counter()
+    kinds = collections.Counter()
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            per[ev.name] += ev.time_range.elapsed_us() / 1e3 / n_steps
+            ms = ev.time_range.elapsed_us() / 1e3 / n_steps
+            per[ev.name] += ms
             calls[ev.name] += 1
+            kinds[_kind_of(ev.name)] += ms
     busy = sum(per.values())
     step_ms = wall * 1e3 / n_steps
-    print(f"profile: {step_ms:.3f} ms/step wall (profiler on), device busy {busy:.3f} ms/step, "
-          f"idle share {1.0 - busy / step_ms:.3f}, {sum(calls.values()) / n_steps:.0f} "
-          f"device events/step")
-    for name, ms in per.most_common(15):
-        print(f"profile: {ms:8.3f} ms/step {100 * ms / busy:5.1f}%  x{calls[name] / n_steps:5.1f}  "
-              f"{name[:110]}")
+    print(f"profile {model}: {step_ms:.3f} ms/step wall (profiler on), device busy {busy:.3f} "
+          f"ms/step, idle share {1.0 - busy / step_ms:.3f}, {sum(calls.values()) / n_steps:.0f} "
+          f"device events/step, regrows {sim.regrows}, K={eng.spec.max_neighbors}")
+    for kind, ms in kinds.most_common():
+        print(f"profile {model} by class: {ms:8.3f} ms/step {100 * ms / busy:5.1f}%  {kind}")
+    for name, ms in per.most_common(20):
+        print(f"profile {model}: {ms:8.3f} ms/step {100 * ms / busy:5.1f}%  "
+              f"x{calls[name] / n_steps:5.1f}  {name[:110]}")
     return 0
+
+
+def kernel_entry(name, source, replaces, counts, kind, err, r, **extra):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[kind], "max_abs_err": err, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, **extra}
 
 
 def main() -> int:
@@ -343,52 +586,65 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
-    if sys.argv[1:] == ["--profile"]:
-        return profile_steps()
+    if sys.argv[1:2] == ["--profile"]:
+        model = sys.argv[2] if len(sys.argv) > 2 else "allegro"
+        if model not in ("allegro", "nequip"):
+            raise SystemExit(f"--profile takes allegro or nequip, not {model}")
+        return profile_steps(model)
     from pair_allegro_tpu_torch.ops import fused_layer as fl
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    fl._library()
-    print(f"K1 build: nvcc {fl.build_seconds if fl.build_seconds is not None else 0.0:.1f} s, "
-          f"build + load {time.perf_counter() - t0:.1f} s")
-    for line in sorted(fl._BUILD_DIR.glob("*.ptxas.txt")):
-        for s in line.read_text().splitlines():
-            if "registers" in s or "Function properties for" in s:
-                print("ptxas:", s.strip())
+    libs = (("K1", fl.LIB), ("K3", k3.LIB))
+    for _, lib in libs:
+        lib.start()  # one nvcc per source, all started together
+    for name, lib in libs:
+        lib.load()
+        print(f"{name} build: nvcc {lib.build_seconds or 0.0:.1f} s, all builds + load "
+              f"{time.perf_counter() - t0:.1f} s")
+        for line in lib.paths()[1].read_text().splitlines():
+            if "registers" in line or "Function properties for" in line or "spill" in line:
+                print(f"ptxas {name}:", line.strip())
 
-    cfg, params, system = make_case(5, None)
     from pair_allegro_tpu_torch.engine import AllegroEngine
 
+    cfg, params, system = make_case(5, None)
     errs = k1_parity(cfg, params, system, AllegroEngine(cfg, params, system))
+    errs3 = k3_parity()
     model_parity()
-    cfg, params, system, eng, counts = main_path()
+    nequip_model_parity()
+    cfg, params, system, eng, counts = main_path("allegro")
     times = k1_timings(cfg, params, system, eng, errs)
+    del cfg, params, system, eng
+    torch.cuda.empty_cache()
+    ncfg, nparams, nsystem, neng, counts3 = main_path("nequip")
+    times3, errs3 = k3_timings(ncfg, nparams, nsystem, neng, errs3)
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):
         per = {f: times[(f, kind)] for f in FORMS}
-        kernels.append({
-            "name": f"k1_fused_layer_{kind}",
-            "route": "cuda",
-            "source": "pair_allegro_tpu_torch/csrc/fused_layer.cu",
-            "replaces": f"pair_allegro_tpu/ops/pallas_stack.py:{line}",
-            "launches": counts[kind],
-            "max_abs_err": errs[kind],
-            # one call of each form: the kernel's time per force evaluation
-            "ms": sum(r["ms"] for r in per.values()),
-            "plain_ms": sum(r["plain_ms"] for r in per.values()),
-            "bound_ms": sum(r["bound_ms"] for r in per.values()),
-            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in per.values())
-            else "bytes",
-            "library_ms": None,
-            "ms_by_form": {f: r["ms"] for f, r in per.items()},
-            "plain_ms_by_form": {f: r["plain_ms"] for f, r in per.items()},
-            "bound_ms_by_form": {f: r["bound_ms"] for f, r in per.items()},
-        })
+        # one call of each form: the kernel's time per force evaluation
+        total = {key: sum(r[key] for r in per.values()) for key in ("ms", "plain_ms", "bound_ms")}
+        total["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in per.values())
+                             else "bytes")
+        kernels.append(kernel_entry(
+            f"k1_fused_layer_{kind}", "pair_allegro_tpu_torch/csrc/fused_layer.cu",
+            f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts, kind, errs[kind], total,
+            ms_by_form={f: r["ms"] for f, r in per.items()},
+            plain_ms_by_form={f: r["plain_ms"] for f, r in per.items()},
+            bound_ms_by_form={f: r["bound_ms"] for f, r in per.items()},
+        ))
+    for kind, line in (("fwd", 289), ("bwd", 401)):
+        # one call (one message-passing layer); num_layers calls per force evaluation
+        kernels.append(kernel_entry(
+            f"k3_nequip_conv_{kind}", "pair_allegro_tpu_torch/csrc/nequip_conv.cu",
+            f"pair_allegro_tpu/ops/pallas_nequip.py:{line}", counts3, kind, errs3[kind],
+            times3[kind], per="call", calls_per_force_evaluation=ncfg.num_layers,
+        ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

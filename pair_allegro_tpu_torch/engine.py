@@ -1,5 +1,5 @@
 """Engine assembly: the pair-style glue (counterpart of
-``pair_allegro_tpu/engine.py:42-326, 460-632``).
+``pair_allegro_tpu/engine.py:42-326, 460-647``).
 
 Binds a model (config + parameters), a type-name mapping and a neighbor
 strategy into the two callables the MD runtime consumes, ``force_fn`` and
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from pair_allegro_tpu_torch.models.allegro import AllegroConfig, allegro_energy
+from pair_allegro_tpu_torch.models.nequip import NequIPConfig, nequip_energy
 from pair_allegro_tpu_torch.neighbors.device import (
     NeighborData,
     cell_list_neighbors,
@@ -24,7 +25,7 @@ from pair_allegro_tpu_torch.neighbors.device import (
 )
 from pair_allegro_tpu_torch.neighbors.naive import host_neighbor_stats
 from pair_allegro_tpu_torch.potential import make_potential
-from pair_allegro_tpu_torch.system import System
+from pair_allegro_tpu_torch.system import System, resolve_device
 
 
 class TypeMapper:
@@ -189,19 +190,23 @@ def reestimate_spec(spec: NeighborSpec, system: System, factor: float = 1.5) -> 
     )
 
 
+def regrow_bytes(spec: NeighborSpec, system: System, cfg) -> int:
+    """Device bytes the force evaluation needs at ``spec``'s capacity: the
+    edge slots times the model's own per-edge estimate
+    (``cfg.live_bytes_per_edge()``)."""
+    return system.n_atoms * spec.max_neighbors * cfg.live_bytes_per_edge()
+
+
 def _check_memory(spec: NeighborSpec, system: System, cfg) -> None:
     """Before a regrow on the card: refuse clearly when the new capacity's
-    per-edge tensors would not fit in the free device memory (a rough
-    upper estimate of the force evaluation's live set)."""
+    per-edge tensors would not fit in the free device memory."""
     dev = system.positions.device
     if dev.type != "cuda":
         return
     free, _ = torch.cuda.mem_get_info(dev)
-    e = system.n_atoms * spec.max_neighbors
-    d = (cfg.l_max + 1) ** 2
-    c, ns = cfg.num_tensor_features, cfg.num_scalar_features
-    need = e * 4 * (2 * d * c * cfg.num_layers + 6 * ns + 64)
+    need = regrow_bytes(spec, system, cfg)
     if need > free:
+        e = system.n_atoms * spec.max_neighbors
         raise MemoryError(
             f"regrow to K={spec.max_neighbors} needs ~{need / 2**30:.1f} GiB of device memory "
             f"for E={e} edge slots, only {free / 2**30:.1f} GiB is free"
@@ -255,14 +260,33 @@ class PairEngine:
         return self.rebuild_fn
 
 
+def _check_engine_device(system: System, device) -> None:
+    dev = resolve_device(device)
+    if system.positions.device.type != dev.type:
+        raise ValueError(f"system lives on {system.positions.device}, engine on {dev}")
+
+
 class AllegroEngine(PairEngine):
     """``pair_style allegro`` equivalent.  ``device=None`` means the CUDA
     device; the system's tensors must live on the engine's device."""
 
     def __init__(self, cfg: AllegroConfig, params, system: System, device=None, **kw):
-        from pair_allegro_tpu_torch.system import resolve_device
-
-        dev = resolve_device(device)
-        if system.positions.device.type != dev.type:
-            raise ValueError(f"system lives on {system.positions.device}, engine on {dev}")
+        _check_engine_device(system, device)
         super().__init__(cfg, params, system, allegro_energy, **kw)
+
+
+class NequIPEngine(PairEngine):
+    """``pair_style nequip`` equivalent (counterpart of
+    ``pair_allegro_tpu/engine.py:634-647``): message passing carries
+    information num_layers hops, so the strictly local ``row_chunk`` build
+    is refused.  ``device=None`` means the CUDA device."""
+
+    def __init__(self, cfg: NequIPConfig, params, system: System, device=None,
+                 row_chunk=None, **kw):
+        if row_chunk:
+            raise ValueError(
+                "row_chunk requires strict locality; NequIP message passing "
+                "propagates num_layers hops"
+            )
+        _check_engine_device(system, device)
+        super().__init__(cfg, params, system, nequip_energy, **kw)

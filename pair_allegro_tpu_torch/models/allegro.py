@@ -22,11 +22,9 @@ import math
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch.models.edges import table_edges
 from pair_allegro_tpu_torch.ops.fused_layer import fused_layer, prepare_layer
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t
-from pair_allegro_tpu_torch.ops.radial import bessel_basis, polynomial_cutoff
-from pair_allegro_tpu_torch.ops.scatter import table_edge_vec, table_edge_vec_typed
-from pair_allegro_tpu_torch.ops.so3 import spherical_harmonics
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 
 
@@ -59,6 +57,14 @@ class AllegroConfig:
     @property
     def num_types(self) -> int:
         return len(self.type_names)
+
+    def live_bytes_per_edge(self) -> int:
+        """A rough upper estimate of the force evaluation's device bytes per
+        edge slot: every layer's V (D*C floats) and its cotangent, a few
+        scalar-feature tensors and the geometry (f32)."""
+        d = (self.l_max + 1) ** 2
+        c, ns = self.num_tensor_features, self.num_scalar_features
+        return 4 * (2 * d * c * self.num_layers + 6 * ns + 64)
 
     def cutoff_matrix(self) -> np.ndarray:
         """(num_types, num_types) per-edge-type cutoffs, defaulting to r_max."""
@@ -134,39 +140,10 @@ def allegro_inputs(params: dict, cfg: AllegroConfig, positions, types, edge_inde
     'xT' (ns, E) two-body latent and 'pT' (C, E) tensor embedding."""
     dtype, dev = positions.dtype, positions.device
     n, k = edge_index.shape
-    if n != positions.shape[0]:
-        raise ValueError(
-            f"edge_index has {n} rows for {positions.shape[0]} atoms: only the TABLE "
-            "layout over all atoms is ported (FLAT and windowed layouts are not)"
-        )
     nt = cfg.num_types
-    typed = nt > 1
-    pos_t = torch.cat([positions, types.to(dtype)[:, None]], 1) if typed else positions
-    if edge_rev is not None and edge_mask is not None:
-        if typed:
-            vec, tjf = table_edge_vec_typed(pos_t, edge_index, edge_rev, edge_mask)
-        else:
-            vec, tjf = table_edge_vec(pos_t, edge_index, edge_rev, edge_mask), None
-    else:
-        ext = pos_t[edge_index]
-        vec = (ext[..., :3] if typed else ext) - positions[:, None, :]
-        tjf = ext[..., 3] if typed else None
-    if edge_shifts is not None and cell is not None:
-        vec = vec + edge_shifts.to(dtype) @ cell.to(dtype)
-    r = torch.sqrt(torch.clamp_min(torch.sum(vec * vec, dim=-1), 1e-32))
-
-    cut_mat = torch.as_tensor(cfg.cutoff_matrix(), dtype=dtype, device=dev)
-    if typed:
-        oh_j = (tjf[..., None] == torch.arange(nt, dtype=dtype, device=dev)).to(dtype)
-        r_cut = torch.einsum("nkt,nt->nk", oh_j, cut_mat[types])
-    else:
-        oh_j = torch.ones((n, k, 1), dtype=dtype, device=dev)
-        r_cut = cut_mat[0, 0]
-    u = polynomial_cutoff(r, r_cut, cfg.polynomial_cutoff_p)
-    if edge_mask is not None:
-        u = u * edge_mask.to(dtype)
-    Y = spherical_harmonics(vec, cfg.l_max)  # (N, K, D)
-    bessel = bessel_basis(r, cfg.r_max, cfg.num_bessels) * u[..., None]
+    geo = table_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
+                      edge_mask=edge_mask, edge_rev=edge_rev)
+    u, Y, bessel, oh_j = geo["u"], geo["Y"], geo["bessel"], geo["oh_j"]
 
     e = n * k
     ti = types[:, None].expand(n, k).reshape(1, e)

@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with ``ctypes``.
+
+Each library is built once per version of its sources (the file name
+carries a hash of them) into ``build/pair_allegro_tpu_torch/`` beside the
+package, with ``ptxas``'s register and spill report next to it.  Builds of
+several libraries may run at once: :meth:`CudaLibrary.start` launches
+``nvcc`` in the background and :meth:`CudaLibrary.load` waits for it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Callable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "pair_allegro_tpu_torch"
+
+
+class LaunchCounts:
+    """Kernel launches since the last :meth:`reset` (plain integers)."""
+
+    def __init__(self):
+        self.fwd = 0
+        self.bwd = 0
+
+    def reset(self):
+        self.fwd = 0
+        self.bwd = 0
+
+
+class CudaLibrary:
+    """One kernel library: ``sources[0]`` is compiled, every source (headers
+    included) enters the cache tag; ``bind(lib)`` declares the C functions'
+    argument types and checks the library against the wrapper."""
+
+    def __init__(self, stem: str, sources: list[Path], bind: Callable[[ctypes.CDLL], None]):
+        self.stem = stem
+        self.sources = sources
+        self.bind = bind
+        self.build_seconds = None  # wall time of this process's nvcc run, if it ran
+        self._lib = None
+        self._proc = None  # the running nvcc, between start() and load()
+        self._tmp = None
+        self._t0 = 0.0
+
+    def paths(self) -> tuple[Path, Path]:
+        """(shared library, ptxas report) of the current sources."""
+        h = hashlib.sha256()
+        for s in self.sources:
+            h.update(s.read_bytes())
+        tag = h.hexdigest()[:12]
+        base = BUILD_DIR / f"lib{self.stem}_{tag}"
+        return base.with_suffix(".so"), base.with_suffix(".ptxas.txt")
+
+    def start(self) -> None:
+        """Start nvcc in the background unless the library is built or building."""
+        out, _ = self.paths()
+        if self._lib is not None or self._proc is not None or out.exists():
+            return
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self._tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        self._t0 = time.time()
+        self._proc = subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(self._tmp),
+             str(self.sources[0])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+
+    def load(self) -> ctypes.CDLL:
+        """The loaded library, building it first if needed."""
+        if self._lib is not None:
+            return self._lib
+        self.start()
+        out, report = self.paths()
+        if self._proc is not None:
+            stdout, stderr = self._proc.communicate()
+            rc = self._proc.returncode
+            self._proc = None
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed for {self.sources[0]}:\n{stdout}\n{stderr}")
+            os.replace(self._tmp, out)
+            self.build_seconds = time.time() - self._t0
+            report.write_text(stderr)
+        lib = ctypes.CDLL(str(out))
+        self.bind(lib)
+        self._lib = lib
+        return lib

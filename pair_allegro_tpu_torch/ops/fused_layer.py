@@ -25,23 +25,16 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.mlp import silu_norm_const
 from pair_allegro_tpu_torch.ops.tp import _nonzeros, num_paths_per_l
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_layer.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "pair_allegro_tpu_torch"
 _MAX_ENT, _MAX_D, _MAX_LAT = 512, 16, 8
 # the kernel's shared-memory table (struct Meta in csrc/fused_layer.cu)
 _META_DTYPE = np.dtype(
@@ -57,18 +50,6 @@ _META_DTYPE = np.dtype(
         ("latoff", np.int32, _MAX_LAT),
     ]
 )
-
-
-class LaunchCounts:
-    """Kernel launches since the last :meth:`reset` (plain integers)."""
-
-    def __init__(self):
-        self.fwd = 0
-        self.bwd = 0
-
-    def reset(self):
-        self.fwd = 0
-        self.bwd = 0
 
 
 launches = LaunchCounts()
@@ -232,35 +213,7 @@ def fused_layer_reference(xt, Vt, yt, ut, w: K1Weights, K: int, inv_avg: float,
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_LIB = None
-build_seconds = None  # wall time of this process's nvcc build, if it ran
-
-
-def _library():
-    """Build csrc/fused_layer.cu with nvcc (once per source version) and
-    load it."""
-    global _LIB, build_seconds
-    if _LIB is not None:
-        return _LIB
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
-    out = _BUILD_DIR / f"libk1_fused_layer_{tag}.so"
-    if not out.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.time()
-        res = subprocess.run(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SRC}:\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-        build_seconds = time.time() - t0
-        (_BUILD_DIR / f"libk1_fused_layer_{tag}.ptxas.txt").write_text(res.stderr)
-    lib = ctypes.CDLL(str(out))
+def _bind(lib):
     lib.k1_meta_words.argtypes = []
     lib.k1_meta_words.restype = ctypes.c_int
     lib.k1_launch.argtypes = [
@@ -270,12 +223,13 @@ def _library():
     lib.k1_launch.restype = ctypes.c_int
     if lib.k1_meta_words() * 4 != _META_DTYPE.itemsize:
         raise RuntimeError("kernel table layout differs from the wrapper's")
-    _LIB = lib
-    return lib
+
+
+LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu"], _bind)
 
 
 def _launch(bwd: bool, dims, inv_avg, ptrs, device):
-    lib = _library()
+    lib = LIB.load()
     arr = (ctypes.c_ulonglong * 19)(*ptrs)
     dm = (ctypes.c_int * 12)(*dims)
     with torch.cuda.device(device):

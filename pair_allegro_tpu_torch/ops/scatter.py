@@ -1,5 +1,5 @@
-"""Edge-vector gathers with a gather-based backward (counterpart of
-``pair_allegro_tpu/ops/scatter.py:25-108``).
+"""Edge-vector and node-row gathers with a gather-based backward
+(counterpart of ``pair_allegro_tpu/ops/scatter.py:25-163``).
 
 The plain gather's transpose is a scatter-add of the (N*K, 3) edge-vector
 cotangent into (N, 3).  The TABLE is symmetric (one scalar build cutoff),
@@ -59,3 +59,38 @@ def table_edge_vec_typed(pos_t, j_idx, rev_idx, edge_mask):
     """(vec, t_j as float): ``pos_t`` carries the type as a 4th column, which
     the model consumes only through comparisons (no cotangent)."""
     return _TableEdgeVecTyped.apply(pos_t, j_idx, rev_idx, edge_mask)
+
+
+class _TableGatherNodes(torch.autograd.Function):
+    """out[i, k] = h[j_idx[i, k]]; the backward is the reverse-table row
+    gather of ``pair_allegro_tpu/ops/scatter.py:136-160``:
+
+      dh[a] = sum_k' g_flat[rev[a, k']]   over the valid rev entries
+
+    Slots whose rev is the sentinel N*K (padding, edges without a mirror)
+    are clamped onto a real row and zeroed after the gather, so no zero row
+    is appended to the (E, feat) cotangent.  The zeroing is in place on the
+    gathered buffer: one (E, feat) allocation instead of two."""
+
+    @staticmethod
+    def forward(ctx, h, j_idx, rev_idx):
+        ctx.save_for_backward(rev_idx)
+        return h[j_idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (rev_idx,) = ctx.saved_tensors
+        n, k = rev_idx.shape
+        feat = g.shape[2:]
+        gflat = g.reshape(n * k, *feat)
+        valid = rev_idx < n * k
+        rows = gflat.index_select(0, torch.clamp_max(rev_idx, n * k - 1).reshape(-1))
+        rows = rows.reshape(n, k, *feat)
+        rows.masked_fill_(~valid.reshape(n, k, *([1] * len(feat))), 0.0)
+        return rows.sum(dim=1), None, None
+
+
+def table_gather_nodes(h, j_idx, rev_idx):
+    """out[i, k, ...] = h[j_idx[i, k], ...] with the gather-based backward
+    (valid when the table rows are all atoms and the table is symmetric)."""
+    return _TableGatherNodes.apply(h, j_idx, rev_idx)

@@ -1,5 +1,7 @@
 """Channelwise tensor products on the uniform irreps layout (counterpart of
-``pair_allegro_tpu/ops/tp.py`` and ``ops/pallas_tp._nonzeros``).
+``pair_allegro_tpu/ops/tp.py`` and ``ops/pallas_tp._nonzeros``), and the
+NequIP tensor-product entry table (``models/nequip.py:259-289``), kept
+here so that the model and the K3 kernel module share them.
 
 Layout: features (..., C, D) with D = (lmax+1)^2; every channel carries one
 copy of each l = 0..lmax.
@@ -58,6 +60,40 @@ def _nonzeros(lmax: int, parity: bool = False):
                 )
         table[l3] = tuple(entries)
     return table
+
+
+@functools.lru_cache(maxsize=None)
+def tp_entry_table(lmax: int):
+    """The unrolled NequIP tensor product (counterpart of
+    ``models/nequip.py:_tp_entry_table``): per l3, (n_paths, rows) with rows
+    (p_global, l1, l2, entries) and entries (d1, d2, k_local, coeff), the
+    nonzeros of real_wigner_3j(l1, l2, l3) at global SH indices d1, d2.
+    Paths are those of the SO(3) product (no parity filter); the l_max=1
+    closed forms are this table's lmax == 1 instance."""
+    table = []
+    p_off = 0
+    for l3 in range(lmax + 1):
+        paths = paths_to_l(lmax, lmax, l3)
+        rows = []
+        for p_local, (l1, l2) in enumerate(paths):
+            C3 = np.asarray(real_wigner_3j(l1, l2, l3))
+            o1, o2 = l1 * l1, l2 * l2
+            entries = tuple(
+                (o1 + i, o2 + j, k, float(C3[i, j, k]))
+                for i in range(2 * l1 + 1)
+                for j in range(2 * l2 + 1)
+                for k in range(2 * l3 + 1)
+                if abs(float(C3[i, j, k])) > 1e-14
+            )
+            rows.append((p_off + p_local, l1, l2, entries))
+        table.append((len(paths), tuple(rows)))
+        p_off += len(paths)
+    return tuple(table)
+
+
+def tp_num_paths(lmax: int) -> int:
+    """P: the NequIP tensor product's paths over all l3."""
+    return sum(n for n, _ in tp_entry_table(lmax))
 
 
 def uniform_tp(x: torch.Tensor, y: torch.Tensor, lmax_out: int, parity: bool = False):

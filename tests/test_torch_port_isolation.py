@@ -53,3 +53,5 @@ def test_every_port_module_is_scanned():
     mods = {m.name for m in pkgutil.walk_packages([str(PKG)], "pair_allegro_tpu_torch.")}
     assert "pair_allegro_tpu_torch.ops.fused_layer" in mods
     assert "pair_allegro_tpu_torch.md.integrate" in mods
+    for name in ("ops._build", "ops.nequip_conv", "models.nequip", "models.edges"):
+        assert f"pair_allegro_tpu_torch.{name}" in mods
