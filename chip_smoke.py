@@ -3,43 +3,56 @@
 NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 
 Phases, each of which must pass (any failure exits non-zero):
-  1. the card's name and power limit; the builds of K1 (csrc/fused_layer.cu)
-     and K3 (csrc/nequip_conv.cu) with nvcc for sm_90a, started together;
+  1. the card's name and power limit; the builds of K1 (csrc/fused_layer.cu),
+     K3 (csrc/nequip_conv.cu), K2 (csrc/env_layer.cu) and K5
+     (csrc/env_layer_mxu.cu) with nvcc for sm_90a, started together;
   2. K1 parity: the CUDA kernel against its plain PyTorch version, f32,
      forward and backward, for the first / middle / last forms, at flagship
      widths (ns=64, C=32, l_max=2) on a 500-atom FCC Cu neighbor table;
   3. K3 parity: the same for the NequIP convolution at (l_max, tracks) in
      {1, 2} x {1, 2}, C=64, on the 500-atom table at the engine's K;
+     K2 and K5 parity: the same for the per-layer tier's kernels (K5 in its
+     three precision modes) at flagship widths, l_max 2 and 1 with parity;
   4. model parity on the same 500 atoms, the kernel path on the card against
      the plain path (the CPU): Allegro with the charge head (max|dF|, max|dq|
-     below 5e-4), NequIP with one and with two species (max|dF| below 5e-4);
+     below 5e-4) on the K1 tier and on the per-layer tier with tp_mode
+     paths, mxu_highest and mxu_bf16x3 (mxu_bf16's distance from the exact
+     path is printed, not gated), NequIP with one and with two species;
   5. the Allegro main path: 5,324-atom FCC Cu, l_max=2 / 3 layers / 64
      scalar and 32 tensor features, AllegroEngine(skin=0.4) with regrow, NVE
      at 2 fs from 50 K, a 60-step warmup chunk and a timed 60-step chunk;
   6. the NequIP main path: the same system and run with NequIP l_max=1,
      parity, 3 layers, 64 features, 2x32 radial MLP, NequIPEngine(skin=0.4);
-     the launch counts of each main path are read from its phase alone;
   7. K1 and K3 timings at their main path's shapes (CUDA events, warm),
      beside the plain versions' and the least time the card could take
-     (bound), and kernel parity at those shapes as in phases 2 and 3.
-The line before the last is a JSON object of the kernels; the last line is
-{"ok": true, "device": {...}}.  Weights are random, made from a seed.
+     (bound), and kernel parity at those shapes as in phases 2 and 3;
+  8. the per-layer main path (bench.py's kernel-perlayer tier): phase 5's
+     run with layer_fused=False (K2); K2 and K5 (each mode) timings and
+     parity at its shapes; a short run (10 + 10 steps) with
+     tp_mode=mxu_highest (K5).
+The launch counts of each main path are read from its phase alone (every
+count is set to 0 just before it).  The line before the last is a JSON
+object of the kernels; the last line is {"ok": true, "device": {...}}.
+Weights are random, made from a seed.
 
 ``python3 chip_smoke.py --profile`` instead prints where the device time of
-an Allegro main-path MD step goes (torch.profiler); ``--profile nequip`` the
-same for the NequIP main path.
+an Allegro main-path MD step goes (torch.profiler); ``--profile nequip`` and
+``--profile perlayer`` the same for the NequIP and per-layer main paths.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
 
-# H100 SXM: f32 outside the tensor cores and HBM3 rate (NVIDIA data sheet)
+# H100 SXM: f32 outside the tensor cores, dense bf16 on the tensor cores and
+# HBM3 rate (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 FORMS = {"first": (True, False), "middle": (False, False), "last": (False, True)}
 SEED = 0
@@ -77,16 +90,17 @@ def make_nequip_case(n_rep, device, species=1, l_max=1, parity=True):
     return cfg, params, system
 
 
-def flagship_cfg(output_charges=False):
+def flagship_cfg(output_charges=False, **tier):
+    """bench.py:main's Allegro config; ``tier`` sets other config fields
+    (layer_fused=False is the kernel-perlayer tier)."""
     from pair_allegro_tpu_torch.models.allegro import AllegroConfig
 
-    return AllegroConfig(
-        type_names=("Cu",), r_max=4.5, l_max=2, num_layers=3, num_scalar_features=64,
-        num_tensor_features=32, avg_num_neighbors=12.0, output_charges=output_charges,
-    )
+    base = dict(type_names=("Cu",), r_max=4.5, l_max=2, num_layers=3, num_scalar_features=64,
+                num_tensor_features=32, avg_num_neighbors=12.0, output_charges=output_charges)
+    return AllegroConfig(**{**base, **tier})
 
 
-def make_case(n_rep, device, output_charges=False):
+def make_case(n_rep, device, output_charges=False, **tier):
     """(cfg, params, system) for FCC Cu of n_rep^3 cells on ``device``."""
     import numpy as np
     import torch
@@ -94,7 +108,7 @@ def make_case(n_rep, device, output_charges=False):
     from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy, allegro_params_from_numpy
     from pair_allegro_tpu_torch.system import System, fcc_lattice
 
-    cfg = flagship_cfg(output_charges)
+    cfg = flagship_cfg(output_charges, **tier)
     params = allegro_params_from_numpy(allegro_init_numpy(cfg, SEED), cfg, device=device)
     pos, cell = fcc_lattice(n_rep)
     n = pos.shape[0]
@@ -109,7 +123,7 @@ def layer_operands(cfg, params, system, eng):
     import torch
 
     from pair_allegro_tpu_torch.models.allegro import allegro_inputs
-    from pair_allegro_tpu_torch.ops.fused_layer import fused_layer
+    from pair_allegro_tpu_torch.ops.fused_layer import fused_layer, k1_weights
 
     nb = eng.rebuild_fn(system, None)
     with torch.no_grad():
@@ -118,7 +132,8 @@ def layer_operands(cfg, params, system, eng):
                              edge_mask=nb.edge_mask)
         k = nb.edge_index.shape[1]
         x1, v1 = fused_layer(ins["xT"], ins["pT"], ins["Y_T"], ins["uT"],
-                             params["layers"][0]["k1"], k, cfg.avg_num_neighbors, first_v=True)
+                             k1_weights(params["layers"][0], cfg.l_max, cfg.parity), k,
+                             cfg.avg_num_neighbors, first_v=True)
     ops = {
         "first": (ins["xT"], ins["pT"]),
         "middle": (x1, v1),
@@ -181,10 +196,11 @@ def max_err(a, b):
 TOLS = {"fwd": (1e-4, 1e-4), "bwd": (1e-4, 1e-3)}  # atol, rtol on max|plain|
 
 
-def check(kernel, label, kind, names, got, ref):
+def check(kernel, label, kind, names, got, ref, tols=None):
     """Hold kernel results against the plain version's; returns the max
-    abs error, raises beyond atol + rtol * max|plain|."""
-    atol, rtol = TOLS[kind]
+    abs error, raises beyond atol + rtol * max|plain| (``TOLS[kind]``
+    unless ``tols`` is given)."""
+    atol, rtol = tols or TOLS[kind]
     worst = 0.0
     for name, a, b in zip(names, got, ref):
         err = max_err(a, b)
@@ -212,7 +228,7 @@ def k1_parity(cfg, params, system, eng):
     errs = {"fwd": 0.0, "bwd": 0.0}
     gen = torch.Generator(device=Y.device).manual_seed(SEED)
     for li, (form, (first_v, last)) in enumerate(FORMS.items()):
-        w = params["layers"][li]["k1"]
+        w = fl.k1_weights(params["layers"][li], cfg.l_max, cfg.parity)
         ins = [t.detach().clone().requires_grad_(True) for t in (*ops[form], Y, u)]
         out_k = fl.fused_layer(*ins, w, k, cfg.avg_num_neighbors, first_v=first_v, last=last)
         out_r = fl.fused_layer_reference(*ins, w, k, inv_avg, first_v, last)
@@ -245,35 +261,57 @@ def model_parity():
         raise RuntimeError("model parity gate failed")
 
 
-def main_path(model="allegro"):
-    """Phases 5 and 6: the bench.py:main (Allegro) or bench.py:nequip_line
-    (NequIP) workload on the port.  Every kernel's counts are set to 0 just
-    before the run and read just after it."""
+# the main paths: (model, Allegro tier fields, the kernel that carries it,
+# steps per chunk); "perlayer" is bench.py's kernel-perlayer tier
+PATHS = {
+    "allegro": ("allegro", {}, "K1", 60),
+    "nequip": ("nequip", {}, "K3", 60),
+    "perlayer": ("allegro", dict(layer_fused=False), "K2", 60),
+    "perlayer-mxu": ("allegro", dict(layer_fused=False, tp_mode="mxu_highest"), "K5", 10),
+}
+
+
+def kernel_modules():
+    """{kernel id: its wrapper module}, each with ``launches`` and ``LIB``."""
+    from pair_allegro_tpu_torch.ops import env_layer, env_layer_mxu, fused_layer, nequip_conv
+
+    return {"K1": fused_layer, "K3": nequip_conv, "K2": env_layer, "K5": env_layer_mxu}
+
+
+def build_path(path):
+    """(cfg, params, system, engine) of a main path, on the card."""
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
+
+    model, tier, _, _ = PATHS[path]
+    if model == "allegro":
+        cfg, params, system = make_case(11, None, **tier)
+        return cfg, params, system, AllegroEngine(cfg, params, system, skin=0.4)
+    cfg, params, system = make_nequip_case(11, None)
+    return cfg, params, system, NequIPEngine(cfg, params, system, skin=0.4)
+
+
+def main_path(path="allegro"):
+    """Phases 5, 6 and 8: the bench.py:main (Allegro, K1 or per-layer tier)
+    or bench.py:nequip_line (NequIP) workload on the port.  Every kernel's
+    counts are set to 0 just before the run and read just after it."""
     import torch
 
-    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
     from pair_allegro_tpu_torch.md.integrate import Simulation
-    from pair_allegro_tpu_torch.ops import fused_layer as fl
-    from pair_allegro_tpu_torch.ops import nequip_conv as k3
     from pair_allegro_tpu_torch.system import Units
 
-    if model == "allegro":
-        cfg, params, system = make_case(11, None)
-        eng = AllegroEngine(cfg, params, system, skin=0.4)
-        kernel, mod = "K1", fl
-    else:
-        cfg, params, system = make_nequip_case(11, None)
-        eng = NequIPEngine(cfg, params, system, skin=0.4)
-        kernel, mod = "K3", k3
+    _, _, kernel, n_steps = PATHS[path]
+    cfg, params, system, eng = build_path(path)
+    mods = kernel_modules()
+    mod = mods[kernel]
     n_eval = [0]
 
     def force_fn(s, nb):
         n_eval[0] += 1
         return eng.force_fn(s, nb)
 
-    fl.launches.reset()
-    k3.launches.reset()
-    dt_fs, n_steps = 2.0, 60
+    for m in mods.values():
+        m.launches.reset()
+    dt_fs = 2.0
     sim = Simulation(system, force_fn, eng.rebuild_fn, dt=dt_fs * Units.fs, grow_fn=eng.grow)
     sim.init_velocities(50.0, seed=SEED)
     sim.run(n_steps, log_every=n_steps)  # warmup chunk
@@ -284,22 +322,26 @@ def main_path(model="allegro"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {"fwd": mod.launches.fwd, "bwd": mod.launches.bwd}
+    others = {name: (m.launches.fwd, m.launches.bwd) for name, m in mods.items() if m is not mod}
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = sim.state
     finite = bool(torch.isfinite(st.forces).all()) and math.isfinite(rows[-1]["etotal"])
     steps_per_s = n_steps / wall
-    print(f"{model} main path: {system.n_atoms} atoms, K={eng.spec.max_neighbors}, "
+    print(f"{path} main path: {system.n_atoms} atoms, K={eng.spec.max_neighbors}, "
           f"E={system.n_atoms * eng.spec.max_neighbors}, regrows {sim.regrows}, force evaluations "
-          f"{n_eval[0]}, {kernel} launches fwd {counts['fwd']} bwd {counts['bwd']}")
-    print(f"{model} main path: {steps_per_s:.4f} steps/s, "
+          f"{n_eval[0]}, {kernel} launches fwd {counts['fwd']} bwd {counts['bwd']} "
+          f"(other kernels fwd/bwd {others})")
+    print(f"{path} main path: {steps_per_s:.4f} steps/s, "
           f"{steps_per_s * dt_fs * 1e-6 * 86400.0:.4f} ns/day ({wall * 1e3 / n_steps:.3f} ms/step), "
           f"T {rows[-1]['temp']:.1f} K, etotal {rows[-1]['etotal']:.4f} eV, finite {finite}, "
           f"peak device memory of the timed chunk {peak:.2f} GiB")
     if not finite:
-        raise RuntimeError(f"{model} main path produced non-finite values")
+        raise RuntimeError(f"{path} main path produced non-finite values")
     want = cfg.num_layers * n_eval[0]
     if not (counts["fwd"] == want and counts["bwd"] == want):
         raise RuntimeError(f"{kernel} launches {counts} != {cfg.num_layers} per force evaluation")
+    if any(sum(v) for v in others.values()):
+        raise RuntimeError(f"{path} main path launched other kernels than {kernel}: {others}")
     return cfg, params, system, eng, counts
 
 
@@ -317,7 +359,7 @@ def k1_timings(cfg, params, system, eng, errs):
     gen = torch.Generator(device=Y.device).manual_seed(SEED)
     res = {}
     for li, (form, (first_v, last)) in enumerate(FORMS.items()):
-        w = params["layers"][li]["k1"]
+        w = fl.k1_weights(params["layers"][li], cfg.l_max, cfg.parity)
         x, V = ops[form]
         dxo = torch.randn(x.shape, generator=gen, device=x.device)
         dvo = None if last else torch.randn((Y.shape[0], w.mix[0].shape[1], e), generator=gen,
@@ -507,10 +549,242 @@ def k3_timings(cfg, params, system, eng, errs):
     return res, errs
 
 
+ENV_MODES = ("paths", "mxu_highest", "mxu_bf16x3", "mxu_bf16")
+K2_NAMES = ("V", "wz", "Y")
+# forward (atol, rtol on max|plain|) of K2 and K5 against their plain
+# versions: sum order only, except mxu_bf16, whose O elements near a bf16
+# rounding boundary may round the other way (2^-8 of that element); the
+# backward rounds the same dV' on both sides
+ENV_FWD_TOLS = {"paths": (1e-4, 1e-4), "mxu_highest": (1e-4, 1e-4),
+                "mxu_bf16x3": (1e-4, 1e-4), "mxu_bf16": (1e-4, 2e-3)}
+
+
+def env_weights(layer, cfg, mode):
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+    from pair_allegro_tpu_torch.ops import env_layer_mxu as k5
+
+    if mode == "paths":
+        return k2.k2_weights(layer["mix"], cfg.l_max, cfg.parity)
+    return k5.k5_weights(layer["mix"], cfg.l_max, cfg.parity, mode)
+
+
+def env_operands(cfg, params, system, eng):
+    """K2 / K5 operands (V, wz, Y) of the second layer of the system's
+    neighbor table (its V is the first layer's K2 output, so it is not the
+    rank-one V0 = pT Y), and K."""
+    import torch
+
+    from pair_allegro_tpu_torch.models.allegro import allegro_inputs, env_step
+
+    nb = eng.rebuild_fn(system, None)
+    k = nb.edge_index.shape[1]
+    pcfg = dataclasses.replace(cfg, layer_fused=False, tp_mode="paths")
+    with torch.no_grad():
+        ins = allegro_inputs(params, cfg, system.positions, system.types, nb.edge_index,
+                             cell=system.cell, edge_shifts=nb.edge_shifts, edge_mask=nb.edge_mask)
+        V0 = ins["pT"].unsqueeze(0) * ins["Y_T"].unsqueeze(1)
+        x1, V1 = env_step(params["layers"][0], pcfg, ins["xT"], V0, ins["Y_T"], ins["uT"], k)
+        ns = x1.shape[0]
+        wz = (params["layers"][1]["env_weight"].T @ x1) * (1.0 / math.sqrt(ns)) * ins["uT"]
+    return (V1.contiguous(), wz.contiguous(), ins["Y_T"]), k
+
+
+def env_call(mode):
+    """(wrapper, plain forward, plain backward) of K2 (``paths``) or K5."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+    from pair_allegro_tpu_torch.ops import env_layer_mxu as k5
+
+    if mode != "paths":
+        return k5.env_layer_mxu, k5.env_layer_mxu_reference, k5.env_layer_mxu_reference_bwd
+
+    def k2_bwd(V, wz, Y, w, k, inv_avg, dout, dinv):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (V, wz, Y)]
+            return torch.autograd.grad(k2.env_layer_reference(*ins, w, k, inv_avg), ins, (dout, dinv))
+
+    return k2.env_layer, k2.env_layer_reference, k2_bwd
+
+
+def env_compare(label, mode, ops, w, k, avg, gen):
+    """K2 / K5 against the plain version on ``ops``, forward and backward (a
+    random cotangent); returns the max abs errors."""
+    import torch
+
+    fn, ref, ref_bwd = env_call(mode)
+    kernel = "K2" if mode == "paths" else f"K5 {mode}"
+    inv_avg = 1.0 / math.sqrt(avg)
+    ins = [t.detach().clone().requires_grad_(True) for t in ops]
+    out_k = fn(*ins, w, k, avg)
+    with torch.no_grad():
+        out_r = ref(*ops, w, k, inv_avg)
+    cots = [torch.randn(o.shape, generator=gen, device=o.device) for o in out_r]
+    g_k = torch.autograd.grad(out_k, ins, cots)
+    g_r = ref_bwd(*ops, w, k, inv_avg, *cots)
+    torch.cuda.synchronize()
+    errs = {"fwd": check(kernel, label, "fwd", ("V'", "inv"), out_k, out_r, ENV_FWD_TOLS[mode]),
+            "bwd": check(kernel, label, "bwd", K2_NAMES, g_k, g_r)}
+    del ins, out_k, out_r, g_k, g_r, cots
+    torch.cuda.empty_cache()
+    return errs
+
+
+def env_parity():
+    """Phase 3 (K2, K5): kernel against plain version on the 500-atom table
+    at flagship widths, l_max 2 and 1 with parity; K5 in each mode."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+
+    errs = {m: {"fwd": 0.0, "bwd": 0.0} for m in ENV_MODES}
+    for lmax in (2, 1):
+        cfg, params, system = make_case(5, None, l_max=lmax)
+        ops, k = env_operands(cfg, params, system, AllegroEngine(cfg, params, system))
+        for mode in ENV_MODES:
+            gen = torch.Generator(device=system.device).manual_seed(SEED)
+            w = env_weights(params["layers"][1], cfg, mode)
+            e = env_compare(f"l_max={lmax} C={cfg.num_tensor_features} 500 atoms K={k}", mode, ops, w,
+                            k, cfg.avg_num_neighbors, gen)
+            errs[mode] = {kind: max(errs[mode][kind], e[kind]) for kind in e}
+    return errs
+
+
+def perlayer_model_parity():
+    """Phase 4 (per-layer tier): forces and charges, kernel path (card) vs
+    plain path (CPU) for tp_mode paths, mxu_highest and mxu_bf16x3 (gate
+    5e-4); mxu_bf16 against the exact path, printed."""
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+
+    def run(dev, mode):
+        cfg, params, system = make_case(5, dev, output_charges=True, layer_fused=False,
+                                        tp_mode=mode)
+        eng = AllegroEngine(cfg, params, system, device=dev)
+        o = eng.force_fn(system, eng.rebuild_fn(system, None))
+        return o.forces.cpu(), o.extras["charges"].cpu(), float(o.total_energy)
+
+    exact = run("cpu", "paths")
+    for mode in ENV_MODES:
+        f_k, q_k, e_k = run("cuda", mode)
+        if mode == "mxu_bf16":
+            f_p, q_p, e_p = exact
+            print(f"per-layer model, tp_mode {mode} (card) against the exact path (CPU, paths), "
+                  f"500 atoms: max|dF| {max_err(f_k, f_p):.3e} eV/A, max|dq| {max_err(q_k, q_p):.3e}, "
+                  f"E {e_k:.6f} vs {e_p:.6f} eV (not gated)")
+            continue
+        f_p, q_p, e_p = exact if mode == "paths" else run("cpu", mode)
+        df, dq = max_err(f_k, f_p), max_err(q_k, q_p)
+        print(f"per-layer model parity, tp_mode {mode} (500 atoms, charges): max|dF| {df:.3e} eV/A, "
+              f"max|dq| {dq:.3e}, E {e_k:.6f} vs {e_p:.6f} eV (gate 5e-4)")
+        if not (df < 5e-4 and dq < 5e-4):
+            raise RuntimeError(f"per-layer model parity gate failed ({mode})")
+
+
+def k2_cost(w, e, bwd):
+    """(flops, bytes) one K2 call needs at E edge slots, counted from the
+    function: the env sum (recomputed in the backward), 2 operations per
+    channel and 3j entry (4 in the backward: dV and denv), the per-l3 mix
+    (its transpose in the backward), and the backward's dwz and dY; each
+    input read once, each output written once (f32), weights included."""
+    from pair_allegro_tpu_torch.ops.fused_layer import _row_tables
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    rows = _row_tables(w.lmax, w.parity)
+    P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
+    d, c, cout = len(rows), w.c, w.cout
+    n_tp = sum(len(ents) for ents, _ in rows)
+    mix = sum(2 * cout * P[l3] * c for _, l3 in rows)
+    env = 2 * d * c
+    per = env + mix + (4 * c * n_tp + 4 * d * c if bwd else 2 * c * n_tp)
+    ins = d * c + c + d + (d * cout + c * P[0] if bwd else 0)
+    outs = d * c + c + d if bwd else d * cout + c * P[0]
+    n_w = sum(t.numel() for t in w.leaves)
+    return per * e, 4 * ((ins + outs) * e + n_w)
+
+
+def k5_cost(w, e, bwd):
+    """(product flops, other flops, bytes) one K5 call needs at E edge
+    slots: the dense product with the combined matrix (2 * D*D*C * D*Cout
+    per edge, three passes in mxu_bf16x3), and the rest on f32: env, O (or
+    in the backward dO's reductions into dV and denv), the invariants, dwz
+    and dY; each input read once, each output written once, the mode's
+    matrices included."""
+    d, c, cout = (w.lmax + 1) ** 2, w.c, w.cout
+    ddc = d * d * c
+    p0 = max(p for p, *_ in w.inv_entries) + 1
+    gemm = 2 * ddc * d * cout * (3 if w.mode == "mxu_bf16x3" else 1)
+    env = 2 * d * c
+    rest = env + (4 * ddc + 2 * c * len(w.inv_entries) + 4 * d * c if bwd
+                  else ddc + 2 * c * len(w.inv_entries))
+    ins = d * c + c + d + (d * cout + c * p0 if bwd else 0)
+    outs = d * c + c + d if bwd else d * cout + c * p0
+    n_m = w.Mk.numel() * (2 if w.Mk_lo is not None else 1)
+    return gemm * e, rest * e, 4 * ((ins + outs) * e + n_m)
+
+
+def env_timings(cfg, params, system, eng, errs):
+    """Phase 8: per-call fwd/bwd time of K2 and of K5 in each mode, of
+    their plain versions and the bound at the per-layer main path's shapes;
+    parity at those shapes (into ``errs``).  Also, as context only, the
+    cuBLAS f32 time of the bare (D*Cout x D*D*C) (D*D*C x E) product."""
+    import torch
+
+    ops, k = env_operands(cfg, params, system, eng)
+    e = ops[0].shape[-1]
+    inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
+    res = {}
+    for mode in ENV_MODES:
+        w = env_weights(params["layers"][1], cfg, mode)
+        fn, ref, ref_bwd = env_call(mode)
+        mod = kernel_modules()["K2" if mode == "paths" else "K5"]
+        out, inv = mod._kernel_fwd(*ops, w, k, inv_avg)
+        dout = torch.randn(out.shape, generator=gen, device=system.device)
+        dinv = torch.randn(inv.shape, generator=gen, device=system.device)
+        del out, inv
+        reps = 5 if mode == "paths" else 3
+        k_f = cuda_ms(lambda: mod._kernel_fwd(*ops, w, k, inv_avg), reps)
+        k_b = cuda_ms(lambda: mod._kernel_bwd(*ops, w, k, inv_avg, dout, dinv), reps)
+        with torch.no_grad():
+            p_f = cuda_ms(lambda: ref(*ops, w, k, inv_avg), 1)
+        p_b = cuda_ms(lambda: ref_bwd(*ops, w, k, inv_avg, dout, dinv), 1)
+        torch.cuda.empty_cache()
+        e2 = env_compare(f"main path E={e}", mode, ops, w, k, cfg.avg_num_neighbors, gen)
+        errs[mode] = {kind: max(errs[mode][kind], e2[kind]) for kind in e2}
+        for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
+            if mode == "paths":
+                flops, nbytes = k2_cost(w, e, kind == "bwd")
+                t_ops = flops / PEAK_F32_FLOPS * 1e3
+            else:
+                gemm, rest, nbytes = k5_cost(w, e, kind == "bwd")
+                flops = gemm + rest
+                peak = PEAK_F32_FLOPS if mode == "mxu_highest" else PEAK_BF16_FLOPS
+                t_ops = (gemm / peak + rest / PEAK_F32_FLOPS) * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            r = res[(mode, kind)] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
+                                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                                         gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            print(f"{'K2' if mode == 'paths' else 'K5 ' + mode} {kind} E={e}: kernel {ms:.4f} ms, "
+                  f"plain {pms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                  f"{r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB), "
+                  f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+        del dout, dinv
+        torch.cuda.empty_cache()
+    w = env_weights(params["layers"][1], cfg, "mxu_highest")
+    O = torch.randn((w.Mt.shape[1], e), generator=gen, device=system.device)
+    res["cublas_ms"] = cuda_ms(lambda: w.Mt @ O, 3)
+    print(f"context: cuBLAS f32 ({w.Mt.shape[0]} x {w.Mt.shape[1]}) @ ({O.shape[0]} x {e}) alone "
+          f"{res['cublas_ms']:.4f} ms (TF32 {torch.backends.cuda.matmul.allow_tf32}); not in the port")
+    del O
+    torch.cuda.empty_cache()
+    return res
+
+
 def _kind_of(name):
     """A coarse class of a device kernel's name, for the profile's summary."""
     n = name.lower()
     for key, kind in (("k3_", "K3 (nequip_conv)"), ("k1_", "K1 (fused_layer)"),
+                      ("k2_", "K2 (env_layer)"), ("k5_", "K5 (env_layer_mxu)"),
                       ("index", "gather / index_select"), ("gather", "gather / index_select"),
                       ("scatter", "scatter"), ("gemm", "matmul (torch)"), ("xmma", "matmul (torch)"),
                       ("cutlass", "matmul (torch)"), ("reduce", "reductions (sum)"),
@@ -523,25 +797,19 @@ def _kind_of(name):
 
 
 def profile_steps(model="allegro", n_steps=10):
-    """``--profile [nequip]``: where one main-path MD step's device time
-    goes.  torch.profiler over n_steps after a 20-step warmup; kernel time
-    summed by name and by class per step, and the device's idle share of the
-    wall time."""
+    """``--profile [nequip | perlayer]``: where one main-path MD step's
+    device time goes.  torch.profiler over n_steps after a 20-step warmup;
+    kernel time summed by name and by class per step, and the device's idle
+    share of the wall time."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
     from pair_allegro_tpu_torch.md.integrate import Simulation
     from pair_allegro_tpu_torch.system import Units
 
-    if model == "allegro":
-        cfg, params, system = make_case(11, None)
-        eng = AllegroEngine(cfg, params, system, skin=0.4)
-    else:
-        cfg, params, system = make_nequip_case(11, None)
-        eng = NequIPEngine(cfg, params, system, skin=0.4)
+    cfg, params, system, eng = build_path(model)
     sim = Simulation(system, eng.force_fn, eng.rebuild_fn, dt=2.0 * Units.fs, grow_fn=eng.grow)
     sim.init_velocities(50.0, seed=SEED)
     sim.run(20, log_every=20)
@@ -588,18 +856,16 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--profile"]:
         model = sys.argv[2] if len(sys.argv) > 2 else "allegro"
-        if model not in ("allegro", "nequip"):
-            raise SystemExit(f"--profile takes allegro or nequip, not {model}")
+        if model not in ("allegro", "nequip", "perlayer"):
+            raise SystemExit(f"--profile takes allegro, nequip or perlayer, not {model}")
         return profile_steps(model)
-    from pair_allegro_tpu_torch.ops import fused_layer as fl
-    from pair_allegro_tpu_torch.ops import nequip_conv as k3
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = (("K1", fl.LIB), ("K3", k3.LIB))
+    libs = [(name, mod.LIB) for name, mod in kernel_modules().items()]
     for _, lib in libs:
         lib.start()  # one nvcc per source, all started together
     for name, lib in libs:
@@ -615,7 +881,9 @@ def main() -> int:
     cfg, params, system = make_case(5, None)
     errs = k1_parity(cfg, params, system, AllegroEngine(cfg, params, system))
     errs3 = k3_parity()
+    errs_env = env_parity()
     model_parity()
+    perlayer_model_parity()
     nequip_model_parity()
     cfg, params, system, eng, counts = main_path("allegro")
     times = k1_timings(cfg, params, system, eng, errs)
@@ -623,6 +891,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     ncfg, nparams, nsystem, neng, counts3 = main_path("nequip")
     times3, errs3 = k3_timings(ncfg, nparams, nsystem, neng, errs3)
+    del nparams, nsystem, neng
+    torch.cuda.empty_cache()
+    pcfg, pparams, psystem, peng, counts2 = main_path("perlayer")
+    times_env = env_timings(pcfg, pparams, psystem, peng, errs_env)
+    del pparams, psystem, peng
+    torch.cuda.empty_cache()
+    *_, counts5 = main_path("perlayer-mxu")
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):
@@ -644,6 +919,27 @@ def main() -> int:
             f"k3_nequip_conv_{kind}", "pair_allegro_tpu_torch/csrc/nequip_conv.cu",
             f"pair_allegro_tpu/ops/pallas_nequip.py:{line}", counts3, kind, errs3[kind],
             times3[kind], per="call", calls_per_force_evaluation=ncfg.num_layers,
+        ))
+    for kind, line in (("fwd", 803), ("bwd", 823)):
+        # one call (one layer); num_layers calls per force evaluation
+        kernels.append(kernel_entry(
+            f"k2_env_layer_{kind}", "pair_allegro_tpu_torch/csrc/env_layer.cu",
+            f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts2, kind,
+            errs_env["paths"][kind], times_env[("paths", kind)], per="call",
+            calls_per_force_evaluation=pcfg.num_layers,
+        ))
+    k5_modes = ENV_MODES[1:]
+    for kind, line in (("fwd", 1913), ("bwd", 1946)):
+        # mxu_highest, the mode of the K5 run; every mode by name beside it
+        kernels.append(kernel_entry(
+            f"k5_env_layer_mxu_{kind}", "pair_allegro_tpu_torch/csrc/env_layer_mxu.cu",
+            f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts5, kind,
+            errs_env["mxu_highest"][kind], times_env[("mxu_highest", kind)], per="call",
+            calls_per_force_evaluation=pcfg.num_layers, mode="mxu_highest",
+            max_abs_err_by_mode={m: errs_env[m][kind] for m in k5_modes},
+            **{f"{key}_by_mode": {m: times_env[(m, kind)][key] for m in k5_modes}
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            context_cublas_f32_product_ms=times_env["cublas_ms"] if kind == "fwd" else None,
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,8 @@
 //  * the TP runs on thread-owned (channel, edge) cells, so it needs no
 //    synchronisation; the 3j table (83 entries at l_max=2 with parity) and
 //    the row tables sit in shared memory.
+// The tiles, the small product and the TP row are in allegro_tiles.cuh,
+// shared with K2 (env_layer.cu).
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/fused_layer.py).
 
@@ -43,32 +45,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "allegro_tiles.cuh"
+
 namespace {
 
-constexpr int ET = 32;      // edges per tile
-constexpr int LD = ET + 1;  // row stride of shared tiles (bank spread)
-constexpr int NT = 256;     // threads per block
-constexpr int MAX_ENT = 512;
-constexpr int MAX_D = 16;
-constexpr int MAX_LAT = 8;
-constexpr int SMEM_MAX = 232448;
 constexpr float SILU_C = 1.6790564307512243f;
 constexpr float R2 = 0.70710678118654752f;
-
-// Tables built by the wrapper (numpy structured dtype of the same layout)
-// and copied into shared memory at block start.
-struct Meta {
-  int n_ent;
-  int ent[MAX_ENT];  // p | i << 8 | j << 16, sorted by output row
-  float w[MAX_ENT];
-  int rowstart[MAX_D + 1];
-  int rowP[MAX_D];     // paths feeding the row's l3
-  int rowmix[MAX_D];   // float offset of the row's l3 block in mix / mixT
-  float rownorm[MAX_D];
-  int latdim[MAX_LAT + 1];
-  int latoff[MAX_LAT];
-};
-constexpr int META_WORDS = sizeof(Meta) / 4;
 
 struct K1P {
   const float *x, *V, *Y, *u, *envw, *envwT, *lat, *latT, *mix, *mixT, *dxo, *dvo;
@@ -84,51 +66,6 @@ __device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
 __device__ __forceinline__ float dsilu(float z) {
   const float s = 1.0f / (1.0f + expf(-z));
   return s * (1.0f + z * (1.0f - s));
-}
-
-// out[m*ldo + n] = scale * sum_k A[k*M + m] * B[k*LD + n] for m < M
-// (M % 4 == 0, A 16-byte aligned), n < ET; only n < nvalid is written.
-__device__ void gemm_tile(const float* __restrict__ A, int Kd, int M, const float* B,
-                          float* out, int ldo, float scale, int nvalid) {
-  const int groups = (M >> 2) * ET;
-  for (int idx = threadIdx.x; idx < groups; idx += NT) {
-    const int n = idx % ET;
-    const int m0 = (idx / ET) * 4;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    const float* Ak = A + m0;
-    const float* Bk = B + n;
-#pragma unroll 4
-    for (int k = 0; k < Kd; ++k) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(Ak));
-      const float b = *Bk;
-      a0 = fmaf(w.x, b, a0);
-      a1 = fmaf(w.y, b, a1);
-      a2 = fmaf(w.z, b, a2);
-      a3 = fmaf(w.w, b, a3);
-      Ak += M;
-      Bk += LD;
-    }
-    if (n < nvalid) {
-      out[(size_t)(m0 + 0) * ldo + n] = a0 * scale;
-      out[(size_t)(m0 + 1) * ldo + n] = a1 * scale;
-      out[(size_t)(m0 + 2) * ldo + n] = a2 * scale;
-      out[(size_t)(m0 + 3) * ldo + n] = a3 * scale;
-    }
-  }
-}
-
-// dst[r*LD + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < ET
-__device__ void load_tile(const float* __restrict__ src, int rows, int E, int e0, int ne,
-                          float* dst) {
-  for (int q = threadIdx.x; q < rows * ET; q += NT) {
-    const int r = q / ET, n = q % ET;
-    dst[r * LD + n] = n < ne ? __ldg(src + (size_t)r * E + e0 + n) : 0.f;
-  }
-}
-
-__device__ void load_meta(const K1P& p, int* s_meta) {
-  for (int q = threadIdx.x; q < META_WORDS; q += NT) s_meta[q] = __ldg(p.meta + q);
-  __syncthreads();
 }
 
 // env[d*C + c] = inv_avg * sum over the center's edges of wz[c] * Y[d];
@@ -177,26 +114,6 @@ __device__ void load_edges(const K1P& p, int e0, int ne, float* cat, float* Ys, 
   __syncthreads();
 }
 
-// T[(pp*C + c)*LD + n] = sum over the 3j entries of output row r of
-// w * V[i][c][n] * env[j][c], on thread-owned (c, n) cells.
-__device__ void tp_row(const K1P& p, const Meta& m, int r, const float* Vs, const float* env,
-                       float* T) {
-  const int C = p.C;
-  const int c = threadIdx.x % C;
-  const int n0 = threadIdx.x / C, nstep = NT / C;
-  const int P = m.rowP[r];
-  for (int n = n0; n < ET; n += nstep)
-    for (int pp = 0; pp < P; ++pp) T[(pp * C + c) * LD + n] = 0.f;
-  for (int e = m.rowstart[r]; e < m.rowstart[r + 1]; ++e) {
-    const int code = m.ent[e];
-    const int pp = code & 255, i = (code >> 8) & 255, j = code >> 16;
-    const float we = m.w[e] * env[j * C + c];
-    float* Tr = T + (pp * C + c) * LD;
-    const float* Vr = Vs + (i * C + c) * LD;
-    for (int n = n0; n < ET; n += nstep) Tr[n] = fmaf(we, Vr[n], Tr[n]);
-  }
-}
-
 // latent MLP forward on one tile: input cat (in0 rows), hidden activations
 // ping-pong through hA/hB; pre-activations saved into zs when given; the
 // output (ns rows) goes to out.
@@ -224,7 +141,7 @@ __device__ void latent_fwd(const K1P& p, const Meta& m, const float* cat, float*
 __global__ void __launch_bounds__(NT) k1_fwd_kernel(const K1P p) {
   extern __shared__ float sm[];
   const Meta& m = *reinterpret_cast<const Meta*>(sm);
-  load_meta(p, reinterpret_cast<int*>(sm));
+  load_meta(p.meta, reinterpret_cast<int*>(sm));
   const int center = blockIdx.x;
   float* env = sm + p.o_env;
   float* cat = sm + p.o_cat;
@@ -244,7 +161,7 @@ __global__ void __launch_bounds__(NT) k1_fwd_kernel(const K1P p) {
     load_edges(p, e0, ne, cat, Ys, us, Vs, pTs);
     for (int r = 0; r < nrows; ++r) {
       float* T = r == 0 ? cat + p.ns * LD : R;  // row 0 is inv (p-major)
-      tp_row(p, m, r, Vs, env, T);
+      tp_row(p.C, m, r, Vs, env, T);
       __syncthreads();
       if (!p.last) {
         gemm_tile(p.mix + m.rowmix[r], m.rowP[r] * p.C, p.Cout, T,
@@ -264,7 +181,7 @@ __global__ void __launch_bounds__(NT) k1_fwd_kernel(const K1P p) {
 __global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
   extern __shared__ float sm[];
   const Meta& m = *reinterpret_cast<const Meta*>(sm);
-  load_meta(p, reinterpret_cast<int*>(sm));
+  load_meta(p.meta, reinterpret_cast<int*>(sm));
   const int center = blockIdx.x;
   const int C = p.C, D = p.D, ns = p.ns, E = p.E;
   float* env = sm + p.o_env;
@@ -299,7 +216,7 @@ __global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
     const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
     load_edges(p, e0, ne, cat, Ys, us, Vs, pTs);
     load_tile(p.dxo, ns, E, e0, ne, dxo);
-    tp_row(p, m, 0, Vs, env, cat + ns * LD);
+    tp_row(p.C, m, 0, Vs, env, cat + ns * LD);
     __syncthreads();
     latent_fwd(p, m, cat, gA, gB, zs, xn);
     for (int n = threadIdx.x; n < ET; n += NT) {

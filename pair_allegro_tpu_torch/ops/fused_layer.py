@@ -34,9 +34,10 @@ import torch.nn.functional as F
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.mlp import silu_norm_const
 from pair_allegro_tpu_torch.ops.tp import _nonzeros, num_paths_per_l
+from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
 _MAX_ENT, _MAX_D, _MAX_LAT = 512, 16, 8
-# the kernel's shared-memory table (struct Meta in csrc/fused_layer.cu)
+# the kernels' shared-memory table (struct Meta in csrc/allegro_tiles.cuh)
 _META_DTYPE = np.dtype(
     [
         ("n_ent", np.int32),
@@ -57,12 +58,13 @@ launches = LaunchCounts()
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class K1Weights:
-    """One layer's weights in the kernel's layout, made once by
+    """One layer's weights in the kernel's layout, made by
     :func:`prepare_layer` from the JAX-layout layer (``env_weight`` (ns, C),
     ``latent_mlp`` {"w": [(in, out), ...]}, ``mix`` {"l0": (C*P, C), ...}
     with c-major rows).  The mix rows and the inv rows of the first latent
     weight are permuted to p-major (row = p*C + c); the transposes serve the
-    backward."""
+    backward.  These are detached copies; ``leaves`` are the layer's own
+    tensors, which receive the (NaN) weight cotangents."""
 
     env_w: torch.Tensor  # (ns, C)
     env_wT: torch.Tensor  # (C, ns)
@@ -75,6 +77,7 @@ class K1Weights:
     meta: torch.Tensor  # int32 table of struct Meta
     lmax: int
     parity: bool
+    leaves: tuple  # env_weight, latent_mlp w..., mix l0..l_max of the tree
 
     @property
     def dims(self):
@@ -83,7 +86,13 @@ class K1Weights:
         return ns, c, self.mix[0].shape[1], latd
 
     def tensors(self):
-        return (self.env_w, *self.lat, *self.mix)
+        return self.leaves
+
+
+def layer_leaves(layer: dict, lmax: int) -> tuple:
+    """The JAX-layout leaves of one Allegro layer the kernels read."""
+    return (layer["env_weight"], *layer["latent_mlp"]["w"],
+            *(layer["mix"][f"l{l3}"] for l3 in range(lmax + 1)))
 
 
 def _to_pmajor(w: torch.Tensor, c: int) -> torch.Tensor:
@@ -105,7 +114,8 @@ def _row_tables(lmax: int, parity: bool):
     return tuple(rows)
 
 
-def _meta_table(lmax, parity, c, cout, latd) -> np.ndarray:
+@functools.lru_cache(maxsize=None)
+def _meta_table(lmax, parity, c, cout, latd: tuple) -> np.ndarray:
     P = num_paths_per_l(lmax, lmax, lmax, parity)
     rows = _row_tables(lmax, parity)
     if sum(len(ents) for ents, _ in rows) > _MAX_ENT:
@@ -126,16 +136,18 @@ def _meta_table(lmax, parity, c, cout, latd) -> np.ndarray:
     m["n_ent"] = e
     m["latdim"][: len(latd)] = latd
     m["latoff"][: len(latd) - 1] = np.cumsum([0] + [a * b for a, b in zip(latd[:-1], latd[1:])])[:-1]
+    m.setflags(write=False)  # memoised: every caller gets this one table
     return m
 
 
 def prepare_layer(layer: dict, lmax: int, parity: bool) -> K1Weights:
-    """Kernel-layout weights of one layer (see :class:`K1Weights`)."""
-    env_w = layer["env_weight"]
+    """Kernel-layout weights of one layer (see :class:`K1Weights`), made
+    anew; :func:`k1_weights` is the cached accessor."""
+    env_w = layer["env_weight"].detach()
     ns, c = env_w.shape
-    lat = list(layer["latent_mlp"]["w"])
+    lat = [w.detach() for w in layer["latent_mlp"]["w"]]
     lat[0] = torch.cat([lat[0][:ns], _to_pmajor(lat[0][ns:], c)], dim=0)
-    mix = tuple(_to_pmajor(layer["mix"][f"l{l3}"], c) for l3 in range(lmax + 1))
+    mix = tuple(_to_pmajor(layer["mix"][f"l{l3}"].detach(), c) for l3 in range(lmax + 1))
     latd = [lat[0].shape[0]] + [w.shape[1] for w in lat]
     if len(latd) - 1 > _MAX_LAT or (lmax + 1) ** 2 > _MAX_D:
         raise ValueError("layer exceeds the kernel's table sizes")
@@ -143,7 +155,7 @@ def prepare_layer(layer: dict, lmax: int, parity: bool) -> K1Weights:
     def flat(ts):
         return torch.cat([t.reshape(-1) for t in ts]).contiguous()
 
-    meta = _meta_table(lmax, parity, c, mix[0].shape[1], latd)
+    meta = _meta_table(lmax, parity, c, mix[0].shape[1], tuple(latd))
     return K1Weights(
         env_w=env_w.contiguous(),
         env_wT=env_w.T.contiguous(),
@@ -156,7 +168,16 @@ def prepare_layer(layer: dict, lmax: int, parity: bool) -> K1Weights:
         meta=torch.from_numpy(np.frombuffer(meta.tobytes(), np.int32).copy()).to(env_w.device),
         lmax=lmax,
         parity=parity,
+        leaves=layer_leaves(layer, lmax),
     )
+
+
+def k1_weights(layer: dict, lmax: int, parity: bool) -> K1Weights:
+    """K1's weights for the layer as its leaves stand now: made once and
+    kept until a leaf is replaced or updated in place
+    (``ops/weight_cache.py``)."""
+    return LAYOUTS.get(("k1", lmax, parity), layer_leaves(layer, lmax),
+                       lambda: prepare_layer(layer, lmax, parity))
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +246,7 @@ def _bind(lib):
         raise RuntimeError("kernel table layout differs from the wrapper's")
 
 
-LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu"], _bind)
+LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu", CSRC / "allegro_tiles.cuh"], _bind)
 
 
 def _launch(bwd: bool, dims, inv_avg, ptrs, device):

@@ -135,3 +135,63 @@ def scalar_part(tp_out: list) -> torch.Tensor:
     """The l3=0 invariants as (..., C*P0), c-major."""
     t = tp_out[0][..., 0]
     return t.reshape(*t.shape[:-2], -1)
+
+
+@functools.lru_cache(maxsize=None)
+def packed_tp_table(lmax_x: int, lmax_y: int, lmax_out: int, parity: bool = False):
+    """Dense 3j matrix W (Dx*Dy, OUT) as numpy, and the per-l3 layout
+    ((offset, num_paths), ...).  OUT columns are l3-major, then path
+    (``paths_to_l`` order), then m3 (counterpart of ``ops/tp.py:165``)."""
+    dx, dy = (lmax_x + 1) ** 2, (lmax_y + 1) ** 2
+    cols, layout, off = [], [], 0
+    for l3 in range(lmax_out + 1):
+        paths = paths_to_l(lmax_x, lmax_y, l3, parity)
+        layout.append((off, len(paths)))
+        for (l1, l2) in paths:
+            blk = np.zeros((dx, dy, 2 * l3 + 1))
+            blk[sh_slice(l1), sh_slice(l2), :] = real_wigner_3j(l1, l2, l3)
+            cols.append(blk.reshape(dx * dy, 2 * l3 + 1))
+        off += len(paths) * (2 * l3 + 1)
+    W = np.concatenate(cols, axis=1) if cols else np.zeros((dx * dy, 0))
+    return W, tuple(layout)
+
+
+def combined_tp_mix_matrix(ws: dict, lmax: int, dtype=torch.float32, parity: bool = False):
+    """TP and the per-l3 mix folded into one matrix M (C*D*D, D*C_out), rows
+    (c, ij)-major, columns (k, c')-major, the normalisation 1/sqrt(P*C)
+    folded in per l3 (counterpart of ``ops/tp.py:218``):
+
+      V'[e, k, c'] = sum_{c, ij} O[e, c, ij] M[(c, ij), (k, c')],
+      O[e, c, ij]  = V[e, c, i] env[e, c, j].
+
+    ``ws`` holds the mix weights with c-major rows (row = c*P + p)."""
+    W3, layout = packed_tp_table(lmax, lmax, lmax, parity)
+    d = (lmax + 1) ** 2
+    c_in = ws["l0"].shape[0] // layout[0][1]
+    c_out = ws["l0"].shape[1]
+    dev = ws["l0"].device
+    blocks = []
+    for l3, (off, p) in enumerate(layout):
+        k3 = 2 * l3 + 1
+        w3 = torch.as_tensor(W3[:, off : off + p * k3].reshape(d * d, p, k3), dtype=dtype, device=dev)
+        wmix = ws[f"l{l3}"].to(dtype).reshape(c_in, p, c_out)
+        m_l = torch.einsum("xpk,cpd->cxkd", w3, wmix) * (1.0 / math.sqrt(c_in * p))
+        blocks.append(m_l.reshape(c_in, d * d, k3 * c_out))
+    return torch.cat(blocks, dim=-1).reshape(c_in * d * d, d * c_out)
+
+
+def tp_mix_combined(V, env, ws: dict, lmax: int, M=None, parity: bool = False):
+    """TP + mix + invariants through the combined matrix, channels-last:
+    V, env (..., C, D) -> (V' (..., C_out, D), inv (..., C*P0) c-major)
+    (counterpart of ``ops/tp.py:252``)."""
+    *batch, c, d = V.shape
+    if M is None:
+        M = combined_tp_mix_matrix(ws, lmax, V.dtype, parity)
+    outer = V[..., :, None] * env[..., None, :]  # (..., C, D, D)
+    out = outer.reshape(*batch, c * d * d) @ M.to(V.dtype)
+    Vp = out.reshape(*batch, d, -1).transpose(-1, -2)
+    W3, layout = packed_tp_table(lmax, lmax, lmax, parity)
+    p0 = layout[0][1]
+    w0 = torch.as_tensor(W3[:, :p0], dtype=V.dtype, device=V.device)
+    inv = outer.reshape(*batch, c, d * d) @ w0
+    return Vp, inv.reshape(*batch, c * p0)

@@ -1,9 +1,10 @@
-"""CUDA legs of the PyTorch port: K1 (csrc/fused_layer.cu) and K3
-(csrc/nequip_conv.cu) against their plain PyTorch versions on the card, f32,
-forward and backward, for every form; launch counting; the wrappers'
-refusals on the card; the models' kernel paths against their CPU plain
-paths and regrows on the card.  Every test here needs a card and skips
-without one.
+"""CUDA legs of the PyTorch port: K1 (csrc/fused_layer.cu), K3
+(csrc/nequip_conv.cu), K2 (csrc/env_layer.cu) and K5
+(csrc/env_layer_mxu.cu, each precision mode) against their plain PyTorch
+versions on the card, f32, forward and backward, for every form; launch
+counting; the wrappers' refusals on the card; the models' kernel paths
+(K1 and per-layer tiers, NequIP) against their CPU plain paths and regrows
+on the card.  Every test here needs a card and skips without one.
 
 This file imports torch and the port only (no JAX), so that it also runs
 on a machine without JAX:
@@ -42,7 +43,8 @@ def _layer(cuda, ns, c, seed=0, lmax=2, parity=True):
     cfg = AllegroConfig(type_names=("A", "B"), r_max=4.0, l_max=lmax, num_layers=1,
                         num_scalar_features=ns, num_tensor_features=c, avg_num_neighbors=5.0,
                         parity=parity)
-    return allegro_params_from_numpy(allegro_init_numpy(cfg, seed), cfg, device=cuda)["layers"][0]["k1"]
+    layer = allegro_params_from_numpy(allegro_init_numpy(cfg, seed), cfg, device=cuda)["layers"][0]
+    return fl.k1_weights(layer, lmax, parity)
 
 
 def _operands(cuda, ns, c, k, nc, first_v, seed, lmax=2):
@@ -240,6 +242,157 @@ def test_nequip_forced_small_k_regrows_on_the_card(cuda):
                           device=dev)
         eng = NequIPEngine(cfg, nequip_params_from_numpy(tree, cfg, device=dev), s, device=dev,
                            skin=0.4)
+        eng.spec = dataclasses.replace(eng.spec, max_neighbors=16, max_edges=n * 16)
+        eng.rebuild_fn = make_rebuild_fn(eng.spec, 0.4)
+        sim = Simulation(s, eng.force_fn, eng.rebuild_fn, dt=2.0 * Units.fs, grow_fn=eng.grow)
+        sim.run(6, log_every=3)
+        assert sim.regrows >= 1 and eng.spec.max_neighbors > 16
+        ends.append(sim.state.system.positions.cpu())
+    assert float((ends[0] - ends[1]).abs().max()) < 1e-4
+
+
+# --- K2 and K5: the per-layer env-fused TP + mix (csrc/env_layer.cu,
+# csrc/env_layer_mxu.cu) ----------------------------------------------------
+
+ENV_MODES = ["paths", "mxu_highest", "mxu_bf16x3", "mxu_bf16"]
+# forward rtol on max|plain|: sum order only, except mxu_bf16, whose O
+# elements near a bf16 rounding boundary may round the other way
+ENV_FWD_RTOL = {"paths": 1e-4, "mxu_highest": 1e-4, "mxu_bf16x3": 1e-4, "mxu_bf16": 2e-3}
+
+
+def _env_case(cuda, mode, c, k, nc, lmax, parity, seed):
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+    from pair_allegro_tpu_torch.ops import env_layer_mxu as k5
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    P = num_paths_per_l(lmax, lmax, lmax, parity)
+    mix = {f"l{l3}": torch.randn(c * P[l3], c, generator=g).to(cuda) for l3 in range(lmax + 1)}
+    d, e = (lmax + 1) ** 2, nc * k
+    V = torch.randn(d, c, e, generator=g) * 0.5
+    wz = torch.randn(c, e, generator=g)
+    wz[:, -k // 3:] = 0.0  # padded slots (u = 0) at the end of the last row
+    Y = torch.randn(d, e, generator=g)
+    ins = [t.to(cuda) for t in (V, wz, Y)]
+    if mode == "paths":
+        w = k2.k2_weights(mix, lmax, parity)
+        return k2, w, ins, k2.env_layer, k2.env_layer_reference
+    w = k5.k5_weights(mix, lmax, parity, mode)
+    return k5, w, ins, k5.env_layer_mxu, None
+
+
+def _env_compare(mod, w, ins, fn, k, mode, drop_v=False):
+    """Kernel against plain version, forward and backward; ``drop_v`` uses
+    only inv downstream, so V''s cotangent arrives as zeros (the dead last
+    layer)."""
+    inv_avg = 1.0 / math.sqrt(5.0)
+    ins = [t.requires_grad_(True) for t in ins]
+    out_k = fn(*ins, w, k, 5.0)
+    if mod.__name__.endswith("mxu"):
+        out_r = mod.env_layer_mxu_reference(*[t.detach() for t in ins], w, k, inv_avg)
+    else:
+        out_r = mod.env_layer_reference(*[t.detach() for t in ins], w, k, inv_avg)
+    for a, b in zip(out_k, out_r):
+        tol = 1e-4 + ENV_FWD_RTOL[mode] * float(b.abs().max())
+        assert float((a.detach() - b).abs().max()) <= tol
+    cots = [torch.randn_like(o) for o in out_r]
+    if drop_v:
+        cots[0] = torch.zeros_like(cots[0])
+        g_k = torch.autograd.grad(out_k[1], ins, cots[1])
+    else:
+        g_k = torch.autograd.grad(out_k, ins, cots)
+    if mod.__name__.endswith("mxu"):
+        g_r = mod.env_layer_mxu_reference_bwd(*[t.detach() for t in ins], w, k, inv_avg, *cots)
+    else:
+        with torch.enable_grad():
+            ref_in = [t.detach().requires_grad_(True) for t in ins]
+            g_r = torch.autograd.grad(mod.env_layer_reference(*ref_in, w, k, inv_avg), ref_in, cots)
+    for a, b in zip(g_k, g_r):
+        assert float((a - b).abs().max()) <= 1e-4 + 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("c,k,lmax,parity", [(8, 32, 2, True), (32, 64, 2, True), (32, 40, 2, True),
+                                             (32, 64, 1, True), (16, 24, 1, False), (8, 20, 2, False)])
+@pytest.mark.parametrize("mode", ENV_MODES)
+def test_env_kernels_match_plain(cuda, mode, c, k, lmax, parity):
+    mod, w, ins, fn, _ = _env_case(cuda, mode, c, k, 6, lmax, parity, 1)
+    _env_compare(mod, w, ins, fn, k, mode)
+
+
+@pytest.mark.parametrize("mode", ENV_MODES)
+def test_env_kernels_dead_v_cotangent(cuda, mode):
+    mod, w, ins, fn, _ = _env_case(cuda, mode, 32, 64, 4, 2, True, 2)
+    _env_compare(mod, w, ins, fn, 64, mode, drop_v=True)
+
+
+@pytest.mark.parametrize("mode", ["paths", "mxu_bf16x3"])
+def test_env_kernels_count_their_launches(cuda, mode):
+    mod, w, ins, fn, _ = _env_case(cuda, mode, 8, 32, 4, 2, True, 3)
+    ins = [t.requires_grad_(True) for t in ins]
+    f0, b0 = mod.launches.fwd, mod.launches.bwd
+    out, inv = fn(*ins, w, 32, 5.0)
+    (out.sum() + inv.sum()).backward()
+    assert (mod.launches.fwd - f0, mod.launches.bwd - b0) == (1, 1)
+
+
+@pytest.mark.parametrize("mode", ["paths", "mxu_highest"])
+def test_env_wrappers_refuse_what_the_kernels_do_not_take(cuda, mode):
+    mod, w, (V, wz, Y), fn, _ = _env_case(cuda, mode, 8, 32, 4, 2, True, 4)
+    with pytest.raises(TypeError):
+        fn(V.double(), wz.double(), Y.double(), w, 32, 5.0)
+    with pytest.raises(ValueError):
+        fn(V, wz.T.contiguous().T, Y, w, 32, 5.0)  # not contiguous
+    with pytest.raises(ValueError):
+        fn(V, wz.cpu(), Y, w, 32, 5.0)  # mixed devices
+    # K2's thread-owned TP cells need C to divide its 256 threads; K5's
+    # register tiles need D*C/4 <= 576
+    _, w2, ins2, _, _ = _env_case(cuda, mode, 132 if mode == "paths" else 264, 8, 2, 2, True, 5)
+    with pytest.raises(RuntimeError, match="does not take"):
+        fn(*ins2, w2, 8, 5.0)
+
+
+@pytest.mark.parametrize("tp_mode", ["paths", "mxu_highest", "mxu_bf16x3"])
+def test_perlayer_model_kernel_path_matches_cpu_plain_path(cuda, tp_mode):
+    cfg = AllegroConfig(type_names=("Cu", "Ag"), r_max=4.5, l_max=2, num_layers=3,
+                        num_scalar_features=32, num_tensor_features=16, avg_num_neighbors=12.0,
+                        output_charges=True, per_edge_type_cutoff=((4.5, 4.2), (4.2, 4.0)),
+                        layer_fused=False, tp_mode=tp_mode)
+    tree = allegro_init_numpy(cfg, 0)
+    pos, cell = fcc_lattice(5)
+    n = pos.shape[0]
+    typ = np.random.RandomState(1).randint(0, 2, n)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        s = System.create(pos, typ, cell=cell, masses=np.full(n, 63.546), device=dev)
+        eng = AllegroEngine(cfg, allegro_params_from_numpy(tree, cfg, device=dev), s, device=dev)
+        o = eng.force_fn(s, eng.rebuild_fn(s, None))
+        outs.append((o.forces.cpu(), o.extras["charges"].cpu()))
+    (fk, qk), (fp, qp) = outs
+    assert float((fk - fp).abs().max()) < 5e-4
+    assert float((qk - qp).abs().max()) < 5e-4
+
+
+def test_perlayer_forced_small_k_regrows_on_the_card(cuda):
+    """The per-layer engine regrows on the card (the memory check reads the
+    tier's own estimate) and then follows the CPU plain path's run."""
+    import dataclasses
+
+    from pair_allegro_tpu_torch.engine import make_rebuild_fn
+    from pair_allegro_tpu_torch.md.integrate import Simulation
+    from pair_allegro_tpu_torch.system import Units
+
+    cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, l_max=2, num_layers=2,
+                        num_scalar_features=16, num_tensor_features=8, avg_num_neighbors=12.0,
+                        layer_fused=False)
+    tree = allegro_init_numpy(cfg, 0)
+    pos, cell = fcc_lattice(5)
+    n = pos.shape[0]
+    ends = []
+    for dev in (cuda, torch.device("cpu")):
+        s = System.create(pos, np.zeros(n, np.int64), cell=cell, masses=np.full(n, 63.546),
+                          device=dev)
+        eng = AllegroEngine(cfg, allegro_params_from_numpy(tree, cfg, device=dev), s, device=dev,
+                            skin=0.4)
         eng.spec = dataclasses.replace(eng.spec, max_neighbors=16, max_edges=n * 16)
         eng.rebuild_fn = make_rebuild_fn(eng.spec, 0.4)
         sim = Simulation(s, eng.force_fn, eng.rebuild_fn, dt=2.0 * Units.fs, grow_fn=eng.grow)

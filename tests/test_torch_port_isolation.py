@@ -53,5 +53,6 @@ def test_every_port_module_is_scanned():
     mods = {m.name for m in pkgutil.walk_packages([str(PKG)], "pair_allegro_tpu_torch.")}
     assert "pair_allegro_tpu_torch.ops.fused_layer" in mods
     assert "pair_allegro_tpu_torch.md.integrate" in mods
-    for name in ("ops._build", "ops.nequip_conv", "models.nequip", "models.edges"):
+    for name in ("ops._build", "ops.nequip_conv", "models.nequip", "models.edges",
+                 "ops.env_layer", "ops.env_layer_mxu", "ops.weight_cache"):
         assert f"pair_allegro_tpu_torch.{name}" in mods

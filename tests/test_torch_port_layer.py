@@ -40,7 +40,7 @@ def _params(dtype):
     tree = allegro_init(jax.random.PRNGKey(0), JaxConfig(**_cfg_kw()), dtype=jdt)
     tp = allegro_params_from_numpy(jax.tree.map(np.asarray, tree), AllegroConfig(**_cfg_kw()),
                                    device="cpu", dtype=dtype)
-    return tree["layers"][0], tp["layers"][0]["k1"]
+    return tree["layers"][0], fl.k1_weights(tp["layers"][0], LMAX, PARITY)
 
 
 def _inputs(seed):
