@@ -29,15 +29,27 @@ Phases, each of which must pass (any failure exits non-zero):
   8. the per-layer main path (bench.py's kernel-perlayer tier): phase 5's
      run with layer_fused=False (K2); K2 and K5 (each mode) timings and
      parity at its shapes; a short run (10 + 10 steps) with
-     tp_mode=mxu_highest (K5).
+     tp_mode=mxu_highest (K5);
+  9. K4 (csrc/tp_mix_fused.cu) parity against its plain version, f32,
+     forward and backward, on operands of a 256-atom dense (FLAT) build at
+     flagship widths and at l_max 1, with a tail tile and a zero dV'; FLAT
+     model parity, card against the CPU: Allegro with charges on the
+     256-atom box and on a 500-atom slab (two species, typed cutoffs),
+     NequIP with one and two species on the 256 atoms (no K3 launch);
+ 10. the FLAT main path: a 5,324-atom Cu slab (FCC 11^3 cells, 20 A of
+     vacuum along z, pbc (T, T, F)) on the dense strategy, Allegro at phase
+     5's widths, 60 + 60 NVE steps: 3 + 3 K4 launches per force evaluation
+     and no other kernel; K4 timings and parity at its shapes; a NequIP run
+     (10 + 10 steps) on the same slab, which launches no kernel.
 The launch counts of each main path are read from its phase alone (every
 count is set to 0 just before it).  The line before the last is a JSON
 object of the kernels; the last line is {"ok": true, "device": {...}}.
 Weights are random, made from a seed.
 
 ``python3 chip_smoke.py --profile`` instead prints where the device time of
-an Allegro main-path MD step goes (torch.profiler); ``--profile nequip`` and
-``--profile perlayer`` the same for the NequIP and per-layer main paths.
+an Allegro main-path MD step goes (torch.profiler); ``--profile nequip``,
+``--profile perlayer`` and ``--profile flat`` the same for the NequIP,
+per-layer and FLAT slab main paths.
 """
 
 from __future__ import annotations
@@ -71,23 +83,15 @@ def nequip_cfg(species=1, l_max=1, parity=True):
     )
 
 
-def make_nequip_case(n_rep, device, species=1, l_max=1, parity=True):
-    """(cfg, params, system) for NequIP on FCC Cu of n_rep^3 cells; with two
-    species the types are drawn from a seed."""
-    import numpy as np
-    import torch
-
+def make_nequip_case(n_rep, device, species=1, l_max=1, parity=True, slab=False):
+    """(cfg, params, system) for NequIP on FCC Cu of n_rep^3 cells (see
+    :func:`fcc_system`); with two species the types are drawn from a
+    seed."""
     from pair_allegro_tpu_torch.models.nequip import nequip_init_numpy, nequip_params_from_numpy
-    from pair_allegro_tpu_torch.system import System, fcc_lattice
 
     cfg = nequip_cfg(species, l_max, parity)
     params = nequip_params_from_numpy(nequip_init_numpy(cfg, SEED), cfg, device=device)
-    pos, cell = fcc_lattice(n_rep)
-    n = pos.shape[0]
-    types = np.random.RandomState(SEED + 1).randint(0, species, n)
-    system = System.create(pos, types, cell=cell, masses=np.where(types == 0, 63.546, 107.87),
-                           dtype=torch.float32, device=device)
-    return cfg, params, system
+    return cfg, params, fcc_system(n_rep, device, species, slab)
 
 
 def flagship_cfg(output_charges=False, **tier):
@@ -100,21 +104,38 @@ def flagship_cfg(output_charges=False, **tier):
     return AllegroConfig(**{**base, **tier})
 
 
-def make_case(n_rep, device, output_charges=False, **tier):
-    """(cfg, params, system) for FCC Cu of n_rep^3 cells on ``device``."""
+SLAB_VACUUM = 20.0  # A of vacuum above a slab, along z (non-periodic there)
+TWO_SPECIES = dict(type_names=("Cu", "Ag"), per_edge_type_cutoff=((4.5, 4.2), (4.2, 4.0)))
+
+
+def fcc_system(n_rep, device, species=1, slab=False):
+    """FCC Cu of n_rep^3 cells (types drawn from a seed with two species),
+    or, with ``slab``, the same atoms under SLAB_VACUUM with pbc (T, T, F)."""
     import numpy as np
     import torch
 
-    from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy, allegro_params_from_numpy
     from pair_allegro_tpu_torch.system import System, fcc_lattice
 
-    cfg = flagship_cfg(output_charges, **tier)
-    params = allegro_params_from_numpy(allegro_init_numpy(cfg, SEED), cfg, device=device)
     pos, cell = fcc_lattice(n_rep)
+    pbc = None
+    if slab:
+        cell = cell.copy()
+        cell[2, 2] += SLAB_VACUUM
+        pbc = (True, True, False)
     n = pos.shape[0]
-    system = System.create(pos, np.zeros(n, np.int64), cell=cell, masses=np.full(n, 63.546),
-                           dtype=torch.float32, device=device)
-    return cfg, params, system
+    types = np.random.RandomState(SEED + 1).randint(0, species, n)
+    return System.create(pos, types, cell=cell, masses=np.where(types == 0, 63.546, 107.87),
+                         pbc=pbc, dtype=torch.float32, device=device)
+
+
+def make_case(n_rep, device, output_charges=False, species=1, slab=False, **tier):
+    """(cfg, params, system) for FCC Cu of n_rep^3 cells on ``device`` (see
+    :func:`fcc_system`); two species add Ag and the typed cutoffs."""
+    from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy, allegro_params_from_numpy
+
+    cfg = flagship_cfg(output_charges, **({**TWO_SPECIES, **tier} if species == 2 else tier))
+    params = allegro_params_from_numpy(allegro_init_numpy(cfg, SEED), cfg, device=device)
+    return cfg, params, fcc_system(n_rep, device, species, slab)
 
 
 def layer_operands(cfg, params, system, eng):
@@ -261,88 +282,143 @@ def model_parity():
         raise RuntimeError("model parity gate failed")
 
 
-# the main paths: (model, Allegro tier fields, the kernel that carries it,
-# steps per chunk); "perlayer" is bench.py's kernel-perlayer tier
+# the main paths: (model, Allegro tier fields, the kernel that carries it
+# (None: no kernel), steps per chunk, slab); "perlayer" is bench.py's
+# kernel-perlayer tier, "flat" the dense-strategy slab with K4
 PATHS = {
-    "allegro": ("allegro", {}, "K1", 60),
-    "nequip": ("nequip", {}, "K3", 60),
-    "perlayer": ("allegro", dict(layer_fused=False), "K2", 60),
-    "perlayer-mxu": ("allegro", dict(layer_fused=False, tp_mode="mxu_highest"), "K5", 10),
+    "allegro": ("allegro", {}, "K1", 60, False),
+    "nequip": ("nequip", {}, "K3", 60, False),
+    "perlayer": ("allegro", dict(layer_fused=False), "K2", 60, False),
+    "perlayer-mxu": ("allegro", dict(layer_fused=False, tp_mode="mxu_highest"), "K5", 10, False),
+    "flat": ("allegro", {}, "K4", 60, True),
+    "nequip-flat": ("nequip", {}, None, 10, True),
 }
 
 
 def kernel_modules():
     """{kernel id: its wrapper module}, each with ``launches`` and ``LIB``."""
-    from pair_allegro_tpu_torch.ops import env_layer, env_layer_mxu, fused_layer, nequip_conv
+    from pair_allegro_tpu_torch.ops import (
+        env_layer,
+        env_layer_mxu,
+        fused_layer,
+        nequip_conv,
+        tp_mix_fused,
+    )
 
-    return {"K1": fused_layer, "K3": nequip_conv, "K2": env_layer, "K5": env_layer_mxu}
+    return {"K1": fused_layer, "K3": nequip_conv, "K2": env_layer, "K5": env_layer_mxu,
+            "K4": tp_mix_fused}
 
 
 def build_path(path):
     """(cfg, params, system, engine) of a main path, on the card."""
     from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
 
-    model, tier, _, _ = PATHS[path]
+    model, tier, _, _, slab = PATHS[path]
     if model == "allegro":
-        cfg, params, system = make_case(11, None, **tier)
+        cfg, params, system = make_case(11, None, slab=slab, **tier)
         return cfg, params, system, AllegroEngine(cfg, params, system, skin=0.4)
-    cfg, params, system = make_nequip_case(11, None)
+    cfg, params, system = make_nequip_case(11, None, slab=slab)
     return cfg, params, system, NequIPEngine(cfg, params, system, skin=0.4)
 
 
 def main_path(path="allegro"):
-    """Phases 5, 6 and 8: the bench.py:main (Allegro, K1 or per-layer tier)
-    or bench.py:nequip_line (NequIP) workload on the port.  Every kernel's
-    counts are set to 0 just before the run and read just after it."""
+    """Phases 5, 6, 8 and 10: the bench.py:main (Allegro, K1 or per-layer
+    tier) or bench.py:nequip_line (NequIP) workload on the port, on the
+    bulk box or on the slab.  Every kernel's counts are set to 0 just before
+    the run and read just after it."""
     import torch
 
+    from pair_allegro_tpu_torch.engine import edge_slots
     from pair_allegro_tpu_torch.md.integrate import Simulation
     from pair_allegro_tpu_torch.system import Units
 
-    _, _, kernel, n_steps = PATHS[path]
+    _, _, kernel, n_steps, _ = PATHS[path]
     cfg, params, system, eng = build_path(path)
     mods = kernel_modules()
-    mod = mods[kernel]
+    mod = mods.get(kernel)
     n_eval = [0]
+    n_build = [0]
 
     def force_fn(s, nb):
         n_eval[0] += 1
         return eng.force_fn(s, nb)
 
+    def rebuild_fn(s, prev):  # counts the builds the skin check lets through
+        nb = eng.rebuild_fn(s, prev)
+        n_build[0] += nb is not prev
+        return nb
+
+    def grow_fn(**kw):
+        eng.grow(**kw)
+        return rebuild_fn
+
     for m in mods.values():
         m.launches.reset()
     dt_fs = 2.0
-    sim = Simulation(system, force_fn, eng.rebuild_fn, dt=dt_fs * Units.fs, grow_fn=eng.grow)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulation(system, force_fn, rebuild_fn, dt=dt_fs * Units.fs, grow_fn=grow_fn)
     sim.init_velocities(50.0, seed=SEED)
     sim.run(n_steps, log_every=n_steps)  # warmup chunk
     torch.cuda.synchronize()
+    peak_all = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
+    n_build[0] = 0
     t0 = time.perf_counter()
     rows = sim.run(n_steps, log_every=n_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"fwd": mod.launches.fwd, "bwd": mod.launches.bwd}
+    counts = {"fwd": mod.launches.fwd, "bwd": mod.launches.bwd} if mod else {"fwd": 0, "bwd": 0}
     others = {name: (m.launches.fwd, m.launches.bwd) for name, m in mods.items() if m is not mod}
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = sim.state
     finite = bool(torch.isfinite(st.forces).all()) and math.isfinite(rows[-1]["etotal"])
     steps_per_s = n_steps / wall
-    print(f"{path} main path: {system.n_atoms} atoms, K={eng.spec.max_neighbors}, "
-          f"E={system.n_atoms * eng.spec.max_neighbors}, regrows {sim.regrows}, force evaluations "
-          f"{n_eval[0]}, {kernel} launches fwd {counts['fwd']} bwd {counts['bwd']} "
-          f"(other kernels fwd/bwd {others})")
+    spec = eng.spec
+    cap = (f"max_edges={spec.max_edges} ({len(spec.shifts_table)} image shifts)"
+           if spec.strategy == "dense" else f"K={spec.max_neighbors}")
+    print(f"{path} main path: {system.n_atoms} atoms, pbc {system.pbc}, strategy {spec.strategy}, "
+          f"{cap}, E={edge_slots(spec, system.n_atoms)} edge slots, {rows[-1]['n_edges']} real "
+          f"edges, regrows {sim.regrows}, neighbor builds in the timed chunk {n_build[0]}, force "
+          f"evaluations {n_eval[0]}, {kernel} launches fwd "
+          f"{counts['fwd']} bwd {counts['bwd']} (other kernels fwd/bwd {others})")
     print(f"{path} main path: {steps_per_s:.4f} steps/s, "
           f"{steps_per_s * dt_fs * 1e-6 * 86400.0:.4f} ns/day ({wall * 1e3 / n_steps:.3f} ms/step), "
           f"T {rows[-1]['temp']:.1f} K, etotal {rows[-1]['etotal']:.4f} eV, finite {finite}, "
-          f"peak device memory of the timed chunk {peak:.2f} GiB")
+          f"peak device memory of the timed chunk {peak:.2f} GiB, of the engine's first build "
+          f"and the warmup chunk {peak_all:.2f} GiB")
     if not finite:
         raise RuntimeError(f"{path} main path produced non-finite values")
-    want = cfg.num_layers * n_eval[0]
+    want = cfg.num_layers * n_eval[0] if mod else 0
     if not (counts["fwd"] == want and counts["bwd"] == want):
         raise RuntimeError(f"{kernel} launches {counts} != {cfg.num_layers} per force evaluation")
     if any(sum(v) for v in others.values()):
         raise RuntimeError(f"{path} main path launched other kernels than {kernel}: {others}")
     return cfg, params, system, eng, counts
+
+
+def regrow_gib(eng, system):
+    from pair_allegro_tpu_torch.engine import regrow_bytes
+
+    return regrow_bytes(eng.spec, system, eng.cfg) / 2**30
+
+
+def rebuild_ms(system, eng, reps=3):
+    """Wall time of one neighbor build from scratch (synchronised), and the
+    peak device memory it reaches."""
+    import torch
+
+    eng.rebuild_fn(system, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        nb = eng.rebuild_fn(system, None)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    del nb
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
 def k1_timings(cfg, params, system, eng, errs):
@@ -780,12 +856,210 @@ def env_timings(cfg, params, system, eng, errs):
     return res
 
 
+K4_NAMES = ("V", "env")
+
+
+def k4_operands(cfg, params, system, eng):
+    """K4 operands (V, env) of the second layer on the system's FLAT edge
+    list (its V is the first layer's K4 output, so it is not the rank-one
+    V0 = pT Y), and the second layer's K4 weights."""
+    import torch
+
+    from pair_allegro_tpu_torch.models.allegro import flat_inputs, k4_env, k4_step
+    from pair_allegro_tpu_torch.ops.tp_mix_fused import k4_weights
+
+    nb = eng.rebuild_fn(system, None)
+    with torch.no_grad():
+        ins = flat_inputs(params, cfg, system.positions, system.types, nb.edge_index,
+                          cell=system.cell, edge_shifts=nb.edge_shifts, edge_mask=nb.edge_mask)
+        rest = (ins["Y"], ins["u"], ins["agg"], ins["spread"])
+        x1, V1 = k4_step(params["layers"][0], cfg, ins["x"], ins["Vt"], *rest)
+        env = k4_env(params["layers"][1], cfg, x1, *rest)
+    return (V1.contiguous(), env), k4_weights(params["layers"][1]["mix"], cfg.l_max, cfg.parity)
+
+
+def k4_cost(w, e, bwd):
+    """(flops, bytes) one K4 call needs at E edges, counted from the
+    function: 2 operations per channel and 3j entry (4 in the backward: dV
+    and denv), the per-l3 mix (its transpose in the backward) and the
+    backward's dinv; each input read once, each output written once (f32),
+    weights included."""
+    from pair_allegro_tpu_torch.ops.fused_layer import _row_tables
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    rows = _row_tables(w.lmax, w.parity)
+    P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
+    d, c, cout = len(rows), w.c, w.cout
+    n_tp = sum(len(ents) for ents, _ in rows)
+    mix = sum(2 * cout * P[l3] * c for _, l3 in rows)
+    io = 2 * d * c + d * cout + c * P[0]
+    per = mix + (4 * c * n_tp + c * P[0] if bwd else 2 * c * n_tp)
+    if bwd:
+        io += 2 * d * c
+    n_w = sum(t.numel() for t in w.leaves)
+    return per * e, 4 * (io * e + n_w)
+
+
+def k4_compare(label, ops, w, gen, zero_dout=False):
+    """K4 against its plain version on ``ops``, forward and backward (a
+    random cotangent; ``zero_dout``: V' is dead, as in the last layer, and
+    only inv's cotangent is random); returns the max abs errors."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    ins = [t.detach().clone().requires_grad_(True) for t in ops]
+    out_k = k4.tp_mix_fused_t(*ins, w)
+    with torch.no_grad():
+        out_r = k4.tp_mix_fused_reference(*ops, w)
+    cots = [torch.randn(o.shape, generator=gen, device=o.device) for o in out_r]
+    if zero_dout:
+        cots[0] = torch.zeros_like(cots[0])
+    g_k = torch.autograd.grad(out_k, ins, cots)
+    with torch.enable_grad():
+        ref_in = [t.detach().requires_grad_(True) for t in ops]
+        g_r = torch.autograd.grad(k4.tp_mix_fused_reference(*ref_in, w), ref_in, cots)
+    torch.cuda.synchronize()
+    errs = {"fwd": check("K4", label, "fwd", ("V'", "inv"), out_k, out_r),
+            "bwd": check("K4", label, "bwd", K4_NAMES, g_k, g_r)}
+    del ins, out_k, out_r, g_k, g_r, cots
+    torch.cuda.empty_cache()
+    return errs
+
+
+def k4_parity():
+    """Phase 9 (K4): kernel against plain version on the second layer's
+    operands of a 256-atom dense build at flagship widths (l_max 2 with
+    parity, C = Cout = 32) and at l_max 1: all edge slots, a tail that is
+    no multiple of any edge tile, and (l_max 2) a zero dV'."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for lmax in (2, 1):
+        cfg, params, system = make_case(4, None, l_max=lmax)
+        eng = AllegroEngine(cfg, params, system)
+        if eng.spec.strategy != "dense":
+            raise RuntimeError(f"256 atoms took the {eng.spec.strategy} strategy, not dense")
+        (V, env), w = k4_operands(cfg, params, system, eng)
+        e = V.shape[-1]
+        cut = e - 13 if (e - 13) % 8 else e - 14
+        print(f"K4 at l_max={lmax}: E={e}, edge tile fwd {k4.kernel_tile(w, V, False)} "
+              f"bwd {k4.kernel_tile(w, V, True)}")
+        gen = torch.Generator(device=system.device).manual_seed(SEED)
+        label = f"l_max={lmax} C={w.c} Cout={w.cout} 256 atoms dense"
+        cases = [(f"{label} E={e}", (V, env), False),
+                 (f"{label} tail E={cut}", (V[..., :cut].contiguous(), env[..., :cut].contiguous()),
+                  False)]
+        if lmax == 2:
+            cases.append((f"{label} zero dV'", (V, env), True))
+        for name, ops, zero in cases:
+            got = k4_compare(name, ops, w, gen, zero_dout=zero)
+            errs = {kind: max(errs[kind], got[kind]) for kind in errs}
+    return errs
+
+
+def flat_model_parity():
+    """Phase 9 (models on the FLAT layout): forces and charges, the card
+    against the CPU, for Allegro with charges (two species, typed cutoffs)
+    on the 256-atom box and on a 500-atom slab, and NequIP with one and two
+    species on the 256 atoms; K4 carries the Allegro runs on the card, and
+    NequIP launches no K3 (the reference gates K3 to the TABLE layout)."""
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
+
+    mods = kernel_modules()
+
+    def run(make, engine, dev):
+        cfg, params, system = make(dev)
+        eng = engine(cfg, params, system, device=dev)
+        if eng.spec.strategy != "dense":
+            raise RuntimeError(f"took the {eng.spec.strategy} strategy, not dense")
+        for m in mods.values():
+            m.launches.reset()
+        o = eng.force_fn(system, eng.rebuild_fn(system, None))
+        launched = {name: (m.launches.fwd, m.launches.bwd) for name, m in mods.items()}
+        return o, launched, cfg
+
+    cases = [
+        ("Allegro, 256 atoms, 2 species, charges", AllegroEngine,
+         lambda dev: make_case(4, dev, output_charges=True, species=2)),
+        ("Allegro, 500-atom slab, 2 species, charges", AllegroEngine,
+         lambda dev: make_case(5, dev, output_charges=True, species=2, slab=True)),
+        ("NequIP, 256 atoms, 1 species", NequIPEngine, lambda dev: make_nequip_case(4, dev)),
+        ("NequIP, 256 atoms, 2 species", NequIPEngine,
+         lambda dev: make_nequip_case(4, dev, species=2)),
+    ]
+    for label, engine, make in cases:
+        o_k, launched, cfg = run(make, engine, "cuda")
+        o_p, _, _ = run(make, engine, "cpu")
+        df = max_err(o_k.forces.cpu(), o_p.forces)
+        dq = 0.0
+        if "charges" in o_p.extras:
+            dq = max_err(o_k.extras["charges"].cpu(), o_p.extras["charges"])
+        want = {name: (0, 0) for name in mods}
+        if engine is AllegroEngine:
+            want["K4"] = (cfg.num_layers, cfg.num_layers)
+        print(f"FLAT model parity ({label}): max|dF| {df:.3e} eV/A (max|F| "
+              f"{float(o_p.forces.abs().max()):.3f}), max|dq| {dq:.3e}, E "
+              f"{float(o_k.total_energy):.6f} vs {float(o_p.total_energy):.6f} eV (gate 5e-4); "
+              f"launches on the card {launched}")
+        if not (df < 5e-4 and dq < 5e-4):
+            raise RuntimeError(f"FLAT model parity gate failed ({label})")
+        if launched != want:
+            raise RuntimeError(f"FLAT model ({label}) launched {launched}, want {want}")
+
+
+def k4_timings(cfg, params, system, eng, errs):
+    """Phase 10 (K4): fwd/bwd time of kernel and plain version at the FLAT
+    main path's shapes (the second layer's operands), with the bound, and
+    parity at those shapes (into ``errs``)."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    (V, env), w = k4_operands(cfg, params, system, eng)
+    e = V.shape[-1]
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
+    out, inv = k4._kernel_fwd(V, env, w)
+    dout = torch.randn(out.shape, generator=gen, device=system.device)
+    dinv = torch.randn(inv.shape, generator=gen, device=system.device)
+    del out, inv
+    k_f = cuda_ms(lambda: k4._kernel_fwd(V, env, w), 10)
+    k_b = cuda_ms(lambda: k4._kernel_bwd(V, env, w, dout, dinv), 10)
+    with torch.no_grad():
+        p_f = cuda_ms(lambda: k4.tp_mix_fused_reference(V, env, w), 2)
+    ins = [t.detach().clone().requires_grad_(True) for t in (V, env)]
+    outs = k4.tp_mix_fused_reference(*ins, w)
+    p_b = cuda_ms(lambda: torch.autograd.grad(outs, ins, (dout, dinv), retain_graph=True), 2)
+    del ins, outs, dout, dinv
+    torch.cuda.empty_cache()
+    e2 = k4_compare(f"l_max={w.lmax} C={w.c} FLAT main path E={e}", (V, env), w, gen)
+    errs = {kind: max(errs[kind], e2[kind]) for kind in errs}
+    res = {}
+    for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
+        flops, nbytes = k4_cost(w, e, kind == "bwd")
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        r = res[kind] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
+                             bound_by="operations" if t_ops >= t_bytes else "bytes",
+                             gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                             tile=k4.kernel_tile(w, V, kind == "bwd"))
+        print(f"K4 {kind} E={e} (edge tile {r['tile']}): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gflop']:.2f} GFLOP, "
+              f"{r['mbytes']:.1f} MB), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+              f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved")
+    return res, errs
+
+
 def _kind_of(name):
     """A coarse class of a device kernel's name, for the profile's summary."""
     n = name.lower()
     for key, kind in (("k3_", "K3 (nequip_conv)"), ("k1_", "K1 (fused_layer)"),
                       ("k2_", "K2 (env_layer)"), ("k5_", "K5 (env_layer_mxu)"),
-                      ("index", "gather / index_select"), ("gather", "gather / index_select"),
+                      ("k4_", "K4 (tp_mix_fused)"), ("indexfunc", "segment_sum (index_add)"),
+                      ("scan", "neighbor build (cumsum)"), ("index", "gather / index_select"),
+                      ("gather", "gather / index_select"),
                       ("scatter", "scatter"), ("gemm", "matmul (torch)"), ("xmma", "matmul (torch)"),
                       ("cutlass", "matmul (torch)"), ("reduce", "reductions (sum)"),
                       ("memcpy", "copies"), ("copy", "copies"), ("cat", "copies"),
@@ -797,7 +1071,7 @@ def _kind_of(name):
 
 
 def profile_steps(model="allegro", n_steps=10):
-    """``--profile [nequip | perlayer]``: where one main-path MD step's
+    """``--profile [nequip | perlayer | flat]``: where one main-path MD step's
     device time goes.  torch.profiler over n_steps after a 20-step warmup;
     kernel time summed by name and by class per step, and the device's idle
     share of the wall time."""
@@ -819,6 +1093,9 @@ def profile_steps(model="allegro", n_steps=10):
         sim.run(n_steps, log_every=n_steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    build_ms = None
+    if eng.spec.strategy == "dense":
+        build_ms, _ = rebuild_ms(system, eng)
     per = collections.Counter()
     calls = collections.Counter()
     kinds = collections.Counter()
@@ -832,7 +1109,11 @@ def profile_steps(model="allegro", n_steps=10):
     step_ms = wall * 1e3 / n_steps
     print(f"profile {model}: {step_ms:.3f} ms/step wall (profiler on), device busy {busy:.3f} "
           f"ms/step, idle share {1.0 - busy / step_ms:.3f}, {sum(calls.values()) / n_steps:.0f} "
-          f"device events/step, regrows {sim.regrows}, K={eng.spec.max_neighbors}")
+          f"device events/step, regrows {sim.regrows}, strategy {eng.spec.strategy}, "
+          f"K={eng.spec.max_neighbors}, max_edges={eng.spec.max_edges}")
+    if build_ms is not None:
+        print(f"profile {model}: one dense rebuild {build_ms:.3f} ms wall (not in the profiled "
+              f"steps unless an atom moved skin/2)")
     for kind, ms in kinds.most_common():
         print(f"profile {model} by class: {ms:8.3f} ms/step {100 * ms / busy:5.1f}%  {kind}")
     for name, ms in per.most_common(20):
@@ -856,8 +1137,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--profile"]:
         model = sys.argv[2] if len(sys.argv) > 2 else "allegro"
-        if model not in ("allegro", "nequip", "perlayer"):
-            raise SystemExit(f"--profile takes allegro, nequip or perlayer, not {model}")
+        if model not in ("allegro", "nequip", "perlayer", "flat"):
+            raise SystemExit(f"--profile takes allegro, nequip, perlayer or flat, not {model}")
         return profile_steps(model)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -885,6 +1166,8 @@ def main() -> int:
     model_parity()
     perlayer_model_parity()
     nequip_model_parity()
+    errs4 = k4_parity()
+    flat_model_parity()
     cfg, params, system, eng, counts = main_path("allegro")
     times = k1_timings(cfg, params, system, eng, errs)
     del cfg, params, system, eng
@@ -898,6 +1181,16 @@ def main() -> int:
     del pparams, psystem, peng
     torch.cuda.empty_cache()
     *_, counts5 = main_path("perlayer-mxu")
+    torch.cuda.empty_cache()
+    fcfg, fparams, fsystem, feng, counts4 = main_path("flat")
+    b_ms, b_gib = rebuild_ms(fsystem, feng)
+    print(f"flat main path: one dense rebuild {b_ms:.3f} ms wall, peak {b_gib:.2f} GiB above the "
+          f"resident tensors; the engine's regrow check counts "
+          f"{regrow_gib(feng, fsystem):.2f} GiB for a rebuild and force evaluation")
+    times4, errs4 = k4_timings(fcfg, fparams, fsystem, feng, errs4)
+    del fparams, fsystem, feng
+    torch.cuda.empty_cache()
+    main_path("nequip-flat")
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):
@@ -940,6 +1233,13 @@ def main() -> int:
             **{f"{key}_by_mode": {m: times_env[(m, kind)][key] for m in k5_modes}
                for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
             context_cublas_f32_product_ms=times_env["cublas_ms"] if kind == "fwd" else None,
+        ))
+    for kind, line in (("fwd", 117), ("bwd", 153)):
+        # one call (one layer); num_layers calls per force evaluation
+        kernels.append(kernel_entry(
+            f"k4_tp_mix_fused_{kind}", "pair_allegro_tpu_torch/csrc/tp_mix_fused.cu",
+            f"pair_allegro_tpu/ops/pallas_tp.py:{line}", counts4, kind, errs4[kind], times4[kind],
+            per="call", calls_per_force_evaluation=fcfg.num_layers, edge_tile=times4[kind]["tile"],
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
-// Device pieces shared by the Allegro layer kernels K1 (fused_layer.cu) and
-// K2 (env_layer.cu): the 3j row table the wrappers build, 32-edge shared
-// tiles of the feature-major (features, E) layout, the small matrix product
-// on a tile and the channelwise TP of one output row.
+// Device pieces shared by the Allegro layer kernels K1 (fused_layer.cu), K2
+// (env_layer.cu) and K4 (tp_mix_fused.cu): the 3j row table the wrappers
+// build, shared tiles of the feature-major (features, E) layout (32 edges
+// wide for K1 and K2; K4 also takes 16 and 8), the small matrix product on
+// a tile and the channelwise TP of one output row (env per center for K1
+// and K2, per edge for K4).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,14 +34,16 @@ struct Meta {
 };
 constexpr int META_WORDS = sizeof(Meta) / 4;
 
-// out[m*ldo + n] = scale * sum_k A[k*M + m] * B[k*LD + n] for m < M
-// (M % 4 == 0, A 16-byte aligned), n < ET; only n < nvalid is written.
+// out[m*ldo + n] = scale * sum_k A[k*M + m] * B[k*(TW+1) + n] for m < M
+// (M % 4 == 0, A 16-byte aligned), n < TW; only n < nvalid is written.
+template <int TW = ET>
 __device__ void gemm_tile(const float* __restrict__ A, int Kd, int M, const float* B,
                           float* out, int ldo, float scale, int nvalid) {
-  const int groups = (M >> 2) * ET;
+  constexpr int TLD = TW + 1;
+  const int groups = (M >> 2) * TW;
   for (int idx = threadIdx.x; idx < groups; idx += NT) {
-    const int n = idx % ET;
-    const int m0 = (idx / ET) * 4;
+    const int n = idx % TW;
+    const int m0 = (idx / TW) * 4;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
     const float* Ak = A + m0;
     const float* Bk = B + n;
@@ -52,7 +56,7 @@ __device__ void gemm_tile(const float* __restrict__ A, int Kd, int M, const floa
       a2 = fmaf(w.z, b, a2);
       a3 = fmaf(w.w, b, a3);
       Ak += M;
-      Bk += LD;
+      Bk += TLD;
     }
     if (n < nvalid) {
       out[(size_t)(m0 + 0) * ldo + n] = a0 * scale;
@@ -63,12 +67,14 @@ __device__ void gemm_tile(const float* __restrict__ A, int Kd, int M, const floa
   }
 }
 
-// dst[r*LD + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < ET
+// dst[r*(TW+1) + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < TW
+template <int TW = ET>
 __device__ void load_tile(const float* __restrict__ src, int rows, int E, int e0, int ne,
                           float* dst) {
-  for (int q = threadIdx.x; q < rows * ET; q += NT) {
-    const int r = q / ET, n = q % ET;
-    dst[r * LD + n] = n < ne ? __ldg(src + (size_t)r * E + e0 + n) : 0.f;
+  constexpr int TLD = TW + 1;
+  for (int q = threadIdx.x; q < rows * TW; q += NT) {
+    const int r = q / TW, n = q % TW;
+    dst[r * TLD + n] = n < ne ? __ldg(src + (size_t)r * E + e0 + n) : 0.f;
   }
 }
 
@@ -92,6 +98,29 @@ __device__ void tp_row(int C, const Meta& m, int r, const float* Vs, const float
     float* Tr = T + (pp * C + c) * LD;
     const float* Vr = Vs + (i * C + c) * LD;
     for (int n = n0; n < ET; n += nstep) Tr[n] = fmaf(we, Vr[n], Tr[n]);
+  }
+}
+
+// K4's TP row, with env on the edges: T[(c*P + pp)*(TW+1) + n] = sum over
+// the 3j entries of output row r of w * V[i][c][n] * env[j][c][n].  T's
+// rows are c-major (the order of the tree's mix leaves and of the
+// invariants); each thread owns the cells (c, n) = (q / TW, q % TW), q =
+// threadIdx.x + k*NT, so the row needs no synchronisation.
+template <int TW>
+__device__ void tp_row_edges(int C, const Meta& m, int r, const float* Vs, const float* envs,
+                             float* T) {
+  constexpr int TLD = TW + 1;
+  const int P = m.rowP[r];
+  for (int q = threadIdx.x; q < C * TW; q += NT) {
+    const int c = q / TW, n = q % TW;
+    float* Tc = T + c * P * TLD + n;
+    for (int pp = 0; pp < P; ++pp) Tc[pp * TLD] = 0.f;
+    for (int e = m.rowstart[r]; e < m.rowstart[r + 1]; ++e) {
+      const int code = m.ent[e];
+      const int pp = code & 255, i = (code >> 8) & 255, j = code >> 16;
+      const float we = m.w[e] * envs[(j * C + c) * TLD + n];
+      Tc[pp * TLD] = fmaf(we, Vs[(i * C + c) * TLD + n], Tc[pp * TLD]);
+    }
   }
 }
 

@@ -3,8 +3,10 @@
 
 Binds a model (config + parameters), a type-name mapping and a neighbor
 strategy into the two callables the MD runtime consumes, ``force_fn`` and
-``rebuild_fn``, plus capacity growth on overflow.  Only the cell-list TABLE
-strategy is ported; a system that needs the dense strategy raises.
+``rebuild_fn``, plus capacity growth on overflow.  Both neighbor strategies
+are ported: the cell list (TABLE layout) for full-PBC boxes of more than 256
+atoms with at least 3 bins per axis, the dense build (FLAT layout) for every
+other system (small boxes, slabs, molecules, clusters).
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ from pair_allegro_tpu_torch.neighbors.device import (
     NeighborData,
     cell_list_neighbors,
     choose_grid,
+    dense_build_bytes,
+    dense_neighbors,
     reverse_table,
+    static_image_shifts,
 )
 from pair_allegro_tpu_torch.neighbors.naive import host_neighbor_stats
 from pair_allegro_tpu_torch.potential import make_potential
@@ -48,9 +53,11 @@ class TypeMapper:
 class NeighborSpec:
     """Resolved neighbor strategy and capacities for a fixed system shape."""
 
-    strategy: str  # "cell_list" ("dense" is recognised but not ported)
+    strategy: str  # "cell_list" (TABLE layout) or "dense" (FLAT layout)
     cutoff: float
     max_edges: int
+    # dense only: the (S, 3) integer image shifts the build scans
+    shifts_table: np.ndarray | None = None
     grid: tuple[int, int, int] | None = None
     cell_capacity: int = 0
     max_neighbors: int = 0
@@ -102,8 +109,11 @@ def _host_stats(system: System, cutoff: float, cutoff_table):
 def _estimate_capacities(system: System, cutoff: float, skin: float, capacity_factor: float,
                          cutoff_table: np.ndarray | None = None) -> NeighborSpec:
     """Strategy and padded capacities from the initial geometry, as the JAX
-    engine picks them: the cell list when the box holds >= 3 bins per axis
-    and N > 256, with K = round(max count + max(8, 20%))."""
+    engine picks them: the cell list when the box is periodic on every axis,
+    holds >= 3 bins per axis and N > 256, with K = round(max count + max(8,
+    20%)); else the dense build over the image shifts that cover the
+    cutoff, with max_edges the edge count * capacity_factor rounded up to a
+    multiple of 128, plus 128."""
     cell = system.cell.detach().cpu().double().numpy()
     rc = cutoff + skin
     n = system.n_atoms
@@ -121,8 +131,10 @@ def _estimate_capacities(system: System, cutoff: float, skin: float, capacity_fa
             max_neighbors=k_max,
             cutoff_table=cutoff_table,
         )
+    shifts = static_image_shifts(cell, system.pbc, rc)
     cap = int(np.ceil(n_edges * capacity_factor / 128.0)) * 128 + 128
-    return NeighborSpec(strategy="dense", cutoff=rc, max_edges=cap, cutoff_table=cutoff_table)
+    return NeighborSpec(strategy="dense", cutoff=rc, max_edges=cap, shifts_table=shifts,
+                        cutoff_table=cutoff_table)
 
 
 def make_rebuild_fn(spec: NeighborSpec, skin: float = 0.0) -> Callable:
@@ -130,20 +142,24 @@ def make_rebuild_fn(spec: NeighborSpec, skin: float = 0.0) -> Callable:
 
     With skin > 0 the list is built at cutoff + skin and rebuilt only when
     some atom moved more than skin/2 since the last build (one device
-    reduction and one host read per call)."""
-    if spec.strategy != "cell_list":
-        raise NotImplementedError(
-            "the dense neighbor strategy (small or mixed-PBC boxes) is not ported yet"
-        )
+    reduction and one host read per call).  The cell list gives the TABLE
+    layout with its reverse table, the dense build the FLAT layout."""
 
     def build(system: System) -> NeighborData:
         typed = spec.cutoff_table is not None
-        nd = cell_list_neighbors(
-            system.positions, system.cell, spec.cutoff, spec.grid, spec.cell_capacity,
-            spec.max_neighbors, atom_mask=system.valid_mask(),
-            types=system.types if typed else None, cutoff_table=spec.cutoff_table,
-        )
-        nd.edge_rev = reverse_table(nd.edge_index, nd.edge_shifts)
+        if spec.strategy == "dense":
+            nd = dense_neighbors(
+                system.positions, system.cell, spec.shifts_table, spec.cutoff, spec.max_edges,
+                atom_mask=system.valid_mask(), pbc=system.pbc,
+                types=system.types if typed else None, cutoff_table=spec.cutoff_table,
+            )
+        else:
+            nd = cell_list_neighbors(
+                system.positions, system.cell, spec.cutoff, spec.grid, spec.cell_capacity,
+                spec.max_neighbors, atom_mask=system.valid_mask(),
+                types=system.types if typed else None, cutoff_table=spec.cutoff_table,
+            )
+            nd.edge_rev = reverse_table(nd.edge_index, nd.edge_shifts)
         if skin > 0.0:
             nd.ref_positions = system.positions.clone()
         return nd
@@ -169,11 +185,17 @@ def grow_spec(spec: NeighborSpec, factor: float = 1.5) -> NeighborSpec:
 
 
 def reestimate_spec(spec: NeighborSpec, system: System, factor: float = 1.5) -> NeighborSpec:
-    """Regrow from the CURRENT geometry: re-pick the bin grid and take the
-    larger of the grown and the freshly estimated capacities."""
+    """Regrow from the CURRENT geometry: re-pick the shift table (one extra
+    image layer per periodic axis) or the bin grid, and take the larger of
+    the grown and the freshly estimated capacities.  The strategy stays."""
     grown = grow_spec(spec, factor)
-    _, max_count = _host_stats(system, spec.cutoff, spec.cutoff_table)
-    grid = choose_grid(system.cell.detach().cpu().double().numpy(), spec.cutoff)
+    n_edges, max_count = _host_stats(system, spec.cutoff, spec.cutoff_table)
+    cell = system.cell.detach().cpu().double().numpy()
+    if spec.strategy == "dense":
+        shifts = static_image_shifts(cell, system.pbc, spec.cutoff, extra_images=1)
+        cap = int(np.ceil(n_edges * factor / 128.0)) * 128 + 128
+        return dataclasses.replace(grown, shifts_table=shifts, max_edges=max(grown.max_edges, cap))
+    grid = choose_grid(cell, spec.cutoff)
     if grid is None:
         raise RuntimeError(
             "cell contracted below the 3-bin cell-list regime "
@@ -190,11 +212,24 @@ def reestimate_spec(spec: NeighborSpec, system: System, factor: float = 1.5) -> 
     )
 
 
+def edge_slots(spec: NeighborSpec, n_atoms: int) -> int:
+    """Edge slots the force evaluation computes: N*K on the TABLE layout,
+    max_edges on the FLAT one."""
+    return spec.max_edges if spec.strategy == "dense" else n_atoms * spec.max_neighbors
+
+
 def regrow_bytes(spec: NeighborSpec, system: System, cfg) -> int:
-    """Device bytes the force evaluation needs at ``spec``'s capacity: the
-    edge slots times the model's own per-edge estimate
-    (``cfg.live_bytes_per_edge()``)."""
-    return system.n_atoms * spec.max_neighbors * cfg.live_bytes_per_edge()
+    """Device bytes a rebuild and force evaluation need at ``spec``'s
+    capacity: the edge slots times the model's own per-edge estimate for
+    the layout (``cfg.live_bytes_per_edge(flat)``), plus, for the dense
+    strategy, what its build holds (``neighbors.device.dense_build_bytes``:
+    one pass of candidate pairs and the compacted outputs)."""
+    flat = spec.strategy == "dense"
+    need = edge_slots(spec, system.n_atoms) * cfg.live_bytes_per_edge(flat=flat)
+    if flat:
+        need += dense_build_bytes(system.n_atoms, len(spec.shifts_table), spec.max_edges,
+                                  system.positions.element_size())
+    return need
 
 
 def _check_memory(spec: NeighborSpec, system: System, cfg) -> None:
@@ -206,10 +241,12 @@ def _check_memory(spec: NeighborSpec, system: System, cfg) -> None:
     free, _ = torch.cuda.mem_get_info(dev)
     need = regrow_bytes(spec, system, cfg)
     if need > free:
-        e = system.n_atoms * spec.max_neighbors
+        cap = (f"max_edges={spec.max_edges}" if spec.strategy == "dense"
+               else f"K={spec.max_neighbors}")
         raise MemoryError(
-            f"regrow to K={spec.max_neighbors} needs ~{need / 2**30:.1f} GiB of device memory "
-            f"for E={e} edge slots, only {free / 2**30:.1f} GiB is free"
+            f"regrow to {cap} needs ~{need / 2**30:.1f} GiB of device memory for "
+            f"E={edge_slots(spec, system.n_atoms)} edge slots ({spec.strategy} build), "
+            f"only {free / 2**30:.1f} GiB is free"
         )
 
 

@@ -1,15 +1,20 @@
-"""NequIP energies on the TABLE layout (counterpart of
+"""NequIP energies on both edge layouts (counterpart of
 ``pair_allegro_tpu/models/nequip.py``, its channels-last path).
 
 Node features are channels-last (N, D, T, C): D = (l_max+1)^2, T tracks
 (T = 2 with ``parity``: even and odd copies of every l), C channels.  Per
-layer, on the (N, K) neighbor table:
+layer, on the (N, K) neighbor TABLE:
 
   hj   = h[j] gathered as (E, D*T*C) rows (gather backward: the reverse table)
   agg  = K3 (ops/nequip_conv.py): radial MLP of the bessel basis * u, the
          channelwise TP of hj with Y routed to tau = pi XOR (l2 mod 2), the
          per-center sum / sqrt(avg_n)   -- or, with ``fused_conv=False``,
          the plain channels-last message and sum
+
+and on the FLAT (2, E) edge list the plain channels-last message of h[j]
+(``msg_generic_cl``) summed per center with ``segment_sum``: K3 serves the
+TABLE layout only, as the reference gates it (``models/nequip.py:642-649``),
+so the FLAT path runs no kernel;
   h'   = gate(self_connection(h, type) + mix(agg)) per track and l: silu on
          even scalars, tanh * 1.5926 on odd scalars, sigmoid gates from the
          even scalars on l > 0
@@ -20,7 +25,7 @@ The parameter tree keeps the JAX layout (``nequip_params_from_numpy``); the
 channels-last radial and gate columns and K3's weight layout are made from
 it per call.  Both l_max go through the entry-table message
 (``msg_generic_cl``).  Ported: l_max 1 and 2, one or two
-tracks, any number of species.  Not ported: the FLAT layout, the
+tracks, any number of species, both layouts.  Not ported: the
 channels-first generic path, l_max 3, remat=True, the bf16 hj tier,
 ``shard_axis``.
 """
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pair_allegro_tpu_torch.models.edges import table_edges
+from pair_allegro_tpu_torch.models.edges import flat_edges, is_flat, table_edges
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply, mlp_dims, silu_norm_const
 from pair_allegro_tpu_torch.ops.nequip_conv import (
     msg_generic_cl,
@@ -42,7 +47,7 @@ from pair_allegro_tpu_torch.ops.nequip_conv import (
     prepare_radial,
     radial_cl,
 )
-from pair_allegro_tpu_torch.ops.scatter import table_gather_nodes
+from pair_allegro_tpu_torch.ops.scatter import segment_sum, table_gather_nodes
 from pair_allegro_tpu_torch.ops.so3 import sh_slice
 from pair_allegro_tpu_torch.ops.tp import tp_num_paths
 
@@ -98,16 +103,17 @@ class NequIPConfig:
         """The plain message path, whose weight gradients are finite."""
         return dataclasses.replace(self, fused_conv=False)
 
-    def live_bytes_per_edge(self) -> int:
+    def live_bytes_per_edge(self, flat: bool = False) -> int:
         """A rough upper estimate of the force evaluation's device bytes per
-        edge slot (f32).  Kernel path: every layer's gathered hj row (D*T*C
-        floats, kept for the backward), one layer's dhj and the gather
-        backward's buffer at a time, the bessel basis, Y, u and the geometry.
-        Plain path: per layer also the radial weights (T*P*C) and the message
-        terms autograd keeps (about six hj-sized tensors)."""
+        edge slot (f32).  Kernel path (TABLE layout): every layer's gathered
+        hj row (D*T*C floats, kept for the backward), one layer's dhj and the
+        gather backward's buffer at a time, the bessel basis, Y, u and the
+        geometry.  Plain path (``fused_conv=False``, or the FLAT layout): per
+        layer also the radial weights (T*P*C) and the message terms autograd
+        keeps (about six hj-sized tensors)."""
         df = self.feature_dim * self.n_tracks * self.num_features
         per = df * (self.num_layers + 2) + self.num_bessels + self.feature_dim + 1 + 64
-        if not self.fused_conv:
+        if flat or not self.fused_conv:
             tpc = self.n_tracks * tp_num_paths(self.l_max) * self.num_features
             per += self.num_layers * (2 * tpc + 6 * df)
         return 4 * per
@@ -202,32 +208,53 @@ def _self_connect(hb, w_t, types):
 def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index, *,
                   cell=None, edge_shifts=None, atom_mask=None, edge_mask=None,
                   edge_rev=None, capture: dict | None = None) -> dict:
-    """Per-atom energies on the TABLE layout.
+    """Per-atom energies on either edge layout.
 
-    edge_index is the (N, K) j-table over all atoms, padded slots referencing
-    the center with edge_mask False; the edge vector is pos[j] - pos[i] +
-    edge_shifts @ cell.  With ``edge_rev`` (neighbors.device.reverse_table)
-    the position and node-feature backwards are gathers.  ``capture``, when a
-    dict, receives the final node features channels-first, (N, C, D) or
-    (N, C, D, 2) with parity, as the JAX model's does; the routing does not
-    depend on it.  Returns 'atomic_energy' (N,) and 'total_energy' ()."""
+    edge_index is the (N, K) TABLE j-table over all atoms, padded slots
+    referencing the center with edge_mask False, or the FLAT (2, E) list of
+    rows i and j (padded slots are masked self edges); the edge vector is
+    pos[j] - pos[i] + edge_shifts @ cell.  With ``edge_rev`` (TABLE only,
+    neighbors.device.reverse_table) the position and node-feature backwards
+    are gathers.  K3 runs on the TABLE layout with ``fused_conv``; the FLAT
+    layout runs the plain message and ``segment_sum``, as in JAX.
+    ``capture``, when a dict, receives the final node features
+    channels-first, (N, C, D) or (N, C, D, 2) with parity, as the JAX
+    model's does; the routing does not depend on it.  Returns
+    'atomic_energy' (N,) and 'total_energy' ()."""
     _check_supported(cfg)
     dtype = positions.dtype
-    n, k = edge_index.shape
+    n = positions.shape[0]
     C, lmax, T = cfg.num_features, cfg.l_max, cfg.n_tracks
     D, P = cfg.feature_dim, tp_num_paths(lmax)
-    geo = table_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
-                      edge_mask=edge_mask, edge_rev=edge_rev)
-    u, Y, bessel = geo["u"], geo["Y"], geo["bessel"]
-    e = n * k
-    u_e, Y_e, bes_e = u.reshape(e, 1), Y.reshape(e, D), bessel.reshape(e, -1)
+    flat = is_flat(edge_index)
+    if flat:
+        geo = flat_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
+                         edge_mask=edge_mask)
+        i_idx, j_idx = edge_index[0], edge_index[1]
 
-    if edge_rev is not None and edge_mask is not None:
         def gather(a):
-            return table_gather_nodes(a, edge_index, edge_rev)
+            return a.index_select(0, j_idx)
+
+        def agg_edges(a):
+            return segment_sum(a, i_idx, n)
     else:
-        def gather(a):
-            return a[edge_index]
+        k = edge_index.shape[1]
+        geo = table_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
+                          edge_mask=edge_mask, edge_rev=edge_rev)
+        if edge_rev is not None and edge_mask is not None:
+            def gather(a):
+                return table_gather_nodes(a, edge_index, edge_rev)
+        else:
+            def gather(a):
+                return a[edge_index]
+
+        def agg_edges(a):
+            return a.sum(dim=1)
+    u, Y, bessel = geo["u"], geo["Y"], geo["bessel"]
+    use_k3 = cfg.fused_conv and not flat
+    if use_k3:
+        e = n * k
+        u_e, Y_e, bes_e = u.reshape(e, 1), Y.reshape(e, D), bessel.reshape(e, -1)
 
     inv_avg = 1.0 / math.sqrt(max(cfg.avg_num_neighbors, 1e-6))
     act_c = silu_norm_const()
@@ -235,15 +262,15 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
 
     def layer_step(layer, h):
         ws_cl = radial_cl([w.to(dtype) for w in layer["radial_mlp"]["w"]], C, P, T)
-        if cfg.fused_conv:
+        if use_k3:
             hj = gather(h.reshape(n, D * T * C)).reshape(e, D * T * C)
             k3 = prepare_radial(ws_cl, C, T, lmax)
             agg = nequip_conv(hj, bes_e, u_e, Y_e, k3, k, cfg.avg_num_neighbors)
             agg = agg.reshape(n, D, T, C)
         else:
             w = mlp_apply({"w": ws_cl}, bessel) * u[..., None]
-            w = w.reshape(n, k, T, P, C)
-            agg = msg_generic_cl(gather(h), Y, w, lmax).sum(dim=1) * inv_avg
+            w = w.reshape(*u.shape, T, P, C)
+            agg = agg_edges(msg_generic_cl(gather(h), Y, w, lmax)) * inv_avg
         new = []
         for tau, (sw, mw) in enumerate(keys):
             blocks = []

@@ -1,11 +1,19 @@
-"""On-device cell-list neighbor table (counterpart of
-``pair_allegro_tpu/neighbors/device.py:37-75, 239-443, 578-649``).
+"""On-device neighbor builds (counterpart of
+``pair_allegro_tpu/neighbors/device.py:37-220, 239-443, 578-649``).
 
-Produces the TABLE layout: an (N, K) j-table with the center implicit in
-the row, padded with self-references (mask False, zero shift).  Each row is
-compacted with the same top-k key as the reference, so the kept edges come
-out in the same slot order.  Capacity overflow is reported in a flag, not
-hidden; callers check it at chunk ends and regrow.
+Two strategies, as in the reference:
+
+* ``cell_list_neighbors``: the TABLE layout, an (N, K) j-table with the
+  center implicit in the row, padded with self-references (mask False,
+  zero shift).  Each row is compacted with the same top-k key as the
+  reference, so the kept edges come out in the same slot order.
+* ``dense_neighbors``: all pairs times a static table of image shifts
+  (``static_image_shifts``), for small boxes and any box with a
+  non-periodic axis.  It produces the FLAT layout, a (2, E) edge list
+  compacted in the flat (shift, i, j) order.
+
+Capacity overflow is reported in a flag, not hidden; callers check it at
+chunk ends and regrow.
 """
 
 from __future__ import annotations
@@ -21,9 +29,17 @@ from pair_allegro_tpu_torch.ops.geometry import inv3x3
 
 @dataclasses.dataclass
 class NeighborData:
-    """TABLE layout: edge_index (N, K) j-table, edge_shifts (N, K, 3),
-    edge_mask (N, K), overflow () bool, ref_positions (N, 3) for the skin
-    check, edge_rev (N, K) flat index of each edge's reverse (N*K = pad)."""
+    """Padded fixed-shape edge arrays, in one of two layouts:
+
+    * TABLE (``cell_list_neighbors``): edge_index (N, K) j-table,
+      edge_shifts (N, K, 3), edge_mask (N, K), edge_rev (N, K) the flat
+      index of each edge's reverse (N*K = pad);
+    * FLAT (``dense_neighbors``): edge_index (2, E) rows i and j,
+      edge_shifts (E, 3), edge_mask (E,), edge_rev None; padded slots are
+      (q0, q0) self edges with zero shift.
+
+    Both carry overflow () bool and ref_positions (N, 3) for the skin
+    check."""
 
     edge_index: torch.Tensor
     edge_shifts: torch.Tensor
@@ -46,6 +62,152 @@ def _cell_heights(cell: torch.Tensor) -> torch.Tensor:
         ]
     )
     return vol / torch.clamp_min(torch.linalg.norm(crosses, dim=-1), 1e-30)
+
+
+def static_image_shifts(cell: np.ndarray, pbc, cutoff: float, extra_images: int = 0) -> np.ndarray:
+    """Host list of the integer image shifts that cover ``cutoff`` in
+    ``cell``: ceil(cutoff / height) + ``extra_images`` layers on each
+    periodic axis, none on a non-periodic one (or in a zero cell).  (S, 3)
+    float64, the zero shift first (the self-pair exclusion is per shift)."""
+    vol = abs(np.linalg.det(cell))
+    ns = []
+    for a in range(3):
+        if not pbc[a] or vol < 1e-12:
+            ns.append(0)
+            continue
+        cross = np.cross(cell[(a + 1) % 3], cell[(a + 2) % 3])
+        height = vol / np.linalg.norm(cross)
+        ns.append(int(np.ceil(cutoff / height)) + extra_images)
+    out = [(i, j, k) for i in range(-ns[0], ns[0] + 1) for j in range(-ns[1], ns[1] + 1)
+           for k in range(-ns[2], ns[2] + 1)]
+    out.sort(key=lambda s: (s != (0, 0, 0), s))
+    return np.asarray(out, dtype=np.float64)
+
+
+# candidate pairs per pass of the dense build, and the device bytes one
+# candidate holds during a pass besides the displacement, d2 and the typed
+# pair cutoff (5 words of the working dtype): three bool masks and six int64
+# words (running count, output slot, flat index, target and its two terms)
+DENSE_CHUNK = 1 << 24
+_DENSE_CAND_BYTES = 3 + 6 * 8
+_DUMP = 1024
+
+
+def _dense_passes(n_shifts: int, nq: int, n: int, chunk: int):
+    """(shift slice, center-row slice) of each pass of the dense build, in
+    the flat (s, i, j) order: whole shifts while one shift's NQ*N pairs fit
+    in ``chunk``, else windows of center rows within each shift."""
+    per_shift = nq * n
+    if per_shift <= chunk:
+        sp = max(1, chunk // max(per_shift, 1))
+        return [(slice(s0, min(s0 + sp, n_shifts)), slice(0, nq)) for s0 in range(0, n_shifts, sp)]
+    rows = max(1, chunk // n)
+    return [(slice(s, s + 1), slice(r0, min(r0 + rows, nq)))
+            for s in range(n_shifts) for r0 in range(0, nq, rows)]
+
+
+def dense_build_bytes(n_atoms: int, n_shifts: int, max_edges: int, itemsize: int = 4,
+                      chunk: int = DENSE_CHUNK) -> int:
+    """Device bytes :func:`dense_neighbors` holds at its peak: the candidate
+    tensors of its largest pass (at most ``chunk`` of the S*N*N pairs) and
+    the compacted outputs with their index arithmetic (max_edges + 1024
+    int64 slots, then i, j, s, mask and shifts per edge)."""
+    passes = _dense_passes(n_shifts, n_atoms, n_atoms, chunk)
+    cand = max((s.stop - s.start) * (r.stop - r.start) * n_atoms for s, r in passes)
+    per_cand = 5 * itemsize + _DENSE_CAND_BYTES
+    per_edge = 8 + 4 * 8 + 1 + 3 * itemsize
+    return cand * per_cand + (max_edges + _DUMP) * per_edge
+
+
+def dense_neighbors(positions, cell, shifts_table: np.ndarray, cutoff: float, max_edges: int,
+                    atom_mask=None, query_start: int = 0, n_query: int | None = None, pbc=None,
+                    types=None, cutoff_table: np.ndarray | None = None,
+                    chunk: int = DENSE_CHUNK) -> NeighborData:
+    """All pairs times a static shift table, compacted into the FLAT layout
+    of ``max_edges`` slots (the reference's ``dense_neighbors``).
+
+    A candidate (s, i, j) is an edge when |pos[j] + shift_s @ cell - pos[i]|
+    <= cutoff (or, with ``types`` and a symmetric ``cutoff_table``, the
+    pair's typed cutoff), it is not the zero-shift self pair, and both atoms
+    are valid under ``atom_mask``.  Edges keep the flat (s, i, j) order; the
+    ones past ``max_edges`` are dropped and flag ``overflow``.  Padded slots
+    are (q0, q0) self edges with zero shift and mask False.  Centers are the
+    window [query_start, query_start + n_query); neighbors range over all
+    atoms.  With ``pbc``, ``overflow`` is also set when the current cell
+    needs more image layers than the table holds.
+
+    The candidates are taken in passes of at most ``chunk`` pairs (whole
+    shifts, or windows of center rows), each compacted with a cumulative
+    count and a scatter into the fixed-size outputs: no host
+    synchronisation, no data-dependent shape, int64 flat indices."""
+    n = positions.shape[0]
+    nq = n if n_query is None else n_query
+    q0 = int(query_start)
+    dtype, dev = positions.dtype, positions.device
+    geom_bad = torch.zeros((), dtype=torch.bool, device=dev)
+    if pbc is not None and any(pbc):
+        ns_table = np.abs(np.asarray(shifts_table)).max(axis=0)
+        need = torch.ceil(cutoff / _cell_heights(cell.to(dtype)))
+        for a in range(3):
+            if pbc[a]:
+                geom_bad = geom_bad | (need[a] > float(ns_table[a]))
+    shifts = torch.as_tensor(shifts_table, dtype=dtype, device=dev)
+    shift_cart = shifts @ cell.to(dtype)
+    s_zero = np.all(np.asarray(shifts_table) == 0, axis=1)
+    pos_q = positions[q0:q0 + nq]
+    gq = q0 + torch.arange(nq, device=dev)
+    typed = types is not None and cutoff_table is not None
+    if typed:
+        ct = torch.as_tensor(cutoff_table, dtype=dtype, device=dev)
+        types_q = types[q0:q0 + nq]
+    mask_q = None if atom_mask is None else atom_mask[q0:q0 + nq]
+
+    # dropped candidates go to _DUMP slots past the outputs, spread so that
+    # their stores do not all land on one address
+    slots = torch.full((max_edges + _DUMP,), -1, dtype=torch.int64, device=dev)
+    base = torch.zeros((), dtype=torch.int64, device=dev)
+    ar_n = torch.arange(n, device=dev)
+    for ss, rs in _dense_passes(len(shifts_table), nq, n, chunk):
+        disp = positions[None, None] + shift_cart[ss, None, None, :] - pos_q[None, rs, None, :]
+        d2 = torch.sum(disp * disp, dim=-1)  # (s, r, N)
+        del disp
+        if typed:
+            cut_pair = ct[types_q[rs]][:, types]
+            within = d2 <= (cut_pair * cut_pair)[None]
+        else:
+            within = d2 <= cutoff * cutoff
+        del d2
+        zero = s_zero[ss]
+        if zero.any():
+            self_pair = gq[rs, None] == ar_n[None, :]
+            zs = torch.as_tensor(zero, device=dev)
+            within = within & ~(zs[:, None, None] & self_pair[None])
+        if mask_q is not None:
+            within = within & (mask_q[rs, None] & atom_mask[None, :])[None]
+        flat = within.reshape(-1)
+        count = torch.cumsum(flat, 0)
+        pos_out = base + count - 1
+        keep = flat & (pos_out < max_edges)
+        start = (ss.start * nq + rs.start) * n
+        src = torch.arange(start, start + flat.numel(), device=dev)
+        tgt = torch.where(keep, pos_out, max_edges + src % _DUMP)
+        slots.scatter_(0, tgt, src)
+        base = base + count[-1]
+        del flat, count, pos_out, keep, src, tgt
+
+    m = slots[:max_edges]
+    emask = m >= 0
+    mc = torch.clamp_min(m, 0)
+    q0_t = torch.full_like(mc, q0)
+    ei = torch.where(emask, q0 + torch.div(mc, n, rounding_mode="floor") % nq, q0_t)
+    ej = torch.where(emask, mc % n, q0_t)
+    es = shifts[torch.div(mc, nq * n, rounding_mode="floor")] * emask[:, None].to(dtype)
+    return NeighborData(
+        edge_index=torch.stack([ei, ej]),
+        edge_shifts=es,
+        edge_mask=emask,
+        overflow=(base > max_edges) | geom_bad,
+    )
 
 
 class CellBins(NamedTuple):

@@ -29,11 +29,34 @@ import numpy as np
 import torch
 
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
-from pair_allegro_tpu_torch.ops.fused_layer import _META_DTYPE, _meta_table, _row_tables, _to_pmajor
+from pair_allegro_tpu_torch.ops.fused_layer import (
+    _META_DTYPE,
+    ET,
+    LD,
+    META_WORDS,
+    NT,
+    SMEM_MAX,
+    _meta_table,
+    _row_tables,
+    _to_pmajor,
+    table_fits,
+)
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
 launches = LaunchCounts()
+
+
+def kernel_takes(c: int, cout: int, d: int, lmax: int, parity: bool) -> bool:
+    """Whether ``k2_launch`` (csrc/env_layer.cu) takes these widths,
+    forward and backward: its refusal conditions and its shared-memory sum
+    (the backward's is the larger), mirrored here so that a caller decides
+    before any launch."""
+    maxpc = max(num_paths_per_l(lmax, lmax, lmax, parity)) * c
+    if not table_fits(lmax, parity) or NT % c or NT // c > ET or c % 4 or cout % 4:
+        return False
+    words = META_WORDS + 2 * d * c + 2 * d * c * LD + maxpc * LD + cout * LD + d * LD + c * LD
+    return words * 4 <= SMEM_MAX
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -44,6 +44,36 @@ _INV0_DTYPE = np.dtype([("p", np.int32, _MAX_D * _MAX_D), ("w", np.float32, _MAX
 
 launches = LaunchCounts()
 
+# the launcher's constants (csrc/env_layer_mxu.cu)
+_MAX_THREADS, _SMEM_MAX = 576, 232448
+_INV0_WORDS = _INV0_DTYPE.itemsize // 4
+
+
+def kernel_takes(c: int, cout: int, d: int, p0: int, mode: str) -> bool:
+    """Whether ``k5_launch`` (csrc/env_layer_mxu.cu) takes these widths in
+    ``mode``, forward and backward: its refusal conditions and its search
+    for an edge tile whose register tiles and shared memory fit, mirrored
+    here so that a caller decides before any launch."""
+    if d > _MAX_D or c % 4 or cout % 4:
+        return False
+    two = 2 if mode == "mxu_bf16x3" else 1
+    m = d * cout
+    for bwd in (False, True):
+        rows = d * c if bwd else m
+        et, ok = (32 if bwd else 64), False
+        while et >= 8 and not ok:
+            ld = et + 4
+            ntiles = rows // 4 * (et // 8)
+            if bwd:
+                words = _INV0_WORDS + 2 * d * c + two * m * ld + d * c * ld + c * ld
+            else:
+                words = _INV0_WORDS + d * c + 2 * two * c * ld + p0 * c * et
+            ok = ntiles <= _MAX_THREADS and words * 4 <= _SMEM_MAX
+            et //= 2
+        if not ok:
+            return False
+    return True
+
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to the nearest bfloat16 (ties to even), in x's dtype."""

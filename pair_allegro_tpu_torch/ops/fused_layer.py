@@ -55,6 +55,46 @@ _META_DTYPE = np.dtype(
 
 launches = LaunchCounts()
 
+# the launchers' constants (csrc/allegro_tiles.cuh): threads per block, the
+# edge tile and its shared row stride, the shared memory a block may use
+NT, ET, LD, SMEM_MAX = 256, 32, 33, 232448
+META_WORDS = _META_DTYPE.itemsize // 4
+
+
+def table_fits(lmax: int, parity: bool) -> bool:
+    """Whether the 3j entries of (l_max, parity) fit the Meta table."""
+    n_ent = sum(len(e) for e, _ in _row_tables(lmax, parity))
+    return (lmax + 1) ** 2 <= _MAX_D and n_ent <= _MAX_ENT
+
+
+def kernel_takes(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool) -> bool:
+    """Whether ``k1_launch`` (csrc/fused_layer.cu) takes a layer of these
+    widths in every form, forward and backward: its refusal conditions and
+    its shared-memory sum, mirrored here so that a caller decides before
+    any launch."""
+    P = num_paths_per_l(lmax, lmax, lmax, parity)
+    nlat, in0 = len(latd) - 1, latd[0]
+    hidden = latd[1:-1]
+    maxw = max(hidden) if hidden else 4
+    maxpc = max(P) * c
+    if not table_fits(lmax, parity) or d > _MAX_D or not 1 <= nlat <= _MAX_LAT:
+        return False
+    if NT % c or NT // c > ET or ns % 4 or c % 4 or cout % 4 or in0 % 4 or maxw % 4:
+        return False
+    for first_v in (False, True):
+        for bwd in (False, True):
+            words = META_WORDS + d * c * (2 if bwd else 1) + in0 * LD + d * c * LD
+            words += (c * LD if first_v else 0) + d * LD + LD + (LD if bwd else 0)
+            if bwd:
+                gw = max(in0, maxw)
+                r_rows = max(c, 2 * ns + (nlat - 1) * maxw + 2 * gw, d * c + maxpc + cout,
+                             2 * c + ns)
+            else:
+                r_rows = max(c, maxpc, 2 * maxw + ns)
+            if (words + r_rows * LD) * 4 > SMEM_MAX:
+                return False
+    return True
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class K1Weights:

@@ -1,5 +1,10 @@
-"""Edge-vector and node-row gathers with a gather-based backward
-(counterpart of ``pair_allegro_tpu/ops/scatter.py:25-163``).
+"""Edge -> atom reductions and the gathers of the two edge layouts
+(counterpart of ``pair_allegro_tpu/ops/scatter.py:18-163``).
+
+``segment_sum`` is the per-atom reduction of the FLAT (2, E) layout, an
+``index_add`` over unsorted ids (its backward is a gather).  On the TABLE
+layout the reduction is a sum over the row, and the gathers below take a
+gather-based backward instead of autograd's scatter-add.
 
 The plain gather's transpose is a scatter-add of the (N*K, 3) edge-vector
 cotangent into (N, 3).  The TABLE is symmetric (one scalar build cutoff),
@@ -15,6 +20,14 @@ zero row.  Only valid when the table rows are all atoms.
 from __future__ import annotations
 
 import torch
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """out[s] = sum of the rows of ``data`` whose id is s, for s <
+    ``num_segments`` (ids unsorted, each in range).  On CUDA the sum order
+    is that of the atomics, so the last bits vary from run to run."""
+    out = data.new_zeros((num_segments, *data.shape[1:]))
+    return out.index_add(0, segment_ids, data)
 
 
 def _vec_cotangent_to_atoms(dvec, rev_idx, edge_mask):

@@ -1,10 +1,12 @@
 """CUDA legs of the PyTorch port: K1 (csrc/fused_layer.cu), K3
-(csrc/nequip_conv.cu), K2 (csrc/env_layer.cu) and K5
-(csrc/env_layer_mxu.cu, each precision mode) against their plain PyTorch
-versions on the card, f32, forward and backward, for every form; launch
-counting; the wrappers' refusals on the card; the models' kernel paths
-(K1 and per-layer tiers, NequIP) against their CPU plain paths and regrows
-on the card.  Every test here needs a card and skips without one.
+(csrc/nequip_conv.cu), K2 (csrc/env_layer.cu), K5 (csrc/env_layer_mxu.cu,
+each precision mode) and K4 (csrc/tp_mix_fused.cu) against their plain
+PyTorch versions on the card, f32, forward and backward, for every form;
+launch counting; the wrappers' refusals on the card; the models' kernel
+paths (K1, per-layer and K4 tiers, NequIP, the FLAT layout of the dense
+strategy) against their CPU plain paths and regrows on the card; the
+routing predicate against the launchers.  Every test here needs a card
+and skips without one.
 
 This file imports torch and the port only (no JAX), so that it also runs
 on a machine without JAX:
@@ -400,3 +402,236 @@ def test_perlayer_forced_small_k_regrows_on_the_card(cuda):
         assert sim.regrows >= 1 and eng.spec.max_neighbors > 16
         ends.append(sim.state.system.positions.cpu())
     assert float((ends[0] - ends[1]).abs().max()) < 1e-4
+
+
+# --- K4: the per-edge TP + mix (csrc/tp_mix_fused.cu) and the FLAT layout --
+
+
+def _k4_case(cuda, c, cout, lmax, parity, e, seed):
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    P = num_paths_per_l(lmax, lmax, lmax, parity)
+    mix = {f"l{l3}": torch.randn(c * P[l3], cout, generator=g).to(cuda) for l3 in range(lmax + 1)}
+    d = (lmax + 1) ** 2
+    V = torch.randn(d, c, e, generator=g).to(cuda)
+    env = torch.randn(d, c, e, generator=g).to(cuda)
+    return k4.k4_weights(mix, lmax, parity), [V, env]
+
+
+def _k4_compare(w, ins, zero_dout=False):
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    ins = [t.requires_grad_(True) for t in ins]
+    out_k = k4.tp_mix_fused_t(*ins, w)
+    out_r = k4.tp_mix_fused_reference(*[t.detach() for t in ins], w)
+    for a, b in zip(out_k, out_r):
+        assert float((a.detach() - b).abs().max()) <= 1e-4 + 1e-4 * float(b.abs().max())
+    cots = [torch.randn_like(o) for o in out_r]
+    if zero_dout:
+        cots[0] = torch.zeros_like(cots[0])
+    g_k = torch.autograd.grad(out_k, ins, cots)
+    with torch.enable_grad():
+        ref_in = [t.detach().requires_grad_(True) for t in ins]
+        g_r = torch.autograd.grad(k4.tp_mix_fused_reference(*ref_in, w), ref_in, cots)
+    for a, b in zip(g_k, g_r):
+        assert float((a - b).abs().max()) <= 1e-4 + 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("c,cout,lmax,parity,e", [
+    (32, 32, 2, True, 4096), (32, 32, 2, True, 1001), (32, 32, 1, True, 999), (8, 8, 2, True, 37),
+    (16, 24, 2, False, 300), (32, 16, 1, False, 77), (32, 32, 3, True, 200), (64, 64, 3, True, 61),
+    (64, 64, 2, True, 130)])
+def test_k4_kernel_matches_plain(cuda, c, cout, lmax, parity, e):
+    w, ins = _k4_case(cuda, c, cout, lmax, parity, e, 1)
+    _k4_compare(w, ins)
+
+
+def test_k4_dead_v_cotangent(cuda):
+    w, ins = _k4_case(cuda, 32, 32, 2, True, 513, 2)
+    _k4_compare(w, ins, zero_dout=True)
+
+
+def test_k4_counts_its_launches(cuda):
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    w, ins = _k4_case(cuda, 8, 8, 2, True, 40, 3)
+    ins = [t.requires_grad_(True) for t in ins]
+    f0, b0 = k4.launches.fwd, k4.launches.bwd
+    out, inv = k4.tp_mix_fused_t(*ins, w)
+    (out.sum() + inv.sum()).backward()
+    assert (k4.launches.fwd - f0, k4.launches.bwd - b0) == (1, 1)
+
+
+def test_k4_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    w, (V, env) = _k4_case(cuda, 8, 8, 2, True, 40, 4)
+    f0 = k4.launches.fwd
+    with pytest.raises(TypeError):
+        k4.tp_mix_fused_t(V.double(), env.double(), w)
+    with pytest.raises(ValueError):
+        k4.tp_mix_fused_t(V, env.transpose(1, 2).contiguous().transpose(1, 2), w)  # not contiguous
+    with pytest.raises(ValueError):
+        k4.tp_mix_fused_t(V, env.cpu(), w)  # mixed devices
+    w6, ins6 = _k4_case(cuda, 6, 8, 1, True, 40, 5)  # C not a multiple of 4
+    with pytest.raises(RuntimeError, match="does not take D=4, C=6"):
+        k4.tp_mix_fused_t(*ins6, w6)
+    with pytest.raises(ValueError, match="3j entries"):  # l_max=3 without parity
+        _k4_case(cuda, 8, 8, 3, False, 40, 6)
+    assert k4.launches.fwd == f0
+
+
+def _flat_cfg(species=2, **kw):
+    cut = None if species == 1 else ((4.5, 4.2), (4.2, 4.0))
+    base = dict(type_names=("Cu", "Ag")[:species], r_max=4.5, l_max=2, num_layers=3,
+                num_scalar_features=32, num_tensor_features=16, avg_num_neighbors=12.0,
+                output_charges=True, per_edge_type_cutoff=cut)
+    return AllegroConfig(**{**base, **kw})
+
+
+def _flat_system(dev, n_rep, slab, species=2):
+    pos, cell = fcc_lattice(n_rep)
+    pbc = None
+    if slab:
+        cell = cell.copy()
+        cell[2, 2] += 20.0
+        pbc = (True, True, False)
+    n = pos.shape[0]
+    typ = np.random.RandomState(1).randint(0, species, n)
+    return System.create(pos, typ, cell=cell, masses=np.full(n, 63.546), pbc=pbc, device=dev)
+
+
+@pytest.mark.parametrize("n_rep,slab", [(4, False), (4, True)])
+def test_flat_allegro_kernel_path_matches_cpu(cuda, n_rep, slab):
+    """The dense strategy's FLAT layout on the card (K4, 3 + 3 launches)
+    against the CPU plain path: a 256-atom box and a 256-atom slab."""
+    from pair_allegro_tpu_torch.ops import fused_layer, tp_mix_fused
+
+    cfg = _flat_cfg()
+    tree = allegro_init_numpy(cfg, 0)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        s = _flat_system(dev, n_rep, slab)
+        eng = AllegroEngine(cfg, allegro_params_from_numpy(tree, cfg, device=dev), s, device=dev)
+        assert eng.spec.strategy == "dense"
+        nb = eng.rebuild_fn(s, None)
+        f0, k1 = tp_mix_fused.launches.fwd, fused_layer.launches.fwd
+        o = eng.force_fn(s, nb)
+        if dev.type == "cuda":
+            assert (tp_mix_fused.launches.fwd - f0, fused_layer.launches.fwd - k1) == (3, 0)
+        outs.append((o.forces.cpu(), o.extras["charges"].cpu()))
+    (fk, qk), (fp, qp) = outs
+    assert float((fk - fp).abs().max()) < 5e-4
+    assert float((qk - qp).abs().max()) < 5e-4
+
+
+def test_flat_nequip_matches_cpu_without_k3(cuda):
+    from pair_allegro_tpu_torch.engine import NequIPEngine
+    from pair_allegro_tpu_torch.models.nequip import (
+        NequIPConfig,
+        nequip_init_numpy,
+        nequip_params_from_numpy,
+    )
+    from pair_allegro_tpu_torch.ops import nequip_conv
+
+    cfg = NequIPConfig(type_names=("Cu", "Ag"), r_max=4.5, num_layers=2, num_features=16,
+                       avg_num_neighbors=12.0, parity=True,
+                       per_edge_type_cutoff=((4.5, 4.2), (4.2, 4.0)))
+    tree = nequip_init_numpy(cfg, 0)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        s = _flat_system(dev, 3, True)
+        eng = NequIPEngine(cfg, nequip_params_from_numpy(tree, cfg, device=dev), s, device=dev)
+        k3 = nequip_conv.launches.fwd
+        o = eng.force_fn(s, eng.rebuild_fn(s, None))
+        assert nequip_conv.launches.fwd == k3
+        outs.append(o.forces.cpu())
+    assert float((outs[0] - outs[1]).abs().max()) < 5e-4
+
+
+def test_dense_regrow_on_the_card(cuda):
+    """A too-small max_edges overflows, regrows (with the memory check that
+    counts the dense build) and the run then follows the CPU's."""
+    import dataclasses
+
+    from pair_allegro_tpu_torch.engine import make_rebuild_fn
+    from pair_allegro_tpu_torch.md.integrate import Simulation
+    from pair_allegro_tpu_torch.system import Units
+
+    cfg = _flat_cfg(species=1, num_layers=2, num_scalar_features=16, num_tensor_features=8,
+                    output_charges=False)
+    tree = allegro_init_numpy(cfg, 0)
+    ends = []
+    for dev in (cuda, torch.device("cpu")):
+        s = _flat_system(dev, 3, True, species=1)
+        eng = AllegroEngine(cfg, allegro_params_from_numpy(tree, cfg, device=dev), s, device=dev,
+                            skin=0.4)
+        small = eng.spec.max_edges // 2
+        eng.spec = dataclasses.replace(eng.spec, max_edges=small)
+        eng.rebuild_fn = make_rebuild_fn(eng.spec, 0.4)
+        sim = Simulation(s, eng.force_fn, eng.rebuild_fn, dt=2.0 * Units.fs, grow_fn=eng.grow)
+        sim.run(6, log_every=3)
+        assert sim.regrows >= 1 and eng.spec.max_edges > small
+        ends.append(sim.state.system.positions.cpu())
+    assert float((ends[0] - ends[1]).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("c,lmax,layer_fused", [(32, 2, True), (64, 2, True), (64, 2, False),
+                                                (64, 3, False), (32, 3, True)])
+def test_env_fused_viable_mirrors_the_launchers(cuda, c, lmax, layer_fused):
+    """The predicate that routes TABLE models is True exactly where the
+    env-fused kernel of the tier launches (K1 or K2 at these widths)."""
+    from pair_allegro_tpu_torch.models.allegro import env_fused_viable
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+
+    cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, l_max=lmax, num_layers=1,
+                        num_scalar_features=64, num_tensor_features=c, layer_fused=layer_fused)
+    layer = allegro_params_from_numpy(allegro_init_numpy(cfg, 0), cfg, device=cuda)["layers"][0]
+    k = 16
+    x, V, Y, u = _operands(cuda, 64, c, k, 3, True, 7, lmax)
+    x.requires_grad_(True)
+    try:
+        if layer_fused:
+            fl.fused_layer(x, V, Y, u, fl.k1_weights(layer, lmax, True), k, 5.0, first_v=True)
+            V0 = V.unsqueeze(0) * Y.unsqueeze(1)
+            out = fl.fused_layer(x, V0, Y, u, fl.k1_weights(layer, lmax, True), k, 5.0)
+            out[0].sum().backward()  # the backward takes the most shared memory
+        else:
+            V0 = (V.unsqueeze(0) * Y.unsqueeze(1)).requires_grad_(True)
+            w2 = k2.k2_weights(layer["mix"], lmax, True)
+            out, inv = k2.env_layer(V0, x[:c].contiguous(), Y, w2, k, 5.0)
+            (out.sum() + inv.sum()).backward()
+        torch.cuda.synchronize()
+        launched = True
+    except RuntimeError as err:
+        assert "launch failed" in str(err)
+        launched = False
+    assert launched == env_fused_viable(cfg)
+
+
+def test_too_wide_table_model_runs_k4_on_the_card(cuda):
+    """A TABLE model the env-fused kernels cannot hold (C=64 on the K1
+    tier) runs K4 on the card, no K1, and matches the CPU."""
+    from pair_allegro_tpu_torch.models.allegro import env_fused_viable
+    from pair_allegro_tpu_torch.ops import tp_mix_fused
+
+    cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, l_max=2, num_layers=2,
+                        num_scalar_features=32, num_tensor_features=64, avg_num_neighbors=12.0)
+    assert not env_fused_viable(cfg)
+    tree = allegro_init_numpy(cfg, 0)
+    pos, cell = fcc_lattice(5)
+    n = pos.shape[0]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        s = System.create(pos, np.zeros(n, np.int64), cell=cell, masses=np.full(n, 63.546),
+                          device=dev)
+        eng = AllegroEngine(cfg, allegro_params_from_numpy(tree, cfg, device=dev), s, device=dev)
+        assert eng.spec.strategy == "cell_list"
+        f0, k1 = tp_mix_fused.launches.fwd, fl.launches.fwd
+        o = eng.force_fn(s, eng.rebuild_fn(s, None))
+        if dev.type == "cuda":
+            assert (tp_mix_fused.launches.fwd - f0, fl.launches.fwd - k1) == (2, 0)
+        outs.append(o.forces.cpu())
+    assert float((outs[0] - outs[1]).abs().max()) < 5e-4

@@ -54,5 +54,6 @@ def test_every_port_module_is_scanned():
     assert "pair_allegro_tpu_torch.ops.fused_layer" in mods
     assert "pair_allegro_tpu_torch.md.integrate" in mods
     for name in ("ops._build", "ops.nequip_conv", "models.nequip", "models.edges",
-                 "ops.env_layer", "ops.env_layer_mxu", "ops.weight_cache"):
+                 "ops.env_layer", "ops.env_layer_mxu", "ops.weight_cache", "ops.tp_mix_fused",
+                 "ops.scatter", "neighbors.device"):
         assert f"pair_allegro_tpu_torch.{name}" in mods

@@ -22,7 +22,7 @@ from pair_allegro_tpu.models.allegro import allegro_energy as j_energy
 from pair_allegro_tpu.models.allegro import allegro_init
 from pair_allegro_tpu.potential import make_potential as j_potential
 from pair_allegro_tpu.system import System as JaxSystem
-from pair_allegro_tpu_torch.engine import AllegroEngine, regrow_bytes
+from pair_allegro_tpu_torch.engine import AllegroEngine, NeighborSpec, regrow_bytes
 from pair_allegro_tpu_torch.md.integrate import Simulation
 from pair_allegro_tpu_torch.models.allegro import (
     AllegroConfig,
@@ -191,12 +191,21 @@ def test_plain_tier_gradients_and_capture_match_jax_f64(monkeypatch):
         _close(tcap[key].numpy(), jcap[key], f"capture {key}")
 
 
+def _flat_of(targs, tkw):
+    """The TABLE case as the same edges on the FLAT (2, E) layout."""
+    pos, types, j_tab = targs
+    n, k = j_tab.shape
+    ei = torch.stack([torch.arange(n).repeat_interleave(k), j_tab.reshape(-1)])
+    return (pos, types, ei), dict(cell=tkw["cell"], edge_shifts=tkw["edge_shifts"].reshape(-1, 3),
+                                  edge_mask=tkw["edge_mask"].reshape(-1))
+
+
 def test_kernel_layouts_follow_in_place_updates(monkeypatch):
     """After an in-place update of one layer's mix, latent_mlp and
-    env_weight leaves, the K1, per-layer (paths and mxu_highest) and plain
-    tiers all give JAX's energy and forces for the updated tree (each tier
-    ran once before the update, so its cached layouts are stale unless they
-    follow the leaves)."""
+    env_weight leaves, the K1, per-layer (paths and mxu_highest), K4 (the
+    same edges on the FLAT layout) and plain tiers all give JAX's energy
+    and forces for the updated tree (each tier ran once before the update,
+    so its cached layouts are stale unless they follow the leaves)."""
     monkeypatch.delenv("PAT_FORCE_ENV_FUSED", raising=False)
     kw = _kw(1)
     jcfg, jp, tp = _params(kw)
@@ -204,9 +213,15 @@ def test_kernel_layouts_follow_in_place_updates(monkeypatch):
     base = AllegroConfig(**kw)
     cfgs = {"k1": base, "paths": dataclasses.replace(base, layer_fused=False),
             "mxu_highest": dataclasses.replace(base, layer_fused=False, tp_mode="mxu_highest"),
-            "plain": base.for_training()}
-    for cfg in cfgs.values():
-        _port_outputs(tp, cfg, targs, tkw)
+            "k4": base, "plain": base.for_training()}
+    fargs, fkw = _flat_of(targs, tkw)
+
+    def run(tier, cfg):
+        args, kw = (fargs, fkw) if tier == "k4" else (targs, tkw)
+        return _port_outputs(tp, cfg, args, kw)
+
+    for tier, cfg in cfgs.items():
+        run(tier, cfg)
     layer, jlayer = tp["layers"][1], jp["layers"][1]
     with torch.no_grad():
         layer["mix"]["l1"].mul_(-0.5)
@@ -217,7 +232,7 @@ def test_kernel_layouts_follow_in_place_updates(monkeypatch):
     jlayer["env_weight"] = jlayer["env_weight"] + 0.25
     want = _jax_outputs(jp, jcfg, jargs, jkw)
     for tier, cfg in cfgs.items():
-        got = _port_outputs(tp, cfg, targs, tkw)
+        got = run(tier, cfg)
         for name in ("total_energy", "forces"):
             _close(got[name], want[name], f"{tier} {name} after the update")
 
@@ -306,9 +321,6 @@ def test_regrow_memory_estimate_is_per_tier():
     n_t = c * (3 * 1 + 4 * 3 + 4 * 5)  # C * sum_l3 P_l3 * (2*l3 + 1) at l_max=2 with parity
     assert cfg.for_training().live_bytes_per_edge() == 4 * (k1 + L * (2 * n_t + c * 3 + ns + hid))
 
-    @dataclasses.dataclass
-    class _Spec:
-        max_neighbors: int
-
+    spec = NeighborSpec(strategy="cell_list", cutoff=4.9, max_edges=500 * 64, max_neighbors=64)
     for c_ in (cfg, perlayer, cfg.for_training()):
-        assert regrow_bytes(_Spec(64), ts, c_) == 500 * 64 * c_.live_bytes_per_edge()
+        assert regrow_bytes(spec, ts, c_) == 500 * 64 * c_.live_bytes_per_edge()
