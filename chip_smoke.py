@@ -4,8 +4,9 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit; the builds of K1 (csrc/fused_layer.cu),
-     K3 (csrc/nequip_conv.cu), K2 (csrc/env_layer.cu) and K5
-     (csrc/env_layer_mxu.cu) with nvcc for sm_90a, started together;
+     K3 (csrc/nequip_conv.cu), K2 (csrc/env_layer.cu), K5
+     (csrc/env_layer_mxu.cu), K4 (csrc/tp_mix_fused.cu) and K6 / K7
+     (csrc/embed_readout_layer.cu) with nvcc for sm_90a, started together;
   2. K1 parity: the CUDA kernel against its plain PyTorch version, f32,
      forward and backward, for the first / middle / last forms, at flagship
      widths (ns=64, C=32, l_max=2) on a 500-atom FCC Cu neighbor table;
@@ -40,7 +41,16 @@ Phases, each of which must pass (any failure exits non-zero):
      vacuum along z, pbc (T, T, F)) on the dense strategy, Allegro at phase
      5's widths, 60 + 60 NVE steps: 3 + 3 K4 launches per force evaluation
      and no other kernel; K4 timings and parity at its shapes; a NequIP run
-     (10 + 10 steps) on the same slab, which launches no kernel.
+     (10 + 10 steps) on the same slab, which launches no kernel;
+ 11. K6 and K7 (csrc/embed_readout_layer.cu) parity against their plain
+     versions, f32, forward and backward, on the 500-atom table at flagship
+     widths (K7 with and without the charge head); Allegro model parity
+     with charges under PAT_L1_EMBED=1 (1 K6, 1 K1 and 1 K7 launch each
+     way) and under PAT_L1_POSITIONAL=0 (3 K1 launches of the middle form);
+ 12. the embed main path: phase 5's run under PAT_L1_EMBED=1, 60 + 60
+     steps: 1 K6, num_layers - 2 K1 and 1 K7 launch per force evaluation
+     each way and no other kernel; K6 and K7 timings and parity at its
+     shapes.
 The launch counts of each main path are read from its phase alone (every
 count is set to 0 just before it).  The line before the last is a JSON
 object of the kernels; the last line is {"ok": true, "device": {...}}.
@@ -48,15 +58,17 @@ Weights are random, made from a seed.
 
 ``python3 chip_smoke.py --profile`` instead prints where the device time of
 an Allegro main-path MD step goes (torch.profiler); ``--profile nequip``,
-``--profile perlayer`` and ``--profile flat`` the same for the NequIP,
-per-layer and FLAT slab main paths.
+``--profile perlayer``, ``--profile flat`` and ``--profile embed`` the same
+for the NequIP, per-layer, FLAT slab and embed main paths.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -163,11 +175,11 @@ def layer_operands(cfg, params, system, eng):
     return ops, ins["Y_T"], ins["uT"], k
 
 
-def k1_cost(w, e, k, form, bwd):
-    """(flops, bytes) one K1 call needs at E edge slots: the operations of
-    the function on these inputs (the backward includes its recompute of
-    wz, env, inv and the latent forward) and each input read once, each
-    output written once (f32), weights included."""
+def k1_terms(w, form, bwd):
+    """(operations per edge slot, rows read, rows written) of one K1 call:
+    the operations of the function on these inputs (the backward includes
+    its recompute of wz, env, inv and the latent forward), each input row
+    read once and each output row written once."""
     from pair_allegro_tpu_torch.ops.fused_layer import _row_tables
     from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 
@@ -192,6 +204,57 @@ def k1_cost(w, e, k, form, bwd):
         v_rows = c if first_v else d * c
         io_in = ns + v_rows + d + 1 + ns + (0 if last else d * cout)
         io_out = ns + v_rows + d + 1
+    return per, io_in, io_out
+
+
+def k1_cost(w, e, k, form, bwd):
+    """(flops, bytes) one K1 call needs at E edge slots (``k1_terms``; f32,
+    weights included)."""
+    per, io_in, io_out = k1_terms(w, form, bwd)
+    n_w = sum(t.numel() for t in w.tensors())
+    return per * e, 4 * ((io_in + io_out) * e + n_w)
+
+
+def _mlp_ops(dims):
+    return sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def k6_cost(w, e, bwd):
+    """(flops, bytes) one K6 call needs at E edge slots: K1's first form
+    (``k1_terms``) with the prologue x = MLP2b(in) * u, pT = W_te^T x /
+    sqrt(ns) (the backward adds its recompute, the two-body MLP's backward,
+    W_te dpT and the du and dx * u terms); the input rows in place of x and
+    pT, d(in) in place of dx and dpT (f32, weights included)."""
+    ns, c = w.te.shape
+    per, io_in, io_out = k1_terms(w.layer, "first", bwd)
+    mlp = _mlp_ops(w.tb_dims)
+    pro = mlp + ns + 2 * ns * c
+    swap = w.n_in - ns - c
+    if bwd:
+        per += pro + mlp + 2 * ns * c + 3 * ns
+        io_out += swap
+    else:
+        per += pro
+    n_w = sum(t.numel() for t in w.tensors())
+    return per * e, 4 * ((io_in + swap + io_out) * e + n_w)
+
+
+def k7_cost(w, e, bwd):
+    """(flops, bytes) one K7 call needs at E edge slots: K1's last form
+    (``k1_terms``) with the heads head(x') * u as epilogue (the backward adds
+    x' and the heads' forward, their backward and du); the heads' rows in
+    place of x' (forward), their cotangents in place of dx' (backward)
+    (f32, weights included)."""
+    ns = w.layer.env_w.shape[0]
+    per, io_in, io_out = k1_terms(w.layer, "last", bwd)
+    heads = sum(_mlp_ops(h) + 1 for h in w.heads_dims)
+    nh = len(w.heads)
+    if bwd:
+        per += 2 * ns + 2 * heads + nh
+        io_in += nh - ns
+    else:
+        per += heads
+        io_out += nh - ns
     n_w = sum(t.numel() for t in w.tensors())
     return per * e, 4 * ((io_in + io_out) * e + n_w)
 
@@ -264,56 +327,100 @@ def k1_parity(cfg, params, system, eng):
     return errs
 
 
-def model_parity():
-    """Phase 3: forces and charges, kernel path (card) vs plain path (CPU)."""
+def model_parity(env=None, want=None):
+    """Phases 4 and 11: forces and charges, kernel path (card) vs plain path
+    (CPU), under ``env`` (the K1 tier's embed/readout or non-positional
+    form); the card's launches per force evaluation must be ``want``
+    ({kernel: n}, fwd = bwd), by default 3 K1."""
     from pair_allegro_tpu_torch.engine import AllegroEngine
 
+    env = env or {}
+    want = want or {"K1": 3}
+    mods = kernel_modules()
     outs = []
-    for dev in ("cuda", "cpu"):
-        cfg, params, system = make_case(5, dev, output_charges=True)
-        eng = AllegroEngine(cfg, params, system, device=dev)
-        o = eng.force_fn(system, eng.rebuild_fn(system, None))
-        outs.append((o.forces.cpu(), o.extras["charges"].cpu(), o.total_energy.cpu()))
+    with env_vars(env):
+        for dev in ("cuda", "cpu"):
+            cfg, params, system = make_case(5, dev, output_charges=True)
+            eng = AllegroEngine(cfg, params, system, device=dev)
+            nb = eng.rebuild_fn(system, None)
+            for m in mods.values():
+                m.launches.reset()
+            o = eng.force_fn(system, nb)
+            if dev == "cuda":
+                launched = {name: (m.launches.fwd, m.launches.bwd) for name, m in mods.items()
+                            if m.launches.fwd or m.launches.bwd}
+            outs.append((o.forces.cpu(), o.extras["charges"].cpu(), o.total_energy.cpu()))
     (f_k, q_k, e_k), (f_p, q_p, e_p) = outs
     df, dq = max_err(f_k, f_p), max_err(q_k, q_p)
-    print(f"model parity (500 atoms, charges): max|dF| {df:.3e} eV/A, max|dq| {dq:.3e}, "
-          f"E {float(e_k):.6f} vs {float(e_p):.6f} eV (gate 5e-4)")
+    print(f"model parity (500 atoms, charges{', ' + str(env) if env else ''}): max|dF| {df:.3e} "
+          f"eV/A, max|dq| {dq:.3e}, E {float(e_k):.6f} vs {float(e_p):.6f} eV (gate 5e-4); "
+          f"launches on the card {launched}")
     if not (df < 5e-4 and dq < 5e-4):
-        raise RuntimeError("model parity gate failed")
+        raise RuntimeError(f"model parity gate failed {env}")
+    if launched != {name: (n, n) for name, n in want.items() if n}:
+        raise RuntimeError(f"model parity {env}: launched {launched}, want {want}")
 
 
 # the main paths: (model, Allegro tier fields, the kernel that carries it
-# (None: no kernel), steps per chunk, slab); "perlayer" is bench.py's
-# kernel-perlayer tier, "flat" the dense-strategy slab with K4
+# (None: no kernel), steps per chunk, slab, environment); "perlayer" is
+# bench.py's kernel-perlayer tier, "flat" the dense-strategy slab with K4,
+# "embed" the K1 tier's embed/readout form (K6, K1, K7)
 PATHS = {
-    "allegro": ("allegro", {}, "K1", 60, False),
-    "nequip": ("nequip", {}, "K3", 60, False),
-    "perlayer": ("allegro", dict(layer_fused=False), "K2", 60, False),
-    "perlayer-mxu": ("allegro", dict(layer_fused=False, tp_mode="mxu_highest"), "K5", 10, False),
-    "flat": ("allegro", {}, "K4", 60, True),
-    "nequip-flat": ("nequip", {}, None, 10, True),
+    "allegro": ("allegro", {}, "K1", 60, False, {}),
+    "nequip": ("nequip", {}, "K3", 60, False, {}),
+    "perlayer": ("allegro", dict(layer_fused=False), "K2", 60, False, {}),
+    "perlayer-mxu": ("allegro", dict(layer_fused=False, tp_mode="mxu_highest"), "K5", 10, False, {}),
+    "flat": ("allegro", {}, "K4", 60, True, {}),
+    "nequip-flat": ("nequip", {}, None, 10, True, {}),
+    "embed": ("allegro", {}, "K6", 60, False, {"PAT_L1_EMBED": "1"}),
 }
+
+
+def path_launches(path, cfg):
+    """{kernel: launches per force evaluation, forward and backward alike}
+    of a main path; every other kernel must launch no time."""
+    kernel = PATHS[path][2]
+    if path == "embed":
+        return {"K6": 1, "K1": cfg.num_layers - 2, "K7": 1}
+    return {kernel: cfg.num_layers} if kernel else {}
+
+
+@contextlib.contextmanager
+def env_vars(env):
+    """The environment a path runs under, restored after it."""
+    old = {name: os.environ.get(name) for name in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
 
 
 def kernel_modules():
     """{kernel id: its wrapper module}, each with ``launches`` and ``LIB``."""
     from pair_allegro_tpu_torch.ops import (
+        embed_layer,
         env_layer,
         env_layer_mxu,
         fused_layer,
         nequip_conv,
+        readout_layer,
         tp_mix_fused,
     )
 
     return {"K1": fused_layer, "K3": nequip_conv, "K2": env_layer, "K5": env_layer_mxu,
-            "K4": tp_mix_fused}
+            "K4": tp_mix_fused, "K6": embed_layer, "K7": readout_layer}
 
 
 def build_path(path):
     """(cfg, params, system, engine) of a main path, on the card."""
     from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
 
-    model, tier, _, _, slab = PATHS[path]
+    model, tier, _, _, slab, _ = PATHS[path]
     if model == "allegro":
         cfg, params, system = make_case(11, None, slab=slab, **tier)
         return cfg, params, system, AllegroEngine(cfg, params, system, skin=0.4)
@@ -322,20 +429,27 @@ def build_path(path):
 
 
 def main_path(path="allegro"):
-    """Phases 5, 6, 8 and 10: the bench.py:main (Allegro, K1 or per-layer
-    tier) or bench.py:nequip_line (NequIP) workload on the port, on the
-    bulk box or on the slab.  Every kernel's counts are set to 0 just before
-    the run and read just after it."""
+    """Phases 5, 6, 8, 10 and 12: the bench.py:main (Allegro, K1 tier and its
+    embed/readout form, or per-layer tier) or bench.py:nequip_line (NequIP)
+    workload on the port, on the bulk box or on the slab.  Every kernel's
+    counts are set to 0 just before the run and read just after it; each
+    kernel of the path must launch its count per force evaluation, forward
+    and backward, and no other kernel may launch.  Returns (cfg, params,
+    system, engine, {kernel: {"fwd": n, "bwd": n}})."""
+    with env_vars(PATHS[path][5]):
+        return _main_path(path)
+
+
+def _main_path(path):
     import torch
 
     from pair_allegro_tpu_torch.engine import edge_slots
     from pair_allegro_tpu_torch.md.integrate import Simulation
     from pair_allegro_tpu_torch.system import Units
 
-    _, _, kernel, n_steps, _ = PATHS[path]
+    n_steps = PATHS[path][3]
     cfg, params, system, eng = build_path(path)
     mods = kernel_modules()
-    mod = mods.get(kernel)
     n_eval = [0]
     n_build = [0]
 
@@ -368,8 +482,11 @@ def main_path(path="allegro"):
     rows = sim.run(n_steps, log_every=n_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"fwd": mod.launches.fwd, "bwd": mod.launches.bwd} if mod else {"fwd": 0, "bwd": 0}
-    others = {name: (m.launches.fwd, m.launches.bwd) for name, m in mods.items() if m is not mod}
+    counts = {name: {"fwd": m.launches.fwd, "bwd": m.launches.bwd} for name, m in mods.items()}
+    per_eval = path_launches(path, cfg)
+    want = {name: {"fwd": n_eval[0] * per_eval.get(name, 0), "bwd": n_eval[0] * per_eval.get(name, 0)}
+            for name in mods}
+    launched = {name: (c["fwd"], c["bwd"]) for name, c in counts.items() if c["fwd"] or c["bwd"]}
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = sim.state
     finite = bool(torch.isfinite(st.forces).all()) and math.isfinite(rows[-1]["etotal"])
@@ -380,8 +497,8 @@ def main_path(path="allegro"):
     print(f"{path} main path: {system.n_atoms} atoms, pbc {system.pbc}, strategy {spec.strategy}, "
           f"{cap}, E={edge_slots(spec, system.n_atoms)} edge slots, {rows[-1]['n_edges']} real "
           f"edges, regrows {sim.regrows}, neighbor builds in the timed chunk {n_build[0]}, force "
-          f"evaluations {n_eval[0]}, {kernel} launches fwd "
-          f"{counts['fwd']} bwd {counts['bwd']} (other kernels fwd/bwd {others})")
+          f"evaluations {n_eval[0]}, launches fwd/bwd {launched} (per force evaluation "
+          f"{per_eval})")
     print(f"{path} main path: {steps_per_s:.4f} steps/s, "
           f"{steps_per_s * dt_fs * 1e-6 * 86400.0:.4f} ns/day ({wall * 1e3 / n_steps:.3f} ms/step), "
           f"T {rows[-1]['temp']:.1f} K, etotal {rows[-1]['etotal']:.4f} eV, finite {finite}, "
@@ -389,11 +506,9 @@ def main_path(path="allegro"):
           f"and the warmup chunk {peak_all:.2f} GiB")
     if not finite:
         raise RuntimeError(f"{path} main path produced non-finite values")
-    want = cfg.num_layers * n_eval[0] if mod else 0
-    if not (counts["fwd"] == want and counts["bwd"] == want):
-        raise RuntimeError(f"{kernel} launches {counts} != {cfg.num_layers} per force evaluation")
-    if any(sum(v) for v in others.values()):
-        raise RuntimeError(f"{path} main path launched other kernels than {kernel}: {others}")
+    if counts != want:
+        raise RuntimeError(f"{path} main path launched {launched}, want {per_eval} per force "
+                           f"evaluation ({n_eval[0]} evaluations)")
     return cfg, params, system, eng, counts
 
 
@@ -1052,9 +1167,147 @@ def k4_timings(cfg, params, system, eng, errs):
     return res, errs
 
 
+K6_NAMES = ("in", "Y", "u")
+
+
+def er_operands(cfg, params, system, eng):
+    """K6's operands (in_T, Y, u) of the system's neighbor table, K7's (x,
+    V) of the last layer (made by K6 and K1's middle layers), and K."""
+    import torch
+
+    from pair_allegro_tpu_torch.models.allegro import embed_inputs
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops.fused_layer import fused_layer, k1_weights
+
+    nb = eng.rebuild_fn(system, None)
+    k = nb.edge_index.shape[1]
+    avg = cfg.avg_num_neighbors
+    with torch.no_grad():
+        ins = embed_inputs(cfg, system.positions, system.types, nb.edge_index, cell=system.cell,
+                           edge_shifts=nb.edge_shifts, edge_mask=nb.edge_mask)
+        ops6 = (ins["in_T"], ins["Y_T"], ins["uT"])
+        x, V = k6.embed_layer(*ops6, k6.k6_weights(params, cfg.l_max, cfg.parity), k, avg)
+        for layer in params["layers"][1:-1]:
+            x, V = fused_layer(x, V, ins["Y_T"], ins["uT"], k1_weights(layer, cfg.l_max, cfg.parity),
+                               k, avg)
+    return ops6, (x, V, ins["Y_T"], ins["uT"]), k
+
+
+def er_calls(cfg, params, k):
+    """K6's and K7's weights and (wrapper, plain version) as functions of
+    their operands."""
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    avg, inv_avg = cfg.avg_num_neighbors, 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    w6 = k6.k6_weights(params, cfg.l_max, cfg.parity)
+    w7 = k7.k7_weights(params, cfg.l_max, cfg.parity, cfg.output_charges)
+    return w6, w7, {
+        "K6": (lambda *a: k6.embed_layer(*a, w6, k, avg),
+               lambda *a: k6.embed_layer_reference(*a, w6, k, inv_avg)),
+        "K7": (lambda *a: k7.readout_layer(*a, w7, k, avg),
+               lambda *a: k7.readout_layer_reference(*a, w7, k, inv_avg)),
+    }
+
+
+def _tup(o):
+    return o if isinstance(o, tuple) else (o,)
+
+
+def pair_compare(kernel, label, calls, ops, names, gen):
+    """A kernel's wrapper against its plain version on ``ops``, forward and
+    backward (random cotangents); returns the max abs errors."""
+    import torch
+
+    fn, ref = calls
+    ins = [t.detach().clone().requires_grad_(True) for t in ops]
+    out_k, out_r = _tup(fn(*ins)), _tup(ref(*ins))
+    cots = [torch.randn(o.shape, generator=gen, device=o.device) for o in out_r]
+    g_k = torch.autograd.grad(out_k, ins, cots)
+    g_r = torch.autograd.grad(out_r, ins, cots)
+    torch.cuda.synchronize()
+    outs = ("x'", "V'") if kernel == "K6" else ("e", "q")[:len(out_r)]
+    errs = {"fwd": check(kernel, label, "fwd", outs, out_k, out_r),
+            "bwd": check(kernel, label, "bwd", names, g_k, g_r)}
+    del ins, out_k, out_r, cots, g_k, g_r
+    torch.cuda.empty_cache()
+    return errs
+
+
+def er_parity():
+    """Phase 11 (K6, K7): kernel against plain version on the 500-atom
+    table at flagship widths, fwd and bwd; K7 with the charge head (two
+    heads) and without it."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+
+    errs = {name: {"fwd": 0.0, "bwd": 0.0} for name in ("K6", "K7")}
+    for charges in (True, False):
+        cfg, params, system = make_case(5, None, output_charges=charges)
+        ops6, ops7, k = er_operands(cfg, params, system, AllegroEngine(cfg, params, system))
+        _, _, calls = er_calls(cfg, params, k)
+        gen = torch.Generator(device=system.device).manual_seed(SEED)
+        label = f"500 atoms K={k}" + (", charge head" if charges else "")
+        got = {"K7": pair_compare("K7", label, calls["K7"], ops7, K1_NAMES, gen)}
+        if charges:
+            got["K6"] = pair_compare("K6", label, calls["K6"], ops6, K6_NAMES, gen)
+        for name, e in got.items():
+            errs[name] = {kind: max(errs[name][kind], e[kind]) for kind in e}
+    return errs
+
+
+def er_timings(cfg, params, system, eng, errs):
+    """Phase 12 (K6, K7): fwd/bwd time of kernel and plain version at the
+    embed main path's shapes, with the bound, and parity at those shapes
+    (into ``errs``)."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    ops6, ops7, k = er_operands(cfg, params, system, eng)
+    e = ops6[0].shape[1]
+    inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    w6, w7, calls = er_calls(cfg, params, k)
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
+    res = {}
+    for name, mod, ref, w, ops, cost, names in (
+            ("K6", k6, k6.embed_layer_reference, w6, ops6, k6_cost, K6_NAMES),
+            ("K7", k7, k7.readout_layer_reference, w7, ops7, k7_cost, K1_NAMES)):
+        cots = [torch.randn(o.shape, generator=gen, device=system.device)
+                for o in _tup(mod._kernel_fwd(*ops, w, k, inv_avg))]
+        bwd_args = tuple(cots) if name == "K6" else (cots,)
+        k_f = cuda_ms(lambda: mod._kernel_fwd(*ops, w, k, inv_avg), 5)
+        k_b = cuda_ms(lambda: mod._kernel_bwd(*ops, w, k, inv_avg, *bwd_args), 5)
+        with torch.no_grad():
+            p_f = cuda_ms(lambda: ref(*ops, w, k, inv_avg), 2)
+        ins = [t.detach().clone().requires_grad_(True) for t in ops]
+        outs = _tup(ref(*ins, w, k, inv_avg))
+        p_b = cuda_ms(lambda: torch.autograd.grad(outs, ins, cots, retain_graph=True), 2)
+        del ins, outs, cots, bwd_args
+        torch.cuda.empty_cache()
+        e2 = pair_compare(name, f"embed main path E={e}", calls[name], ops, names, gen)
+        errs[name] = {kind: max(errs[name][kind], e2[kind]) for kind in e2}
+        for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
+            flops, nbytes = cost(w, e, kind == "bwd")
+            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            r = res[(name, kind)] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
+                                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                                         gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            print(f"{name} {kind} E={e}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gflop']:.2f} GFLOP, "
+                  f"{r['mbytes']:.1f} MB), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+    return res, errs
+
+
 def _kind_of(name):
     """A coarse class of a device kernel's name, for the profile's summary."""
     n = name.lower()
+    if "k1_" in n and ("<1>" in n or "ili1e" in n):  # the K1 body's forms 1 and 2
+        return "K6 (embed_layer)"
+    if "k1_" in n and ("<2>" in n or "ili2e" in n):
+        return "K7 (readout_layer)"
     for key, kind in (("k3_", "K3 (nequip_conv)"), ("k1_", "K1 (fused_layer)"),
                       ("k2_", "K2 (env_layer)"), ("k5_", "K5 (env_layer_mxu)"),
                       ("k4_", "K4 (tp_mix_fused)"), ("indexfunc", "segment_sum (index_add)"),
@@ -1071,10 +1324,15 @@ def _kind_of(name):
 
 
 def profile_steps(model="allegro", n_steps=10):
-    """``--profile [nequip | perlayer | flat]``: where one main-path MD step's
-    device time goes.  torch.profiler over n_steps after a 20-step warmup;
-    kernel time summed by name and by class per step, and the device's idle
-    share of the wall time."""
+    """``--profile [nequip | perlayer | flat | embed]``: where one main-path
+    MD step's device time goes.  torch.profiler over n_steps after a 20-step
+    warmup; kernel time summed by name and by class per step, and the
+    device's idle share of the wall time."""
+    with env_vars(PATHS[model][5]):
+        return _profile_steps(model, n_steps)
+
+
+def _profile_steps(model, n_steps):
     import collections
 
     import torch
@@ -1137,8 +1395,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--profile"]:
         model = sys.argv[2] if len(sys.argv) > 2 else "allegro"
-        if model not in ("allegro", "nequip", "perlayer", "flat"):
-            raise SystemExit(f"--profile takes allegro, nequip, perlayer or flat, not {model}")
+        if model not in ("allegro", "nequip", "perlayer", "flat", "embed"):
+            raise SystemExit(f"--profile takes allegro, nequip, perlayer, flat or embed, not {model}")
         return profile_steps(model)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1146,7 +1404,10 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = [(name, mod.LIB) for name, mod in kernel_modules().items()]
+    libs = {}
+    for name, mod in kernel_modules().items():  # K6 and K7 share one library
+        libs.setdefault(id(mod.LIB), (name, mod.LIB))
+    libs = list(libs.values())
     for _, lib in libs:
         lib.start()  # one nvcc per source, all started together
     for name, lib in libs:
@@ -1168,21 +1429,28 @@ def main() -> int:
     nequip_model_parity()
     errs4 = k4_parity()
     flat_model_parity()
+    errs_er = er_parity()
+    model_parity({"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1})
+    model_parity({"PAT_L1_POSITIONAL": "0"})
     cfg, params, system, eng, counts = main_path("allegro")
+    counts = counts["K1"]
     times = k1_timings(cfg, params, system, eng, errs)
     del cfg, params, system, eng
     torch.cuda.empty_cache()
     ncfg, nparams, nsystem, neng, counts3 = main_path("nequip")
+    counts3 = counts3["K3"]
     times3, errs3 = k3_timings(ncfg, nparams, nsystem, neng, errs3)
     del nparams, nsystem, neng
     torch.cuda.empty_cache()
     pcfg, pparams, psystem, peng, counts2 = main_path("perlayer")
+    counts2 = counts2["K2"]
     times_env = env_timings(pcfg, pparams, psystem, peng, errs_env)
     del pparams, psystem, peng
     torch.cuda.empty_cache()
-    *_, counts5 = main_path("perlayer-mxu")
+    counts5 = main_path("perlayer-mxu")[-1]["K5"]
     torch.cuda.empty_cache()
     fcfg, fparams, fsystem, feng, counts4 = main_path("flat")
+    counts4 = counts4["K4"]
     b_ms, b_gib = rebuild_ms(fsystem, feng)
     print(f"flat main path: one dense rebuild {b_ms:.3f} ms wall, peak {b_gib:.2f} GiB above the "
           f"resident tensors; the engine's regrow check counts "
@@ -1191,6 +1459,10 @@ def main() -> int:
     del fparams, fsystem, feng
     torch.cuda.empty_cache()
     main_path("nequip-flat")
+    torch.cuda.empty_cache()
+    ecfg, eparams, esystem, eeng, counts_e = main_path("embed")
+    times_er, errs_er = er_timings(ecfg, eparams, esystem, eeng, errs_er)
+    del eparams, esystem, eeng
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):
@@ -1241,6 +1513,15 @@ def main() -> int:
             f"pair_allegro_tpu/ops/pallas_tp.py:{line}", counts4, kind, errs4[kind], times4[kind],
             per="call", calls_per_force_evaluation=fcfg.num_layers, edge_tile=times4[kind]["tile"],
         ))
+    for kind, line6, line7 in (("fwd", 1404, 1538), ("bwd", 1439, 1572)):
+        # one call each (the first and the last layer) per force evaluation
+        for name, stem, line in (("K6", "k6_embed_layer", line6), ("K7", "k7_readout_layer", line7)):
+            kernels.append(kernel_entry(
+                f"{stem}_{kind}", "pair_allegro_tpu_torch/csrc/embed_readout_layer.cu",
+                f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts_e[name], kind,
+                errs_er[name][kind], times_er[(name, kind)], per="call",
+                calls_per_force_evaluation=1, k1_launches_on_the_path=counts_e["K1"][kind],
+            ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

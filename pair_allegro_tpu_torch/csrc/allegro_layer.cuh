@@ -1,0 +1,758 @@
+// The body of the one-layer fused Allegro kernels, shared by K1
+// (fused_layer.cu) and its embed- and readout-fused forms K6 and K7
+// (embed_readout_layer.cu).  The form is a template parameter, so each
+// library compiles only its own code paths:
+//   PLAIN    K1: x (and V, or pT when first_v) read from device memory;
+//   EMBED    K6: the first_v form, x = MLP2b(in) * u and pT = W_te^T x /
+//            sqrt(ns) made per tile from the two-body input rows (the
+//            prologue); the backward returns d(in), dY and du;
+//   READOUT  K7: the last form, the readout (and charge) heads run per tile
+//            on x' (the epilogue) and only their rows e = head(x') * u
+//            leave the kernel; the backward takes those rows' cotangents.
+// One thread block owns one center and walks its K edges in tiles of ET
+// (allegro_tiles.cuh); what K1 computes and why it is laid out so is at the
+// top of fused_layer.cu, what the prologue and the epilogue add at the top
+// of embed_readout_layer.cu.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "allegro_tiles.cuh"
+
+namespace {
+
+constexpr float SILU_C = 1.6790564307512243f;
+constexpr float R2 = 0.70710678118654752f;
+
+enum Form { PLAIN = 0, EMBED = 1, READOUT = 2 };
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// Shape of a prologue or epilogue MLP (bias-free, normalized SiLU), built
+// by the wrapper and copied into shared memory at block start: layer li
+// maps dim[li] rows to dim[li + 1] rows with the row-major (dim[li],
+// dim[li + 1]) block at ew + off[li] (its transpose at ewT + off[li]),
+// times scale[li] = 1/sqrt(fan-in).  dim[0] may be padded with zero weight
+// rows to a multiple of 4; a last layer of width 1 is a weighted row sum.
+struct MlpTab {
+  int n;     // layers
+  int maxw;  // widest hidden layer (rows of one pre-activation slot), >= 4
+  int dim[MAX_LAT + 1];
+  int off[MAX_LAT];
+  float scale[MAX_LAT];
+};
+constexpr int MT_WORDS = sizeof(MlpTab) / 4;
+
+struct K1P {
+  const float *x, *V, *Y, *u, *envw, *envwT, *lat, *latT, *mix, *mixT, *dxo, *dvo;
+  const int* meta;
+  float *xo, *vo, *dx, *dV, *dY, *du;
+  int ns, C, Cout, D, K, E, nlat, first_v, last, maxw, maxpc, in0;
+  float inv_avg, cns;
+  int o_env, o_denv, o_cat, o_V, o_pT, o_Y, o_u, o_du, o_R;
+  // EMBED and READOUT: two MlpTab (the two-body MLP; or the readout and the
+  // charge head) and the flat weights they index, with their transposes
+  const int* mt;
+  const float *ew, *ewT;
+  int o_mt;
+  // the widest hidden layer, and the rows of the pre-activation store: of
+  // the two-body MLP (EMBED) or of either head (READOUT)
+  int xmaxw, hzrows;
+  // EMBED: the (n_in, E) two-body input rows, W_te (ns, C) and its
+  // transpose, d(in) (n_in, E); dx is then scratch for the pass-1 partial
+  const float *in, *te, *teT;
+  float* din;
+  int n_in;
+  // READOUT: heads (1 or 2), their cotangent rows and output rows (1, E)
+  int nhead;
+  const float *dh0, *dh1;
+  float *ho0, *ho1;
+};
+
+__device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
+
+__device__ __forceinline__ float dsilu(float z) {
+  const float s = 1.0f / (1.0f + expf(-z));
+  return s * (1.0f + z * (1.0f - s));
+}
+
+// Forward of a prologue / epilogue MLP on one tile: hin (t.dim[0] rows) ->
+// out (t.dim[t.n] rows); hidden activations ping-pong through hA / hB, and
+// the pre-activations are kept in zs (slots of t.maxw rows) when given.
+__device__ void mlp_fwd(const MlpTab& t, const float* w, const float* hin, float* hA, float* hB,
+                        float* zs, float* out) {
+  for (int li = 0; li < t.n; ++li) {
+    const int din = t.dim[li], dout = t.dim[li + 1];
+    const bool hidden = li < t.n - 1;
+    float* h = (li & 1) ? hB : hA;
+    float* z = !hidden ? out : (zs ? zs + (size_t)li * t.maxw * LD : h);
+    if (dout == 1) {  // a head's last layer: one weighted row sum per edge
+      const float* wl = w + t.off[li];
+      for (int n = threadIdx.x; n < ET; n += NT) {
+        float s = 0.f;
+        for (int k = 0; k < din; ++k) s = fmaf(wl[k], hin[k * LD + n], s);
+        z[n] = s * t.scale[li];
+      }
+    } else {
+      gemm_tile(w + t.off[li], din, dout, hin, z, LD, t.scale[li], ET);
+    }
+    __syncthreads();
+    if (hidden) {
+      for (int q = threadIdx.x; q < dout * ET; q += NT) {
+        const int row = q / ET, n = q % ET;
+        h[row * LD + n] = silu(z[row * LD + n]) * SILU_C;
+      }
+      __syncthreads();
+      hin = h;
+    }
+  }
+}
+
+// Backward of mlp_fwd from g (t.dim[t.n] rows) with the kept pre-activations
+// zs; g and g2 (each as wide as the widest layer) ping-pong and g is
+// overwritten.  Returns the buffer that holds d(hin) (t.dim[0] rows).
+__device__ float* mlp_bwd(const MlpTab& t, const float* w, const float* wT, const float* zs,
+                          float* g, float* g2) {
+  for (int li = t.n - 1; li >= 0; --li) {
+    const int din = t.dim[li], dout = t.dim[li + 1];
+    if (li < t.n - 1) {
+      const float* z = zs + (size_t)li * t.maxw * LD;
+      for (int q = threadIdx.x; q < dout * ET; q += NT) {
+        const int row = q / ET, n = q % ET;
+        g[row * LD + n] *= dsilu(z[row * LD + n]) * SILU_C;
+      }
+      __syncthreads();
+    }
+    if (dout == 1) {  // outer product with the width-1 layer's weights
+      const float* wl = w + t.off[li];
+      for (int q = threadIdx.x; q < din * ET; q += NT) {
+        const int k = q / ET, n = q % ET;
+        g2[k * LD + n] = wl[k] * g[n] * t.scale[li];
+      }
+    } else {
+      gemm_tile(wT + t.off[li], dout, din, g, g2, LD, t.scale[li], ET);
+    }
+    __syncthreads();
+    float* tmp = g;
+    g = g2;
+    g2 = tmp;
+  }
+  return g;
+}
+
+// EMBED prologue on one tile: x = MLP2b(in) * u into xs (ns rows).  The
+// caller has issued the load of us (visible after the first barrier here).
+// The input rows go to ins (t.dim[0] rows, the padding rows zeroed), hidden
+// activations ping-pong through hA / hB; with zs the pre-activations are
+// kept there and x0 (before * u) in x0s.
+__device__ void embed_x(const K1P& p, const MlpTab& t, int e0, int ne, const float* us, float* xs,
+                        float* ins, float* hA, float* hB, float* zs, float* x0s) {
+  load_tile(p.in, p.n_in, p.E, e0, ne, ins);
+  for (int q = threadIdx.x; q < (t.dim[0] - p.n_in) * ET; q += NT)
+    ins[(p.n_in + q / ET) * LD + q % ET] = 0.f;
+  __syncthreads();
+  float* x0 = x0s ? x0s : xs;
+  mlp_fwd(t, p.ew, ins, hA, hB, zs, x0);
+  for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
+    const int s = q / ET, n = q % ET;
+    xs[s * LD + n] = x0[s * LD + n] * us[n];
+  }
+  __syncthreads();
+}
+
+// env[d*C + c] = inv_avg * sum over the center's edges of wz[c] * Y[d];
+// xs (ns rows), Ys, us and wz (C rows) are scratch tiles (EMBED: the
+// prologue's scratch starts at wz).
+template <int F>
+__device__ void center_env(const K1P& p, const MlpTab* mt, int center, float* env, float* xs,
+                           float* Ys, float* us, float* wz) {
+  const int C = p.C, D = p.D;
+  for (int q = threadIdx.x; q < D * C; q += NT) env[q] = 0.f;
+  for (int t0 = 0; t0 < p.K; t0 += ET) {
+    const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
+    if constexpr (F == EMBED) {
+      load_tile(p.Y, D, p.E, e0, ne, Ys);
+      load_tile(p.u, 1, p.E, e0, ne, us);
+      float* ins = wz;
+      float* hA = ins + mt[0].dim[0] * LD;
+      embed_x(p, mt[0], e0, ne, us, xs, ins, hA, hA + mt[0].maxw * LD, nullptr, nullptr);
+    } else {
+      load_tile(p.x, p.ns, p.E, e0, ne, xs);
+      load_tile(p.Y, D, p.E, e0, ne, Ys);
+      load_tile(p.u, 1, p.E, e0, ne, us);
+      __syncthreads();
+    }
+    gemm_tile(p.envw, p.ns, C, xs, wz, LD, p.cns, ET);
+    __syncthreads();
+    for (int q = threadIdx.x; q < D * C; q += NT) {
+      const int d = q / C, c = q % C;
+      float s = 0.f;
+      for (int n = 0; n < ne; ++n) s = fmaf(wz[c * LD + n] * us[n], Ys[d * LD + n], s);
+      env[q] += s;
+    }
+    __syncthreads();
+  }
+  for (int q = threadIdx.x; q < D * C; q += NT) env[q] *= p.inv_avg;
+  __syncthreads();
+}
+
+// V0 = pT * Y on one tile
+__device__ void build_v0(const K1P& p, const float* pTs, const float* Ys, float* Vs) {
+  for (int q = threadIdx.x; q < p.D * p.C * ET; q += NT) {
+    const int row = q / ET, n = q % ET;
+    Vs[row * LD + n] = pTs[(row % p.C) * LD + n] * Ys[(row / p.C) * LD + n];
+  }
+}
+
+// x (into cat rows [0, ns)), Y, u and V (built from pT when first_v); EMBED
+// makes x and pT in the prologue, with its scratch at scr.
+template <int F>
+__device__ void load_edges(const K1P& p, const MlpTab* mt, int e0, int ne, float* cat, float* Ys,
+                           float* us, float* Vs, float* pTs, float* scr) {
+  const int C = p.C, D = p.D;
+  if constexpr (F == EMBED) {
+    load_tile(p.Y, D, p.E, e0, ne, Ys);
+    load_tile(p.u, 1, p.E, e0, ne, us);
+    float* hA = scr + mt[0].dim[0] * LD;
+    embed_x(p, mt[0], e0, ne, us, cat, scr, hA, hA + mt[0].maxw * LD, nullptr, nullptr);
+    gemm_tile(p.te, p.ns, C, cat, pTs, LD, p.cns, ET);
+    __syncthreads();
+    build_v0(p, pTs, Ys, Vs);
+  } else {
+    load_tile(p.x, p.ns, p.E, e0, ne, cat);
+    load_tile(p.Y, D, p.E, e0, ne, Ys);
+    load_tile(p.u, 1, p.E, e0, ne, us);
+    if (p.first_v) {
+      load_tile(p.V, C, p.E, e0, ne, pTs);
+      __syncthreads();
+      build_v0(p, pTs, Ys, Vs);
+    } else {
+      load_tile(p.V, D * C, p.E, e0, ne, Vs);
+    }
+  }
+  __syncthreads();
+}
+
+// latent MLP forward on one tile: input cat (in0 rows), hidden activations
+// ping-pong through hA/hB; pre-activations saved into zs when given; the
+// output (ns rows) goes to out.
+__device__ void latent_fwd(const K1P& p, const Meta& m, const float* cat, float* hA,
+                           float* hB, float* zs, float* out) {
+  const float* hin = cat;
+  for (int li = 0; li < p.nlat; ++li) {
+    const int din = m.latdim[li], dout = m.latdim[li + 1];
+    const bool hidden = li < p.nlat - 1;
+    float* h = (li & 1) ? hB : hA;
+    float* z = !hidden ? out : (zs ? zs + (size_t)li * p.maxw * LD : h);
+    gemm_tile(p.lat + m.latoff[li], din, dout, hin, z, LD, rsqrtf((float)din), ET);
+    __syncthreads();
+    if (hidden) {
+      for (int q = threadIdx.x; q < dout * ET; q += NT) {
+        const int row = q / ET, n = q % ET;
+        h[row * LD + n] = silu(z[row * LD + n]) * SILU_C;
+      }
+      __syncthreads();
+      hin = h;
+    }
+  }
+}
+
+// x' = (x + xn * u) / sqrt(2) in place of x (cat rows [0, ns))
+__device__ void residual_in_place(const K1P& p, float* cat, const float* xn, const float* us) {
+  for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
+    const int s = q / ET, n = q % ET;
+    cat[s * LD + n] = (cat[s * LD + n] + xn[s * LD + n] * us[n]) * R2;
+  }
+  __syncthreads();
+}
+
+// READOUT forward epilogue on one tile: x' in place of x, then each head's
+// row head(x') * u to device memory.  Scratch: two ping-pong buffers of
+// xmaxw rows and one output row per head.
+__device__ void heads_fwd(const K1P& p, const MlpTab* mt, float* cat, const float* xn,
+                          const float* us, int e0, int ne, float* scr) {
+  residual_in_place(p, cat, xn, us);
+  float* hA = scr;
+  float* hB = hA + p.xmaxw * LD;
+  for (int h = 0; h < p.nhead; ++h) {
+    float* raw = hB + (p.xmaxw + h) * LD;
+    mlp_fwd(mt[h], p.ew, cat, hA, hB, nullptr, raw);
+    float* out = h ? p.ho1 : p.ho0;
+    for (int n = threadIdx.x; n < ne; n += NT) out[e0 + n] = raw[n] * us[n];
+  }
+}
+
+// READOUT backward epilogue on one tile, after the latent forward: x' in
+// place of x; for each head its forward (pre-activations kept), then its
+// backward from the cotangent row c: dxo = sum over heads of
+// d(c * head(x') * u)/dx', and dus = sum over heads of c * head(x').
+// Scratch: two ping-pong buffers of max(xmaxw, ns) rows, the heads'
+// pre-activations (hzrows) and two rows.
+__device__ void heads_bwd(const K1P& p, const MlpTab* mt, float* cat, const float* xn,
+                          const float* us, int e0, int ne, float* dxo, float* dus, float* scr) {
+  const int hg = imax(p.xmaxw, p.ns);
+  float* P0 = scr;
+  float* P1 = P0 + hg * LD;
+  float* hz = P1 + hg * LD;
+  float* raw = hz + p.hzrows * LD;
+  float* cot = raw + LD;
+  residual_in_place(p, cat, xn, us);
+  for (int n = threadIdx.x; n < ET; n += NT) dus[n] = 0.f;
+  for (int h = 0; h < p.nhead; ++h) {
+    mlp_fwd(mt[h], p.ew, cat, P0, P1, hz, raw);
+    load_tile(h ? p.dh1 : p.dh0, 1, p.E, e0, ne, cot);
+    __syncthreads();
+    for (int n = threadIdx.x; n < ET; n += NT) {
+      dus[n] = fmaf(cot[n], raw[n], dus[n]);
+      P0[n] = cot[n] * us[n];
+    }
+    __syncthreads();
+    const float* g = mlp_bwd(mt[h], p.ew, p.ewT, hz, P0, P1);
+    for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
+      const int s = q / ET, n = q % ET;
+      dxo[s * LD + n] = (h ? dxo[s * LD + n] : 0.f) + g[s * LD + n];
+    }
+    __syncthreads();
+  }
+}
+
+// EMBED backward prologue on one tile, after the env backward: the whole
+// dx = the pass-1 partial (device memory) + dxa; du += sum_s dx * x0; and
+// d(in) = the two-body MLP's backward of dx * u, its real n_in rows.
+__device__ void embed_bwd(const K1P& p, const MlpTab& t, int e0, int ne, const float* us,
+                          float* dxa, const float* x0s, const float* tbz, float* gA, float* gB) {
+  for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
+    const int s = q / ET, n = q % ET;
+    const float v = n < ne ? p.dx[(size_t)s * p.E + e0 + n] + dxa[s * LD + n] : 0.f;
+    dxa[s * LD + n] = v;
+    gA[s * LD + n] = v * us[n];
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < ne; n += NT) {
+    float s = 0.f;
+    for (int q = 0; q < p.ns; ++q) s = fmaf(dxa[q * LD + n], x0s[q * LD + n], s);
+    p.du[e0 + n] += s;
+  }
+  const float* g = mlp_bwd(t, p.ew, p.ewT, tbz, gA, gB);
+  for (int q = threadIdx.x; q < p.n_in * ET; q += NT) {
+    const int row = q / ET, n = q % ET;
+    if (n < ne) p.din[(size_t)row * p.E + e0 + n] = g[row * LD + n];
+  }
+}
+
+__device__ void load_tables(const K1P& p) {
+  extern __shared__ float sm[];
+  for (int q = threadIdx.x; q < 2 * MT_WORDS; q += NT)
+    reinterpret_cast<int*>(sm + p.o_mt)[q] = __ldg(p.mt + q);
+}
+
+template <int F>
+__global__ void __launch_bounds__(NT) k1_fwd_kernel(const K1P p) {
+  extern __shared__ float sm[];
+  const Meta& m = *reinterpret_cast<const Meta*>(sm);
+  const MlpTab* mt = reinterpret_cast<const MlpTab*>(sm + p.o_mt);
+  if constexpr (F != PLAIN) load_tables(p);
+  load_meta(p.meta, reinterpret_cast<int*>(sm));
+  const int center = blockIdx.x;
+  float* env = sm + p.o_env;
+  float* cat = sm + p.o_cat;
+  float* Vs = sm + p.o_V;
+  float* pTs = sm + p.o_pT;
+  float* Ys = sm + p.o_Y;
+  float* us = sm + p.o_u;
+  float* R = sm + p.o_R;
+
+  center_env<F>(p, mt, center, env, cat, Ys, us, R);
+  const int nrows = p.last ? 1 : p.D;
+  float* hA = R;
+  float* hB = R + p.maxw * LD;
+  float* xn = R + 2 * p.maxw * LD;
+  for (int t0 = 0; t0 < p.K; t0 += ET) {
+    const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
+    load_edges<F>(p, mt, e0, ne, cat, Ys, us, Vs, pTs, R);
+    for (int r = 0; r < nrows; ++r) {
+      float* T = r == 0 ? cat + p.ns * LD : R;  // row 0 is inv (p-major)
+      tp_row(p.C, m, r, Vs, env, T);
+      __syncthreads();
+      if (!p.last) {
+        gemm_tile(p.mix + m.rowmix[r], m.rowP[r] * p.C, p.Cout, T,
+                  p.vo + (size_t)r * p.Cout * p.E + e0, p.E, m.rownorm[r], ne);
+        __syncthreads();
+      }
+    }
+    latent_fwd(p, m, cat, hA, hB, nullptr, xn);
+    if constexpr (F == READOUT) {
+      heads_fwd(p, mt, cat, xn, us, e0, ne, R);
+    } else {
+      for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
+        const int s = q / ET, n = q % ET;
+        if (n < ne) p.xo[(size_t)s * p.E + e0 + n] = (cat[s * LD + n] + xn[s * LD + n] * us[n]) * R2;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int F>
+__global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
+  extern __shared__ float sm[];
+  const Meta& m = *reinterpret_cast<const Meta*>(sm);
+  const MlpTab* mt = reinterpret_cast<const MlpTab*>(sm + p.o_mt);
+  if constexpr (F != PLAIN) load_tables(p);
+  load_meta(p.meta, reinterpret_cast<int*>(sm));
+  const int center = blockIdx.x;
+  const int C = p.C, D = p.D, ns = p.ns, E = p.E;
+  float* env = sm + p.o_env;
+  float* denv = sm + p.o_denv;
+  float* cat = sm + p.o_cat;
+  float* Vs = sm + p.o_V;
+  float* pTs = sm + p.o_pT;
+  float* Ys = sm + p.o_Y;
+  float* us = sm + p.o_u;
+  float* dus = sm + p.o_du;
+  float* R = sm + p.o_R;
+  // phase-1 scratch: latent forward + backward
+  const int gw = max(p.in0, p.maxw);
+  float* dxo = R;
+  float* xn = dxo + ns * LD;
+  float* zs = xn + ns * LD;
+  float* gA = zs + (p.nlat - 1) * p.maxw * LD;
+  float* gB = gA + gw * LD;
+  // phase-2 scratch (aliases phase 1): TP / mix backward
+  float* dVs = R;
+  float* dT = dVs + D * C * LD;
+  float* dVo = dT + p.maxpc * LD;
+  const int c = threadIdx.x % C;
+  const int n0 = threadIdx.x / C, nstep = NT / C;
+
+  center_env<F>(p, mt, center, env, cat, Ys, us, R);
+  for (int q = threadIdx.x; q < D * C; q += NT) denv[q] = 0.f;
+  const int nrows = p.last ? 1 : D;
+
+  // pass 1: latent forward + backward, TP/mix backward, denv accumulation
+  for (int t0 = 0; t0 < p.K; t0 += ET) {
+    const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
+    load_edges<F>(p, mt, e0, ne, cat, Ys, us, Vs, pTs, R);
+    if constexpr (F != READOUT) load_tile(p.dxo, ns, E, e0, ne, dxo);
+    tp_row(p.C, m, 0, Vs, env, cat + ns * LD);
+    __syncthreads();
+    latent_fwd(p, m, cat, gA, gB, zs, xn);
+    // READOUT: dxo (and the heads' share of du) from the heads' backward
+    if constexpr (F == READOUT) heads_bwd(p, mt, cat, xn, us, e0, ne, dxo, dus, gA);
+    for (int n = threadIdx.x; n < ET; n += NT) {
+      float s = 0.f;
+      for (int q = 0; q < ns; ++q) s = fmaf(dxo[q * LD + n], xn[q * LD + n], s);
+      dus[n] = F == READOUT ? fmaf(s, R2, dus[n]) : s * R2;
+    }
+    for (int q = threadIdx.x; q < ns * ET; q += NT) {
+      const int s = q / ET, n = q % ET;
+      gA[s * LD + n] = dxo[s * LD + n] * us[n] * R2;
+    }
+    __syncthreads();
+    float* g = gA;
+    float* g2 = gB;
+    for (int li = p.nlat - 1; li >= 0; --li) {
+      const int din = m.latdim[li], dout = m.latdim[li + 1];
+      if (li < p.nlat - 1) {
+        const float* z = zs + (size_t)li * p.maxw * LD;
+        for (int q = threadIdx.x; q < dout * ET; q += NT) {
+          const int row = q / ET, n = q % ET;
+          g[row * LD + n] *= dsilu(z[row * LD + n]) * SILU_C;
+        }
+        __syncthreads();
+      }
+      gemm_tile(p.latT + m.latoff[li], dout, din, g, g2, LD, rsqrtf((float)din), ET);
+      __syncthreads();
+      float* tmp = g;
+      g = g2;
+      g2 = tmp;
+    }
+    // g = dcat (in0 rows).  The dx and du partials go to device memory and
+    // are completed in pass 2 by this same block; dinv moves into the dead
+    // inv rows of cat so that phase 2 may reuse the scratch.
+    for (int q = threadIdx.x; q < ns * ET; q += NT) {
+      const int s = q / ET, n = q % ET;
+      if (n < ne) p.dx[(size_t)s * E + e0 + n] = dxo[s * LD + n] * R2 + g[s * LD + n];
+    }
+    for (int n = threadIdx.x; n < ne; n += NT) p.du[e0 + n] = dus[n];
+    for (int q = threadIdx.x; q < (p.in0 - ns) * ET; q += NT) {
+      const int row = ns + q / ET, n = q % ET;
+      cat[row * LD + n] = g[row * LD + n];
+    }
+    __syncthreads();
+    const float* dinv = cat + ns * LD;
+    for (int n = n0; n < ET; n += nstep)
+      for (int i = 0; i < D; ++i) dVs[(i * C + c) * LD + n] = 0.f;
+    for (int r = 0; r < nrows; ++r) {
+      const float* dTr = dinv;
+      if (!p.last) {
+        load_tile(p.dvo + (size_t)r * p.Cout * E, p.Cout, E, e0, ne, dVo);
+        __syncthreads();
+        gemm_tile(p.mixT + m.rowmix[r], p.Cout, m.rowP[r] * C, dVo, dT, LD, m.rownorm[r], ET);
+        __syncthreads();
+        if (r == 0) {
+          for (int n = n0; n < ET; n += nstep)
+            for (int pp = 0; pp < m.rowP[0]; ++pp)
+              dT[(pp * C + c) * LD + n] += dinv[(pp * C + c) * LD + n];
+        }
+        dTr = dT;
+      }
+      for (int e = m.rowstart[r]; e < m.rowstart[r + 1]; ++e) {
+        const int code = m.ent[e];
+        const int pp = code & 255, i = (code >> 8) & 255, j = code >> 16;
+        const float w = m.w[e];
+        const float ev = env[j * C + c];
+        const float* gr = dTr + (pp * C + c) * LD;
+        const float* Vr = Vs + (i * C + c) * LD;
+        float* dVr = dVs + (i * C + c) * LD;
+        float acc = 0.f;
+        for (int n = n0; n < ET; n += nstep) {
+          const float gg = w * gr[n];
+          dVr[n] = fmaf(gg, ev, dVr[n]);
+          acc = fmaf(gg, Vr[n], acc);
+        }
+        atomicAdd(&denv[j * C + c], acc);
+      }
+      __syncthreads();
+    }
+    if constexpr (F == EMBED) {
+      // dpT = sum_d dV0[d] * Y (into the dead dT rows), dY = sum_c dV0[d] *
+      // pT, then the tensor embed's share of dx, W_te dpT / sqrt(ns), joins
+      // the partial
+      float* dp = dT;
+      float* dxe = dT + p.maxpc * LD;
+      for (int q = threadIdx.x; q < C * ET; q += NT) {
+        const int cc = q / ET, n = q % ET;
+        float s = 0.f;
+        for (int d = 0; d < D; ++d) s = fmaf(dVs[(d * C + cc) * LD + n], Ys[d * LD + n], s);
+        dp[cc * LD + n] = s;
+      }
+      for (int q = threadIdx.x; q < D * ET; q += NT) {
+        const int d = q / ET, n = q % ET;
+        float s = 0.f;
+        for (int cc = 0; cc < C; ++cc) s = fmaf(dVs[(d * C + cc) * LD + n], pTs[cc * LD + n], s);
+        if (n < ne) p.dY[(size_t)d * E + e0 + n] = s;
+      }
+      __syncthreads();
+      gemm_tile(p.teT, C, ns, dp, dxe, LD, p.cns, ET);
+      __syncthreads();
+      for (int q = threadIdx.x; q < ns * ET; q += NT) {
+        const int s = q / ET, n = q % ET;
+        if (n < ne) p.dx[(size_t)s * E + e0 + n] += dxe[s * LD + n];
+      }
+    } else if (p.first_v) {
+      for (int q = threadIdx.x; q < C * ET; q += NT) {  // dpT = sum_d dV0[d] * Y[d]
+        const int cc = q / ET, n = q % ET;
+        float s = 0.f;
+        for (int d = 0; d < D; ++d) s = fmaf(dVs[(d * C + cc) * LD + n], Ys[d * LD + n], s);
+        if (n < ne) p.dV[(size_t)cc * E + e0 + n] = s;
+      }
+      for (int q = threadIdx.x; q < D * ET; q += NT) {  // dY = sum_c dV0[d] * pT
+        const int d = q / ET, n = q % ET;
+        float s = 0.f;
+        for (int cc = 0; cc < C; ++cc) s = fmaf(dVs[(d * C + cc) * LD + n], pTs[cc * LD + n], s);
+        if (n < ne) p.dY[(size_t)d * E + e0 + n] = s;
+      }
+    } else {
+      for (int q = threadIdx.x; q < D * C * ET; q += NT) {
+        const int row = q / ET, n = q % ET;
+        if (n < ne) p.dV[(size_t)row * E + e0 + n] = dVs[row * LD + n];
+      }
+      for (int q = threadIdx.x; q < D * ET; q += NT) {
+        const int d = q / ET, n = q % ET;
+        if (n < ne) p.dY[(size_t)d * E + e0 + n] = 0.f;
+      }
+    }
+    __syncthreads();
+  }
+
+  // pass 2: env backward with the complete per-center denv
+  for (int q = threadIdx.x; q < D * C; q += NT) denv[q] *= p.inv_avg;  // = dA
+  __syncthreads();
+  float* wz0 = R;
+  float* dwz = R + C * LD;
+  float* dxa = dwz + C * LD;
+  // EMBED: x0, the two-body pre-activations, the input tile and two
+  // ping-pong buffers for the prologue's recompute and backward
+  const int nin = (p.n_in + 3) / 4 * 4;
+  float* x0s = dxa + ns * LD;
+  float* tbz = x0s + ns * LD;
+  float* ins = tbz + p.hzrows * LD;
+  float* tA = ins + nin * LD;
+  float* tB = tA + imax(imax(p.xmaxw, ns), nin) * LD;
+  for (int t0 = 0; t0 < p.K; t0 += ET) {
+    const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
+    if constexpr (F == EMBED) {
+      load_tile(p.Y, D, E, e0, ne, Ys);
+      load_tile(p.u, 1, E, e0, ne, us);
+      embed_x(p, mt[0], e0, ne, us, cat, ins, tA, tB, tbz, x0s);
+    } else {
+      load_tile(p.x, ns, E, e0, ne, cat);
+      load_tile(p.Y, D, E, e0, ne, Ys);
+      load_tile(p.u, 1, E, e0, ne, us);
+      __syncthreads();
+    }
+    gemm_tile(p.envw, ns, C, cat, wz0, LD, p.cns, ET);
+    for (int q = threadIdx.x; q < C * ET; q += NT) {
+      const int cc = q / ET, n = q % ET;
+      float s = 0.f;
+      for (int d = 0; d < D; ++d) s = fmaf(denv[d * C + cc], Ys[d * LD + n], s);
+      dwz[cc * LD + n] = s;
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < D * ET; q += NT) {
+      const int d = q / ET, n = q % ET;
+      float s = 0.f;
+      for (int cc = 0; cc < C; ++cc) s = fmaf(denv[d * C + cc], wz0[cc * LD + n], s);
+      if (n < ne) p.dY[(size_t)d * E + e0 + n] += s * us[n];
+    }
+    for (int n = threadIdx.x; n < ne; n += NT) {
+      float s = 0.f;
+      for (int cc = 0; cc < C; ++cc) s = fmaf(dwz[cc * LD + n], wz0[cc * LD + n], s);
+      p.du[e0 + n] += s;
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < C * ET; q += NT) {
+      const int cc = q / ET, n = q % ET;
+      dwz[cc * LD + n] *= us[n];
+    }
+    __syncthreads();
+    gemm_tile(p.envwT, C, ns, dwz, dxa, LD, p.cns, ET);
+    __syncthreads();
+    if constexpr (F == EMBED) {
+      embed_bwd(p, mt[0], e0, ne, us, dxa, x0s, tbz, tA, tB);
+    } else {
+      for (int q = threadIdx.x; q < ns * ET; q += NT) {
+        const int s = q / ET, n = q % ET;
+        if (n < ne) p.dx[(size_t)s * E + e0 + n] += dxa[s * LD + n];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The K1 fields of K1P from the launchers' arrays.
+// ptrs: x, V, Y, u, envw, envwT, lat, latT, mix, mixT, dxo, dvo, meta,
+//       xo, vo, dx, dV, dY, du  (unused ones may be 0)
+// dims: ns, C, Cout, D, K, E, nlat, first_v, last, maxw, maxpc, in0
+void k1_params(K1P& p, const unsigned long long* ptrs, const int* dims, float inv_avg) {
+  p.x = (const float*)ptrs[0];
+  p.V = (const float*)ptrs[1];
+  p.Y = (const float*)ptrs[2];
+  p.u = (const float*)ptrs[3];
+  p.envw = (const float*)ptrs[4];
+  p.envwT = (const float*)ptrs[5];
+  p.lat = (const float*)ptrs[6];
+  p.latT = (const float*)ptrs[7];
+  p.mix = (const float*)ptrs[8];
+  p.mixT = (const float*)ptrs[9];
+  p.dxo = (const float*)ptrs[10];
+  p.dvo = (const float*)ptrs[11];
+  p.meta = (const int*)ptrs[12];
+  p.xo = (float*)ptrs[13];
+  p.vo = (float*)ptrs[14];
+  p.dx = (float*)ptrs[15];
+  p.dV = (float*)ptrs[16];
+  p.dY = (float*)ptrs[17];
+  p.du = (float*)ptrs[18];
+  p.ns = dims[0];
+  p.C = dims[1];
+  p.Cout = dims[2];
+  p.D = dims[3];
+  p.K = dims[4];
+  p.E = dims[5];
+  p.nlat = dims[6];
+  p.first_v = dims[7];
+  p.last = dims[8];
+  p.maxw = dims[9];
+  p.maxpc = dims[10];
+  p.in0 = dims[11];
+  p.inv_avg = inv_avg;
+}
+
+// Shared memory and launch of a form: checks the widths, lays out the
+// block's shared memory (the sums ops/fused_layer.py, ops/embed_layer.py and
+// ops/readout_layer.py mirror in kernel_takes) and launches one block per
+// center.  Returns 0, a negative code for a shape the kernel does not take,
+// or the cudaError_t of the launch.
+template <int F>
+int layer_launch(int bwd, K1P& p, void* stream) {
+  p.cns = 1.0f / sqrtf((float)p.ns);
+  if (p.D > MAX_D || p.nlat < 1 || p.nlat > MAX_LAT) return -1;
+  if (NT % p.C || NT / p.C > ET) return -2;  // thread-owned (c, n) TP cells
+  if (p.K < 1 || p.E % p.K) return -3;
+  if (p.ns % 4 || p.C % 4 || p.Cout % 4 || p.in0 % 4 || p.maxw % 4) return -4;
+  if (!p.last && p.Cout != p.C) return -5;
+  if (F == EMBED && (!p.first_v || p.last)) return -7;
+  if (F == READOUT && (p.first_v || !p.last || p.nhead < 1 || p.nhead > 2)) return -7;
+  if (F != PLAIN && p.xmaxw % 4) return -4;
+
+  int off = META_WORDS;
+  auto take = [&](int words) {
+    const int o = off;
+    off += words;
+    return o;
+  };
+  p.o_mt = take(F == PLAIN ? 0 : 2 * MT_WORDS);
+  p.o_env = take(p.D * p.C);
+  p.o_denv = take(bwd ? p.D * p.C : 0);
+  p.o_cat = take(p.in0 * LD);
+  p.o_V = take(p.D * p.C * LD);
+  p.o_pT = take(p.first_v ? p.C * LD : 0);
+  p.o_Y = take(p.D * LD);
+  p.o_u = take(LD);
+  p.o_du = take(bwd ? LD : 0);
+  p.o_R = take(0);
+  int r_rows = p.C;  // center_env scratch
+  if (bwd) {
+    const int gw = p.in0 > p.maxw ? p.in0 : p.maxw;
+    const int ph1 = 2 * p.ns + (p.nlat - 1) * p.maxw + 2 * gw;
+    const int ph2 = p.D * p.C + p.maxpc + p.Cout;
+    const int ph3 = 2 * p.C + p.ns;
+    r_rows = ph1 > r_rows ? ph1 : r_rows;
+    r_rows = ph2 > r_rows ? ph2 : r_rows;
+    r_rows = ph3 > r_rows ? ph3 : r_rows;
+  } else {
+    const int lat = 2 * p.maxw + p.ns;
+    r_rows = p.maxpc > r_rows ? p.maxpc : r_rows;
+    r_rows = lat > r_rows ? lat : r_rows;
+  }
+  if constexpr (F == EMBED) {
+    const int nin = (p.n_in + 3) / 4 * 4;
+    r_rows = imax(r_rows, nin + 2 * p.xmaxw);  // the prologue in center_env / load_edges
+    if (bwd) {
+      const int gwt = imax(imax(p.xmaxw, p.ns), nin);
+      r_rows = imax(r_rows, p.D * p.C + p.maxpc + imax(p.Cout, p.ns));
+      r_rows = imax(r_rows, 2 * p.C + 2 * p.ns + p.hzrows + nin + 2 * gwt);
+    }
+  }
+  if constexpr (F == READOUT) {
+    if (bwd)
+      r_rows = imax(r_rows, 2 * p.ns + (p.nlat - 1) * p.maxw + 2 * imax(p.xmaxw, p.ns) + p.hzrows + 2);
+    else
+      r_rows = imax(r_rows, 2 * p.xmaxw + 2);
+  }
+  off += r_rows * LD;
+  const size_t smem = (size_t)off * 4;
+  if (smem > SMEM_MAX) return -6;
+
+  const int blocks = p.E / p.K;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (bwd) {
+    err = cudaFuncSetAttribute(k1_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    k1_bwd_kernel<F><<<blocks, NT, smem, st>>>(p);
+  } else {
+    err = cudaFuncSetAttribute(k1_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    k1_fwd_kernel<F><<<blocks, NT, smem, st>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -1,10 +1,16 @@
 """Allegro energies (counterpart of ``pair_allegro_tpu/models/allegro.py``)
-on both edge layouts, in four tiers chosen as the JAX model chooses them
-(``layer_tier``):
+on both edge layouts, in the tiers the JAX model chooses (``layer_tier``):
 
 * TABLE (N, K) layout, ``layer_fused=True`` (default): feature-major
   (features, E), E = N*K, one K1 call per layer (ops/fused_layer.py: first
-  builds V0 from pT, middle, last without a V output);
+  builds V0 from pT, middle, last without a V output).  Two forms are
+  selected per call by the reference's environment switches:
+  ``PAT_L1_EMBED=1`` with at least 2 layers runs the first layer as K6
+  (ops/embed_layer.py: the two-body MLP and tensor embed fused in) and the
+  last as K7 (ops/readout_layer.py: the readout and charge heads fused in),
+  the middle layers on K1 ('k1-embed'); ``PAT_L1_POSITIONAL=0`` runs every
+  layer as K1's middle form on a materialised V0 ('k1-nopos', bench.py's
+  kernel-nopos rung);
 * TABLE, ``layer_fused=False``: feature-major, per layer wz = Wenv^T x /
   sqrt(ns) * u, then K2 (``tp_mode="paths"``, ops/env_layer.py) or K5
   (``"mxu_*"``, ops/env_layer_mxu.py) for env + TP + mix, the latent MLP
@@ -32,19 +38,24 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from pair_allegro_tpu_torch.models.edges import flat_edges, is_flat, table_edges
+from pair_allegro_tpu_torch.ops.embed_layer import embed_layer, k6_weights
+from pair_allegro_tpu_torch.ops.embed_layer import kernel_takes as k6_takes
 from pair_allegro_tpu_torch.ops.env_layer import env_layer, k2_weights
 from pair_allegro_tpu_torch.ops.env_layer import kernel_takes as k2_takes
 from pair_allegro_tpu_torch.ops.env_layer_mxu import MODES, env_layer_mxu, k5_weights
 from pair_allegro_tpu_torch.ops.env_layer_mxu import kernel_takes as k5_takes
 from pair_allegro_tpu_torch.ops.fused_layer import fused_layer, k1_weights
 from pair_allegro_tpu_torch.ops.fused_layer import kernel_takes as k1_takes
-from pair_allegro_tpu_torch.ops.mlp import mlp_apply, mlp_apply_t, silu_norm_const
+from pair_allegro_tpu_torch.ops.mlp import mlp_apply, mlp_apply_t, mlp_dims, silu_norm_const
+from pair_allegro_tpu_torch.ops.readout_layer import k7_weights, readout_layer
+from pair_allegro_tpu_torch.ops.readout_layer import kernel_takes as k7_takes
 from pair_allegro_tpu_torch.ops.scatter import segment_sum
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l, scalar_part, tp_mix_apply, uniform_tp
 from pair_allegro_tpu_torch.ops.tp_mix_fused import k4_weights, tp_mix_fused_t
@@ -118,14 +129,18 @@ class AllegroConfig:
         and after the SiLU; the K4 tier keeps per layer besides those env on
         the edges (D*C) and its per-edge terms (D*C); the plain tier keeps
         per layer the TP outputs and their cotangents (C * sum_l3
-        P*(2*l3+1) each), inv, x and the hidden activations."""
+        P*(2*l3+1) each), inv, x and the hidden activations.  The K1 tier's
+        K6/K7 form counts as K1; its non-positional form adds V0 and its
+        cotangent."""
         d = (self.l_max + 1) ** 2
         c, ns = self.num_tensor_features, self.num_scalar_features
         per = 2 * d * c * self.num_layers + 6 * ns + 64
         P = num_paths_per_l(self.l_max, self.l_max, self.l_max, self.parity)
         hidden = 2 * self.allegro_mlp_hidden_layers_depth * self.allegro_mlp_hidden_layers_width
         tier = layer_tier(self, flat)
-        if tier == "perlayer":
+        if tier == "k1-nopos":  # V0 materialised, and its cotangent
+            per += 2 * d * c
+        elif tier == "perlayer":
             per += self.num_layers * (c + c * P[0] + ns + hidden)
         elif tier == "k4":
             per += self.num_layers * (2 * d * c + c + c * P[0] + ns + hidden)
@@ -163,18 +178,48 @@ def env_fused_viable(cfg: AllegroConfig) -> bool:
     return k5_takes(c, c, d, P[0], cfg.tp_mode)
 
 
+def embed_readout_viable(cfg: AllegroConfig) -> bool:
+    """Whether K6 and K7 (``kernel_takes`` beside their wrappers) take the
+    model's widths, decided from the shapes before any launch."""
+    d = (cfg.l_max + 1) ** 2
+    c, ns = cfg.num_tensor_features, cfg.num_scalar_features
+    P = num_paths_per_l(cfg.l_max, cfg.l_max, cfg.l_max, cfg.parity)
+    latd = mlp_dims(ns + c * P[0], cfg.allegro_mlp_hidden_layers_width,
+                    cfg.allegro_mlp_hidden_layers_depth, ns)
+    tb = mlp_dims(2 * cfg.num_types + cfg.num_bessels, cfg.two_body_mlp_width,
+                  cfg.two_body_mlp_depth, ns)
+    head = mlp_dims(ns, cfg.readout_mlp_hidden_layers_width,
+                    cfg.readout_mlp_hidden_layers_depth, 1)
+    heads = (head, head) if cfg.output_charges else (head,)
+    return (k6_takes(ns, c, d, latd, cfg.l_max, cfg.parity, tb)
+            and k7_takes(ns, c, d, latd, cfg.l_max, cfg.parity, heads))
+
+
 def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False) -> str:
     """The tier a call runs, routed as the reference routes it
-    (``models/allegro.py:403-506, 758``): 'plain' with ``capture`` or
+    (``models/allegro.py:403-506, 670-758``): 'plain' with ``capture`` or
     ``fused_tp=False``; 'k4' on the FLAT layout, whatever ``layer_fused``
     and ``tp_mode`` say (the env-fused kernels need the TABLE layout), and
-    on the TABLE layout where ``env_fused_viable`` is False; else
-    ``cfg.tier`` ('k1' or 'perlayer')."""
+    on the TABLE layout where ``env_fused_viable`` is False; 'perlayer'
+    with ``layer_fused=False``; else the K1 tier, in the form the
+    environment asks for, read per call with the reference's defaults:
+    'k1-nopos' with ``PAT_L1_POSITIONAL=0``, 'k1-embed' with
+    ``PAT_L1_EMBED=1`` and at least 2 layers, else 'k1'.  Where K6 or K7
+    cannot hold widths that K1 takes (``embed_readout_viable``), 'k1-embed'
+    falls back to 'k1', the same function (the reference's TPU blocks have
+    no such limit)."""
     if capture or not cfg.fused_tp:
         return "plain"
     if flat or not env_fused_viable(cfg):
         return "k4"
-    return cfg.tier
+    if cfg.tier != "k1":
+        return cfg.tier
+    if os.environ.get("PAT_L1_POSITIONAL", "1") == "0":
+        return "k1-nopos"
+    if (os.environ.get("PAT_L1_EMBED", "0") == "1" and cfg.num_layers >= 2
+            and embed_readout_viable(cfg)):
+        return "k1-embed"
+    return "k1"
 
 
 def check_supported(cfg: AllegroConfig) -> None:
@@ -282,19 +327,50 @@ def allegro_inputs(params: dict, cfg: AllegroConfig, positions, types, edge_inde
     return _feature_major(params, cfg, types, geo, n, k)
 
 
-def _k1_layers(params, cfg, xT, pT, Y_T, uT, k):
-    """The K1 tier: one fused kernel per layer; returns the final xT."""
+def embed_inputs(cfg: AllegroConfig, positions, types, edge_index, *, cell=None,
+                 edge_shifts=None, edge_mask=None, edge_rev=None) -> dict:
+    """K6's per-edge operands on the TABLE layout: 'in_T' (2T + B, E) the
+    two-body input rows, 'Y_T' (D, E) and 'uT' (1, E), feature-major."""
+    n, k = edge_index.shape
+    geo = table_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
+                      edge_mask=edge_mask, edge_rev=edge_rev)
+    return _embed_major(cfg, types, geo, n, k)
+
+
+def _embed_major(cfg, types, geo, n: int, k: int) -> dict:
+    return {"in_T": _two_body_in(cfg, types, geo, n, k),
+            "Y_T": geo["Y"].reshape(n * k, -1).T.contiguous(), "uT": geo["u"].reshape(1, n * k)}
+
+
+def _k1_layers(params, cfg, xT, pT, Y_T, uT, k, positional=True):
+    """The K1 tier: one fused kernel per layer; returns the final xT.  The
+    positional forms build V0 in the first layer and skip the last layer's
+    V; without them (``PAT_L1_POSITIONAL=0``) V0 = pT * Y is materialised
+    and every layer runs the middle form (the last V' unused)."""
     layers = params["layers"]
-    Vc = pT
+    Vc = pT if positional else pT.unsqueeze(0) * Y_T.unsqueeze(1)
     for li, layer in enumerate(layers):
-        last = li == len(layers) - 1
+        last = positional and li == len(layers) - 1
         out = fused_layer(xT, Vc, Y_T, uT, k1_weights(layer, cfg.l_max, cfg.parity), k,
-                          cfg.avg_num_neighbors, first_v=li == 0, last=last)
+                          cfg.avg_num_neighbors, first_v=positional and li == 0, last=last)
         if last:
             xT = out
         else:
             xT, Vc = out
     return xT
+
+
+def _embed_layers(params, cfg, in_T, Y_T, uT, k):
+    """The K1 tier's embed/readout form (JAX ``models/allegro.py:685-725``):
+    K6 on the two-body input rows, K1's middle form, K7; returns the rows
+    e (1, E), and q (1, E) with the charge head, already times u."""
+    avg = cfg.avg_num_neighbors
+    xT, Vc = embed_layer(in_T, Y_T, uT, k6_weights(params, cfg.l_max, cfg.parity), k, avg)
+    for layer in params["layers"][1:-1]:
+        xT, Vc = fused_layer(xT, Vc, Y_T, uT, k1_weights(layer, cfg.l_max, cfg.parity), k, avg)
+    rows = readout_layer(xT, Vc, Y_T, uT,
+                         k7_weights(params, cfg.l_max, cfg.parity, cfg.output_charges), k, avg)
+    return rows if cfg.output_charges else (rows,)
 
 
 def env_step(layer, cfg: AllegroConfig, xT, Vt, Y_T, uT, k):
@@ -478,13 +554,23 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
         def spread(a):
             return a[:, :, None].expand(*a.shape, k).reshape(a.shape[0], n * k)
     u = geo["u"]
-    if tier in ("k1", "perlayer"):
-        ins = _feature_major(params, cfg, types, geo, n, k)
-        layers = _k1_layers if tier == "k1" else _perlayer_layers
-        xT = layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k)
+    if tier == "k1-embed":
+        ins = _embed_major(cfg, types, geo, n, k)
+        rows = _embed_layers(params, cfg, ins["in_T"], ins["Y_T"], ins["uT"], k)
+        rows = dict(zip(("readout_mlp", "charge_mlp"), rows))
 
-        def head(mlp):
-            return mlp_apply_t(mlp, xT)[0].reshape(n, k) * u
+        def head(name):  # the heads ran in K7's epilogue
+            return rows[name].reshape(n, k)
+    elif tier in ("k1", "k1-nopos", "perlayer"):
+        ins = _feature_major(params, cfg, types, geo, n, k)
+        if tier == "perlayer":
+            xT = _perlayer_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k)
+        else:
+            xT = _k1_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k,
+                            positional=tier == "k1")
+
+        def head(name):
+            return mlp_apply_t(params[name], xT)[0].reshape(n, k) * u
     else:
         if flat:
             x_in = torch.cat([geo["oh_i"], geo["oh_j"], geo["bessel"]], dim=-1)
@@ -500,10 +586,10 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
             x = _k4_layers(params, cfg, x.reshape(-1, ns), geo["Y"].reshape(-1, d), u.reshape(-1),
                            agg_rows, spread).reshape(x.shape)
 
-        def head(mlp):
-            return mlp_apply(mlp, x)[..., 0] * u
+        def head(name):
+            return mlp_apply(params[name], x)[..., 0] * u
 
-    e_edge = head(params["readout_mlp"])
+    e_edge = head("readout_mlp")
     if capture is not None:
         capture["edge_energy"] = e_edge
     e_atom = agg(e_edge)
@@ -512,7 +598,7 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
         e_atom = e_atom * atom_mask.to(dtype)
     out = {"atomic_energy": e_atom, "total_energy": e_atom.sum(), "edge_energy": e_edge}
     if cfg.output_charges:
-        q_atom = agg(head(params["charge_mlp"]))
+        q_atom = agg(head("charge_mlp"))
         if atom_mask is not None:
             q_atom = q_atom * atom_mask.to(dtype)
         out["charges"] = q_atom

@@ -67,33 +67,46 @@ def table_fits(lmax: int, parity: bool) -> bool:
     return (lmax + 1) ** 2 <= _MAX_D and n_ent <= _MAX_ENT
 
 
-def kernel_takes(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool) -> bool:
-    """Whether ``k1_launch`` (csrc/fused_layer.cu) takes a layer of these
-    widths in every form, forward and backward: its refusal conditions and
-    its shared-memory sum, mirrored here so that a caller decides before
-    any launch."""
+def widths_ok(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool) -> bool:
+    """The refusal conditions of ``layer_launch`` (csrc/allegro_layer.cuh)
+    on the layer's widths, every form."""
+    nlat, in0 = len(latd) - 1, latd[0]
+    hidden = latd[1:-1]
+    maxw = max(hidden) if hidden else 4
+    if not table_fits(lmax, parity) or d > _MAX_D or not 1 <= nlat <= _MAX_LAT:
+        return False
+    return not (NT % c or NT // c > ET or ns % 4 or c % 4 or cout % 4 or in0 % 4 or maxw % 4)
+
+
+def block_bytes(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool,
+                first_v: bool, bwd: bool, more_rows: int = 0, more_words: int = 0) -> int:
+    """Shared memory ``layer_launch`` gives one block of the layer: the
+    fixed tiles and a scratch region R of the most rows any phase needs;
+    a form that adds phases (K6, K7) passes their rows in ``more_rows`` and
+    its own tables in ``more_words``."""
     P = num_paths_per_l(lmax, lmax, lmax, parity)
     nlat, in0 = len(latd) - 1, latd[0]
     hidden = latd[1:-1]
     maxw = max(hidden) if hidden else 4
     maxpc = max(P) * c
-    if not table_fits(lmax, parity) or d > _MAX_D or not 1 <= nlat <= _MAX_LAT:
-        return False
-    if NT % c or NT // c > ET or ns % 4 or c % 4 or cout % 4 or in0 % 4 or maxw % 4:
-        return False
-    for first_v in (False, True):
-        for bwd in (False, True):
-            words = META_WORDS + d * c * (2 if bwd else 1) + in0 * LD + d * c * LD
-            words += (c * LD if first_v else 0) + d * LD + LD + (LD if bwd else 0)
-            if bwd:
-                gw = max(in0, maxw)
-                r_rows = max(c, 2 * ns + (nlat - 1) * maxw + 2 * gw, d * c + maxpc + cout,
-                             2 * c + ns)
-            else:
-                r_rows = max(c, maxpc, 2 * maxw + ns)
-            if (words + r_rows * LD) * 4 > SMEM_MAX:
-                return False
-    return True
+    words = META_WORDS + more_words + d * c * (2 if bwd else 1) + in0 * LD + d * c * LD
+    words += (c * LD if first_v else 0) + d * LD + LD + (LD if bwd else 0)
+    if bwd:
+        gw = max(in0, maxw)
+        r_rows = max(c, 2 * ns + (nlat - 1) * maxw + 2 * gw, d * c + maxpc + cout, 2 * c + ns)
+    else:
+        r_rows = max(c, maxpc, 2 * maxw + ns)
+    return 4 * (words + max(r_rows, more_rows) * LD)
+
+
+def kernel_takes(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool) -> bool:
+    """Whether ``k1_launch`` (csrc/fused_layer.cu) takes a layer of these
+    widths in every form, forward and backward: its refusal conditions and
+    its shared-memory sum, mirrored here so that a caller decides before
+    any launch."""
+    return widths_ok(ns, c, cout, d, latd, lmax, parity) and all(
+        block_bytes(ns, c, cout, d, latd, lmax, parity, first_v, bwd) <= SMEM_MAX
+        for first_v in (False, True) for bwd in (False, True))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -286,7 +299,8 @@ def _bind(lib):
         raise RuntimeError("kernel table layout differs from the wrapper's")
 
 
-LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu", CSRC / "allegro_tiles.cuh"], _bind)
+LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu", CSRC / "allegro_layer.cuh",
+                                      CSRC / "allegro_tiles.cuh"], _bind)
 
 
 def _launch(bwd: bool, dims, inv_avg, ptrs, device):
@@ -304,11 +318,12 @@ def _launch(bwd: bool, dims, inv_avg, ptrs, device):
         launches.fwd += 1
 
 
-def _kernel_dims(w: K1Weights, xt, yt, K, first_v, last):
+def kernel_dims(w: K1Weights, d: int, K: int, e: int, first_v: bool, last: bool) -> list:
+    """The launcher's 12 layer dims (``k1_params``, csrc/allegro_layer.cuh)."""
     ns, c, cout, latd = w.dims
     hidden = latd[1:-1]
     P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
-    return [ns, c, cout, yt.shape[0], K, xt.shape[1], len(w.lat), int(first_v), int(last),
+    return [ns, c, cout, d, K, e, len(w.lat), int(first_v), int(last),
             max(hidden) if hidden else 4, max(P) * c, latd[0]]
 
 
@@ -321,7 +336,8 @@ def _kernel_fwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last):
             w.env_w.data_ptr(), w.env_wT.data_ptr(), w.lat_flat.data_ptr(),
             w.latT_flat.data_ptr(), w.mix_flat.data_ptr(), w.mixT_flat.data_ptr(), 0, 0,
             w.meta.data_ptr(), xo.data_ptr(), 0 if last else vo.data_ptr(), 0, 0, 0, 0]
-    _launch(False, _kernel_dims(w, xt, yt, K, first_v, last), inv_avg, ptrs, xt.device)
+    _launch(False, kernel_dims(w, yt.shape[0], K, xt.shape[1], first_v, last), inv_avg, ptrs,
+            xt.device)
     return xo if last else (xo, vo)
 
 
@@ -335,7 +351,8 @@ def _kernel_bwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last, dxo, dvo):
             w.latT_flat.data_ptr(), w.mix_flat.data_ptr(), w.mixT_flat.data_ptr(),
             dxo.data_ptr(), 0 if last else dvo.data_ptr(), w.meta.data_ptr(), 0, 0,
             dx.data_ptr(), dV.data_ptr(), dY.data_ptr(), du.data_ptr()]
-    _launch(True, _kernel_dims(w, xt, yt, K, first_v, last), inv_avg, ptrs, xt.device)
+    _launch(True, kernel_dims(w, yt.shape[0], K, xt.shape[1], first_v, last), inv_avg, ptrs,
+            xt.device)
     return dx, dV, dY, du
 
 

@@ -1,0 +1,220 @@
+"""K7: the readout-fused last Allegro layer (counterpart of
+``pair_allegro_tpu/ops/pallas_stack.py:_layer1r_fwd_kernel`` /
+``_layer1r_bwd_kernel``, entry ``allegro_layer_readout_fused_t``).
+
+K1's last layer (its last form, ops/fused_layer.py) with the readout head
+and the optional charge head as its epilogue, on the feature-major layout of
+the TABLE edge list:
+
+  x' = K1's last body (x, V, Y, u);  e = MLP_ro(x') * u  [, q = MLP_q(x') * u]
+
+Returns e_row (1, E), or (e_row, q_row) with the charge head, both already
+multiplied by u; the (ns, E) final latent never exists in device memory.  On
+a CUDA tensor :func:`readout_layer` launches the kernel pair in
+``csrc/embed_readout_layer.cu`` (the library of ops/embed_layer.py); on a
+CPU tensor it runs :func:`readout_layer_reference`, the plain PyTorch
+version.  Weight cotangents come back NaN-filled for every leaf the kernel
+reads, the heads' included (``pallas_stack.py:1751``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from pair_allegro_tpu_torch.ops import fused_layer as fl
+from pair_allegro_tpu_torch.ops._build import LaunchCounts
+from pair_allegro_tpu_torch.ops.embed_layer import (
+    LIB,  # noqa: F401  (K7's library, shared with K6)
+    MT_WORDS,
+    READOUT,
+    check_operands,
+    launch,
+    mlp_layout,
+    mlp_widths_ok,
+)
+from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t
+from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
+
+launches = LaunchCounts()
+
+
+def _head_shape(heads_dims):
+    """(xmaxw, hzrows) of the heads: their widest hidden layer (4 if none)
+    and the rows of the largest pre-activation store."""
+    maxws = [max(h[1:-1]) if len(h) > 2 else 4 for h in heads_dims]
+    return max(maxws), max((len(h) - 2) * m for h, m in zip(heads_dims, maxws))
+
+
+def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
+                 heads_dims: tuple) -> bool:
+    """Whether ``er_launch`` (csrc/embed_readout_layer.cu) takes K7 at these
+    widths, forward and backward: K1's conditions (ops/fused_layer.py), the
+    heads' (``heads_dims``: one (ns, hidden..., 1) per head, one or two) and
+    the shared memory sum with the epilogue's rows, mirrored here so that a
+    caller decides before any launch."""
+    if not fl.widths_ok(ns, c, c, d, latd, lmax, parity) or not 1 <= len(heads_dims) <= 2:
+        return False
+    if any(h[0] != ns or not mlp_widths_ok(h, 1) for h in heads_dims):
+        return False
+    xmaxw, hz = _head_shape(heads_dims)
+    hidden = latd[1:-1]
+    maxw = max(hidden) if hidden else 4
+    for bwd in (False, True):
+        rows = (2 * ns + (len(latd) - 2) * maxw + 2 * max(xmaxw, ns) + hz + 2 if bwd
+                else 2 * xmaxw + 2)
+        if fl.block_bytes(ns, c, c, d, latd, lmax, parity, False, bwd, rows, 2 * MT_WORDS) > fl.SMEM_MAX:
+            return False
+    return True
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class K7Weights:
+    """The last layer's K1 layout (``layer``) with the epilogue's heads (the
+    readout, then the charge head): as the kernel reads them (``ew`` / ``ewT``
+    flat blocks and transposes, ``mt`` one MlpTab per head) and as the plain
+    version reads them (``heads``).  Detached copies; ``leaves`` are the
+    tree's own tensors (the layer's, then the heads'), which receive the
+    (NaN) weight cotangents."""
+
+    layer: fl.K1Weights
+    heads: tuple
+    ew: torch.Tensor
+    ewT: torch.Tensor
+    mt: torch.Tensor
+    leaves: tuple
+
+    @property
+    def heads_dims(self) -> tuple:
+        return tuple((ws[0].shape[0], *(w.shape[1] for w in ws)) for ws in self.heads)
+
+    def tensors(self):
+        return self.leaves
+
+
+def readout_leaves(params: dict, lmax: int, charges: bool) -> tuple:
+    heads = ["readout_mlp"] + (["charge_mlp"] if charges else [])
+    return (*fl.layer_leaves(params["layers"][-1], lmax),
+            *(w for h in heads for w in params[h]["w"]))
+
+
+def prepare_readout(params: dict, lmax: int, parity: bool, charges: bool) -> K7Weights:
+    """K7's weights (see :class:`K7Weights`) made anew from the tree;
+    :func:`k7_weights` is the cached accessor."""
+    names = ["readout_mlp"] + (["charge_mlp"] if charges else [])
+    heads = tuple(tuple(w.detach() for w in params[h]["w"]) for h in names)
+    blocks, tabs, base = [], [], 0
+    for ws in heads:
+        b, tab, _ = mlp_layout(ws, base)
+        blocks += b
+        tabs.append(tab)
+        base += sum(t.numel() for t in b)
+    tabs += [np.zeros(MT_WORDS, np.int32)] * (2 - len(tabs))
+    dev = heads[0][0].device
+    return K7Weights(
+        layer=fl.prepare_layer(params["layers"][-1], lmax, parity),
+        heads=heads,
+        ew=torch.cat([b.reshape(-1) for b in blocks]).contiguous(),
+        ewT=torch.cat([b.T.reshape(-1) for b in blocks]).contiguous(),
+        mt=torch.from_numpy(np.concatenate(tabs)).to(dev),
+        leaves=readout_leaves(params, lmax, charges),
+    )
+
+
+def k7_weights(params: dict, lmax: int, parity: bool, charges: bool) -> K7Weights:
+    """K7's weights for the tree's leaves as they stand now, made once and
+    kept until one is replaced or updated in place (``ops/weight_cache.py``)."""
+    return LAYOUTS.get(("k7", lmax, parity, charges), readout_leaves(params, lmax, charges),
+                       lambda: prepare_readout(params, lmax, parity, charges))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (the CPU path and the oracle of the kernel)
+# ---------------------------------------------------------------------------
+
+
+def readout_layer_reference(xt, Vt, yt, ut, w: K7Weights, K: int, inv_avg: float):
+    """The same function as the kernel in plain PyTorch: xt (ns, E), Vt (D,
+    C, E), yt (D, E), ut (1, E) -> e_row (1, E) or (e_row, q_row); goes
+    through torch autograd."""
+    xf = fl.fused_layer_reference(xt, Vt, yt, ut, w.layer, K, inv_avg, last=True)
+    rows = tuple(mlp_apply_t({"w": ws}, xf) * ut for ws in w.heads)
+    return rows if len(rows) > 1 else rows[0]
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel (csrc/embed_readout_layer.cu, form READOUT)
+# ---------------------------------------------------------------------------
+
+
+def _extra(w: K7Weights) -> list:
+    return [0, *_head_shape(w.heads_dims), len(w.heads)]
+
+
+def _kernel_fwd(xt, Vt, yt, ut, w: K7Weights, K, inv_avg):
+    d, e = yt.shape
+    rows = [torch.empty_like(ut) for _ in w.heads]
+    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, "mt": w.mt, "ew": w.ew, "ewT": w.ewT,
+          **{f"ho{h}": r for h, r in enumerate(rows)}}
+    launch(READOUT, False, w.layer, ts, d, K, e, _extra(w), inv_avg, launches, xt.device)
+    return tuple(rows) if len(rows) > 1 else rows[0]
+
+
+def _kernel_bwd(xt, Vt, yt, ut, w: K7Weights, K, inv_avg, cots):
+    d, e = yt.shape
+    dx, dV, dY, du = (torch.empty_like(t) for t in (xt, Vt, yt, ut))
+    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, "mt": w.mt, "ew": w.ew, "ewT": w.ewT, "dx": dx,
+          "dV": dV, "dY": dY, "du": du, **{f"dh{h}": c for h, c in enumerate(cots)}}
+    launch(READOUT, True, w.layer, ts, d, K, e, _extra(w), inv_avg, launches, xt.device)
+    return dx, dV, dY, du
+
+
+class _ReadoutLayer(torch.autograd.Function):
+    """Kernel (CUDA tensors) or plain version (CPU tensors) forward; the
+    backward recomputes the layer and the heads from (x, V, Y, u), as the
+    TPU kernel does, takes the rows' cotangents and hands back NaN-filled
+    weight cotangents."""
+
+    @staticmethod
+    def forward(ctx, xt, Vt, yt, ut, w, K, inv_avg, *weights):
+        ctx.cfg = (w, K, inv_avg)
+        ctx.save_for_backward(xt, Vt, yt, ut)
+        if xt.is_cuda:
+            return _kernel_fwd(xt, Vt, yt, ut, w, K, inv_avg)
+        return readout_layer_reference(xt, Vt, yt, ut, w, K, inv_avg)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        w, K, inv_avg = ctx.cfg
+        xt, Vt, yt, ut = ctx.saved_tensors
+        if xt.is_cuda:
+            grads = _kernel_bwd(xt, Vt, yt, ut, w, K, inv_avg, [c.contiguous() for c in cots])
+        else:
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(True) for t in (xt, Vt, yt, ut)]
+                out = readout_layer_reference(*ins, w, K, inv_avg)
+                outs = out if isinstance(out, tuple) else (out,)
+                grads = torch.autograd.grad(outs, ins, cots, allow_unused=True)
+            grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, ins)]
+        nan_w = [torch.full_like(t, float("nan")) for t in w.tensors()]
+        return (*grads, None, None, None, *nan_w)
+
+
+def readout_layer(xt, Vt, yt, ut, w: K7Weights, K: int, avg_num_neighbors: float):
+    """The last Allegro layer with the readout (and charge) head fused in:
+    xt (ns, E), Vt (D, C, E), yt (D, E), ut (1, E), E = n_centers * K.
+    Returns e_row (1, E), or (e_row, q_row) with the charge head, both
+    multiplied by u.  CUDA tensors launch K7; CPU tensors take
+    :func:`readout_layer_reference`."""
+    ns, e = xt.shape
+    d = yt.shape[0]
+    c = w.layer.env_w.shape[1]
+    if w.layer.env_w.shape[0] != ns or d != (w.layer.lmax + 1) ** 2 or K < 1 or e % K:
+        raise ValueError(f"readout_layer: ns={ns}, D={d}, K={K}, E={e} do not fit the layer")
+    check_operands("readout_layer", (xt, Vt, yt, ut), w.tensors(),
+                   {1: (d, c, e), 2: (d, e), 3: (1, e)})
+    inv_avg = 1.0 / math.sqrt(max(avg_num_neighbors, 1e-6))
+    return _ReadoutLayer.apply(xt, Vt, yt, ut, w, K, inv_avg, *w.tensors())

@@ -1,11 +1,12 @@
 """CUDA legs of the PyTorch port: K1 (csrc/fused_layer.cu), K3
 (csrc/nequip_conv.cu), K2 (csrc/env_layer.cu), K5 (csrc/env_layer_mxu.cu,
-each precision mode) and K4 (csrc/tp_mix_fused.cu) against their plain
-PyTorch versions on the card, f32, forward and backward, for every form;
-launch counting; the wrappers' refusals on the card; the models' kernel
-paths (K1, per-layer and K4 tiers, NequIP, the FLAT layout of the dense
+each precision mode), K4 (csrc/tp_mix_fused.cu) and K6 / K7
+(csrc/embed_readout_layer.cu) against their plain PyTorch versions on the
+card, f32, forward and backward, for every form; launch counting; the
+wrappers' refusals on the card; the models' kernel paths (K1 in its three
+forms, per-layer and K4 tiers, NequIP, the FLAT layout of the dense
 strategy) against their CPU plain paths and regrows on the card; the
-routing predicate against the launchers.  Every test here needs a card
+routing predicates against the launchers.  Every test here needs a card
 and skips without one.
 
 This file imports torch and the port only (no JAX), so that it also runs
@@ -633,5 +634,177 @@ def test_too_wide_table_model_runs_k4_on_the_card(cuda):
         o = eng.force_fn(s, eng.rebuild_fn(s, None))
         if dev.type == "cuda":
             assert (tp_mix_fused.launches.fwd - f0, fl.launches.fwd - k1) == (2, 0)
+        outs.append(o.forces.cpu())
+    assert float((outs[0] - outs[1]).abs().max()) < 5e-4
+
+
+# --- K6 / K7: the embed- and readout-fused layers (csrc/embed_readout_layer.cu)
+
+
+def _er_case(cuda, ns, c, lmax, charges, seed=0, **kw):
+    """(cfg, params) of a 2-layer model at these widths (two species, so the
+    two-body input has 2*2 + 8 = 12 rows; one species gives 10)."""
+    cfg = AllegroConfig(type_names=kw.pop("names", ("A", "B")), r_max=4.0, l_max=lmax,
+                        num_layers=2, num_scalar_features=ns, num_tensor_features=c,
+                        avg_num_neighbors=5.0, output_charges=charges, **kw)
+    return cfg, allegro_params_from_numpy(allegro_init_numpy(cfg, seed), cfg, device=cuda)
+
+
+def _er_operands(cuda, n_in, ns, c, k, nc, lmax, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    e, d = nc * k, (lmax + 1) ** 2
+    ops = {"in": torch.randn(n_in, e, generator=g) * 0.5, "x": torch.randn(ns, e, generator=g) * 0.3,
+           "V": torch.randn(d, c, e, generator=g) * 0.3, "Y": torch.randn(d, e, generator=g),
+           "u": torch.rand(1, e, generator=g)}
+    ops["u"][:, -k // 3:] = 0.0  # padded slots at the end of the last row
+    return {key: t.to(cuda) for key, t in ops.items()}
+
+
+def _check_pair(out_k, out_r, ins):
+    out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    out_r = out_r if isinstance(out_r, tuple) else (out_r,)
+    for a, b in zip(out_k, out_r):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    cots = [torch.randn_like(o) for o in out_r]
+    for a, b in zip(torch.autograd.grad(out_k, ins, cots), torch.autograd.grad(out_r, ins, cots)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("ns,c,k,lmax,names", [(64, 32, 64, 2, ("Cu",)), (64, 32, 64, 1, ("Cu",)),
+                                               (16, 8, 40, 2, ("A", "B")), (32, 16, 20, 3, ("A", "B"))])
+def test_k6_kernel_matches_plain(cuda, ns, c, k, lmax, names):
+    """K6 against its plain version, forward (x', V') and backward (d(in),
+    dY, du): the flagship widths (10 input rows), l_max 1 and 3, and K
+    that is no multiple of the 32-edge tile."""
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+
+    cfg, params = _er_case(cuda, ns, c, lmax, False, names=names)
+    w = k6.k6_weights(params, lmax, True)
+    ops = _er_operands(cuda, w.n_in, ns, c, k, 5, lmax, 1)
+    ins = [ops[key].requires_grad_(True) for key in ("in", "Y", "u")]
+    out_k = k6.embed_layer(*ins, w, k, 5.0)
+    out_r = k6.embed_layer_reference(*ins, w, k, 1.0 / math.sqrt(5.0))
+    _check_pair(out_k, out_r, ins)
+
+
+@pytest.mark.parametrize("charges", [False, True])
+@pytest.mark.parametrize("ns,c,k,lmax", [(64, 32, 64, 2), (64, 32, 64, 1), (16, 8, 40, 2)])
+def test_k7_kernel_matches_plain(cuda, ns, c, k, lmax, charges):
+    """K7 against its plain version, forward (e, q rows) and backward (dx,
+    dV, dY, du), with and without the charge head."""
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    cfg, params = _er_case(cuda, ns, c, lmax, charges)
+    w = k7.k7_weights(params, lmax, True, charges)
+    ops = _er_operands(cuda, 12, ns, c, k, 5, lmax, 2)
+    ins = [ops[key].requires_grad_(True) for key in ("x", "V", "Y", "u")]
+    out_k = k7.readout_layer(*ins, w, k, 5.0)
+    out_r = k7.readout_layer_reference(*ins, w, k, 1.0 / math.sqrt(5.0))
+    _check_pair(out_k, out_r, ins)
+
+
+def test_k6_k7_count_their_launches(cuda):
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    cfg, params = _er_case(cuda, 16, 8, 2, True)
+    ops = _er_operands(cuda, 12, 16, 8, 32, 4, 2, 3)
+    before = [(m.launches.fwd, m.launches.bwd) for m in (k6, k7, fl)]
+    ins = ops["in"].requires_grad_(True)
+    x, V = k6.embed_layer(ins, ops["Y"], ops["u"], k6.k6_weights(params, 2, True), 32, 5.0)
+    e, q = k7.readout_layer(x, V, ops["Y"], ops["u"], k7.k7_weights(params, 2, True, True), 32, 5.0)
+    (e.sum() + q.sum()).backward()
+    after = [(m.launches.fwd, m.launches.bwd) for m in (k6, k7, fl)]
+    assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == [(1, 1), (1, 1), (0, 0)]
+
+
+@pytest.mark.parametrize("kernel,lmax,width,takes", [
+    ("k6", 2, 128, True), ("k6", 2, 256, False), ("k6", 1, 256, True), ("k6", 1, 384, False),
+    ("k7", 2, 256, True), ("k7", 2, 512, False), ("k7", 3, 128, True), ("k7", 3, 256, False),
+])
+def test_k6_k7_kernel_takes_mirror_the_launchers(cuda, kernel, lmax, width, takes):
+    """kernel_takes is True exactly where the launcher takes the widths
+    (a wider two-body MLP for K6, wider heads with charges for K7), forward
+    and backward, at ns 64, C 32."""
+    from pair_allegro_tpu_torch.models.allegro import embed_readout_viable
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    kw = {"two_body_mlp_width": width} if kernel == "k6" else {"readout_mlp_hidden_layers_width": width}
+    cfg, params = _er_case(cuda, 64, 32, lmax, True, names=("Cu",), **kw)
+    ops = _er_operands(cuda, 10, 64, 32, 16, 3, lmax, 4)
+    if kernel == "k6":
+        w = k6.k6_weights(params, lmax, True)
+        mirror = k6.kernel_takes(64, 32, (lmax + 1) ** 2, w.layer.dims[3], lmax, True, w.tb_dims)
+        ins = ops["in"].requires_grad_(True)
+        call = lambda: sum(o.sum() for o in k6.embed_layer(ins, ops["Y"], ops["u"], w, 16, 5.0))
+    else:
+        w = k7.k7_weights(params, lmax, True, True)
+        mirror = k7.kernel_takes(64, 32, (lmax + 1) ** 2, w.layer.dims[3], lmax, True, w.heads_dims)
+        ins = ops["x"].requires_grad_(True)
+        call = lambda: sum(o.sum() for o in k7.readout_layer(ins, ops["V"], ops["Y"], ops["u"], w,
+                                                             16, 5.0))
+    try:
+        call().backward()
+        torch.cuda.synchronize()
+        launched = True
+    except RuntimeError as err:
+        assert "launch failed" in str(err)
+        launched = False
+    assert launched == mirror == takes
+    assert embed_readout_viable(cfg) == takes
+
+
+def _er_model(dev, layers, charges=True):
+    cfg = AllegroConfig(type_names=("Cu", "Ag"), r_max=4.5, l_max=2, num_layers=layers,
+                        num_scalar_features=32, num_tensor_features=16, avg_num_neighbors=12.0,
+                        output_charges=charges, per_edge_type_cutoff=((4.5, 4.2), (4.2, 4.0)))
+    pos, cell = fcc_lattice(5)
+    n = pos.shape[0]
+    typ = np.random.RandomState(1).randint(0, 2, n)
+    s = System.create(pos, typ, cell=cell, masses=np.full(n, 63.546), device=dev)
+    eng = AllegroEngine(cfg, allegro_params_from_numpy(allegro_init_numpy(cfg, 0), cfg, device=dev),
+                        s, device=dev)
+    return cfg, s, eng
+
+
+@pytest.mark.parametrize("layers", [2, 3])
+def test_embed_model_kernel_path_matches_cpu(cuda, layers, monkeypatch):
+    """PAT_L1_EMBED=1: forces and charges of the K6 / K1 / K7 path on the
+    card against the CPU plain path, and one K6, layers - 2 K1 and one K7
+    launch each way per force evaluation."""
+    from pair_allegro_tpu_torch.models.allegro import layer_tier
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    monkeypatch.setenv("PAT_L1_EMBED", "1")
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg, s, eng = _er_model(dev, layers)
+        assert layer_tier(cfg, False) == "k1-embed"
+        nb = eng.rebuild_fn(s, None)
+        before = [(m.launches.fwd, m.launches.bwd) for m in (k6, fl, k7)]
+        o = eng.force_fn(s, nb)
+        after = [(m.launches.fwd, m.launches.bwd) for m in (k6, fl, k7)]
+        if dev.type == "cuda":
+            want = [(1, 1), (layers - 2, layers - 2), (1, 1)]
+            assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == want
+        outs.append((o.forces.cpu(), o.extras["charges"].cpu()))
+    (fk, qk), (fp, qp) = outs
+    assert float((fk - fp).abs().max()) < 5e-4
+    assert float((qk - qp).abs().max()) < 5e-4
+
+
+def test_nopos_model_kernel_path_matches_cpu(cuda, monkeypatch):
+    """PAT_L1_POSITIONAL=0: every layer runs K1's middle form on the card
+    (3 + 3 launches) and matches the CPU."""
+    monkeypatch.setenv("PAT_L1_POSITIONAL", "0")
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg, s, eng = _er_model(dev, 3, charges=False)
+        f0 = fl.launches.fwd
+        o = eng.force_fn(s, eng.rebuild_fn(s, None))
+        if dev.type == "cuda":
+            assert fl.launches.fwd - f0 == 3
         outs.append(o.forces.cpu())
     assert float((outs[0] - outs[1]).abs().max()) < 5e-4
