@@ -5,8 +5,9 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit; the builds of K1 (csrc/fused_layer.cu),
      K3 (csrc/nequip_conv.cu), K2 (csrc/env_layer.cu), K5
-     (csrc/env_layer_mxu.cu), K4 (csrc/tp_mix_fused.cu) and K6 / K7
-     (csrc/embed_readout_layer.cu) with nvcc for sm_90a, started together;
+     (csrc/env_layer_mxu.cu), K4 (csrc/tp_mix_fused.cu), K6 / K7
+     (csrc/embed_readout_layer.cu) and K8 (csrc/fused_stack.cu) with nvcc
+     for sm_90a, started together;
   2. K1 parity: the CUDA kernel against its plain PyTorch version, f32,
      forward and backward, for the first / middle / last forms, at flagship
      widths (ns=64, C=32, l_max=2) on a 500-atom FCC Cu neighbor table;
@@ -50,7 +51,17 @@ Phases, each of which must pass (any failure exits non-zero):
  12. the embed main path: phase 5's run under PAT_L1_EMBED=1, 60 + 60
      steps: 1 K6, num_layers - 2 K1 and 1 K7 launch per force evaluation
      each way and no other kernel; K6 and K7 timings and parity at its
-     shapes.
+     shapes;
+ 13. K8 (csrc/fused_stack.cu) parity against its plain version, f32,
+     forward and backward (dx0, dpT, dY, du), on the 500-atom table at
+     flagship widths with 3 layers, at l_max 1 with parity, and with 1 and
+     2 layers; its NaN weight cotangents; Allegro model parity with
+     charges under fused_stack=True (1 K8 launch each way, no other
+     kernel); f64 systems on the card on the K1, per-layer, stack and
+     NequIP paths against the CPU f64 path (no kernel launches);
+ 14. the stack main path: phase 5's run with fused_stack=True, 60 + 60
+     steps: 1 K8 launch per force evaluation each way and no other kernel;
+     K8 timings and parity at its shapes.
 The launch counts of each main path are read from its phase alone (every
 count is set to 0 just before it).  The line before the last is a JSON
 object of the kernels; the last line is {"ok": true, "device": {...}}.
@@ -58,8 +69,9 @@ Weights are random, made from a seed.
 
 ``python3 chip_smoke.py --profile`` instead prints where the device time of
 an Allegro main-path MD step goes (torch.profiler); ``--profile nequip``,
-``--profile perlayer``, ``--profile flat`` and ``--profile embed`` the same
-for the NequIP, per-layer, FLAT slab and embed main paths.
+``--profile perlayer``, ``--profile flat``, ``--profile embed`` and
+``--profile stack`` the same for the NequIP, per-layer, FLAT slab, embed
+and stack main paths.
 """
 
 from __future__ import annotations
@@ -120,9 +132,10 @@ SLAB_VACUUM = 20.0  # A of vacuum above a slab, along z (non-periodic there)
 TWO_SPECIES = dict(type_names=("Cu", "Ag"), per_edge_type_cutoff=((4.5, 4.2), (4.2, 4.0)))
 
 
-def fcc_system(n_rep, device, species=1, slab=False):
+def fcc_system(n_rep, device, species=1, slab=False, dtype=None):
     """FCC Cu of n_rep^3 cells (types drawn from a seed with two species),
-    or, with ``slab``, the same atoms under SLAB_VACUUM with pbc (T, T, F)."""
+    or, with ``slab``, the same atoms under SLAB_VACUUM with pbc (T, T, F);
+    f32 unless ``dtype`` says otherwise."""
     import numpy as np
     import torch
 
@@ -137,7 +150,7 @@ def fcc_system(n_rep, device, species=1, slab=False):
     n = pos.shape[0]
     types = np.random.RandomState(SEED + 1).randint(0, species, n)
     return System.create(pos, types, cell=cell, masses=np.where(types == 0, 63.546, 107.87),
-                         pbc=pbc, dtype=torch.float32, device=device)
+                         pbc=pbc, dtype=dtype or torch.float32, device=device)
 
 
 def make_case(n_rep, device, output_charges=False, species=1, slab=False, **tier):
@@ -176,14 +189,15 @@ def layer_operands(cfg, params, system, eng):
 
 
 def k1_terms(w, form, bwd):
-    """(operations per edge slot, rows read, rows written) of one K1 call:
+    """(operations per edge slot, rows read, rows written) of one K1 call
+    of ``form`` (a FORMS name or a (first_v, last) pair):
     the operations of the function on these inputs (the backward includes
     its recompute of wz, env, inv and the latent forward), each input row
     read once and each output row written once."""
     from pair_allegro_tpu_torch.ops.fused_layer import _row_tables
     from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 
-    first_v, last = FORMS[form]
+    first_v, last = FORMS[form] if isinstance(form, str) else form
     ns, c, cout, latd = w.dims
     rows = _row_tables(w.lmax, w.parity)
     P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
@@ -327,20 +341,22 @@ def k1_parity(cfg, params, system, eng):
     return errs
 
 
-def model_parity(env=None, want=None):
-    """Phases 4 and 11: forces and charges, kernel path (card) vs plain path
-    (CPU), under ``env`` (the K1 tier's embed/readout or non-positional
-    form); the card's launches per force evaluation must be ``want``
-    ({kernel: n}, fwd = bwd), by default 3 K1."""
+def model_parity(env=None, want=None, tier=None):
+    """Phases 4, 11 and 13: forces and charges, kernel path (card) vs plain
+    path (CPU), under ``env`` (the K1 tier's embed/readout or non-positional
+    form) and the config fields ``tier``; the card's launches per force
+    evaluation must be ``want`` ({kernel: n}, fwd = bwd), by default 3
+    K1."""
     from pair_allegro_tpu_torch.engine import AllegroEngine
 
     env = env or {}
     want = want or {"K1": 3}
+    tier = tier or {}
     mods = kernel_modules()
     outs = []
     with env_vars(env):
         for dev in ("cuda", "cpu"):
-            cfg, params, system = make_case(5, dev, output_charges=True)
+            cfg, params, system = make_case(5, dev, output_charges=True, **tier)
             eng = AllegroEngine(cfg, params, system, device=dev)
             nb = eng.rebuild_fn(system, None)
             for m in mods.values():
@@ -352,19 +368,21 @@ def model_parity(env=None, want=None):
             outs.append((o.forces.cpu(), o.extras["charges"].cpu(), o.total_energy.cpu()))
     (f_k, q_k, e_k), (f_p, q_p, e_p) = outs
     df, dq = max_err(f_k, f_p), max_err(q_k, q_p)
-    print(f"model parity (500 atoms, charges{', ' + str(env) if env else ''}): max|dF| {df:.3e} "
+    what = ", ".join(str(x) for x in (env, tier) if x)
+    print(f"model parity (500 atoms, charges{', ' + what if what else ''}): max|dF| {df:.3e} "
           f"eV/A, max|dq| {dq:.3e}, E {float(e_k):.6f} vs {float(e_p):.6f} eV (gate 5e-4); "
           f"launches on the card {launched}")
     if not (df < 5e-4 and dq < 5e-4):
-        raise RuntimeError(f"model parity gate failed {env}")
+        raise RuntimeError(f"model parity gate failed {what}")
     if launched != {name: (n, n) for name, n in want.items() if n}:
-        raise RuntimeError(f"model parity {env}: launched {launched}, want {want}")
+        raise RuntimeError(f"model parity {what}: launched {launched}, want {want}")
 
 
 # the main paths: (model, Allegro tier fields, the kernel that carries it
 # (None: no kernel), steps per chunk, slab, environment); "perlayer" is
 # bench.py's kernel-perlayer tier, "flat" the dense-strategy slab with K4,
-# "embed" the K1 tier's embed/readout form (K6, K1, K7)
+# "embed" the K1 tier's embed/readout form (K6, K1, K7), "stack" the whole
+# layer stack in one kernel (K8)
 PATHS = {
     "allegro": ("allegro", {}, "K1", 60, False, {}),
     "nequip": ("nequip", {}, "K3", 60, False, {}),
@@ -373,6 +391,7 @@ PATHS = {
     "flat": ("allegro", {}, "K4", 60, True, {}),
     "nequip-flat": ("nequip", {}, None, 10, True, {}),
     "embed": ("allegro", {}, "K6", 60, False, {"PAT_L1_EMBED": "1"}),
+    "stack": ("allegro", dict(fused_stack=True), "K8", 60, False, {}),
 }
 
 
@@ -382,6 +401,8 @@ def path_launches(path, cfg):
     kernel = PATHS[path][2]
     if path == "embed":
         return {"K6": 1, "K1": cfg.num_layers - 2, "K7": 1}
+    if path == "stack":
+        return {"K8": 1}
     return {kernel: cfg.num_layers} if kernel else {}
 
 
@@ -407,13 +428,14 @@ def kernel_modules():
         env_layer,
         env_layer_mxu,
         fused_layer,
+        fused_stack,
         nequip_conv,
         readout_layer,
         tp_mix_fused,
     )
 
     return {"K1": fused_layer, "K3": nequip_conv, "K2": env_layer, "K5": env_layer_mxu,
-            "K4": tp_mix_fused, "K6": embed_layer, "K7": readout_layer}
+            "K4": tp_mix_fused, "K6": embed_layer, "K7": readout_layer, "K8": fused_stack}
 
 
 def build_path(path):
@@ -429,8 +451,9 @@ def build_path(path):
 
 
 def main_path(path="allegro"):
-    """Phases 5, 6, 8, 10 and 12: the bench.py:main (Allegro, K1 tier and its
-    embed/readout form, or per-layer tier) or bench.py:nequip_line (NequIP)
+    """Phases 5, 6, 8, 10, 12 and 14: the bench.py:main (Allegro, K1 tier
+    and its embed/readout form, per-layer tier, or the fused stack) or
+    bench.py:nequip_line (NequIP)
     workload on the port, on the bulk box or on the slab.  Every kernel's
     counts are set to 0 just before the run and read just after it; each
     kernel of the path must launch its count per force evaluation, forward
@@ -1214,9 +1237,10 @@ def _tup(o):
     return o if isinstance(o, tuple) else (o,)
 
 
-def pair_compare(kernel, label, calls, ops, names, gen):
+def pair_compare(kernel, label, calls, ops, names, gen, outs=None):
     """A kernel's wrapper against its plain version on ``ops``, forward and
-    backward (random cotangents); returns the max abs errors."""
+    backward (random cotangents); ``outs`` names the outputs (by default
+    K6's or K7's); returns the max abs errors."""
     import torch
 
     fn, ref = calls
@@ -1226,7 +1250,7 @@ def pair_compare(kernel, label, calls, ops, names, gen):
     g_k = torch.autograd.grad(out_k, ins, cots)
     g_r = torch.autograd.grad(out_r, ins, cots)
     torch.cuda.synchronize()
-    outs = ("x'", "V'") if kernel == "K6" else ("e", "q")[:len(out_r)]
+    outs = outs or (("x'", "V'") if kernel == "K6" else ("e", "q")[:len(out_r)])
     errs = {"fwd": check(kernel, label, "fwd", outs, out_k, out_r),
             "bwd": check(kernel, label, "bwd", names, g_k, g_r)}
     del ins, out_k, out_r, cots, g_k, g_r
@@ -1301,6 +1325,159 @@ def er_timings(cfg, params, system, eng, errs):
     return res, errs
 
 
+K8_NAMES = ("x0", "pT", "Y", "u")
+
+
+def stack_operands(cfg, params, system, eng):
+    """K8's operands (x0, pT, Y, u) of the system's neighbor table, and K."""
+    import torch
+
+    from pair_allegro_tpu_torch.models.allegro import allegro_inputs
+
+    nb = eng.rebuild_fn(system, None)
+    with torch.no_grad():
+        ins = allegro_inputs(params, cfg, system.positions, system.types, nb.edge_index,
+                             cell=system.cell, edge_shifts=nb.edge_shifts, edge_mask=nb.edge_mask)
+    return (ins["xT"], ins["pT"], ins["Y_T"], ins["uT"]), nb.edge_index.shape[1]
+
+
+def stack_calls(cfg, params, k):
+    """K8's (wrapper, plain version) as functions of its operands."""
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    args = (params["layers"], k, cfg.l_max, cfg.avg_num_neighbors, cfg.parity)
+    return (lambda *o: k8.fused_stack(*o, *args), lambda *o: k8.allegro_stack_reference(*o, *args))
+
+
+def k8_cost(w, e, bwd):
+    """(flops, bytes) one K8 call needs at E edge slots: per layer K1's
+    terms for that layer's form (``k1_terms``: the first builds V0, the
+    last has no mix), with the forward's per-layer values taken as known to
+    the backward (the kernel's recompute of layers 0 .. L-2 is not
+    counted); the stack's own rows read and written once: x0, pT, Y, u
+    (and dx_final) in, x_final (or dx0, dpT, dY, du) out (f32, weights
+    included)."""
+    n_l = len(w.k1)
+    per = sum(k1_terms(lw, (li == 0, li == n_l - 1), bwd)[0] for li, lw in enumerate(w.k1))
+    ns, c = w.k1[0].dims[:2]
+    d = (w.lmax + 1) ** 2
+    rows_in = ns + c + d + 1 + (ns if bwd else 0)
+    rows_out = ns + c + d + 1 if bwd else ns
+    n_w = sum(t.numel() for t in w.tensors())
+    return per * e, 4 * ((rows_in + rows_out) * e + n_w)
+
+
+def stack_parity():
+    """Phase 13 (K8): kernel against plain version on the 500-atom table,
+    fwd and bwd, at flagship widths with 3 layers, at l_max 1 with parity,
+    and with 1 and 2 layers; then the NaN weight cotangents."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+    from pair_allegro_tpu_torch.ops.fused_layer import layer_leaves
+
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for tier in (dict(), dict(l_max=1), dict(num_layers=1), dict(num_layers=2)):
+        cfg, params, system = make_case(5, None, fused_stack=True, **tier)
+        ops, k = stack_operands(cfg, params, system, AllegroEngine(cfg, params, system))
+        gen = torch.Generator(device=system.device).manual_seed(SEED)
+        label = f"l_max={cfg.l_max} {cfg.num_layers} layers 500 atoms K={k}"
+        e = pair_compare("K8", label, stack_calls(cfg, params, k), ops, K8_NAMES, gen, outs=("x",))
+        errs = {kind: max(errs[kind], e[kind]) for kind in errs}
+    leaves = [t.requires_grad_(True) for layer in params["layers"]
+              for t in layer_leaves(layer, cfg.l_max)]
+    grads = torch.autograd.grad(stack_calls(cfg, params, k)[0](*ops).sum(), leaves)
+    nan = all(bool(torch.isnan(g).all()) for g in grads)
+    print(f"K8 weight cotangents: {len(grads)} leaves, all NaN {nan}")
+    if not nan:
+        raise RuntimeError("K8's weight cotangents are not NaN-filled")
+    return errs
+
+
+def f64_parity():
+    """Phase 13 (the dtype route): an f64 system on the card runs the plain
+    path on the K1, per-layer, stack and NequIP paths, with no kernel
+    launch, and gives the CPU f64 path's forces and energy to 1e-9
+    relative (the 500-atom table, flagship widths, NequIP's config of
+    record)."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
+    from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy, allegro_params_from_numpy
+    from pair_allegro_tpu_torch.models.nequip import nequip_init_numpy, nequip_params_from_numpy
+
+    mods = kernel_modules()
+    for label, tier in (("K1 tier", {}), ("per-layer tier", dict(layer_fused=False)),
+                        ("stack tier", dict(fused_stack=True)), ("NequIP", None)):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            system = fcc_system(5, dev, dtype=torch.float64)
+            if tier is None:
+                cfg = nequip_cfg()
+                params = nequip_params_from_numpy(nequip_init_numpy(cfg, SEED), cfg, device=dev,
+                                                  dtype=torch.float64)
+                eng = NequIPEngine(cfg, params, system, device=dev)
+            else:
+                cfg = flagship_cfg(**tier)
+                params = allegro_params_from_numpy(allegro_init_numpy(cfg, SEED), cfg, device=dev,
+                                                   dtype=torch.float64)
+                eng = AllegroEngine(cfg, params, system, device=dev)
+            nb = eng.rebuild_fn(system, None)
+            for m in mods.values():
+                m.launches.reset()
+            o = eng.force_fn(system, nb)
+            launched = sum(m.launches.fwd + m.launches.bwd for m in mods.values())
+            outs.append((o.forces.cpu(), float(o.total_energy), launched, o.forces.dtype))
+        (f_k, e_k, n_k, dt), (f_p, e_p, _, _) = outs
+        df = float((f_k - f_p).abs().max())  # in f64, not max_err's f32
+        rel, rel_e = df / float(f_p.abs().max()), abs(e_k - e_p) / abs(e_p)
+        print(f"f64 on the card, {label} (500 atoms): max|dF| {df:.3e} eV/A (relative {rel:.3e}), "
+              f"E {e_k:.12f} vs {e_p:.12f} eV (relative {rel_e:.3e}), forces {dt}, kernel "
+              f"launches {n_k} (gate 1e-9 relative, 0 launches)")
+        if not (rel <= 1e-9 and rel_e <= 1e-9 and n_k == 0 and dt == torch.float64):
+            raise RuntimeError(f"f64 on the card, {label}, does not match the CPU f64 path")
+
+
+def stack_timings(cfg, params, system, eng, errs):
+    """Phase 14 (K8): fwd/bwd time of kernel and plain version at the stack
+    main path's shapes, with the bound, and parity at those shapes (into
+    ``errs``)."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    ops, k = stack_operands(cfg, params, system, eng)
+    e = ops[0].shape[1]
+    inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    w = k8.stack_weights(params["layers"], cfg.l_max, cfg.parity)
+    calls = stack_calls(cfg, params, k)
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
+    dxo = torch.randn(ops[0].shape, generator=gen, device=system.device)
+    k_f = cuda_ms(lambda: k8._kernel_fwd(*ops, w, k, inv_avg), 5)
+    k_b = cuda_ms(lambda: k8._kernel_bwd(*ops, w, k, inv_avg, dxo), 5)
+    with torch.no_grad():
+        p_f = cuda_ms(lambda: calls[1](*ops), 2)
+    ins = [t.detach().clone().requires_grad_(True) for t in ops]
+    out = calls[1](*ins)
+    p_b = cuda_ms(lambda: torch.autograd.grad(out, ins, dxo, retain_graph=True), 2)
+    del ins, out, dxo
+    torch.cuda.empty_cache()
+    e2 = pair_compare("K8", f"stack main path E={e}", calls, ops, K8_NAMES, gen, outs=("x",))
+    errs = {kind: max(errs[kind], e2[kind]) for kind in errs}
+    res = {}
+    for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
+        flops, nbytes = k8_cost(w, e, kind == "bwd")
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        r = res[kind] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
+                             bound_by="operations" if t_ops >= t_bytes else "bytes",
+                             gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        print(f"K8 {kind} E={e} ({cfg.num_layers} layers): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gflop']:.2f} GFLOP, "
+              f"{r['mbytes']:.1f} MB), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+    return res, errs
+
+
 def _kind_of(name):
     """A coarse class of a device kernel's name, for the profile's summary."""
     n = name.lower()
@@ -1308,7 +1485,8 @@ def _kind_of(name):
         return "K6 (embed_layer)"
     if "k1_" in n and ("<2>" in n or "ili2e" in n):
         return "K7 (readout_layer)"
-    for key, kind in (("k3_", "K3 (nequip_conv)"), ("k1_", "K1 (fused_layer)"),
+    for key, kind in (("k8_", "K8 (fused_stack)"), ("k3_", "K3 (nequip_conv)"),
+                      ("k1_", "K1 (fused_layer)"),
                       ("k2_", "K2 (env_layer)"), ("k5_", "K5 (env_layer_mxu)"),
                       ("k4_", "K4 (tp_mix_fused)"), ("indexfunc", "segment_sum (index_add)"),
                       ("scan", "neighbor build (cumsum)"), ("index", "gather / index_select"),
@@ -1324,7 +1502,7 @@ def _kind_of(name):
 
 
 def profile_steps(model="allegro", n_steps=10):
-    """``--profile [nequip | perlayer | flat | embed]``: where one main-path
+    """``--profile [nequip | perlayer | flat | embed | stack]``: where one main-path
     MD step's device time goes.  torch.profiler over n_steps after a 20-step
     warmup; kernel time summed by name and by class per step, and the
     device's idle share of the wall time."""
@@ -1395,8 +1573,9 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--profile"]:
         model = sys.argv[2] if len(sys.argv) > 2 else "allegro"
-        if model not in ("allegro", "nequip", "perlayer", "flat", "embed"):
-            raise SystemExit(f"--profile takes allegro, nequip, perlayer, flat or embed, not {model}")
+        if model not in ("allegro", "nequip", "perlayer", "flat", "embed", "stack"):
+            raise SystemExit(f"--profile takes allegro, nequip, perlayer, flat, embed or stack, "
+                             f"not {model}")
         return profile_steps(model)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1432,6 +1611,9 @@ def main() -> int:
     errs_er = er_parity()
     model_parity({"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1})
     model_parity({"PAT_L1_POSITIONAL": "0"})
+    errs8 = stack_parity()
+    model_parity(want={"K8": 1}, tier=dict(fused_stack=True))
+    f64_parity()
     cfg, params, system, eng, counts = main_path("allegro")
     counts = counts["K1"]
     times = k1_timings(cfg, params, system, eng, errs)
@@ -1463,6 +1645,10 @@ def main() -> int:
     ecfg, eparams, esystem, eeng, counts_e = main_path("embed")
     times_er, errs_er = er_timings(ecfg, eparams, esystem, eeng, errs_er)
     del eparams, esystem, eeng
+    torch.cuda.empty_cache()
+    scfg, sparams, ssystem, seng, counts_s = main_path("stack")
+    times8, errs8 = stack_timings(scfg, sparams, ssystem, seng, errs8)
+    del sparams, ssystem, seng
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):
@@ -1522,6 +1708,13 @@ def main() -> int:
                 errs_er[name][kind], times_er[(name, kind)], per="call",
                 calls_per_force_evaluation=1, k1_launches_on_the_path=counts_e["K1"][kind],
             ))
+    for kind, line in (("fwd", 538), ("bwd", 572)):
+        # one call (the whole stack) per force evaluation
+        kernels.append(kernel_entry(
+            f"k8_fused_stack_{kind}", "pair_allegro_tpu_torch/csrc/fused_stack.cu",
+            f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts_s["K8"], kind, errs8[kind],
+            times8[kind], per="call", calls_per_force_evaluation=1, layers=scfg.num_layers,
+        ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

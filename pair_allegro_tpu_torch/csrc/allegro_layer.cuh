@@ -1,6 +1,7 @@
 // The body of the one-layer fused Allegro kernels, shared by K1
-// (fused_layer.cu) and its embed- and readout-fused forms K6 and K7
-// (embed_readout_layer.cu).  The form is a template parameter, so each
+// (fused_layer.cu), its embed- and readout-fused forms K6 and K7
+// (embed_readout_layer.cu) and the whole-stack kernel K8 (fused_stack.cu),
+// which runs it once per layer.  The form is a template parameter, so each
 // library compiles only its own code paths:
 //   PLAIN    K1: x (and V, or pT when first_v) read from device memory;
 //   EMBED    K6: the first_v form, x = MLP2b(in) * u and pT = W_te^T x /
@@ -8,7 +9,11 @@
 //            prologue); the backward returns d(in), dY and du;
 //   READOUT  K7: the last form, the readout (and charge) heads run per tile
 //            on x' (the epilogue) and only their rows e = head(x') * u
-//            leave the kernel; the backward takes those rows' cotangents.
+//            leave the kernel; the backward takes those rows' cotangents;
+//   STACK    K8: PLAIN, but x, V and the cotangents dx', dV' live in device
+//            memory the same kernel writes (the previous layer's output), so
+//            they are read around the read-only cache, and the backward adds
+//            its dY and du to the layers' already there when ``acc`` is set.
 // One thread block owns one center and walks its K edges in tiles of ET
 // (allegro_tiles.cuh); what K1 computes and why it is laid out so is at the
 // top of fused_layer.cu, what the prologue and the epilogue add at the top
@@ -26,7 +31,7 @@ namespace {
 constexpr float SILU_C = 1.6790564307512243f;
 constexpr float R2 = 0.70710678118654752f;
 
-enum Form { PLAIN = 0, EMBED = 1, READOUT = 2 };
+enum Form { PLAIN = 0, EMBED = 1, READOUT = 2, STACK = 3 };
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
@@ -69,7 +74,17 @@ struct K1P {
   int nhead;
   const float *dh0, *dh1;
   float *ho0, *ho1;
+  // STACK backward: add dY and du to what the later layers left there
+  int acc;
 };
+
+// x, V and the cotangents dx', dV' of a tile: STACK reads memory its own
+// kernel wrote, the other forms read-only inputs
+template <int F>
+__device__ __forceinline__ void load_act(const float* src, int rows, int E, int e0, int ne,
+                                         float* dst) {
+  load_tile<ET, F != STACK>(src, rows, E, e0, ne, dst);
+}
 
 __device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
 
@@ -179,7 +194,7 @@ __device__ void center_env(const K1P& p, const MlpTab* mt, int center, float* en
       float* hA = ins + mt[0].dim[0] * LD;
       embed_x(p, mt[0], e0, ne, us, xs, ins, hA, hA + mt[0].maxw * LD, nullptr, nullptr);
     } else {
-      load_tile(p.x, p.ns, p.E, e0, ne, xs);
+      load_act<F>(p.x, p.ns, p.E, e0, ne, xs);
       load_tile(p.Y, D, p.E, e0, ne, Ys);
       load_tile(p.u, 1, p.E, e0, ne, us);
       __syncthreads();
@@ -221,15 +236,15 @@ __device__ void load_edges(const K1P& p, const MlpTab* mt, int e0, int ne, float
     __syncthreads();
     build_v0(p, pTs, Ys, Vs);
   } else {
-    load_tile(p.x, p.ns, p.E, e0, ne, cat);
+    load_act<F>(p.x, p.ns, p.E, e0, ne, cat);
     load_tile(p.Y, D, p.E, e0, ne, Ys);
     load_tile(p.u, 1, p.E, e0, ne, us);
     if (p.first_v) {
-      load_tile(p.V, C, p.E, e0, ne, pTs);
+      load_act<F>(p.V, C, p.E, e0, ne, pTs);
       __syncthreads();
       build_v0(p, pTs, Ys, Vs);
     } else {
-      load_tile(p.V, D * C, p.E, e0, ne, Vs);
+      load_act<F>(p.V, D * C, p.E, e0, ne, Vs);
     }
   }
   __syncthreads();
@@ -348,13 +363,11 @@ __device__ void load_tables(const K1P& p) {
     reinterpret_cast<int*>(sm + p.o_mt)[q] = __ldg(p.mt + q);
 }
 
+// One layer's forward for the block's center (blockIdx.x), the tables
+// already in shared memory (m, and mt for EMBED / READOUT).
 template <int F>
-__global__ void __launch_bounds__(NT) k1_fwd_kernel(const K1P p) {
+__device__ __forceinline__ void layer_fwd(const K1P& p, const Meta& m, const MlpTab* mt) {
   extern __shared__ float sm[];
-  const Meta& m = *reinterpret_cast<const Meta*>(sm);
-  const MlpTab* mt = reinterpret_cast<const MlpTab*>(sm + p.o_mt);
-  if constexpr (F != PLAIN) load_tables(p);
-  load_meta(p.meta, reinterpret_cast<int*>(sm));
   const int center = blockIdx.x;
   float* env = sm + p.o_env;
   float* cat = sm + p.o_cat;
@@ -395,13 +408,11 @@ __global__ void __launch_bounds__(NT) k1_fwd_kernel(const K1P p) {
   }
 }
 
+// One layer's backward for the block's center, the tables already in
+// shared memory.
 template <int F>
-__global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
+__device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const MlpTab* mt) {
   extern __shared__ float sm[];
-  const Meta& m = *reinterpret_cast<const Meta*>(sm);
-  const MlpTab* mt = reinterpret_cast<const MlpTab*>(sm + p.o_mt);
-  if constexpr (F != PLAIN) load_tables(p);
-  load_meta(p.meta, reinterpret_cast<int*>(sm));
   const int center = blockIdx.x;
   const int C = p.C, D = p.D, ns = p.ns, E = p.E;
   float* env = sm + p.o_env;
@@ -435,7 +446,7 @@ __global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
   for (int t0 = 0; t0 < p.K; t0 += ET) {
     const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
     load_edges<F>(p, mt, e0, ne, cat, Ys, us, Vs, pTs, R);
-    if constexpr (F != READOUT) load_tile(p.dxo, ns, E, e0, ne, dxo);
+    if constexpr (F != READOUT) load_act<F>(p.dxo, ns, E, e0, ne, dxo);
     tp_row(p.C, m, 0, Vs, env, cat + ns * LD);
     __syncthreads();
     latent_fwd(p, m, cat, gA, gB, zs, xn);
@@ -476,7 +487,8 @@ __global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
       const int s = q / ET, n = q % ET;
       if (n < ne) p.dx[(size_t)s * E + e0 + n] = dxo[s * LD + n] * R2 + g[s * LD + n];
     }
-    for (int n = threadIdx.x; n < ne; n += NT) p.du[e0 + n] = dus[n];
+    for (int n = threadIdx.x; n < ne; n += NT)
+      p.du[e0 + n] = F == STACK && p.acc ? p.du[e0 + n] + dus[n] : dus[n];
     for (int q = threadIdx.x; q < (p.in0 - ns) * ET; q += NT) {
       const int row = ns + q / ET, n = q % ET;
       cat[row * LD + n] = g[row * LD + n];
@@ -488,7 +500,7 @@ __global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
     for (int r = 0; r < nrows; ++r) {
       const float* dTr = dinv;
       if (!p.last) {
-        load_tile(p.dvo + (size_t)r * p.Cout * E, p.Cout, E, e0, ne, dVo);
+        load_act<F>(p.dvo + (size_t)r * p.Cout * E, p.Cout, E, e0, ne, dVo);
         __syncthreads();
         gemm_tile(p.mixT + m.rowmix[r], p.Cout, m.rowP[r] * C, dVo, dT, LD, m.rownorm[r], ET);
         __syncthreads();
@@ -553,6 +565,7 @@ __global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
         const int d = q / ET, n = q % ET;
         float s = 0.f;
         for (int cc = 0; cc < C; ++cc) s = fmaf(dVs[(d * C + cc) * LD + n], pTs[cc * LD + n], s);
+        if (F == STACK && p.acc && n < ne) s += p.dY[(size_t)d * E + e0 + n];
         if (n < ne) p.dY[(size_t)d * E + e0 + n] = s;
       }
     } else {
@@ -560,7 +573,7 @@ __global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
         const int row = q / ET, n = q % ET;
         if (n < ne) p.dV[(size_t)row * E + e0 + n] = dVs[row * LD + n];
       }
-      for (int q = threadIdx.x; q < D * ET; q += NT) {
+      for (int q = threadIdx.x; !(F == STACK && p.acc) && q < D * ET; q += NT) {
         const int d = q / ET, n = q % ET;
         if (n < ne) p.dY[(size_t)d * E + e0 + n] = 0.f;
       }
@@ -589,7 +602,7 @@ __global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
       load_tile(p.u, 1, E, e0, ne, us);
       embed_x(p, mt[0], e0, ne, us, cat, ins, tA, tB, tbz, x0s);
     } else {
-      load_tile(p.x, ns, E, e0, ne, cat);
+      load_act<F>(p.x, ns, E, e0, ne, cat);
       load_tile(p.Y, D, E, e0, ne, Ys);
       load_tile(p.u, 1, E, e0, ne, us);
       __syncthreads();
@@ -633,6 +646,22 @@ __global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
   }
 }
 
+template <int F>
+__global__ void __launch_bounds__(NT) k1_fwd_kernel(const K1P p) {
+  extern __shared__ float sm[];
+  if constexpr (F != PLAIN) load_tables(p);
+  load_meta(p.meta, reinterpret_cast<int*>(sm));
+  layer_fwd<F>(p, *reinterpret_cast<const Meta*>(sm), reinterpret_cast<const MlpTab*>(sm + p.o_mt));
+}
+
+template <int F>
+__global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
+  extern __shared__ float sm[];
+  if constexpr (F != PLAIN) load_tables(p);
+  load_meta(p.meta, reinterpret_cast<int*>(sm));
+  layer_bwd<F>(p, *reinterpret_cast<const Meta*>(sm), reinterpret_cast<const MlpTab*>(sm + p.o_mt));
+}
+
 // The K1 fields of K1P from the launchers' arrays.
 // ptrs: x, V, Y, u, envw, envwT, lat, latT, mix, mixT, dxo, dvo, meta,
 //       xo, vo, dx, dV, dY, du  (unused ones may be 0)
@@ -672,13 +701,13 @@ void k1_params(K1P& p, const unsigned long long* ptrs, const int* dims, float in
   p.inv_avg = inv_avg;
 }
 
-// Shared memory and launch of a form: checks the widths, lays out the
-// block's shared memory (the sums ops/fused_layer.py, ops/embed_layer.py and
-// ops/readout_layer.py mirror in kernel_takes) and launches one block per
-// center.  Returns 0, a negative code for a shape the kernel does not take,
-// or the cudaError_t of the launch.
+// Shared memory of a form: checks the widths and lays out the block's
+// shared memory (the sums ops/fused_layer.py, ops/embed_layer.py and
+// ops/readout_layer.py mirror in kernel_takes) into p's offsets.  Returns
+// the block's bytes, or a negative code for a shape the kernel does not
+// take.
 template <int F>
-int layer_launch(int bwd, K1P& p, void* stream) {
+int layer_layout(int bwd, K1P& p) {
   p.cns = 1.0f / sqrtf((float)p.ns);
   if (p.D > MAX_D || p.nlat < 1 || p.nlat > MAX_LAT) return -1;
   if (NT % p.C || NT / p.C > ET) return -2;  // thread-owned (c, n) TP cells
@@ -687,7 +716,8 @@ int layer_launch(int bwd, K1P& p, void* stream) {
   if (!p.last && p.Cout != p.C) return -5;
   if (F == EMBED && (!p.first_v || p.last)) return -7;
   if (F == READOUT && (p.first_v || !p.last || p.nhead < 1 || p.nhead > 2)) return -7;
-  if (F != PLAIN && p.xmaxw % 4) return -4;
+  constexpr bool MLPS = F == EMBED || F == READOUT;  // forms with MlpTab tables
+  if (MLPS && p.xmaxw % 4) return -4;
 
   int off = META_WORDS;
   auto take = [&](int words) {
@@ -695,7 +725,7 @@ int layer_launch(int bwd, K1P& p, void* stream) {
     off += words;
     return o;
   };
-  p.o_mt = take(F == PLAIN ? 0 : 2 * MT_WORDS);
+  p.o_mt = take(MLPS ? 2 * MT_WORDS : 0);
   p.o_env = take(p.D * p.C);
   p.o_denv = take(bwd ? p.D * p.C : 0);
   p.o_cat = take(p.in0 * LD);
@@ -735,9 +765,18 @@ int layer_launch(int bwd, K1P& p, void* stream) {
       r_rows = imax(r_rows, 2 * p.xmaxw + 2);
   }
   off += r_rows * LD;
-  const size_t smem = (size_t)off * 4;
-  if (smem > SMEM_MAX) return -6;
+  if ((size_t)off * 4 > SMEM_MAX) return -6;
+  return off * 4;
+}
 
+// Lays out and launches a form, one block per center.  Returns 0, a
+// negative code for a shape the kernel does not take, or the cudaError_t
+// of the launch.
+template <int F>
+int layer_launch(int bwd, K1P& p, void* stream) {
+  const int bytes = layer_layout<F>(bwd, p);
+  if (bytes < 0) return bytes;
+  const size_t smem = (size_t)bytes;
   const int blocks = p.E / p.K;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;

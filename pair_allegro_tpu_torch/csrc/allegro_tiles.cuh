@@ -1,5 +1,6 @@
 // Device pieces shared by the Allegro layer kernels K1 (fused_layer.cu), K2
-// (env_layer.cu) and K4 (tp_mix_fused.cu): the 3j row table the wrappers
+// (env_layer.cu) and K4 (tp_mix_fused.cu), and through K1's body
+// (allegro_layer.cuh) by K6, K7 and K8: the 3j row table the wrappers
 // build, shared tiles of the feature-major (features, E) layout (32 edges
 // wide for K1 and K2; K4 also takes 16 and 8), the small matrix product on
 // a tile and the channelwise TP of one output row (env per center for K1
@@ -67,14 +68,17 @@ __device__ void gemm_tile(const float* __restrict__ A, int Kd, int M, const floa
   }
 }
 
-// dst[r*(TW+1) + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < TW
-template <int TW = ET>
+// dst[r*(TW+1) + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < TW;
+// through the read-only cache, or with RO false from L2 (memory the same
+// kernel wrote, which the read-only cache may hold stale)
+template <int TW = ET, bool RO = true>
 __device__ void load_tile(const float* __restrict__ src, int rows, int E, int e0, int ne,
                           float* dst) {
   constexpr int TLD = TW + 1;
   for (int q = threadIdx.x; q < rows * TW; q += NT) {
     const int r = q / TW, n = q % TW;
-    dst[r * TLD + n] = n < ne ? __ldg(src + (size_t)r * E + e0 + n) : 0.f;
+    const float* s = src + (size_t)r * E + e0 + n;
+    dst[r * TLD + n] = n < ne ? (RO ? __ldg(s) : __ldcg(s)) : 0.f;
   }
 }
 

@@ -221,11 +221,13 @@ def edge_slots(spec: NeighborSpec, n_atoms: int) -> int:
 def regrow_bytes(spec: NeighborSpec, system: System, cfg) -> int:
     """Device bytes a rebuild and force evaluation need at ``spec``'s
     capacity: the edge slots times the model's own per-edge estimate for
-    the layout (``cfg.live_bytes_per_edge(flat)``), plus, for the dense
-    strategy, what its build holds (``neighbors.device.dense_build_bytes``:
-    one pass of candidate pairs and the compacted outputs)."""
+    the layout and the system's dtype (``cfg.live_bytes_per_edge``), plus,
+    for the dense strategy, what its build holds
+    (``neighbors.device.dense_build_bytes``: one pass of candidate pairs
+    and the compacted outputs)."""
     flat = spec.strategy == "dense"
-    need = edge_slots(spec, system.n_atoms) * cfg.live_bytes_per_edge(flat=flat)
+    need = edge_slots(spec, system.n_atoms) * cfg.live_bytes_per_edge(
+        flat=flat, dtype=system.positions.dtype)
     if flat:
         need += dense_build_bytes(system.n_atoms, len(spec.shifts_table), spec.max_edges,
                                   system.positions.element_size())

@@ -1,6 +1,11 @@
 """Allegro energies (counterpart of ``pair_allegro_tpu/models/allegro.py``)
 on both edge layouts, in the tiers the JAX model chooses (``layer_tier``):
 
+* TABLE (N, K) layout, ``fused_stack=True``: feature-major (features, E),
+  E = N*K, the whole layer stack in one K8 call each way
+  (ops/fused_stack.py), whatever ``fused_tp`` and ``layer_fused`` say, as
+  the reference's ``use_stack``; where K8 cannot hold the model
+  (``stack_viable``) the call routes as if ``fused_stack`` were False;
 * TABLE (N, K) layout, ``layer_fused=True`` (default): feature-major
   (features, E), E = N*K, one K1 call per layer (ops/fused_layer.py: first
   builds V0 from pT, middle, last without a V output).  Two forms are
@@ -18,10 +23,12 @@ on both edge layouts, in the tiers the JAX model chooses (``layer_tier``):
   ``env_step``);
 * ``fused_tp=True`` on the FLAT (2, E) layout, or on the TABLE layout when
   the env-fused kernel of the tier cannot hold the model's widths
-  (``env_fused_viable``): channels-last x (E, ns) with V kept as (D, C, E),
-  per layer env summed per center (``segment_sum`` on FLAT), handed back to
-  the edges and K4 (ops/tp_mix_fused.py) for TP + mix (JAX ``layer_fn_t``);
-* ``fused_tp=False`` (``for_training()``), or ``capture``: the plain
+  (``env_fused_viable``), where K4 takes the widths (``k4_viable``):
+  channels-last x (E, ns) with V kept as (D, C, E), per layer env summed
+  per center (``segment_sum`` on FLAT), handed back to the edges and K4
+  (ops/tp_mix_fused.py) for TP + mix (JAX ``layer_fn_t``);
+* ``fused_tp=False`` (``for_training()``), ``capture``, widths no kernel
+  of the route takes, or on the card any dtype but f32: the plain
   channels-last path on either layout (JAX ``layer_fn``), no kernel; the
   only tier whose weight gradients are finite.
 
@@ -53,12 +60,15 @@ from pair_allegro_tpu_torch.ops.env_layer_mxu import MODES, env_layer_mxu, k5_we
 from pair_allegro_tpu_torch.ops.env_layer_mxu import kernel_takes as k5_takes
 from pair_allegro_tpu_torch.ops.fused_layer import fused_layer, k1_weights
 from pair_allegro_tpu_torch.ops.fused_layer import kernel_takes as k1_takes
+from pair_allegro_tpu_torch.ops.fused_stack import fused_stack
+from pair_allegro_tpu_torch.ops.fused_stack import kernel_takes as k8_takes
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply, mlp_apply_t, mlp_dims, silu_norm_const
 from pair_allegro_tpu_torch.ops.readout_layer import k7_weights, readout_layer
 from pair_allegro_tpu_torch.ops.readout_layer import kernel_takes as k7_takes
 from pair_allegro_tpu_torch.ops.scatter import segment_sum
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l, scalar_part, tp_mix_apply, uniform_tp
 from pair_allegro_tpu_torch.ops.tp_mix_fused import k4_weights, tp_mix_fused_t
+from pair_allegro_tpu_torch.ops.tp_mix_fused import kernel_takes as k4_takes
 
 TP_MODES = ("paths", *MODES)
 
@@ -88,8 +98,8 @@ class AllegroConfig:
     remat: bool | str = "auto"
     # the kernel tiers (weight cotangents NaN); False runs the plain path
     fused_tp: bool = True
-    # the all-layers kernel (K8); only False (and "auto", which resolves to
-    # off: K8 is not ported) is accepted
+    # True: the whole layer stack in one kernel (K8) on the TABLE layout;
+    # "auto" stays off, as the reference turns it on only on a TPU
     fused_stack: bool | str = False
     # True parity keeps only even (l1 + l2 + l3) tensor-product paths
     parity: bool = True
@@ -119,26 +129,31 @@ class AllegroConfig:
         same, so train with this config and run MD with the original."""
         return dataclasses.replace(self, fused_tp=False, fused_stack=False)
 
-    def live_bytes_per_edge(self, flat: bool = False) -> int:
+    def live_bytes_per_edge(self, flat: bool = False, dtype=torch.float32) -> int:
         """A rough upper estimate of the force evaluation's device bytes per
-        edge slot (f32), for the tier this config runs on the TABLE layout
-        or, with ``flat``, on the FLAT one.  Every tier keeps each layer's V
-        (D*C floats) and its cotangent, a few scalar-feature tensors and the
-        geometry; the per-layer tier also keeps per layer wz (C), inv
-        (C*P0), the latent MLP's input x and its hidden activations before
-        and after the SiLU; the K4 tier keeps per layer besides those env on
-        the edges (D*C) and its per-edge terms (D*C); the plain tier keeps
-        per layer the TP outputs and their cotangents (C * sum_l3
-        P*(2*l3+1) each), inv, x and the hidden activations.  The K1 tier's
-        K6/K7 form counts as K1; its non-positional form adds V0 and its
-        cotangent."""
+        edge slot, for the tier this config runs on the card at ``dtype``
+        on the TABLE layout or, with ``flat``, on the FLAT one.  Every tier
+        but the stack keeps each layer's V (D*C numbers) and its cotangent,
+        a few scalar-feature tensors and the geometry; the per-layer tier
+        also keeps per layer wz (C), inv (C*P0), the latent MLP's input x
+        and its hidden activations before and after the SiLU; the K4 tier
+        keeps per layer besides those env on the edges (D*C) and its
+        per-edge terms (D*C); the plain tier keeps per layer the TP outputs
+        and their cotangents (C * sum_l3 P*(2*l3+1) each), inv, x and the
+        hidden activations.  The K1 tier's K6/K7 form counts as K1; its
+        non-positional form adds V0 and its cotangent.  The stack tier (K8)
+        keeps no V between its calls: x_final (ns), the backward's stash of
+        every layer's input x and V but the first's, and the carried dx and
+        dV."""
         d = (self.l_max + 1) ** 2
         c, ns = self.num_tensor_features, self.num_scalar_features
         per = 2 * d * c * self.num_layers + 6 * ns + 64
         P = num_paths_per_l(self.l_max, self.l_max, self.l_max, self.parity)
         hidden = 2 * self.allegro_mlp_hidden_layers_depth * self.allegro_mlp_hidden_layers_width
-        tier = layer_tier(self, flat)
-        if tier == "k1-nopos":  # V0 materialised, and its cotangent
+        tier = layer_tier(self, flat, dtype=dtype)
+        if tier == "stack":
+            per = ns + (self.num_layers - 1) * (ns + d * c) + ns + d * c + 6 * ns + 64
+        elif tier == "k1-nopos":  # V0 materialised, and its cotangent
             per += 2 * d * c
         elif tier == "perlayer":
             per += self.num_layers * (c + c * P[0] + ns + hidden)
@@ -147,7 +162,7 @@ class AllegroConfig:
         elif tier == "plain":
             n_t = c * sum(p * (2 * l3 + 1) for l3, p in enumerate(P))
             per += self.num_layers * (2 * n_t + c * P[0] + ns + hidden)
-        return 4 * per
+        return torch.finfo(dtype).bits // 8 * per
 
     def cutoff_matrix(self) -> np.ndarray:
         """(num_types, num_types) per-edge-type cutoffs, defaulting to r_max."""
@@ -178,6 +193,24 @@ def env_fused_viable(cfg: AllegroConfig) -> bool:
     return k5_takes(c, c, d, P[0], cfg.tp_mode)
 
 
+def stack_viable(cfg: AllegroConfig) -> bool:
+    """Whether K8 (``kernel_takes`` beside its wrapper) takes the model's
+    layer stack, decided from the shapes before any launch."""
+    d = (cfg.l_max + 1) ** 2
+    c, ns = cfg.num_tensor_features, cfg.num_scalar_features
+    P = num_paths_per_l(cfg.l_max, cfg.l_max, cfg.l_max, cfg.parity)
+    latd = mlp_dims(ns + c * P[0], cfg.allegro_mlp_hidden_layers_width,
+                    cfg.allegro_mlp_hidden_layers_depth, ns)
+    return k8_takes(ns, c, d, latd, cfg.l_max, cfg.parity, cfg.num_layers)
+
+
+def k4_viable(cfg: AllegroConfig) -> bool:
+    """Whether K4 (``kernel_takes`` beside its wrapper) takes the model's
+    widths, decided from the shapes before any launch."""
+    c = cfg.num_tensor_features
+    return k4_takes(c, c, (cfg.l_max + 1) ** 2, cfg.l_max, cfg.parity)
+
+
 def embed_readout_viable(cfg: AllegroConfig) -> bool:
     """Whether K6 and K7 (``kernel_takes`` beside their wrappers) take the
     model's widths, decided from the shapes before any launch."""
@@ -195,23 +228,35 @@ def embed_readout_viable(cfg: AllegroConfig) -> bool:
             and k7_takes(ns, c, d, latd, cfg.l_max, cfg.parity, heads))
 
 
-def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False) -> str:
+def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torch.float32,
+               card: bool = True) -> str:
     """The tier a call runs, routed as the reference routes it
-    (``models/allegro.py:403-506, 670-758``): 'plain' with ``capture`` or
-    ``fused_tp=False``; 'k4' on the FLAT layout, whatever ``layer_fused``
-    and ``tp_mode`` say (the env-fused kernels need the TABLE layout), and
-    on the TABLE layout where ``env_fused_viable`` is False; 'perlayer'
-    with ``layer_fused=False``; else the K1 tier, in the form the
-    environment asks for, read per call with the reference's defaults:
-    'k1-nopos' with ``PAT_L1_POSITIONAL=0``, 'k1-embed' with
-    ``PAT_L1_EMBED=1`` and at least 2 layers, else 'k1'.  Where K6 or K7
-    cannot hold widths that K1 takes (``embed_readout_viable``), 'k1-embed'
-    falls back to 'k1', the same function (the reference's TPU blocks have
-    no such limit)."""
-    if capture or not cfg.fused_tp:
+    (``models/allegro.py:403-506, 670-758``): 'plain' with ``capture``,
+    and on the card (``card``) at any ``dtype`` but f32 (the kernels take
+    f32 only, and the reference runs every other dtype on its XLA path; on
+    the CPU every tier runs its kernels' plain versions, which take any
+    dtype); 'stack' on the TABLE layout with ``fused_stack is True`` where
+    K8 takes the model (``stack_viable``), whatever ``fused_tp`` and
+    ``layer_fused`` say, as the reference's ``use_stack``; else as if
+    ``fused_stack`` were False: 'plain' with ``fused_tp=False``; 'k4' on
+    the FLAT layout, whatever ``layer_fused`` and ``tp_mode`` say (the
+    env-fused kernels need the TABLE layout), and on the TABLE layout where
+    ``env_fused_viable`` is False, in both cases where K4 takes the widths
+    (``k4_viable``; else 'plain'); 'perlayer' with ``layer_fused=False``;
+    else the K1 tier, in the form the environment asks for, read per call
+    with the reference's defaults: 'k1-nopos' with ``PAT_L1_POSITIONAL=0``,
+    'k1-embed' with ``PAT_L1_EMBED=1`` and at least 2 layers, else 'k1'.
+    Where K6 or K7 cannot hold widths that K1 takes
+    (``embed_readout_viable``), 'k1-embed' falls back to 'k1', the same
+    function (the reference's TPU blocks have no such limit)."""
+    if capture or (card and dtype != torch.float32):
+        return "plain"
+    if not flat and cfg.fused_stack is True and stack_viable(cfg):
+        return "stack"
+    if not cfg.fused_tp:
         return "plain"
     if flat or not env_fused_viable(cfg):
-        return "k4"
+        return "k4" if k4_viable(cfg) else "plain"
     if cfg.tier != "k1":
         return cfg.tier
     if os.environ.get("PAT_L1_POSITIONAL", "1") == "0":
@@ -223,11 +268,8 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False) -> str:
 
 
 def check_supported(cfg: AllegroConfig) -> None:
-    if cfg.fused_stack not in (False, "auto"):
-        raise NotImplementedError(
-            "fused_stack=True (the all-layers kernel K8) is not ported: ROADMAP queue 2, K8")
     if cfg.remat is True:
-        raise NotImplementedError("remat=True is not ported: ROADMAP queue 1, item 5")
+        raise NotImplementedError("remat=True is not ported: ROADMAP queue 1, item 3")
     if cfg.tp_mode not in TP_MODES:
         raise ValueError(f"tp_mode {cfg.tp_mode!r} is not one of {TP_MODES}")
 
@@ -531,7 +573,7 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
     dtype = positions.dtype
     n = positions.shape[0]
     flat = is_flat(edge_index)
-    tier = layer_tier(cfg, flat, capture is not None)
+    tier = layer_tier(cfg, flat, capture is not None, dtype, positions.is_cuda)
     if flat:
         geo = flat_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
                          edge_mask=edge_mask)
@@ -561,9 +603,12 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
 
         def head(name):  # the heads ran in K7's epilogue
             return rows[name].reshape(n, k)
-    elif tier in ("k1", "k1-nopos", "perlayer"):
+    elif tier in ("stack", "k1", "k1-nopos", "perlayer"):
         ins = _feature_major(params, cfg, types, geo, n, k)
-        if tier == "perlayer":
+        if tier == "stack":
+            xT = fused_stack(ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], params["layers"], k,
+                             cfg.l_max, cfg.avg_num_neighbors, cfg.parity)
+        elif tier == "perlayer":
             xT = _perlayer_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k)
         else:
             xT = _k1_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k,

@@ -9,7 +9,8 @@ layer, on the (N, K) neighbor TABLE:
   agg  = K3 (ops/nequip_conv.py): radial MLP of the bessel basis * u, the
          channelwise TP of hj with Y routed to tau = pi XOR (l2 mod 2), the
          per-center sum / sqrt(avg_n)   -- or, with ``fused_conv=False``,
-         the plain channels-last message and sum
+         ``capture``, widths K3 does not take or, on the card, any dtype
+         but f32 (``conv_route``), the plain channels-last message and sum
 
 and on the FLAT (2, E) edge list the plain channels-last message of h[j]
 (``msg_generic_cl``) summed per center with ``segment_sum``: K3 serves the
@@ -42,6 +43,7 @@ import torch.nn.functional as F
 from pair_allegro_tpu_torch.models.edges import flat_edges, is_flat, table_edges
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply, mlp_dims, silu_norm_const
 from pair_allegro_tpu_torch.ops.nequip_conv import (
+    kernel_takes,
     msg_generic_cl,
     nequip_conv,
     prepare_radial,
@@ -103,20 +105,36 @@ class NequIPConfig:
         """The plain message path, whose weight gradients are finite."""
         return dataclasses.replace(self, fused_conv=False)
 
-    def live_bytes_per_edge(self, flat: bool = False) -> int:
+    def live_bytes_per_edge(self, flat: bool = False, dtype=torch.float32) -> int:
         """A rough upper estimate of the force evaluation's device bytes per
-        edge slot (f32).  Kernel path (TABLE layout): every layer's gathered
-        hj row (D*T*C floats, kept for the backward), one layer's dhj and the
-        gather backward's buffer at a time, the bessel basis, Y, u and the
-        geometry.  Plain path (``fused_conv=False``, or the FLAT layout): per
-        layer also the radial weights (T*P*C) and the message terms autograd
-        keeps (about six hj-sized tensors)."""
+        edge slot on the card at ``dtype``.  Kernel path (``conv_route``):
+        every layer's gathered hj row (D*T*C floats, kept for the backward),
+        one layer's dhj and the gather backward's buffer at a time, the
+        bessel basis, Y, u and the geometry.  Plain path: per layer also the
+        radial weights (T*P*C) and the message terms autograd keeps (about
+        six hj-sized tensors)."""
         df = self.feature_dim * self.n_tracks * self.num_features
         per = df * (self.num_layers + 2) + self.num_bessels + self.feature_dim + 1 + 64
-        if flat or not self.fused_conv:
+        if not conv_route(self, flat, dtype=dtype):
             tpc = self.n_tracks * tp_num_paths(self.l_max) * self.num_features
             per += self.num_layers * (2 * tpc + 6 * df)
-        return 4 * per
+        return torch.finfo(dtype).bits // 8 * per
+
+
+def conv_route(cfg: NequIPConfig, flat: bool, capture: bool = False, dtype=torch.float32,
+               card: bool = True) -> bool:
+    """Whether a call runs K3, routed as the reference routes it
+    (``models/nequip.py:642-666``): on the TABLE layout with ``fused_conv``,
+    without ``capture``, where K3 takes the widths (``kernel_takes`` beside
+    its wrapper, the counterpart of the reference's ``conv_viable``) and, on
+    the card (``card``), at f32 only (the kernel takes f32; on the CPU its
+    plain version takes any dtype).  Otherwise the plain channels-last
+    message path runs."""
+    if flat or capture or not cfg.fused_conv or (card and dtype != torch.float32):
+        return False
+    dims = mlp_dims(cfg.num_bessels, cfg.radial_mlp_width, cfg.radial_mlp_depth,
+                    cfg.n_tracks * tp_num_paths(cfg.l_max) * cfg.num_features)
+    return kernel_takes(cfg.num_features, cfg.n_tracks, cfg.l_max, dims)
 
 
 def _check_supported(cfg: NequIPConfig) -> None:
@@ -219,7 +237,8 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
     layout runs the plain message and ``segment_sum``, as in JAX.
     ``capture``, when a dict, receives the final node features
     channels-first, (N, C, D) or (N, C, D, 2) with parity, as the JAX
-    model's does; the routing does not depend on it.  Returns
+    model's does, and sends the call through the plain message path, as
+    the reference does (``conv_route``).  Returns
     'atomic_energy' (N,) and 'total_energy' ()."""
     _check_supported(cfg)
     dtype = positions.dtype
@@ -251,7 +270,7 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
         def agg_edges(a):
             return a.sum(dim=1)
     u, Y, bessel = geo["u"], geo["Y"], geo["bessel"]
-    use_k3 = cfg.fused_conv and not flat
+    use_k3 = conv_route(cfg, flat, capture is not None, dtype, positions.is_cuda)
     if use_k3:
         e = n * k
         u_e, Y_e, bes_e = u.reshape(e, 1), Y.reshape(e, D), bessel.reshape(e, -1)

@@ -1,0 +1,230 @@
+"""K8: the fused Allegro layer stack (counterpart of
+``pair_allegro_tpu/ops/pallas_stack.py:_stack_fwd_kernel`` /
+``_stack_bwd_kernel``, entry ``allegro_stack_apply``).
+
+One call runs every Allegro layer on the feature-major layout of the TABLE
+edge list (E = n_centers * K, each center's K edges contiguous): from x0
+(ns, E), pT (C, E), Y (D, E) and u (1, E) it builds V0 = pT * Y and, per
+layer,
+
+  wz  = (Wenv^T x) / sqrt(ns) * u;  env = per-center sum wz (x) Y / sqrt(avg_n)
+  T   = channelwise TP of V with env;  V' = per-l3 mix of T;  inv = T[l3=0]
+  x'  = (x + MLP([x; inv]) * u) / sqrt(2)
+
+and returns x_final (ns, E); V never leaves the kernel.  On a CUDA tensor
+:func:`fused_stack` launches the hand-written Hopper kernel pair in
+``csrc/fused_stack.cu`` (one launch forward, one backward; K1's body in
+``csrc/allegro_layer.cuh`` run once per layer); on a CPU tensor it runs
+:func:`allegro_stack_reference`, the plain PyTorch version of the same
+function.  The backward returns dx0, dpT, dY and du; weight cotangents come
+back NaN-filled, the contract of the TPU kernel (``pallas_stack.py:780-782``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+
+from pair_allegro_tpu_torch.ops import fused_layer as fl
+from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
+from pair_allegro_tpu_torch.ops.embed_layer import check_operands
+from pair_allegro_tpu_torch.ops.mlp import mlp_apply
+from pair_allegro_tpu_torch.ops.tp import scalar_part, tp_mix_apply, uniform_tp
+
+launches = LaunchCounts()
+
+MAX_LAYERS = 8  # K8P::layer in csrc/fused_stack.cu (one kernel argument of <= 4 KB)
+
+
+def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
+                 n_layers: int) -> bool:
+    """Whether ``k8_launch`` (csrc/fused_stack.cu) takes a stack of
+    ``n_layers`` layers of these widths, forward and backward: K1's width
+    conditions, the shared-memory sum of K1's first form (the layout every
+    layer of the stack shares) and the layer count, mirrored here so that a
+    caller decides before any launch."""
+    return (1 <= n_layers <= MAX_LAYERS and fl.widths_ok(ns, c, c, d, latd, lmax, parity)
+            and all(fl.block_bytes(ns, c, c, d, latd, lmax, parity, True, bwd) <= fl.SMEM_MAX
+                    for bwd in (False, True)))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class K8Weights:
+    """The stack's weights: each layer's K1 layout (``k1``, cached by
+    :func:`fl.k1_weights`), the layers of the tree as they are (``tree``,
+    for the plain version) and their leaves, which receive the (NaN)
+    weight cotangents."""
+
+    k1: tuple
+    tree: tuple
+    lmax: int
+    parity: bool
+
+    def tensors(self):
+        return tuple(t for w in self.k1 for t in w.tensors())
+
+
+def stack_weights(layers, lmax: int, parity: bool) -> K8Weights:
+    """K8's weights for the tree's layers as their leaves stand now."""
+    k1 = tuple(fl.k1_weights(layer, lmax, parity) for layer in layers)
+    if len({(*w.dims[:3], tuple(w.dims[3])) for w in k1}) != 1:
+        raise ValueError("fused_stack: the layers differ in their widths")
+    return K8Weights(k1=k1, tree=tuple(layers), lmax=lmax, parity=parity)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version (the CPU path and the oracle of the kernel)
+# ---------------------------------------------------------------------------
+
+
+def allegro_stack_reference(x0T, pT, Y_T, uT, layers, K: int, lmax: int,
+                            avg_num_neighbors: float, parity: bool):
+    """The same function as the kernel in plain PyTorch, as the reference's
+    ``allegro_stack_ref`` computes it (channels-last inside): x0T (ns, E),
+    pT (C, E), Y_T (D, E), uT (1, E), ``layers`` the tree's layer list.
+    Returns x_final (ns, E).  Goes through torch autograd."""
+    ns, e = x0T.shape
+    nc = e // K
+    inv_avg = 1.0 / math.sqrt(max(avg_num_neighbors, 1e-6))
+    x, Y, u = x0T.T, Y_T.T, uT.reshape(e, 1)
+    V = pT.T.unsqueeze(-1) * Y.unsqueeze(-2)  # (E, C, D)
+    for layer in layers:
+        w_env = (x @ layer["env_weight"].to(x.dtype)) * (1.0 / math.sqrt(ns)) * u
+        env = (w_env.unsqueeze(-1) * Y.unsqueeze(-2)).reshape(nc, K, *V.shape[1:]).sum(1)
+        env_e = (env * inv_avg).unsqueeze(1).expand(nc, K, *V.shape[1:]).reshape(V.shape)
+        T = uniform_tp(V, env_e, lmax, parity)
+        inv = scalar_part(T)
+        V = tp_mix_apply(layer["mix"], T)
+        x = (x + mlp_apply(layer["latent_mlp"], torch.cat([x, inv], dim=-1)) * u) \
+            * (1.0 / math.sqrt(2.0))
+    return x.T.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel: build, bind, launch
+# ---------------------------------------------------------------------------
+
+
+def _bind(lib):
+    lib.k8_meta_words.argtypes = []
+    lib.k8_meta_words.restype = ctypes.c_int
+    lib.k8_max_layers.argtypes = []
+    lib.k8_max_layers.restype = ctypes.c_int
+    lib.k8_launch.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.k8_launch.restype = ctypes.c_int
+    if lib.k8_meta_words() != fl.META_WORDS or lib.k8_max_layers() != MAX_LAYERS:
+        raise RuntimeError("kernel table layout or layer limit differs from the wrapper's")
+
+
+LIB = CudaLibrary("k8_fused_stack", [CSRC / "fused_stack.cu", CSRC / "allegro_layer.cuh",
+                                      CSRC / "allegro_tiles.cuh"], _bind)
+
+# the launcher's pointer slots (k8_launch in csrc/fused_stack.cu), before
+# the six per layer
+_PTRS = ("Y", "u", "meta", "x0", "pT", "xo", "xs", "vs", "dxo", "dx", "dvc", "dpT", "dY", "du")
+
+
+def _launch(bwd: bool, w: K8Weights, ts: dict, K: int, inv_avg: float):
+    """One K8 launch: ``ts`` maps _PTRS names to tensors (absent or None
+    names are 0).  Raises on any refusal or launch error; counts the
+    launch."""
+    ts = {"meta": w.k1[0].meta, **ts}
+    Y = ts["Y"]
+    d, e = Y.shape
+    ptrs = [0 if ts.get(k) is None else ts[k].data_ptr() for k in _PTRS]
+    for lw in w.k1:
+        ptrs += [lw.env_w.data_ptr(), lw.env_wT.data_ptr(), lw.lat_flat.data_ptr(),
+                 lw.latT_flat.data_ptr(), lw.mix_flat.data_ptr(), lw.mixT_flat.data_ptr()]
+    dims = fl.kernel_dims(w.k1[0], d, K, e, True, False) + [len(w.k1)]
+    lib = LIB.load()
+    arr = (ctypes.c_ulonglong * len(ptrs))(*ptrs)
+    dm = (ctypes.c_int * len(dims))(*dims)
+    with torch.cuda.device(Y.device):
+        stream = torch.cuda.current_stream(Y.device).cuda_stream
+        rc = lib.k8_launch(int(bwd), arr, dm, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"K8 {'backward' if bwd else 'forward'} launch failed (code {rc})")
+    if bwd:
+        launches.bwd += 1
+    else:
+        launches.fwd += 1
+
+
+def _kernel_fwd(x0T, pT, Y_T, uT, w: K8Weights, K: int, inv_avg: float):
+    (d, e), c, L = Y_T.shape, pT.shape[0], len(w.k1)
+    xo = torch.empty_like(x0T)
+    vs = torch.empty((d * c, e), dtype=x0T.dtype, device=x0T.device) if L > 1 else None
+    _launch(False, w, {"Y": Y_T, "u": uT, "x0": x0T, "pT": pT, "xo": xo, "vs": vs}, K, inv_avg)
+    return xo
+
+
+def _kernel_bwd(x0T, pT, Y_T, uT, w: K8Weights, K: int, inv_avg: float, dxo):
+    (ns, e), d, c, L = x0T.shape, Y_T.shape[0], pT.shape[0], len(w.k1)
+    dev, dt = x0T.device, x0T.dtype
+    stash = {}
+    if L > 1:
+        stash = {"xs": torch.empty(((L - 1) * ns, e), dtype=dt, device=dev),
+                 "vs": torch.empty(((L - 1) * d * c, e), dtype=dt, device=dev),
+                 "dvc": torch.empty((d * c, e), dtype=dt, device=dev)}
+    dx, dpT, dY, du = (torch.empty_like(t) for t in (x0T, pT, Y_T, uT))
+    _launch(True, w, {"Y": Y_T, "u": uT, "x0": x0T, "pT": pT, "dxo": dxo, "dx": dx, "dpT": dpT,
+                      "dY": dY, "du": du, **stash}, K, inv_avg)
+    return dx, dpT, dY, du
+
+
+class _FusedStack(torch.autograd.Function):
+    """Kernel (CUDA tensors) or plain version (CPU tensors) forward; the
+    backward recomputes the layers from (x0, pT, Y, u), as the TPU kernel
+    does, and hands back NaN-filled weight cotangents."""
+
+    @staticmethod
+    def forward(ctx, x0T, pT, Y_T, uT, w, K, avg, *weights):
+        ctx.cfg = (w, K, avg)
+        ctx.save_for_backward(x0T, pT, Y_T, uT)
+        if x0T.is_cuda:
+            return _kernel_fwd(x0T, pT, Y_T, uT, w, K, _inv_avg(avg))
+        return allegro_stack_reference(x0T, pT, Y_T, uT, w.tree, K, w.lmax, avg, w.parity)
+
+    @staticmethod
+    def backward(ctx, dxo):
+        w, K, avg = ctx.cfg
+        ins = ctx.saved_tensors
+        if ins[0].is_cuda:
+            grads = _kernel_bwd(*ins, w, K, _inv_avg(avg), dxo.contiguous())
+        else:
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(True) for t in ins]
+                out = allegro_stack_reference(*ins, w.tree, K, w.lmax, avg, w.parity)
+                grads = torch.autograd.grad(out, ins, dxo)
+        nan_w = [torch.full_like(t, float("nan")) for t in w.tensors()]
+        return (*grads, None, None, None, *nan_w)
+
+
+def _inv_avg(avg: float) -> float:
+    return 1.0 / math.sqrt(max(avg, 1e-6))
+
+
+def fused_stack(x0T, pT, Y_T, uT, layers, K: int, lmax: int, avg_num_neighbors: float,
+                parity: bool):
+    """The whole Allegro layer stack on the feature-major TABLE layout:
+    x0T (ns, E) the two-body latent (already times u), pT (C, E) the tensor
+    embedding (already over sqrt(ns)), Y_T (D, E), uT (1, E), E =
+    n_centers * K, ``layers`` the tree's layer list.  Returns x_final (ns,
+    E).  CUDA tensors launch K8 (f32 and contiguous only; the launcher
+    refuses a stack it does not take, see :func:`kernel_takes`); CPU
+    tensors take :func:`allegro_stack_reference`."""
+    w = stack_weights(layers, lmax, parity)
+    ns, e = x0T.shape
+    d = (lmax + 1) ** 2
+    ns_w, c = w.k1[0].dims[:2]
+    if ns_w != ns or K < 1 or e % K:
+        raise ValueError(f"fused_stack: ns={ns}, K={K}, E={e} do not fit the layers")
+    check_operands("fused_stack", (x0T, pT, Y_T, uT), w.tensors(),
+                   {0: (ns, e), 1: (c, e), 2: (d, e), 3: (1, e)})
+    return _FusedStack.apply(x0T, pT, Y_T, uT, w, K, avg_num_neighbors, *w.tensors())

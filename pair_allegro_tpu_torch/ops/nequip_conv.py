@@ -38,6 +38,7 @@ from pair_allegro_tpu_torch.ops.tp import tp_entry_table, tp_num_paths
 
 HEADER = CSRC / "nequip_tp_table.cuh"
 _MAX_W = 8  # radial MLP weight matrices the kernel takes (K3P::wdim in the source)
+NT_MAX, SMEM_MAX = 256, 232448  # the launcher's threads per block and shared-memory limit
 
 launches = LaunchCounts()
 
@@ -64,6 +65,42 @@ class K3Weights:
 
     def tensors(self):
         return self.ws
+
+
+def kernel_takes(C: int, n_tracks: int, lmax: int, dims) -> bool:
+    """Whether K3 takes a layer of C channels, ``n_tracks`` tracks and a
+    radial MLP of widths ``dims`` (Bessels, hidden..., T*P*C), forward and
+    backward: the wrapper's channel and width conditions, ``k3_launch``'s
+    refusals (csrc/nequip_conv.cu) and its shared-memory sum, mirrored here
+    so that a caller decides before any launch."""
+    nw = len(dims) - 1
+    if lmax not in (1, 2) or n_tracks not in (1, 2) or not 1 <= nw <= _MAX_W or min(dims) < 1:
+        return False
+    if not ((C % 32 == 0 and C <= 128) or C in (4, 8, 16)) or dims[-2] % 4:
+        return False
+    tp = n_tracks * tp_num_paths(lmax)
+    if dims[-1] != tp * C:
+        return False
+    d = (lmax + 1) ** 2
+    q = NT_MAX // C
+    et = q * (4 if tp <= 16 else 2)  # edges per tile: Q * NE
+    hin, hmax = dims[-2], max(dims[:-1])
+
+    def words(n):  # the launcher's 16-byte aligned regions
+        return -(-n // 4) * 4
+
+    for bwd in (False, True):
+        total = words(et * dims[0]) + 2 * words(et * hmax) + words(et * d) + words(et)
+        if bwd:
+            nb = (et // 4) * (hin // 4)
+            nch = 1 if nb >= NT_MAX else NT_MAX // nb
+            total += (words((nw - 1) * et * hmax) + words(et * (tp * C + 4)) + words(et * d)
+                      + words(et) + words(nch * et * hin))
+        else:
+            total += words(q * d * n_tracks * C)
+        if 4 * total > SMEM_MAX:
+            return False
+    return True
 
 
 def radial_cl(ws, C: int, p_total: int, n_tracks: int) -> list:

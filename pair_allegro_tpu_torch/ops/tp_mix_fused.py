@@ -30,7 +30,14 @@ import torch
 
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.env_layer import mix_leaves
-from pair_allegro_tpu_torch.ops.fused_layer import _META_DTYPE, _meta_table
+from pair_allegro_tpu_torch.ops.fused_layer import (
+    _MAX_D,
+    _META_DTYPE,
+    META_WORDS,
+    SMEM_MAX,
+    _meta_table,
+    table_fits,
+)
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l, scalar_part, tp_mix_apply, uniform_tp
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
@@ -131,6 +138,19 @@ LIB = CudaLibrary("k4_tp_mix_fused", [CSRC / "tp_mix_fused.cu", CSRC / "allegro_
 
 _CODES = {-1: "D above 16", -3: "no edges", -4: "C and Cout must be multiples of 4",
           -6: "the block's shared memory exceeds 227 KB even at 8 edges per tile"}
+
+
+def kernel_takes(c: int, cout: int, d: int, lmax: int, parity: bool) -> bool:
+    """Whether ``k4_launch`` (csrc/tp_mix_fused.cu) takes these widths,
+    forward and backward: its refusals (``_CODES``), the 3j table the
+    wrapper builds, and the shared memory of its narrowest edge tile (8),
+    mirrored here so that a caller decides before any launch."""
+    if d > _MAX_D or not table_fits(lmax, parity) or c < 4 or c % 4 or cout < 4 or cout % 4:
+        return False
+    maxpc = max(num_paths_per_l(lmax, lmax, lmax, parity)) * c
+    tld = 8 + 1
+    return all(4 * (META_WORDS + d * c * tld * (4 if bwd else 2) + maxpc * tld
+                    + (cout * tld if bwd else 0)) <= SMEM_MAX for bwd in (False, True))
 
 
 def _dims(w: K4Weights, Vt):

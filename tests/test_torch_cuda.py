@@ -1,13 +1,14 @@
 """CUDA legs of the PyTorch port: K1 (csrc/fused_layer.cu), K3
 (csrc/nequip_conv.cu), K2 (csrc/env_layer.cu), K5 (csrc/env_layer_mxu.cu,
-each precision mode), K4 (csrc/tp_mix_fused.cu) and K6 / K7
-(csrc/embed_readout_layer.cu) against their plain PyTorch versions on the
-card, f32, forward and backward, for every form; launch counting; the
-wrappers' refusals on the card; the models' kernel paths (K1 in its three
-forms, per-layer and K4 tiers, NequIP, the FLAT layout of the dense
-strategy) against their CPU plain paths and regrows on the card; the
-routing predicates against the launchers.  Every test here needs a card
-and skips without one.
+each precision mode), K4 (csrc/tp_mix_fused.cu), K6 / K7
+(csrc/embed_readout_layer.cu) and K8 (csrc/fused_stack.cu) against their
+plain PyTorch versions on the card, f32, forward and backward, for every
+form; launch counting; the wrappers' refusals on the card; the models'
+kernel paths (K1 in its three forms, per-layer, K4 and stack tiers,
+NequIP, the FLAT layout of the dense strategy) against their CPU plain
+paths and regrows on the card; the routing predicates against the
+launchers; f64 systems and widths no kernel takes on the plain path.
+Every test here needs a card and skips without one.
 
 This file imports torch and the port only (no JAX), so that it also runs
 on a machine without JAX:
@@ -755,10 +756,11 @@ def test_k6_k7_kernel_takes_mirror_the_launchers(cuda, kernel, lmax, width, take
     assert embed_readout_viable(cfg) == takes
 
 
-def _er_model(dev, layers, charges=True):
+def _er_model(dev, layers, charges=True, **kw):
     cfg = AllegroConfig(type_names=("Cu", "Ag"), r_max=4.5, l_max=2, num_layers=layers,
                         num_scalar_features=32, num_tensor_features=16, avg_num_neighbors=12.0,
-                        output_charges=charges, per_edge_type_cutoff=((4.5, 4.2), (4.2, 4.0)))
+                        output_charges=charges, per_edge_type_cutoff=((4.5, 4.2), (4.2, 4.0)),
+                        **kw)
     pos, cell = fcc_lattice(5)
     n = pos.shape[0]
     typ = np.random.RandomState(1).randint(0, 2, n)
@@ -808,3 +810,264 @@ def test_nopos_model_kernel_path_matches_cpu(cuda, monkeypatch):
             assert fl.launches.fwd - f0 == 3
         outs.append(o.forces.cpu())
     assert float((outs[0] - outs[1]).abs().max()) < 5e-4
+
+
+# --- K8: the whole layer stack (csrc/fused_stack.cu) -------------------------
+
+
+def _stack_case(cuda, ns, c, lmax, layers, k, nc, seed=0, parity=True):
+    """The tree's layers of a model at these widths and (x0, pT, Y, u) with
+    padded slots at the end of the last center's row."""
+    cfg = AllegroConfig(type_names=("A", "B"), r_max=4.0, l_max=lmax, num_layers=layers,
+                        num_scalar_features=ns, num_tensor_features=c, avg_num_neighbors=5.0,
+                        parity=parity)
+    params = allegro_params_from_numpy(allegro_init_numpy(cfg, seed), cfg, device=cuda)
+    return params["layers"], _operands(cuda, ns, c, k, nc, True, seed + 1, lmax)
+
+
+def _stack_compare(layers, ops, k, lmax, parity):
+    """K8 against its plain version: forward 1e-4 + 1e-4 max|plain|,
+    backward (dx0, dpT, dY, du) 1e-4 + 1e-3 max|plain|."""
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    ins = [t.detach().clone().requires_grad_(True) for t in ops]
+    out_k = k8.fused_stack(*ins, layers, k, lmax, 5.0, parity)
+    out_r = k8.allegro_stack_reference(*ins, layers, k, lmax, 5.0, parity)
+    assert float((out_k - out_r).detach().abs().max()) <= \
+        1e-4 + 1e-4 * float(out_r.detach().abs().max())
+    cot = torch.randn_like(out_r)
+    for a, b in zip(torch.autograd.grad(out_k, ins, cot), torch.autograd.grad(out_r, ins, cot)):
+        assert float((a - b).abs().max()) <= 1e-4 + 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("ns,c,lmax,layers,k,parity", [
+    (64, 32, 2, 3, 64, True), (64, 32, 1, 3, 64, True), (64, 32, 2, 1, 64, True),
+    (64, 32, 2, 2, 40, True), (16, 8, 2, 3, 20, True), (16, 8, 2, 3, 24, False),
+    (16, 8, 3, 2, 33, True)])
+def test_k8_kernel_matches_plain(cuda, ns, c, lmax, layers, k, parity):
+    """Flagship widths with 3 layers, l_max 1 and 3, 1 and 2 layers (the
+    first and the last layer in one), parity off, and K that is no
+    multiple of the 32-edge tile."""
+    layers_, ops = _stack_case(cuda, ns, c, lmax, layers, k, 6, parity=parity)
+    _stack_compare(layers_, ops, k, lmax, parity)
+
+
+def test_k8_counts_its_launches_and_nan_weight_cotangents(cuda):
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    layers, (x, pT, Y, u) = _stack_case(cuda, 16, 8, 2, 3, 32, 4)
+    leaves = [t.requires_grad_(True) for layer in layers for t in fl.layer_leaves(layer, 2)]
+    x.requires_grad_(True)
+    before = [(m.launches.fwd, m.launches.bwd) for m in (k8, fl)]
+    k8.fused_stack(x, pT, Y, u, layers, 32, 2, 5.0, True).sum().backward()
+    after = [(m.launches.fwd, m.launches.bwd) for m in (k8, fl)]
+    assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == [(1, 1), (0, 0)]
+    assert torch.isfinite(x.grad).all()
+    assert all(t.grad is not None and torch.isnan(t.grad).all() for t in leaves)
+
+
+def test_k8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    """Non-f32, non-contiguous or mixed-device operands raise before any
+    launch; there is no fallback to the plain version on the card."""
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    layers, (x, pT, Y, u) = _stack_case(cuda, 16, 8, 2, 2, 32, 4)
+    f0 = k8.launches.fwd
+    with pytest.raises(TypeError):
+        k8.fused_stack(x.double(), pT.double(), Y.double(), u.double(), layers, 32, 2, 5.0, True)
+    with pytest.raises(ValueError):
+        k8.fused_stack(x.T.contiguous().T, pT, Y, u, layers, 32, 2, 5.0, True)
+    with pytest.raises(ValueError):
+        k8.fused_stack(x, pT.cpu(), Y, u, layers, 32, 2, 5.0, True)
+    assert k8.launches.fwd == f0
+
+
+@pytest.mark.parametrize("c,lmax,layers,takes", [
+    (32, 2, 3, True), (32, 2, 8, True), (32, 2, 9, False), (64, 2, 3, False), (48, 2, 3, False),
+    (32, 3, 3, True)])
+def test_k8_kernel_takes_mirrors_the_launcher(cuda, c, lmax, layers, takes):
+    """kernel_takes (and the model's stack_viable) is True exactly where
+    the launcher takes the stack, forward and backward, at ns 64."""
+    from pair_allegro_tpu_torch.models.allegro import stack_viable
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    layers_, (x, pT, Y, u) = _stack_case(cuda, 64, c, lmax, layers, 16, 3)
+    w = fl.k1_weights(layers_[0], lmax, True)
+    mirror = k8.kernel_takes(64, c, (lmax + 1) ** 2, tuple(w.dims[3]), lmax, True, layers)
+    x.requires_grad_(True)
+    try:
+        k8.fused_stack(x, pT, Y, u, layers_, 16, lmax, 5.0, True).sum().backward()
+        torch.cuda.synchronize()
+        launched = True
+    except RuntimeError as err:
+        assert "launch failed" in str(err)
+        launched = False
+    cfg = AllegroConfig(type_names=("A", "B"), r_max=4.0, l_max=lmax, num_layers=layers,
+                        num_scalar_features=64, num_tensor_features=c, fused_stack=True)
+    assert launched == mirror == stack_viable(cfg) == takes
+
+
+def test_stack_model_kernel_path_matches_cpu(cuda):
+    """fused_stack=True: forces and charges of the K8 path on the card
+    against the CPU plain path, one K8 launch each way and no K1."""
+    from pair_allegro_tpu_torch.models.allegro import layer_tier
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg, s, eng = _er_model(dev, 3, fused_stack=True)
+        assert layer_tier(cfg, False) == "stack"
+        nb = eng.rebuild_fn(s, None)
+        before = [(m.launches.fwd, m.launches.bwd) for m in (k8, fl)]
+        o = eng.force_fn(s, nb)
+        after = [(m.launches.fwd, m.launches.bwd) for m in (k8, fl)]
+        if dev.type == "cuda":
+            assert [(a - c, b - d) for (a, b), (c, d) in zip(after, before)] == [(1, 1), (0, 0)]
+        outs.append((o.forces.cpu(), o.extras["charges"].cpu()))
+    (fk, qk), (fp, qp) = outs
+    assert float((fk - fp).abs().max()) < 5e-4
+    assert float((qk - qp).abs().max()) < 5e-4
+
+
+# --- routing: dtype and the widths a kernel refuses run the plain path ------
+
+
+def _launch_totals():
+    from pair_allegro_tpu_torch.ops import (
+        embed_layer,
+        env_layer,
+        env_layer_mxu,
+        fused_stack,
+        nequip_conv,
+        readout_layer,
+        tp_mix_fused,
+    )
+
+    mods = (fl, nequip_conv, env_layer, env_layer_mxu, tp_mix_fused, embed_layer, readout_layer,
+            fused_stack)
+    return sum(m.launches.fwd + m.launches.bwd for m in mods)
+
+
+def _cu_system(dev, dtype, flat=False):
+    """FCC Cu: 256 atoms (the engines' dense strategy, FLAT layout) or 500
+    (cell list, TABLE layout)."""
+    pos, cell = fcc_lattice(4 if flat else 5)
+    return System.create(pos, np.zeros(len(pos), np.int64), cell=cell,
+                         masses=np.full(len(pos), 63.546), dtype=dtype, device=dev)
+
+
+def _allegro_forces(cfg, dev, dtype, flat=False):
+    s = _cu_system(dev, dtype, flat)
+    tree = allegro_init_numpy(cfg, 0)
+    eng = AllegroEngine(cfg, allegro_params_from_numpy(tree, cfg, device=dev, dtype=dtype), s,
+                        device=dev)
+    assert eng.spec.strategy == ("dense" if flat else "cell_list")
+    o = eng.force_fn(s, eng.rebuild_fn(s, None))
+    return o.forces.cpu(), o.total_energy.cpu()
+
+
+def _nequip_forces(cfg, dev, dtype):
+    from pair_allegro_tpu_torch.engine import NequIPEngine
+    from pair_allegro_tpu_torch.models.nequip import nequip_init_numpy, nequip_params_from_numpy
+
+    s = _cu_system(dev, dtype)
+    tree = nequip_init_numpy(cfg, 0)
+    eng = NequIPEngine(cfg, nequip_params_from_numpy(tree, cfg, device=dev, dtype=dtype), s,
+                       device=dev)
+    o = eng.force_fn(s, eng.rebuild_fn(s, None))
+    return o.forces.cpu(), o.total_energy.cpu()
+
+
+ALLEGRO_TIERS = {"k1": {}, "perlayer": dict(layer_fused=False), "stack": dict(fused_stack=True),
+                 "flat": {}}
+
+
+@pytest.mark.parametrize("tier", list(ALLEGRO_TIERS) + ["nequip"])
+def test_f64_on_the_card_runs_plain_and_matches_cpu(cuda, tier):
+    """An f64 system on the card takes the plain path on every tier (no
+    kernel launches) and gives the CPU f64 path's forces to 1e-9
+    relative."""
+    from pair_allegro_tpu_torch.models.nequip import NequIPConfig
+
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        n0 = _launch_totals()
+        if tier == "nequip":
+            cfg = NequIPConfig(type_names=("Cu",), r_max=4.5, num_layers=2, num_features=16,
+                               avg_num_neighbors=12.0, parity=True)
+            outs.append(_nequip_forces(cfg, dev, torch.float64))
+        else:
+            cfg = _flat_cfg(species=1, num_layers=2, **ALLEGRO_TIERS[tier])
+            outs.append(_allegro_forces(cfg, dev, torch.float64, flat=tier == "flat"))
+        if dev.type == "cuda":
+            assert _launch_totals() == n0
+    (fk, ek), (fp, ep) = outs
+    assert fk.dtype == torch.float64
+    assert float((fk - fp).abs().max()) <= 1e-9 * float(fp.abs().max())
+    assert abs(float(ek) - float(ep)) <= 1e-9 * abs(float(ep))
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_widths_k1_and_k4_refuse_run_plain_on_the_card(cuda, flat):
+    """num_tensor_features=6: K1, K8 and K4 refuse C not a multiple of 4,
+    so the TABLE and FLAT models run the plain path (no launch) and match
+    the CPU."""
+    from pair_allegro_tpu_torch.models.allegro import layer_tier
+
+    cfg = _flat_cfg(species=1, num_tensor_features=6, fused_stack=True)
+    assert layer_tier(cfg, flat) == "plain"
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        n0 = _launch_totals()
+        outs.append(_allegro_forces(cfg, dev, torch.float32, flat=flat))
+        if dev.type == "cuda":
+            assert _launch_totals() == n0
+    assert float((outs[0][0] - outs[1][0]).abs().max()) < 5e-4
+
+
+def test_nequip_width_k3_refuses_runs_plain_on_the_card(cuda):
+    """num_features=48: K3 refuses the channel count, so NequIP runs its
+    plain message path on the card (no K3 launch) and matches the CPU."""
+    from pair_allegro_tpu_torch.models.nequip import NequIPConfig, conv_route
+    from pair_allegro_tpu_torch.ops import nequip_conv
+
+    cfg = NequIPConfig(type_names=("Cu",), r_max=4.5, num_layers=2, num_features=48,
+                       avg_num_neighbors=12.0, parity=True)
+    assert not conv_route(cfg, False)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        k3 = nequip_conv.launches.fwd
+        outs.append(_nequip_forces(cfg, dev, torch.float32))
+        assert nequip_conv.launches.fwd == k3
+    assert float((outs[0][0] - outs[1][0]).abs().max()) < 5e-4
+
+
+@pytest.mark.parametrize("kernel,width,takes", [
+    ("k4", 8, True), ("k4", 6, False), ("k4", 128, True), ("k4", 256, False),
+    ("k3", 64, True), ("k3", 48, False), ("k3", 128, True), ("k3", 256, False)])
+def test_k3_k4_kernel_takes_mirror_the_launchers(cuda, kernel, width, takes):
+    """kernel_takes is True exactly where the wrapper and its launcher take
+    the widths, forward and backward (K4 at l_max 2 with parity, K3 at l_max
+    1 with two tracks)."""
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+    from pair_allegro_tpu_torch.ops.tp import tp_num_paths
+
+    if kernel == "k4":
+        mirror = k4.kernel_takes(width, width, 9, 2, True)
+        w, ins = _k4_case(cuda, width, width, 2, True, 64, 7)
+        ins = [t.requires_grad_(True) for t in ins]
+        call = lambda: sum(o.sum() for o in k4.tp_mix_fused_t(*ins, w))
+    else:
+        mirror = k3.kernel_takes(width, 2, 1, (8, 32, 32, 2 * tp_num_paths(1) * width))
+        w, ins = _k3_case(cuda, 1, 2, width, 16, 3, 7)
+        ins = [t.requires_grad_(True) for t in ins]
+        call = lambda: k3.nequip_conv(*ins, w, 16, 12.0).sum()
+    try:
+        call().backward()
+        torch.cuda.synchronize()
+        launched = True
+    except (RuntimeError, ValueError) as err:
+        assert "launch failed" in str(err) or "takes C in" in str(err)
+        launched = False
+    assert launched == mirror == takes
