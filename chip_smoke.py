@@ -61,7 +61,18 @@ Phases, each of which must pass (any failure exits non-zero):
      NequIP paths against the CPU f64 path (no kernel launches);
  14. the stack main path: phase 5's run with fused_stack=True, 60 + 60
      steps: 1 K8 launch per force evaluation each way and no other kernel;
-     K8 timings and parity at its shapes.
+     K8 timings and parity at its shapes;
+ 15. the accuracy gate of the tiers the layer body carries (the K1 tier,
+     PAT_L1_EMBED=1 and fused_stack=True) on benchmarks/accuracy.py's
+     fixture (500 perturbed FCC Cu atoms) at flagship widths: f32 on the
+     card against the port's plain path at f64 on the CPU, max|dF| <= 1e-4
+     eV/A (rms|dF| and dE/atom printed).
+Phases 7, 12 and 14 print two bounds for K1, K6, K7 and K8: with the
+products on the tensor cores in 3xTF32 (the kernels' ``bound_ms``) and on
+the CUDA cores alone (``bound_ms_f32``, printed only), and the bytes of
+weights the kernel stages from L2 per call as computed from its layout (a
+formula, not a measurement); phase 1 prints ptxas's registers, shared
+memory and spills of every kernel.
 The launch counts of each main path are read from its phase alone (every
 count is set to 0 just before it).  The line before the last is a JSON
 object of the kernels; the last line is {"ok": true, "device": {...}}.
@@ -71,7 +82,10 @@ Weights are random, made from a seed.
 an Allegro main-path MD step goes (torch.profiler); ``--profile nequip``,
 ``--profile perlayer``, ``--profile flat``, ``--profile embed`` and
 ``--profile stack`` the same for the NequIP, per-layer, FLAT slab, embed
-and stack main paths.
+and stack main paths.  ``python3 chip_smoke.py --body-timings`` runs only
+phases 7, 12 and 14's timings of the layer body's kernels (K1, K6, K7, K8)
+at their main paths' shapes (the engines' first neighbor build, no MD run):
+run from two checkouts in one call, it compares two builds of the body.
 """
 
 from __future__ import annotations
@@ -90,6 +104,9 @@ import time
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# dense TF32 on the tensor cores (NVIDIA data sheet); the layer body's 3xTF32
+# products take three passes, so f32-accurate products run at a third of it
+PEAK_TF32_FLOPS = 495e12
 FORMS = {"first": (True, False), "middle": (False, False), "last": (False, True)}
 SEED = 0
 
@@ -229,6 +246,59 @@ def k1_cost(w, e, k, form, bwd):
     return per * e, 4 * ((io_in + io_out) * e + n_w)
 
 
+def k1_products(w, form, bwd):
+    """Of ``k1_terms``'s operations per edge slot, those of the small
+    matrix products, which the layer body runs on the tensor cores: wz =
+    Wenv^T x, the mix and the latent MLP, and in the backward their
+    transposes and the env backward's Wenv dwz."""
+    from pair_allegro_tpu_torch.ops.fused_layer import _row_tables
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    first_v, last = FORMS[form] if isinstance(form, str) else form
+    ns, c, cout, latd = w.dims
+    P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
+    mlp = _mlp_ops(latd)
+    mix = 0 if last else sum(2 * cout * P[l3] * c for _, l3 in _row_tables(w.lmax, w.parity))
+    return 4 * ns * c + 2 * mlp + mix if bwd else 2 * ns * c + mlp + mix
+
+
+def bounds(flops, prod, nbytes):
+    """The least time of a call with ``flops`` operations, ``prod`` of them
+    in small products, moving ``nbytes``: on the tensor cores (``bound_ms``:
+    the products at PEAK_TF32_FLOPS / 3 and the rest at the f32 rate, the
+    larger of the two, since the tensor and the f32 pipes run side by side)
+    and on the CUDA cores alone (``bound_ms_f32``: every flop at the f32
+    rate); each the larger of its operations' time and the bytes' time."""
+    t_b = nbytes / PEAK_BYTES * 1e3
+    t_tc = max(prod / (PEAK_TF32_FLOPS / 3), (flops - prod) / PEAK_F32_FLOPS) * 1e3
+    t_f32 = flops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_tc, t_b), bound_by="operations" if t_tc >= t_b else "bytes",
+                bound_ms_f32=max(t_f32, t_b), bound_by_f32="operations" if t_f32 >= t_b else "bytes")
+
+
+def n_tiles(e, k):
+    """Edge tiles of 32 the layer body walks at E edge slots, K per center."""
+    return e // k * -(-k // 32)
+
+
+def k1_weight_bytes(w, form, bwd, tiles):
+    """Bytes of weights one K1 call of ``form`` stages from L2 into its ring
+    (csrc/allegro_layer.cuh), computed from the body's staging, not
+    measured: per tile, Wenv in each pass over the center's edges, the
+    latent MLP, and each mix l3 block once (it stays in the ring over its
+    rows, as at the flagship widths); the backward adds the latent MLP's and
+    the mix's transposes and Wenv^T."""
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    first_v, last = FORMS[form] if isinstance(form, str) else form
+    ns, c, cout, latd = w.dims
+    P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
+    lat = sum(a * b for a, b in zip(latd[:-1], latd[1:]))
+    mix = 0 if last else sum(p * c * cout for p in P)
+    words = 3 * ns * c + 2 * lat + mix if bwd else ns * c + lat + mix
+    return 4 * words * tiles
+
+
 def _mlp_ops(dims):
     return sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
 
@@ -251,6 +321,57 @@ def k6_cost(w, e, bwd):
         per += pro
     n_w = sum(t.numel() for t in w.tensors())
     return per * e, 4 * ((io_in + swap + io_out) * e + n_w)
+
+
+def k6_products(w, bwd):
+    """``k1_products`` of K1's first form with the prologue's two-body MLP
+    and tensor embed (the backward: their recompute and transposes)."""
+    ns, c = w.te.shape
+    pro = _mlp_ops(w.tb_dims) + 2 * ns * c
+    return k1_products(w.layer, "first", bwd) + (2 * pro if bwd else pro)
+
+
+def k6_weight_bytes(w, bwd, tiles):
+    """``k1_weight_bytes`` of the first form with the prologue's weights:
+    the two-body MLP (first layer padded to 4k rows) in each pass over the
+    center's edges, W_te, and in the backward their transposes."""
+    ns, c = w.te.shape
+    dims = (-(-w.n_in // 4) * 4, *w.tb_dims[1:])
+    tb = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    extra = 4 * tb + 2 * ns * c if bwd else 2 * tb + ns * c
+    return k1_weight_bytes(w.layer, "first", bwd, tiles) + 4 * extra * tiles
+
+
+def k7_products(w, bwd):
+    """``k1_products`` of K1's last form with the heads' layers but their
+    last (width 1, a row sum on the CUDA cores), twice in the backward."""
+    heads = sum(_mlp_ops(h[:-1]) for h in w.heads_dims)
+    return k1_products(w.layer, "last", bwd) + (2 * heads if bwd else heads)
+
+
+def k7_weight_bytes(w, bwd, tiles):
+    """``k1_weight_bytes`` of the last form with the heads' weights per
+    tile (the backward: the heads' forward and backward)."""
+    heads = sum(a * b for h in w.heads_dims for a, b in zip(h[:-1], h[1:]))
+    return k1_weight_bytes(w.layer, "last", bwd, tiles) + 4 * (2 if bwd else 1) * heads * tiles
+
+
+def k8_products(w, bwd):
+    """``k1_products`` of each layer's form, summed over the stack (as
+    ``k8_cost``, the backward's recompute not counted)."""
+    n_l = len(w.k1)
+    return sum(k1_products(lw, (li == 0, li == n_l - 1), bwd) for li, lw in enumerate(w.k1))
+
+
+def k8_weight_bytes(w, bwd, tiles):
+    """``k1_weight_bytes`` of each layer's form over the stack; the
+    backward also recomputes layers 0 .. L-2 forward."""
+    n_l = len(w.k1)
+    forms = [(li == 0, li == n_l - 1) for li in range(n_l)]
+    fwd = [k1_weight_bytes(lw, f, False, tiles) for lw, f in zip(w.k1, forms)]
+    if not bwd:
+        return sum(fwd)
+    return sum(fwd[:-1]) + sum(k1_weight_bytes(lw, f, True, tiles) for lw, f in zip(w.k1, forms))
 
 
 def k7_cost(w, e, bwd):
@@ -597,16 +718,28 @@ def k1_timings(cfg, params, system, eng, errs):
         del out, outs, ins, out_k, g_k, g_r
         torch.cuda.empty_cache()
         for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
-            flops, nbytes = k1_cost(w, e, k, form, kind == "bwd")
-            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-            res[(form, kind)] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
-                                     bound_by="operations" if t_ops >= t_bytes else "bytes",
-                                     gflop=flops / 1e9, mbytes=nbytes / 1e6)
-            r = res[(form, kind)]
-            print(f"K1 {kind} {form:6s} E={e}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gflop']:.2f} GFLOP, "
-                  f"{r['mbytes']:.1f} MB), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+            bwd = kind == "bwd"
+            flops, nbytes = k1_cost(w, e, k, form, bwd)
+            res[(form, kind)] = timing(ms, pms, flops, k1_products(w, form, bwd) * e, nbytes,
+                                       k1_weight_bytes(w, form, bwd, n_tiles(e, k)))
+            print_timing(f"K1 {kind} {form:6s} E={e}", res[(form, kind)])
     return res
+
+
+def timing(ms, pms, flops, prod, nbytes, weight_bytes):
+    """A kernel row: its time, its plain version's, both bounds
+    (``bounds``), and the weights its tiles stage from L2 (computed)."""
+    return dict(ms=ms, plain_ms=pms, **bounds(flops, prod, nbytes), gflop=flops / 1e9,
+                mbytes=nbytes / 1e6, staged_weight_mb=weight_bytes / 1e6)
+
+
+def print_timing(label, r):
+    print(f"{label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms with the tensor cores ({r['bound_by']}), "
+          f"{r['bound_ms_f32']:.4f} ms on the CUDA cores alone ({r['bound_by_f32']}); "
+          f"{r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB, weights staged from L2 "
+          f"{r['staged_weight_mb']:.1f} MB (computed), {r['gflop'] / r['ms']:.2f} TFLOP/s "
+          f"achieved")
 
 
 def k3_operands(cfg, params, system, eng, seed=SEED):
@@ -1296,9 +1429,11 @@ def er_timings(cfg, params, system, eng, errs):
     w6, w7, calls = er_calls(cfg, params, k)
     gen = torch.Generator(device=system.device).manual_seed(SEED)
     res = {}
-    for name, mod, ref, w, ops, cost, names in (
-            ("K6", k6, k6.embed_layer_reference, w6, ops6, k6_cost, K6_NAMES),
-            ("K7", k7, k7.readout_layer_reference, w7, ops7, k7_cost, K1_NAMES)):
+    for name, mod, ref, w, ops, cost, prods, wbytes, names in (
+            ("K6", k6, k6.embed_layer_reference, w6, ops6, k6_cost, k6_products, k6_weight_bytes,
+             K6_NAMES),
+            ("K7", k7, k7.readout_layer_reference, w7, ops7, k7_cost, k7_products, k7_weight_bytes,
+             K1_NAMES)):
         cots = [torch.randn(o.shape, generator=gen, device=system.device)
                 for o in _tup(mod._kernel_fwd(*ops, w, k, inv_avg))]
         bwd_args = tuple(cots) if name == "K6" else (cots,)
@@ -1314,14 +1449,11 @@ def er_timings(cfg, params, system, eng, errs):
         e2 = pair_compare(name, f"embed main path E={e}", calls[name], ops, names, gen)
         errs[name] = {kind: max(errs[name][kind], e2[kind]) for kind in e2}
         for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
-            flops, nbytes = cost(w, e, kind == "bwd")
-            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-            r = res[(name, kind)] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
-                                         bound_by="operations" if t_ops >= t_bytes else "bytes",
-                                         gflop=flops / 1e9, mbytes=nbytes / 1e6)
-            print(f"{name} {kind} E={e}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gflop']:.2f} GFLOP, "
-                  f"{r['mbytes']:.1f} MB), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+            bwd = kind == "bwd"
+            flops, nbytes = cost(w, e, bwd)
+            r = res[(name, kind)] = timing(ms, pms, flops, prods(w, bwd) * e, nbytes,
+                                           wbytes(w, bwd, n_tiles(e, k)))
+            print_timing(f"{name} {kind} E={e}", r)
     return res, errs
 
 
@@ -1439,6 +1571,81 @@ def f64_parity():
             raise RuntimeError(f"f64 on the card, {label}, does not match the CPU f64 path")
 
 
+def accuracy_system(device, dtype):
+    """benchmarks/accuracy.py:_setup's fixture: 500 FCC Cu atoms (N_REP = 5
+    cells a side, a0 = 3.61 A) with __graft_entry__._fcc_cu's 0.05 A jitter
+    (RandomState(0)) and _setup's own 0.05 A (RandomState(7)), one
+    species."""
+    import numpy as np
+
+    from pair_allegro_tpu_torch.system import System
+
+    a0, n_rep = 3.61, 5
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]]) * a0
+    pos = np.concatenate([base + np.array([i, j, k]) * a0 for i in range(n_rep)
+                          for j in range(n_rep) for k in range(n_rep)])
+    pos = pos + 0.05 * np.random.RandomState(0).randn(*pos.shape)
+    pos = pos + np.random.RandomState(7).randn(*pos.shape) * 0.05
+    n = pos.shape[0]
+    return System.create(pos, np.zeros(n, np.int32), cell=np.eye(3) * a0 * n_rep,
+                         masses=np.full(n, 63.546), dtype=dtype, device=device)
+
+
+# the tiers whose kernels the layer body carries: (label, config fields,
+# environment, launches per force evaluation, fwd = bwd)
+ACCURACY_TIERS = (("K1 tier", {}, {}, {"K1": 3}),
+                  ("embed path", {}, {"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1}),
+                  ("stack path", dict(fused_stack=True), {}, {"K8": 1}))
+
+
+def accuracy_phase():
+    """Phase 15: the accurate tier's force gate on benchmarks/accuracy.py's
+    fixture at flagship widths: each tier of ACCURACY_TIERS at f32 on the
+    card against the port's plain path at f64 on the CPU (the oracle, which
+    matches JAX to 1e-10 in the CPU tests); max|dF| <= 1e-4 eV/A, with
+    rms|dF| and dE/atom printed.  Returns {label: max|dF|}."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+    from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy, allegro_params_from_numpy
+
+    mods = kernel_modules()
+    raw = allegro_init_numpy(flagship_cfg(), SEED)
+    ref_sys = accuracy_system("cpu", torch.float64)
+    ref_eng = AllegroEngine(flagship_cfg(), allegro_params_from_numpy(
+        raw, flagship_cfg(), device="cpu", dtype=torch.float64), ref_sys, skin=0.4, device="cpu")
+    ref = ref_eng.force_fn(ref_sys, ref_eng.rebuild_fn(ref_sys, None))
+    f_ref, e_ref, n = ref.forces.double(), float(ref.total_energy), ref_sys.n_atoms
+    worst = {}
+    for label, tier, env, want in ACCURACY_TIERS:
+        with env_vars(env):
+            cfg = flagship_cfg(**tier)
+            system = accuracy_system("cuda", torch.float32)
+            eng = AllegroEngine(cfg, allegro_params_from_numpy(raw, cfg, device="cuda"), system,
+                                skin=0.4)
+            nb = eng.rebuild_fn(system, None)
+            for m in mods.values():
+                m.launches.reset()
+            out = eng.force_fn(system, nb)
+            torch.cuda.synchronize()
+            launched = {name: (m.launches.fwd, m.launches.bwd) for name, m in mods.items()
+                        if m.launches.fwd or m.launches.bwd}
+        df = out.forces.double().cpu() - f_ref
+        mx = float(df.abs().max())
+        rms = float(df.norm(dim=1).pow(2).mean().sqrt())
+        de = abs(float(out.total_energy) - e_ref) / n
+        print(f"accuracy {label} ({n} perturbed FCC Cu atoms, f32 on the card against the CPU "
+              f"f64 plain path): max|dF| {mx:.3e} eV/A, rms|dF| {rms:.3e} eV/A, dE/atom {de:.3e} "
+              f"eV, max|F| {float(f_ref.abs().max()):.3f} eV/A (gate max|dF| <= 1e-4 eV/A); "
+              f"launches {launched}")
+        if not mx <= 1e-4:
+            raise RuntimeError(f"accuracy gate failed on the {label}")
+        if launched != {name: (k, k) for name, k in want.items()}:
+            raise RuntimeError(f"accuracy {label}: launched {launched}, want {want}")
+        worst[label] = mx
+    return worst
+
+
 def stack_timings(cfg, params, system, eng, errs):
     """Phase 14 (K8): fwd/bwd time of kernel and plain version at the stack
     main path's shapes, with the bound, and parity at those shapes (into
@@ -1467,23 +1674,20 @@ def stack_timings(cfg, params, system, eng, errs):
     errs = {kind: max(errs[kind], e2[kind]) for kind in errs}
     res = {}
     for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
-        flops, nbytes = k8_cost(w, e, kind == "bwd")
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        r = res[kind] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
-                             bound_by="operations" if t_ops >= t_bytes else "bytes",
-                             gflop=flops / 1e9, mbytes=nbytes / 1e6)
-        print(f"K8 {kind} E={e} ({cfg.num_layers} layers): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gflop']:.2f} GFLOP, "
-              f"{r['mbytes']:.1f} MB), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+        bwd = kind == "bwd"
+        flops, nbytes = k8_cost(w, e, bwd)
+        res[kind] = timing(ms, pms, flops, k8_products(w, bwd) * e, nbytes,
+                           k8_weight_bytes(w, bwd, n_tiles(e, k)))
+        print_timing(f"K8 {kind} E={e} ({cfg.num_layers} layers)", res[kind])
     return res, errs
 
 
 def _kind_of(name):
     """A coarse class of a device kernel's name, for the profile's summary."""
     n = name.lower()
-    if "k1_" in n and ("<1>" in n or "ili1e" in n):  # the K1 body's forms 1 and 2
+    if "k1_" in n and ("<1," in n or "ili1e" in n):  # the K1 body's forms 1 and 2
         return "K6 (embed_layer)"
-    if "k1_" in n and ("<2>" in n or "ili2e" in n):
+    if "k1_" in n and ("<2," in n or "ili2e" in n):
         return "K7 (readout_layer)"
     for key, kind in (("k8_", "K8 (fused_stack)"), ("k3_", "K3 (nequip_conv)"),
                       ("k1_", "K1 (fused_layer)"),
@@ -1558,6 +1762,35 @@ def _profile_steps(model, n_steps):
     return 0
 
 
+def body_timings():
+    """``--body-timings``: K1, K6 / K7 and K8 timed (and held against their
+    plain versions) at the allegro, embed and stack main paths' shapes."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    mods = kernel_modules()
+    libs = [mods[name].LIB for name in ("K1", "K6", "K8")]
+    for lib in libs:
+        lib.start()
+    for lib in libs:
+        lib.load()
+    zero = {"fwd": 0.0, "bwd": 0.0}
+    for path in ("allegro", "embed", "stack"):
+        with env_vars(PATHS[path][5]):
+            cfg, params, system, eng = build_path(path)
+            if path == "allegro":
+                k1_timings(cfg, params, system, eng, dict(zero))
+            elif path == "embed":
+                er_timings(cfg, params, system, eng, {"K6": dict(zero), "K7": dict(zero)})
+            else:
+                stack_timings(cfg, params, system, eng, dict(zero))
+        del cfg, params, system, eng
+        torch.cuda.empty_cache()
+    return 0
+
+
 def kernel_entry(name, source, replaces, counts, kind, err, r, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[kind], "max_abs_err": err, "ms": r["ms"],
@@ -1577,6 +1810,8 @@ def main() -> int:
             raise SystemExit(f"--profile takes allegro, nequip, perlayer, flat, embed or stack, "
                              f"not {model}")
         return profile_steps(model)
+    if sys.argv[1:2] == ["--body-timings"]:
+        return body_timings()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -1649,12 +1884,15 @@ def main() -> int:
     scfg, sparams, ssystem, seng, counts_s = main_path("stack")
     times8, errs8 = stack_timings(scfg, sparams, ssystem, seng, errs8)
     del sparams, ssystem, seng
+    torch.cuda.empty_cache()
+    accuracy_phase()
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):
         per = {f: times[(f, kind)] for f in FORMS}
         # one call of each form: the kernel's time per force evaluation
-        total = {key: sum(r[key] for r in per.values()) for key in ("ms", "plain_ms", "bound_ms")}
+        total = {key: sum(r[key] for r in per.values())
+                 for key in ("ms", "plain_ms", "bound_ms")}
         total["bound_by"] = ("operations" if all(r["bound_by"] == "operations" for r in per.values())
                              else "bytes")
         kernels.append(kernel_entry(

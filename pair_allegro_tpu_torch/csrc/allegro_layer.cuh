@@ -13,18 +13,23 @@
 //   STACK    K8: PLAIN, but x, V and the cotangents dx', dV' live in device
 //            memory the same kernel writes (the previous layer's output), so
 //            they are read around the read-only cache, and the backward adds
-//            its dY and du to the layers' already there when ``acc`` is set.
+//            its dY and du to the layers' already there when ``acc`` is set;
+//            each layer's parameters are copied into shared memory first.
 // One thread block owns one center and walks its K edges in tiles of ET
-// (allegro_tiles.cuh); what K1 computes and why it is laid out so is at the
-// top of fused_layer.cu, what the prologue and the epilogue add at the top
-// of embed_readout_layer.cu.
+// (allegro_tiles.cuh).  Every small product (wz, the mix, the latent MLP,
+// the prologue's and epilogue's MLPs, and their backward) runs on the
+// tensor cores in 3xTF32 with its weights staged through a cp.async ring,
+// and the TP keeps its sums in registers (allegro_mma.cuh); the tiles come
+// in by cp.async.  What K1 computes and why it is laid out so is at the top
+// of fused_layer.cu, what the prologue and the epilogue add at the top of
+// embed_readout_layer.cu.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "allegro_tiles.cuh"
+#include "allegro_mma.cuh"
 
 namespace {
 
@@ -76,14 +81,39 @@ struct K1P {
   float *ho0, *ho1;
   // STACK backward: add dY and du to what the later layers left there
   int acc;
+  // the product tiles' row stride (LDS_WIDE, or LDS_MIN where the layout
+  // needs it; the kernels are built for each), the weight ring (words, 0 for none; offset), the backward's
+  // j-ordered entries, the STACK copy of this K1P, and whether tiles load
+  // by 16-byte cp.async
+  int lds, ring, o_ring, o_perm, o_p, vec;
 };
+constexpr int P_WORDS = 128;  // shared words that hold STACK's copy of its layer's K1P
+static_assert(sizeof(K1P) <= 4 * P_WORDS, "K1P exceeds its shared-memory slot");
+
+__device__ __forceinline__ float* ring_of(const K1P& p) {
+  extern __shared__ float sm[];
+  return sm + p.o_ring;
+}
 
 // x, V and the cotangents dx', dV' of a tile: STACK reads memory its own
 // kernel wrote, the other forms read-only inputs
 template <int F>
-__device__ __forceinline__ void load_act(const float* src, int rows, int E, int e0, int ne,
+__device__ __forceinline__ void load_act(const K1P& p, const float* src, int rows, int e0, int ne,
+                                         float* dst, int ld) {
+  load_tile_async<F != STACK>(src, rows, p.E, e0, ne, dst, ld, p.vec);
+}
+
+template <int F, int L>
+__device__ __forceinline__ void load_act(const K1P& p, const float* src, int rows, int e0, int ne,
                                          float* dst) {
-  load_tile<ET, F != STACK>(src, rows, E, e0, ne, dst);
+  load_act<F>(p, src, rows, e0, ne, dst, L);
+}
+
+// Y, u, the input rows and the heads' cotangents: read-only inputs
+template <int L>
+__device__ __forceinline__ void load_in(const K1P& p, const float* src, int rows, int e0, int ne,
+                                        float* dst) {
+  load_tile_async<true>(src, rows, p.E, e0, ne, dst, L, p.vec);
 }
 
 __device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
@@ -96,28 +126,29 @@ __device__ __forceinline__ float dsilu(float z) {
 // Forward of a prologue / epilogue MLP on one tile: hin (t.dim[0] rows) ->
 // out (t.dim[t.n] rows); hidden activations ping-pong through hA / hB, and
 // the pre-activations are kept in zs (slots of t.maxw rows) when given.
-__device__ void mlp_fwd(const MlpTab& t, const float* w, const float* hin, float* hA, float* hB,
-                        float* zs, float* out) {
+template <int L>
+__device__ void mlp_fwd(const K1P& p, const MlpTab& t, const float* w, const float* hin, float* hA,
+                        float* hB, float* zs, float* out) {
   for (int li = 0; li < t.n; ++li) {
     const int din = t.dim[li], dout = t.dim[li + 1];
     const bool hidden = li < t.n - 1;
     float* h = (li & 1) ? hB : hA;
-    float* z = !hidden ? out : (zs ? zs + (size_t)li * t.maxw * LD : h);
+    float* z = !hidden ? out : (zs ? zs + (size_t)li * t.maxw * L : h);
     if (dout == 1) {  // a head's last layer: one weighted row sum per edge
       const float* wl = w + t.off[li];
       for (int n = threadIdx.x; n < ET; n += NT) {
         float s = 0.f;
-        for (int k = 0; k < din; ++k) s = fmaf(wl[k], hin[k * LD + n], s);
+        for (int k = 0; k < din; ++k) s = fmaf(wl[k], hin[k * L + n], s);
         z[n] = s * t.scale[li];
       }
     } else {
-      gemm_tile(w + t.off[li], din, dout, hin, z, LD, t.scale[li], ET);
+      mma_tile(w + t.off[li], din, dout, hin, L, z, L, t.scale[li], ET, ring_of(p), p.ring);
     }
     __syncthreads();
     if (hidden) {
       for (int q = threadIdx.x; q < dout * ET; q += NT) {
         const int row = q / ET, n = q % ET;
-        h[row * LD + n] = silu(z[row * LD + n]) * SILU_C;
+        h[row * L + n] = silu(z[row * L + n]) * SILU_C;
       }
       __syncthreads();
       hin = h;
@@ -128,15 +159,16 @@ __device__ void mlp_fwd(const MlpTab& t, const float* w, const float* hin, float
 // Backward of mlp_fwd from g (t.dim[t.n] rows) with the kept pre-activations
 // zs; g and g2 (each as wide as the widest layer) ping-pong and g is
 // overwritten.  Returns the buffer that holds d(hin) (t.dim[0] rows).
-__device__ float* mlp_bwd(const MlpTab& t, const float* w, const float* wT, const float* zs,
-                          float* g, float* g2) {
+template <int L>
+__device__ float* mlp_bwd(const K1P& p, const MlpTab& t, const float* w, const float* wT,
+                          const float* zs, float* g, float* g2) {
   for (int li = t.n - 1; li >= 0; --li) {
     const int din = t.dim[li], dout = t.dim[li + 1];
     if (li < t.n - 1) {
-      const float* z = zs + (size_t)li * t.maxw * LD;
+      const float* z = zs + (size_t)li * t.maxw * L;
       for (int q = threadIdx.x; q < dout * ET; q += NT) {
         const int row = q / ET, n = q % ET;
-        g[row * LD + n] *= dsilu(z[row * LD + n]) * SILU_C;
+        g[row * L + n] *= dsilu(z[row * L + n]) * SILU_C;
       }
       __syncthreads();
     }
@@ -144,10 +176,10 @@ __device__ float* mlp_bwd(const MlpTab& t, const float* w, const float* wT, cons
       const float* wl = w + t.off[li];
       for (int q = threadIdx.x; q < din * ET; q += NT) {
         const int k = q / ET, n = q % ET;
-        g2[k * LD + n] = wl[k] * g[n] * t.scale[li];
+        g2[k * L + n] = wl[k] * g[n] * t.scale[li];
       }
     } else {
-      gemm_tile(wT + t.off[li], dout, din, g, g2, LD, t.scale[li], ET);
+      mma_tile(wT + t.off[li], dout, din, g, L, g2, L, t.scale[li], ET, ring_of(p), p.ring);
     }
     __syncthreads();
     float* tmp = g;
@@ -162,17 +194,18 @@ __device__ float* mlp_bwd(const MlpTab& t, const float* w, const float* wT, cons
 // The input rows go to ins (t.dim[0] rows, the padding rows zeroed), hidden
 // activations ping-pong through hA / hB; with zs the pre-activations are
 // kept there and x0 (before * u) in x0s.
+template <int L>
 __device__ void embed_x(const K1P& p, const MlpTab& t, int e0, int ne, const float* us, float* xs,
                         float* ins, float* hA, float* hB, float* zs, float* x0s) {
-  load_tile(p.in, p.n_in, p.E, e0, ne, ins);
+  load_in<L>(p, p.in, p.n_in, e0, ne, ins);
   for (int q = threadIdx.x; q < (t.dim[0] - p.n_in) * ET; q += NT)
-    ins[(p.n_in + q / ET) * LD + q % ET] = 0.f;
-  __syncthreads();
+    ins[(p.n_in + q / ET) * L + q % ET] = 0.f;
+  tiles_ready();
   float* x0 = x0s ? x0s : xs;
-  mlp_fwd(t, p.ew, ins, hA, hB, zs, x0);
+  mlp_fwd<L>(p, t, p.ew, ins, hA, hB, zs, x0);
   for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
     const int s = q / ET, n = q % ET;
-    xs[s * LD + n] = x0[s * LD + n] * us[n];
+    xs[s * L + n] = x0[s * L + n] * us[n];
   }
   __syncthreads();
 }
@@ -180,32 +213,31 @@ __device__ void embed_x(const K1P& p, const MlpTab& t, int e0, int ne, const flo
 // env[d*C + c] = inv_avg * sum over the center's edges of wz[c] * Y[d];
 // xs (ns rows), Ys, us and wz (C rows) are scratch tiles (EMBED: the
 // prologue's scratch starts at wz).
-template <int F>
+template <int F, int L>
 __device__ void center_env(const K1P& p, const MlpTab* mt, int center, float* env, float* xs,
                            float* Ys, float* us, float* wz) {
   const int C = p.C, D = p.D;
   for (int q = threadIdx.x; q < D * C; q += NT) env[q] = 0.f;
   for (int t0 = 0; t0 < p.K; t0 += ET) {
     const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
+    load_in<L>(p, p.Y, D, e0, ne, Ys);
+    load_in<L>(p, p.u, 1, e0, ne, us);
     if constexpr (F == EMBED) {
-      load_tile(p.Y, D, p.E, e0, ne, Ys);
-      load_tile(p.u, 1, p.E, e0, ne, us);
       float* ins = wz;
-      float* hA = ins + mt[0].dim[0] * LD;
-      embed_x(p, mt[0], e0, ne, us, xs, ins, hA, hA + mt[0].maxw * LD, nullptr, nullptr);
+      float* hA = ins + mt[0].dim[0] * L;
+      embed_x<L>(p, mt[0], e0, ne, us, xs, ins, hA, hA + mt[0].maxw * L, nullptr, nullptr);
     } else {
-      load_act<F>(p.x, p.ns, p.E, e0, ne, xs);
-      load_tile(p.Y, D, p.E, e0, ne, Ys);
-      load_tile(p.u, 1, p.E, e0, ne, us);
-      __syncthreads();
+      load_act<F, L>(p, p.x, p.ns, e0, ne, xs);
+      tiles_ready();
     }
-    gemm_tile(p.envw, p.ns, C, xs, wz, LD, p.cns, ET);
+    mma_tile(p.envw, p.ns, C, xs, L, wz, L, p.cns, ET, ring_of(p), p.ring);
     __syncthreads();
+    // (d, c) = (q % D, q / D): a warp reads few distinct wz rows
     for (int q = threadIdx.x; q < D * C; q += NT) {
-      const int d = q / C, c = q % C;
+      const int d = q % D, c = q / D;
       float s = 0.f;
-      for (int n = 0; n < ne; ++n) s = fmaf(wz[c * LD + n] * us[n], Ys[d * LD + n], s);
-      env[q] += s;
+      for (int n = 0; n < ne; ++n) s = fmaf(wz[c * L + n] * us[n], Ys[d * L + n], s);
+      env[d * C + c] += s;
     }
     __syncthreads();
   }
@@ -214,59 +246,60 @@ __device__ void center_env(const K1P& p, const MlpTab* mt, int center, float* en
 }
 
 // V0 = pT * Y on one tile
+template <int L>
 __device__ void build_v0(const K1P& p, const float* pTs, const float* Ys, float* Vs) {
   for (int q = threadIdx.x; q < p.D * p.C * ET; q += NT) {
     const int row = q / ET, n = q % ET;
-    Vs[row * LD + n] = pTs[(row % p.C) * LD + n] * Ys[(row / p.C) * LD + n];
+    Vs[row * LDV + n] = pTs[(row % p.C) * L + n] * Ys[(row / p.C) * L + n];
   }
 }
 
 // x (into cat rows [0, ns)), Y, u and V (built from pT when first_v); EMBED
 // makes x and pT in the prologue, with its scratch at scr.
-template <int F>
+template <int F, int L>
 __device__ void load_edges(const K1P& p, const MlpTab* mt, int e0, int ne, float* cat, float* Ys,
                            float* us, float* Vs, float* pTs, float* scr) {
   const int C = p.C, D = p.D;
+  load_in<L>(p, p.Y, D, e0, ne, Ys);
+  load_in<L>(p, p.u, 1, e0, ne, us);
   if constexpr (F == EMBED) {
-    load_tile(p.Y, D, p.E, e0, ne, Ys);
-    load_tile(p.u, 1, p.E, e0, ne, us);
-    float* hA = scr + mt[0].dim[0] * LD;
-    embed_x(p, mt[0], e0, ne, us, cat, scr, hA, hA + mt[0].maxw * LD, nullptr, nullptr);
-    gemm_tile(p.te, p.ns, C, cat, pTs, LD, p.cns, ET);
+    float* hA = scr + mt[0].dim[0] * L;
+    embed_x<L>(p, mt[0], e0, ne, us, cat, scr, hA, hA + mt[0].maxw * L, nullptr, nullptr);
+    mma_tile(p.te, p.ns, C, cat, L, pTs, L, p.cns, ET, ring_of(p), p.ring);
     __syncthreads();
-    build_v0(p, pTs, Ys, Vs);
+    build_v0<L>(p, pTs, Ys, Vs);
   } else {
-    load_act<F>(p.x, p.ns, p.E, e0, ne, cat);
-    load_tile(p.Y, D, p.E, e0, ne, Ys);
-    load_tile(p.u, 1, p.E, e0, ne, us);
+    load_act<F, L>(p, p.x, p.ns, e0, ne, cat);
     if (p.first_v) {
-      load_act<F>(p.V, C, p.E, e0, ne, pTs);
-      __syncthreads();
-      build_v0(p, pTs, Ys, Vs);
+      load_act<F, L>(p, p.V, C, e0, ne, pTs);
+      tiles_ready();
+      build_v0<L>(p, pTs, Ys, Vs);
     } else {
-      load_act<F>(p.V, D * C, p.E, e0, ne, Vs);
+      load_act<F>(p, p.V, D * C, e0, ne, Vs, LDV);
     }
   }
-  __syncthreads();
+  tiles_ready();
 }
 
 // latent MLP forward on one tile: input cat (in0 rows), hidden activations
 // ping-pong through hA/hB; pre-activations saved into zs when given; the
 // output (ns rows) goes to out.
-__device__ void latent_fwd(const K1P& p, const Meta& m, const float* cat, float* hA,
-                           float* hB, float* zs, float* out) {
+template <int L>
+__device__ void latent_fwd(const K1P& p, const Meta& m, const float* cat, float* hA, float* hB,
+                           float* zs, float* out) {
   const float* hin = cat;
   for (int li = 0; li < p.nlat; ++li) {
     const int din = m.latdim[li], dout = m.latdim[li + 1];
     const bool hidden = li < p.nlat - 1;
     float* h = (li & 1) ? hB : hA;
-    float* z = !hidden ? out : (zs ? zs + (size_t)li * p.maxw * LD : h);
-    gemm_tile(p.lat + m.latoff[li], din, dout, hin, z, LD, rsqrtf((float)din), ET);
+    float* z = !hidden ? out : (zs ? zs + (size_t)li * p.maxw * L : h);
+    mma_tile(p.lat + m.latoff[li], din, dout, hin, L, z, L, rsqrtf((float)din), ET, ring_of(p),
+             p.ring);
     __syncthreads();
     if (hidden) {
       for (int q = threadIdx.x; q < dout * ET; q += NT) {
         const int row = q / ET, n = q % ET;
-        h[row * LD + n] = silu(z[row * LD + n]) * SILU_C;
+        h[row * L + n] = silu(z[row * L + n]) * SILU_C;
       }
       __syncthreads();
       hin = h;
@@ -275,25 +308,28 @@ __device__ void latent_fwd(const K1P& p, const Meta& m, const float* cat, float*
 }
 
 // x' = (x + xn * u) / sqrt(2) in place of x (cat rows [0, ns))
+template <int L>
 __device__ void residual_in_place(const K1P& p, float* cat, const float* xn, const float* us) {
   for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
     const int s = q / ET, n = q % ET;
-    cat[s * LD + n] = (cat[s * LD + n] + xn[s * LD + n] * us[n]) * R2;
+    cat[s * L + n] = (cat[s * L + n] + xn[s * L + n] * us[n]) * R2;
   }
   __syncthreads();
 }
 
 // READOUT forward epilogue on one tile: x' in place of x, then each head's
 // row head(x') * u to device memory.  Scratch: two ping-pong buffers of
-// xmaxw rows and one output row per head.
+// xmaxw rows and one output row per head (xn may lie there: the residual
+// consumes it first).
+template <int L>
 __device__ void heads_fwd(const K1P& p, const MlpTab* mt, float* cat, const float* xn,
                           const float* us, int e0, int ne, float* scr) {
-  residual_in_place(p, cat, xn, us);
+  residual_in_place<L>(p, cat, xn, us);
   float* hA = scr;
-  float* hB = hA + p.xmaxw * LD;
+  float* hB = hA + p.xmaxw * L;
   for (int h = 0; h < p.nhead; ++h) {
-    float* raw = hB + (p.xmaxw + h) * LD;
-    mlp_fwd(mt[h], p.ew, cat, hA, hB, nullptr, raw);
+    float* raw = hB + (p.xmaxw + h) * L;
+    mlp_fwd<L>(p, mt[h], p.ew, cat, hA, hB, nullptr, raw);
     float* out = h ? p.ho1 : p.ho0;
     for (int n = threadIdx.x; n < ne; n += NT) out[e0 + n] = raw[n] * us[n];
   }
@@ -305,29 +341,30 @@ __device__ void heads_fwd(const K1P& p, const MlpTab* mt, float* cat, const floa
 // d(c * head(x') * u)/dx', and dus = sum over heads of c * head(x').
 // Scratch: two ping-pong buffers of max(xmaxw, ns) rows, the heads'
 // pre-activations (hzrows) and two rows.
+template <int L>
 __device__ void heads_bwd(const K1P& p, const MlpTab* mt, float* cat, const float* xn,
                           const float* us, int e0, int ne, float* dxo, float* dus, float* scr) {
   const int hg = imax(p.xmaxw, p.ns);
   float* P0 = scr;
-  float* P1 = P0 + hg * LD;
-  float* hz = P1 + hg * LD;
-  float* raw = hz + p.hzrows * LD;
-  float* cot = raw + LD;
-  residual_in_place(p, cat, xn, us);
+  float* P1 = P0 + hg * L;
+  float* hz = P1 + hg * L;
+  float* raw = hz + p.hzrows * L;
+  float* cot = raw + L;
+  residual_in_place<L>(p, cat, xn, us);
   for (int n = threadIdx.x; n < ET; n += NT) dus[n] = 0.f;
   for (int h = 0; h < p.nhead; ++h) {
-    mlp_fwd(mt[h], p.ew, cat, P0, P1, hz, raw);
-    load_tile(h ? p.dh1 : p.dh0, 1, p.E, e0, ne, cot);
-    __syncthreads();
+    mlp_fwd<L>(p, mt[h], p.ew, cat, P0, P1, hz, raw);
+    load_in<L>(p, h ? p.dh1 : p.dh0, 1, e0, ne, cot);
+    tiles_ready();
     for (int n = threadIdx.x; n < ET; n += NT) {
       dus[n] = fmaf(cot[n], raw[n], dus[n]);
       P0[n] = cot[n] * us[n];
     }
     __syncthreads();
-    const float* g = mlp_bwd(mt[h], p.ew, p.ewT, hz, P0, P1);
+    const float* g = mlp_bwd<L>(p, mt[h], p.ew, p.ewT, hz, P0, P1);
     for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
       const int s = q / ET, n = q % ET;
-      dxo[s * LD + n] = (h ? dxo[s * LD + n] : 0.f) + g[s * LD + n];
+      dxo[s * L + n] = (h ? dxo[s * L + n] : 0.f) + g[s * L + n];
     }
     __syncthreads();
   }
@@ -336,24 +373,25 @@ __device__ void heads_bwd(const K1P& p, const MlpTab* mt, float* cat, const floa
 // EMBED backward prologue on one tile, after the env backward: the whole
 // dx = the pass-1 partial (device memory) + dxa; du += sum_s dx * x0; and
 // d(in) = the two-body MLP's backward of dx * u, its real n_in rows.
+template <int L>
 __device__ void embed_bwd(const K1P& p, const MlpTab& t, int e0, int ne, const float* us,
                           float* dxa, const float* x0s, const float* tbz, float* gA, float* gB) {
   for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
     const int s = q / ET, n = q % ET;
-    const float v = n < ne ? p.dx[(size_t)s * p.E + e0 + n] + dxa[s * LD + n] : 0.f;
-    dxa[s * LD + n] = v;
-    gA[s * LD + n] = v * us[n];
+    const float v = n < ne ? p.dx[(size_t)s * p.E + e0 + n] + dxa[s * L + n] : 0.f;
+    dxa[s * L + n] = v;
+    gA[s * L + n] = v * us[n];
   }
   __syncthreads();
   for (int n = threadIdx.x; n < ne; n += NT) {
     float s = 0.f;
-    for (int q = 0; q < p.ns; ++q) s = fmaf(dxa[q * LD + n], x0s[q * LD + n], s);
+    for (int q = 0; q < p.ns; ++q) s = fmaf(dxa[q * L + n], x0s[q * L + n], s);
     p.du[e0 + n] += s;
   }
-  const float* g = mlp_bwd(t, p.ew, p.ewT, tbz, gA, gB);
+  const float* g = mlp_bwd<L>(p, t, p.ew, p.ewT, tbz, gA, gB);
   for (int q = threadIdx.x; q < p.n_in * ET; q += NT) {
     const int row = q / ET, n = q % ET;
-    if (n < ne) p.din[(size_t)row * p.E + e0 + n] = g[row * LD + n];
+    if (n < ne) p.din[(size_t)row * p.E + e0 + n] = g[row * L + n];
   }
 }
 
@@ -363,9 +401,15 @@ __device__ void load_tables(const K1P& p) {
     reinterpret_cast<int*>(sm + p.o_mt)[q] = __ldg(p.mt + q);
 }
 
+// Whether row r's mix (or mixT) block is the one the previous row left in
+// the ring.
+__device__ __forceinline__ bool mix_resident(const Meta& m, int r, int Kd, int M, int rw) {
+  return r > 0 && m.rowmix[r] == m.rowmix[r - 1] && ring_holds(Kd, M, rw);
+}
+
 // One layer's forward for the block's center (blockIdx.x), the tables
 // already in shared memory (m, and mt for EMBED / READOUT).
-template <int F>
+template <int F, int L>
 __device__ __forceinline__ void layer_fwd(const K1P& p, const Meta& m, const MlpTab* mt) {
   extern __shared__ float sm[];
   const int center = blockIdx.x;
@@ -376,32 +420,39 @@ __device__ __forceinline__ void layer_fwd(const K1P& p, const Meta& m, const Mlp
   float* Ys = sm + p.o_Y;
   float* us = sm + p.o_u;
   float* R = sm + p.o_R;
+  float* ring = ring_of(p);
 
-  center_env<F>(p, mt, center, env, cat, Ys, us, R);
+  center_env<F, L>(p, mt, center, env, cat, Ys, us, R);
   const int nrows = p.last ? 1 : p.D;
+  // latent ping-pong; the output lands in the buffer the last layer does not read
   float* hA = R;
-  float* hB = R + p.maxw * LD;
-  float* xn = R + 2 * p.maxw * LD;
+  float* hB = R + imax(p.maxw, p.ns) * L;
+  float* xn = ((p.nlat - 1) & 1) ? hB : hA;
   for (int t0 = 0; t0 < p.K; t0 += ET) {
     const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
-    load_edges<F>(p, mt, e0, ne, cat, Ys, us, Vs, pTs, R);
+    load_edges<F, L>(p, mt, e0, ne, cat, Ys, us, Vs, pTs, R);
     for (int r = 0; r < nrows; ++r) {
-      float* T = r == 0 ? cat + p.ns * LD : R;  // row 0 is inv (p-major)
-      tp_row(p.C, m, r, Vs, env, T);
+      const int kd = m.rowP[r] * p.C;
+      // the mix block loads while the TP runs
+      if (!p.last && !mix_resident(m, r, kd, p.Cout, p.ring))
+        mma_stage(p.mix + m.rowmix[r], kd, p.Cout, ring, p.ring);
+      float* T = r == 0 ? cat + p.ns * L : R;  // row 0 is inv (p-major)
+      tp_row_reg(p.C, m, r, Vs, env, T, L);
       __syncthreads();
       if (!p.last) {
-        gemm_tile(p.mix + m.rowmix[r], m.rowP[r] * p.C, p.Cout, T,
-                  p.vo + (size_t)r * p.Cout * p.E + e0, p.E, m.rownorm[r], ne);
+        mma_tile(p.mix + m.rowmix[r], kd, p.Cout, T, L, p.vo + (size_t)r * p.Cout * p.E + e0,
+                 p.E, m.rownorm[r], ne, ring, p.ring, true);
         __syncthreads();
       }
     }
-    latent_fwd(p, m, cat, hA, hB, nullptr, xn);
+    latent_fwd<L>(p, m, cat, hA, hB, nullptr, xn);
     if constexpr (F == READOUT) {
-      heads_fwd(p, mt, cat, xn, us, e0, ne, R);
+      heads_fwd<L>(p, mt, cat, xn, us, e0, ne, R);
     } else {
       for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
         const int s = q / ET, n = q % ET;
-        if (n < ne) p.xo[(size_t)s * p.E + e0 + n] = (cat[s * LD + n] + xn[s * LD + n] * us[n]) * R2;
+        if (n < ne)
+          p.xo[(size_t)s * p.E + e0 + n] = (cat[s * L + n] + xn[s * L + n] * us[n]) * R2;
       }
     }
     __syncthreads();
@@ -410,7 +461,7 @@ __device__ __forceinline__ void layer_fwd(const K1P& p, const Meta& m, const Mlp
 
 // One layer's backward for the block's center, the tables already in
 // shared memory.
-template <int F>
+template <int F, int L>
 __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const MlpTab* mt) {
   extern __shared__ float sm[];
   const int center = blockIdx.x;
@@ -424,42 +475,50 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
   float* us = sm + p.o_u;
   float* dus = sm + p.o_du;
   float* R = sm + p.o_R;
+  float* ring = ring_of(p);
+  int* perm = reinterpret_cast<int*>(sm + p.o_perm);
   // phase-1 scratch: latent forward + backward
   const int gw = max(p.in0, p.maxw);
   float* dxo = R;
-  float* xn = dxo + ns * LD;
-  float* zs = xn + ns * LD;
-  float* gA = zs + (p.nlat - 1) * p.maxw * LD;
-  float* gB = gA + gw * LD;
+  float* xn = dxo + ns * L;
+  float* zs = xn + ns * L;
+  float* gA = zs + (p.nlat - 1) * p.maxw * L;
+  float* gB = gA + gw * L;
   // phase-2 scratch (aliases phase 1): TP / mix backward
   float* dVs = R;
-  float* dT = dVs + D * C * LD;
-  float* dVo = dT + p.maxpc * LD;
-  const int c = threadIdx.x % C;
-  const int n0 = threadIdx.x / C, nstep = NT / C;
+  float* dT = dVs + D * C * LDV;
+  float* dVo = dT + p.maxpc * L;
 
-  center_env<F>(p, mt, center, env, cat, Ys, us, R);
+  build_jperm(m, D, perm);
+  center_env<F, L>(p, mt, center, env, cat, Ys, us, R);
   for (int q = threadIdx.x; q < D * C; q += NT) denv[q] = 0.f;
   const int nrows = p.last ? 1 : D;
+  // row r's dV' tile and mixT block, loaded ahead of its product
+  auto issue_row = [&](int r, int e0, int ne) {
+    load_act<F, L>(p, p.dvo + (size_t)r * p.Cout * E, p.Cout, e0, ne, dVo);
+    const int kd = m.rowP[r] * C;
+    if (!mix_resident(m, r, p.Cout, kd, p.ring))
+      mma_stage(p.mixT + m.rowmix[r], p.Cout, kd, ring, p.ring);
+  };
 
   // pass 1: latent forward + backward, TP/mix backward, denv accumulation
   for (int t0 = 0; t0 < p.K; t0 += ET) {
     const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
-    load_edges<F>(p, mt, e0, ne, cat, Ys, us, Vs, pTs, R);
-    if constexpr (F != READOUT) load_act<F>(p.dxo, ns, E, e0, ne, dxo);
-    tp_row(p.C, m, 0, Vs, env, cat + ns * LD);
-    __syncthreads();
-    latent_fwd(p, m, cat, gA, gB, zs, xn);
+    load_edges<F, L>(p, mt, e0, ne, cat, Ys, us, Vs, pTs, R);
+    if constexpr (F != READOUT) load_act<F, L>(p, p.dxo, ns, e0, ne, dxo);
+    tp_row_reg(C, m, 0, Vs, env, cat + ns * L, L);
+    tiles_ready();
+    latent_fwd<L>(p, m, cat, gA, gB, zs, xn);
     // READOUT: dxo (and the heads' share of du) from the heads' backward
-    if constexpr (F == READOUT) heads_bwd(p, mt, cat, xn, us, e0, ne, dxo, dus, gA);
+    if constexpr (F == READOUT) heads_bwd<L>(p, mt, cat, xn, us, e0, ne, dxo, dus, gA);
     for (int n = threadIdx.x; n < ET; n += NT) {
       float s = 0.f;
-      for (int q = 0; q < ns; ++q) s = fmaf(dxo[q * LD + n], xn[q * LD + n], s);
+      for (int q = 0; q < ns; ++q) s = fmaf(dxo[q * L + n], xn[q * L + n], s);
       dus[n] = F == READOUT ? fmaf(s, R2, dus[n]) : s * R2;
     }
     for (int q = threadIdx.x; q < ns * ET; q += NT) {
       const int s = q / ET, n = q % ET;
-      gA[s * LD + n] = dxo[s * LD + n] * us[n] * R2;
+      gA[s * L + n] = dxo[s * L + n] * us[n] * R2;
     }
     __syncthreads();
     float* g = gA;
@@ -467,14 +526,14 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
     for (int li = p.nlat - 1; li >= 0; --li) {
       const int din = m.latdim[li], dout = m.latdim[li + 1];
       if (li < p.nlat - 1) {
-        const float* z = zs + (size_t)li * p.maxw * LD;
+        const float* z = zs + (size_t)li * p.maxw * L;
         for (int q = threadIdx.x; q < dout * ET; q += NT) {
           const int row = q / ET, n = q % ET;
-          g[row * LD + n] *= dsilu(z[row * LD + n]) * SILU_C;
+          g[row * L + n] *= dsilu(z[row * L + n]) * SILU_C;
         }
         __syncthreads();
       }
-      gemm_tile(p.latT + m.latoff[li], dout, din, g, g2, LD, rsqrtf((float)din), ET);
+      mma_tile(p.latT + m.latoff[li], dout, din, g, L, g2, L, rsqrtf((float)din), ET, ring, p.ring);
       __syncthreads();
       float* tmp = g;
       g = g2;
@@ -485,93 +544,80 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
     // inv rows of cat so that phase 2 may reuse the scratch.
     for (int q = threadIdx.x; q < ns * ET; q += NT) {
       const int s = q / ET, n = q % ET;
-      if (n < ne) p.dx[(size_t)s * E + e0 + n] = dxo[s * LD + n] * R2 + g[s * LD + n];
+      if (n < ne) p.dx[(size_t)s * E + e0 + n] = dxo[s * L + n] * R2 + g[s * L + n];
     }
     for (int n = threadIdx.x; n < ne; n += NT)
       p.du[e0 + n] = F == STACK && p.acc ? p.du[e0 + n] + dus[n] : dus[n];
     for (int q = threadIdx.x; q < (p.in0 - ns) * ET; q += NT) {
       const int row = ns + q / ET, n = q % ET;
-      cat[row * LD + n] = g[row * LD + n];
+      cat[row * L + n] = g[row * L + n];
     }
     __syncthreads();
-    const float* dinv = cat + ns * LD;
-    for (int n = n0; n < ET; n += nstep)
-      for (int i = 0; i < D; ++i) dVs[(i * C + c) * LD + n] = 0.f;
+    const float* dinv = cat + ns * L;
+    for (int q = threadIdx.x; q < D * C * ET; q += NT) dVs[(q / ET) * LDV + q % ET] = 0.f;
+    if (!p.last) issue_row(0, e0, ne);
+    __syncthreads();
     for (int r = 0; r < nrows; ++r) {
       const float* dTr = dinv;
       if (!p.last) {
-        load_act<F>(p.dvo + (size_t)r * p.Cout * E, p.Cout, E, e0, ne, dVo);
+        tiles_ready();
+        mma_tile(p.mixT + m.rowmix[r], p.Cout, m.rowP[r] * C, dVo, L, dT, L, m.rownorm[r], ET,
+                 ring, p.ring, true);
         __syncthreads();
-        gemm_tile(p.mixT + m.rowmix[r], p.Cout, m.rowP[r] * C, dVo, dT, LD, m.rownorm[r], ET);
-        __syncthreads();
+        if (r + 1 < nrows) issue_row(r + 1, e0, ne);  // loads while this row's TP runs
         if (r == 0) {
-          for (int n = n0; n < ET; n += nstep)
-            for (int pp = 0; pp < m.rowP[0]; ++pp)
-              dT[(pp * C + c) * LD + n] += dinv[(pp * C + c) * LD + n];
+          for (int q = threadIdx.x; q < m.rowP[0] * C * ET; q += NT)
+            dT[(q / ET) * L + q % ET] += dinv[(q / ET) * L + q % ET];
+          __syncthreads();
         }
         dTr = dT;
       }
-      for (int e = m.rowstart[r]; e < m.rowstart[r + 1]; ++e) {
-        const int code = m.ent[e];
-        const int pp = code & 255, i = (code >> 8) & 255, j = code >> 16;
-        const float w = m.w[e];
-        const float ev = env[j * C + c];
-        const float* gr = dTr + (pp * C + c) * LD;
-        const float* Vr = Vs + (i * C + c) * LD;
-        float* dVr = dVs + (i * C + c) * LD;
-        float acc = 0.f;
-        for (int n = n0; n < ET; n += nstep) {
-          const float gg = w * gr[n];
-          dVr[n] = fmaf(gg, ev, dVr[n]);
-          acc = fmaf(gg, Vr[n], acc);
-        }
-        atomicAdd(&denv[j * C + c], acc);
-      }
+      tp_row_bwd(C, m, perm, r, dTr, L, Vs, env, dVs, denv);
       __syncthreads();
     }
     if constexpr (F == EMBED) {
       // dpT = sum_d dV0[d] * Y (into the dead dT rows), dY = sum_c dV0[d] *
-      // pT, then the tensor embed's share of dx, W_te dpT / sqrt(ns), joins
-      // the partial
+      // pT, then the tensor embed's share of dx, W_te dpT / sqrt(ns) (in the
+      // dT rows after dpT), joins the partial
       float* dp = dT;
-      float* dxe = dT + p.maxpc * LD;
+      float* dxe = dT + C * L;
       for (int q = threadIdx.x; q < C * ET; q += NT) {
         const int cc = q / ET, n = q % ET;
         float s = 0.f;
-        for (int d = 0; d < D; ++d) s = fmaf(dVs[(d * C + cc) * LD + n], Ys[d * LD + n], s);
-        dp[cc * LD + n] = s;
+        for (int d = 0; d < D; ++d) s = fmaf(dVs[(d * C + cc) * LDV + n], Ys[d * L + n], s);
+        dp[cc * L + n] = s;
       }
       for (int q = threadIdx.x; q < D * ET; q += NT) {
         const int d = q / ET, n = q % ET;
         float s = 0.f;
-        for (int cc = 0; cc < C; ++cc) s = fmaf(dVs[(d * C + cc) * LD + n], pTs[cc * LD + n], s);
+        for (int cc = 0; cc < C; ++cc) s = fmaf(dVs[(d * C + cc) * LDV + n], pTs[cc * L + n], s);
         if (n < ne) p.dY[(size_t)d * E + e0 + n] = s;
       }
       __syncthreads();
-      gemm_tile(p.teT, C, ns, dp, dxe, LD, p.cns, ET);
+      mma_tile(p.teT, C, ns, dp, L, dxe, L, p.cns, ET, ring, p.ring);
       __syncthreads();
       for (int q = threadIdx.x; q < ns * ET; q += NT) {
         const int s = q / ET, n = q % ET;
-        if (n < ne) p.dx[(size_t)s * E + e0 + n] += dxe[s * LD + n];
+        if (n < ne) p.dx[(size_t)s * E + e0 + n] += dxe[s * L + n];
       }
     } else if (p.first_v) {
       for (int q = threadIdx.x; q < C * ET; q += NT) {  // dpT = sum_d dV0[d] * Y[d]
         const int cc = q / ET, n = q % ET;
         float s = 0.f;
-        for (int d = 0; d < D; ++d) s = fmaf(dVs[(d * C + cc) * LD + n], Ys[d * LD + n], s);
+        for (int d = 0; d < D; ++d) s = fmaf(dVs[(d * C + cc) * LDV + n], Ys[d * L + n], s);
         if (n < ne) p.dV[(size_t)cc * E + e0 + n] = s;
       }
       for (int q = threadIdx.x; q < D * ET; q += NT) {  // dY = sum_c dV0[d] * pT
         const int d = q / ET, n = q % ET;
         float s = 0.f;
-        for (int cc = 0; cc < C; ++cc) s = fmaf(dVs[(d * C + cc) * LD + n], pTs[cc * LD + n], s);
+        for (int cc = 0; cc < C; ++cc) s = fmaf(dVs[(d * C + cc) * LDV + n], pTs[cc * L + n], s);
         if (F == STACK && p.acc && n < ne) s += p.dY[(size_t)d * E + e0 + n];
         if (n < ne) p.dY[(size_t)d * E + e0 + n] = s;
       }
     } else {
       for (int q = threadIdx.x; q < D * C * ET; q += NT) {
         const int row = q / ET, n = q % ET;
-        if (n < ne) p.dV[(size_t)row * E + e0 + n] = dVs[row * LD + n];
+        if (n < ne) p.dV[(size_t)row * E + e0 + n] = dVs[row * LDV + n];
       }
       for (int q = threadIdx.x; !(F == STACK && p.acc) && q < D * ET; q += NT) {
         const int d = q / ET, n = q % ET;
@@ -585,81 +631,81 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
   for (int q = threadIdx.x; q < D * C; q += NT) denv[q] *= p.inv_avg;  // = dA
   __syncthreads();
   float* wz0 = R;
-  float* dwz = R + C * LD;
-  float* dxa = dwz + C * LD;
+  float* dwz = R + C * L;
+  float* dxa = dwz + C * L;
   // EMBED: x0, the two-body pre-activations, the input tile and two
   // ping-pong buffers for the prologue's recompute and backward
   const int nin = (p.n_in + 3) / 4 * 4;
-  float* x0s = dxa + ns * LD;
-  float* tbz = x0s + ns * LD;
-  float* ins = tbz + p.hzrows * LD;
-  float* tA = ins + nin * LD;
-  float* tB = tA + imax(imax(p.xmaxw, ns), nin) * LD;
+  float* x0s = dxa + ns * L;
+  float* tbz = x0s + ns * L;
+  float* ins = tbz + p.hzrows * L;
+  float* tA = ins + nin * L;
+  float* tB = tA + imax(imax(p.xmaxw, ns), nin) * L;
   for (int t0 = 0; t0 < p.K; t0 += ET) {
     const int e0 = center * p.K + t0, ne = min(ET, p.K - t0);
+    load_in<L>(p, p.Y, D, e0, ne, Ys);
+    load_in<L>(p, p.u, 1, e0, ne, us);
     if constexpr (F == EMBED) {
-      load_tile(p.Y, D, E, e0, ne, Ys);
-      load_tile(p.u, 1, E, e0, ne, us);
-      embed_x(p, mt[0], e0, ne, us, cat, ins, tA, tB, tbz, x0s);
+      embed_x<L>(p, mt[0], e0, ne, us, cat, ins, tA, tB, tbz, x0s);
     } else {
-      load_act<F>(p.x, ns, E, e0, ne, cat);
-      load_tile(p.Y, D, E, e0, ne, Ys);
-      load_tile(p.u, 1, E, e0, ne, us);
-      __syncthreads();
+      load_act<F, L>(p, p.x, ns, e0, ne, cat);
+      tiles_ready();
     }
-    gemm_tile(p.envw, ns, C, cat, wz0, LD, p.cns, ET);
+    mma_tile(p.envw, ns, C, cat, L, wz0, L, p.cns, ET, ring, p.ring);
     for (int q = threadIdx.x; q < C * ET; q += NT) {
       const int cc = q / ET, n = q % ET;
       float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(denv[d * C + cc], Ys[d * LD + n], s);
-      dwz[cc * LD + n] = s;
+      for (int d = 0; d < D; ++d) s = fmaf(denv[d * C + cc], Ys[d * L + n], s);
+      dwz[cc * L + n] = s;
     }
     __syncthreads();
     for (int q = threadIdx.x; q < D * ET; q += NT) {
       const int d = q / ET, n = q % ET;
       float s = 0.f;
-      for (int cc = 0; cc < C; ++cc) s = fmaf(denv[d * C + cc], wz0[cc * LD + n], s);
+      for (int cc = 0; cc < C; ++cc) s = fmaf(denv[d * C + cc], wz0[cc * L + n], s);
       if (n < ne) p.dY[(size_t)d * E + e0 + n] += s * us[n];
     }
     for (int n = threadIdx.x; n < ne; n += NT) {
       float s = 0.f;
-      for (int cc = 0; cc < C; ++cc) s = fmaf(dwz[cc * LD + n], wz0[cc * LD + n], s);
+      for (int cc = 0; cc < C; ++cc) s = fmaf(dwz[cc * L + n], wz0[cc * L + n], s);
       p.du[e0 + n] += s;
     }
     __syncthreads();
     for (int q = threadIdx.x; q < C * ET; q += NT) {
       const int cc = q / ET, n = q % ET;
-      dwz[cc * LD + n] *= us[n];
+      dwz[cc * L + n] *= us[n];
     }
     __syncthreads();
-    gemm_tile(p.envwT, C, ns, dwz, dxa, LD, p.cns, ET);
+    mma_tile(p.envwT, C, ns, dwz, L, dxa, L, p.cns, ET, ring, p.ring);
     __syncthreads();
     if constexpr (F == EMBED) {
-      embed_bwd(p, mt[0], e0, ne, us, dxa, x0s, tbz, tA, tB);
+      embed_bwd<L>(p, mt[0], e0, ne, us, dxa, x0s, tbz, tA, tB);
     } else {
       for (int q = threadIdx.x; q < ns * ET; q += NT) {
         const int s = q / ET, n = q % ET;
-        if (n < ne) p.dx[(size_t)s * E + e0 + n] += dxa[s * LD + n];
+        if (n < ne) p.dx[(size_t)s * E + e0 + n] += dxa[s * L + n];
       }
     }
     __syncthreads();
   }
 }
 
-template <int F>
-__global__ void __launch_bounds__(NT) k1_fwd_kernel(const K1P p) {
+template <int F, int L>
+__global__ void __launch_bounds__(NT, 2) k1_fwd_kernel(const __grid_constant__ K1P p) {
   extern __shared__ float sm[];
   if constexpr (F != PLAIN) load_tables(p);
   load_meta(p.meta, reinterpret_cast<int*>(sm));
-  layer_fwd<F>(p, *reinterpret_cast<const Meta*>(sm), reinterpret_cast<const MlpTab*>(sm + p.o_mt));
+  layer_fwd<F, L>(p, *reinterpret_cast<const Meta*>(sm),
+                  reinterpret_cast<const MlpTab*>(sm + p.o_mt));
 }
 
-template <int F>
-__global__ void __launch_bounds__(NT) k1_bwd_kernel(const K1P p) {
+template <int F, int L>
+__global__ void __launch_bounds__(NT, 1) k1_bwd_kernel(const __grid_constant__ K1P p) {
   extern __shared__ float sm[];
   if constexpr (F != PLAIN) load_tables(p);
   load_meta(p.meta, reinterpret_cast<int*>(sm));
-  layer_bwd<F>(p, *reinterpret_cast<const Meta*>(sm), reinterpret_cast<const MlpTab*>(sm + p.o_mt));
+  layer_bwd<F, L>(p, *reinterpret_cast<const Meta*>(sm),
+                  reinterpret_cast<const MlpTab*>(sm + p.o_mt));
 }
 
 // The K1 fields of K1P from the launchers' arrays.
@@ -701,16 +747,38 @@ void k1_params(K1P& p, const unsigned long long* ptrs, const int* dims, float in
   p.inv_avg = inv_avg;
 }
 
+bool aligned16(const void* q) { return ((uintptr_t)q & 15) == 0; }
+
+// Whether the tiles of p load as 16-byte cp.async (every row start and
+// tile start 16-byte aligned), and whether the weights the products stage
+// are 16-byte aligned (the wrappers' layouts always are).
+bool tiles_vec(const K1P& p) {
+  const void* act[] = {p.x, p.V, p.Y, p.u, p.dxo, p.dvo, p.in, p.dh0, p.dh1};
+  bool ok = p.E % 4 == 0 && p.K % 4 == 0;
+  for (const void* q : act) ok = ok && aligned16(q);
+  return ok;
+}
+
+bool weights_aligned(const K1P& p) {
+  const void* w[] = {p.envw, p.envwT, p.lat, p.latT, p.mix, p.mixT, p.te, p.teT, p.ew, p.ewT};
+  bool ok = true;
+  for (const void* q : w) ok = ok && aligned16(q);
+  return ok;
+}
+
 // Shared memory of a form: checks the widths and lays out the block's
-// shared memory (the sums ops/fused_layer.py, ops/embed_layer.py and
-// ops/readout_layer.py mirror in kernel_takes) into p's offsets.  Returns
+// shared memory (the sums ops/fused_layer.py, ops/embed_layer.py,
+// ops/readout_layer.py and ops/fused_stack.py mirror in kernel_takes) into
+// p's offsets: the product tiles at stride LDS_WIDE with the ring, or where
+// that does not fit at LDS_MIN with the ring, or at LDS_MIN without one
+// (allegro_mma.cuh).  Every region starts on 16 bytes (cp.async).  Returns
 // the block's bytes, or a negative code for a shape the kernel does not
 // take.
 template <int F>
 int layer_layout(int bwd, K1P& p) {
   p.cns = 1.0f / sqrtf((float)p.ns);
   if (p.D > MAX_D || p.nlat < 1 || p.nlat > MAX_LAT) return -1;
-  if (NT % p.C || NT / p.C > ET) return -2;  // thread-owned (c, n) TP cells
+  if (NT % p.C || NT / p.C > ET) return -2;  // C a multiple of 8: the TP's cells
   if (p.K < 1 || p.E % p.K) return -3;
   if (p.ns % 4 || p.C % 4 || p.Cout % 4 || p.in0 % 4 || p.maxw % 4) return -4;
   if (!p.last && p.Cout != p.C) return -5;
@@ -719,78 +787,85 @@ int layer_layout(int bwd, K1P& p) {
   constexpr bool MLPS = F == EMBED || F == READOUT;  // forms with MlpTab tables
   if (MLPS && p.xmaxw % 4) return -4;
 
-  int off = META_WORDS;
-  auto take = [&](int words) {
-    const int o = off;
-    off += words;
-    return o;
-  };
-  p.o_mt = take(MLPS ? 2 * MT_WORDS : 0);
-  p.o_env = take(p.D * p.C);
-  p.o_denv = take(bwd ? p.D * p.C : 0);
-  p.o_cat = take(p.in0 * LD);
-  p.o_V = take(p.D * p.C * LD);
-  p.o_pT = take(p.first_v ? p.C * LD : 0);
-  p.o_Y = take(p.D * LD);
-  p.o_u = take(LD);
-  p.o_du = take(bwd ? LD : 0);
-  p.o_R = take(0);
-  int r_rows = p.C;  // center_env scratch
+  int rows = p.C;  // center_env scratch (rows of R at the tile stride)
   if (bwd) {
-    const int gw = p.in0 > p.maxw ? p.in0 : p.maxw;
-    const int ph1 = 2 * p.ns + (p.nlat - 1) * p.maxw + 2 * gw;
-    const int ph2 = p.D * p.C + p.maxpc + p.Cout;
-    const int ph3 = 2 * p.C + p.ns;
-    r_rows = ph1 > r_rows ? ph1 : r_rows;
-    r_rows = ph2 > r_rows ? ph2 : r_rows;
-    r_rows = ph3 > r_rows ? ph3 : r_rows;
+    const int gw = imax(p.in0, p.maxw);
+    rows = imax(rows, 2 * p.ns + (p.nlat - 1) * p.maxw + 2 * gw);  // latent fwd + bwd
+    rows = imax(rows, 2 * p.C + p.ns);                               // env backward
   } else {
-    const int lat = 2 * p.maxw + p.ns;
-    r_rows = p.maxpc > r_rows ? p.maxpc : r_rows;
-    r_rows = lat > r_rows ? lat : r_rows;
+    rows = imax(rows, imax(p.maxpc, 2 * imax(p.maxw, p.ns)));  // T; latent ping-pong
   }
   if constexpr (F == EMBED) {
     const int nin = (p.n_in + 3) / 4 * 4;
-    r_rows = imax(r_rows, nin + 2 * p.xmaxw);  // the prologue in center_env / load_edges
+    rows = imax(rows, nin + 2 * p.xmaxw);  // the prologue in center_env / load_edges
     if (bwd) {
       const int gwt = imax(imax(p.xmaxw, p.ns), nin);
-      r_rows = imax(r_rows, p.D * p.C + p.maxpc + imax(p.Cout, p.ns));
-      r_rows = imax(r_rows, 2 * p.C + 2 * p.ns + p.hzrows + nin + 2 * gwt);
+      rows = imax(rows, 2 * p.C + 2 * p.ns + p.hzrows + nin + 2 * gwt);
     }
   }
   if constexpr (F == READOUT) {
     if (bwd)
-      r_rows = imax(r_rows, 2 * p.ns + (p.nlat - 1) * p.maxw + 2 * imax(p.xmaxw, p.ns) + p.hzrows + 2);
+      rows = imax(rows, 2 * p.ns + (p.nlat - 1) * p.maxw + 2 * imax(p.xmaxw, p.ns) + p.hzrows + 2);
     else
-      r_rows = imax(r_rows, 2 * p.xmaxw + 2);
+      rows = imax(rows, 2 * p.xmaxw + 2);
   }
-  off += r_rows * LD;
-  if ((size_t)off * 4 > SMEM_MAX) return -6;
-  return off * 4;
+  const int strides[2] = {LDS_WIDE, LDS_MIN};
+  for (const int L : strides) {
+    int off = 0;
+    auto take = [&](int words) {
+      const int o = off;
+      off += (words + 3) & ~3;
+      return o;
+    };
+    take(META_WORDS);
+    p.o_p = take(F == STACK ? P_WORDS : 0);
+    p.o_perm = take(bwd ? MAX_ENT : 0);
+    p.o_mt = take(MLPS ? 2 * MT_WORDS : 0);
+    p.o_env = take(p.D * p.C);
+    p.o_denv = take(bwd ? p.D * p.C : 0);
+    p.o_cat = take(p.in0 * L);
+    p.o_V = take(p.D * p.C * LDV);
+    p.o_pT = take(p.first_v ? p.C * L : 0);
+    p.o_Y = take(p.D * L);
+    p.o_u = take(L);
+    p.o_du = take(bwd ? L : 0);
+    int r_words = rows * L;
+    // TP / mix backward: dV (D*C rows at LDV), dT, dV' (EMBED then dpT and
+    // its share of dx in dT's rows)
+    if (bwd)
+      r_words = imax(r_words, p.D * p.C * LDV +
+                                  ((F == EMBED ? imax(p.maxpc, p.C + p.ns) : p.maxpc) + p.Cout) * L);
+    // the ring: its cap, or what is left when less (not below RING_MIN);
+    // at LDS_MIN none if even that does not fit
+    const int left = ((int)(SMEM_MAX / 4) - off - r_words) & ~7;
+    p.lds = L;
+    p.ring = left >= RING_MIN ? min(bwd ? RING_BWD : RING_FWD, left) : 0;
+    if (p.ring == 0 && (L == LDS_WIDE || left < 0)) continue;
+    p.o_ring = take(p.ring);
+    p.o_R = take(0);
+    return (off + r_words) * 4;
+  }
+  return -6;
 }
 
-// Lays out and launches a form, one block per center.  Returns 0, a
-// negative code for a shape the kernel does not take, or the cudaError_t
-// of the launch.
+// Lays out and launches a form, one block per center, built for the tile
+// stride the layout chose.  Returns 0, a negative code for a shape the
+// kernel does not take (-9: a weight not 16-byte aligned), or the
+// cudaError_t of the launch.
 template <int F>
 int layer_launch(int bwd, K1P& p, void* stream) {
   const int bytes = layer_layout<F>(bwd, p);
   if (bytes < 0) return bytes;
-  const size_t smem = (size_t)bytes;
-  const int blocks = p.E / p.K;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (bwd) {
-    err = cudaFuncSetAttribute(k1_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    k1_bwd_kernel<F><<<blocks, NT, smem, st>>>(p);
-  } else {
-    err = cudaFuncSetAttribute(k1_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    k1_fwd_kernel<F><<<blocks, NT, smem, st>>>(p);
-  }
+  if (!weights_aligned(p)) return -9;
+  p.vec = tiles_vec(p);
+  const bool wide = p.lds == LDS_WIDE;
+  void (*kernel)(const K1P) =
+      bwd ? (wide ? k1_bwd_kernel<F, LDS_WIDE> : k1_bwd_kernel<F, LDS_MIN>)
+          : (wide ? k1_fwd_kernel<F, LDS_WIDE> : k1_fwd_kernel<F, LDS_MIN>);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<p.E / p.K, NT, (size_t)bytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

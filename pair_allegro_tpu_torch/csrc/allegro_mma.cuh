@@ -1,0 +1,422 @@
+// Tensor-core pieces of the Allegro layer body (allegro_layer.cuh, which
+// alone includes this header; K1, K6, K7 and K8 run it): the small products
+// on tensor cores at f32 accuracy, weights staged in shared memory by
+// cp.async, cp.async tile loads, and the channelwise TP of one output row
+// with its accumulators in registers.
+//
+// Products.  out (M, ET) = scale * A^T B, A (Kd, M) row-major weights in
+// device memory, B (Kd, ET) a shared tile of row stride ldb.  Rows are output
+// features, columns the tile's edges, depth the input features; a pass
+// covers MG output rows as 8 warps in 2 (rows) x 4 (8-edge columns), each
+// warp up to 4 m16n8 tiles, one B fragment reused across them.  Each k-step
+// of 8 runs mma.sync.m16n8k8 in 3xTF32: every operand a = hi + lo with
+// hi = rna_tf32(a), lo = rna_tf32(a - hi), and hi*hi' + hi*lo' + lo*hi'
+// accumulated in f32, each dropped term ~2^-22 relative, so the products
+// keep f32 accuracy (single-pass TF32 would keep ~2^-11).
+//
+// Weight staging.  A pass's A columns come into a ring of two stages in
+// shared memory in chunks of KC rows (16-byte cp.async.cg, commit / wait
+// groups): chunk c+1 loads while the tensor cores consume chunk c.  Rows
+// past Kd are zero-filled and B's rows past Kd read as 0, so any depth
+// works.  Chunk rows of a multiple-of-32 width are XOR-swizzled by 8 floats
+// per row (mod 4), other widths padded to 16k + 8: either way the A
+// fragment loads are free of bank conflicts, as B's are at LDS_WIDE.  An A
+// of at most two chunks and one pass stays in the ring after the product:
+// the caller may run the next product on it again (a mix l3 block over its
+// 2 l3 + 1 rows) or stage it ahead (mma_stage) while other work runs.
+//
+// Wide layers.  Where the tiles leave no room for the ring at LDS_WIDE, the
+// layout takes the tile stride LDS_MIN (B fragment loads then conflict, but
+// the tiles take less shared memory than at allegro_tiles.cuh's LD = 33),
+// and where the ring's least still does not fit, no ring: the A fragments
+// are then read from device memory through the read-only cache.  So the
+// body takes every width the FFMA body before it took.  The body is built
+// for each stride (allegro_layer.cuh): a stride read at run time cost the
+// backward ~9% on the H100 (PERF.md).
+//
+// The g++ stand-in build (PAT_STANDIN, never nvcc) replaces the PTX
+// primitives with scalar emulations: cp.async by a copy with zero fill, its
+// groups by no-ops, and the m16n8k8 product by one gathered lane by lane
+// with warp shuffles.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#ifdef PAT_STANDIN
+#include <string.h>
+#endif
+
+#include "allegro_tiles.cuh"
+
+namespace {
+
+constexpr int LDS_WIDE = 40;  // row stride of product tiles: conflict-free B fragments
+constexpr int LDS_MIN = 32;   // the stride where the tiles do not fit at LDS_WIDE
+constexpr int LDV = 32;       // row stride of the V and dV tiles (TP only, lanes over edges)
+constexpr int MG = 128;       // output rows per product pass
+// words of the weight ring: at most RING_FWD in a forward launch (two blocks
+// an SM at the flagship widths) and RING_BWD in a backward one (one block),
+// less where the tiles leave less, but not below RING_MIN (two stages of 8
+// rows at the widest pass); 0 where even that does not fit
+constexpr int RING_FWD = 4096;
+constexpr int RING_BWD = 8192;
+constexpr int RING_MIN = 2 * 8 * (MG + 8);
+
+// cvt.rna.tf32.f32 by two full-rate integer operations: add half a unit of
+// the 11th mantissa bit to the magnitude's bits, clear the 13 bits below
+// (Inf and NaN stay as they are)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+#ifndef PAT_STANDIN
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes global -> shared through L2 only; the bytes past src_bytes are zeroed
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+#else
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < 8; ++k) {
+    const int hi = k >> 2, kl = k & 3;
+    const float a0 = __uint_as_float(__shfl_sync(~0u, a[2 * hi], g * 4 + kl));
+    const float a1 = __uint_as_float(__shfl_sync(~0u, a[2 * hi + 1], g * 4 + kl));
+    const float b0 = __uint_as_float(__shfl_sync(~0u, b[hi], 2 * t * 4 + kl));
+    const float b1 = __uint_as_float(__shfl_sync(~0u, b[hi], (2 * t + 1) * 4 + kl));
+    d[0] = fmaf(a0, b0, d[0]);
+    d[1] = fmaf(a0, b1, d[1]);
+    d[2] = fmaf(a1, b0, d[2]);
+    d[3] = fmaf(a1, b1, d[3]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  memcpy(dst, src, src_bytes);
+  memset(reinterpret_cast<char*>(dst) + src_bytes, 0, 16 - src_bytes);
+}
+
+__device__ __forceinline__ void cp_async_commit() {}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {}
+#endif
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Staging geometry of a product pass of width mg: chunk rows and row stride.
+struct Chunks {
+  int sa, kc, n;
+  bool swz;
+};
+
+__device__ __forceinline__ Chunks chunks(int Kd, int mg, int ring) {
+  Chunks c;
+  c.swz = mg % 32 == 0;
+  c.sa = c.swz ? mg : (mg + 15) / 16 * 16 + 8;
+  c.kc = (ring / 2 / c.sa) & ~7;
+  c.n = (Kd + c.kc - 1) / c.kc;
+  return c;
+}
+
+// Whether a product of A (Kd, M) leaves all of A in the ring (one pass, at
+// most two chunks), so that the next product on the same A may skip staging.
+__device__ __forceinline__ bool ring_holds(int Kd, int M, int ring) {
+  return ring > 0 && M <= MG && chunks(Kd, M, ring).n <= 2;
+}
+
+// Issue chunk ch of the pass at output rows [g0, g0 + mg) into its stage.
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ A, int Kd, int M, int g0,
+                                            int mg, const Chunks& c, int ch, float* ring, int rw) {
+  float* dst = ring + (ch & 1) * (rw / 2);
+  const int k0 = ch * c.kc;
+  const int rows = min(c.kc, (Kd - k0 + 7) & ~7);
+  const int q4 = mg >> 2;
+  for (int q = threadIdx.x; q < rows * q4; q += NT) {
+    const int kk = q / q4, m4 = (q % q4) * 4, k = k0 + kk;
+    float* d = dst + kk * c.sa + (c.swz ? (m4 ^ ((kk & 3) << 3)) : m4);
+    cp_async16(d, A + (size_t)(k < Kd ? k : 0) * M + g0 + m4, k < Kd ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+// Stage the first chunks of A (Kd, M) ahead of mma_tile(..., staged = true).
+__device__ __forceinline__ void mma_stage(const float* __restrict__ A, int Kd, int M, float* ring,
+                                          int rw) {
+  if (rw == 0) return;
+  const int mg = min(MG, M);
+  const Chunks c = chunks(Kd, mg, rw);
+  stage_chunk(A, Kd, M, 0, mg, c, 0, ring, rw);
+  if (c.n > 1) stage_chunk(A, Kd, M, 0, mg, c, 1, ring, rw);
+}
+
+// The warp's up to 4 m16n8 accumulators (hi*hi' in acc, the corrections in
+// cor) of the pass at output row g0 to out[r*ldo + n], n < nvalid.
+__device__ __forceinline__ void mma_store(const float (&acc)[4][4], const float (&cor)[4][4],
+                                          int g0, int m16, int M, float* out, int ldo, float scale,
+                                          int nvalid) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, n0 = (warp & 3) * 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int mt = wm + 2 * i;
+    if (mt >= m16) continue;
+    const int r0 = g0 + mt * 16 + g, n = n0 + 2 * t;
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= M) continue;
+      if (n < nvalid) out[(size_t)r * ldo + n] = (acc[i][2 * h] + cor[i][2 * h]) * scale;
+      if (n + 1 < nvalid)
+        out[(size_t)r * ldo + n + 1] = (acc[i][2 * h + 1] + cor[i][2 * h + 1]) * scale;
+    }
+  }
+}
+
+// mma_tile without a ring (rw = 0): the A fragments straight from device
+// memory through the read-only cache, rows past Kd and M read as 0.
+__device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, const float* B,
+                                int ldb, float* out, int ldo, float scale, int nvalid) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, n0 = (warp & 3) * 8;
+  for (int g0 = 0; g0 < M; g0 += MG) {
+    const int m16 = (min(MG, M - g0) + 15) >> 4;
+    float acc[4][4] = {}, cor[4][4] = {};
+    for (int k0 = 0; k0 < Kd; k0 += 8) {
+      const int k = k0 + t;
+      const bool v0 = k < Kd, v1 = k + 4 < Kd;
+      uint32_t bh[2], bl[2];
+      split_tf32(v0 ? B[k * ldb + n0 + g] : 0.f, bh[0], bl[0]);
+      split_tf32(v1 ? B[(k + 4) * ldb + n0 + g] : 0.f, bh[1], bl[1]);
+      const float* A0 = A + (size_t)k * M;
+      const float* A1 = A0 + 4 * (size_t)M;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int mt = wm + 2 * i;
+        if (mt < m16) {
+          const int m0 = g0 + mt * 16 + g, m1 = m0 + 8;
+          uint32_t ah[4], al[4];
+          split_tf32(v0 && m0 < M ? __ldg(A0 + m0) : 0.f, ah[0], al[0]);
+          split_tf32(v0 && m1 < M ? __ldg(A0 + m1) : 0.f, ah[1], al[1]);
+          split_tf32(v1 && m0 < M ? __ldg(A1 + m0) : 0.f, ah[2], al[2]);
+          split_tf32(v1 && m1 < M ? __ldg(A1 + m1) : 0.f, ah[3], al[3]);
+          mma_tf32(cor[i], al, bh);
+          mma_tf32(cor[i], ah, bl);
+          mma_tf32(acc[i], ah, bh);
+        }
+      }
+    }
+    mma_store(acc, cor, g0, m16, M, out, ldo, scale, nvalid);
+  }
+}
+
+// out[m*ldo + n] = scale * sum_k A[k*M + m] * B[k*ldb + n] for m < M (M % 4
+// == 0, A 16-byte aligned), n < ET; only n < nvalid is written.  staged:
+// the first pass's first two chunks are in the ring already (mma_stage, or
+// an A that ring_holds left there).  The caller synchronises the block
+// before reading out or reusing B or the ring.
+__device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float* B, int ldb,
+                         float* out, int ldo, float scale, int nvalid, float* ring, int rw,
+                         bool staged = false) {
+  if (rw == 0) {
+    mma_tile_direct(A, Kd, M, B, ldb, out, ldo, scale, nvalid);
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, n0 = (warp & 3) * 8;
+  for (int g0 = 0; g0 < M; g0 += MG) {
+    const int mg = min(MG, M - g0);
+    const Chunks c = chunks(Kd, mg, rw);
+    const int m16 = (mg + 15) >> 4;
+    const int sw = c.swz ? t << 3 : 0;
+    // hi*hi' and the two correction terms in separate accumulators: two
+    // independent mma chains per tile
+    float acc[4][4] = {}, cor[4][4] = {};
+    if (!(staged && g0 == 0)) {
+      stage_chunk(A, Kd, M, g0, mg, c, 0, ring, rw);
+      if (c.n > 1) stage_chunk(A, Kd, M, g0, mg, c, 1, ring, rw);
+    }
+    for (int ch = 0; ch < c.n; ++ch) {
+      if (ch + 1 < c.n)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      const float* As = ring + (ch & 1) * (rw / 2);
+      const int k0 = ch * c.kc, kend = min(c.kc, Kd - k0);
+#pragma unroll 2
+      for (int kk = 0; kk < kend; kk += 8) {
+        const int k = k0 + kk + t;
+        uint32_t bh[2], bl[2];
+        split_tf32(k < Kd ? B[k * ldb + n0 + g] : 0.f, bh[0], bl[0]);
+        split_tf32(k + 4 < Kd ? B[(k + 4) * ldb + n0 + g] : 0.f, bh[1], bl[1]);
+        const float* A0 = As + (kk + t) * c.sa;
+        const float* A1 = A0 + 4 * c.sa;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int mt = wm + 2 * i;
+          if (mt < m16) {
+            const int m0 = (mt * 16 + g) ^ sw, m1 = (mt * 16 + g + 8) ^ sw;
+            uint32_t ah[4], al[4];
+            split_tf32(A0[m0], ah[0], al[0]);
+            split_tf32(A0[m1], ah[1], al[1]);
+            split_tf32(A1[m0], ah[2], al[2]);
+            split_tf32(A1[m1], ah[3], al[3]);
+            mma_tf32(cor[i], al, bh);
+            mma_tf32(cor[i], ah, bl);
+            mma_tf32(acc[i], ah, bh);
+          }
+        }
+      }
+      if (ch + 2 < c.n) {
+        __syncthreads();  // every warp is done with this stage
+        stage_chunk(A, Kd, M, g0, mg, c, ch + 2, ring, rw);
+      }
+    }
+    mma_store(acc, cor, g0, m16, M, out, ldo, scale, nvalid);
+    if (g0 + MG < M) __syncthreads();  // the next pass restages the ring
+  }
+}
+
+// dst[r*ld + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < ET: issued as
+// 16-byte cp.async.cg (L2 only, so memory the same kernel wrote is read
+// fresh) when vec (E, e0, src 16-byte aligned), else loaded synchronously
+// through the read-only cache (RO) or L2.  Visible after tiles_ready().
+template <bool RO>
+__device__ void load_tile_async(const float* __restrict__ src, int rows, int E, int e0, int ne,
+                                float* dst, int ld, bool vec) {
+  if (vec) {
+    for (int q = threadIdx.x; q < rows * (ET / 4); q += NT) {
+      const int r = q / (ET / 4), n4 = (q % (ET / 4)) * 4;
+      const int nb = 4 * max(0, min(4, ne - n4));
+      cp_async16(dst + r * ld + n4, nb ? src + (size_t)r * E + e0 + n4 : src, nb);
+    }
+    cp_async_commit();
+  } else {
+    for (int q = threadIdx.x; q < rows * ET; q += NT) {
+      const int r = q / ET, n = q % ET;
+      const float* s = src + (size_t)r * E + e0 + n;
+      dst[r * ld + n] = n < ne ? (RO ? __ldg(s) : __ldcg(s)) : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void tiles_ready() {
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// T[(pp*C + c)*ldt + n] = sum over the 3j entries of output row r of
+// w * V[i][c][n] * env[j][c].  Thread (warp w, lane n) owns the cells (c, n)
+// for c = w + 8 jj; each path's sum stays in registers (the wrapper's table
+// lists a row's entries grouped by path, in ascending order), one shared
+// load of V per entry and cell, one store of T per path and cell.
+__device__ void tp_row_reg(int C, const Meta& m, int r, const float* Vs, const float* env,
+                           float* T, int ldt) {
+  const int n = threadIdx.x & 31, w8 = threadIdx.x >> 5;
+  const int P = m.rowP[r], end = m.rowstart[r + 1];
+  for (int cb = 0; cb < C; cb += 32) {
+    int e = m.rowstart[r];
+    for (int pp = 0; pp < P; ++pp) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      for (; e < end && (m.ent[e] & 255) == pp; ++e) {
+        const int code = m.ent[e];
+        const int i = (code >> 8) & 255, j = code >> 16;
+        const float w = m.w[e];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int c = cb + w8 + 8 * jj;
+          if (c < C) a[jj] = fmaf(w * env[j * C + c], Vs[(i * C + c) * LDV + n], a[jj]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = cb + w8 + 8 * jj;
+        if (c < C) T[(pp * C + c) * ldt + n] = a[jj];
+      }
+    }
+  }
+}
+
+// perm[rowstart[r] ..] = the entries of each row r ordered by (j, index), so
+// that the TP backward meets each j of a row in one run.
+__device__ void build_jperm(const Meta& m, int nrows, int* perm) {
+  for (int e = threadIdx.x; e < m.rowstart[nrows]; e += NT) {
+    int r = 0;
+    while (m.rowstart[r + 1] <= e) ++r;
+    const int j = m.ent[e] >> 16;
+    int rank = m.rowstart[r];
+    for (int f = m.rowstart[r]; f < m.rowstart[r + 1]; ++f) {
+      const int jf = m.ent[f] >> 16;
+      rank += jf < j || (jf == j && f < e);
+    }
+    perm[rank] = e;
+  }
+}
+
+// TP backward of output row r from its cotangent dT (P*C rows, stride ldt):
+// dV[i][c][n] += w dT[p][c][n] env[j][c] and denv[j][c] += sum_n w dT[p][c][n]
+// V[i][c][n].  The cells (c, n) are thread-owned as in tp_row_reg; each run
+// of equal j sums its denv share in registers, reduces it across the warp's
+// lanes (the edges) and adds it to denv once per channel; the warps own
+// distinct channels, so no atomics.
+__device__ void tp_row_bwd(int C, const Meta& m, const int* perm, int r, const float* dT, int ldt,
+                           const float* Vs, const float* env, float* dVs, float* denv) {
+  const int n = threadIdx.x & 31, w8 = threadIdx.x >> 5;
+  const int end = m.rowstart[r + 1];
+  for (int cb = 0; cb < C; cb += 32) {
+    int e = m.rowstart[r];
+    while (e < end) {
+      const int j = m.ent[perm[e]] >> 16;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      for (; e < end && (m.ent[perm[e]] >> 16) == j; ++e) {
+        const int q = perm[e], code = m.ent[q];
+        const int pp = code & 255, i = (code >> 8) & 255;
+        const float w = m.w[q];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int c = cb + w8 + 8 * jj;
+          if (c < C) {
+            const float gg = w * dT[(pp * C + c) * ldt + n];
+            float* dv = dVs + (i * C + c) * LDV + n;
+            *dv = fmaf(gg, env[j * C + c], *dv);
+            s[jj] = fmaf(gg, Vs[(i * C + c) * LDV + n], s[jj]);
+          }
+        }
+      }
+      // the four channels' sums over the warp's 32 edges: halves exchange
+      // two channels, then quarters one, then three butterfly steps; lane
+      // 8 q ends with channel q's total
+      const bool h16 = n & 16, h8 = n & 8;
+      const float x0 = h16 ? s[0] : s[2], x1 = h16 ? s[1] : s[3];
+      const float t0 = (h16 ? s[2] : s[0]) + __shfl_xor_sync(~0u, x0, 16);
+      const float t1 = (h16 ? s[3] : s[1]) + __shfl_xor_sync(~0u, x1, 16);
+      float v = (h8 ? t1 : t0) + __shfl_xor_sync(~0u, h8 ? t0 : t1, 8);
+      for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+      const int c = cb + w8 + 8 * (n >> 3);
+      if ((n & 7) == 0 && c < C) denv[j * C + c] += v;
+    }
+  }
+}
+
+}  // namespace

@@ -16,7 +16,8 @@
 //        dV, dY and du.
 // Weight cotangents are not computed: the wrappers hand them back NaN.
 //
-// What bounds them on an H100: operations, as K1 (fused_layer.cu).  The
+// What bounds them on an H100: operations, as K1 (fused_layer.cu), with
+// the products on the tensor cores.  The
 // prologue adds 2*(n_in*w + w*w + w*ns) + 2*ns*C flops per edge slot and
 // pass (~21k at the flagship, w = 64, against K1's ~1.2e5 forward), the
 // epilogue ~2*ns*32 per head.
@@ -36,17 +37,19 @@
 //    it, adds sum_s dx * x0 to du and runs the two-body MLP's backward on
 //    dx * u to d(in).
 //  * the two-body input width 2T + B (10 at the flagship) need not be a
-//    multiple of 4, which the small product's float4 weight loads need: the
+//    multiple of 4, which the products' 16-byte weight staging needs: the
 //    wrapper pads the first weight with zero rows (its transpose with zero
 //    columns) to a multiple of 4, the input tile's padding rows are zeroed,
 //    and d(in) writes only the real rows.
 //  * the heads' last layer (32 -> 1) is a weighted row sum forward and an
 //    outer product backward, as the TPU kernel runs it
-//    (pallas_stack.py:446-488): the small product writes 4 rows per thread.
+//    (pallas_stack.py:446-488), on the CUDA cores; every other layer of the
+//    MLPs runs on the tensor cores as K1's products do.
 //  * the MLPs' shapes (MlpTab) are copied into shared memory beside the 3j
 //    table; the epilogue's and the prologue's scratch alias rows of the
 //    layer's scratch that are dead at that point, so at the flagship K6
-//    and K7 take no more shared memory than K1 (kernel_takes beside the
+//    and K7 take at most 2.2 KB more shared memory than K1 and their
+//    forwards still fit two blocks on an SM (kernel_takes beside the
 //    wrappers mirrors the sums).
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/embed_layer.py).
@@ -58,6 +61,22 @@ extern "C" {
 // words of the Meta table and of one MlpTab (checked by the wrappers)
 int er_meta_words() { return META_WORDS; }
 int er_mt_words() { return MT_WORDS; }
+
+// The shared-memory bytes of a launch of form at these dims (er_launch's),
+// or the negative refusal code: the sum ops/fused_layer.py's block_bytes
+// mirrors.
+int er_layout_bytes(int form, int bwd, const int* dims) {
+  K1P p{};
+  const unsigned long long none[19] = {};
+  k1_params(p, none, dims, 1.0f);
+  p.n_in = dims[12];
+  p.xmaxw = dims[13];
+  p.hzrows = dims[14];
+  p.nhead = dims[15];
+  if (form == EMBED) return layer_layout<EMBED>(bwd, p);
+  if (form == READOUT) return layer_layout<READOUT>(bwd, p);
+  return -8;
+}
 
 // form 1 (K6) or 2 (K7).
 // ptrs: K1's 19 (k1_params), then in, te, teT, din, mt, ew, ewT, dh0, dh1,

@@ -16,9 +16,11 @@
 // does.
 //
 // What bounds it on an H100: operations.  Per edge slot and layer the
-// forward does ~1.2e5 flops (the per-l3 mix, 2*C*C*35, dominates, then the
-// latent MLP) against ~2.9 KB moved: ~40 flops per byte, above the f32
-// CUDA-core ridge (67 TFLOP/s / 3.35 TB/s = 20 flops per byte).
+// forward does ~1.2e5 flops against ~2.9 KB moved, and 95% of the flops are
+// small matrix products (the per-l3 mix, 2*C*C*35, then the latent MLP and
+// the env weights).  On the CUDA cores at f32 that is ~40 flops per byte,
+// above the f32 ridge (67 TFLOP/s / 3.35 TB/s = 20); the products go to the
+// tensor cores instead, at f32 accuracy (3xTF32: 495/3 TFLOP/s).
 //
 // Design:
 //  * one thread block owns one whole center, so the per-center env sum
@@ -30,15 +32,26 @@
 //    output of one output row (P*C rows x ET) fits in shared memory at any
 //    K: the whole TP output of a K=64 center (35 x 32 x 64 floats, 287 KB)
 //    would not;
-//  * products are exact f32 FMAs on the CUDA cores (no TF32, no tensor
-//    cores): in each small matrix product a warp computes 32 edges of 4
-//    output rows, reading the weights as broadcast float4 loads;
-//  * the TP runs on thread-owned (channel, edge) cells, so it needs no
-//    synchronisation; the 3j table (83 entries at l_max=2 with parity) and
-//    the row tables sit in shared memory.
-// The tiles, the small product and the TP row are in allegro_tiles.cuh,
-// shared with K2 (env_layer.cu) and K4; the kernel body is in
-// allegro_layer.cuh, shared with K6 and K7 (embed_readout_layer.cu).
+//  * every small product runs mma.sync m16n8k8 in 3xTF32 (each operand
+//    split into two TF32 halves, three products summed in f32: f32
+//    accuracy), rows = output features, columns = the tile's edges; its
+//    weights come into a two-stage shared ring by cp.async, chunk c+1 in
+//    flight while chunk c is consumed, and a mix l3 block stays there over
+//    the rows of its l3 (a tile reads 45 KB of mix weights, not 143 KB);
+//    a layer whose tiles leave no room for the ring takes a narrower tile
+//    stride, and past that reads its weights without the ring, so every
+//    width the FFMA body before it took is still taken;
+//  * the TP runs on thread-owned (channel, edge) cells with each path's sum
+//    in registers (one shared load of V per 3j entry); its backward sums
+//    denv per run of equal j in registers and reduces it across the warp;
+//    the 3j table (83 entries at l_max=2 with parity) and the row tables
+//    sit in shared memory;
+//  * the tiles come in by 16-byte cp.async; the forward's layout fits two
+//    blocks on an SM at the flagship widths.
+// The Meta table is in allegro_tiles.cuh, shared with K2 (env_layer.cu) and
+// K4; the products, the staging and the TP are in allegro_mma.cuh, the
+// kernel body in allegro_layer.cuh, shared with K6, K7
+// (embed_readout_layer.cu) and K8 (fused_stack.cu).
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/fused_layer.py).
 
@@ -48,6 +61,15 @@ extern "C" {
 
 // words of the Meta table the wrapper builds (checked by the wrapper)
 int k1_meta_words() { return META_WORDS; }
+
+// The shared-memory bytes of a launch at these dims (k1_launch's), or the
+// negative refusal code: the sum ops/fused_layer.py's block_bytes mirrors.
+int k1_layout_bytes(int bwd, const int* dims) {
+  K1P p{};
+  const unsigned long long none[19] = {};
+  k1_params(p, none, dims, 1.0f);
+  return layer_layout<PLAIN>(bwd, p);
+}
 
 // ptrs: x, V, Y, u, envw, envwT, lat, latT, mix, mixT, dxo, dvo, meta,
 //       xo, vo, dx, dV, dY, du  (unused ones may be 0)

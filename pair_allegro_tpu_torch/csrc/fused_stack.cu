@@ -16,8 +16,9 @@
 // the TPU kernel's VJP does.
 //
 // What bounds it on an H100: operations, as K1 (fused_layer.cu): per edge
-// slot and layer ~1.2e5 flops forward, against ~0.7 KB of the stack's own
-// inputs and output per edge slot (x0, pT, Y, u in, x_final out).
+// slot and layer ~1.2e5 flops forward, 95% of them in small products that
+// run on the tensor cores, against ~0.7 KB of the stack's own inputs and
+// output per edge slot (x0, pT, Y, u in, x_final out).
 //
 // Design:
 //  * one thread block per center, as K1, looping over the layers; each
@@ -34,8 +35,9 @@
 //    does not fit in shared memory beside K1's tiles; only the resident
 //    blocks' slices are live at a time (~90 KB a center, ~12 MB for one
 //    block on each of the 132 SMs), so the store can stay in the 50 MB L2.
-//    Tiles written by the same kernel are read from L2 (__ldcg), not
-//    through the read-only cache;
+//    Tiles written by the same kernel come in by cp.async.cg, which reads
+//    L2 only, never through the read-only cache (which could hold them
+//    stale);
 //  * the backward follows the TPU kernel's schedule
 //    (pallas_stack.py:572-651): per center it recomputes layers 0 .. L-2,
 //    stashing each layer's input x and V in device memory ((L-1)*(ns +
@@ -45,9 +47,11 @@
 //    dY and du adding up across the layers, and V0's backward (dpT =
 //    sum_d dV[d] * Y[d], dY[d] += sum_c dV[d, c] * pT[c]) inside the first
 //    layer's, as K1's first form has it;
-//  * the per-layer parameters sit in one __grid_constant__ kernel argument,
-//    indexed by the layer in the loop (no copy to local memory);
-//  * exact f32 FMAs on the CUDA cores, no TF32 or tensor cores, as K1.
+//  * the per-layer parameters sit in one __grid_constant__ kernel argument;
+//    each layer's are copied once into a shared slot at its start, so the
+//    body reads them there, not by a dynamic index into the argument;
+//  * the products run on the tensor cores in 3xTF32 with their weights
+//    staged by cp.async, as K1 (allegro_mma.cuh).
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/fused_stack.py).
 
@@ -63,26 +67,39 @@ struct K8P {
 };
 static_assert(sizeof(K8P) <= 4096, "K8's kernel argument exceeds 4 KB");
 
-__global__ void __launch_bounds__(NT) k8_fwd_kernel(const __grid_constant__ K8P p) {
+// Copies layer l's parameters into their shared slot, where the body reads
+// them for the whole layer (after the barrier).
+__device__ const K1P& layer_params(const K8P& p, int l) {
+  extern __shared__ float sm[];
+  K1P* lp = reinterpret_cast<K1P*>(sm + p.layer[0].o_p);
+  const int* src = reinterpret_cast<const int*>(&p.layer[l]);
+  for (int q = threadIdx.x; q < (int)(sizeof(K1P) / 4); q += NT) reinterpret_cast<int*>(lp)[q] = src[q];
+  __syncthreads();
+  return *lp;
+}
+
+template <int S>  // the tile stride
+__global__ void __launch_bounds__(NT, 2) k8_fwd_kernel(const __grid_constant__ K8P p) {
   extern __shared__ float sm[];
   load_meta(p.layer[0].meta, reinterpret_cast<int*>(sm));
   const Meta& m = *reinterpret_cast<const Meta*>(sm);
   for (int l = 0; l < p.L; ++l) {
-    layer_fwd<STACK>(p.layer[l], m, nullptr);
+    layer_fwd<STACK, S>(layer_params(p, l), m, nullptr);
     __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(NT) k8_bwd_kernel(const __grid_constant__ K8P p) {
+template <int S>
+__global__ void __launch_bounds__(NT, 1) k8_bwd_kernel(const __grid_constant__ K8P p) {
   extern __shared__ float sm[];
   load_meta(p.layer[0].meta, reinterpret_cast<int*>(sm));
   const Meta& m = *reinterpret_cast<const Meta*>(sm);
   for (int l = 0; l < p.L - 1; ++l) {  // recompute, stashing each layer's input
-    layer_fwd<STACK>(p.layer[l], m, nullptr);
+    layer_fwd<STACK, S>(layer_params(p, l), m, nullptr);
     __syncthreads();
   }
   for (int l = p.L - 1; l >= 0; --l) {
-    layer_bwd<STACK>(p.layer[l], m, nullptr);
+    layer_bwd<STACK, S>(layer_params(p, l), m, nullptr);
     __syncthreads();
   }
 }
@@ -95,6 +112,18 @@ extern "C" {
 int k8_meta_words() { return META_WORDS; }
 int k8_max_layers() { return MAX_LAYERS; }
 
+// The shared-memory bytes of a launch at these dims (k8_launch's: every
+// layer shares K1's first-form layout), or the negative refusal code: the
+// sum ops/fused_layer.py's block_bytes mirrors.
+int k8_layout_bytes(int bwd, const int* dims) {
+  K1P p{};
+  const unsigned long long none[19] = {};
+  k1_params(p, none, dims, 1.0f);
+  p.first_v = 1;
+  p.last = 0;
+  return layer_layout<STACK>(bwd, p);
+}
+
 // ptrs: Y, u, meta, x0, pT, xo, xs, vs, dxo, dx, dvc, dpT, dY, du, then per
 //       layer envw, envwT, lat, latT, mix, mixT  (unused ones may be 0)
 //   forward:  x0, pT -> xo (also the x store); vs the (D*C, E) V store
@@ -102,8 +131,8 @@ int k8_max_layers() { return MAX_LAYERS; }
 //             ((L-1)*D*C, E) the stash, dvc the (D*C, E) carried dV
 // dims: K1's 12 (k1_params; first_v and last are set per layer), then L
 // Returns 0, a negative code for a shape the kernel does not take (-8: L
-// outside 1 .. MAX_LAYERS; the others as layer_layout), or the cudaError_t
-// of the launch.
+// outside 1 .. MAX_LAYERS; -9 a weight not 16-byte aligned; the others as
+// layer_layout), or the cudaError_t of the launch.
 int k8_launch(int bwd, const unsigned long long* ptrs, const int* dims, float inv_avg,
               void* stream) {
   const int L = dims[12];
@@ -153,10 +182,14 @@ int k8_launch(int bwd, const unsigned long long* ptrs, const int* dims, float in
       q.du = f(13);
       q.acc = !q.last;
     }
+    if (!weights_aligned(q)) return -9;
+    q.vec = tiles_vec(q);
   }
 
   cudaStream_t st = (cudaStream_t)stream;
-  void (*kernel)(const K8P) = bwd ? k8_bwd_kernel : k8_fwd_kernel;
+  const bool wide = base.lds == LDS_WIDE;  // the tile stride the layout chose
+  void (*kernel)(const K8P) = bwd ? (wide ? k8_bwd_kernel<LDS_WIDE> : k8_bwd_kernel<LDS_MIN>)
+                                  : (wide ? k8_fwd_kernel<LDS_WIDE> : k8_fwd_kernel<LDS_MIN>);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;

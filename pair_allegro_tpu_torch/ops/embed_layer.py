@@ -34,18 +34,11 @@ import torch.nn.functional as F
 from pair_allegro_tpu_torch.ops import fused_layer as fl
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t
-from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
 launches = LaunchCounts()
 
-# words of struct MlpTab (csrc/allegro_layer.cuh): n, maxw, dim[MAX_LAT + 1],
-# off[MAX_LAT], scale[MAX_LAT]; K6 and K7 copy two of them into shared memory
-MT_WORDS = 2 + (fl._MAX_LAT + 1) + 2 * fl._MAX_LAT
-
-
-def _ceil4(n: int) -> int:
-    return -(-n // 4) * 4
+MT_WORDS = fl.MT_WORDS
 
 
 def mlp_layout(ws, base: int = 0):
@@ -88,19 +81,11 @@ def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
     decides before any launch."""
     if not fl.widths_ok(ns, c, c, d, latd, lmax, parity) or not mlp_widths_ok(tb_dims, ns):
         return False
-    nin = _ceil4(tb_dims[0])
     hidden = tb_dims[1:-1]
     xmaxw = max(hidden) if hidden else 4
     hz = (len(tb_dims) - 2) * xmaxw
-    maxpc = max(num_paths_per_l(lmax, lmax, lmax, parity)) * c
-    for bwd in (False, True):
-        rows = nin + 2 * xmaxw
-        if bwd:
-            gwt = max(xmaxw, ns, nin)
-            rows = max(rows, d * c + maxpc + max(c, ns), 2 * c + 2 * ns + hz + nin + 2 * gwt)
-        if fl.block_bytes(ns, c, c, d, latd, lmax, parity, True, bwd, rows, 2 * MT_WORDS) > fl.SMEM_MAX:
-            return False
-    return True
+    return all(fl.block_bytes(ns, c, c, d, latd, lmax, parity, True, bwd, "embed", tb_dims[0],
+                              xmaxw, hz) <= fl.SMEM_MAX for bwd in (False, True))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -201,13 +186,15 @@ def _bind(lib):
         ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_void_p,
     ]
     lib.er_launch.restype = ctypes.c_int
+    lib.er_layout_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.er_layout_bytes.restype = ctypes.c_int
     if lib.er_meta_words() != fl.META_WORDS or lib.er_mt_words() != MT_WORDS:
         raise RuntimeError("kernel table layouts differ from the wrappers'")
 
 
 LIB = CudaLibrary("k6k7_embed_readout_layer",
                   [CSRC / "embed_readout_layer.cu", CSRC / "allegro_layer.cuh",
-                   CSRC / "allegro_tiles.cuh"], _bind)
+                   CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh"], _bind)
 
 
 def launch(form: int, bwd: bool, w: fl.K1Weights, ts: dict, d: int, K: int, e: int,

@@ -56,9 +56,23 @@ _META_DTYPE = np.dtype(
 launches = LaunchCounts()
 
 # the launchers' constants (csrc/allegro_tiles.cuh): threads per block, the
-# edge tile and its shared row stride, the shared memory a block may use
+# edge tile and the shared row stride of K2's and K4's tiles, the shared
+# memory a block may use
 NT, ET, LD, SMEM_MAX = 256, 32, 33, 232448
 META_WORDS = _META_DTYPE.itemsize // 4
+# the layer body's (csrc/allegro_mma.cuh, csrc/allegro_layer.cuh): the row
+# stride of its product tiles (LDS_WIDE, or LDS_MIN where the tiles need it)
+# and of its V tiles, the weight ring's most words forward and backward and
+# its least, STACK's slot for its layer's parameters
+LDS_WIDE, LDS_MIN, LDV = 40, 32, 32
+RING_FWD, RING_BWD, RING_MIN, P_WORDS = 4096, 8192, 2 * 8 * (128 + 8), 128
+# words of struct MlpTab: n, maxw, dim[MAX_LAT + 1], off[MAX_LAT],
+# scale[MAX_LAT]; K6 and K7 copy two of them into shared memory
+MT_WORDS = 2 + (_MAX_LAT + 1) + 2 * _MAX_LAT
+
+
+def _ceil4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
 def table_fits(lmax: int, parity: bool) -> bool:
@@ -78,25 +92,56 @@ def widths_ok(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity
     return not (NT % c or NT // c > ET or ns % 4 or c % 4 or cout % 4 or in0 % 4 or maxw % 4)
 
 
-def block_bytes(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool,
-                first_v: bool, bwd: bool, more_rows: int = 0, more_words: int = 0) -> int:
-    """Shared memory ``layer_launch`` gives one block of the layer: the
-    fixed tiles and a scratch region R of the most rows any phase needs;
-    a form that adds phases (K6, K7) passes their rows in ``more_rows`` and
-    its own tables in ``more_words``."""
+def block_layout(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool,
+                 first_v: bool, bwd: bool, form: str = "plain", n_in: int = 0, xmaxw: int = 4,
+                 hzrows: int = 0) -> tuple[int, int, int]:
+    """(bytes, tile stride, ring words) of the shared memory ``layer_layout``
+    (csrc/allegro_layer.cuh) gives one block of the layer in ``form``
+    ("plain": K1, "embed": K6, "readout": K7, "stack": K8), a transcription
+    of its sum: the tables, the tiles (product tiles at the tile stride, V at
+    LDV), the weight ring and a scratch region R as large as the largest
+    phase, each region rounded up to 16 bytes.  The stride is LDS_WIDE with
+    the ring, else LDS_MIN with the ring, else LDS_MIN without one; where
+    none fits, the bytes of the last (above SMEM_MAX).  K6 and K7 pass their
+    MLPs' input width (``n_in``), widest hidden layer (``xmaxw``) and
+    pre-activation rows (``hzrows``)."""
     P = num_paths_per_l(lmax, lmax, lmax, parity)
     nlat, in0 = len(latd) - 1, latd[0]
     hidden = latd[1:-1]
     maxw = max(hidden) if hidden else 4
     maxpc = max(P) * c
-    words = META_WORDS + more_words + d * c * (2 if bwd else 1) + in0 * LD + d * c * LD
-    words += (c * LD if first_v else 0) + d * LD + LD + (LD if bwd else 0)
     if bwd:
-        gw = max(in0, maxw)
-        r_rows = max(c, 2 * ns + (nlat - 1) * maxw + 2 * gw, d * c + maxpc + cout, 2 * c + ns)
+        rows = max(c, 2 * ns + (nlat - 1) * maxw + 2 * max(in0, maxw), 2 * c + ns)
     else:
-        r_rows = max(c, maxpc, 2 * maxw + ns)
-    return 4 * (words + max(r_rows, more_rows) * LD)
+        rows = max(c, maxpc, 2 * max(maxw, ns))
+    if form == "embed":
+        nin = _ceil4(n_in)
+        rows = max(rows, nin + 2 * xmaxw)
+        if bwd:
+            rows = max(rows, 2 * c + 2 * ns + hzrows + nin + 2 * max(xmaxw, ns, nin))
+    elif form == "readout":
+        rows = max(rows, 2 * ns + (nlat - 1) * maxw + 2 * max(xmaxw, ns) + hzrows + 2 if bwd
+                   else 2 * xmaxw + 2)
+    for lds in (LDS_WIDE, LDS_MIN):
+        regions = (META_WORDS, P_WORDS if form == "stack" else 0, _MAX_ENT if bwd else 0,
+                   2 * MT_WORDS if form in ("embed", "readout") else 0, d * c, d * c if bwd else 0,
+                   in0 * lds, d * c * LDV, c * lds if first_v else 0, d * lds, lds,
+                   lds if bwd else 0)
+        r_words = rows * lds
+        if bwd:  # the TP / mix backward: dV, dT, dV' (K6: dpT and its share of dx in dT's rows)
+            r_words = max(r_words, d * c * LDV
+                          + ((max(maxpc, c + ns) if form == "embed" else maxpc) + cout) * lds)
+        rest = sum(_ceil4(w) for w in regions) + r_words
+        left = (SMEM_MAX // 4 - rest) // 8 * 8
+        if left >= RING_MIN:
+            ring = min(RING_BWD if bwd else RING_FWD, left)
+            return 4 * (rest + ring), lds, ring
+    return 4 * rest, LDS_MIN, 0
+
+
+def block_bytes(*args, **kwargs) -> int:
+    """The bytes of ``block_layout`` (same arguments)."""
+    return block_layout(*args, **kwargs)[0]
 
 
 def kernel_takes(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool) -> bool:
@@ -186,6 +231,9 @@ def _meta_table(lmax, parity, c, cout, latd: tuple) -> np.ndarray:
             m["w"][e] = w
             e += 1
     m["rowstart"][len(rows)] = e
+    # the kernels' TP sums each path of a row in registers, one run each
+    if any([p for p, *_ in ents] != sorted(p for p, *_ in ents) for ents, _ in rows):
+        raise ValueError("a row's 3j entries are not ordered by path")
     m["n_ent"] = e
     m["latdim"][: len(latd)] = latd
     m["latoff"][: len(latd) - 1] = np.cumsum([0] + [a * b for a, b in zip(latd[:-1], latd[1:])])[:-1]
@@ -295,12 +343,14 @@ def _bind(lib):
         ctypes.c_float, ctypes.c_void_p,
     ]
     lib.k1_launch.restype = ctypes.c_int
+    lib.k1_layout_bytes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.k1_layout_bytes.restype = ctypes.c_int
     if lib.k1_meta_words() * 4 != _META_DTYPE.itemsize:
         raise RuntimeError("kernel table layout differs from the wrapper's")
 
 
 LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu", CSRC / "allegro_layer.cuh",
-                                      CSRC / "allegro_tiles.cuh"], _bind)
+                                      CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh"], _bind)
 
 
 def _launch(bwd: bool, dims, inv_avg, ptrs, device):

@@ -47,7 +47,7 @@ def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
     layer of the stack shares) and the layer count, mirrored here so that a
     caller decides before any launch."""
     return (1 <= n_layers <= MAX_LAYERS and fl.widths_ok(ns, c, c, d, latd, lmax, parity)
-            and all(fl.block_bytes(ns, c, c, d, latd, lmax, parity, True, bwd) <= fl.SMEM_MAX
+            and all(fl.block_bytes(ns, c, c, d, latd, lmax, parity, True, bwd, "stack") <= fl.SMEM_MAX
                     for bwd in (False, True)))
 
 
@@ -118,12 +118,14 @@ def _bind(lib):
         ctypes.c_float, ctypes.c_void_p,
     ]
     lib.k8_launch.restype = ctypes.c_int
+    lib.k8_layout_bytes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.k8_layout_bytes.restype = ctypes.c_int
     if lib.k8_meta_words() != fl.META_WORDS or lib.k8_max_layers() != MAX_LAYERS:
         raise RuntimeError("kernel table layout or layer limit differs from the wrapper's")
 
 
 LIB = CudaLibrary("k8_fused_stack", [CSRC / "fused_stack.cu", CSRC / "allegro_layer.cuh",
-                                      CSRC / "allegro_tiles.cuh"], _bind)
+                                      CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh"], _bind)
 
 # the launcher's pointer slots (k8_launch in csrc/fused_stack.cu), before
 # the six per layer

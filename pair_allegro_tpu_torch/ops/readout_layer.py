@@ -61,14 +61,8 @@ def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
     if any(h[0] != ns or not mlp_widths_ok(h, 1) for h in heads_dims):
         return False
     xmaxw, hz = _head_shape(heads_dims)
-    hidden = latd[1:-1]
-    maxw = max(hidden) if hidden else 4
-    for bwd in (False, True):
-        rows = (2 * ns + (len(latd) - 2) * maxw + 2 * max(xmaxw, ns) + hz + 2 if bwd
-                else 2 * xmaxw + 2)
-        if fl.block_bytes(ns, c, c, d, latd, lmax, parity, False, bwd, rows, 2 * MT_WORDS) > fl.SMEM_MAX:
-            return False
-    return True
+    return all(fl.block_bytes(ns, c, c, d, latd, lmax, parity, False, bwd, "readout", 0, xmaxw,
+                              hz) <= fl.SMEM_MAX for bwd in (False, True))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -43,10 +43,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _layer(cuda, ns, c, seed=0, lmax=2, parity=True):
+def _layer(cuda, ns, c, seed=0, lmax=2, parity=True, **fields):
     cfg = AllegroConfig(type_names=("A", "B"), r_max=4.0, l_max=lmax, num_layers=1,
                         num_scalar_features=ns, num_tensor_features=c, avg_num_neighbors=5.0,
-                        parity=parity)
+                        parity=parity, **fields)
     layer = allegro_params_from_numpy(allegro_init_numpy(cfg, seed), cfg, device=cuda)["layers"][0]
     return fl.k1_weights(layer, lmax, parity)
 
@@ -720,8 +720,9 @@ def test_k6_k7_count_their_launches(cuda):
 
 
 @pytest.mark.parametrize("kernel,lmax,width,takes", [
-    ("k6", 2, 128, True), ("k6", 2, 256, False), ("k6", 1, 256, True), ("k6", 1, 384, False),
-    ("k7", 2, 256, True), ("k7", 2, 512, False), ("k7", 3, 128, True), ("k7", 3, 256, False),
+    ("k6", 2, 128, True), ("k6", 2, 256, True), ("k6", 2, 384, False), ("k6", 1, 256, True),
+    ("k6", 1, 384, False), ("k7", 2, 256, True), ("k7", 2, 512, False), ("k7", 3, 128, True),
+    ("k7", 3, 256, False),
 ])
 def test_k6_k7_kernel_takes_mirror_the_launchers(cuda, kernel, lmax, width, takes):
     """kernel_takes is True exactly where the launcher takes the widths
@@ -815,12 +816,12 @@ def test_nopos_model_kernel_path_matches_cpu(cuda, monkeypatch):
 # --- K8: the whole layer stack (csrc/fused_stack.cu) -------------------------
 
 
-def _stack_case(cuda, ns, c, lmax, layers, k, nc, seed=0, parity=True):
+def _stack_case(cuda, ns, c, lmax, layers, k, nc, seed=0, parity=True, **fields):
     """The tree's layers of a model at these widths and (x0, pT, Y, u) with
     padded slots at the end of the last center's row."""
     cfg = AllegroConfig(type_names=("A", "B"), r_max=4.0, l_max=lmax, num_layers=layers,
                         num_scalar_features=ns, num_tensor_features=c, avg_num_neighbors=5.0,
-                        parity=parity)
+                        parity=parity, **fields)
     params = allegro_params_from_numpy(allegro_init_numpy(cfg, seed), cfg, device=cuda)
     return params["layers"], _operands(cuda, ns, c, k, nc, True, seed + 1, lmax)
 
@@ -1071,3 +1072,100 @@ def test_k3_k4_kernel_takes_mirror_the_launchers(cuda, kernel, width, takes):
         assert "launch failed" in str(err) or "takes C in" in str(err)
         launched = False
     assert launched == mirror == takes
+
+
+# ---------------------------------------------------------------------------
+# The layer body on the tensor cores (K1, K6, K7, K8): its layout and its
+# products at shapes off the flagship's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("form", ["k1", "k6", "k7", "k8"])
+def test_layouts_mirror_the_launchers(cuda, form):
+    """block_bytes (the sum kernel_takes of K1, K6, K7 and K8 compare with
+    the limit) equals the library's own layer_layout sum, and refuses
+    exactly where the library refuses for shared memory, over 288 widths
+    (the widths the library refuses otherwise widths_ok refuses too)."""
+    import ctypes
+    import itertools
+
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    lib = {"k1": fl.LIB, "k6": k6.LIB, "k7": k6.LIB, "k8": k8.LIB}[form].load()
+    for ns, c, lmax, parity, width, bwd in itertools.product(
+            (16, 64, 128), (8, 32, 48, 64), (1, 2, 3), (True, False), (32, 64), (0, 1)):
+        d, P = (lmax + 1) ** 2, num_paths_per_l(lmax, lmax, lmax, parity)
+        latd = (ns + c * P[0], width, width, ns)
+        first_v, last = form in ("k1", "k6", "k8"), form == "k7"
+        dims = [ns, c, c, d, 64, 640, 3, int(first_v), int(last), width, max(P) * c, latd[0],
+                10, width, 2 * width, 2]
+        arr = (ctypes.c_int * len(dims))(*dims)
+        got = {"k1": lambda: lib.k1_layout_bytes(bwd, arr), "k8": lambda: lib.k8_layout_bytes(bwd, arr),
+               "k6": lambda: lib.er_layout_bytes(1, bwd, arr),
+               "k7": lambda: lib.er_layout_bytes(2, bwd, arr)}[form]()
+        name = {"k1": "plain", "k6": "embed", "k7": "readout", "k8": "stack"}[form]
+        mirror = fl.block_bytes(ns, c, c, d, latd, lmax, parity, first_v, bool(bwd), name, 10,
+                                width, 2 * width)
+        if got == -6:  # the shared-memory refusal
+            assert mirror > fl.SMEM_MAX, (ns, c, lmax, parity, width, bwd)
+        elif got < 0:  # a width refusal (C = 48: the TP's cells)
+            assert not fl.widths_ok(ns, c, c, d, latd, lmax, parity), (ns, c, lmax, got)
+        else:
+            assert got == mirror, (ns, c, lmax, parity, width, bwd)
+
+
+@pytest.mark.parametrize("first_v,last", FORMS)
+def test_kernel_matches_plain_ragged_products(cuda, first_v, last):
+    """ns = 20 and C = 8: products whose depth (20, 44) is no multiple of the
+    8-deep k-step nor of the staging chunk and whose outputs (20 rows) no
+    multiple of the 16-row tile, on a ragged last edge tile (K = 40)."""
+    w = _layer(cuda, 20, 8)
+    ins = [t.requires_grad_(True) for t in _operands(cuda, 20, 8, 40, 5, first_v, 9)]
+    out_k = fl.fused_layer(*ins, w, 40, 5.0, first_v=first_v, last=last)
+    out_r = fl.fused_layer_reference(*ins, w, 40, 1.0 / math.sqrt(5.0), first_v, last)
+    out_k, out_r = ((out_k,), (out_r,)) if last else (out_k, out_r)
+    for a, b in zip(out_k, out_r):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    cots = [torch.randn_like(o) for o in out_r]
+    for a, b in zip(torch.autograd.grad(out_k, ins, cots), torch.autograd.grad(out_r, ins, cots)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+
+
+def test_stack_tiles_off_the_vector_path(cuda):
+    """K8 where the edge slots are no multiple of 4 (K = 21): every tile
+    loads synchronously instead of by 16-byte cp.async, same results."""
+    layers_, ops = _stack_case(cuda, 16, 8, 2, 3, 21, 5)
+    _stack_compare(layers_, ops, 21, 2, True)
+
+
+# (ns, C, latent MLP width and depth, the backward layout's tile stride and
+# whether it has a weight ring): latent MLPs wide enough that the backward
+# takes the narrower tile stride, with the ring and without it
+WIDE_LAYOUTS = [(64, 32, 256, 2, 32, True), (8, 32, 256, 3, 32, False)]
+
+
+@pytest.mark.parametrize("ns,c,width,depth,lds,ring", WIDE_LAYOUTS)
+@pytest.mark.parametrize("first_v,last", FORMS)
+def test_kernel_matches_plain_wide_layouts(cuda, ns, c, width, depth, lds, ring, first_v, last):
+    """K1 with a wide latent MLP, whose backward layout falls back to the
+    tile stride LDS_MIN (and, at ns 8 with three 256-wide layers, to no
+    weight ring: the products read the weights from device memory), on a
+    ragged last edge tile (K = 40): the same results as the plain version."""
+    w = _layer(cuda, ns, c, allegro_mlp_hidden_layers_width=width,
+               allegro_mlp_hidden_layers_depth=depth)
+    _, got_lds, got_ring = fl.block_layout(ns, c, c, 9, w.dims[3], 2, True, first_v, True)
+    assert (got_lds, got_ring > 0) == (lds, ring)
+    ins = [t.requires_grad_(True) for t in _operands(cuda, ns, c, 40, 5, first_v, 11)]
+    out_k = fl.fused_layer(*ins, w, 40, 5.0, first_v=first_v, last=last)
+    out_r = fl.fused_layer_reference(*ins, w, 40, 1.0 / math.sqrt(5.0), first_v, last)
+    _check_pair(out_k, out_r, ins)
+
+
+@pytest.mark.parametrize("ns,c,width,depth,lds,ring", WIDE_LAYOUTS)
+def test_k8_matches_plain_wide_layouts(cuda, ns, c, width, depth, lds, ring):
+    """K8 (3 layers) at the same wide latent MLPs, K = 40."""
+    layers_, ops = _stack_case(cuda, ns, c, 2, 3, 40, 5, allegro_mlp_hidden_layers_width=width,
+                               allegro_mlp_hidden_layers_depth=depth)
+    _stack_compare(layers_, ops, 40, 2, True)
