@@ -30,8 +30,10 @@ Phases, each of which must pass (any failure exits non-zero):
      (bound), and kernel parity at those shapes as in phases 2 and 3;
   8. the per-layer main path (bench.py's kernel-perlayer tier): phase 5's
      run with layer_fused=False (K2); K2 and K5 (each mode) timings and
-     parity at its shapes; a short run (10 + 10 steps) with
-     tp_mode=mxu_highest (K5);
+     parity at its shapes, K5's beside its library time (the bare product
+     at the mode's precision: cuBLAS f32, or torch.matmul in bf16, three of
+     them for mxu_bf16x3) and its tensor-core bound; the same run (60 + 60
+     steps) with tp_mode=mxu_highest (K5);
   9. K4 (csrc/tp_mix_fused.cu) parity against its plain version, f32,
      forward and backward, on operands of a 256-atom dense (FLAT) build at
      flagship widths and at l_max 1, with a tail tile and a zero dV'; FLAT
@@ -62,11 +64,13 @@ Phases, each of which must pass (any failure exits non-zero):
  14. the stack main path: phase 5's run with fused_stack=True, 60 + 60
      steps: 1 K8 launch per force evaluation each way and no other kernel;
      K8 timings and parity at its shapes;
- 15. the accuracy gate of the tiers the layer body carries (the K1 tier,
-     PAT_L1_EMBED=1 and fused_stack=True) on benchmarks/accuracy.py's
-     fixture (500 perturbed FCC Cu atoms) at flagship widths: f32 on the
-     card against the port's plain path at f64 on the CPU, max|dF| <= 1e-4
-     eV/A (rms|dF| and dE/atom printed).
+ 15. the accuracy gate of the tiers whose products run on the tensor cores
+     (the K1 tier, PAT_L1_EMBED=1, fused_stack=True, and the per-layer tier
+     with tp_mode mxu_highest and mxu_bf16x3, K5) on
+     benchmarks/accuracy.py's fixture (500 perturbed FCC Cu atoms) at
+     flagship widths: f32 on the card against the port's plain path at f64
+     on the CPU, max|dF| <= 1e-4 eV/A (rms|dF| and dE/atom printed);
+     mxu_bf16 is printed, not gated.
 Phases 7, 12 and 14 print two bounds for K1, K6, K7 and K8: with the
 products on the tensor cores in 3xTF32 (the kernels' ``bound_ms``) and on
 the CUDA cores alone (``bound_ms_f32``, printed only), and the bytes of
@@ -82,10 +86,12 @@ Weights are random, made from a seed.
 an Allegro main-path MD step goes (torch.profiler); ``--profile nequip``,
 ``--profile perlayer``, ``--profile flat``, ``--profile embed`` and
 ``--profile stack`` the same for the NequIP, per-layer, FLAT slab, embed
-and stack main paths.  ``python3 chip_smoke.py --body-timings`` runs only
-phases 7, 12 and 14's timings of the layer body's kernels (K1, K6, K7, K8)
-at their main paths' shapes (the engines' first neighbor build, no MD run):
-run from two checkouts in one call, it compares two builds of the body.
+and stack main paths (``--profile perlayer-mxu``: the per-layer path with
+K5).  ``python3 chip_smoke.py --timings body`` runs only phases 7, 12 and
+14's timings of the layer body's kernels (K1, K6, K7, K8), ``--timings
+env`` only phase 8's K2 and K5 timings, each at its main paths' shapes (the
+engines' first neighbor build, no MD run): run from two checkouts in one
+call, it compares two builds of those kernels.
 """
 
 from __future__ import annotations
@@ -508,7 +514,7 @@ PATHS = {
     "allegro": ("allegro", {}, "K1", 60, False, {}),
     "nequip": ("nequip", {}, "K3", 60, False, {}),
     "perlayer": ("allegro", dict(layer_fused=False), "K2", 60, False, {}),
-    "perlayer-mxu": ("allegro", dict(layer_fused=False, tp_mode="mxu_highest"), "K5", 10, False, {}),
+    "perlayer-mxu": ("allegro", dict(layer_fused=False, tp_mode="mxu_highest"), "K5", 60, False, {}),
     "flat": ("allegro", {}, "K4", 60, True, {}),
     "nequip-flat": ("nequip", {}, None, 10, True, {}),
     "embed": ("allegro", {}, "K6", 60, False, {"PAT_L1_EMBED": "1"}),
@@ -906,6 +912,14 @@ ENV_FWD_TOLS = {"paths": (1e-4, 1e-4), "mxu_highest": (1e-4, 1e-4),
                 "mxu_bf16x3": (1e-4, 1e-4), "mxu_bf16": (1e-4, 2e-3)}
 
 
+# K5's three-pass modes held tighter as well, between their sound reading
+# and a one-pass product's, so that a dropped 3xTF32 or bf16x3 correction
+# term fails (ENV_FWD_TOLS and the 1e-3 backward pass it): forward and
+# backward (atol, rtol on max|plain|); ``k5_one_pass`` is the control that
+# must fail them
+K5_TIGHT_TOLS = {"fwd": (5e-7, 5e-5), "bwd": (1e-6, 1e-5)}
+
+
 def env_weights(layer, cfg, mode):
     from pair_allegro_tpu_torch.ops import env_layer as k2
     from pair_allegro_tpu_torch.ops import env_layer_mxu as k5
@@ -954,9 +968,50 @@ def env_call(mode):
     return k2.env_layer, k2.env_layer_reference, k2_bwd
 
 
+def k5_one_pass(mode, ops, w, k, inv_avg, cots):
+    """K5's plain version with one product pass in place of the mode's
+    three, forward outputs and backward cotangents: cuBLAS in TF32 (one
+    pass on the tensor cores) for mxu_highest, the bf16 hi parts alone
+    (mxu_bf16's product) for mxu_bf16x3.  A control: the kernel with a
+    correction term dropped would compute this."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import env_layer_mxu as k5
+
+    if mode == "mxu_bf16x3":
+        w = dataclasses.replace(w, mode="mxu_bf16", Mk_lo=None, Mt_lo=None)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = mode == "mxu_highest"
+    try:
+        with torch.no_grad():
+            out = k5.env_layer_mxu_reference(*ops, w, k, inv_avg)
+            return out, k5.env_layer_mxu_reference_bwd(*ops, w, k, inv_avg, *cots)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def k5_tight_check(label, mode, ops, w, k, inv_avg, cots, got, ref):
+    """Phase 3 / 8's added gate for mxu_highest and mxu_bf16x3: the kernel
+    within ``K5_TIGHT_TOLS`` of the plain version, and the one-pass control
+    (``k5_one_pass``) outside it in some output, or the gate could not tell
+    the mode's three passes from one."""
+    kernel = f"K5 {mode}"
+    ctl = k5_one_pass(mode, ops, w, k, inv_avg, cots)
+    for kind, names, i in (("fwd", ("V'", "inv"), 0), ("bwd", K2_NAMES, 1)):
+        tols = K5_TIGHT_TOLS[kind]
+        check(kernel, f"{label} (tight)", kind, names, got[i], ref[i], tols)
+        atol, rtol = tols
+        ctl_errs = [(max_err(a, b), atol + rtol * float(b.abs().max())) for a, b in zip(ctl[i], ref[i])]
+        print(f"{kernel} control {label} {kind}: one-pass product against the plain version "
+              + ", ".join(f"{n} {e:.3e} (tolerance {t:.3e})" for n, (e, t) in zip(names, ctl_errs)))
+        if all(e <= t for e, t in ctl_errs):
+            raise RuntimeError(f"{kernel} {kind} {label}: the tight gate passes a one-pass product")
+
+
 def env_compare(label, mode, ops, w, k, avg, gen):
     """K2 / K5 against the plain version on ``ops``, forward and backward (a
-    random cotangent); returns the max abs errors."""
+    random cotangent); K5's three-pass modes also under ``k5_tight_check``;
+    returns the max abs errors."""
     import torch
 
     fn, ref, ref_bwd = env_call(mode)
@@ -972,6 +1027,8 @@ def env_compare(label, mode, ops, w, k, avg, gen):
     torch.cuda.synchronize()
     errs = {"fwd": check(kernel, label, "fwd", ("V'", "inv"), out_k, out_r, ENV_FWD_TOLS[mode]),
             "bwd": check(kernel, label, "bwd", K2_NAMES, g_k, g_r)}
+    if mode in ("mxu_highest", "mxu_bf16x3"):
+        k5_tight_check(label, mode, ops, w, k, inv_avg, cots, (out_k, g_k), (out_r, g_r))
     del ins, out_k, out_r, g_k, g_r, cots
     torch.cuda.empty_cache()
     return errs
@@ -1069,17 +1126,51 @@ def k5_cost(w, e, bwd):
     return gemm * e, rest * e, 4 * ((ins + outs) * e + n_m)
 
 
+def k5_library(w, e, bwd, gen):
+    """One PyTorch call (cuBLAS) of K5's bare product at the mode's
+    precision on random operands of the call's shapes (O or dV' given, not
+    built; no invariants), writing f32 as K5 does: f32 (allow_tf32 off) for
+    mxu_highest; bf16 operands summed and written in f32 (``out_dtype``)
+    for mxu_bf16, and for mxu_bf16x3 the three products as one of thrice
+    the depth, [hi | hi | lo] x [hi; lo; hi]; its time in ms.  Timed as a
+    yardstick only: the port never calls it."""
+    import torch
+
+    a = w.Mk if bwd else w.Mt
+    b = torch.randn((a.shape[1], e), generator=gen, device=a.device)
+    if w.mode == "mxu_highest":
+        fn = lambda: a @ b  # noqa: E731
+    else:
+        ah, bh = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if w.mode == "mxu_bf16x3":
+            al = (w.Mk_lo if bwd else w.Mt_lo).to(torch.bfloat16)
+            bl = (b - bh.float()).to(torch.bfloat16)
+            ah, bh = torch.cat([ah, ah, al], 1), torch.cat([bh, bl, bh], 0)
+            del al, bl
+        del b
+        fn = lambda: torch.mm(ah, bh, out_dtype=torch.float32)  # noqa: E731
+    ms = cuda_ms(fn, 3)
+    del fn
+    torch.cuda.empty_cache()
+    return ms
+
+
 def env_timings(cfg, params, system, eng, errs):
     """Phase 8: per-call fwd/bwd time of K2 and of K5 in each mode, of
     their plain versions and the bound at the per-layer main path's shapes;
-    parity at those shapes (into ``errs``).  Also, as context only, the
-    cuBLAS f32 time of the bare (D*Cout x D*D*C) (D*D*C x E) product."""
+    K5's library time (``k5_library``); parity at those shapes (into
+    ``errs``).  K5's bound: its products on the tensor cores (3xTF32 at a
+    third of the TF32 rate for mxu_highest, bf16 at the bf16 rate, three
+    passes in mxu_bf16x3) and the rest at the f32 rate, the larger of the
+    two, never below the bytes' time."""
     import torch
 
     ops, k = env_operands(cfg, params, system, eng)
     e = ops[0].shape[-1]
     inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
     gen = torch.Generator(device=system.device).manual_seed(SEED)
+    print(f"phase 8 timings on {torch.cuda.get_device_name(0)}, cuBLAS TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     res = {}
     for mode in ENV_MODES:
         w = env_weights(params["layers"][1], cfg, mode)
@@ -1089,9 +1180,8 @@ def env_timings(cfg, params, system, eng, errs):
         dout = torch.randn(out.shape, generator=gen, device=system.device)
         dinv = torch.randn(inv.shape, generator=gen, device=system.device)
         del out, inv
-        reps = 5 if mode == "paths" else 3
-        k_f = cuda_ms(lambda: mod._kernel_fwd(*ops, w, k, inv_avg), reps)
-        k_b = cuda_ms(lambda: mod._kernel_bwd(*ops, w, k, inv_avg, dout, dinv), reps)
+        k_f = cuda_ms(lambda: mod._kernel_fwd(*ops, w, k, inv_avg), 5)
+        k_b = cuda_ms(lambda: mod._kernel_bwd(*ops, w, k, inv_avg, dout, dinv), 5)
         with torch.no_grad():
             p_f = cuda_ms(lambda: ref(*ops, w, k, inv_avg), 1)
         p_b = cuda_ms(lambda: ref_bwd(*ops, w, k, inv_avg, dout, dinv), 1)
@@ -1099,31 +1189,27 @@ def env_timings(cfg, params, system, eng, errs):
         e2 = env_compare(f"main path E={e}", mode, ops, w, k, cfg.avg_num_neighbors, gen)
         errs[mode] = {kind: max(errs[mode][kind], e2[kind]) for kind in e2}
         for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
+            lib = None
             if mode == "paths":
                 flops, nbytes = k2_cost(w, e, kind == "bwd")
                 t_ops = flops / PEAK_F32_FLOPS * 1e3
             else:
                 gemm, rest, nbytes = k5_cost(w, e, kind == "bwd")
                 flops = gemm + rest
-                peak = PEAK_F32_FLOPS if mode == "mxu_highest" else PEAK_BF16_FLOPS
-                t_ops = (gemm / peak + rest / PEAK_F32_FLOPS) * 1e3
+                peak = PEAK_TF32_FLOPS / 3 if mode == "mxu_highest" else PEAK_BF16_FLOPS
+                t_ops = max(gemm / peak, rest / PEAK_F32_FLOPS) * 1e3
+                lib = k5_library(w, e, kind == "bwd", gen)
             t_bytes = nbytes / PEAK_BYTES * 1e3
             r = res[(mode, kind)] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
                                          bound_by="operations" if t_ops >= t_bytes else "bytes",
-                                         gflop=flops / 1e9, mbytes=nbytes / 1e6)
+                                         library_ms=lib, gflop=flops / 1e9, mbytes=nbytes / 1e6)
             print(f"{'K2' if mode == 'paths' else 'K5 ' + mode} {kind} E={e}: kernel {ms:.4f} ms, "
                   f"plain {pms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
                   f"{r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB), "
-                  f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+                  + ("" if lib is None else f"library {lib:.4f} ms, ")
+                  + f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
         del dout, dinv
         torch.cuda.empty_cache()
-    w = env_weights(params["layers"][1], cfg, "mxu_highest")
-    O = torch.randn((w.Mt.shape[1], e), generator=gen, device=system.device)
-    res["cublas_ms"] = cuda_ms(lambda: w.Mt @ O, 3)
-    print(f"context: cuBLAS f32 ({w.Mt.shape[0]} x {w.Mt.shape[1]}) @ ({O.shape[0]} x {e}) alone "
-          f"{res['cublas_ms']:.4f} ms (TF32 {torch.backends.cuda.matmul.allow_tf32}); not in the port")
-    del O
-    torch.cuda.empty_cache()
     return res
 
 
@@ -1591,11 +1677,19 @@ def accuracy_system(device, dtype):
                          masses=np.full(n, 63.546), dtype=dtype, device=device)
 
 
-# the tiers whose kernels the layer body carries: (label, config fields,
-# environment, launches per force evaluation, fwd = bwd)
-ACCURACY_TIERS = (("K1 tier", {}, {}, {"K1": 3}),
-                  ("embed path", {}, {"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1}),
-                  ("stack path", dict(fused_stack=True), {}, {"K8": 1}))
+# the tiers whose products run on the tensor cores: (label, config fields,
+# environment, launches per force evaluation (fwd = bwd), gated); the
+# per-layer tier in mxu_bf16 rounds its operands to bf16 and is printed only
+_K5 = {"K5": 3}
+ACCURACY_TIERS = (("K1 tier", {}, {}, {"K1": 3}, True),
+                  ("embed path", {}, {"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1}, True),
+                  ("stack path", dict(fused_stack=True), {}, {"K8": 1}, True),
+                  ("per-layer mxu_highest", dict(layer_fused=False, tp_mode="mxu_highest"), {}, _K5,
+                   True),
+                  ("per-layer mxu_bf16x3", dict(layer_fused=False, tp_mode="mxu_bf16x3"), {}, _K5,
+                   True),
+                  ("per-layer mxu_bf16", dict(layer_fused=False, tp_mode="mxu_bf16"), {}, _K5,
+                   False))
 
 
 def accuracy_phase():
@@ -1603,7 +1697,8 @@ def accuracy_phase():
     fixture at flagship widths: each tier of ACCURACY_TIERS at f32 on the
     card against the port's plain path at f64 on the CPU (the oracle, which
     matches JAX to 1e-10 in the CPU tests); max|dF| <= 1e-4 eV/A, with
-    rms|dF| and dE/atom printed.  Returns {label: max|dF|}."""
+    rms|dF| and dE/atom printed; a tier marked not gated is printed only.
+    Returns {label: max|dF|}."""
     import torch
 
     from pair_allegro_tpu_torch.engine import AllegroEngine
@@ -1617,7 +1712,7 @@ def accuracy_phase():
     ref = ref_eng.force_fn(ref_sys, ref_eng.rebuild_fn(ref_sys, None))
     f_ref, e_ref, n = ref.forces.double(), float(ref.total_energy), ref_sys.n_atoms
     worst = {}
-    for label, tier, env, want in ACCURACY_TIERS:
+    for label, tier, env, want, gated in ACCURACY_TIERS:
         with env_vars(env):
             cfg = flagship_cfg(**tier)
             system = accuracy_system("cuda", torch.float32)
@@ -1636,9 +1731,9 @@ def accuracy_phase():
         de = abs(float(out.total_energy) - e_ref) / n
         print(f"accuracy {label} ({n} perturbed FCC Cu atoms, f32 on the card against the CPU "
               f"f64 plain path): max|dF| {mx:.3e} eV/A, rms|dF| {rms:.3e} eV/A, dE/atom {de:.3e} "
-              f"eV, max|F| {float(f_ref.abs().max()):.3f} eV/A (gate max|dF| <= 1e-4 eV/A); "
-              f"launches {launched}")
-        if not mx <= 1e-4:
+              f"eV, max|F| {float(f_ref.abs().max()):.3f} eV/A "
+              f"({'gate max|dF| <= 1e-4 eV/A' if gated else 'not gated'}); launches {launched}")
+        if gated and not mx <= 1e-4:
             raise RuntimeError(f"accuracy gate failed on the {label}")
         if launched != {name: (k, k) for name, k in want.items()}:
             raise RuntimeError(f"accuracy {label}: launched {launched}, want {want}")
@@ -1706,7 +1801,7 @@ def _kind_of(name):
 
 
 def profile_steps(model="allegro", n_steps=10):
-    """``--profile [nequip | perlayer | flat | embed | stack]``: where one main-path
+    """``--profile [nequip | perlayer | perlayer-mxu | flat | embed | stack]``: where one main-path
     MD step's device time goes.  torch.profiler over n_steps after a 20-step
     warmup; kernel time summed by name and by class per step, and the
     device's idle share of the wall time."""
@@ -1762,30 +1857,36 @@ def _profile_steps(model, n_steps):
     return 0
 
 
-def body_timings():
-    """``--body-timings``: K1, K6 / K7 and K8 timed (and held against their
-    plain versions) at the allegro, embed and stack main paths' shapes."""
+TIMINGS = {"body": ("K1", "K6", "K8"), "env": ("K2", "K5")}
+
+
+def timings(which):
+    """``--timings body``: K1, K6 / K7 and K8 timed (and held against their
+    plain versions) at the allegro, embed and stack main paths' shapes;
+    ``--timings env``: K2 and K5 (phase 8) at the per-layer path's."""
     import torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
     mods = kernel_modules()
-    libs = [mods[name].LIB for name in ("K1", "K6", "K8")]
+    libs = [mods[name].LIB for name in TIMINGS[which]]
     for lib in libs:
         lib.start()
     for lib in libs:
         lib.load()
     zero = {"fwd": 0.0, "bwd": 0.0}
-    for path in ("allegro", "embed", "stack"):
+    for path in ("allegro", "embed", "stack") if which == "body" else ("perlayer",):
         with env_vars(PATHS[path][5]):
             cfg, params, system, eng = build_path(path)
             if path == "allegro":
                 k1_timings(cfg, params, system, eng, dict(zero))
             elif path == "embed":
                 er_timings(cfg, params, system, eng, {"K6": dict(zero), "K7": dict(zero)})
-            else:
+            elif path == "stack":
                 stack_timings(cfg, params, system, eng, dict(zero))
+            else:
+                env_timings(cfg, params, system, eng, {m: dict(zero) for m in ENV_MODES})
         del cfg, params, system, eng
         torch.cuda.empty_cache()
     return 0
@@ -1806,12 +1907,15 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--profile"]:
         model = sys.argv[2] if len(sys.argv) > 2 else "allegro"
-        if model not in ("allegro", "nequip", "perlayer", "flat", "embed", "stack"):
-            raise SystemExit(f"--profile takes allegro, nequip, perlayer, flat, embed or stack, "
-                             f"not {model}")
+        if model not in ("allegro", "nequip", "perlayer", "perlayer-mxu", "flat", "embed", "stack"):
+            raise SystemExit(f"--profile takes allegro, nequip, perlayer, perlayer-mxu, flat, embed "
+                             f"or stack, not {model}")
         return profile_steps(model)
-    if sys.argv[1:2] == ["--body-timings"]:
-        return body_timings()
+    if sys.argv[1:2] == ["--timings"]:
+        which = sys.argv[2] if len(sys.argv) > 2 else ""
+        if which not in TIMINGS:
+            raise SystemExit(f"--timings takes body or env, not {which!r}")
+        return timings(which)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -1926,9 +2030,9 @@ def main() -> int:
             errs_env["mxu_highest"][kind], times_env[("mxu_highest", kind)], per="call",
             calls_per_force_evaluation=pcfg.num_layers, mode="mxu_highest",
             max_abs_err_by_mode={m: errs_env[m][kind] for m in k5_modes},
+            library_ms=times_env[("mxu_highest", kind)]["library_ms"],
             **{f"{key}_by_mode": {m: times_env[(m, kind)][key] for m in k5_modes}
-               for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            context_cublas_f32_product_ms=times_env["cublas_ms"] if kind == "fwd" else None,
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         ))
     for kind, line in (("fwd", 117), ("bwd", 153)):
         # one call (one layer); num_layers calls per force evaluation

@@ -34,19 +34,15 @@
 // for each stride (allegro_layer.cuh): a stride read at run time cost the
 // backward ~9% on the H100 (PERF.md).
 //
-// The g++ stand-in build (PAT_STANDIN, never nvcc) replaces the PTX
-// primitives with scalar emulations: cp.async by a copy with zero fill, its
-// groups by no-ops, and the m16n8k8 product by one gathered lane by lane
-// with warp shuffles.
+// The PTX primitives (mma.sync, cvt.rna.tf32, cp.async and its groups, and
+// their g++ stand-in emulations) are in mma_ptx.cuh, which K5 shares.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#ifdef PAT_STANDIN
-#include <string.h>
-#endif
 
 #include "allegro_tiles.cuh"
+#include "mma_ptx.cuh"
 
 namespace {
 
@@ -61,66 +57,6 @@ constexpr int MG = 128;       // output rows per product pass
 constexpr int RING_FWD = 4096;
 constexpr int RING_BWD = 8192;
 constexpr int RING_MIN = 2 * 8 * (MG + 8);
-
-// cvt.rna.tf32.f32 by two full-rate integer operations: add half a unit of
-// the 11th mantissa bit to the magnitude's bits, clear the 13 bits below
-// (Inf and NaN stay as they are)
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-#ifndef PAT_STANDIN
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 16 bytes global -> shared through L2 only; the bytes past src_bytes are zeroed
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
-}
-#else
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < 8; ++k) {
-    const int hi = k >> 2, kl = k & 3;
-    const float a0 = __uint_as_float(__shfl_sync(~0u, a[2 * hi], g * 4 + kl));
-    const float a1 = __uint_as_float(__shfl_sync(~0u, a[2 * hi + 1], g * 4 + kl));
-    const float b0 = __uint_as_float(__shfl_sync(~0u, b[hi], 2 * t * 4 + kl));
-    const float b1 = __uint_as_float(__shfl_sync(~0u, b[hi], (2 * t + 1) * 4 + kl));
-    d[0] = fmaf(a0, b0, d[0]);
-    d[1] = fmaf(a0, b1, d[1]);
-    d[2] = fmaf(a1, b0, d[2]);
-    d[3] = fmaf(a1, b1, d[3]);
-  }
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  memcpy(dst, src, src_bytes);
-  memset(reinterpret_cast<char*>(dst) + src_bytes, 0, 16 - src_bytes);
-}
-
-__device__ __forceinline__ void cp_async_commit() {}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {}
-#endif
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
 
 // Staging geometry of a product pass of width mg: chunk rows and row stride.
 struct Chunks {

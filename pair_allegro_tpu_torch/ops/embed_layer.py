@@ -194,7 +194,8 @@ def _bind(lib):
 
 LIB = CudaLibrary("k6k7_embed_readout_layer",
                   [CSRC / "embed_readout_layer.cu", CSRC / "allegro_layer.cuh",
-                   CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh"], _bind)
+                   CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"],
+                  _bind)
 
 
 def launch(form: int, bwd: bool, w: fl.K1Weights, ts: dict, d: int, K: int, e: int,

@@ -17,7 +17,9 @@ f32 sums.  The invariants come from the unrounded O.  The backward forms
 dO = M_k dout at the mode's precision, adds the inv cotangent in f32, and
 returns dV, dwz and dY as K2's does.
 
-On a CUDA tensor :func:`env_layer_mxu` launches ``csrc/env_layer_mxu.cu``;
+On a CUDA tensor :func:`env_layer_mxu` launches ``csrc/env_layer_mxu.cu``
+(tensor-core products: 3xTF32 for ``mxu_highest``, bf16 ``mma.sync`` for
+the bf16 modes) on the matrix in its kernel layout (:func:`kernel_layout`);
 on a CPU tensor it runs :func:`env_layer_mxu_reference` and
 :func:`env_layer_mxu_reference_bwd`.  Weight cotangents come back NaN-filled
 (``pallas_stack.py:2064``).
@@ -44,35 +46,62 @@ _INV0_DTYPE = np.dtype([("p", np.int32, _MAX_D * _MAX_D), ("w", np.float32, _MAX
 
 launches = LaunchCounts()
 
-# the launcher's constants (csrc/env_layer_mxu.cu)
-_MAX_THREADS, _SMEM_MAX = 576, 232448
+# the launcher's constants (csrc/env_layer_mxu.cu): chunk depth, edge tile,
+# rows of a pass, row strides of the staged chunks (f32, bf16 pairs) and of
+# the backward's V / dV tiles, channels of a backward pass, shared memory
+_KC, _ET, _RMAX, _LDA32, _LDA16, _LDE, _CB_MAX = 32, 64, 320, 36, 20, 68, 64
+_SMEM_MAX = 232448
 _INV0_WORDS = _INV0_DTYPE.itemsize // 4
+
+
+def _up4(w: int) -> int:
+    return -(-w // 4) * 4
+
+
+def plan(bwd: bool, c: int, cout: int, d: int):
+    """(passes, rows R of a pass, chunks of depth 32 of a product, channels
+    of a backward pass) of a direction, as the launcher's ``plan_of``:
+    forward, the D*Cout rows of V' in passes of at most 320 (4 warps x 5
+    m16 tiles), over the D*D pairs' channel blocks; backward, per i, passes
+    over blocks of at most min(320 / D, 64) channels, rows (j, c) j-major,
+    over the D*Cout rows of dV'.  R is a multiple of 16."""
+    m = d * cout
+    if bwd:
+        cb = min(_RMAX // d, _CB_MAX)
+        npass = -(-c // cb)
+        cbp = -(-c // npass)
+        return npass, 16 * -(-d * cbp // 16), -(-m // _KC), cbp
+    t16 = -(-m // 16)
+    npass = -(-t16 // (_RMAX // 16))
+    return npass, 16 * -(-t16 // npass), d * d * -(-c // _KC), 0
+
+
+def smem_bytes(bwd: bool, c: int, cout: int, d: int, mode: str) -> int:
+    """Shared memory of a K5 launch, region by region as the kernel lays it
+    out: the Inv0 table, (forward) each pair's first-of-its-path flag, env
+    (and denv), two ring stages of R rows of the mode's chunk, two B buffers
+    of 64 edges (hi and lo planes in mxu_highest and mxu_bf16x3), and
+    (backward) the V and dV tiles of a pass's channels."""
+    planes = 2 if mode == "mxu_bf16x3" else 1
+    lda = _LDA32 if mode == "mxu_highest" else _LDA16
+    bwords = (2 if mode == "mxu_highest" else planes) * _ET * lda
+    _, R, _, cbp = plan(bwd, c, cout, d)
+    stage = planes * R * lda
+    if bwd:
+        words = _INV0_WORDS + 2 * _up4(d * c) + 2 * stage + 2 * bwords + 2 * cbp * _LDE
+    else:
+        words = _INV0_WORDS + _MAX_D * _MAX_D + _up4(d * c) + 2 * stage + 2 * bwords
+    return 4 * words
 
 
 def kernel_takes(c: int, cout: int, d: int, p0: int, mode: str) -> bool:
     """Whether ``k5_launch`` (csrc/env_layer_mxu.cu) takes these widths in
-    ``mode``, forward and backward: its refusal conditions and its search
-    for an edge tile whose register tiles and shared memory fit, mirrored
-    here so that a caller decides before any launch."""
-    if d > _MAX_D or c % 4 or cout % 4:
+    ``mode``, forward and backward: its refusal conditions and its shared
+    memory, mirrored here so that a caller decides before any launch (``p0``
+    does not enter: the invariants are summed in place)."""
+    if mode not in MODES or not (1 <= d <= _MAX_D) or c < 1 or cout < 1:
         return False
-    two = 2 if mode == "mxu_bf16x3" else 1
-    m = d * cout
-    for bwd in (False, True):
-        rows = d * c if bwd else m
-        et, ok = (32 if bwd else 64), False
-        while et >= 8 and not ok:
-            ld = et + 4
-            ntiles = rows // 4 * (et // 8)
-            if bwd:
-                words = _INV0_WORDS + 2 * d * c + two * m * ld + d * c * ld + c * ld
-            else:
-                words = _INV0_WORDS + d * c + 2 * two * c * ld + p0 * c * et
-            ok = ntiles <= _MAX_THREADS and words * 4 <= _SMEM_MAX
-            et //= 2
-        if not ok:
-            return False
-    return True
+    return all(smem_bytes(bwd, c, cout, d, mode) <= _SMEM_MAX for bwd in (False, True))
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -89,10 +118,12 @@ def split_bf16(x: torch.Tensor):
 @dataclasses.dataclass(frozen=True, eq=False)
 class K5Weights:
     """The combined matrix in the kernel's row order, for one mode: M_k
-    (D*D*C, D*Cout) rows (ij, c)-major (forward) and its transpose Mt
-    (backward); in ``mxu_bf16x3`` each is its bf16 hi part and ``*_lo`` its
-    remainder, in ``mxu_bf16`` its bf16 rounding (values kept as floats).
-    Detached copies made from ``leaves``, the tree's c-major mix leaves."""
+    (D*D*C, D*Cout) rows (ij, c)-major and its transpose Mt (the plain
+    version's operands); in ``mxu_bf16x3`` each is its bf16 hi part and
+    ``*_lo`` its remainder, in ``mxu_bf16`` its bf16 rounding (values kept
+    as floats).  ``kfwd`` / ``kbwd``: the same matrix in the kernel's
+    layout for each direction (:func:`kernel_layout`).  Detached copies
+    made from ``leaves``, the tree's c-major mix leaves."""
 
     Mk: torch.Tensor
     Mk_lo: torch.Tensor | None
@@ -105,6 +136,8 @@ class K5Weights:
     parity: bool
     c: int
     leaves: tuple
+    kfwd: torch.Tensor
+    kbwd: torch.Tensor
 
     @property
     def cout(self) -> int:
@@ -120,6 +153,35 @@ def _inv0_table(lmax: int, parity: bool):
         t["p"][i * d + j] = p
         t["w"][i * d + j] = w
     return ents, t
+
+
+def kernel_layout(Mk, Mk_lo, mode: str, c: int, d: int, bwd: bool) -> torch.Tensor:
+    """M_k (D*D*C, D*Cout) as the kernel streams it in one direction: chunks
+    of 32 depth x R rows (:func:`plan`), zero-padded, row-major with the
+    depth contiguous, in the order the kernel consumes them; f32 for
+    ``mxu_highest`` (split into TF32 hi / lo at fragment load), bf16 for the
+    bf16 modes (``mxu_bf16x3``: the hi then the lo plane of each chunk).
+    Forward chunks (pass, pair ij, channel block) hold Mk[(ij, c), m] at
+    (row m, depth c); backward chunks (i, pass, block of m) hold
+    Mk[(i, j, c), m] at (row (j, c) of the pass's channel block, depth m)."""
+    m = Mk.shape[1]
+    npass, R, nq, cbp = plan(bwd, c, m // d, d)
+    pad = torch.nn.functional.pad
+    out = []
+    for P in [Mk] if Mk_lo is None else [Mk, Mk_lo]:
+        if bwd:  # (i, j, channel block, channel, m) -> (i, pass, chunk of m, R, 32)
+            t = pad(P.reshape(d, d, c, m), (0, nq * _KC - m, 0, npass * cbp - c))
+            t = t.reshape(d, d, npass, cbp, nq * _KC).transpose(1, 2)
+            t = pad(t.reshape(d, npass, d * cbp, nq, _KC), (0, 0, 0, 0, 0, R - d * cbp))
+            t = t.permute(0, 1, 3, 2, 4)
+        else:  # (pairs, depth c, rows m) -> (pass, pair, channel block, R, 32)
+            ncb = nq // (d * d)
+            t = P.reshape(d * d, c, m)
+            t = pad(t, (0, npass * R - m, 0, ncb * _KC - c))
+            t = t.reshape(d * d, ncb, _KC, npass, R).permute(3, 0, 1, 4, 2)
+        out.append(t)
+    lay = torch.stack(out, -3)  # the planes of one chunk side by side
+    return lay.to(torch.float32 if mode == "mxu_highest" else torch.bfloat16).contiguous()
 
 
 def prepare_mxu(mix: dict, lmax: int, parity: bool, mode: str) -> K5Weights:
@@ -147,6 +209,8 @@ def prepare_mxu(mix: dict, lmax: int, parity: bool, mode: str) -> K5Weights:
         Mk=Mk, Mk_lo=Mk_lo, Mt=Mt, Mt_lo=Mt_lo,
         inv0=torch.from_numpy(np.frombuffer(table.tobytes(), np.int32).copy()).to(Mk.device),
         inv_entries=ents, mode=mode, lmax=lmax, parity=parity, c=c, leaves=leaves,
+        kfwd=kernel_layout(Mk, Mk_lo, mode, c, d, False),
+        kbwd=kernel_layout(Mk, Mk_lo, mode, c, d, True),
     )
 
 
@@ -213,6 +277,10 @@ def env_layer_mxu_reference_bwd(Vt, wzt, yt, w: K5Weights, K: int, inv_avg: floa
 def _bind(lib):
     lib.k5_inv0_words.argtypes = []
     lib.k5_inv0_words.restype = ctypes.c_int
+    lib.k5_layout_bytes.argtypes = [ctypes.c_int] * 5
+    lib.k5_layout_bytes.restype = ctypes.c_longlong
+    lib.k5_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.k5_smem_bytes.restype = ctypes.c_int
     lib.k5_launch.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(ctypes.c_int),
         ctypes.c_float, ctypes.c_void_p,
@@ -222,15 +290,19 @@ def _bind(lib):
         raise RuntimeError("kernel table layout differs from the wrapper's")
 
 
-LIB = CudaLibrary("k5_env_layer_mxu", [CSRC / "env_layer_mxu.cu"], _bind)
+LIB = CudaLibrary("k5_env_layer_mxu", [CSRC / "env_layer_mxu.cu", CSRC / "mma_ptx.cuh"], _bind)
 
 
 def _launch(bwd: bool, w: K5Weights, Vt, K: int, inv_avg: float, ptrs):
     lib = LIB.load()
     d, c, e = Vt.shape
     p0 = num_paths_per_l(w.lmax, w.lmax, 0, w.parity)[0]
-    dims = (ctypes.c_int * 7)(c, w.cout, d, K, e, p0, MODES.index(w.mode))
-    arr = (ctypes.c_ulonglong * 15)(*ptrs)
+    mode = MODES.index(w.mode)
+    lay = w.kbwd if bwd else w.kfwd
+    if lay.numel() * lay.element_size() != lib.k5_layout_bytes(int(bwd), c, w.cout, d, mode):
+        raise RuntimeError("K5's kernel layout differs from the launcher's")
+    dims = (ctypes.c_int * 7)(c, w.cout, d, K, e, p0, mode)
+    arr = (ctypes.c_ulonglong * 12)(*ptrs[:3], lay.data_ptr(), w.inv0.data_ptr(), *ptrs[3:])
     with torch.cuda.device(Vt.device):
         stream = torch.cuda.current_stream(Vt.device).cuda_stream
         rc = lib.k5_launch(int(bwd), arr, dims, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
@@ -243,26 +315,21 @@ def _launch(bwd: bool, w: K5Weights, Vt, K: int, inv_avg: float, ptrs):
         launches.fwd += 1
 
 
-def _mats(w: K5Weights):
-    return [w.Mk.data_ptr(), 0 if w.Mk_lo is None else w.Mk_lo.data_ptr(), w.Mt.data_ptr(),
-            0 if w.Mt_lo is None else w.Mt_lo.data_ptr(), w.inv0.data_ptr()]
-
-
 def _kernel_fwd(Vt, wzt, yt, w: K5Weights, K: int, inv_avg: float):
     d, c, e = Vt.shape
     p0 = num_paths_per_l(w.lmax, w.lmax, 0, w.parity)[0]
     out = torch.empty((d, w.cout, e), dtype=Vt.dtype, device=Vt.device)
     inv = torch.empty((c * p0, e), dtype=Vt.dtype, device=Vt.device)
-    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), *_mats(w), 0, 0, out.data_ptr(),
-            inv.data_ptr(), 0, 0, 0]
+    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), 0, 0, out.data_ptr(), inv.data_ptr(),
+            0, 0, 0]
     _launch(False, w, Vt, K, inv_avg, ptrs)
     return out, inv
 
 
 def _kernel_bwd(Vt, wzt, yt, w: K5Weights, K: int, inv_avg: float, dout, dinv):
     dV, dwz, dY = torch.empty_like(Vt), torch.empty_like(wzt), torch.empty_like(yt)
-    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), *_mats(w), dout.data_ptr(),
-            dinv.data_ptr(), 0, 0, dV.data_ptr(), dwz.data_ptr(), dY.data_ptr()]
+    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), dout.data_ptr(), dinv.data_ptr(), 0, 0,
+            dV.data_ptr(), dwz.data_ptr(), dY.data_ptr()]
     _launch(True, w, Vt, K, inv_avg, ptrs)
     return dV, dwz, dY
 
@@ -293,8 +360,8 @@ def env_layer_mxu(Vt, wzt, yt, w: K5Weights, K: int, avg_num_neighbors: float):
     """K5 on the feature-major TABLE layout, with K2's operands and outputs
     (see :func:`pair_allegro_tpu_torch.ops.env_layer.env_layer`) and the
     precision of ``w.mode``.  CUDA tensors launch the kernel (f32 and
-    contiguous only; a shape beyond its shared memory or thread block
-    raises); CPU tensors take the plain version."""
+    contiguous only; widths beyond its shared memory raise); CPU tensors
+    take the plain version."""
     d = (w.lmax + 1) ** 2
     check_operands("env_layer_mxu", Vt, wzt, yt, d, w.c, K, w.leaves)
     inv_avg = 1.0 / math.sqrt(max(avg_num_neighbors, 1e-6))

@@ -350,7 +350,8 @@ def _bind(lib):
 
 
 LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu", CSRC / "allegro_layer.cuh",
-                                      CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh"], _bind)
+                                      CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh",
+                                      CSRC / "mma_ptx.cuh"], _bind)
 
 
 def _launch(bwd: bool, dims, inv_avg, ptrs, device):

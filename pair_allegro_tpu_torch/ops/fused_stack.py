@@ -125,7 +125,8 @@ def _bind(lib):
 
 
 LIB = CudaLibrary("k8_fused_stack", [CSRC / "fused_stack.cu", CSRC / "allegro_layer.cuh",
-                                      CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh"], _bind)
+                                      CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh",
+                                      CSRC / "mma_ptx.cuh"], _bind)
 
 # the launcher's pointer slots (k8_launch in csrc/fused_stack.cu), before
 # the six per layer

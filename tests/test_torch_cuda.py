@@ -264,14 +264,15 @@ ENV_MODES = ["paths", "mxu_highest", "mxu_bf16x3", "mxu_bf16"]
 ENV_FWD_RTOL = {"paths": 1e-4, "mxu_highest": 1e-4, "mxu_bf16x3": 1e-4, "mxu_bf16": 2e-3}
 
 
-def _env_case(cuda, mode, c, k, nc, lmax, parity, seed):
+def _env_case(cuda, mode, c, k, nc, lmax, parity, seed, cout=None):
     from pair_allegro_tpu_torch.ops import env_layer as k2
     from pair_allegro_tpu_torch.ops import env_layer_mxu as k5
     from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     P = num_paths_per_l(lmax, lmax, lmax, parity)
-    mix = {f"l{l3}": torch.randn(c * P[l3], c, generator=g).to(cuda) for l3 in range(lmax + 1)}
+    mix = {f"l{l3}": torch.randn(c * P[l3], cout or c, generator=g).to(cuda)
+           for l3 in range(lmax + 1)}
     d, e = (lmax + 1) ** 2, nc * k
     V = torch.randn(d, c, e, generator=g) * 0.5
     wz = torch.randn(c, e, generator=g)
@@ -323,6 +324,42 @@ def test_env_kernels_match_plain(cuda, mode, c, k, lmax, parity):
     _env_compare(mod, w, ins, fn, k, mode)
 
 
+# K5 at margin widths (c, cout, k, l_max, parity): C = 12 and 20 zero-fill
+# the chunks' depth, Cout != C, l_max 3 takes two row passes each way, K not
+# a multiple of the 64-edge tile (100: two tiles, 20: one partial); C = 172
+# at l_max 2 and C = 300 at l_max 0 (widths the CUDA-core K5 took) take
+# five backward passes over channel blocks, the last one partial
+K5_MARGINS = [(12, 12, 64, 2, True), (20, 20, 64, 2, True), (32, 16, 64, 2, True),
+              (12, 20, 40, 1, True), (20, 12, 64, 1, False), (32, 32, 64, 3, True),
+              (12, 12, 64, 3, False), (32, 32, 100, 2, True), (32, 32, 20, 2, True),
+              (172, 172, 64, 2, True), (300, 40, 64, 0, True)]
+
+
+@pytest.mark.parametrize("c,cout,k,lmax,parity", K5_MARGINS)
+@pytest.mark.parametrize("mode", ENV_MODES[1:])
+def test_k5_matches_plain_margin_widths(cuda, mode, c, cout, k, lmax, parity):
+    mod, w, ins, fn, _ = _env_case(cuda, mode, c, k, 5, lmax, parity, 7, cout=cout)
+    _env_compare(mod, w, ins, fn, k, mode)
+
+
+def test_k5_layouts_mirror_the_launcher(cuda):
+    """The library's shared-memory and layout sizes against the wrapper's
+    (``smem_bytes``, ``kernel_layout``'s chunk count and dtype)."""
+    from pair_allegro_tpu_torch.ops import env_layer_mxu as k5
+
+    lib = k5.LIB.load()
+    for c, cout, d, mode in [(32, 32, 9, 0), (12, 20, 4, 1), (128, 128, 16, 2), (264, 264, 9, 0),
+                             (20, 24, 16, 1), (4, 4, 1, 0)]:
+        name = k5.MODES[mode]
+        for bwd in (False, True):
+            assert lib.k5_smem_bytes(int(bwd), c, cout, d, mode) == k5.smem_bytes(bwd, c, cout, d,
+                                                                                  name)
+            npass, R, nq, _ = k5.plan(bwd, c, cout, d)
+            chunk = R * 32 * (4 if mode == 0 else 2 * (2 if mode == 1 else 1))
+            want = (d if bwd else 1) * npass * nq * chunk
+            assert lib.k5_layout_bytes(int(bwd), c, cout, d, mode) == want
+
+
 @pytest.mark.parametrize("mode", ENV_MODES)
 def test_env_kernels_dead_v_cotangent(cuda, mode):
     mod, w, ins, fn, _ = _env_case(cuda, mode, 32, 64, 4, 2, True, 2)
@@ -348,11 +385,31 @@ def test_env_wrappers_refuse_what_the_kernels_do_not_take(cuda, mode):
         fn(V, wz.T.contiguous().T, Y, w, 32, 5.0)  # not contiguous
     with pytest.raises(ValueError):
         fn(V, wz.cpu(), Y, w, 32, 5.0)  # mixed devices
-    # K2's thread-owned TP cells need C to divide its 256 threads; K5's
-    # register tiles need D*C/4 <= 576
-    _, w2, ins2, _, _ = _env_case(cuda, mode, 132 if mode == "paths" else 264, 8, 2, 2, True, 5)
+    if mode == "paths":  # K2's thread-owned TP cells need C to divide its 256 threads
+        _, w2, ins2, _, _ = _env_case(cuda, mode, 132, 8, 2, 2, True, 5)
+        with pytest.raises(RuntimeError, match="does not take"):
+            fn(*ins2, w2, 8, 5.0)
+        return
+    # K5 takes every width whose matrix is of a buildable size; its launcher
+    # refuses a backward whose env and denv (2 D*C words) overflow shared
+    # memory (C = 1200 at l_max 2, a 4 GB matrix): a negative code, before
+    # any pointer is read
+    import ctypes
+
+    assert not mod.kernel_takes(1200, 1200, 9, 3, mode)
+    dims = (ctypes.c_int * 7)(1200, 1200, 9, 8, 16, 3, 0)
+    ptrs = (ctypes.c_ulonglong * 12)(0, 0, 0, 256, *([0] * 8))
+    assert mod.LIB.load().k5_launch(1, ptrs, dims, ctypes.c_float(1.0), None) == -6
+    # a refused launch makes the wrapper raise, each way, and counts nothing:
+    # K = 48 does not divide the 128 edge slots (the launcher's code -3)
+    ins = (V, wz, Y)
+    out, inv = mod._kernel_fwd(*ins, w, 32, 0.5)
+    counts = (mod.launches.fwd, mod.launches.bwd)
     with pytest.raises(RuntimeError, match="does not take"):
-        fn(*ins2, w2, 8, 5.0)
+        mod._kernel_fwd(*ins, w, 48, 0.5)
+    with pytest.raises(RuntimeError, match="does not take"):
+        mod._kernel_bwd(*ins, w, 48, 0.5, torch.ones_like(out), torch.ones_like(inv))
+    assert (mod.launches.fwd, mod.launches.bwd) == counts
 
 
 @pytest.mark.parametrize("tp_mode", ["paths", "mxu_highest", "mxu_bf16x3"])
