@@ -15,6 +15,8 @@ Phases, each of which must pass (any failure exits non-zero):
      {1, 2} x {1, 2}, C=64, on the 500-atom table at the engine's K;
      K2 and K5 parity: the same for the per-layer tier's kernels (K5 in its
      three precision modes) at flagship widths, l_max 2 and 1 with parity;
+     K2 and K5's three-pass modes also within a tight gate (TIGHT_TOLS)
+     that their one-pass controls must fail;
   4. model parity on the same 500 atoms, the kernel path on the card against
      the plain path (the CPU): Allegro with the charge head (max|dF|, max|dq|
      below 5e-4) on the K1 tier and on the per-layer tier with tp_mode
@@ -30,20 +32,23 @@ Phases, each of which must pass (any failure exits non-zero):
      (bound), and kernel parity at those shapes as in phases 2 and 3;
   8. the per-layer main path (bench.py's kernel-perlayer tier): phase 5's
      run with layer_fused=False (K2); K2 and K5 (each mode) timings and
-     parity at its shapes, K5's beside its library time (the bare product
-     at the mode's precision: cuBLAS f32, or torch.matmul in bf16, three of
-     them for mxu_bf16x3) and its tensor-core bound; the same run (60 + 60
+     parity at its shapes, K2's beside its two bounds and the mix weights
+     it stages, K5's beside its library time (the bare product at the
+     mode's precision: cuBLAS f32, or one bf16 product of thrice the depth
+     for mxu_bf16x3) and its tensor-core bound; the same run (60 + 60
      steps) with tp_mode=mxu_highest (K5);
   9. K4 (csrc/tp_mix_fused.cu) parity against its plain version, f32,
      forward and backward, on operands of a 256-atom dense (FLAT) build at
-     flagship widths and at l_max 1, with a tail tile and a zero dV'; FLAT
+     flagship widths and at l_max 1, with a tail tile and a zero dV', and
+     within the tight gate its one-pass control must fail; FLAT
      model parity, card against the CPU: Allegro with charges on the
      256-atom box and on a 500-atom slab (two species, typed cutoffs),
      NequIP with one and two species on the 256 atoms (no K3 launch);
  10. the FLAT main path: a 5,324-atom Cu slab (FCC 11^3 cells, 20 A of
      vacuum along z, pbc (T, T, F)) on the dense strategy, Allegro at phase
      5's widths, 60 + 60 NVE steps: 3 + 3 K4 launches per force evaluation
-     and no other kernel; K4 timings and parity at its shapes; a NequIP run
+     and no other kernel; K4 timings (two bounds, the mix weights it
+     stages, its edge tile) and parity at its shapes; a NequIP run
      (10 + 10 steps) on the same slab, which launches no kernel;
  11. K6 and K7 (csrc/embed_readout_layer.cu) parity against their plain
      versions, f32, forward and backward, on the 500-atom table at flagship
@@ -65,18 +70,19 @@ Phases, each of which must pass (any failure exits non-zero):
      steps: 1 K8 launch per force evaluation each way and no other kernel;
      K8 timings and parity at its shapes;
  15. the accuracy gate of the tiers whose products run on the tensor cores
-     (the K1 tier, PAT_L1_EMBED=1, fused_stack=True, and the per-layer tier
-     with tp_mode mxu_highest and mxu_bf16x3, K5) on
+     (the K1 tier, PAT_L1_EMBED=1, fused_stack=True, the per-layer tier
+     with tp_mode paths (K2), mxu_highest and mxu_bf16x3 (K5), and the
+     fixture as a slab, pbc (T, T, F), on the dense build (K4)) on
      benchmarks/accuracy.py's fixture (500 perturbed FCC Cu atoms) at
      flagship widths: f32 on the card against the port's plain path at f64
      on the CPU, max|dF| <= 1e-4 eV/A (rms|dF| and dE/atom printed);
      mxu_bf16 is printed, not gated.
-Phases 7, 12 and 14 print two bounds for K1, K6, K7 and K8: with the
-products on the tensor cores in 3xTF32 (the kernels' ``bound_ms``) and on
-the CUDA cores alone (``bound_ms_f32``, printed only), and the bytes of
-weights the kernel stages from L2 per call as computed from its layout (a
-formula, not a measurement); phase 1 prints ptxas's registers, shared
-memory and spills of every kernel.
+Phases 7, 8, 10, 12 and 14 print two bounds for K1, K2, K4, K6, K7 and K8:
+with the products on the tensor cores in 3xTF32 (the kernels'
+``bound_ms``) and on the CUDA cores alone (``bound_ms_f32``), and the
+bytes of weights the kernel stages from L2 per call as computed from its
+layout (a formula, not a measurement); phase 1 prints ptxas's registers,
+shared memory and spills of every kernel.
 The launch counts of each main path are read from its phase alone (every
 count is set to 0 just before it).  The line before the last is a JSON
 object of the kernels; the last line is {"ok": true, "device": {...}}.
@@ -89,9 +95,10 @@ an Allegro main-path MD step goes (torch.profiler); ``--profile nequip``,
 and stack main paths (``--profile perlayer-mxu``: the per-layer path with
 K5).  ``python3 chip_smoke.py --timings body`` runs only phases 7, 12 and
 14's timings of the layer body's kernels (K1, K6, K7, K8), ``--timings
-env`` only phase 8's K2 and K5 timings, each at its main paths' shapes (the
-engines' first neighbor build, no MD run): run from two checkouts in one
-call, it compares two builds of those kernels.
+env`` only phase 8's K2 and K5 timings, ``--timings flat`` only phase 10's
+K4 timings, each at its main paths' shapes (the engines' first neighbor
+build, no MD run): run from two checkouts in one call, it compares two
+builds of those kernels.
 """
 
 from __future__ import annotations
@@ -912,12 +919,12 @@ ENV_FWD_TOLS = {"paths": (1e-4, 1e-4), "mxu_highest": (1e-4, 1e-4),
                 "mxu_bf16x3": (1e-4, 1e-4), "mxu_bf16": (1e-4, 2e-3)}
 
 
-# K5's three-pass modes held tighter as well, between their sound reading
-# and a one-pass product's, so that a dropped 3xTF32 or bf16x3 correction
-# term fails (ENV_FWD_TOLS and the 1e-3 backward pass it): forward and
-# backward (atol, rtol on max|plain|); ``k5_one_pass`` is the control that
-# must fail them
-K5_TIGHT_TOLS = {"fwd": (5e-7, 5e-5), "bwd": (1e-6, 1e-5)}
+# K2, K4 and K5's three-pass modes held tighter as well, between their
+# sound reading and a one-pass product's, so that a dropped 3xTF32 or bf16x3
+# correction term fails (ENV_FWD_TOLS, TOLS and the 1e-3 backward pass it):
+# forward and backward (atol, rtol on max|plain|); each kernel's one-pass
+# control (``k5_one_pass``, ``tf32_control``) must fail them
+TIGHT_TOLS = {"fwd": (5e-7, 5e-5), "bwd": (1e-6, 1e-5)}
 
 
 def env_weights(layer, cfg, mode):
@@ -990,28 +997,40 @@ def k5_one_pass(mode, ops, w, k, inv_avg, cots):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def k5_tight_check(label, mode, ops, w, k, inv_avg, cots, got, ref):
-    """Phase 3 / 8's added gate for mxu_highest and mxu_bf16x3: the kernel
-    within ``K5_TIGHT_TOLS`` of the plain version, and the one-pass control
-    (``k5_one_pass``) outside it in some output, or the gate could not tell
-    the mode's three passes from one."""
-    kernel = f"K5 {mode}"
-    ctl = k5_one_pass(mode, ops, w, k, inv_avg, cots)
-    for kind, names, i in (("fwd", ("V'", "inv"), 0), ("bwd", K2_NAMES, 1)):
-        tols = K5_TIGHT_TOLS[kind]
-        check(kernel, f"{label} (tight)", kind, names, got[i], ref[i], tols)
+def tf32_control(fn):
+    """fn() with cuBLAS in TF32 (one pass on the tensor cores): K2's and
+    K4's plain versions so computed are the controls of their tight gate
+    (the kernel with a 3xTF32 correction term dropped would compute this)."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def tight_check(kernel, label, names, got, ref, ctl):
+    """The added gate of phases 3, 8, 9 and 10: the kernel's (forward
+    outputs, backward cotangents) within ``TIGHT_TOLS`` of the plain
+    version's, and the one-pass control's (``ctl``) outside it in some
+    output each way, or the gate could not tell three passes from one."""
+    for kind, nm, i in (("fwd", names[0], 0), ("bwd", names[1], 1)):
+        tols = TIGHT_TOLS[kind]
+        check(kernel, f"{label} (tight)", kind, nm, got[i], ref[i], tols)
         atol, rtol = tols
         ctl_errs = [(max_err(a, b), atol + rtol * float(b.abs().max())) for a, b in zip(ctl[i], ref[i])]
         print(f"{kernel} control {label} {kind}: one-pass product against the plain version "
-              + ", ".join(f"{n} {e:.3e} (tolerance {t:.3e})" for n, (e, t) in zip(names, ctl_errs)))
+              + ", ".join(f"{n} {e:.3e} (tolerance {t:.3e})" for n, (e, t) in zip(nm, ctl_errs)))
         if all(e <= t for e, t in ctl_errs):
             raise RuntimeError(f"{kernel} {kind} {label}: the tight gate passes a one-pass product")
 
 
 def env_compare(label, mode, ops, w, k, avg, gen):
     """K2 / K5 against the plain version on ``ops``, forward and backward (a
-    random cotangent); K5's three-pass modes also under ``k5_tight_check``;
-    returns the max abs errors."""
+    random cotangent); K2 and K5's three-pass modes also under
+    ``tight_check``; returns the max abs errors."""
     import torch
 
     fn, ref, ref_bwd = env_call(mode)
@@ -1027,8 +1046,17 @@ def env_compare(label, mode, ops, w, k, avg, gen):
     torch.cuda.synchronize()
     errs = {"fwd": check(kernel, label, "fwd", ("V'", "inv"), out_k, out_r, ENV_FWD_TOLS[mode]),
             "bwd": check(kernel, label, "bwd", K2_NAMES, g_k, g_r)}
+    names = (("V'", "inv"), K2_NAMES)
     if mode in ("mxu_highest", "mxu_bf16x3"):
-        k5_tight_check(label, mode, ops, w, k, inv_avg, cots, (out_k, g_k), (out_r, g_r))
+        tight_check(kernel, label, names, (out_k, g_k), (out_r, g_r),
+                    k5_one_pass(mode, ops, w, k, inv_avg, cots))
+    elif mode == "paths":
+        def plain():
+            with torch.no_grad():
+                out = ref(*ops, w, k, inv_avg)
+            return out, ref_bwd(*ops, w, k, inv_avg, *cots)
+
+        tight_check(kernel, label, names, (out_k, g_k), (out_r, g_r), tf32_control(plain))
     del ins, out_k, out_r, g_k, g_r, cots
     torch.cuda.empty_cache()
     return errs
@@ -1106,6 +1134,36 @@ def k2_cost(w, e, bwd):
     return per * e, 4 * ((ins + outs) * e + n_w)
 
 
+def mix_products(w):
+    """Of K2's and K4's operations per edge slot, those of the per-l3 mix
+    (its transpose in the backward, as many), which they run on the tensor
+    cores."""
+    from pair_allegro_tpu_torch.ops.fused_layer import _row_tables
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
+    return sum(2 * w.cout * P[l3] * w.c for _, l3 in _row_tables(w.lmax, w.parity))
+
+
+def mix_weight_bytes(w, bwd, tiles, ring):
+    """Bytes of mix weights one K2 or K4 call stages from L2 (into its ring
+    of ``ring`` words, or without one as the A fragments' loads, once per
+    row), computed from the kernels' staging, not measured: per tile and
+    output row the row's l3 block of the mix (mixT in the backward), unless
+    the previous row left it in the ring (``mix_resident``)."""
+    from pair_allegro_tpu_torch.ops.fused_layer import _row_tables, ring_holds
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
+    words, prev = 0, None
+    for _, l3 in _row_tables(w.lmax, w.parity):
+        kd = P[l3] * w.c
+        if not (l3 == prev and ring_holds(*((w.cout, kd) if bwd else (kd, w.cout)), ring)):
+            words += kd * w.cout
+        prev = l3
+    return 4 * words * tiles
+
+
 def k5_cost(w, e, bwd):
     """(product flops, other flops, bytes) one K5 call needs at E edge
     slots: the dense product with the combined matrix (2 * D*D*C * D*Cout
@@ -1159,11 +1217,15 @@ def env_timings(cfg, params, system, eng, errs):
     """Phase 8: per-call fwd/bwd time of K2 and of K5 in each mode, of
     their plain versions and the bound at the per-layer main path's shapes;
     K5's library time (``k5_library``); parity at those shapes (into
-    ``errs``).  K5's bound: its products on the tensor cores (3xTF32 at a
-    third of the TF32 rate for mxu_highest, bf16 at the bf16 rate, three
-    passes in mxu_bf16x3) and the rest at the f32 rate, the larger of the
-    two, never below the bytes' time."""
+    ``errs``).  K2's bounds: ``bounds`` with its mix on the tensor cores
+    (``bound_ms``) and on the CUDA cores (``bound_ms_f32``), beside the mix
+    weights it stages (``mix_weight_bytes``).  K5's bound: its products on
+    the tensor cores (3xTF32 at a third of the TF32 rate for mxu_highest,
+    bf16 at the bf16 rate, three passes in mxu_bf16x3) and the rest at the
+    f32 rate, the larger of the two, never below the bytes' time."""
     import torch
+
+    from pair_allegro_tpu_torch.ops import env_layer as k2
 
     ops, k = env_operands(cfg, params, system, eng)
     e = ops[0].shape[-1]
@@ -1189,25 +1251,29 @@ def env_timings(cfg, params, system, eng, errs):
         e2 = env_compare(f"main path E={e}", mode, ops, w, k, cfg.avg_num_neighbors, gen)
         errs[mode] = {kind: max(errs[mode][kind], e2[kind]) for kind in e2}
         for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
-            lib = None
+            bwd = kind == "bwd"
             if mode == "paths":
-                flops, nbytes = k2_cost(w, e, kind == "bwd")
-                t_ops = flops / PEAK_F32_FLOPS * 1e3
-            else:
-                gemm, rest, nbytes = k5_cost(w, e, kind == "bwd")
-                flops = gemm + rest
-                peak = PEAK_TF32_FLOPS / 3 if mode == "mxu_highest" else PEAK_BF16_FLOPS
-                t_ops = max(gemm / peak, rest / PEAK_F32_FLOPS) * 1e3
-                lib = k5_library(w, e, kind == "bwd", gen)
+                flops, nbytes = k2_cost(w, e, bwd)
+                _, lds, ring = k2.block_layout(w.c, w.cout, ops[0].shape[0], w.lmax, w.parity, bwd)
+                r = res[(mode, kind)] = dict(
+                    timing(ms, pms, flops, mix_products(w) * e, nbytes,
+                           mix_weight_bytes(w, bwd, n_tiles(e, k), ring)),
+                    library_ms=None, tile_stride=lds, ring_words=ring)
+                print_timing(f"K2 {kind} E={e} (tile stride {lds}, ring {ring} words)", r)
+                continue
+            gemm, rest, nbytes = k5_cost(w, e, bwd)
+            flops = gemm + rest
+            peak = PEAK_TF32_FLOPS / 3 if mode == "mxu_highest" else PEAK_BF16_FLOPS
+            t_ops = max(gemm / peak, rest / PEAK_F32_FLOPS) * 1e3
+            lib = k5_library(w, e, bwd, gen)
             t_bytes = nbytes / PEAK_BYTES * 1e3
             r = res[(mode, kind)] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
                                          bound_by="operations" if t_ops >= t_bytes else "bytes",
                                          library_ms=lib, gflop=flops / 1e9, mbytes=nbytes / 1e6)
-            print(f"{'K2' if mode == 'paths' else 'K5 ' + mode} {kind} E={e}: kernel {ms:.4f} ms, "
+            print(f"K5 {mode} {kind} E={e}: kernel {ms:.4f} ms, "
                   f"plain {pms:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-                  f"{r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB), "
-                  + ("" if lib is None else f"library {lib:.4f} ms, ")
-                  + f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+                  f"{r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB), library {lib:.4f} ms, "
+                  f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
         del dout, dinv
         torch.cuda.empty_cache()
     return res
@@ -1257,28 +1323,42 @@ def k4_cost(w, e, bwd):
     return per * e, 4 * (io * e + n_w)
 
 
+def k4_plain(ops, w, cots):
+    """K4's plain version: (forward outputs, backward cotangents of ``cots``)."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    with torch.no_grad():
+        out = k4.tp_mix_fused_reference(*ops, w)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in ops]
+        return out, torch.autograd.grad(k4.tp_mix_fused_reference(*ins, w), ins, cots)
+
+
 def k4_compare(label, ops, w, gen, zero_dout=False):
     """K4 against its plain version on ``ops``, forward and backward (a
     random cotangent; ``zero_dout``: V' is dead, as in the last layer, and
-    only inv's cotangent is random); returns the max abs errors."""
+    only inv's cotangent is random), with a random cotangent also under
+    ``tight_check``; returns the max abs errors."""
     import torch
 
     from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
 
     ins = [t.detach().clone().requires_grad_(True) for t in ops]
     out_k = k4.tp_mix_fused_t(*ins, w)
-    with torch.no_grad():
-        out_r = k4.tp_mix_fused_reference(*ops, w)
-    cots = [torch.randn(o.shape, generator=gen, device=o.device) for o in out_r]
+    shapes = [o.shape for o in out_k]
+    cots = [torch.randn(sh, generator=gen, device=ops[0].device) for sh in shapes]
     if zero_dout:
         cots[0] = torch.zeros_like(cots[0])
     g_k = torch.autograd.grad(out_k, ins, cots)
-    with torch.enable_grad():
-        ref_in = [t.detach().requires_grad_(True) for t in ops]
-        g_r = torch.autograd.grad(k4.tp_mix_fused_reference(*ref_in, w), ref_in, cots)
+    out_r, g_r = k4_plain(ops, w, cots)
     torch.cuda.synchronize()
     errs = {"fwd": check("K4", label, "fwd", ("V'", "inv"), out_k, out_r),
             "bwd": check("K4", label, "bwd", K4_NAMES, g_k, g_r)}
+    if not zero_dout:
+        tight_check("K4", label, (("V'", "inv"), K4_NAMES), (out_k, g_k), (out_r, g_r),
+                    tf32_control(lambda: k4_plain(ops, w, cots)))
     del ins, out_k, out_r, g_k, g_r, cots
     torch.cuda.empty_cache()
     return errs
@@ -1370,14 +1450,16 @@ def flat_model_parity():
 
 def k4_timings(cfg, params, system, eng, errs):
     """Phase 10 (K4): fwd/bwd time of kernel and plain version at the FLAT
-    main path's shapes (the second layer's operands), with the bound, and
-    parity at those shapes (into ``errs``)."""
+    main path's shapes (the second layer's operands), with ``bounds`` (the
+    mix on the tensor cores, and on the CUDA cores) and the mix weights it
+    stages (``mix_weight_bytes``), and parity at those shapes (into
+    ``errs``)."""
     import torch
 
     from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
 
     (V, env), w = k4_operands(cfg, params, system, eng)
-    e = V.shape[-1]
+    e, d = V.shape[-1], V.shape[0]
     gen = torch.Generator(device=system.device).manual_seed(SEED)
     out, inv = k4._kernel_fwd(V, env, w)
     dout = torch.randn(out.shape, generator=gen, device=system.device)
@@ -1396,16 +1478,16 @@ def k4_timings(cfg, params, system, eng, errs):
     errs = {kind: max(errs[kind], e2[kind]) for kind in errs}
     res = {}
     for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
-        flops, nbytes = k4_cost(w, e, kind == "bwd")
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        r = res[kind] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
-                             bound_by="operations" if t_ops >= t_bytes else "bytes",
-                             gflop=flops / 1e9, mbytes=nbytes / 1e6,
-                             tile=k4.kernel_tile(w, V, kind == "bwd"))
-        print(f"K4 {kind} E={e} (edge tile {r['tile']}): kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gflop']:.2f} GFLOP, "
-              f"{r['mbytes']:.1f} MB), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
-              f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved")
+        bwd = kind == "bwd"
+        flops, nbytes = k4_cost(w, e, bwd)
+        nb, tile, ring = k4.block_layout(w.c, w.cout, d, w.lmax, w.parity, bwd)
+        if tile != k4.kernel_tile(w, V, bwd):
+            raise RuntimeError("K4's block_layout disagrees with its launcher's tile")
+        r = res[kind] = dict(timing(ms, pms, flops, mix_products(w) * e, nbytes,
+                                    mix_weight_bytes(w, bwd, -(-e // tile), ring)),
+                             tile=tile, ring_words=ring, smem_bytes=nb)
+        print_timing(f"K4 {kind} E={e} (edge tile {tile}, {nb} B of shared memory, ring {ring} "
+                     f"words)", r)
     return res, errs
 
 
@@ -1657,11 +1739,11 @@ def f64_parity():
             raise RuntimeError(f"f64 on the card, {label}, does not match the CPU f64 path")
 
 
-def accuracy_system(device, dtype):
+def accuracy_system(device, dtype, slab=False):
     """benchmarks/accuracy.py:_setup's fixture: 500 FCC Cu atoms (N_REP = 5
     cells a side, a0 = 3.61 A) with __graft_entry__._fcc_cu's 0.05 A jitter
-    (RandomState(0)) and _setup's own 0.05 A (RandomState(7)), one
-    species."""
+    (RandomState(0)) and _setup's own 0.05 A (RandomState(7)), one species;
+    with ``slab`` the same atoms under SLAB_VACUUM with pbc (T, T, F)."""
     import numpy as np
 
     from pair_allegro_tpu_torch.system import System
@@ -1673,23 +1755,30 @@ def accuracy_system(device, dtype):
     pos = pos + 0.05 * np.random.RandomState(0).randn(*pos.shape)
     pos = pos + np.random.RandomState(7).randn(*pos.shape) * 0.05
     n = pos.shape[0]
-    return System.create(pos, np.zeros(n, np.int32), cell=np.eye(3) * a0 * n_rep,
-                         masses=np.full(n, 63.546), dtype=dtype, device=device)
+    cell = np.eye(3) * a0 * n_rep
+    if slab:
+        cell[2, 2] += SLAB_VACUUM
+    return System.create(pos, np.zeros(n, np.int32), cell=cell, masses=np.full(n, 63.546),
+                         pbc=(True, True, False) if slab else None, dtype=dtype, device=device)
 
 
 # the tiers whose products run on the tensor cores: (label, config fields,
-# environment, launches per force evaluation (fwd = bwd), gated); the
-# per-layer tier in mxu_bf16 rounds its operands to bf16 and is printed only
+# environment, launches per force evaluation (fwd = bwd), gated, slab); the
+# per-layer tier in mxu_bf16 rounds its operands to bf16 and is printed
+# only; the FLAT slab is the fixture under pbc (T, T, F), on the dense build
 _K5 = {"K5": 3}
-ACCURACY_TIERS = (("K1 tier", {}, {}, {"K1": 3}, True),
-                  ("embed path", {}, {"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1}, True),
-                  ("stack path", dict(fused_stack=True), {}, {"K8": 1}, True),
+ACCURACY_TIERS = (("K1 tier", {}, {}, {"K1": 3}, True, False),
+                  ("embed path", {}, {"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1}, True,
+                   False),
+                  ("stack path", dict(fused_stack=True), {}, {"K8": 1}, True, False),
+                  ("per-layer paths", dict(layer_fused=False), {}, {"K2": 3}, True, False),
                   ("per-layer mxu_highest", dict(layer_fused=False, tp_mode="mxu_highest"), {}, _K5,
-                   True),
+                   True, False),
                   ("per-layer mxu_bf16x3", dict(layer_fused=False, tp_mode="mxu_bf16x3"), {}, _K5,
-                   True),
+                   True, False),
                   ("per-layer mxu_bf16", dict(layer_fused=False, tp_mode="mxu_bf16"), {}, _K5,
-                   False))
+                   False, False),
+                  ("FLAT slab", {}, {}, {"K4": 3}, True, True))
 
 
 def accuracy_phase():
@@ -1706,18 +1795,26 @@ def accuracy_phase():
 
     mods = kernel_modules()
     raw = allegro_init_numpy(flagship_cfg(), SEED)
-    ref_sys = accuracy_system("cpu", torch.float64)
-    ref_eng = AllegroEngine(flagship_cfg(), allegro_params_from_numpy(
-        raw, flagship_cfg(), device="cpu", dtype=torch.float64), ref_sys, skin=0.4, device="cpu")
-    ref = ref_eng.force_fn(ref_sys, ref_eng.rebuild_fn(ref_sys, None))
-    f_ref, e_ref, n = ref.forces.double(), float(ref.total_energy), ref_sys.n_atoms
+    refs = {}
+    for slab in (False, True):
+        ref_sys = accuracy_system("cpu", torch.float64, slab)
+        ref_eng = AllegroEngine(flagship_cfg(), allegro_params_from_numpy(
+            raw, flagship_cfg(), device="cpu", dtype=torch.float64), ref_sys, skin=0.4,
+            device="cpu")
+        ref = ref_eng.force_fn(ref_sys, ref_eng.rebuild_fn(ref_sys, None))
+        refs[slab] = ref.forces.double(), float(ref.total_energy), ref_eng.spec.strategy
+    n = ref_sys.n_atoms
     worst = {}
-    for label, tier, env, want, gated in ACCURACY_TIERS:
+    for label, tier, env, want, gated, slab in ACCURACY_TIERS:
+        f_ref, e_ref, strategy = refs[slab]
         with env_vars(env):
             cfg = flagship_cfg(**tier)
-            system = accuracy_system("cuda", torch.float32)
+            system = accuracy_system("cuda", torch.float32, slab)
             eng = AllegroEngine(cfg, allegro_params_from_numpy(raw, cfg, device="cuda"), system,
                                 skin=0.4)
+            if eng.spec.strategy != strategy or (slab and strategy != "dense"):
+                raise RuntimeError(f"accuracy {label}: the {eng.spec.strategy} strategy on the "
+                                   f"card, {strategy} on the CPU")
             nb = eng.rebuild_fn(system, None)
             for m in mods.values():
                 m.launches.reset()
@@ -1729,7 +1826,8 @@ def accuracy_phase():
         mx = float(df.abs().max())
         rms = float(df.norm(dim=1).pow(2).mean().sqrt())
         de = abs(float(out.total_energy) - e_ref) / n
-        print(f"accuracy {label} ({n} perturbed FCC Cu atoms, f32 on the card against the CPU "
+        print(f"accuracy {label} ({n} perturbed FCC Cu atoms{', slab' if slab else ''}, f32 on "
+              f"the card against the CPU "
               f"f64 plain path): max|dF| {mx:.3e} eV/A, rms|dF| {rms:.3e} eV/A, dE/atom {de:.3e} "
               f"eV, max|F| {float(f_ref.abs().max()):.3f} eV/A "
               f"({'gate max|dF| <= 1e-4 eV/A' if gated else 'not gated'}); launches {launched}")
@@ -1857,13 +1955,14 @@ def _profile_steps(model, n_steps):
     return 0
 
 
-TIMINGS = {"body": ("K1", "K6", "K8"), "env": ("K2", "K5")}
+TIMINGS = {"body": ("K1", "K6", "K8"), "env": ("K2", "K5"), "flat": ("K4",)}
 
 
 def timings(which):
     """``--timings body``: K1, K6 / K7 and K8 timed (and held against their
     plain versions) at the allegro, embed and stack main paths' shapes;
-    ``--timings env``: K2 and K5 (phase 8) at the per-layer path's."""
+    ``--timings env``: K2 and K5 (phase 8) at the per-layer path's;
+    ``--timings flat``: K4 (phase 10) at the FLAT slab's."""
     import torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1876,7 +1975,8 @@ def timings(which):
     for lib in libs:
         lib.load()
     zero = {"fwd": 0.0, "bwd": 0.0}
-    for path in ("allegro", "embed", "stack") if which == "body" else ("perlayer",):
+    paths = {"body": ("allegro", "embed", "stack"), "env": ("perlayer",), "flat": ("flat",)}
+    for path in paths[which]:
         with env_vars(PATHS[path][5]):
             cfg, params, system, eng = build_path(path)
             if path == "allegro":
@@ -1885,6 +1985,8 @@ def timings(which):
                 er_timings(cfg, params, system, eng, {"K6": dict(zero), "K7": dict(zero)})
             elif path == "stack":
                 stack_timings(cfg, params, system, eng, dict(zero))
+            elif path == "flat":
+                k4_timings(cfg, params, system, eng, dict(zero))
             else:
                 env_timings(cfg, params, system, eng, {m: dict(zero) for m in ENV_MODES})
         del cfg, params, system, eng
@@ -1914,7 +2016,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--timings"]:
         which = sys.argv[2] if len(sys.argv) > 2 else ""
         if which not in TIMINGS:
-            raise SystemExit(f"--timings takes body or env, not {which!r}")
+            raise SystemExit(f"--timings takes body, env or flat, not {which!r}")
         return timings(which)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -401,12 +401,6 @@ __device__ void load_tables(const K1P& p) {
     reinterpret_cast<int*>(sm + p.o_mt)[q] = __ldg(p.mt + q);
 }
 
-// Whether row r's mix (or mixT) block is the one the previous row left in
-// the ring.
-__device__ __forceinline__ bool mix_resident(const Meta& m, int r, int Kd, int M, int rw) {
-  return r > 0 && m.rowmix[r] == m.rowmix[r - 1] && ring_holds(Kd, M, rw);
-}
-
 // One layer's forward for the block's center (blockIdx.x), the tables
 // already in shared memory (m, and mt for EMBED / READOUT).
 template <int F, int L>

@@ -1,16 +1,18 @@
-// Tensor-core pieces of the Allegro layer body (allegro_layer.cuh, which
-// alone includes this header; K1, K6, K7 and K8 run it): the small products
-// on tensor cores at f32 accuracy, weights staged in shared memory by
-// cp.async, cp.async tile loads, and the channelwise TP of one output row
-// with its accumulators in registers.
+// Tensor-core pieces of the Allegro layer kernels: the layer body
+// (allegro_layer.cuh: K1, K6, K7 and K8), K2 (env_layer.cu) and K4
+// (tp_mix_fused.cu).  The small products on tensor cores at f32 accuracy,
+// weights staged in shared memory by cp.async, cp.async tile loads, and the
+// channelwise TP of one output row with its sums in registers, with env per
+// center (K1's body, K2) or per edge (K4), forward and backward.
 //
-// Products.  out (M, ET) = scale * A^T B, A (Kd, M) row-major weights in
-// device memory, B (Kd, ET) a shared tile of row stride ldb.  Rows are output
-// features, columns the tile's edges, depth the input features; a pass
-// covers MG output rows as 8 warps in 2 (rows) x 4 (8-edge columns), each
-// warp up to 4 m16n8 tiles, one B fragment reused across them.  Each k-step
-// of 8 runs mma.sync.m16n8k8 in 3xTF32: every operand a = hi + lo with
-// hi = rna_tf32(a), lo = rna_tf32(a - hi), and hi*hi' + hi*lo' + lo*hi'
+// Products.  out (M, TW) = scale * A^T B, A (Kd, M) row-major weights in
+// device memory, B (Kd, TW) a shared tile of row stride ldb, TW = 32 edge
+// columns (ET; K4 also 16 and 8).  Rows are output features, columns the
+// tile's edges, depth the input features; a pass covers MG output rows as
+// the 8 warps in 8 / (TW/8) (rows) x TW/8 (8-edge columns), each warp up to
+// TW/8 m16n8 tiles, one B fragment reused across them.  Each k-step of 8
+// runs mma.sync.m16n8k8 in 3xTF32: every operand a = hi + lo with hi =
+// rna_tf32(a), lo = rna_tf32(a - hi), and hi*hi' + hi*lo' + lo*hi'
 // accumulated in f32, each dropped term ~2^-22 relative, so the products
 // keep f32 accuracy (single-pass TF32 would keep ~2^-11).
 //
@@ -20,19 +22,19 @@
 // past Kd are zero-filled and B's rows past Kd read as 0, so any depth
 // works.  Chunk rows of a multiple-of-32 width are XOR-swizzled by 8 floats
 // per row (mod 4), other widths padded to 16k + 8: either way the A
-// fragment loads are free of bank conflicts, as B's are at LDS_WIDE.  An A
-// of at most two chunks and one pass stays in the ring after the product:
-// the caller may run the next product on it again (a mix l3 block over its
-// 2 l3 + 1 rows) or stage it ahead (mma_stage) while other work runs.
+// fragment loads are free of bank conflicts, as B's are at LDS_WIDE (and
+// at K4's narrower strides, ps_of).  An A of at most two chunks and one
+// pass stays in the ring after the product: the caller may run the next
+// product on it again (a mix l3 block over its 2 l3 + 1 rows) or stage it
+// ahead (mma_stage) while other work runs.
 //
 // Wide layers.  Where the tiles leave no room for the ring at LDS_WIDE, the
 // layout takes the tile stride LDS_MIN (B fragment loads then conflict, but
-// the tiles take less shared memory than at allegro_tiles.cuh's LD = 33),
-// and where the ring's least still does not fit, no ring: the A fragments
-// are then read from device memory through the read-only cache.  So the
-// body takes every width the FFMA body before it took.  The body is built
-// for each stride (allegro_layer.cuh): a stride read at run time cost the
-// backward ~9% on the H100 (PERF.md).
+// the tiles take less shared memory), and where the ring's least still
+// does not fit, no ring: the A fragments are then read from device memory
+// through the read-only cache.  So the kernels take every width their FFMA
+// forms before them took.  The body and K2 are built for each stride: a
+// stride read at run time cost the backward ~9% on the H100 (PERF.md).
 //
 // The PTX primitives (mma.sync, cvt.rna.tf32, cp.async and its groups, and
 // their g++ stand-in emulations) are in mma_ptx.cuh, which K5 shares.
@@ -58,6 +60,11 @@ constexpr int RING_FWD = 4096;
 constexpr int RING_BWD = 8192;
 constexpr int RING_MIN = 2 * 8 * (MG + 8);
 
+// K4's product tile row stride at TW edge columns: conflict-free B
+// fragment loads (k * ldb mod 32 = 0, 8, 16, 24 over the 4 k of a
+// fragment).
+__host__ __device__ constexpr int ps_of(int tw) { return tw == 32 ? LDS_WIDE : tw == 16 ? 24 : 8; }
+
 // Staging geometry of a product pass of width mg: chunk rows and row stride.
 struct Chunks {
   int sa, kc, n;
@@ -77,6 +84,12 @@ __device__ __forceinline__ Chunks chunks(int Kd, int mg, int ring) {
 // most two chunks), so that the next product on the same A may skip staging.
 __device__ __forceinline__ bool ring_holds(int Kd, int M, int ring) {
   return ring > 0 && M <= MG && chunks(Kd, M, ring).n <= 2;
+}
+
+// Whether row r's mix (or mixT) block is the one the previous row left in
+// the ring.
+__device__ __forceinline__ bool mix_resident(const Meta& m, int r, int Kd, int M, int rw) {
+  return r > 0 && m.rowmix[r] == m.rowmix[r - 1] && ring_holds(Kd, M, rw);
 }
 
 // Issue chunk ch of the pass at output rows [g0, g0 + mg) into its stage.
@@ -104,17 +117,29 @@ __device__ __forceinline__ void mma_stage(const float* __restrict__ A, int Kd, i
   if (c.n > 1) stage_chunk(A, Kd, M, 0, mg, c, 1, ring, rw);
 }
 
-// The warp's up to 4 m16n8 accumulators (hi*hi' in acc, the corrections in
-// cor) of the pass at output row g0 to out[r*ldo + n], n < nvalid.
-__device__ __forceinline__ void mma_store(const float (&acc)[4][4], const float (&cor)[4][4],
-                                          int g0, int m16, int M, float* out, int ldo, float scale,
-                                          int nvalid) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// The warp's place in a product on a tile of TW edge columns: its row
+// group wm (of WM), its first edge column n0, its m16 tiles wm + WM * i for
+// i < TW / 8.
+template <int TW>
+struct WarpTile {
+  static constexpr int WN = TW / 8, WM = 8 / WN;
+  int wm, n0;
+  __device__ WarpTile() : wm((threadIdx.x >> 5) / WN), n0((threadIdx.x >> 5) % WN * 8) {}
+};
+
+// The warp's up to TW/8 m16n8 accumulators (hi*hi' in acc, the corrections
+// in cor) of the pass at output row g0 to out[r*ldo + n], n < nvalid.
+template <int TW>
+__device__ __forceinline__ void mma_store(const float (&acc)[TW / 8][4],
+                                          const float (&cor)[TW / 8][4], int g0, int m16, int M,
+                                          float* out, int ldo, float scale, int nvalid) {
+  const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, n0 = (warp & 3) * 8;
+  const WarpTile<TW> w;
+  const int wm = w.wm, n0 = w.n0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int mt = wm + 2 * i;
+  for (int i = 0; i < TW / 8; ++i) {
+    const int mt = wm + WarpTile<TW>::WM * i;
     if (mt >= m16) continue;
     const int r0 = g0 + mt * 16 + g, n = n0 + 2 * t;
     for (int h = 0; h < 2; ++h) {
@@ -129,14 +154,17 @@ __device__ __forceinline__ void mma_store(const float (&acc)[4][4], const float 
 
 // mma_tile without a ring (rw = 0): the A fragments straight from device
 // memory through the read-only cache, rows past Kd and M read as 0.
+template <int TW>
 __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, const float* B,
                                 int ldb, float* out, int ldo, float scale, int nvalid) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int TPW = TW / 8, WM = WarpTile<TW>::WM;
+  const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, n0 = (warp & 3) * 8;
+  const WarpTile<TW> w;
+  const int wm = w.wm, n0 = w.n0;
   for (int g0 = 0; g0 < M; g0 += MG) {
     const int m16 = (min(MG, M - g0) + 15) >> 4;
-    float acc[4][4] = {}, cor[4][4] = {};
+    float acc[TPW][4] = {}, cor[TPW][4] = {};
     for (int k0 = 0; k0 < Kd; k0 += 8) {
       const int k = k0 + t;
       const bool v0 = k < Kd, v1 = k + 4 < Kd;
@@ -146,8 +174,8 @@ __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, cons
       const float* A0 = A + (size_t)k * M;
       const float* A1 = A0 + 4 * (size_t)M;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int mt = wm + 2 * i;
+      for (int i = 0; i < TPW; ++i) {
+        const int mt = wm + WM * i;
         if (mt < m16) {
           const int m0 = g0 + mt * 16 + g, m1 = m0 + 8;
           uint32_t ah[4], al[4];
@@ -161,25 +189,28 @@ __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, cons
         }
       }
     }
-    mma_store(acc, cor, g0, m16, M, out, ldo, scale, nvalid);
+    mma_store<TW>(acc, cor, g0, m16, M, out, ldo, scale, nvalid);
   }
 }
 
 // out[m*ldo + n] = scale * sum_k A[k*M + m] * B[k*ldb + n] for m < M (M % 4
-// == 0, A 16-byte aligned), n < ET; only n < nvalid is written.  staged:
+// == 0, A 16-byte aligned), n < TW; only n < nvalid is written.  staged:
 // the first pass's first two chunks are in the ring already (mma_stage, or
 // an A that ring_holds left there).  The caller synchronises the block
 // before reading out or reusing B or the ring.
+template <int TW = ET>
 __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float* B, int ldb,
                          float* out, int ldo, float scale, int nvalid, float* ring, int rw,
                          bool staged = false) {
+  constexpr int TPW = TW / 8, WM = WarpTile<TW>::WM;
   if (rw == 0) {
-    mma_tile_direct(A, Kd, M, B, ldb, out, ldo, scale, nvalid);
+    mma_tile_direct<TW>(A, Kd, M, B, ldb, out, ldo, scale, nvalid);
     return;
   }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, n0 = (warp & 3) * 8;
+  const WarpTile<TW> w;
+  const int wm = w.wm, n0 = w.n0;
   for (int g0 = 0; g0 < M; g0 += MG) {
     const int mg = min(MG, M - g0);
     const Chunks c = chunks(Kd, mg, rw);
@@ -187,7 +218,7 @@ __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float
     const int sw = c.swz ? t << 3 : 0;
     // hi*hi' and the two correction terms in separate accumulators: two
     // independent mma chains per tile
-    float acc[4][4] = {}, cor[4][4] = {};
+    float acc[TPW][4] = {}, cor[TPW][4] = {};
     if (!(staged && g0 == 0)) {
       stage_chunk(A, Kd, M, g0, mg, c, 0, ring, rw);
       if (c.n > 1) stage_chunk(A, Kd, M, g0, mg, c, 1, ring, rw);
@@ -209,8 +240,8 @@ __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float
         const float* A0 = As + (kk + t) * c.sa;
         const float* A1 = A0 + 4 * c.sa;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int mt = wm + 2 * i;
+        for (int i = 0; i < TPW; ++i) {
+          const int mt = wm + WM * i;
           if (mt < m16) {
             const int m0 = (mt * 16 + g) ^ sw, m1 = (mt * 16 + g + 8) ^ sw;
             uint32_t ah[4], al[4];
@@ -229,28 +260,28 @@ __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float
         stage_chunk(A, Kd, M, g0, mg, c, ch + 2, ring, rw);
       }
     }
-    mma_store(acc, cor, g0, m16, M, out, ldo, scale, nvalid);
+    mma_store<TW>(acc, cor, g0, m16, M, out, ldo, scale, nvalid);
     if (g0 + MG < M) __syncthreads();  // the next pass restages the ring
   }
 }
 
-// dst[r*ld + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < ET: issued as
-// 16-byte cp.async.cg (L2 only, so memory the same kernel wrote is read
+// dst[r*ld + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < TW: issued
+// as 16-byte cp.async.cg (L2 only, so memory the same kernel wrote is read
 // fresh) when vec (E, e0, src 16-byte aligned), else loaded synchronously
 // through the read-only cache (RO) or L2.  Visible after tiles_ready().
-template <bool RO>
+template <bool RO, int TW = ET>
 __device__ void load_tile_async(const float* __restrict__ src, int rows, int E, int e0, int ne,
                                 float* dst, int ld, bool vec) {
   if (vec) {
-    for (int q = threadIdx.x; q < rows * (ET / 4); q += NT) {
-      const int r = q / (ET / 4), n4 = (q % (ET / 4)) * 4;
+    for (int q = threadIdx.x; q < rows * (TW / 4); q += NT) {
+      const int r = q / (TW / 4), n4 = (q % (TW / 4)) * 4;
       const int nb = 4 * max(0, min(4, ne - n4));
       cp_async16(dst + r * ld + n4, nb ? src + (size_t)r * E + e0 + n4 : src, nb);
     }
     cp_async_commit();
   } else {
-    for (int q = threadIdx.x; q < rows * ET; q += NT) {
-      const int r = q / ET, n = q % ET;
+    for (int q = threadIdx.x; q < rows * TW; q += NT) {
+      const int r = q / TW, n = q % TW;
       const float* s = src + (size_t)r * E + e0 + n;
       dst[r * ld + n] = n < ne ? (RO ? __ldg(s) : __ldcg(s)) : 0.f;
     }
@@ -351,6 +382,85 @@ __device__ void tp_row_bwd(int C, const Meta& m, const int* perm, int r, const f
       for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
       const int c = cb + w8 + 8 * (n >> 3);
       if ((n & 7) == 0 && c < C) denv[j * C + c] += v;
+    }
+  }
+}
+
+// K4's TP row, with env on the edges: T[(c*P + pp)*ldt + n] = sum over the
+// 3j entries of output row r of w * V[i][c][n] * env[j][c][n], the V and
+// env tiles at row stride TW.  T's rows are c-major (the order of the
+// tree's mix leaves and of the invariants), where tp_row_reg's are p-major.
+// Thread t owns the cells (c, n) = (t / TW + (NT / TW) jj, t % TW), a
+// warp's lanes on consecutive words of the tiles; each path's sum stays in
+// registers, one store of T per path and cell.
+template <int TW>
+__device__ void tp_row_reg_edges(int C, const Meta& m, int r, const float* Vs, const float* envs,
+                                 float* T, int ldt) {
+  constexpr int CG = NT / TW;  // channels a sweep of jj covers, per jj
+  const int n = threadIdx.x % TW, c0 = threadIdx.x / TW;
+  const int P = m.rowP[r], end = m.rowstart[r + 1];
+  for (int cb = 0; cb < C; cb += 4 * CG) {
+    int e = m.rowstart[r];
+    for (int pp = 0; pp < P; ++pp) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      for (; e < end && (m.ent[e] & 255) == pp; ++e) {
+        const int code = m.ent[e];
+        const int i = (code >> 8) & 255, j = code >> 16;
+        const float w = m.w[e];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int c = cb + c0 + CG * jj;
+          if (c < C)
+            a[jj] = fmaf(w * envs[(j * C + c) * TW + n], Vs[(i * C + c) * TW + n], a[jj]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = cb + c0 + CG * jj;
+        if (c < C) T[(c * P + pp) * ldt + n] = a[jj];
+      }
+    }
+  }
+}
+
+// K4's TP backward of output row r from its cotangent dT (C*P rows,
+// c-major, stride ldt), env on the edges: dV[i][c][n] += w dT[p][c][n] env[j][c][n] and
+// denv[j][c][n] += w dT[p][c][n] V[i][c][n], every tile at row stride TW.
+// The cells are thread-owned as in tp_row_reg_edges, in every row, so no
+// atomics and no barrier between rows; each run of equal j (perm, from
+// build_jperm) sums its denv share in registers and adds it once per cell.
+template <int TW>
+__device__ void tp_row_bwd_edges(int C, const Meta& m, const int* perm, int r, const float* dT,
+                                 int ldt, const float* Vs, const float* envs, float* dVs,
+                                 float* denvs) {
+  constexpr int CG = NT / TW;
+  const int n = threadIdx.x % TW, c0 = threadIdx.x / TW;
+  const int P = m.rowP[r], end = m.rowstart[r + 1];
+  for (int cb = 0; cb < C; cb += 4 * CG) {
+    int e = m.rowstart[r];
+    while (e < end) {
+      const int j = m.ent[perm[e]] >> 16;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      for (; e < end && (m.ent[perm[e]] >> 16) == j; ++e) {
+        const int q = perm[e], code = m.ent[q];
+        const int pp = code & 255, i = (code >> 8) & 255;
+        const float w = m.w[q];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int c = cb + c0 + CG * jj;
+          if (c < C) {
+            const float gg = w * dT[(c * P + pp) * ldt + n];
+            float* dv = dVs + (i * C + c) * TW + n;
+            *dv = fmaf(gg, envs[(j * C + c) * TW + n], *dv);
+            s[jj] = fmaf(gg, Vs[(i * C + c) * TW + n], s[jj]);
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = cb + c0 + CG * jj;
+        if (c < C) denvs[(j * C + c) * TW + n] += s[jj];
+      }
     }
   }
 }

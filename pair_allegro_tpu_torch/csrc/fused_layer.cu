@@ -48,10 +48,10 @@
 //    sit in shared memory;
 //  * the tiles come in by 16-byte cp.async; the forward's layout fits two
 //    blocks on an SM at the flagship widths.
-// The Meta table is in allegro_tiles.cuh, shared with K2 (env_layer.cu) and
-// K4; the products, the staging and the TP are in allegro_mma.cuh, the
-// kernel body in allegro_layer.cuh, shared with K6, K7
-// (embed_readout_layer.cu) and K8 (fused_stack.cu).
+// The Meta table is in allegro_tiles.cuh; the products, the staging and the
+// TP are in allegro_mma.cuh, both shared with K2 (env_layer.cu) and K4
+// (tp_mix_fused.cu); the kernel body is in allegro_layer.cuh, shared with
+// K6, K7 (embed_readout_layer.cu) and K8 (fused_stack.cu).
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/fused_layer.py).
 

@@ -30,12 +30,21 @@ import torch
 
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.fused_layer import (
+    _MAX_D,
+    _MAX_ENT,
     _META_DTYPE,
     ET,
-    LD,
+    LDS_MIN,
+    LDS_WIDE,
+    LDV,
     META_WORDS,
     NT,
+    RING_BWD,
+    RING_FWD,
+    RING_MIN,
+    SHARE2,
     SMEM_MAX,
+    _ceil4,
     _meta_table,
     _row_tables,
     _to_pmajor,
@@ -47,16 +56,45 @@ from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 launches = LaunchCounts()
 
 
+def widths_ok(c: int, cout: int, d: int) -> bool:
+    """The refusal conditions of ``k2_layout`` (csrc/env_layer.cu) on the
+    widths: D, the TP's cells (C divides the block's threads, at most ET of
+    them per channel) and 16-byte weight rows."""
+    return 1 <= d <= _MAX_D and not (NT % c or NT // c > ET or c % 4 or cout % 4)
+
+
+def block_layout(c: int, cout: int, d: int, lmax: int, parity: bool,
+                 bwd: bool) -> tuple[int, int, int]:
+    """(bytes, tile stride, ring words) of the shared memory ``k2_layout``
+    (csrc/env_layer.cu) gives one block, a transcription of its sum: the
+    tables, env (and denv), the V (and dV) tiles at LDV, the weight ring
+    and a region of product tiles at the stride (the larger of env's wz and
+    Y scratch and one row's T, or dT and dV'), each region rounded up to 16
+    bytes.  The first that fits of the stride LDS_WIDE, then LDS_MIN, each
+    with the ring (its cap or what is left, not below RING_MIN), in half an
+    SM (SHARE2), then in SMEM_MAX; else LDS_MIN without the ring, and where
+    that does not fit either, its bytes (above SMEM_MAX)."""
+    maxpc = max(num_paths_per_l(lmax, lmax, lmax, parity)) * c
+    fixed = sum(_ceil4(w) for w in (META_WORDS, _MAX_ENT if bwd else 0, d * c,
+                                    d * c if bwd else 0, d * c * LDV,
+                                    d * c * LDV if bwd else 0))
+    rows = max(maxpc + cout if bwd else maxpc, c + d)
+    for budget in (SHARE2, SMEM_MAX):
+        for lds in (LDS_WIDE, LDS_MIN):
+            left = (budget // 4 - fixed - rows * lds) // 8 * 8
+            if left >= RING_MIN:
+                ring = min(RING_BWD if bwd else RING_FWD, left)
+                return 4 * (fixed + ring + rows * lds), lds, ring
+    return 4 * (fixed + rows * LDS_MIN), LDS_MIN, 0
+
+
 def kernel_takes(c: int, cout: int, d: int, lmax: int, parity: bool) -> bool:
     """Whether ``k2_launch`` (csrc/env_layer.cu) takes these widths,
-    forward and backward: its refusal conditions and its shared-memory sum
-    (the backward's is the larger), mirrored here so that a caller decides
-    before any launch."""
-    maxpc = max(num_paths_per_l(lmax, lmax, lmax, parity)) * c
-    if not table_fits(lmax, parity) or NT % c or NT // c > ET or c % 4 or cout % 4:
-        return False
-    words = META_WORDS + 2 * d * c + 2 * d * c * LD + maxpc * LD + cout * LD + d * LD + c * LD
-    return words * 4 <= SMEM_MAX
+    forward and backward: its refusal conditions, the 3j table the wrapper
+    builds and its shared-memory sum (``block_layout``), mirrored here so
+    that a caller decides before any launch."""
+    return table_fits(lmax, parity) and widths_ok(c, cout, d) and all(
+        block_layout(c, cout, d, lmax, parity, bwd)[0] <= SMEM_MAX for bwd in (False, True))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -160,18 +198,25 @@ def _bind(lib):
         ctypes.c_float, ctypes.c_void_p,
     ]
     lib.k2_launch.restype = ctypes.c_int
+    lib.k2_layout_bytes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.k2_layout_bytes.restype = ctypes.c_int
     if lib.k2_meta_words() * 4 != _META_DTYPE.itemsize:
         raise RuntimeError("kernel table layout differs from the wrapper's")
 
 
-LIB = CudaLibrary("k2_env_layer", [CSRC / "env_layer.cu", CSRC / "allegro_tiles.cuh"], _bind)
+LIB = CudaLibrary("k2_env_layer", [CSRC / "env_layer.cu", CSRC / "allegro_mma.cuh",
+                                   CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"], _bind)
+
+
+def _dims(w: K2Weights, d: int, c: int, K: int, e: int):
+    P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
+    return (ctypes.c_int * 7)(c, w.cout, d, K, e, max(P) * c, P[0])
 
 
 def _launch(bwd: bool, w: K2Weights, Vt, K: int, inv_avg: float, ptrs):
     lib = LIB.load()
     d, c, e = Vt.shape
-    P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
-    dims = (ctypes.c_int * 7)(c, w.cout, d, K, e, max(P) * c, P[0])
+    dims = _dims(w, d, c, K, e)
     arr = (ctypes.c_ulonglong * 13)(*ptrs)
     with torch.cuda.device(Vt.device):
         stream = torch.cuda.current_stream(Vt.device).cuda_stream

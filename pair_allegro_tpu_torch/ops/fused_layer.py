@@ -56,14 +56,14 @@ _META_DTYPE = np.dtype(
 launches = LaunchCounts()
 
 # the launchers' constants (csrc/allegro_tiles.cuh): threads per block, the
-# edge tile and the shared row stride of K2's and K4's tiles, the shared
-# memory a block may use
-NT, ET, LD, SMEM_MAX = 256, 32, 33, 232448
+# edge tile, the shared memory a block may use, and what it may use where
+# two blocks share an H100 SM (233,472 bytes an SM, 1 KB reserved per block)
+NT, ET, SMEM_MAX, SHARE2 = 256, 32, 232448, 233472 // 2 - 1024
 META_WORDS = _META_DTYPE.itemsize // 4
-# the layer body's (csrc/allegro_mma.cuh, csrc/allegro_layer.cuh): the row
-# stride of its product tiles (LDS_WIDE, or LDS_MIN where the tiles need it)
-# and of its V tiles, the weight ring's most words forward and backward and
-# its least, STACK's slot for its layer's parameters
+# the tensor-core kernels' (csrc/allegro_mma.cuh: the layer body, K2, K4):
+# the row stride of their product tiles (LDS_WIDE, or LDS_MIN where the
+# tiles need it) and of their V tiles, the weight ring's most words forward
+# and backward and its least; STACK's slot for its layer's parameters
 LDS_WIDE, LDS_MIN, LDV = 40, 32, 32
 RING_FWD, RING_BWD, RING_MIN, P_WORDS = 4096, 8192, 2 * 8 * (128 + 8), 128
 # words of struct MlpTab: n, maxw, dim[MAX_LAT + 1], off[MAX_LAT],
@@ -73,6 +73,16 @@ MT_WORDS = 2 + (_MAX_LAT + 1) + 2 * _MAX_LAT
 
 def _ceil4(n: int) -> int:
     return -(-n // 4) * 4
+
+
+def ring_holds(kd: int, m: int, ring: int) -> bool:
+    """``ring_holds`` (csrc/allegro_mma.cuh): a product's A (kd, m) stays
+    whole in a ring of ``ring`` words (one pass of at most 128 output rows,
+    at most two chunks), so the next row of the same l3 skips its staging."""
+    if ring <= 0 or m > 128:
+        return False
+    sa = m if m % 32 == 0 else -(-m // 16) * 16 + 8
+    return -(-kd // ((ring // 2 // sa) // 8 * 8)) <= 2
 
 
 def table_fits(lmax: int, parity: bool) -> bool:

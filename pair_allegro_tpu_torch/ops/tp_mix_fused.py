@@ -32,9 +32,16 @@ from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.env_layer import mix_leaves
 from pair_allegro_tpu_torch.ops.fused_layer import (
     _MAX_D,
+    _MAX_ENT,
     _META_DTYPE,
+    LDS_WIDE,
     META_WORDS,
+    RING_BWD,
+    RING_FWD,
+    RING_MIN,
+    SHARE2,
     SMEM_MAX,
+    _ceil4,
     _meta_table,
     table_fits,
 )
@@ -130,27 +137,71 @@ def _bind(lib):
         ctypes.c_void_p,
     ]
     lib.k4_launch.restype = ctypes.c_int
+    for name in ("k4_layout_bytes", "k4_ring_words"):
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        getattr(lib, name).restype = ctypes.c_int
     if lib.k4_meta_words() * 4 != _META_DTYPE.itemsize:
         raise RuntimeError("kernel table layout differs from the wrapper's")
 
 
-LIB = CudaLibrary("k4_tp_mix_fused", [CSRC / "tp_mix_fused.cu", CSRC / "allegro_tiles.cuh"], _bind)
+LIB = CudaLibrary("k4_tp_mix_fused", [CSRC / "tp_mix_fused.cu", CSRC / "allegro_mma.cuh",
+                                       CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"], _bind)
 
 _CODES = {-1: "D above 16", -3: "no edges", -4: "C and Cout must be multiples of 4",
           -6: "the block's shared memory exceeds 227 KB even at 8 edges per tile"}
+TILES = (32, 16, 8)
+
+
+def product_stride(tw: int) -> int:
+    """The row stride of the T and dV' tiles at edge tile tw (``ps_of`` in
+    csrc/allegro_mma.cuh)."""
+    return {32: LDS_WIDE, 16: 24, 8: 8}[tw]
+
+
+def _layout(c, cout, d, maxpc, bwd, tw, budget, ring):
+    """``layout`` (csrc/tp_mix_fused.cu): (bytes, ring words) of one block
+    at edge tile tw, or None where it does not fit ``budget`` bytes."""
+    ps = product_stride(tw)
+    fixed = sum(_ceil4(w) for w in (META_WORDS, _MAX_ENT if bwd else 0, d * c * tw, d * c * tw,
+                                    d * c * tw if bwd else 0, d * c * tw if bwd else 0,
+                                    maxpc * ps, cout * ps if bwd else 0))
+    left = (budget // 4 - fixed) // 8 * 8
+    if ring:
+        if left < RING_MIN:
+            return None
+        words = min(RING_BWD if bwd else RING_FWD, left)
+        return 4 * (fixed + words), words
+    return (4 * fixed, 0) if left >= 0 else None
+
+
+def block_layout(c: int, cout: int, d: int, lmax: int, parity: bool,
+                 bwd: bool) -> tuple[int, int, int] | None:
+    """(bytes, edge tile, ring words) of the block ``k4_launch``
+    (csrc/tp_mix_fused.cu) launches, a transcription of its ``pick_tile``:
+    the tables, the V and env tiles (and dV, denv) at row stride tw, T (and
+    dV') at ``product_stride``, each region rounded up to 16 bytes, then the
+    ring (its cap or what is left, not below RING_MIN).  The widest tile
+    whose block with the ring lets two blocks share an SM, else the widest
+    that fits with the ring, else 8 edges without it; None where nothing
+    fits."""
+    maxpc = max(num_paths_per_l(lmax, lmax, lmax, parity)) * c
+    for budget in (SHARE2, SMEM_MAX):
+        for tw in TILES:
+            plan = _layout(c, cout, d, maxpc, bwd, tw, budget, True)
+            if plan:
+                return plan[0], tw, plan[1]
+    plan = _layout(c, cout, d, maxpc, bwd, 8, SMEM_MAX, False)
+    return plan and (plan[0], 8, 0)
 
 
 def kernel_takes(c: int, cout: int, d: int, lmax: int, parity: bool) -> bool:
     """Whether ``k4_launch`` (csrc/tp_mix_fused.cu) takes these widths,
     forward and backward: its refusals (``_CODES``), the 3j table the
-    wrapper builds, and the shared memory of its narrowest edge tile (8),
-    mirrored here so that a caller decides before any launch."""
+    wrapper builds, and a block that fits (``block_layout``), mirrored here
+    so that a caller decides before any launch."""
     if d > _MAX_D or not table_fits(lmax, parity) or c < 4 or c % 4 or cout < 4 or cout % 4:
         return False
-    maxpc = max(num_paths_per_l(lmax, lmax, lmax, parity)) * c
-    tld = 8 + 1
-    return all(4 * (META_WORDS + d * c * tld * (4 if bwd else 2) + maxpc * tld
-                    + (cout * tld if bwd else 0)) <= SMEM_MAX for bwd in (False, True))
+    return all(block_layout(c, cout, d, lmax, parity, bwd) for bwd in (False, True))
 
 
 def _dims(w: K4Weights, Vt):

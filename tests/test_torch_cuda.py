@@ -542,6 +542,88 @@ def test_k4_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert k4.launches.fwd == f0
 
 
+# K2 at the margins of its layouts (c, cout, k, l_max, parity): K not a
+# multiple of 32 nor of 4 (the tiles then load without cp.async), the
+# narrowest C, the widest C at l_max 0 and 2, and the widths whose backward
+# takes the tile stride 32 with the ring in the whole shared memory (C =
+# 128, l_max 1) and without it (Cout = 256); the flagship widths' backward
+# (stride 32, two blocks an SM) is in the legs above
+K2_MARGINS = [(8, 8, 50, 2, True), (8, 12, 7, 1, False), (64, 64, 33, 2, True),
+              (256, 256, 8, 0, True), (128, 132, 40, 1, False), (64, 256, 16, 2, True)]
+
+
+@pytest.mark.parametrize("c,cout,k,lmax,parity", K2_MARGINS)
+def test_k2_matches_plain_margin_widths(cuda, c, cout, k, lmax, parity):
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+
+    mod, w, ins, fn, _ = _env_case(cuda, "paths", c, k, 3, lmax, parity, 8, cout=cout)
+    assert k2.kernel_takes(c, cout, (lmax + 1) ** 2, lmax, parity)
+    _env_compare(mod, w, ins, fn, k, "paths")
+
+
+def test_k2_dead_v_cotangent_at_the_narrow_stride(cuda):
+    """A zero dV' (the dead last layer) read by the stride-32 backward."""
+    mod, w, ins, fn, _ = _env_case(cuda, "paths", 128, 40, 2, 1, False, 9, cout=132)
+    _env_compare(mod, w, ins, fn, 40, "paths", drop_v=True)
+
+
+def test_k2_k4_layouts_mirror_the_launchers(cuda):
+    """Each library's own layout (k2_layout_bytes; k4_layout_bytes, k4_tile,
+    k4_ring_words) against the wrapper's block_layout, which kernel_takes
+    sums: every stride, ring and tile the launchers choose, and the
+    refusals."""
+    import ctypes
+
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    lib2, lib4 = k2.LIB.load(), k4.LIB.load()
+    for c, cout, lmax, parity in [(32, 32, 2, True), (8, 4, 0, True), (128, 132, 1, False),
+                                  (64, 256, 2, True), (128, 128, 2, True), (64, 64, 3, True),
+                                  (152, 152, 2, True), (12, 20, 1, True), (256, 256, 2, True)]:
+        d, P = (lmax + 1) ** 2, num_paths_per_l(lmax, lmax, lmax, parity)
+        for bwd in (False, True):
+            if k2.widths_ok(c, cout, d):
+                want = k2.block_layout(c, cout, d, lmax, parity, bwd)[0]
+                got = lib2.k2_layout_bytes(int(bwd), (ctypes.c_int * 7)(c, cout, d, 8, 64,
+                                                                        max(P) * c, P[0]))
+                assert got == (want if want <= fl.SMEM_MAX else -6), (c, cout, lmax, bwd)
+            dims = (ctypes.c_int * 6)(c, cout, d, 64, max(P) * c, P[0])
+            plan = k4.block_layout(c, cout, d, lmax, parity, bwd)
+            got = (lib4.k4_layout_bytes(int(bwd), dims), lib4.k4_tile(int(bwd), dims),
+                   lib4.k4_ring_words(int(bwd), dims))
+            assert got == (plan or (-6, -6, -6)), (c, cout, lmax, bwd)
+
+
+@pytest.mark.parametrize("c,cout,lmax,parity,e,tiles", [
+    (8, 12, 1, True, 45, (32, 32)), (32, 32, 2, True, 1001, (32, 16)),
+    (48, 24, 2, True, 300, (16, 8)), (96, 32, 2, True, 77, (8, 8))])
+def test_k4_matches_plain_at_every_tile(cuda, c, cout, lmax, parity, e, tiles):
+    """Each edge tile the kernel is built for, forward and backward, reached
+    by widths at which the launcher chooses it, with a tail tile (E no
+    multiple of the tile) and, at E = 45 and 77, tiles that load without
+    cp.async."""
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    w, ins = _k4_case(cuda, c, cout, lmax, parity, e, 11)
+    assert tuple(k4.kernel_tile(w, ins[0], bwd) for bwd in (False, True)) == tiles
+    _k4_compare(w, ins)
+
+
+@pytest.mark.parametrize("c,cout,lmax,parity,e", [(4, 4, 2, True, 37), (152, 152, 2, True, 77),
+                                                  (84, 84, 3, True, 50), (596, 596, 0, True, 40),
+                                                  (168, 168, 2, True, 19)])
+def test_k4_matches_plain_widest_and_narrowest(cuda, c, cout, lmax, parity, e):
+    """The narrowest width and the widest the FFMA K4 took at l_max 0, 2 and
+    3 (8-edge tiles, some without the ring), and C = 168 past it."""
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    assert k4.kernel_takes(c, cout, (lmax + 1) ** 2, lmax, parity)
+    w, ins = _k4_case(cuda, c, cout, lmax, parity, e, 12)
+    _k4_compare(w, ins)
+
+
 def _flat_cfg(species=2, **kw):
     cut = None if species == 1 else ((4.5, 4.2), (4.2, 4.0))
     base = dict(type_names=("Cu", "Ag")[:species], r_max=4.5, l_max=2, num_layers=3,
