@@ -12,7 +12,9 @@ Phases, each of which must pass (any failure exits non-zero):
      forward and backward, for the first / middle / last forms, at flagship
      widths (ns=64, C=32, l_max=2) on a 500-atom FCC Cu neighbor table;
   3. K3 parity: the same for the NequIP convolution at (l_max, tracks) in
-     {1, 2} x {1, 2}, C=64, on the 500-atom table at the engine's K;
+     {1, 2} x {1, 2}, C=64, on the 500-atom table at the engine's K, also
+     within the tight gate (TIGHT_TOLS) that its plain version with the
+     radial MLP in cuBLAS TF32 (one pass) must fail;
      K2 and K5 parity: the same for the per-layer tier's kernels (K5 in its
      three precision modes) at flagship widths, l_max 2 and 1 with parity;
      K2 and K5's three-pass modes also within a tight gate (TIGHT_TOLS)
@@ -29,7 +31,8 @@ Phases, each of which must pass (any failure exits non-zero):
      parity, 3 layers, 64 features, 2x32 radial MLP, NequIPEngine(skin=0.4);
   7. K1 and K3 timings at their main path's shapes (CUDA events, warm),
      beside the plain versions' and the least time the card could take
-     (bound), and kernel parity at those shapes as in phases 2 and 3;
+     (bound), and kernel parity at those shapes as in phases 2 and 3 (K3
+     within the tight gate too);
   8. the per-layer main path (bench.py's kernel-perlayer tier): phase 5's
      run with layer_fused=False (K2); K2 and K5 (each mode) timings and
      parity at its shapes, K2's beside its two bounds and the mix weights
@@ -70,14 +73,16 @@ Phases, each of which must pass (any failure exits non-zero):
      steps: 1 K8 launch per force evaluation each way and no other kernel;
      K8 timings and parity at its shapes;
  15. the accuracy gate of the tiers whose products run on the tensor cores
-     (the K1 tier, PAT_L1_EMBED=1, fused_stack=True, the per-layer tier
-     with tp_mode paths (K2), mxu_highest and mxu_bf16x3 (K5), and the
-     fixture as a slab, pbc (T, T, F), on the dense build (K4)) on
-     benchmarks/accuracy.py's fixture (500 perturbed FCC Cu atoms) at
-     flagship widths: f32 on the card against the port's plain path at f64
-     on the CPU, max|dF| <= 1e-4 eV/A (rms|dF| and dE/atom printed);
-     mxu_bf16 is printed, not gated.
-Phases 7, 8, 10, 12 and 14 print two bounds for K1, K2, K4, K6, K7 and K8:
+     (the K1 tier, PAT_L1_POSITIONAL=0 (k1-nopos), PAT_L1_EMBED=1,
+     fused_stack=True, the per-layer tier with tp_mode paths (K2),
+     mxu_highest and mxu_bf16x3 (K5), the fixture as a slab, pbc (T, T, F),
+     on the dense build (K4), and NequIP (K3) on
+     benchmarks/accuracy.py:_setup_nequip's config of record) on
+     benchmarks/accuracy.py's fixture (500 perturbed FCC Cu atoms), Allegro
+     at flagship widths: f32 on the card against the port's plain path of
+     the same model at f64 on the CPU, max|dF| <= 1e-4 eV/A (rms|dF| and
+     dE/atom printed); mxu_bf16 is printed, not gated.
+Phases 7, 8, 10, 12 and 14 print two bounds for K1, K2, K3, K4, K6, K7 and K8:
 with the products on the tensor cores in 3xTF32 (the kernels'
 ``bound_ms``) and on the CUDA cores alone (``bound_ms_f32``), and the
 bytes of weights the kernel stages from L2 per call as computed from its
@@ -96,9 +101,9 @@ and stack main paths (``--profile perlayer-mxu``: the per-layer path with
 K5).  ``python3 chip_smoke.py --timings body`` runs only phases 7, 12 and
 14's timings of the layer body's kernels (K1, K6, K7, K8), ``--timings
 env`` only phase 8's K2 and K5 timings, ``--timings flat`` only phase 10's
-K4 timings, each at its main paths' shapes (the engines' first neighbor
-build, no MD run): run from two checkouts in one call, it compares two
-builds of those kernels.
+K4 timings, ``--timings nequip`` only phase 7's K3 timings, each at its
+main paths' shapes (the engines' first neighbor build, no MD run): run
+from two checkouts in one call, it compares two builds of those kernels.
 """
 
 from __future__ import annotations
@@ -783,11 +788,13 @@ def k3_operands(cfg, params, system, eng, seed=SEED):
 
 
 def k3_cost(w, e, k, bwd):
-    """(flops, bytes) one K3 call needs at E edge slots, counted from the
-    kernel's code: the radial MLP (recomputed in the backward), the TP
+    """(flops, prod, bytes) one K3 call needs at E edge slots, counted from
+    the kernel's code: the radial MLP (recomputed in the backward), the TP
     entries (4 operations each in the forward, 9 in the backward), the
-    backward's du, dw * u and the product back through the radial MLP; each
-    input read once, each output written once (f32), weights included."""
+    backward's du, dw * u and the product back through the radial MLP; of
+    them ``prod`` the last radial layer's products on the tensor cores
+    (forward X Wlast, backward that again and gs Wlast^T); each input read
+    once, each output written once (f32), weights included."""
     from pair_allegro_tpu_torch.ops.tp import tp_entry_table
 
     dims = w.dims
@@ -796,34 +803,67 @@ def k3_cost(w, e, k, bwd):
     d = (w.lmax + 1) ** 2
     df, tpc, b = d * T * c, dims[-1], dims[0]
     hidden = sum(2 * a * o + 5 * o for a, o in zip(dims[:-2], dims[1:-1]))
-    radial = hidden + 2 * dims[-2] * tpc + tpc
+    last = 2 * dims[-2] * tpc
+    radial = hidden + last + tpc
     if not bwd:
         per = radial + 4 * n_ent * T * c
+        prod = last
         io = (df + b + 1 + d) * e + df * (e // k)
     else:
-        back = 2 * tpc * dims[-2] + sum(2 * a * o + 8 * o for a, o in zip(dims[:-2], dims[1:-1]))
+        back = last + sum(2 * a * o + 8 * o for a, o in zip(dims[:-2], dims[1:-1]))
         per = radial + 9 * n_ent * T * c + 3 * tpc + back
+        prod = 2 * last
         io = 2 * (df + b + 1 + d) * e + df * (e // k)
     n_w = sum(t.numel() for t in w.tensors())
-    return per * e, 4 * (io + n_w)
+    return per * e, prod * e, 4 * (io + n_w)
+
+
+def k3_weight_bytes(w, e, k, bwd):
+    """Bytes of the last radial weight one K3 call brings from L2 into its
+    blocks (csrc/nequip_conv.cu), computed from the launcher's layout
+    (``ops/nequip_conv.block_layout``), not measured: where it is resident,
+    once per block of the persistent grid (132 SMs, blocks an SM as shared
+    memory and the launch bounds allow); else the whole weight for each
+    m16 edge tile and product (forward one, backward two)."""
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
+
+    nbytes, et, resident = k3.block_layout(w.C, w.n_tracks, w.lmax, w.dims, bwd)
+    wbytes = 4 * w.dims[-2] * w.dims[-1]
+    if resident:
+        per_sm = min(233472 // (nbytes + 1024), 1 if bwd or w.lmax == 2 else 2)
+        work = -(-e // et) if bwd else e // k
+        return min(work, 132 * per_sm) * wbytes
+    return e // 16 * wbytes * (2 if bwd else 1)
 
 
 def k3_compare(label, ops, w, k, avg, gen):
     """K3 against its plain version on ``ops``, forward and backward (a
-    random cotangent); returns the max abs errors."""
+    random cotangent), also under ``tight_check`` with the plain version in
+    cuBLAS TF32 (``tf32_control``: the radial MLP's products in one pass)
+    as the control that must fail it; returns the max abs errors."""
     import torch
 
     from pair_allegro_tpu_torch.ops import nequip_conv as k3
 
+    inv_avg = 1.0 / math.sqrt(avg)
     ins = [t.detach().clone().requires_grad_(True) for t in ops]
     out_k = k3.nequip_conv(*ins, w, k, avg)
-    out_r = k3.nequip_conv_reference(*ins, w, k, 1.0 / math.sqrt(avg))
+    out_r = k3.nequip_conv_reference(*ins, w, k, inv_avg)
     cot = torch.randn(out_r.shape, generator=gen, device=out_r.device)
     g_k = torch.autograd.grad(out_k, ins, cot)
     g_r = torch.autograd.grad(out_r, ins, cot)
     torch.cuda.synchronize()
     errs = {"fwd": check("K3", label, "fwd", ("agg",), (out_k,), (out_r,)),
             "bwd": check("K3", label, "bwd", K3_NAMES, g_k, g_r)}
+
+    def plain():
+        xs = [t.detach().clone().requires_grad_(True) for t in ops]
+        out = k3.nequip_conv_reference(*xs, w, k, inv_avg)
+        return (out.detach(),), torch.autograd.grad(out, xs, cot)
+
+    tight_check("K3", label, (("agg",), K3_NAMES), ((out_k.detach(),), g_k),
+                ((out_r.detach(),), g_r),
+                tf32_control(plain))
     del ins, out_k, out_r, g_k, g_r
     torch.cuda.empty_cache()
     return errs
@@ -897,15 +937,14 @@ def k3_timings(cfg, params, system, eng, errs):
     errs = {kind: max(errs[kind], e2[kind]) for kind in errs}
     res = {}
     for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
-        flops, nbytes = k3_cost(w, e, k, kind == "bwd")
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        res[kind] = dict(ms=ms, plain_ms=pms, bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes",
-                         gflop=flops / 1e9, mbytes=nbytes / 1e6)
-        r = res[kind]
-        print(f"K3 {kind} E={e}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}: {r['gflop']:.2f} GFLOP, {r['mbytes']:.1f} MB), "
-              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved")
+        bwd = kind == "bwd"
+        flops, prod, nbytes = k3_cost(w, e, k, bwd)
+        nb, et, resident = k3.block_layout(w.C, w.n_tracks, w.lmax, w.dims, bwd)
+        res[kind] = dict(timing(ms, pms, flops, prod, nbytes, k3_weight_bytes(w, e, k, bwd)),
+                         edge_tile=et, weight_resident=resident, smem_bytes=nb)
+        print_timing(f"K3 {kind} E={e} (edge tile {et}, last radial weight "
+                     f"{'resident' if resident else 'read through the read-only cache'}, {nb} "
+                     f"bytes of shared memory)", res[kind])
     return res, errs
 
 
@@ -1762,56 +1801,71 @@ def accuracy_system(device, dtype, slab=False):
                          pbc=(True, True, False) if slab else None, dtype=dtype, device=device)
 
 
-# the tiers whose products run on the tensor cores: (label, config fields,
-# environment, launches per force evaluation (fwd = bwd), gated, slab); the
-# per-layer tier in mxu_bf16 rounds its operands to bf16 and is printed
-# only; the FLAT slab is the fixture under pbc (T, T, F), on the dense build
+# the tiers whose products run on the tensor cores: (label, model, config
+# fields, environment, launches per force evaluation (fwd = bwd), gated,
+# slab); the per-layer tier in mxu_bf16 rounds its operands to bf16 and is
+# printed only; the FLAT slab is the fixture under pbc (T, T, F), on the
+# dense build; NequIP runs benchmarks/accuracy.py:_setup_nequip's config
+# of record (chip_smoke.nequip_cfg) on the same fixture
 _K5 = {"K5": 3}
-ACCURACY_TIERS = (("K1 tier", {}, {}, {"K1": 3}, True, False),
-                  ("embed path", {}, {"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1}, True,
+ACCURACY_TIERS = (("K1 tier", "allegro", {}, {}, {"K1": 3}, True, False),
+                  ("k1-nopos", "allegro", {}, {"PAT_L1_POSITIONAL": "0"}, {"K1": 3}, True, False),
+                  ("embed path", "allegro", {}, {"PAT_L1_EMBED": "1"},
+                   {"K6": 1, "K1": 1, "K7": 1}, True, False),
+                  ("stack path", "allegro", dict(fused_stack=True), {}, {"K8": 1}, True, False),
+                  ("per-layer paths", "allegro", dict(layer_fused=False), {}, {"K2": 3}, True,
                    False),
-                  ("stack path", dict(fused_stack=True), {}, {"K8": 1}, True, False),
-                  ("per-layer paths", dict(layer_fused=False), {}, {"K2": 3}, True, False),
-                  ("per-layer mxu_highest", dict(layer_fused=False, tp_mode="mxu_highest"), {}, _K5,
-                   True, False),
-                  ("per-layer mxu_bf16x3", dict(layer_fused=False, tp_mode="mxu_bf16x3"), {}, _K5,
-                   True, False),
-                  ("per-layer mxu_bf16", dict(layer_fused=False, tp_mode="mxu_bf16"), {}, _K5,
-                   False, False),
-                  ("FLAT slab", {}, {}, {"K4": 3}, True, True))
+                  ("per-layer mxu_highest", "allegro",
+                   dict(layer_fused=False, tp_mode="mxu_highest"), {}, _K5, True, False),
+                  ("per-layer mxu_bf16x3", "allegro",
+                   dict(layer_fused=False, tp_mode="mxu_bf16x3"), {}, _K5, True, False),
+                  ("per-layer mxu_bf16", "allegro", dict(layer_fused=False, tp_mode="mxu_bf16"),
+                   {}, _K5, False, False),
+                  ("FLAT slab", "allegro", {}, {}, {"K4": 3}, True, True),
+                  ("NequIP (K3)", "nequip", {}, {}, {"K3": 3}, True, False))
+
+
+def _accuracy_engine(model, tier, device, dtype, slab):
+    """(system, engine) of a phase-15 tier on the fixture: the flagship
+    Allegro config with ``tier``'s fields, or NequIP's config of record,
+    weights from SEED."""
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
+    from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy, allegro_params_from_numpy
+    from pair_allegro_tpu_torch.models.nequip import nequip_init_numpy, nequip_params_from_numpy
+
+    system = accuracy_system(device, dtype, slab)
+    if model == "nequip":
+        cfg = nequip_cfg()
+        params = nequip_params_from_numpy(nequip_init_numpy(cfg, SEED), cfg, device=device,
+                                          dtype=dtype)
+        return system, NequIPEngine(cfg, params, system, skin=0.4, device=device)
+    cfg = flagship_cfg(**tier)
+    params = allegro_params_from_numpy(allegro_init_numpy(flagship_cfg(), SEED), cfg,
+                                       device=device, dtype=dtype)
+    return system, AllegroEngine(cfg, params, system, skin=0.4, device=device)
 
 
 def accuracy_phase():
     """Phase 15: the accurate tier's force gate on benchmarks/accuracy.py's
-    fixture at flagship widths: each tier of ACCURACY_TIERS at f32 on the
-    card against the port's plain path at f64 on the CPU (the oracle, which
-    matches JAX to 1e-10 in the CPU tests); max|dF| <= 1e-4 eV/A, with
-    rms|dF| and dE/atom printed; a tier marked not gated is printed only.
-    Returns {label: max|dF|}."""
+    fixture: each tier of ACCURACY_TIERS at f32 on the card against the
+    port's plain path of the same model at f64 on the CPU (the oracle,
+    which matches JAX to 1e-10 in the CPU tests); max|dF| <= 1e-4 eV/A,
+    with rms|dF| and dE/atom printed; a tier marked not gated is printed
+    only.  Returns {label: max|dF|}."""
     import torch
 
-    from pair_allegro_tpu_torch.engine import AllegroEngine
-    from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy, allegro_params_from_numpy
-
     mods = kernel_modules()
-    raw = allegro_init_numpy(flagship_cfg(), SEED)
     refs = {}
-    for slab in (False, True):
-        ref_sys = accuracy_system("cpu", torch.float64, slab)
-        ref_eng = AllegroEngine(flagship_cfg(), allegro_params_from_numpy(
-            raw, flagship_cfg(), device="cpu", dtype=torch.float64), ref_sys, skin=0.4,
-            device="cpu")
+    for model, slab in (("allegro", False), ("allegro", True), ("nequip", False)):
+        ref_sys, ref_eng = _accuracy_engine(model, {}, "cpu", torch.float64, slab)
         ref = ref_eng.force_fn(ref_sys, ref_eng.rebuild_fn(ref_sys, None))
-        refs[slab] = ref.forces.double(), float(ref.total_energy), ref_eng.spec.strategy
+        refs[model, slab] = ref.forces.double(), float(ref.total_energy), ref_eng.spec.strategy
     n = ref_sys.n_atoms
     worst = {}
-    for label, tier, env, want, gated, slab in ACCURACY_TIERS:
-        f_ref, e_ref, strategy = refs[slab]
+    for label, model, tier, env, want, gated, slab in ACCURACY_TIERS:
+        f_ref, e_ref, strategy = refs[model, slab]
         with env_vars(env):
-            cfg = flagship_cfg(**tier)
-            system = accuracy_system("cuda", torch.float32, slab)
-            eng = AllegroEngine(cfg, allegro_params_from_numpy(raw, cfg, device="cuda"), system,
-                                skin=0.4)
+            system, eng = _accuracy_engine(model, tier, "cuda", torch.float32, slab)
             if eng.spec.strategy != strategy or (slab and strategy != "dense"):
                 raise RuntimeError(f"accuracy {label}: the {eng.spec.strategy} strategy on the "
                                    f"card, {strategy} on the CPU")
@@ -1955,14 +2009,15 @@ def _profile_steps(model, n_steps):
     return 0
 
 
-TIMINGS = {"body": ("K1", "K6", "K8"), "env": ("K2", "K5"), "flat": ("K4",)}
+TIMINGS = {"body": ("K1", "K6", "K8"), "env": ("K2", "K5"), "flat": ("K4",), "nequip": ("K3",)}
 
 
 def timings(which):
     """``--timings body``: K1, K6 / K7 and K8 timed (and held against their
     plain versions) at the allegro, embed and stack main paths' shapes;
     ``--timings env``: K2 and K5 (phase 8) at the per-layer path's;
-    ``--timings flat``: K4 (phase 10) at the FLAT slab's."""
+    ``--timings flat``: K4 (phase 10) at the FLAT slab's; ``--timings
+    nequip``: K3 (phase 7) at the NequIP path's."""
     import torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1975,7 +2030,8 @@ def timings(which):
     for lib in libs:
         lib.load()
     zero = {"fwd": 0.0, "bwd": 0.0}
-    paths = {"body": ("allegro", "embed", "stack"), "env": ("perlayer",), "flat": ("flat",)}
+    paths = {"body": ("allegro", "embed", "stack"), "env": ("perlayer",), "flat": ("flat",),
+             "nequip": ("nequip",)}
     for path in paths[which]:
         with env_vars(PATHS[path][5]):
             cfg, params, system, eng = build_path(path)
@@ -1987,6 +2043,8 @@ def timings(which):
                 stack_timings(cfg, params, system, eng, dict(zero))
             elif path == "flat":
                 k4_timings(cfg, params, system, eng, dict(zero))
+            elif path == "nequip":
+                k3_timings(cfg, params, system, eng, dict(zero))
             else:
                 env_timings(cfg, params, system, eng, {m: dict(zero) for m in ENV_MODES})
         del cfg, params, system, eng
@@ -2016,7 +2074,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--timings"]:
         which = sys.argv[2] if len(sys.argv) > 2 else ""
         if which not in TIMINGS:
-            raise SystemExit(f"--timings takes body, env or flat, not {which!r}")
+            raise SystemExit(f"--timings takes body, env, flat or nequip, not {which!r}")
         return timings(which)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2114,6 +2172,7 @@ def main() -> int:
             f"k3_nequip_conv_{kind}", "pair_allegro_tpu_torch/csrc/nequip_conv.cu",
             f"pair_allegro_tpu/ops/pallas_nequip.py:{line}", counts3, kind, errs3[kind],
             times3[kind], per="call", calls_per_force_evaluation=ncfg.num_layers,
+            edge_tile=times3[kind]["edge_tile"], weight_resident=times3[kind]["weight_resident"],
         ))
     for kind, line in (("fwd", 803), ("bwd", 823)):
         # one call (one layer); num_layers calls per force evaluation

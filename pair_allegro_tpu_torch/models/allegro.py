@@ -28,9 +28,10 @@ on both edge layouts, in the tiers the JAX model chooses (``layer_tier``):
   per center (``segment_sum`` on FLAT), handed back to the edges and K4
   (ops/tp_mix_fused.py) for TP + mix (JAX ``layer_fn_t``);
 * ``fused_tp=False`` (``for_training()``), ``capture``, widths no kernel
-  of the route takes, or on the card any dtype but f32: the plain
-  channels-last path on either layout (JAX ``layer_fn``), no kernel; the
-  only tier whose weight gradients are finite.
+  of the route takes, on the card any dtype but f32, or the per-layer
+  rounding modes (``mxu_bf16``, ``mxu_bf16x3``) at any dtype but f32: the
+  plain channels-last path on either layout (JAX ``layer_fn``), no kernel;
+  the only tier whose weight gradients are finite.
 
 Per ordered edge (i, j): two-body x0 = MLP2b([onehot(t_i); onehot(t_j);
 Bessel(r)]) * u, pT = W_embed^T x0 / sqrt(ns), V0 = pT * Y; the layers; then
@@ -71,13 +72,16 @@ from pair_allegro_tpu_torch.ops.tp_mix_fused import k4_weights, tp_mix_fused_t
 from pair_allegro_tpu_torch.ops.tp_mix_fused import kernel_takes as k4_takes
 
 TP_MODES = ("paths", *MODES)
+ROUNDING_MODES = ("mxu_bf16x3", "mxu_bf16")  # the per-layer modes that round at f32
+INTERIORS = ("working", "bf16")
 
 
 @dataclasses.dataclass(frozen=True)
 class AllegroConfig:
     """Hyperparameters, with the field names and defaults of the JAX
-    package's ``AllegroConfig`` (its ``interior`` dtype switch is not
-    carried)."""
+    package's ``AllegroConfig``, so that the config dict a JAX checkpoint
+    carries builds this one.  ``interior`` is carried at its default
+    "working" only (``check_supported``)."""
 
     type_names: tuple[str, ...]
     r_max: float
@@ -96,6 +100,9 @@ class AllegroConfig:
     avg_num_neighbors: float = 1.0
     # "auto" and False keep no per-layer recompute; True is not ported
     remat: bool | str = "auto"
+    # interior compute dtype of the layer stack: "working" (the positions'
+    # dtype) is ported; "bf16" is not
+    interior: str = "working"
     # the kernel tiers (weight cotangents NaN); False runs the plain path
     fused_tp: bool = True
     # True: the whole layer stack in one kernel (K8) on the TABLE layout;
@@ -248,7 +255,15 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torc
     'k1-embed' with ``PAT_L1_EMBED=1`` and at least 2 layers, else 'k1'.
     Where K6 or K7 cannot hold widths that K1 takes
     (``embed_readout_viable``), 'k1-embed' falls back to 'k1', the same
-    function (the reference's TPU blocks have no such limit)."""
+    function (the reference's TPU blocks have no such limit).
+
+    The rounding modes ``tp_mode="mxu_bf16"`` / ``"mxu_bf16x3"`` act only
+    at f32: at any other dtype the reference never takes its env-fused
+    tier, so it runs its exact plain layer function (``layer_fn``), and a
+    per-layer call in those modes routes to 'plain' on the CPU too.  The
+    exact per-layer modes (``paths``, ``mxu_highest``) keep 'perlayer' on
+    the CPU at any dtype: their kernels' plain versions are exact, and
+    they are what the f64 tests hold to JAX."""
     if capture or (card and dtype != torch.float32):
         return "plain"
     if not flat and cfg.fused_stack is True and stack_viable(cfg):
@@ -257,6 +272,8 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torc
         return "plain"
     if flat or not env_fused_viable(cfg):
         return "k4" if k4_viable(cfg) else "plain"
+    if cfg.tier == "perlayer" and cfg.tp_mode in ROUNDING_MODES and dtype != torch.float32:
+        return "plain"
     if cfg.tier != "k1":
         return cfg.tier
     if os.environ.get("PAT_L1_POSITIONAL", "1") == "0":
@@ -269,7 +286,11 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torc
 
 def check_supported(cfg: AllegroConfig) -> None:
     if cfg.remat is True:
-        raise NotImplementedError("remat=True is not ported: ROADMAP queue 1, item 3")
+        raise NotImplementedError("remat=True is not ported: ROADMAP queue 1, item 2")
+    if cfg.interior not in INTERIORS:
+        raise ValueError(f"interior {cfg.interior!r} is not one of {INTERIORS}")
+    if cfg.interior == "bf16":
+        raise NotImplementedError("interior='bf16' is not ported: ROADMAP queue 1, item 11")
     if cfg.tp_mode not in TP_MODES:
         raise ValueError(f"tp_mode {cfg.tp_mode!r} is not one of {TP_MODES}")
 

@@ -141,7 +141,8 @@ def _check_supported(cfg: NequIPConfig) -> None:
     if cfg.l_max not in (1, 2):
         raise NotImplementedError(f"l_max={cfg.l_max}: the port runs NequIP at l_max 1 and 2")
     if cfg.remat is True:
-        raise NotImplementedError("remat=True is not ported (use 'auto' or False)")
+        raise NotImplementedError("remat=True is not ported (use 'auto' or False): "
+                                  "ROADMAP queue 1, item 2")
 
 
 def nequip_init_numpy(cfg: NequIPConfig, seed: int = 0) -> dict:

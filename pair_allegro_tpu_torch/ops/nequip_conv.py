@@ -38,7 +38,11 @@ from pair_allegro_tpu_torch.ops.tp import tp_entry_table, tp_num_paths
 
 HEADER = CSRC / "nequip_tp_table.cuh"
 _MAX_W = 8  # radial MLP weight matrices the kernel takes (K3P::wdim in the source)
-NT_MAX, SMEM_MAX = 256, 232448  # the launcher's threads per block and shared-memory limit
+# the launcher's threads per block and shared-memory limit, and the edge
+# tiles it tries, widest first (csrc/nequip_conv.cu: NT, SMEM_MAX, ET_FWD,
+# ET_BWD)
+NT, SMEM_MAX = 256, 232448
+ET_FWD, ET_BWD = (64, 32, 16, 8), (128, 64, 32, 16, 8)
 
 launches = LaunchCounts()
 
@@ -49,12 +53,12 @@ class K3Weights:
     :func:`prepare_radial` at every call of the model: ``ws`` [(in, out), ...]
     with the last weight's columns channels-last ((tau*P + p)*C + c), the
     tensors autograd sees; ``flat`` all of them concatenated row-major and
-    ``lastT`` the last weight transposed (for the backward), detached copies
-    that only the kernel reads."""
+    ``last`` the last one 16-byte aligned (the kernel stages it with
+    cp.async), detached copies that only the kernel reads."""
 
     ws: tuple
     flat: torch.Tensor
-    lastT: torch.Tensor
+    last: torch.Tensor
     C: int
     n_tracks: int
     lmax: int
@@ -67,40 +71,67 @@ class K3Weights:
         return self.ws
 
 
+def widths_ok(C: int, dims) -> bool:
+    """The wrapper's and the launcher's width conditions: C in 4, 8, 16 or a
+    multiple of 32 up to 128, and a last radial input width that is a
+    multiple of 4."""
+    return ((C % 32 == 0 and C <= 128) or C in (4, 8, 16)) and dims[-2] % 4 == 0
+
+
+def _r8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def block_layout(C: int, n_tracks: int, lmax: int, dims, bwd: bool):
+    """The launcher's pick (``k3_plan`` in csrc/nequip_conv.cu): the widest
+    edge tile of ET_FWD / ET_BWD whose block fits SMEM_MAX with the last
+    radial weight resident in shared memory, else the widest without it.
+    Returns (bytes, edge tile, resident), or None where nothing fits.  The
+    block holds, in 16-byte aligned regions of floats: the weight (r8(hin)
+    rows at a row stride of 8 mod 32), the bessel tile, the activation
+    tiles xa and xb (forward: xa with a hidden layer, xb with two;
+    backward: xa always, xb with a hidden layer), the backward's
+    pre-activations, Y, u, and the forward's channel sums per edge group;
+    the tiles feature-major at row stride et + 8 (8 at et = 8)."""
+    d = (lmax + 1) ** 2
+    tpc = n_tracks * tp_num_paths(lmax) * C
+    nw, hin = len(dims) - 1, dims[-2]
+    hmax8 = _r8(max(dims[:-1]))
+    sa = (tpc + 23) // 32 * 32 + 8
+    wo = min(-(-C // 8), NT // 32)
+    we = NT // 32 // wo
+    for resident in (True, False):
+        for et in ET_BWD if bwd else ET_FWD:
+            ldx = et + 8 if et > 8 else 8
+            regions = (
+                _r8(hin) * sa if resident else 0,
+                _r8(dims[0]) * ldx,
+                hmax8 * ldx if bwd or nw > 1 else 0,
+                hmax8 * ldx if nw > 2 or (bwd and nw > 1) else 0,
+                (nw - 1) * hmax8 * ldx if bwd else 0,
+                et * d,
+                et,
+                0 if bwd else we * d * n_tracks * C,
+            )
+            nbytes = 4 * sum(-(-r // 4) * 4 for r in regions)
+            if nbytes <= SMEM_MAX:
+                return nbytes, et, resident
+    return None
+
+
 def kernel_takes(C: int, n_tracks: int, lmax: int, dims) -> bool:
     """Whether K3 takes a layer of C channels, ``n_tracks`` tracks and a
     radial MLP of widths ``dims`` (Bessels, hidden..., T*P*C), forward and
-    backward: the wrapper's channel and width conditions, ``k3_launch``'s
-    refusals (csrc/nequip_conv.cu) and its shared-memory sum, mirrored here
-    so that a caller decides before any launch."""
+    backward: the wrapper's channel and width conditions (``widths_ok``),
+    ``k3_plan``'s refusals (csrc/nequip_conv.cu) and its layouts
+    (``block_layout``), mirrored here so that a caller decides before any
+    launch."""
     nw = len(dims) - 1
     if lmax not in (1, 2) or n_tracks not in (1, 2) or not 1 <= nw <= _MAX_W or min(dims) < 1:
         return False
-    if not ((C % 32 == 0 and C <= 128) or C in (4, 8, 16)) or dims[-2] % 4:
+    if not widths_ok(C, dims) or dims[-1] != n_tracks * tp_num_paths(lmax) * C:
         return False
-    tp = n_tracks * tp_num_paths(lmax)
-    if dims[-1] != tp * C:
-        return False
-    d = (lmax + 1) ** 2
-    q = NT_MAX // C
-    et = q * (4 if tp <= 16 else 2)  # edges per tile: Q * NE
-    hin, hmax = dims[-2], max(dims[:-1])
-
-    def words(n):  # the launcher's 16-byte aligned regions
-        return -(-n // 4) * 4
-
-    for bwd in (False, True):
-        total = words(et * dims[0]) + 2 * words(et * hmax) + words(et * d) + words(et)
-        if bwd:
-            nb = (et // 4) * (hin // 4)
-            nch = 1 if nb >= NT_MAX else NT_MAX // nb
-            total += (words((nw - 1) * et * hmax) + words(et * (tp * C + 4)) + words(et * d)
-                      + words(et) + words(nch * et * hin))
-        else:
-            total += words(q * d * n_tracks * C)
-        if 4 * total > SMEM_MAX:
-            return False
-    return True
+    return all(block_layout(C, n_tracks, lmax, dims, bwd) for bwd in (False, True))
 
 
 def radial_cl(ws, C: int, p_total: int, n_tracks: int) -> list:
@@ -122,10 +153,11 @@ def prepare_radial(ws_cl, C: int, n_tracks: int, lmax: int) -> K3Weights:
     if ws_cl[-1].shape[1] != want:
         raise ValueError(f"radial MLP output {ws_cl[-1].shape[1]} != T*P*C = {want}")
     ws = tuple(w.contiguous() for w in ws_cl)
+    last = ws[-1].detach()
     return K3Weights(
         ws=ws,
         flat=torch.cat([w.detach().reshape(-1) for w in ws]),
-        lastT=ws[-1].detach().T.contiguous(),
+        last=last if last.data_ptr() % 16 == 0 else last.clone(),
         C=C,
         n_tracks=n_tracks,
         lmax=lmax,
@@ -218,18 +250,27 @@ def _bind(lib):
     lib.k3_launch.restype = ctypes.c_int
     lib.k3_max_weights.argtypes = []
     lib.k3_max_weights.restype = ctypes.c_int
+    lib.k3_layout_of.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    lib.k3_layout_of.restype = ctypes.c_int
     if lib.k3_max_weights() != _MAX_W:
         raise RuntimeError("kernel weight table size differs from the wrapper's")
 
 
-LIB = CudaLibrary("k3_nequip_conv", [CSRC / "nequip_conv.cu", HEADER], _bind)
+LIB = CudaLibrary("k3_nequip_conv", [CSRC / "nequip_conv.cu", HEADER, CSRC / "mma_ptx.cuh"],
+                  _bind)
+
+
+def launch_dims(w: K3Weights, K: int, E: int):
+    """The ``dims`` array of ``k3_launch`` / ``k3_layout_of``."""
+    dims = w.dims
+    return (ctypes.c_int * (4 + _MAX_W + 1))(w.C, K, E, len(w.ws), *dims,
+                                             *([0] * (_MAX_W + 1 - len(dims))))
 
 
 def _launch(bwd: bool, w: K3Weights, K: int, E: int, inv_avg: float, ptrs, device):
     lib = LIB.load()
-    dims = w.dims
-    dm = (ctypes.c_int * (4 + _MAX_W + 1))(w.C, K, E, len(w.ws), *dims,
-                                           *([0] * (_MAX_W + 1 - len(dims))))
+    dm = launch_dims(w, K, E)
     arr = (ctypes.c_ulonglong * 12)(*ptrs)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -247,7 +288,7 @@ def _kernel_fwd(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float):
     e, df = hj.shape
     agg = torch.empty((e // K, df), dtype=hj.dtype, device=hj.device)
     ptrs = [hj.data_ptr(), bessel.data_ptr(), u.data_ptr(), Y.data_ptr(), w.flat.data_ptr(),
-            w.lastT.data_ptr(), 0, agg.data_ptr(), 0, 0, 0, 0]
+            w.last.data_ptr(), 0, agg.data_ptr(), 0, 0, 0, 0]
     _launch(False, w, K, e, inv_avg, ptrs, hj.device)
     return agg
 
@@ -258,7 +299,7 @@ def _kernel_bwd(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float, dagg):
     du = torch.empty_like(u)
     dY = torch.empty_like(Y)
     ptrs = [hj.data_ptr(), bessel.data_ptr(), u.data_ptr(), Y.data_ptr(), w.flat.data_ptr(),
-            w.lastT.data_ptr(), dagg.data_ptr(), 0, dhj.data_ptr(), dbes.data_ptr(),
+            w.last.data_ptr(), dagg.data_ptr(), 0, dhj.data_ptr(), dbes.data_ptr(),
             du.data_ptr(), dY.data_ptr()]
     _launch(True, w, K, hj.shape[0], inv_avg, ptrs, hj.device)
     return dhj, dbes, du, dY
@@ -317,7 +358,9 @@ def nequip_conv(hj, bessel, u, Y, w: K3Weights, K: int, avg_num_neighbors: float
             raise TypeError("nequip_conv: the CUDA kernel takes float32 tensors only")
         if any(not t.is_contiguous() for t in (hj, bessel, u, Y)):
             raise ValueError("nequip_conv: CUDA inputs must be contiguous")
-        if not ((C % 32 == 0 and C <= 128) or C in (4, 8, 16)) or w.dims[-2] % 4:
+        if hj.data_ptr() % 8:  # the kernel reads hj as pairs of channels
+            hj = hj.clone()
+        if not widths_ok(C, w.dims):
             raise ValueError(f"nequip_conv: the CUDA kernel takes C in 4, 8, 16 or a multiple of 32 "
                              f"up to 128, and a last radial input width that is a multiple of 4 "
                              f"(C={C}, width {w.dims[-2]})")

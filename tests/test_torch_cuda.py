@@ -198,6 +198,101 @@ def test_k3_kernel_matches_plain(cuda, lmax, T, c, k):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
 
 
+# (l_max, tracks, C, K, centers, hidden widths, Bessels): together they reach
+# every layout the launcher picks, forward and backward (every edge tile,
+# the last weight resident and read through the read-only cache; the CPU
+# test tests/test_torch_port_k3.py holds that), with tails (K no multiple
+# of the forward tile, E no multiple of the backward one), C = 4 and 128,
+# a last radial input width no multiple of 8, two dX passes (64), and no
+# hidden layer
+K3_LAYOUT_CASES = [
+    (1, 2, 64, 64, 12, (32, 32), 8),   # the main path's widths
+    (1, 2, 64, 70, 5, (32, 32), 8),
+    (2, 2, 64, 40, 6, (32, 32), 8),
+    (2, 2, 128, 24, 4, (32, 32), 8),
+    (1, 1, 128, 33, 5, (36,), 12),
+    (1, 1, 4, 20, 7, (32, 32), 8),
+    (2, 1, 16, 50, 3, (64, 64), 8),
+    (1, 2, 32, 16, 9, (), 8),
+    (2, 2, 16, 30, 3, (128,), 8),
+    (2, 2, 8, 30, 3, (256,), 8),
+    (1, 1, 4, 30, 3, (128,), 8),
+    (1, 1, 4, 30, 3, (256,), 8),
+    (1, 1, 4, 18, 3, (512,), 8),
+    (2, 2, 4, 18, 3, (256,), 8),
+    (2, 2, 4, 18, 3, (384,), 8),
+    (2, 2, 4, 18, 3, (512,), 8),
+    (2, 1, 4, 18, 3, (512,), 8),
+    (2, 2, 4, 18, 3, (512, 512), 8),
+    (2, 1, 4, 18, 3, (768, 768), 8),
+]
+
+
+def _k3_layout_case(cuda, lmax, T, c, k, n, hidden, b, seed=4):
+    from pair_allegro_tpu_torch.ops import nequip_conv as nc_mod
+    from pair_allegro_tpu_torch.ops.tp import tp_num_paths
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    d, e = (lmax + 1) ** 2, n * k
+    dims = (b, *hidden, T * tp_num_paths(lmax) * c)
+    ws = [torch.randn(a, o, generator=g) for a, o in zip(dims[:-1], dims[1:])]
+    w = nc_mod.prepare_radial([t.to(cuda) for t in ws], c, T, lmax)
+    u = torch.rand(e, 1, generator=g)
+    u[-k // 3:] = 0.0
+    ins = [torch.randn(e, d * T * c, generator=g), torch.randn(e, b, generator=g), u,
+           torch.randn(e, d, generator=g)]
+    return w, [t.to(cuda) for t in ins]
+
+
+def _tight(kind, got, want):
+    """chip_smoke's tight gate: max|got - want| <= atol + rtol max|want|."""
+    from chip_smoke import TIGHT_TOLS
+
+    atol, rtol = TIGHT_TOLS[kind]
+    for i, (a, b) in enumerate(zip(got, want)):
+        err, tol = float((a - b).abs().max()), atol + rtol * float(b.abs().max())
+        assert err <= tol, (kind, i, err, tol)
+
+
+@pytest.mark.parametrize("case", K3_LAYOUT_CASES)
+def test_k3_matches_plain_at_every_layout(cuda, case):
+    """K3 against its plain version within the tight gate (TIGHT_TOLS),
+    forward and backward, at widths that reach each layout the launcher
+    picks; the launcher's pick is the one block_layout mirrors."""
+    from pair_allegro_tpu_torch.ops import nequip_conv as nc_mod
+
+    lmax, T, c, k, n = case[:5]
+    w, ins = _k3_layout_case(cuda, *case)
+    lib = nc_mod.LIB.load()
+    for bwd in (False, True):
+        got = tuple(lib.k3_layout_of(int(bwd), lmax, T, nc_mod.launch_dims(w, k, n * k), what)
+                    for what in (0, 1, 2))
+        nbytes, et, resident = nc_mod.block_layout(c, T, lmax, w.dims, bwd)
+        assert got == (nbytes, et, int(resident)), (case, bwd)
+    ins = [t.requires_grad_(True) for t in ins]
+    out_k = nc_mod.nequip_conv(*ins, w, k, 12.0)
+    out_r = nc_mod.nequip_conv_reference(*ins, w, k, 1.0 / math.sqrt(12.0))
+    _tight("fwd", (out_k.detach(),), (out_r.detach(),))
+    cot = torch.randn_like(out_r)
+    _tight("bwd", torch.autograd.grad(out_k, ins, cot), torch.autograd.grad(out_r, ins, cot))
+
+
+def test_k3_layout_refusals_mirror_the_launcher(cuda):
+    """Widths the launcher refuses (its negative codes) are those
+    kernel_takes refuses: C, the last input width, the output width."""
+    import ctypes
+
+    from pair_allegro_tpu_torch.ops import nequip_conv as nc_mod
+
+    lib = nc_mod.LIB.load()
+    for c, T, lmax, dims, code in [(12, 1, 1, (8, 32, 60), -3), (64, 2, 1, (8, 30, 640), -7),
+                                   (64, 2, 1, (8, 32, 600), -4), (256, 1, 1, (8, 32, 1280), -3)]:
+        arr = (ctypes.c_int * 13)(c, 10, 30, len(dims) - 1, *dims, *([0] * (9 - len(dims))))
+        for bwd in (0, 1):
+            assert lib.k3_layout_of(bwd, lmax, T, arr, 0) == code, (c, dims)
+        assert not nc_mod.kernel_takes(c, T, lmax, dims)
+
+
 def test_k3_counts_its_launches(cuda):
     from pair_allegro_tpu_torch.ops import nequip_conv as nc_mod
 

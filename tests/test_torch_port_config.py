@@ -1,0 +1,62 @@
+"""The port's ``AllegroConfig`` against the JAX package's: every field of
+the JAX config, with its default, so that the config dict a JAX checkpoint
+carries (``checkpoint.save_params`` writes ``dataclasses.asdict(cfg)``)
+builds the port's config; ``interior`` is taken at "working" only."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+
+from pair_allegro_tpu.checkpoint import load_params, save_params
+from pair_allegro_tpu.models.allegro import AllegroConfig as JaxConfig
+from pair_allegro_tpu_torch.models.allegro import (
+    AllegroConfig,
+    allegro_init_numpy,
+    allegro_params_from_numpy,
+    check_supported,
+)
+
+
+def test_fields_and_defaults_match_jax():
+    want = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    got = {f.name: f.default for f in dataclasses.fields(AllegroConfig)}
+    assert got == want
+
+
+def test_jax_checkpoint_config_builds_the_port_config(tmp_path):
+    """A config written by JAX's save_params and read back by its
+    load_params builds the port's config, whose params convert."""
+    jcfg = JaxConfig(type_names=("Cu", "O"), r_max=4.0, l_max=1, num_layers=2,
+                     num_scalar_features=8, num_tensor_features=4,
+                     per_edge_type_cutoff=((4.0, 3.5), (3.5, 3.0)))
+    path = str(tmp_path / "model.npz")
+    save_params(path, {"w": np.zeros(2)}, jcfg)
+    _, cfg_dict, family = load_params(path)
+    assert family == "AllegroConfig" and cfg_dict["interior"] == "working"
+    cfg = AllegroConfig(**cfg_dict)
+    # JSON keeps the nested cutoff tuples as lists: compare in that form
+    assert json.dumps(dataclasses.asdict(cfg), sort_keys=True) == json.dumps(
+        dataclasses.asdict(jcfg), sort_keys=True)
+    check_supported(cfg)
+    params = allegro_params_from_numpy(allegro_init_numpy(cfg), cfg, device="cpu")
+    assert len(params["layers"]) == 2
+
+
+def test_interior_bf16_is_not_ported():
+    cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, interior="bf16")
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        check_supported(cfg)
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        allegro_params_from_numpy(allegro_init_numpy(cfg), cfg, device="cpu")
+
+
+def test_unknown_interior_is_refused():
+    with pytest.raises(ValueError, match="interior"):
+        check_supported(AllegroConfig(type_names=("Cu",), r_max=4.5, interior="fp8"))
+
+
+def test_remat_true_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+        check_supported(AllegroConfig(type_names=("Cu",), r_max=4.5, remat=True))

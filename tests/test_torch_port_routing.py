@@ -39,7 +39,8 @@ def _clean_env(monkeypatch):
 
 
 # config fields, flat, environment -> the tier at f32 (the CPU keeps it at
-# any dtype; the card runs 'plain' at any other dtype)
+# any dtype but for the per-layer rounding modes; the card runs 'plain' at
+# any other dtype)
 TIERS = [
     ({}, False, {}, "k1"),
     ({}, False, {"PAT_L1_EMBED": "1"}, "k1-embed"),
@@ -58,9 +59,10 @@ def test_card_routes_every_dtype_but_f32_to_plain(fields, flat, env, tier, monke
         monkeypatch.setenv(name, value)
     cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, **fields)
     assert layer_tier(cfg, flat) == layer_tier(cfg, flat, dtype=torch.float32) == tier
+    rounding = tier == "perlayer" and cfg.tp_mode in ("mxu_bf16", "mxu_bf16x3")
     for dtype in (torch.float64, torch.bfloat16, torch.float16):
         assert layer_tier(cfg, flat, dtype=dtype) == "plain"
-        assert layer_tier(cfg, flat, dtype=dtype, card=False) == tier
+        assert layer_tier(cfg, flat, dtype=dtype, card=False) == ("plain" if rounding else tier)
     # the card's memory check counts the plain tier, in the dtype's bytes
     plain = dataclasses.replace(cfg, fused_tp=False, fused_stack=False)
     assert cfg.live_bytes_per_edge(flat, torch.float64) == 2 * plain.live_bytes_per_edge(flat)
@@ -196,6 +198,35 @@ def test_cpu_f64_keeps_the_kernel_tiers(monkeypatch):
     monkeypatch.setattr(t_allegro, "fused_layer", lambda *a, **k: calls.append(1) or real(*a, **k))
     allegro_energy(tp, AllegroConfig(**kw), *targs, **tkw)
     assert targs[0].dtype == torch.float64 and len(calls) == kw["num_layers"]
+
+
+@pytest.mark.parametrize("tp_mode", ["mxu_bf16", "mxu_bf16x3"])
+def test_cpu_rounding_modes_run_exact_off_f32(tp_mode, monkeypatch):
+    """The per-layer rounding modes act at f32 only, as in JAX: an f64 call
+    on the CPU routes to the exact plain path (no K5 call, whose plain
+    version rounds O to bf16), while an f32 call on the CPU keeps the
+    per-layer tier and its rounding; the exact modes keep 'perlayer' at
+    f64; the regrow estimate follows the plain route."""
+    import pair_allegro_tpu_torch.models.allegro as t_allegro
+
+    cfg = AllegroConfig(**_kw(1), layer_fused=False, tp_mode=tp_mode)
+    assert layer_tier(cfg, False, dtype=torch.float32, card=False) == "perlayer"
+    assert layer_tier(cfg, False, dtype=torch.float64, card=False) == "plain"
+    for mode in ("paths", "mxu_highest"):
+        exact = dataclasses.replace(cfg, tp_mode=mode)
+        assert layer_tier(exact, False, dtype=torch.float64, card=False) == "perlayer"
+    plain = dataclasses.replace(cfg, fused_tp=False)
+    assert cfg.live_bytes_per_edge(dtype=torch.float64) == plain.live_bytes_per_edge(
+        dtype=torch.float64)
+    calls = []
+    real = t_allegro.env_layer_mxu
+    monkeypatch.setattr(t_allegro, "env_layer_mxu", lambda *a, **k: calls.append(1) or real(*a, **k))
+    for dtype, want in ((torch.float64, 0), (torch.float32, cfg.num_layers)):
+        _, _, tp = _params(_kw(1), dtype=dtype)
+        _, _, targs, tkw = _case(1, dtype)
+        calls.clear()
+        allegro_energy(tp, cfg, *targs, **tkw)
+        assert len(calls) == want
 
 
 def test_regrow_estimate_reads_the_system_dtype():

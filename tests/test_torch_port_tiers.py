@@ -96,11 +96,12 @@ def _port_outputs(tp, cfg, targs, tkw):
 
 
 @pytest.mark.parametrize("species", [1, 2])
-@pytest.mark.parametrize("tp_mode", ["paths", "mxu_highest"])
+@pytest.mark.parametrize("tp_mode", ["paths", "mxu_highest", "mxu_bf16x3", "mxu_bf16"])
 def test_perlayer_tier_matches_jax_f64(species, tp_mode, monkeypatch):
     """f64: energy, per-atom energy, forces, virial and charges of the
     per-layer tier against JAX's layer math (with layer_fused=False JAX on
-    the CPU runs layer_fn)."""
+    the CPU runs layer_fn), in every tp_mode: at f64 the rounding modes
+    compute the exact function too, as JAX does at any dtype but f32."""
     monkeypatch.delenv("PAT_FORCE_ENV_FUSED", raising=False)
     kw = _kw(species)
     jcfg, jp, tp = _params(kw)
