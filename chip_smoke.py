@@ -81,7 +81,20 @@ Phases, each of which must pass (any failure exits non-zero):
      benchmarks/accuracy.py's fixture (500 perturbed FCC Cu atoms), Allegro
      at flagship widths: f32 on the card against the port's plain path of
      the same model at f64 on the CPU, max|dF| <= 1e-4 eV/A (rms|dF| and
-     dE/atom printed); mxu_bf16 is printed, not gated.
+     dE/atom printed); mxu_bf16 is printed, not gated;
+ 16. the CLI's run path (``pair_allegro_tpu_torch.cli.main(["run", ...])``
+     in-process) at full width: phase 5's system written as extxyz, the
+     flagship Allegro with the charge head and phase 6's NequIP written as
+     checkpoints; NVT (dump every 20 with a per-atom charge compute, a
+     dipole thermo compute, restart) 60 + 60 steps, its resume 60 steps,
+     MTK and Berendsen NPT 20 + 20 steps each, NequIP Langevin 60 + 60, and
+     the NVE control (NVT's config with nve) 60 + 60: each leg launches K1
+     (Allegro) or K3 (NequIP) its per-evaluation count times its force
+     evaluations and no other kernel; the dump's frames and columns; the
+     restart read back equals the NVT leg's final state and the resumed
+     first force evaluation is within 5e-4 of its last dump frame; the cell
+     moved under NPT; each leg's steps/s beside the NVE control's, and one
+     dump frame's host ms.
 Phases 7, 8, 10, 12 and 14 print two bounds for K1, K2, K3, K4, K6, K7 and K8:
 with the products on the tensor cores in 3xTF32 (the kernels'
 ``bound_ms``) and on the CUDA cores alone (``bound_ms_f32``), and the
@@ -94,7 +107,8 @@ object of the kernels; the last line is {"ok": true, "device": {...}}.
 Weights are random, made from a seed.
 
 ``python3 chip_smoke.py --profile`` instead prints where the device time of
-an Allegro main-path MD step goes (torch.profiler); ``--profile nequip``,
+an Allegro main-path MD step goes (torch.profiler; a third argument ``nvt``
+runs the step under phase 16's Nosé-Hoover thermostat); ``--profile nequip``,
 ``--profile perlayer``, ``--profile flat``, ``--profile embed`` and
 ``--profile stack`` the same for the NequIP, per-layer, FLAT slab, embed
 and stack main paths (``--profile perlayer-mxu``: the per-layer path with
@@ -1893,6 +1907,231 @@ def accuracy_phase():
     return worst
 
 
+# phase 16: the legs of ``cli run`` (name, config over the base, steps,
+# steps per chunk, the steps the rate is read over (from the chunk end at
+# step start + the first, to the last), the model that runs)
+CLI_BASE = dict(type_names=["Cu"], masses={"Cu": 63.546}, dt_fs=2.0, skin=0.4,
+                dtype="float32")
+CLI_AUX = dict(computes=[{"name": "dip", "quantity": "dipole", "style": "global", "length": 3},
+                         {"name": "q", "quantity": "charges", "style": "atom", "ncols": 1}])
+
+
+def _cli_legs(d):
+    nvt = dict(integrator="nvt", temp_K=50.0, tdamp_ps=0.05, **CLI_AUX)
+    npt = dict(temp_K=50.0, tdamp_ps=0.1, press_bar=0.0, pdamp_ps=1.0)
+    return [
+        ("nvt", dict(nvt, data=f"{d}/cu.xyz", model={"checkpoint": f"{d}/allegro.npz"},
+                     dump={"path": f"{d}/nvt.dump", "every": 20},
+                     restart={"path": f"{d}/nvt_state.npz"}), 120, 60, "allegro"),
+        ("resume", dict(nvt, model={"checkpoint": f"{d}/allegro.npz"},
+                        restart_from=f"{d}/nvt_state.npz",
+                        dump={"path": f"{d}/resume.dump", "every": 20}), 60, 60, "allegro"),
+        ("npt", dict(npt, integrator="npt", data=f"{d}/cu.xyz",
+                     model={"checkpoint": f"{d}/allegro.npz"}), 40, 20, "allegro"),
+        ("npt_berendsen", dict(npt, integrator="npt_berendsen", data=f"{d}/cu.xyz",
+                               model={"checkpoint": f"{d}/allegro.npz"}), 40, 20, "allegro"),
+        ("langevin", dict(integrator="langevin", temp_K=50.0, damp_ps=0.1, data=f"{d}/cu.xyz",
+                          model={"checkpoint": f"{d}/nequip.npz"}), 120, 60, "nequip"),
+        ("nve", dict(integrator="nve", temp_K=50.0, data=f"{d}/cu.xyz",
+                     model={"checkpoint": f"{d}/allegro.npz"},
+                     dump={"path": f"{d}/nve.dump", "every": 20},
+                     restart={"path": f"{d}/nve_state.npz"}, **CLI_AUX), 120, 60, "allegro"),
+    ]
+
+
+def read_dump(path):
+    """[(step, column names, (N, ncols) array)] of a LAMMPS dump-custom file."""
+    import numpy as np
+
+    lines = open(path).read().splitlines()
+    frames, k = [], 0
+    while k < len(lines):
+        step, n = int(lines[k + 1]), int(lines[k + 3])
+        n_box = 3
+        cols = lines[k + 5 + n_box].split()[2:]
+        start = k + 6 + n_box
+        frames.append((step, cols, np.array([[float(x) for x in ln.split()]
+                                             for ln in lines[start:start + n]])))
+        k = start + n
+    return frames
+
+
+def cli_phase(card):
+    """Phase 16: the CLI's run path at full width, in-process on the card:
+    the 5,324-atom FCC Cu written as extxyz, the flagship Allegro (with the
+    charge head) and bench.py:nequip_line's NequIP written as checkpoints,
+    then ``pair_allegro_tpu_torch.cli.main(["run", ...])`` for the legs of
+    ``_cli_legs``: NVT with dump, computes and restart (60 + 60 steps), its
+    resume (60), MTK and Berendsen NPT (20 + 20 each), NequIP Langevin (60
+    + 60) and the NVE control (NVT's config with nve, 60 + 60).  Checks:
+    every leg launches K1 (Allegro) or K3 (NequIP) its per-evaluation count
+    times its force evaluations and no other kernel; the dumps' frames and
+    columns; the restart read back equals the NVT leg's final state; the
+    resumed first force evaluation against the NVT leg's last dump frame
+    (max|dF| < 5e-4); the cell moved under NPT.  Prints each leg's steps/s
+    beside the NVE control's, and the dump's ms a frame."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pair_allegro_tpu_torch import checkpoint as ckpt
+    from pair_allegro_tpu_torch import cli, engine
+    from pair_allegro_tpu_torch.engine import PairEngine
+    from pair_allegro_tpu_torch.io.dump import DumpWriter
+    from pair_allegro_tpu_torch.io.extxyz import write_extxyz
+    from pair_allegro_tpu_torch.md import integrate
+    from pair_allegro_tpu_torch.md.thermo import npt_mtk_conserved, thermo_row
+    from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy
+    from pair_allegro_tpu_torch.models.nequip import nequip_init_numpy
+    from pair_allegro_tpu_torch.system import fcc_lattice
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_phase")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    pos, cell = fcc_lattice(11)
+    write_extxyz(f"{d}/cu.xyz", {"symbols": np.array(["Cu"] * len(pos)), "positions": pos,
+                                 "cell": cell, "pbc": (True, True, True)})
+    acfg, ncfg = flagship_cfg(output_charges=True), nequip_cfg()
+    ckpt.save_params(f"{d}/allegro.npz", allegro_init_numpy(acfg, SEED), acfg, family="allegro")
+    ckpt.save_params(f"{d}/nequip.npz", nequip_init_numpy(ncfg, SEED), ncfg, family="nequip")
+    mods = kernel_modules()
+    sims, firsts, n_eval, n_build = [], [], [0], [0]
+
+    class Recorder(integrate.Simulation):
+        """The CLI's Simulation, kept with the time of each chunk's end."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.start_state, self.ends = None, []
+            sims.append(self)
+
+        def run(self, n_steps, log_every=100, callback=None):
+            self.start_state = self.state
+            torch.cuda.synchronize()
+            self.ends.append((self.state.step, time.perf_counter(), n_build[0]))
+
+            def timed(state, row):  # the row read has synchronized the card
+                self.ends.append((row["step"], time.perf_counter(), n_build[0]))
+                callback(state, row)
+
+            return super().run(n_steps, log_every, timed)
+
+    force_fn = PairEngine.force_fn
+    builders = engine.cell_list_neighbors, engine.dense_neighbors
+
+    def counting(build):
+        def built(*a, **kw):  # the builds the skin check lets through
+            n_build[0] += 1
+            return build(*a, **kw)
+
+        return built
+
+    def counted(self, system, neighbors):
+        out = force_fn(self, system, neighbors)
+        n_eval[0] += 1
+        if n_eval[0] == 1:
+            firsts.append(out.forces)
+        return out
+
+    plain_sim = integrate.Simulation
+    integrate.Simulation, PairEngine.force_fn = Recorder, counted
+    engine.cell_list_neighbors, engine.dense_neighbors = (counting(b) for b in builders)
+    rates = {}
+    try:
+        for name, over, steps, log_every, model in _cli_legs(d):
+            conf = dict(CLI_BASE, steps=steps, log_every=log_every, **over)
+            path = f"{d}/{name}.yaml"
+            with open(path, "w") as f:
+                f.write(json.dumps(conf) + "\n")  # JSON on one line is a YAML flow mapping
+            for m in mods.values():
+                m.launches.reset()
+            n_eval[0] = 0
+            print(f"cli {name}: python -m pair_allegro_tpu_torch.cli run {name}.yaml "
+                  f"({conf['integrator']}, {model}, {steps} steps)")
+            if cli.main(["run", path]) != 0:
+                raise RuntimeError(f"cli {name} returned non-zero")
+            torch.cuda.synchronize()
+            sim = sims[-1]
+            # the rate of the chunks after the warmup chunk (all of a leg run in one)
+            s0, t0, b0 = (next(e for e in sim.ends if e[0] - sim.ends[0][0] >= log_every)
+                          if log_every < steps else sim.ends[0])
+            s1, t1, b1 = sim.ends[-1]
+            rates[name] = (s1 - s0) / (t1 - t0)
+            per_eval = path_launches(model, acfg if model == "allegro" else ncfg)
+            launched = {k: (m.launches.fwd, m.launches.bwd) for k, m in mods.items()
+                        if m.launches.fwd or m.launches.bwd}
+            want = {k: (n * n_eval[0], n * n_eval[0]) for k, n in per_eval.items()}
+            st = sim.state
+            finite = bool(torch.isfinite(st.forces).all()) and bool(torch.isfinite(
+                st.system.positions).all())
+            print(f"cli {name} on {card}: {rates[name]:.4f} steps/s over steps {s0}-{s1} "
+                  f"({rates[name] * 2.0e-6 * 86400.0:.4f} ns/day), neighbor builds in those "
+                  f"steps {b1 - b0}, T {thermo_row(st)['temp']:.1f} K, regrows {sim.regrows}, "
+                  f"force evaluations {n_eval[0]}, launches fwd/bwd {launched} (per force "
+                  f"evaluation {per_eval}), finite {finite}")
+            if launched != want:
+                raise RuntimeError(f"cli {name}: launched {launched}, want {want}")
+            if not finite or st.step != (180 if name == "resume" else steps):
+                raise RuntimeError(f"cli {name}: non-finite state or step {st.step}")
+            if name == "nvt":
+                nvt_state = st
+                frames = read_dump(f"{d}/nvt.dump")
+                cols = frames[-1][1]
+                print(f"cli nvt: dump frames at steps {[f[0] for f in frames]}, columns "
+                      f"{' '.join(cols)}")
+                if ([f[0] for f in frames] != list(range(20, 121, 20))
+                        or cols[-2:] != ["c_pe", "c_q"] or frames[-1][2].shape[0] != len(pos)):
+                    raise RuntimeError("cli nvt: the dump's frames or columns are wrong")
+                t_dump = time.perf_counter()
+                with DumpWriter(f"{d}/timed.dump") as w:
+                    for _ in range(3):
+                        w.write_frame(st.step, st.system, forces=st.forces,
+                                      atomic_energy=st.atomic_energy,
+                                      extras={"q": st.extras["charges"]})
+                dump_ms = (time.perf_counter() - t_dump) * 1e3 / 3
+                print(f"cli nvt on {card}: one dump frame ({len(pos)} atoms, forces, c_pe, c_q) "
+                      f"{dump_ms:.2f} ms on the host")
+            if name == "resume":
+                back, step, thermo, rng = ckpt.load_state(f"{d}/nvt_state.npz",
+                                                          dtype=torch.float32)
+                same = (step == nvt_state.step
+                        and all(torch.equal(getattr(back, k), getattr(nvt_state.system, k))
+                                for k in ("positions", "velocities", "cell", "masses"))
+                        and all(torch.equal(thermo[k], v)
+                                for k, v in nvt_state.thermostat.items())
+                        and torch.equal(rng, nvt_state.generator.get_state()))
+                f_dump = torch.as_tensor(frames[-1][2][:, 5:8], dtype=torch.float32)
+                df = float((firsts[-1].cpu() - f_dump).abs().max())
+                print(f"cli resume: the state read back equals the state written {same}; the "
+                      f"resumed first force evaluation against the NVT leg's last dump frame "
+                      f"max|dF| {df:.3e} eV/A (gate 5e-4)")
+                if not same or not df < 5e-4:
+                    raise RuntimeError("cli resume: the restart does not continue the NVT leg")
+                del nvt_state
+            if name == "npt":
+                tk = dict(temp_K=50.0, tdamp=0.1, press_bar=0.0, pdamp=1.0)
+                h0, h1 = (float(npt_mtk_conserved(s, **tk)) for s in (sim.start_state, st))
+                print(f"cli npt: MTK conserved quantity {h0:.6f} -> {h1:.6f} eV (not gated: "
+                      f"the random weights heat the bulk)")
+            if name.startswith("npt"):
+                dcell = float((st.system.cell - sim.start_state.system.cell).abs().max())
+                print(f"cli {name}: the cell moved by max {dcell:.3e} A, volume "
+                      f"{float(torch.linalg.det(st.system.cell.cpu().double())):.3f} A^3")
+                if not dcell > 0.0:
+                    raise RuntimeError(f"cli {name}: the cell did not move")
+            sim.state = sim.start_state = None
+            torch.cuda.empty_cache()
+    finally:
+        integrate.Simulation, PairEngine.force_fn = plain_sim, force_fn
+        engine.cell_list_neighbors, engine.dense_neighbors = builders
+    for name, r in rates.items():
+        print(f"cli {name} on {card}: {r:.4f} steps/s against the NVE control's "
+              f"{rates['nve']:.4f} ({r / rates['nve']:.3f}x)")
+    shutil.rmtree(d, ignore_errors=True)
+    return rates
+
+
 def stack_timings(cfg, params, system, eng, errs):
     """Phase 14 (K8): fwd/bwd time of kernel and plain version at the stack
     main path's shapes, with the bound, and parity at those shapes (into
@@ -1952,16 +2191,17 @@ def _kind_of(name):
     return "elementwise and other glue"
 
 
-def profile_steps(model="allegro", n_steps=10):
-    """``--profile [nequip | perlayer | perlayer-mxu | flat | embed | stack]``: where one main-path
-    MD step's device time goes.  torch.profiler over n_steps after a 20-step
-    warmup; kernel time summed by name and by class per step, and the
-    device's idle share of the wall time."""
+def profile_steps(model="allegro", integrator="nve", n_steps=10):
+    """``--profile [nequip | perlayer | perlayer-mxu | flat | embed | stack]
+    [nve | nvt]``: where one main-path MD step's device time goes, under
+    NVE or phase 16's NVT (50 K, tdamp 0.05 ps).  torch.profiler over
+    n_steps after a 20-step warmup; kernel time summed by name and by class
+    per step, and the device's idle share of the wall time."""
     with env_vars(PATHS[model][5]):
-        return _profile_steps(model, n_steps)
+        return _profile_steps(model, integrator, n_steps)
 
 
-def _profile_steps(model, n_steps):
+def _profile_steps(model, integrator, n_steps):
     import collections
 
     import torch
@@ -1971,7 +2211,9 @@ def _profile_steps(model, n_steps):
     from pair_allegro_tpu_torch.system import Units
 
     cfg, params, system, eng = build_path(model)
-    sim = Simulation(system, eng.force_fn, eng.rebuild_fn, dt=2.0 * Units.fs, grow_fn=eng.grow)
+    kw = dict(temp_K=50.0, tdamp=0.05) if integrator == "nvt" else {}
+    sim = Simulation(system, eng.force_fn, eng.rebuild_fn, dt=2.0 * Units.fs, grow_fn=eng.grow,
+                     integrator=integrator, **kw)
     sim.init_velocities(50.0, seed=SEED)
     sim.run(20, log_every=20)
     torch.cuda.synchronize()
@@ -1994,6 +2236,7 @@ def _profile_steps(model, n_steps):
             kinds[_kind_of(ev.name)] += ms
     busy = sum(per.values())
     step_ms = wall * 1e3 / n_steps
+    model = f"{model} {integrator}"
     print(f"profile {model}: {step_ms:.3f} ms/step wall (profiler on), device busy {busy:.3f} "
           f"ms/step, idle share {1.0 - busy / step_ms:.3f}, {sum(calls.values()) / n_steps:.0f} "
           f"device events/step, regrows {sim.regrows}, strategy {eng.spec.strategy}, "
@@ -2067,10 +2310,13 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--profile"]:
         model = sys.argv[2] if len(sys.argv) > 2 else "allegro"
+        integrator = sys.argv[3] if len(sys.argv) > 3 else "nve"
         if model not in ("allegro", "nequip", "perlayer", "perlayer-mxu", "flat", "embed", "stack"):
             raise SystemExit(f"--profile takes allegro, nequip, perlayer, perlayer-mxu, flat, embed "
                              f"or stack, not {model}")
-        return profile_steps(model)
+        if integrator not in ("nve", "nvt"):
+            raise SystemExit(f"--profile's integrator is nve or nvt, not {integrator}")
+        return profile_steps(model, integrator)
     if sys.argv[1:2] == ["--timings"]:
         which = sys.argv[2] if len(sys.argv) > 2 else ""
         if which not in TIMINGS:
@@ -2150,6 +2396,7 @@ def main() -> int:
     del sparams, ssystem, seng
     torch.cuda.empty_cache()
     accuracy_phase()
+    cli_phase(smi.stdout.strip().splitlines()[0])
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):

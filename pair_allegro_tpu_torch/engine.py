@@ -3,10 +3,11 @@
 
 Binds a model (config + parameters), a type-name mapping and a neighbor
 strategy into the two callables the MD runtime consumes, ``force_fn`` and
-``rebuild_fn``, plus capacity growth on overflow.  Both neighbor strategies
-are ported: the cell list (TABLE layout) for full-PBC boxes of more than 256
-atoms with at least 3 bins per axis, the dense build (FLAT layout) for every
-other system (small boxes, slabs, molecules, clusters).
+``rebuild_fn``, plus capacity growth on overflow and its shrink
+(``maybe_shrink``).  Both neighbor strategies are ported: the cell list
+(TABLE layout) for full-PBC boxes of more than 256 atoms with at least 3
+bins per axis, the dense build (FLAT layout) for every other system (small
+boxes, slabs, molecules, clusters).
 """
 
 from __future__ import annotations
@@ -295,6 +296,24 @@ class PairEngine:
         if system is not None:
             _check_memory(spec, system, self.cfg)
         self.spec = spec
+        self.rebuild_fn = make_rebuild_fn(self.spec, self.skin)
+        return self.rebuild_fn
+
+    def maybe_shrink(self, system: System):
+        """Capacity shrink, the other half of the regrow hysteresis: on the
+        cell-list strategy, re-estimate from the current geometry and adopt
+        the fresh spec only when the per-atom capacity K strictly drops (the
+        estimate's 20% slack and K's rounding keep a count that hovers at a
+        border from flip-flopping).  Returns the new rebuild_fn, or None
+        when nothing shrank (the dense strategy's capacity is edge-count
+        sized, and the strategy never changes mid-run)."""
+        if self.spec.strategy != "cell_list":
+            return None
+        fresh = _estimate_capacities(system, self.cfg.r_max, self.skin, self.capacity_factor,
+                                     cutoff_table=self.spec.cutoff_table)
+        if fresh.strategy != "cell_list" or fresh.max_neighbors >= self.spec.max_neighbors:
+            return None
+        self.spec = fresh
         self.rebuild_fn = make_rebuild_fn(self.spec, self.skin)
         return self.rebuild_fn
 

@@ -26,6 +26,35 @@ def temperature(system):
     return 2.0 * kinetic_energy(system) / (n_dof(system) * Units.kB)
 
 
+def nose_hoover_conserved(state, temp_K: float, tdamp: float):
+    """The Nosé-Hoover extended Hamiltonian H' = KE + PE + q xi^2 / 2 +
+    n_dof kB T xi_int, conserved by the 'nvt' integrator to splitting
+    order (its drift detects thermostat faults)."""
+    ndof = n_dof(state.system)
+    q = ndof * Units.kB * temp_K * tdamp**2
+    xi = state.thermostat["xi"]
+    eta = state.thermostat["xi_int"]
+    ke = kinetic_energy(state.system)
+    return ke + state.potential_energy + 0.5 * q * xi * xi + ndof * Units.kB * temp_K * eta
+
+
+def npt_mtk_conserved(state, temp_K: float, tdamp: float, press_bar: float, pdamp: float):
+    """The MTK NPT invariant H' = KE + PE + q xi^2 / 2 + W eta^2 / 2 +
+    (n_dof + 1) kB T xi_int + P_ext V (isotropic, one chain)."""
+    ndof = n_dof(state.system)
+    kT = Units.kB * temp_K
+    q = ndof * kT * tdamp**2
+    w = (ndof + 3.0) * kT * pdamp**2
+    xi = state.thermostat["xi"]
+    eta = state.thermostat["eta"]
+    eta_i = state.thermostat["xi_int"]
+    vol = volume(state.system.cell)
+    p_ext = press_bar / Units.nktv2p
+    ke = kinetic_energy(state.system)
+    return (ke + state.potential_energy + 0.5 * q * xi * xi + 0.5 * w * eta * eta
+            + (ndof + 1.0) * kT * eta_i + p_ext * vol)
+
+
 def pressure_tensor(system, virial):
     """(3, 3) pressure tensor in bar (potential virial + kinetic term)."""
     m = system.masses * system.valid_mask().to(system.masses.dtype)

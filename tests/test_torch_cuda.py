@@ -7,8 +7,10 @@ form; launch counting; the wrappers' refusals on the card; the models'
 kernel paths (K1 in its three forms, per-layer, K4 and stack tiers,
 NequIP, the FLAT layout of the dense strategy) against their CPU plain
 paths and regrows on the card; the routing predicates against the
-launchers; f64 systems and widths no kernel takes on the plain path.
-Every test here needs a card and skips without one.
+launchers; f64 systems and widths no kernel takes on the plain path;
+``cli run`` on the card against ``--device cpu``, and the CUDA noise
+generator's state across a restart.  Every test here needs a card and
+skips without one.
 
 This file imports torch and the port only (no JAX), so that it also runs
 on a machine without JAX:
@@ -1403,3 +1405,96 @@ def test_k8_matches_plain_wide_layouts(cuda, ns, c, width, depth, lds, ring):
     layers_, ops = _stack_case(cuda, ns, c, 2, 3, 40, 5, allegro_mlp_hidden_layers_width=width,
                                allegro_mlp_hidden_layers_depth=depth)
     _stack_compare(layers_, ops, 40, 2, True)
+
+
+def _cli_case(tmp_path, masses=63.546):
+    """A small K1-width Allegro checkpoint and a start state of the 108-atom
+    fixture with numpy velocities (the CPU and CUDA generators draw
+    different streams, so no velocities are drawn)."""
+    from pathlib import Path
+
+    from pair_allegro_tpu_torch import checkpoint as ckpt
+    from pair_allegro_tpu_torch.io.extxyz import read_extxyz
+    from pair_allegro_tpu_torch.system import Units
+
+    cfg = AllegroConfig(type_names=("Cu",), r_max=4.0, l_max=2, num_layers=2,
+                        num_scalar_features=16, num_tensor_features=8, avg_num_neighbors=12.0)
+    model = str(tmp_path / "model.npz")
+    ckpt.save_params(model, allegro_init_numpy(cfg, 0), cfg, family="allegro")
+    fr = read_extxyz(str(Path(__file__).resolve().parent.parent / "examples" / "cu_fcc_108.xyz"),
+                     index=0)
+    n = len(fr["positions"])
+    rng = np.random.RandomState(2)
+    vel = rng.randn(n, 3) * np.sqrt(Units.kB * 50.0 / (masses * Units.mvv2e))
+    start = System.create(fr["positions"], np.zeros(n, np.int64), cell=fr["cell"],
+                          velocities=vel - vel.mean(0), masses=np.full(n, masses), device="cpu")
+    state = str(tmp_path / "start.npz")
+    ckpt.save_state(state, start, step=0)
+    return model, state
+
+
+def _cli_run(tmp_path, name, conf, device=None):
+    import json
+
+    from pair_allegro_tpu_torch.cli import main
+
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(json.dumps(conf))
+    assert main(["run", str(path)] + ([] if device is None else ["--device", device])) == 0
+
+
+def _dump_forces(path):
+    lines = open(path).read().splitlines()
+    return np.array([[float(x) for x in ln.split()[5:8]] for ln in lines[9:]])
+
+
+def test_cli_nvt_on_the_card_matches_cpu(cuda, tmp_path, capsys):
+    """``cli run`` NVT on the fixture, the card (the dense build's FLAT
+    layout, K4) against ``--device cpu`` at f32: the 5 steps' forces in the
+    last dump frame within the 5e-4 model gate."""
+    from pair_allegro_tpu_torch.ops import tp_mix_fused
+
+    model, state = _cli_case(tmp_path)
+    for name, dev in (("cpu", "cpu"), ("card", None)):
+        tp_mix_fused.launches.reset()
+        _cli_run(tmp_path, f"nvt_{name}", {
+            "model": {"checkpoint": model}, "restart_from": state, "integrator": "nvt",
+            "temp_K": 50.0, "tdamp_ps": 0.05, "dt_fs": 2.0, "steps": 5, "log_every": 5,
+            "skin": 0.4, "dump": {"path": str(tmp_path / f"{name}.dump"), "every": 5}}, dev)
+    assert tp_mix_fused.launches.fwd == tp_mix_fused.launches.bwd >= 2 * 6  # the card's run
+    capsys.readouterr()
+    df = np.abs(_dump_forces(tmp_path / "card.dump") - _dump_forces(tmp_path / "cpu.dump"))
+    assert df.max() < 5e-4
+
+
+def test_langevin_generator_state_round_trips_on_cuda(cuda, tmp_path, capsys):
+    """A Langevin run on the card resumed from its state file draws the
+    same noise as the uninterrupted run: the CUDA generator's state (seed
+    and offset) crosses the file, and both runs end at the same state."""
+    import torch as _torch
+
+    from pair_allegro_tpu_torch import checkpoint as ckpt
+
+    model, state = _cli_case(tmp_path)
+    common = {"model": {"checkpoint": model}, "integrator": "langevin", "temp_K": 50.0,
+              "damp_ps": 0.05, "dt_fs": 1.0, "log_every": 4}
+    _cli_run(tmp_path, "a", {**common, "restart_from": state, "steps": 8,
+                             "restart": {"path": str(tmp_path / "a.npz")}})
+    _cli_run(tmp_path, "b", {**common, "restart_from": state, "steps": 4,
+                             "restart": {"path": str(tmp_path / "b.npz")}})
+    _cli_run(tmp_path, "c", {**common, "restart_from": str(tmp_path / "b.npz"), "steps": 4,
+                             "restart": {"path": str(tmp_path / "c.npz")}})
+    capsys.readouterr()
+    sa, step_a, _, rng_a = ckpt.load_state(str(tmp_path / "a.npz"), dtype=_torch.float32)
+    sc, step_c, _, rng_c = ckpt.load_state(str(tmp_path / "c.npz"), dtype=_torch.float32)
+    assert step_a == step_c == 8
+    assert rng_a.numel() == _torch.Generator(device="cuda").get_state().numel()
+    assert _torch.equal(rng_a, rng_c)
+    gen, from_jax = ckpt.generator_from_rng(rng_a, "cuda")
+    ref = _torch.Generator(device="cuda")
+    ref.set_state(rng_c)
+    assert not from_jax and _torch.equal(_torch.randn(64, generator=gen, device="cuda"),
+                                         _torch.randn(64, generator=ref, device="cuda"))
+    # the kernels' sums may run in another order: the same trajectory to f32
+    torch.testing.assert_close(sa.positions, sc.positions, atol=1e-4, rtol=0)
+    torch.testing.assert_close(sa.velocities, sc.velocities, atol=1e-3, rtol=1e-3)

@@ -56,5 +56,6 @@ def test_every_port_module_is_scanned():
     for name in ("ops._build", "ops.nequip_conv", "models.nequip", "models.edges",
                  "ops.env_layer", "ops.env_layer_mxu", "ops.weight_cache", "ops.tp_mix_fused",
                  "ops.scatter", "neighbors.device", "ops.embed_layer", "ops.readout_layer",
-                 "ops.fused_stack"):
+                 "ops.fused_stack", "checkpoint", "cli", "computes", "calculator", "debug",
+                 "io.config", "io.dump", "io.extxyz", "io.lammps_data"):
         assert f"pair_allegro_tpu_torch.{name}" in mods
