@@ -94,7 +94,20 @@ Phases, each of which must pass (any failure exits non-zero):
      restart read back equals the NVT leg's final state and the resumed
      first force evaluation is within 5e-4 of its last dump frame; the cell
      moved under NPT; each leg's steps/s beside the NVE control's, and one
-     dump frame's host ms.
+     dump frame's host ms;
+ 17. the million-atom mode: bench.py:scale_line's 1,000,188 atoms (FCC Cu
+     63^3 cells, jitter 0.03) through AllegroEngine(row_chunk=5292) (189
+     windows) at flagship width: the host capacity estimate's seconds, one
+     rebuild's, a first and a steady force evaluation's, K, counted edges,
+     peak memory and the resolved remat; finite values, |sum F| <= 1e-6 N
+     max|F|, exactly 2 x 3 x 189 K1 launches forward and 3 x 189 backward
+     per evaluation (each window's checkpoint recomputes its forward) and
+     no other kernel; phase 5's system in 4 windows of 1,331 rows against
+     no windows (forces within 1e-5 eV/A) and its 60 + 60 steps beside
+     phase 5's steps/s; remat=True against remat=False on K1, K6/K7, K2,
+     K5, K4 (slab) and K3 on the 500-atom table (the tight gate, twice the
+     forward launches), and row_chunk=125 on each TABLE tier against none
+     (the model gate).
 Phases 7, 8, 10, 12 and 14 print two bounds for K1, K2, K3, K4, K6, K7 and K8:
 with the products on the tensor cores in 3xTF32 (the kernels'
 ``bound_ms``) and on the CUDA cores alone (``bound_ms_f32``), and the
@@ -118,6 +131,12 @@ env`` only phase 8's K2 and K5 timings, ``--timings flat`` only phase 10's
 K4 timings, ``--timings nequip`` only phase 7's K3 timings, each at its
 main paths' shapes (the engines' first neighbor build, no MD run): run
 from two checkouts in one call, it compares two builds of those kernels.
+``--scale`` runs phase 5 and phase 17 alone; ``--profile scale`` prints
+where one steady 1,000,188-atom force evaluation's device time goes;
+``--profile allegro-chunked`` profiles phase 5's step in 4 windows;
+``--k3-spread [n]`` prints K3's backward error (and the plain f32
+version's) against the plain version at f64 over n cotangent seeds on
+the card leg's 768-wide case.
 """
 
 from __future__ import annotations
@@ -545,7 +564,12 @@ PATHS = {
     "nequip-flat": ("nequip", {}, None, 10, True, {}),
     "embed": ("allegro", {}, "K6", 60, False, {"PAT_L1_EMBED": "1"}),
     "stack": ("allegro", dict(fused_stack=True), "K8", 60, False, {}),
+    "allegro-chunked": ("allegro", {}, "K1", 60, False, {}),
 }
+# the paths that run the million-atom mode's windows: rows per window
+ROW_CHUNK = {"allegro-chunked": 1331}
+# steps/s of each main path run in this process (phase 17 reads phase 5's)
+STEPS_PER_S = {}
 
 
 def path_launches(path, cfg):
@@ -598,7 +622,8 @@ def build_path(path):
     model, tier, _, _, slab, _ = PATHS[path]
     if model == "allegro":
         cfg, params, system = make_case(11, None, slab=slab, **tier)
-        return cfg, params, system, AllegroEngine(cfg, params, system, skin=0.4)
+        return cfg, params, system, AllegroEngine(cfg, params, system, skin=0.4,
+                                                  row_chunk=ROW_CHUNK.get(path))
     cfg, params, system = make_nequip_case(11, None, slab=slab)
     return cfg, params, system, NequIPEngine(cfg, params, system, skin=0.4)
 
@@ -660,13 +685,18 @@ def _main_path(path):
     wall = time.perf_counter() - t0
     counts = {name: {"fwd": m.launches.fwd, "bwd": m.launches.bwd} for name, m in mods.items()}
     per_eval = path_launches(path, cfg)
-    want = {name: {"fwd": n_eval[0] * per_eval.get(name, 0), "bwd": n_eval[0] * per_eval.get(name, 0)}
-            for name in mods}
+    # under row_chunk each window runs its kernels once forward, once more
+    # in its checkpoint's recompute, and once backward
+    windows = system.n_atoms // eng.row_chunk if eng.row_chunk else 0
+    fwd_x, bwd_x = (2 * windows, windows) if windows else (1, 1)
+    want = {name: {"fwd": n_eval[0] * per_eval.get(name, 0) * fwd_x,
+                   "bwd": n_eval[0] * per_eval.get(name, 0) * bwd_x} for name in mods}
     launched = {name: (c["fwd"], c["bwd"]) for name, c in counts.items() if c["fwd"] or c["bwd"]}
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = sim.state
     finite = bool(torch.isfinite(st.forces).all()) and math.isfinite(rows[-1]["etotal"])
     steps_per_s = n_steps / wall
+    STEPS_PER_S[path] = steps_per_s
     spec = eng.spec
     cap = (f"max_edges={spec.max_edges} ({len(spec.shifts_table)} image shifts)"
            if spec.strategy == "dense" else f"K={spec.max_neighbors}")
@@ -674,7 +704,7 @@ def _main_path(path):
           f"{cap}, E={edge_slots(spec, system.n_atoms)} edge slots, {rows[-1]['n_edges']} real "
           f"edges, regrows {sim.regrows}, neighbor builds in the timed chunk {n_build[0]}, force "
           f"evaluations {n_eval[0]}, launches fwd/bwd {launched} (per force evaluation "
-          f"{per_eval})")
+          f"{per_eval}{f' in each of {windows} windows of {eng.row_chunk} rows, forward twice' if windows else ''})")
     print(f"{path} main path: {steps_per_s:.4f} steps/s, "
           f"{steps_per_s * dt_fs * 1e-6 * 86400.0:.4f} ns/day ({wall * 1e3 / n_steps:.3f} ms/step), "
           f"T {rows[-1]['temp']:.1f} K, etotal {rows[-1]['etotal']:.4f} eV, finite {finite}, "
@@ -901,6 +931,86 @@ def k3_parity():
                            ops, w, k, cfg.avg_num_neighbors, gen)
             errs = {kind: max(errs[kind], e[kind]) for kind in errs}
     return errs
+
+
+# tests/test_torch_cuda.py's K3_LAYOUT_CASES[18]: (l_max, tracks, C, K,
+# centers, hidden widths, Bessels)
+K3_SPREAD_CASE = (2, 1, 4, 18, 3, (768, 768), 8)
+
+
+def k3_layout_operands(device, lmax, T, c, k, n, hidden, b, seed=4):
+    """K3's weights and operands (hj, bessel, u, Y) at one layout case of
+    the card legs, drawn from a seeded CPU generator (padded slots at the
+    end of the last row)."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
+    from pair_allegro_tpu_torch.ops.tp import tp_num_paths
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    d, e = (lmax + 1) ** 2, n * k
+    dims = (b, *hidden, T * tp_num_paths(lmax) * c)
+    ws = [torch.randn(a, o, generator=g) for a, o in zip(dims[:-1], dims[1:])]
+    w = k3.prepare_radial([t.to(device) for t in ws], c, T, lmax)
+    u = torch.rand(e, 1, generator=g)
+    u[-k // 3:] = 0.0
+    ins = [torch.randn(e, d * T * c, generator=g), torch.randn(e, b, generator=g), u,
+           torch.randn(e, d, generator=g)]
+    return w, [t.to(device) for t in ins]
+
+
+def k3_seed_grads(w, ins, k, avg, cot_seed):
+    """K3's and its plain version's (f32 and f64) backward on ``ins`` for
+    the cotangent drawn from a CPU generator seeded with ``cot_seed``:
+    (kernel, plain f32, plain f64) gradient tuples."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
+
+    inv_avg = 1.0 / math.sqrt(avg)
+    dev = ins[0].device
+    rows = ins[0].shape[0] // k
+    d_out = ins[0].shape[1]
+    g = torch.Generator(device="cpu").manual_seed(cot_seed)
+    cot = torch.randn((rows, d_out), generator=g).to(dev)
+    out = []
+    for fn, dtype in ((k3.nequip_conv, torch.float32), (k3.nequip_conv_reference, torch.float32),
+                      (k3.nequip_conv_reference, torch.float64)):
+        wd = w if dtype == torch.float32 else k3.prepare_radial(
+            [t.double() for t in w.ws], w.C, w.n_tracks, w.lmax)
+        xs = [t.detach().to(dtype).requires_grad_(True) for t in ins]
+        o = fn(*xs, wd, k, avg) if fn is k3.nequip_conv else fn(*xs, wd, k, inv_avg)
+        out.append(torch.autograd.grad(o, xs, cot.to(dtype)))
+    return tuple(out)
+
+
+def k3_seed_spread(n_seeds=20):
+    """``--k3-spread``: K3's backward at K3_SPREAD_CASE over ``n_seeds``
+    cotangent seeds, the kernel's and the plain f32 version's error, each
+    against the plain version at f64 on the card, as a share of the tight
+    gate's tolerance (TIGHT_TOLS['bwd'], atol + rtol max|f64|), per input;
+    and the card leg's own comparison (kernel against plain f32).  Prints
+    one JSON line per seed and a summary; returns the worst shares."""
+    import torch
+
+    atol, rtol = TIGHT_TOLS["bwd"]
+    lmax, T, c, k, n = K3_SPREAD_CASE[:5]
+    w, ins = k3_layout_operands(torch.device("cuda"), *K3_SPREAD_CASE)
+    worst = {"kernel_vs_f64": 0.0, "plain_vs_f64": 0.0, "kernel_vs_plain": 0.0}
+    for seed in range(n_seeds):
+        g_k, g_p, g_64 = k3_seed_grads(w, ins, k, 12.0, seed)
+        row = {"seed": seed}
+        for key, a, b in (("kernel_vs_f64", g_k, g_64), ("plain_vs_f64", g_p, g_64),
+                          ("kernel_vs_plain", g_k, g_p)):
+            shares = []
+            for x, y in zip(a, b):
+                tol = atol + rtol * float(y.double().abs().max())
+                shares.append(float((x.double() - y.double()).abs().max()) / tol)
+            row[key] = shares
+            worst[key] = max(worst[key], max(shares))
+        print("k3 spread", json.dumps(row))
+    print("k3 spread worst err/tol over", n_seeds, "seeds:", json.dumps(worst))
+    return worst
 
 
 def nequip_model_parity():
@@ -2168,6 +2278,254 @@ def stack_timings(cfg, params, system, eng, errs):
     return res, errs
 
 
+# bench.py:scale_line's run: FCC Cu of 63^3 cells (1,000,188 atoms, jitter
+# 0.03 A), rows per window (189 windows)
+SCALE_REP, SCALE_CHUNK = 63, 5292
+
+
+def scale_case():
+    """(cfg, params, system) of the scale path on the card: the flagship
+    Allegro (l_max 2, 3 layers, 64 / 32 features, r_max 4.5, f32) on
+    bench.py:scale_line's 1,000,188 atoms (``fcc_lattice`` is
+    ``__graft_entry__._fcc_cu``'s formula)."""
+    import numpy as np
+
+    from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy, allegro_params_from_numpy
+    from pair_allegro_tpu_torch.system import System, fcc_lattice
+
+    cfg = flagship_cfg()
+    params = allegro_params_from_numpy(allegro_init_numpy(cfg, SEED), cfg)
+    pos, cell = fcc_lattice(SCALE_REP, jitter=0.03)
+    n = pos.shape[0]
+    system = System.create(pos, np.zeros(n), cell=cell, masses=np.full(n, 63.546))
+    return cfg, params, system
+
+
+def reset_launches():
+    for m in kernel_modules().values():
+        m.launches.reset()
+
+
+def launched_now():
+    return {name: (m.launches.fwd, m.launches.bwd) for name, m in kernel_modules().items()
+            if m.launches.fwd or m.launches.bwd}
+
+
+def scale_path(card):
+    """Phase 17a: the million-atom mode (bench.py:scale_line's run through
+    the port).  ``AllegroEngine(row_chunk=5292)`` (189 windows), one
+    rebuild, a first force evaluation and a steady one on positions moved
+    by 1e-6 A; host seconds of the capacity estimate, seconds of the
+    rebuild, s/force, K, counted edges, peak device memory and the resolved
+    remat.  Gates: finite energy and forces, |sum F| <= 1e-6 N max|F|
+    (translation invariance in f32), and exactly 3 x 189 K1 launches
+    backward and 2 x 3 x 189 forward per evaluation (the forward and each
+    window checkpoint's recompute; the layers inside a window take no
+    checkpoint of their own), no other kernel.  Returns the K1 counts of
+    the steady evaluation and the numbers printed."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+
+    t0 = time.perf_counter()
+    cfg, params, system = scale_case()
+    t_case = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = AllegroEngine(cfg, params, system, row_chunk=SCALE_CHUNK)
+    t_est = time.perf_counter() - t0
+    n = system.n_atoms
+    windows = n // SCALE_CHUNK
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nb = eng.rebuild_fn(system, None)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    overflow = bool(nb.overflow)
+    edges = int(nb.edge_mask.sum())
+    peak_build = torch.cuda.max_memory_allocated() / 2**30
+    res = {"atoms": n, "windows": windows, "row_chunk": SCALE_CHUNK,
+           "K": eng.spec.max_neighbors, "edge_slots": n * eng.spec.max_neighbors,
+           "edges": edges, "remat": eng.cfg.remat, "host_estimate_s": t_est,
+           "system_s": t_case, "rebuild_s": t_build, "rebuild_peak_gib": peak_build}
+    want = {"K1": (2 * cfg.num_layers * windows, cfg.num_layers * windows)}
+    counts = None
+    for label, sys_ in (("first", system),
+                        ("steady", system.replace(positions=system.positions + 1e-6))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = eng.force_fn(sys_, nb)
+        torch.cuda.synchronize()
+        res[f"{label}_s_per_force"] = time.perf_counter() - t0
+        res[f"{label}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        counts = launched_now()
+        f = out.forces.double()
+        finite = bool(torch.isfinite(f).all()) and bool(torch.isfinite(out.total_energy))
+        net = float(f.sum(0).norm())
+        fmax = float(f.abs().max())
+        res[f"{label}_net_force_share"] = net / (n * fmax)
+        print(f"scale path ({card}): {label} force evaluation {res[f'{label}_s_per_force']:.4f} s, "
+              f"E {float(out.total_energy):.6f} eV, |sum F| {net:.4e} eV/A against N max|F| "
+              f"{n * fmax:.4e} (share {res[f'{label}_net_force_share']:.3e}, gate 1e-6), "
+              f"finite {finite}, peak {res[f'{label}_peak_gib']:.3f} GiB, launches fwd/bwd "
+              f"{counts} (want {want})")
+        if not finite or not res[f"{label}_net_force_share"] <= 1e-6:
+            raise RuntimeError(f"scale path {label}: non-finite or net force too large")
+        if counts != want or overflow:
+            raise RuntimeError(f"scale path {label}: launched {counts}, want {want}; "
+                               f"overflow {overflow}")
+    print(f"scale path ({card}): {n} atoms, {windows} windows of {SCALE_CHUNK} rows, "
+          f"K={res['K']}, {res['edge_slots']} edge slots, {edges} counted edges, remat resolved "
+          f"{res['remat']}; host capacity estimate (numpy host_neighbor_stats) {t_est:.3f} s, "
+          f"system on the card {t_case:.3f} s, rebuild {t_build:.3f} s (peak "
+          f"{peak_build:.3f} GiB), s/force first {res['first_s_per_force']:.4f}, steady "
+          f"{res['steady_s_per_force']:.4f}")
+    print("scale path result", json.dumps(res))
+    del eng, nb, out, system, params
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def chunked_parity(card):
+    """Phase 17b: the 5,324-atom bulk (phase 5's system and model) with
+    ``row_chunk=1331`` against the unchunked engine on one neighbor build:
+    forces within 1e-5 eV/A (the same kernel on the same rows, only the
+    order of the window sums differs), per-atom energies and virial printed;
+    then phase 5's run with the windows (60 + 60 steps), its steps/s beside
+    phase 5's."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+
+    cfg, params, system = make_case(11, None)
+    eng0 = AllegroEngine(cfg, params, system)
+    eng1 = AllegroEngine(cfg, params, system, row_chunk=ROW_CHUNK["allegro-chunked"])
+    nb = eng0.rebuild_fn(system, None)
+    nb1 = eng1.rebuild_fn(system, None)
+    same = all(torch.equal(getattr(nb, k), getattr(nb1, k))
+               for k in ("edge_index", "edge_shifts", "edge_mask", "edge_rev"))
+    o0, o1 = eng0.force_fn(system, nb), eng1.force_fn(system, nb)
+    df, de = max_err(o1.forces, o0.forces), max_err(o1.atomic_energy, o0.atomic_energy)
+    dv = max_err(o1.virial, o0.virial)
+    dE = abs(float(o1.total_energy) - float(o0.total_energy))
+    print(f"chunked parity ({card}): 5,324 atoms, row_chunk=1331 against no windows: max|dF| "
+          f"{df:.3e} eV/A (gate 1e-5), max|dE_i| {de:.3e} eV, |dE| {dE:.3e} eV, max|dW| "
+          f"{dv:.3e} eV; windowed neighbor build equal to the full one: {same}")
+    if not (df <= 1e-5 and same):
+        raise RuntimeError("chunked parity gate failed")
+    del eng0, eng1, nb, nb1
+    torch.cuda.empty_cache()
+    main_path("allegro-chunked")
+    a, b = STEPS_PER_S.get("allegro"), STEPS_PER_S["allegro-chunked"]
+    print(f"chunked path ({card}): {b:.4f} steps/s with 4 windows of 1331 rows against phase 5's "
+          f"{a:.4f} steps/s in this call (ratio {b / a:.4f})" if a else
+          f"chunked path ({card}): {b:.4f} steps/s")
+    torch.cuda.empty_cache()
+    return {"max_abs_dF": df, "chunked_steps_per_s": b, "phase5_steps_per_s": a}
+
+
+# the kernel tiers of the remat legs: (label, config fields, environment,
+# system kind, {kernel: launches per force evaluation each way})
+REMAT_TIERS = [
+    ("k1", {}, {}, "bulk", {"K1": 3}),
+    ("embed", {}, {"PAT_L1_EMBED": "1"}, "bulk", {"K6": 1, "K1": 1, "K7": 1}),
+    ("perlayer", dict(layer_fused=False), {}, "bulk", {"K2": 3}),
+    ("perlayer-mxu_highest", dict(layer_fused=False, tp_mode="mxu_highest"), {}, "bulk",
+     {"K5": 3}),
+    ("flat", {}, {}, "slab", {"K4": 3}),
+    ("nequip", {}, {}, "nequip", {"K3": 3}),
+]
+# the TABLE tiers of the row_chunk legs (500 atoms, 4 windows of 125 rows)
+CHUNK_TIERS = [
+    ("k1", {}, {}, {"K1": 3}),
+    ("k1-nopos", {}, {"PAT_L1_POSITIONAL": "0"}, {"K1": 3}),
+    ("embed", {}, {"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1}),
+    ("perlayer", dict(layer_fused=False), {}, {"K2": 3}),
+    ("perlayer-mxu_highest", dict(layer_fused=False, tp_mode="mxu_highest"), {}, {"K5": 3}),
+    ("stack", dict(fused_stack=True), {}, {"K8": 1}),
+]
+
+
+def _remat_engine(kind, fields, remat, row_chunk=None):
+    import dataclasses
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
+
+    if kind == "nequip":
+        cfg, params, system = make_nequip_case(5, None)
+        return system, NequIPEngine(dataclasses.replace(cfg, remat=remat), params, system)
+    cfg, params, system = make_case(5, None, output_charges=True, slab=kind == "slab", **fields)
+    cfg = dataclasses.replace(cfg, remat=remat)
+    return system, AllegroEngine(cfg, params, system, row_chunk=row_chunk)
+
+
+def remat_legs(card):
+    """Phase 17c: on the 500-atom table (the slab for K4), each kernel tier
+    with ``remat=True`` against ``remat=False``: forces within the tight
+    gate (TIGHT_TOLS['bwd'] on max|F|), whether they are bit-identical, and
+    the launches (remat runs each layer's forward once more: twice the
+    forward count, the same backward); then ``row_chunk=125`` on each TABLE
+    tier against no windows, within the model gate (5e-4 eV/A), with each
+    window's forward run twice."""
+    import torch
+
+    atol, rtol = TIGHT_TOLS["bwd"]
+    out = {}
+    for label, fields, env, kind, per_eval in REMAT_TIERS:
+        with env_vars(env):
+            res = {}
+            for remat in (False, True):
+                system, eng = _remat_engine(kind, fields, remat)
+                nb = eng.rebuild_fn(system, None)
+                reset_launches()
+                o = eng.force_fn(system, nb)
+                torch.cuda.synchronize()
+                res[remat] = (o.forces, launched_now())
+        (f0, c0), (f1, c1) = res[False], res[True]
+        err, tol = max_err(f1, f0), atol + rtol * float(f0.abs().max())
+        ident = bool(torch.equal(f1, f0))
+        want0 = {k: (n, n) for k, n in per_eval.items()}
+        want1 = {k: (2 * n, n) for k, n in per_eval.items()}
+        print(f"remat ({card}) {label}: max|F(remat) - F| {err:.3e} eV/A (tight gate {tol:.3e}), "
+              f"bit-identical {ident}; launches fwd/bwd without {c0}, with {c1} (extra forward "
+              f"launches {({k: c1[k][0] - c0[k][0] for k in c1 if k in c0})})")
+        if not err <= tol or c0 != want0 or c1 != want1:
+            raise RuntimeError(f"remat leg {label}: err {err}, launches {c0} / {c1}")
+        out[label] = {"max_abs_dF": err, "bit_identical": ident}
+    for label, fields, env, per_eval in CHUNK_TIERS:
+        with env_vars(env):
+            res = {}
+            for rc in (None, 125):
+                system, eng = _remat_engine("bulk", fields, False, row_chunk=rc)
+                nb = eng.rebuild_fn(system, None)
+                reset_launches()
+                o = eng.force_fn(system, nb)
+                torch.cuda.synchronize()
+                res[rc] = (o, launched_now())
+        (o0, c0), (o1, c1) = res[None], res[125]
+        df, dq = max_err(o1.forces, o0.forces), max_err(o1.extras["charges"], o0.extras["charges"])
+        want1 = {k: (2 * 4 * n, 4 * n) for k, n in per_eval.items()}
+        print(f"row_chunk ({card}) {label}: 4 windows of 125 rows against none: max|dF| {df:.3e} "
+              f"eV/A, max|dq| {dq:.3e} (gate 5e-4); launches fwd/bwd {c1} (want {want1})")
+        if not (df < 5e-4 and dq < 5e-4) or c1 != want1:
+            raise RuntimeError(f"row_chunk leg {label}: dF {df}, launches {c1}")
+        out[f"row_chunk {label}"] = {"max_abs_dF": df}
+    return out
+
+
+def scale_phase(card):
+    """Phase 17: the million-atom mode and remat (scale_path,
+    chunked_parity, remat_legs); every number beside the card's name and
+    power limit."""
+    print(f"phase 17 on {card}")
+    counts, res = scale_path(card)
+    res["chunked"] = chunked_parity(card)
+    res["remat_legs"] = remat_legs(card)
+    return counts, res
+
+
 def _kind_of(name):
     """A coarse class of a device kernel's name, for the profile's summary."""
     n = name.lower()
@@ -2192,8 +2550,9 @@ def _kind_of(name):
 
 
 def profile_steps(model="allegro", integrator="nve", n_steps=10):
-    """``--profile [nequip | perlayer | perlayer-mxu | flat | embed | stack]
-    [nve | nvt]``: where one main-path MD step's device time goes, under
+    """``--profile [nequip | perlayer | perlayer-mxu | flat | embed | stack |
+    allegro-chunked] [nve | nvt]``: where one main-path MD step's device
+    time goes (``allegro-chunked``: phase 5's in 4 windows), under
     NVE or phase 16's NVT (50 K, tdamp 0.05 ps).  torch.profiler over
     n_steps after a 20-step warmup; kernel time summed by name and by class
     per step, and the device's idle share of the wall time."""
@@ -2249,6 +2608,74 @@ def _profile_steps(model, integrator, n_steps):
     for name, ms in per.most_common(20):
         print(f"profile {model}: {ms:8.3f} ms/step {100 * ms / busy:5.1f}%  "
               f"x{calls[name] / n_steps:5.1f}  {name[:110]}")
+    return 0
+
+
+def profile_scale():
+    """``--profile scale``: where one steady force evaluation of the
+    million-atom mode (phase 17a's engine) spends its device time:
+    torch.profiler over one evaluation after a warm one, kernel time by
+    class and by name, the device's idle share; beside it the host clock of
+    the evaluation's forward alone (the 189 windows, no backward) and of the
+    rebuild."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    kernel_modules()["K1"].LIB.load()
+    cfg, params, system = scale_case()
+    t0 = time.perf_counter()
+    eng = AllegroEngine(cfg, params, system, row_chunk=SCALE_CHUNK)
+    t_est = time.perf_counter() - t0
+    nb = eng.rebuild_fn(system, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nb = eng.rebuild_fn(system, None)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    eng.force_fn(system, nb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.force_fn(system, nb)
+    torch.cuda.synchronize()
+    t_force = time.perf_counter() - t0
+    with torch.no_grad():  # the windows' forward alone: no checkpoint saves, no backward
+        t0 = time.perf_counter()
+        eng.energy_fn(system.positions, system.types, nb.edge_index, cell=system.cell,
+                      edge_shifts=nb.edge_shifts, atom_mask=system.valid_mask(),
+                      edge_mask=nb.edge_mask, edge_rev=nb.edge_rev)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.force_fn(system, nb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per, calls, kinds = collections.Counter(), collections.Counter(), collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
+            per[ev.name] += ms
+            calls[ev.name] += 1
+            kinds[_kind_of(ev.name)] += ms
+    busy = sum(per.values())
+    print(f"profile scale: {system.n_atoms} atoms, {system.n_atoms // SCALE_CHUNK} windows, "
+          f"K={eng.spec.max_neighbors}; host capacity estimate {t_est:.3f} s, rebuild "
+          f"{t_build:.3f} s, force evaluation {t_force:.4f} s without the profiler, of which "
+          f"the windows' forward alone (no_grad) {t_fwd:.4f} s")
+    print(f"profile scale: {wall * 1e3:.3f} ms wall (profiler on), device busy {busy:.3f} ms, "
+          f"idle share {1.0 - busy / (wall * 1e3):.3f}, {sum(calls.values())} device events")
+    for kind, ms in kinds.most_common():
+        print(f"profile scale by class: {ms:10.3f} ms {100 * ms / busy:5.1f}%  {kind}")
+    for name, ms in per.most_common(20):
+        print(f"profile scale: {ms:10.3f} ms {100 * ms / busy:5.1f}%  x{calls[name]:6d}  "
+              f"{name[:110]}")
     return 0
 
 
@@ -2311,9 +2738,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--profile"]:
         model = sys.argv[2] if len(sys.argv) > 2 else "allegro"
         integrator = sys.argv[3] if len(sys.argv) > 3 else "nve"
-        if model not in ("allegro", "nequip", "perlayer", "perlayer-mxu", "flat", "embed", "stack"):
-            raise SystemExit(f"--profile takes allegro, nequip, perlayer, perlayer-mxu, flat, embed "
-                             f"or stack, not {model}")
+        if model == "scale":
+            return profile_scale()
+        if model not in PATHS or model == "nequip-flat":
+            raise SystemExit(f"--profile takes allegro, nequip, perlayer, perlayer-mxu, flat, embed, "
+                             f"stack, allegro-chunked or scale, not {model}")
         if integrator not in ("nve", "nvt"):
             raise SystemExit(f"--profile's integrator is nve or nvt, not {integrator}")
         return profile_steps(model, integrator)
@@ -2322,6 +2751,34 @@ def main() -> int:
         if which not in TIMINGS:
             raise SystemExit(f"--timings takes body, env, flat or nequip, not {which!r}")
         return timings(which)
+    if sys.argv[1:2] == ["--scale"]:  # phase 5 (for its steps/s) and phase 17 alone
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60)
+        card = smi.stdout.strip().splitlines()[0]
+        print(card)
+        libs = {id(m.LIB): m.LIB for m in kernel_modules().values()}.values()
+        for lib in libs:
+            lib.start()
+        for lib in libs:
+            lib.load()
+        main_path("allegro")
+        scale_phase(card)
+        return 0
+    if sys.argv[1:2] == ["--k3-spread"]:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60)
+        print(smi.stdout.strip().splitlines()[0])
+        from pair_allegro_tpu_torch.ops import nequip_conv
+
+        lib = nequip_conv.LIB.load()
+        for line in nequip_conv.LIB.paths()[1].read_text().splitlines():
+            if "registers" in line or "Function properties for" in line or "spill" in line:
+                print("ptxas K3:", line.strip())
+        del lib
+        k3_seed_spread(int(sys.argv[2]) if len(sys.argv) > 2 else 20)
+        return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -2396,7 +2853,9 @@ def main() -> int:
     del sparams, ssystem, seng
     torch.cuda.empty_cache()
     accuracy_phase()
-    cli_phase(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    cli_phase(card)
+    counts17, _ = scale_phase(card)
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):
@@ -2412,6 +2871,7 @@ def main() -> int:
             ms_by_form={f: r["ms"] for f, r in per.items()},
             plain_ms_by_form={f: r["plain_ms"] for f, r in per.items()},
             bound_ms_by_form={f: r["bound_ms"] for f, r in per.items()},
+            scale_path_launches=counts17["K1"][0 if kind == "fwd" else 1],
         ))
     for kind, line in (("fwd", 289), ("bwd", 401)):
         # one call (one message-passing layer); num_layers calls per force evaluation

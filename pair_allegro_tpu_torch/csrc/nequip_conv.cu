@@ -56,8 +56,13 @@
 //  * the tensor cores' f32 accumulation does not round to nearest, so
 //    long sums leave them in pieces added in f32 on the CUDA cores: the
 //    backward's T P C-term sum into dX one pass (a channel octet's 8 PG
-//    terms) at a time, the hidden layers' in chunks of 64 terms (the
-//    forward's last product sums its hin terms, 32 at the bench, at once);
+//    terms) at a time, the hidden layers' in chunks of 64 terms, and the
+//    last product's hin terms in chunks of 64 where hin > 64 (the kernels
+//    instantiated with LONG; at the bench hin is 32, one chain, and a
+//    second set of accumulators would cost registers for nothing).  One
+//    768-term chain put the backward's error at up to 0.85 of the tight
+//    gate against the f64 plain version, where the plain f32 version
+//    stays at 0.05 (chip_smoke.py --k3-spread);
 //  * the radial hidden layers (8 -> 32 -> 32 at the bench) run on the
 //    tensor cores too (small_product: warps take the (m16, n8) output
 //    tiles in turn, weights through the read-only cache), the
@@ -235,25 +240,24 @@ __device__ void stage_w(const K3P& p, float* Ws, int hin, int tpc) {
 // The tensor-core products
 // ---------------------------------------------------------------------------
 
-// acc[j] = X^T Wlast for the warp's m16 edge tile mt (rows: edges mt*16 + g
-// and + 8 of the tile) and n8 tile j = columns (lo + j) * C + cb .. + 8 of
-// the last weight (channels cb .. cb + 8 of radial weight lo + j), unscaled,
-// in 3xTF32.  X: feature-major (r8(hin) rows, zero past hin) at row stride
-// ldx; with RES the resident weight Ws (row stride sa, zero past hin and
-// tpc: no guard), else p.wl (row stride tpc) through the read-only cache.
+// acc[j] += X^T Wlast over the rows kb .. ke (multiples of 8) for the
+// warp's m16 edge tile mt (rows: edges mt*16 + g and + 8 of the tile) and
+// n8 tile j = columns (lo + j) * C + cb .. + 8 of the last weight
+// (channels cb .. cb + 8 of radial weight lo + j), unscaled, in 3xTF32 on
+// one accumulation chain.  X: feature-major (r8(hin) rows, zero past hin)
+// at row stride ldx; with RES the resident weight Ws (row stride sa, zero
+// past hin and tpc: no guard), else p.wl (row stride tpc) through the
+// read-only cache.
 template <int PG, bool RES>
-__device__ __forceinline__ void product_fwd(const K3P& p, const float* X, const float* Ws, int hin,
-                                            int tpc, int mt, int cb, int lo, float (&acc)[PG][4]) {
+__device__ __forceinline__ void product_terms(const K3P& p, const float* X, const float* Ws,
+                                              int hin, int tpc, int mt, int cb, int lo, int kb,
+                                              int ke, float (&acc)[PG][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int e = mt * 16 + g;
   const bool r0 = e < p.et, r1 = e + 8 < p.et;
   const bool cv = cb + g < p.C;  // C = 4 fills half an octet
   const int col = lo * p.C + cb + g;
-#pragma unroll
-  for (int j = 0; j < PG; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  for (int k0 = 0; k0 < r8(hin); k0 += 8) {
+  for (int k0 = kb; k0 < ke; k0 += 8) {
     const float* x = X + (k0 + t) * p.ldx + e;
     uint32_t ah[4], al[4];
     split_tf32(r0 ? x[0] : 0.f, ah[0], al[0]);
@@ -280,6 +284,33 @@ __device__ __forceinline__ void product_fwd(const K3P& p, const float* X, const 
       mma_tf32(acc[j], ah, bl);
       mma_tf32(acc[j], ah, bh);
     }
+  }
+}
+
+// acc[j] = X^T Wlast (product_terms over all hin rows): one chain, or with
+// LONG chunks of 64 terms, each from zero, added in f32.
+template <int PG, bool RES, bool LONG>
+__device__ __forceinline__ void product_fwd(const K3P& p, const float* X, const float* Ws, int hin,
+                                            int tpc, int mt, int cb, int lo, float (&acc)[PG][4]) {
+#pragma unroll
+  for (int j = 0; j < PG; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  if constexpr (LONG) {
+    for (int kc = 0; kc < r8(hin); kc += 64) {
+      float part[PG][4];
+#pragma unroll
+      for (int j = 0; j < PG; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+      product_terms<PG, RES>(p, X, Ws, hin, tpc, mt, cb, lo, kc, min(kc + 64, r8(hin)), part);
+#pragma unroll
+      for (int j = 0; j < PG; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
+    }
+  } else {
+    product_terms<PG, RES>(p, X, Ws, hin, tpc, mt, cb, lo, 0, r8(hin), acc);
   }
 }
 
@@ -430,7 +461,7 @@ __device__ __forceinline__ constexpr bool in_pass(int i) {
 // the TP of the lane's cells (edges mt*16 + g, + 8; channels c, c + 1) into
 // the channel sums a0 / a1, their hj values read as pairs of channels (on
 // the card, loading them ahead of the product was slower and spilled).
-template <int LMAX, int T, int GI, bool RES>
+template <int LMAX, int T, int GI, bool RES, bool LONG>
 __device__ __forceinline__ void fwd_pass(const K3P& p, const float* sm, const float* X,
                                          const float* Ws, int hin, int mt, int cb, int e0, int ne,
                                          float s_last, float (&a0)[Cfg<LMAX, T>::DT],
@@ -440,7 +471,7 @@ __device__ __forceinline__ void fwd_pass(const K3P& p, const float* sm, const fl
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int C = p.C, c = cb + 2 * t, df = DT * C;
   float acc[PG][4];
-  product_fwd<PG, RES>(p, X, Ws, hin, G::TP * C, mt, cb, GI * PG, acc);
+  product_fwd<PG, RES, LONG>(p, X, Ws, hin, G::TP * C, mt, cb, GI * PG, acc);
   const float* ys = sm + p.o_y;
   const float* us = sm + p.o_u;
 #pragma unroll
@@ -469,7 +500,7 @@ __device__ __forceinline__ void fwd_pass(const K3P& p, const float* sm, const fl
   }
 }
 
-template <int LMAX, int T, bool RES>
+template <int LMAX, int T, bool RES, bool LONG>
 __global__ void __launch_bounds__(NT, LMAX == 1 ? 2 : 1) k3_fwd_kernel(const K3P p) {
   using G = Cfg<LMAX, T>;
   constexpr int D = G::D, DT = G::DT, NG = G::NG;
@@ -500,9 +531,9 @@ __global__ void __launch_bounds__(NT, LMAX == 1 ? 2 : 1) k3_fwd_kernel(const K3P
 #pragma unroll
         for (int i = 0; i < DT; ++i) a0[i] = a1[i] = 0.f;
         for (int mt = we; mt * 16 < ne; mt += p.we) {
-          fwd_pass<LMAX, T, 0, RES>(p, sm, X, Ws, hin, mt, cb, e0, ne, s_last, a0, a1);
+          fwd_pass<LMAX, T, 0, RES, LONG>(p, sm, X, Ws, hin, mt, cb, e0, ne, s_last, a0, a1);
           if constexpr (NG == 2)
-            fwd_pass<LMAX, T, 1, RES>(p, sm, X, Ws, hin, mt, cb, e0, ne, s_last, a0, a1);
+            fwd_pass<LMAX, T, 1, RES, LONG>(p, sm, X, Ws, hin, mt, cb, e0, ne, s_last, a0, a1);
         }
         // the channels' sums over the warp's edges: the 8 lanes of equal t
 #pragma unroll
@@ -541,7 +572,7 @@ __global__ void __launch_bounds__(NT, LMAX == 1 ? 2 : 1) k3_fwd_kernel(const K3P
 // (w_raw), the TP backward of the lane's four cells one at a time (dhj, dY
 // and du on the first dX pass only), gs = dw * u into the accumulators,
 // and the pass's dX columns from them.
-template <int LMAX, int T, int GI, bool RES>
+template <int LMAX, int T, int GI, bool RES, bool LONG>
 __device__ __forceinline__ void bwd_pass(const K3P& p, const float* sm, const float* X,
                                          const float* Ws, int hin, int mt, int cb, int e0, int ne,
                                          float s_last, int x0, float* dX,
@@ -572,7 +603,7 @@ __device__ __forceinline__ void bwd_pass(const K3P& p, const float* sm, const fl
     }
   }
   float acc[PG][4];
-  product_fwd<PG, RES>(p, X, Ws, hin, tpc, mt, cb, GI * PG, acc);
+  product_fwd<PG, RES, LONG>(p, X, Ws, hin, tpc, mt, cb, GI * PG, acc);
   const float* ys = sm + p.o_y;
   const float* us = sm + p.o_u;
 #pragma unroll
@@ -630,7 +661,7 @@ __device__ __forceinline__ void bwd_pass(const K3P& p, const float* sm, const fl
   product_bwd<PG, RES>(p, acc, Ws, hin, tpc, mt, cb, GI * PG, x0, cb == 0 && GI == 0, s_last, dX);
 }
 
-template <int LMAX, int T, bool RES>
+template <int LMAX, int T, bool RES, bool LONG>
 __global__ void __launch_bounds__(NT, 1) k3_bwd_kernel(const K3P p) {
   using G = Cfg<LMAX, T>;
   constexpr int D = G::D, NG = G::NG;
@@ -667,9 +698,11 @@ __global__ void __launch_bounds__(NT, 1) k3_bwd_kernel(const K3P p) {
       for (int d = 0; d < D; ++d) dy[h2][d] = 0.f;
     for (int x0 = 0; x0 < r8(hin) && active; x0 += xc_of(RES))
       for (int oc = 0; oc < noct; ++oc) {
-        bwd_pass<LMAX, T, 0, RES>(p, sm, X, Ws, hin, mt, 8 * oc, e0, ne, s_last, x0, dX, dy, du);
+        bwd_pass<LMAX, T, 0, RES, LONG>(p, sm, X, Ws, hin, mt, 8 * oc, e0, ne, s_last, x0, dX,
+                                        dy, du);
         if constexpr (NG == 2)
-          bwd_pass<LMAX, T, 1, RES>(p, sm, X, Ws, hin, mt, 8 * oc, e0, ne, s_last, x0, dX, dy, du);
+          bwd_pass<LMAX, T, 1, RES, LONG>(p, sm, X, Ws, hin, mt, 8 * oc, e0, ne, s_last, x0, dX,
+                                          dy, du);
       }
     // dY and du: each lane holds its channels' share of edges g and g + 8;
     // the four lanes of equal g hold all of them
@@ -801,14 +834,21 @@ int launch(Kern kern, const K3P& p, int smem, int work, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int LMAX, int T>
+template <int LMAX, int T, bool LONG>
 int launch_kernel(bool bwd, const K3P& p, int smem, cudaStream_t st) {
   const int tiles = (p.E + p.et - 1) / p.et, centers = p.E / p.K;
   if (bwd)
-    return p.resident ? launch(k3_bwd_kernel<LMAX, T, true>, p, smem, tiles, st)
-                      : launch(k3_bwd_kernel<LMAX, T, false>, p, smem, tiles, st);
-  return p.resident ? launch(k3_fwd_kernel<LMAX, T, true>, p, smem, centers, st)
-                    : launch(k3_fwd_kernel<LMAX, T, false>, p, smem, centers, st);
+    return p.resident ? launch(k3_bwd_kernel<LMAX, T, true, LONG>, p, smem, tiles, st)
+                      : launch(k3_bwd_kernel<LMAX, T, false, LONG>, p, smem, tiles, st);
+  return p.resident ? launch(k3_fwd_kernel<LMAX, T, true, LONG>, p, smem, centers, st)
+                    : launch(k3_fwd_kernel<LMAX, T, false, LONG>, p, smem, centers, st);
+}
+
+// the last product's depth picks the chained (hin <= 64) or chunked kernels
+template <int LMAX, int T>
+int launch_kernel(bool bwd, const K3P& p, int smem, cudaStream_t st) {
+  return p.wdim[p.nw - 1] > 64 ? launch_kernel<LMAX, T, true>(bwd, p, smem, st)
+                               : launch_kernel<LMAX, T, false>(bwd, p, smem, st);
 }
 
 }  // namespace

@@ -13,6 +13,7 @@ boxes, slabs, molecules, clusters).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
@@ -22,6 +23,7 @@ from pair_allegro_tpu_torch.models.allegro import AllegroConfig, allegro_energy
 from pair_allegro_tpu_torch.models.nequip import NequIPConfig, nequip_energy
 from pair_allegro_tpu_torch.neighbors.device import (
     NeighborData,
+    build_cell_bins,
     cell_list_neighbors,
     choose_grid,
     dense_build_bytes,
@@ -30,6 +32,7 @@ from pair_allegro_tpu_torch.neighbors.device import (
     static_image_shifts,
 )
 from pair_allegro_tpu_torch.neighbors.naive import host_neighbor_stats
+from pair_allegro_tpu_torch.ops.scatter import table_edge_vec, table_edge_vec_typed
 from pair_allegro_tpu_torch.potential import make_potential
 from pair_allegro_tpu_torch.system import System, resolve_device
 
@@ -112,7 +115,8 @@ def _estimate_capacities(system: System, cutoff: float, skin: float, capacity_fa
     """Strategy and padded capacities from the initial geometry, as the JAX
     engine picks them: the cell list when the box is periodic on every axis,
     holds >= 3 bins per axis and N > 256, with K = round(max count + max(8,
-    20%)); else the dense build over the image shifts that cover the
+    20%)), or the value of ``PAT_K_MAX`` when it is set (capacity
+    experiments); else the dense build over the image shifts that cover the
     cutoff, with max_edges the edge count * capacity_factor rounded up to a
     multiple of 128, plus 128."""
     cell = system.cell.detach().cpu().double().numpy()
@@ -121,7 +125,8 @@ def _estimate_capacities(system: System, cutoff: float, skin: float, capacity_fa
     grid = choose_grid(cell, rc) if all(system.pbc) else None
     n_edges, max_count = _host_stats(system, rc, cutoff_table)
     if grid is not None and n > 256:
-        k_max = _round_k(max_count + max(8, -(-max_count // 5)))
+        k_max = (int(os.environ.get("PAT_K_MAX", "0"))
+                 or _round_k(max_count + max(8, -(-max_count // 5))))
         per_bin = n / np.prod(grid)
         return NeighborSpec(
             strategy="cell_list",
@@ -138,28 +143,67 @@ def _estimate_capacities(system: System, cutoff: float, skin: float, capacity_fa
                         cutoff_table=cutoff_table)
 
 
-def make_rebuild_fn(spec: NeighborSpec, skin: float = 0.0) -> Callable:
+# remat turns on once the per-layer residuals pass this many bytes (the
+# reference's threshold, kept as it is on the 80 GB card)
+REMAT_BYTES = 8 * 1024**3
+
+
+def _resolve_remat(cfg, spec: NeighborSpec, n_atoms: int):
+    """Resolve ``cfg.remat == "auto"`` as the reference does
+    (``pair_allegro_tpu/engine.py:188-201``): off while the per-layer
+    residuals (2 C D + 128 words per edge slot and layer, twice) stay under
+    :data:`REMAT_BYTES`, on above it.  Other values pass through."""
+    if cfg.remat != "auto":
+        return cfg
+    d = (cfg.l_max + 1) ** 2
+    c = getattr(cfg, "num_tensor_features", getattr(cfg, "num_features", 32))
+    resid_bytes = edge_slots(spec, n_atoms) * (2 * c * d + 128) * 4 * cfg.num_layers * 2
+    return dataclasses.replace(cfg, remat=resid_bytes > REMAT_BYTES)
+
+
+def make_rebuild_fn(spec: NeighborSpec, skin: float = 0.0, row_chunk: int | None = None
+                    ) -> Callable:
     """rebuild_fn(system, prev) -> NeighborData.
 
     With skin > 0 the list is built at cutoff + skin and rebuilt only when
     some atom moved more than skin/2 since the last build (one device
     reduction and one host read per call).  The cell list gives the TABLE
-    layout with its reverse table, the dense build the FLAT layout."""
+    layout with its reverse table, the dense build the FLAT layout.  With
+    ``row_chunk`` the cell list bins once and builds the rows in windows
+    of ``row_chunk`` centers, so the (N, 27 * cap) candidate matrix never
+    exists at full size (the million-atom mode); the tables are
+    concatenated, the windows' overflow flags ORed, and the reverse table
+    built once on the whole table."""
 
     def build(system: System) -> NeighborData:
         typed = spec.cutoff_table is not None
+        types = system.types if typed else None
+        mask = system.valid_mask()
         if spec.strategy == "dense":
             nd = dense_neighbors(
                 system.positions, system.cell, spec.shifts_table, spec.cutoff, spec.max_edges,
-                atom_mask=system.valid_mask(), pbc=system.pbc,
-                types=system.types if typed else None, cutoff_table=spec.cutoff_table,
+                atom_mask=mask, pbc=system.pbc, types=types, cutoff_table=spec.cutoff_table,
             )
         else:
-            nd = cell_list_neighbors(
-                system.positions, system.cell, spec.cutoff, spec.grid, spec.cell_capacity,
-                spec.max_neighbors, atom_mask=system.valid_mask(),
-                types=system.types if typed else None, cutoff_table=spec.cutoff_table,
+            bins = build_cell_bins(system.positions, system.cell, spec.cutoff, spec.grid,
+                                   spec.cell_capacity, mask, types=types) if row_chunk else None
+            n = system.n_atoms
+            windows = [
+                cell_list_neighbors(
+                    system.positions, system.cell, spec.cutoff, spec.grid, spec.cell_capacity,
+                    spec.max_neighbors, atom_mask=mask, types=types,
+                    cutoff_table=spec.cutoff_table, query_start=q0, n_query=row_chunk,
+                    bins_data=bins,
+                )
+                for q0 in (range(0, n, row_chunk) if row_chunk else (0,))
+            ]
+            nd = windows[0] if len(windows) == 1 else NeighborData(
+                edge_index=torch.cat([w.edge_index for w in windows]),
+                edge_shifts=torch.cat([w.edge_shifts for w in windows]),
+                edge_mask=torch.cat([w.edge_mask for w in windows]),
+                overflow=torch.stack([w.overflow for w in windows]).any(),
             )
+            del windows
             nd.edge_rev = reverse_table(nd.edge_index, nd.edge_shifts)
         if skin > 0.0:
             nd.ref_positions = system.positions.clone()
@@ -173,6 +217,77 @@ def make_rebuild_fn(spec: NeighborSpec, skin: float = 0.0) -> Callable:
         return build(system) if bool(d2 > (0.5 * skin) ** 2) else prev
 
     return rebuild
+
+
+def _make_chunked_energy(model_energy: Callable, params, cfg, row_chunk: int) -> Callable:
+    """The TABLE-layout energy in windows of ``row_chunk`` center rows (the
+    reference's ``_make_chunked_energy``, ``engine.py:329-458``), each run
+    under ``torch.utils.checkpoint``, so only one window's activations are
+    alive at a time: the million-atom mode on one card.  Exact because the
+    model is strictly local per center row.
+
+    With a reverse table the edge vectors (and, for typed models, the
+    neighbor-type column) are gathered once for all N rows; each window
+    takes its slice of them (``unbind``), so the windows' d(vec) are
+    stacked into one cotangent and one reverse gather builds dpos, with no
+    scatter per window.  The model runs inside a window with its own remat
+    off: the window's checkpoint already bounds the live memory to one
+    window, and a layer checkpoint nested inside it would recompute each
+    layer's forward a third time (non-reentrant checkpoints re-run the
+    inner region once more in the outer one's backward).  The model draws
+    no random numbers, so no generator state is stashed.
+
+    The model's per-center outputs (``model_energy.per_center_outputs``,
+    leading dim the window's centers) are put back in row order; every
+    other output is extensive and summed over the windows (a contract by
+    name, so a fixed-size output such as the (3,) dipole is summed even
+    when ``row_chunk`` is 3)."""
+    from torch.utils.checkpoint import checkpoint
+
+    win_cfg = dataclasses.replace(cfg, remat=False)
+    per_center = frozenset(model_energy.per_center_outputs)
+
+    def energy_fn(positions, types, edge_index, *, cell=None, edge_shifts=None, atom_mask=None,
+                  edge_mask=None, edge_rev=None, center_offset: int = 0):
+        n, k = edge_index.shape
+        c = n // row_chunk
+        if c * row_chunk != n:
+            raise ValueError(f"{n} table rows are not a multiple of row_chunk={row_chunk}")
+        am = (torch.ones(n, dtype=torch.bool, device=positions.device) if atom_mask is None
+              else atom_mask)
+        vec = tjf = None
+        if edge_rev is not None and edge_mask is not None:
+            if cfg.num_types > 1:
+                pos_t = torch.cat([positions, types.to(positions.dtype)[:, None]], 1)
+                vec, tjf = table_edge_vec_typed(pos_t, edge_index, edge_rev, edge_mask)
+            else:
+                vec = table_edge_vec(positions, edge_index, edge_rev, edge_mask)
+
+        def split(a, *tail):
+            return (None,) * c if a is None else a.reshape(c, row_chunk, *tail).unbind(0)
+
+        per_w = zip(split(edge_index, k), split(edge_shifts, k, 3), split(edge_mask, k),
+                    split(am), split(vec, k, 3), split(tjf, k))
+
+        def window(q0, j_w, sh_w, em_w, am_w, vec_w, tjf_w, positions, cell):
+            return model_energy(params, win_cfg, positions, types, j_w, cell=cell,
+                                edge_shifts=sh_w, atom_mask=am_w, edge_mask=em_w,
+                                center_offset=q0, num_centers=row_chunk, edge_vec=vec_w,
+                                edge_tjf=tjf_w)
+
+        outs = [checkpoint(window, center_offset + w * row_chunk, *ops, positions, cell,
+                           use_reentrant=False, preserve_rng_state=False)
+                for w, ops in enumerate(per_w)]
+        res = {}
+        for key in outs[0]:
+            vals = [o[key] for o in outs]
+            if key in per_center:
+                res[key] = torch.cat(vals)
+            else:
+                res[key] = torch.stack(vals).sum(0)
+        return res
+
+    return energy_fn
 
 
 def grow_spec(spec: NeighborSpec, factor: float = 1.5) -> NeighborSpec:
@@ -219,30 +334,36 @@ def edge_slots(spec: NeighborSpec, n_atoms: int) -> int:
     return spec.max_edges if spec.strategy == "dense" else n_atoms * spec.max_neighbors
 
 
-def regrow_bytes(spec: NeighborSpec, system: System, cfg) -> int:
+def regrow_bytes(spec: NeighborSpec, system: System, cfg, row_chunk: int | None = None) -> int:
     """Device bytes a rebuild and force evaluation need at ``spec``'s
     capacity: the edge slots times the model's own per-edge estimate for
     the layout and the system's dtype (``cfg.live_bytes_per_edge``), plus,
     for the dense strategy, what its build holds
     (``neighbors.device.dense_build_bytes``: one pass of candidate pairs
-    and the compacted outputs)."""
+    and the compacted outputs).  With ``row_chunk`` only one window's slots
+    are alive at the model's estimate; the full-size tables are counted
+    besides: index, reverse table, shifts, mask, the edge vectors and their
+    cotangent (and the neighbor-type column of a typed model)."""
     flat = spec.strategy == "dense"
-    need = edge_slots(spec, system.n_atoms) * cfg.live_bytes_per_edge(
-        flat=flat, dtype=system.positions.dtype)
+    isz = system.positions.element_size()
+    slots = edge_slots(spec, system.n_atoms)
+    live = row_chunk * spec.max_neighbors if row_chunk and not flat else slots
+    need = live * cfg.live_bytes_per_edge(flat=flat, dtype=system.positions.dtype)
+    if row_chunk and not flat:
+        need += slots * (8 + 8 + 1 + 9 * isz + (isz if cfg.num_types > 1 else 0))
     if flat:
-        need += dense_build_bytes(system.n_atoms, len(spec.shifts_table), spec.max_edges,
-                                  system.positions.element_size())
+        need += dense_build_bytes(system.n_atoms, len(spec.shifts_table), spec.max_edges, isz)
     return need
 
 
-def _check_memory(spec: NeighborSpec, system: System, cfg) -> None:
+def _check_memory(spec: NeighborSpec, system: System, cfg, row_chunk: int | None = None) -> None:
     """Before a regrow on the card: refuse clearly when the new capacity's
     per-edge tensors would not fit in the free device memory."""
     dev = system.positions.device
     if dev.type != "cuda":
         return
     free, _ = torch.cuda.mem_get_info(dev)
-    need = regrow_bytes(spec, system, cfg)
+    need = regrow_bytes(spec, system, cfg, row_chunk)
     if need > free:
         cap = (f"max_edges={spec.max_edges}" if spec.strategy == "dense"
                else f"K={spec.max_neighbors}")
@@ -254,12 +375,17 @@ def _check_memory(spec: NeighborSpec, system: System, cfg) -> None:
 
 
 class PairEngine:
-    """Bind an energy model to a system shape (the pair_style layer)."""
+    """Bind an energy model to a system shape (the pair_style layer).
+
+    ``cfg.remat == "auto"`` is resolved from the capacity estimate
+    (:func:`_resolve_remat`).  ``row_chunk`` (cell-list strategy only, a
+    divisor of the atom count) runs the neighbor build and the energy in
+    windows of that many center rows (:func:`make_rebuild_fn`,
+    :func:`_make_chunked_energy`)."""
 
     def __init__(self, cfg, params, system: System, model_energy: Callable,
                  skin: float = 0.0, capacity_factor: float = 1.25,
-                 compute_virial: bool = True):
-        self.cfg = cfg
+                 compute_virial: bool = True, row_chunk: int | None = None):
         self.params = params
         self.compute_virial = compute_virial
         self.skin = skin
@@ -267,10 +393,22 @@ class PairEngine:
         self.spec = _estimate_capacities(
             system, cfg.r_max, skin, capacity_factor, cutoff_table=typed_cutoff_table(cfg, skin)
         )
-        self.rebuild_fn = make_rebuild_fn(self.spec, skin)
-        self._potential = make_potential(
-            lambda *a, **k: model_energy(params, cfg, *a, **k)
-        )
+        self.cfg = cfg = _resolve_remat(cfg, self.spec, system.n_atoms)
+        if row_chunk:
+            if self.spec.strategy != "cell_list":
+                raise ValueError("row_chunk requires the cell-list (table) strategy")
+            if system.n_atoms % row_chunk:
+                raise ValueError(
+                    f"n_atoms={system.n_atoms} not divisible by row_chunk={row_chunk}"
+                )
+            energy_fn = _make_chunked_energy(model_energy, params, cfg, row_chunk)
+        else:
+            def energy_fn(*a, **k):
+                return model_energy(params, cfg, *a, **k)
+        self.row_chunk = row_chunk or None
+        self.energy_fn = energy_fn  # the model's energies alone (no forces)
+        self.rebuild_fn = make_rebuild_fn(self.spec, skin, self.row_chunk)
+        self._potential = make_potential(energy_fn)
 
     def force_fn(self, system: System, neighbors: NeighborData):
         return self._potential(
@@ -294,9 +432,9 @@ class PairEngine:
             else grow_spec(self.spec, factor)
         )
         if system is not None:
-            _check_memory(spec, system, self.cfg)
+            _check_memory(spec, system, self.cfg, self.row_chunk)
         self.spec = spec
-        self.rebuild_fn = make_rebuild_fn(self.spec, self.skin)
+        self.rebuild_fn = make_rebuild_fn(self.spec, self.skin, self.row_chunk)
         return self.rebuild_fn
 
     def maybe_shrink(self, system: System):
@@ -314,7 +452,7 @@ class PairEngine:
         if fresh.strategy != "cell_list" or fresh.max_neighbors >= self.spec.max_neighbors:
             return None
         self.spec = fresh
-        self.rebuild_fn = make_rebuild_fn(self.spec, self.skin)
+        self.rebuild_fn = make_rebuild_fn(self.spec, self.skin, self.row_chunk)
         return self.rebuild_fn
 
 

@@ -66,12 +66,16 @@ from pair_allegro_tpu_torch.ops.fused_stack import kernel_takes as k8_takes
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply, mlp_apply_t, mlp_dims, silu_norm_const
 from pair_allegro_tpu_torch.ops.readout_layer import k7_weights, readout_layer
 from pair_allegro_tpu_torch.ops.readout_layer import kernel_takes as k7_takes
+from pair_allegro_tpu_torch.ops.remat import rematerialized
 from pair_allegro_tpu_torch.ops.scatter import segment_sum
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l, scalar_part, tp_mix_apply, uniform_tp
 from pair_allegro_tpu_torch.ops.tp_mix_fused import k4_weights, tp_mix_fused_t
 from pair_allegro_tpu_torch.ops.tp_mix_fused import kernel_takes as k4_takes
 
 TP_MODES = ("paths", *MODES)
+# the outputs with one row per center; every other output is extensive
+# (the row-chunk mode sums it over the windows, engine._make_chunked_energy)
+PER_CENTER_OUTPUTS = ("atomic_energy", "edge_energy", "charges")
 ROUNDING_MODES = ("mxu_bf16x3", "mxu_bf16")  # the per-layer modes that round at f32
 INTERIORS = ("working", "bf16")
 
@@ -98,7 +102,9 @@ class AllegroConfig:
     readout_mlp_hidden_layers_depth: int = 1
     readout_mlp_hidden_layers_width: int = 32
     avg_num_neighbors: float = 1.0
-    # "auto" and False keep no per-layer recompute; True is not ported
+    # recompute each layer's forward in the backward (torch.utils.checkpoint):
+    # True, False, or "auto", which the engines resolve from the capacity
+    # (engine._resolve_remat) and which means True where it reaches the model
     remat: bool | str = "auto"
     # interior compute dtype of the layer stack: "working" (the positions'
     # dtype) is ported; "bf16" is not
@@ -285,14 +291,20 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torc
 
 
 def check_supported(cfg: AllegroConfig) -> None:
-    if cfg.remat is True:
-        raise NotImplementedError("remat=True is not ported: ROADMAP queue 1, item 2")
     if cfg.interior not in INTERIORS:
         raise ValueError(f"interior {cfg.interior!r} is not one of {INTERIORS}")
     if cfg.interior == "bf16":
         raise NotImplementedError("interior='bf16' is not ported: ROADMAP queue 1, item 11")
     if cfg.tp_mode not in TP_MODES:
         raise ValueError(f"tp_mode {cfg.tp_mode!r} is not one of {TP_MODES}")
+
+
+def remat_on(cfg, capture=None) -> bool:
+    """Whether the layer steps recompute their forward in the backward, as
+    the reference decides it (``models/allegro.py:574-576``): ``cfg.remat``
+    when it is a bool, True for an unresolved "auto", never with
+    ``capture``."""
+    return (cfg.remat if isinstance(cfg.remat, bool) else True) and capture is None
 
 
 def allegro_init_numpy(cfg: AllegroConfig, seed: int = 0) -> dict:
@@ -405,17 +417,22 @@ def _embed_major(cfg, types, geo, n: int, k: int) -> dict:
             "Y_T": geo["Y"].reshape(n * k, -1).T.contiguous(), "uT": geo["u"].reshape(1, n * k)}
 
 
-def _k1_layers(params, cfg, xT, pT, Y_T, uT, k, positional=True):
+def _k1_layers(params, cfg, xT, pT, Y_T, uT, k, positional=True, remat=False):
     """The K1 tier: one fused kernel per layer; returns the final xT.  The
     positional forms build V0 in the first layer and skip the last layer's
     V; without them (``PAT_L1_POSITIONAL=0``) V0 = pT * Y is materialised
-    and every layer runs the middle form (the last V' unused)."""
+    and every layer runs the middle form (the last V' unused).  With
+    ``remat`` each layer is a checkpoint (JAX ``fused_step``)."""
     layers = params["layers"]
     Vc = pT if positional else pT.unsqueeze(0) * Y_T.unsqueeze(1)
     for li, layer in enumerate(layers):
-        last = positional and li == len(layers) - 1
-        out = fused_layer(xT, Vc, Y_T, uT, k1_weights(layer, cfg.l_max, cfg.parity), k,
-                          cfg.avg_num_neighbors, first_v=positional and li == 0, last=last)
+        first_v, last = positional and li == 0, positional and li == len(layers) - 1
+
+        def step(xT, Vc, layer=layer, first_v=first_v, last=last):
+            return fused_layer(xT, Vc, Y_T, uT, k1_weights(layer, cfg.l_max, cfg.parity), k,
+                               cfg.avg_num_neighbors, first_v=first_v, last=last)
+
+        out = rematerialized(step, remat)(xT, Vc)
         if last:
             xT = out
         else:
@@ -423,16 +440,28 @@ def _k1_layers(params, cfg, xT, pT, Y_T, uT, k, positional=True):
     return xT
 
 
-def _embed_layers(params, cfg, in_T, Y_T, uT, k):
+def _embed_layers(params, cfg, in_T, Y_T, uT, k, remat=False):
     """The K1 tier's embed/readout form (JAX ``models/allegro.py:685-725``):
     K6 on the two-body input rows, K1's middle form, K7; returns the rows
-    e (1, E), and q (1, E) with the charge head, already times u."""
+    e (1, E), and q (1, E) with the charge head, already times u.  With
+    ``remat`` each of the three steps is a checkpoint."""
     avg = cfg.avg_num_neighbors
-    xT, Vc = embed_layer(in_T, Y_T, uT, k6_weights(params, cfg.l_max, cfg.parity), k, avg)
+
+    def embed_step(in_T):
+        return embed_layer(in_T, Y_T, uT, k6_weights(params, cfg.l_max, cfg.parity), k, avg)
+
+    def mid_step(xT, Vc, layer):
+        return fused_layer(xT, Vc, Y_T, uT, k1_weights(layer, cfg.l_max, cfg.parity), k, avg)
+
+    def ro_step(xT, Vc):
+        return readout_layer(xT, Vc, Y_T, uT,
+                             k7_weights(params, cfg.l_max, cfg.parity, cfg.output_charges), k,
+                             avg)
+
+    xT, Vc = rematerialized(embed_step, remat)(in_T)
     for layer in params["layers"][1:-1]:
-        xT, Vc = fused_layer(xT, Vc, Y_T, uT, k1_weights(layer, cfg.l_max, cfg.parity), k, avg)
-    rows = readout_layer(xT, Vc, Y_T, uT,
-                         k7_weights(params, cfg.l_max, cfg.parity, cfg.output_charges), k, avg)
+        xT, Vc = rematerialized(lambda x, v, layer=layer: mid_step(x, v, layer), remat)(xT, Vc)
+    rows = rematerialized(ro_step, remat)(xT, Vc)
     return rows if cfg.output_charges else (rows,)
 
 
@@ -459,23 +488,26 @@ def env_step(layer, cfg: AllegroConfig, xT, Vt, Y_T, uT, k):
     return (xT + x_new * uT) * (1.0 / math.sqrt(2.0)), Vt
 
 
-def _perlayer_layers(params, cfg, xT, pT, Y_T, uT, k):
+def _perlayer_layers(params, cfg, xT, pT, Y_T, uT, k, remat=False):
     Vt = pT.unsqueeze(0) * Y_T.unsqueeze(1)  # (D, C, E), materialised once
     for layer in params["layers"]:
-        xT, Vt = env_step(layer, cfg, xT, Vt, Y_T, uT, k)
+        xT, Vt = rematerialized(
+            lambda x, v, layer=layer: env_step(layer, cfg, x, v, Y_T, uT, k), remat)(xT, Vt)
     return xT
 
 
-def _plain_layers(params, cfg, x, Y, u, agg, per_edge, capture):
+def _plain_layers(params, cfg, x, Y, u, agg, per_edge, capture, remat=False):
     """The plain tier (JAX ``layer_fn``, ``models/allegro.py:515-537``),
     channels-last on the layout's edge batch ((N, K) or (E,)): ``agg`` sums
     each center's edges, ``per_edge`` hands a per-center tensor back to the
-    edges (broadcastable); returns the final latent (..., ns)."""
+    edges (broadcastable); returns the final latent (..., ns).  With
+    ``remat`` (never with ``capture``) each layer is a checkpoint."""
     inv_avg = 1.0 / math.sqrt(max(cfg.avg_num_neighbors, 1e-6))
     ns = x.shape[-1]
     p_embed = (x @ params["tensor_embed"].to(x.dtype)) * (1.0 / math.sqrt(ns))
     V = p_embed[..., :, None] * Y[..., None, :]  # (N, K, C, D)
-    for li, layer in enumerate(params["layers"]):
+
+    def step(layer, li, x, V):
         w_env = (x @ layer["env_weight"].to(x.dtype)) * (1.0 / math.sqrt(ns)) * u[..., None]
         env = agg(w_env[..., :, None] * Y[..., None, :]) * inv_avg  # (N, C, D)
         T = uniform_tp(V, per_edge(env).expand(V.shape), cfg.l_max, cfg.parity)
@@ -484,7 +516,10 @@ def _plain_layers(params, cfg, x, Y, u, agg, per_edge, capture):
             capture[f"layer{li}/invariants"] = inv
         V = tp_mix_apply(layer["mix"], T)
         x_new = mlp_apply(layer["latent_mlp"], torch.cat([x, inv], dim=-1))
-        x = (x + x_new * u[..., None]) * (1.0 / math.sqrt(2.0))
+        return (x + x_new * u[..., None]) * (1.0 / math.sqrt(2.0)), V
+
+    for li, layer in enumerate(params["layers"]):
+        x, V = rematerialized(lambda x, V, layer=layer, li=li: step(layer, li, x, V), remat)(x, V)
         if capture is not None:
             capture[f"layer{li}/latent"] = x
     return x
@@ -533,12 +568,13 @@ def k4_v0(params, x, Y):
     return p.T.contiguous().unsqueeze(0) * Y.T.contiguous().unsqueeze(1)
 
 
-def _k4_layers(params, cfg, x, Y, u, agg, spread):
-    """The K4 tier's layer stack: V0, then :func:`k4_step` per layer;
-    returns the final x (E, ns)."""
+def _k4_layers(params, cfg, x, Y, u, agg, spread, remat=False):
+    """The K4 tier's layer stack: V0, then :func:`k4_step` per layer (each
+    a checkpoint with ``remat``); returns the final x (E, ns)."""
     Vt = k4_v0(params, x, Y)
     for layer in params["layers"]:
-        x, Vt = k4_step(layer, cfg, x, Vt, Y, u, agg, spread)
+        x, Vt = rematerialized(
+            lambda x, v, layer=layer: k4_step(layer, cfg, x, v, Y, u, agg, spread), remat)(x, Vt)
     return x
 
 
@@ -576,10 +612,11 @@ def flat_inputs(params: dict, cfg: AllegroConfig, positions, types, edge_index, 
 
 def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_index, *,
                    cell=None, edge_shifts=None, atom_mask=None, edge_mask=None,
-                   edge_rev=None, capture: dict | None = None) -> dict:
+                   edge_rev=None, capture: dict | None = None, center_offset: int = 0,
+                   num_centers: int | None = None, edge_vec=None, edge_tjf=None) -> dict:
     """Per-atom energies on either edge layout.
 
-    edge_index is the (N, K) TABLE j-table with the center implicit in the
+    edge_index is the (Nc, K) TABLE j-table with the center implicit in the
     row (padded slots reference the center itself with edge_mask False), or
     the FLAT (2, E) list of rows i and j (padded slots are masked self
     edges); the edge vector is pos[j] - pos[i] + edge_shifts @ cell.  With
@@ -587,23 +624,45 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
     backward is a gather; on FLAT the per-atom sums are ``segment_sum``.
     ``capture``, when a dict, receives 'two_body_latent',
     'layer{i}/invariants', 'layer{i}/latent' and 'edge_energy' and sends the
-    call through the plain tier, as in JAX.  Returns 'atomic_energy' (N,),
-    'total_energy' (), 'edge_energy' (N, K) or (E,) and, with
-    ``output_charges``, 'charges' (N,) and 'dipole' (3,) = sum_i q_i r_i."""
+    call through the plain tier, as in JAX.  ``cfg.remat`` (see
+    :func:`remat_on`) recomputes each layer step's forward in the backward,
+    on every tier but the stack's, as in JAX.
+
+    The TABLE rows may be a window of centers, the reference's contract
+    (``models/allegro.py:237-298``): the rows are the atoms
+    [center_offset, center_offset + Nc) (``num_centers``, when given, must
+    be Nc), ``atom_mask`` covers the window, and every per-center output
+    has Nc rows; ``edge_vec`` (Nc, K, 3) and, for a typed model,
+    ``edge_tjf`` (Nc, K) are the window's edge vectors before the shift and
+    neighbor types, gathered by the caller (the row-chunk mode,
+    engine._make_chunked_energy).
+
+    Returns 'atomic_energy' (Nc,), 'total_energy' (), 'edge_energy' (Nc, K)
+    or (E,) and, with ``output_charges``, 'charges' (Nc,) and 'dipole' (3,) =
+    sum_i q_i r_i over the centers."""
     check_supported(cfg)
     dtype = positions.dtype
-    n = positions.shape[0]
     flat = is_flat(edge_index)
     tier = layer_tier(cfg, flat, capture is not None, dtype, positions.is_cuda)
+    remat = remat_on(cfg, capture)
     if flat:
+        if center_offset or num_centers is not None or edge_vec is not None:
+            raise ValueError("center windows and edge_vec take the TABLE layout only")
+        n = positions.shape[0]
+        types_c, pos_c = types, positions
         geo = flat_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
                          edge_mask=edge_mask)
         agg, per_edge, spread = flat_reducers(edge_index[0], n)
         agg_rows = agg
     else:
-        k = edge_index.shape[1]
+        n, k = edge_index.shape
+        if num_centers is not None and num_centers != n:
+            raise ValueError(f"num_centers={num_centers} != table rows {n}")
+        c0 = int(center_offset)
+        types_c, pos_c = types[c0:c0 + n], positions[c0:c0 + n]
         geo = table_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
-                          edge_mask=edge_mask, edge_rev=edge_rev)
+                          edge_mask=edge_mask, edge_rev=edge_rev, center_offset=c0,
+                          edge_vec=edge_vec, edge_tjf=edge_tjf)
 
         def agg(a):
             return a.sum(dim=1)
@@ -618,22 +677,23 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
             return a[:, :, None].expand(*a.shape, k).reshape(a.shape[0], n * k)
     u = geo["u"]
     if tier == "k1-embed":
-        ins = _embed_major(cfg, types, geo, n, k)
-        rows = _embed_layers(params, cfg, ins["in_T"], ins["Y_T"], ins["uT"], k)
+        ins = _embed_major(cfg, types_c, geo, n, k)
+        rows = _embed_layers(params, cfg, ins["in_T"], ins["Y_T"], ins["uT"], k, remat)
         rows = dict(zip(("readout_mlp", "charge_mlp"), rows))
 
         def head(name):  # the heads ran in K7's epilogue
             return rows[name].reshape(n, k)
     elif tier in ("stack", "k1", "k1-nopos", "perlayer"):
-        ins = _feature_major(params, cfg, types, geo, n, k)
-        if tier == "stack":
+        ins = _feature_major(params, cfg, types_c, geo, n, k)
+        if tier == "stack":  # no remat, as in JAX: K8's backward recomputes its forward
             xT = fused_stack(ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], params["layers"], k,
                              cfg.l_max, cfg.avg_num_neighbors, cfg.parity)
         elif tier == "perlayer":
-            xT = _perlayer_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k)
+            xT = _perlayer_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k,
+                                  remat)
         else:
             xT = _k1_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k,
-                            positional=tier == "k1")
+                            positional=tier == "k1", remat=remat)
 
         def head(name):
             return mlp_apply_t(params[name], xT)[0].reshape(n, k) * u
@@ -641,16 +701,16 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
         if flat:
             x_in = torch.cat([geo["oh_i"], geo["oh_j"], geo["bessel"]], dim=-1)
         else:
-            x_in = _two_body_in(cfg, types, geo, n, k).T.reshape(n, k, -1)
+            x_in = _two_body_in(cfg, types_c, geo, n, k).T.reshape(n, k, -1)
         x = mlp_apply(params["two_body_mlp"], x_in) * u[..., None]
         if capture is not None:
             capture["two_body_latent"] = x
         if tier == "plain":
-            x = _plain_layers(params, cfg, x, geo["Y"], u, agg, per_edge, capture)
+            x = _plain_layers(params, cfg, x, geo["Y"], u, agg, per_edge, capture, remat)
         else:
             d, ns = geo["Y"].shape[-1], x.shape[-1]
             x = _k4_layers(params, cfg, x.reshape(-1, ns), geo["Y"].reshape(-1, d), u.reshape(-1),
-                           agg_rows, spread).reshape(x.shape)
+                           agg_rows, spread, remat).reshape(x.shape)
 
         def head(name):
             return mlp_apply(params[name], x)[..., 0] * u
@@ -659,7 +719,8 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
     if capture is not None:
         capture["edge_energy"] = e_edge
     e_atom = agg(e_edge)
-    e_atom = params["per_type_scale"].to(dtype)[types] * e_atom + params["per_type_shift"].to(dtype)[types]
+    e_atom = (params["per_type_scale"].to(dtype)[types_c] * e_atom
+              + params["per_type_shift"].to(dtype)[types_c])
     if atom_mask is not None:
         e_atom = e_atom * atom_mask.to(dtype)
     out = {"atomic_energy": e_atom, "total_energy": e_atom.sum(), "edge_energy": e_edge}
@@ -668,5 +729,8 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
         if atom_mask is not None:
             q_atom = q_atom * atom_mask.to(dtype)
         out["charges"] = q_atom
-        out["dipole"] = torch.sum(q_atom[:, None] * positions, dim=0)
+        out["dipole"] = torch.sum(q_atom[:, None] * pos_c, dim=0)
     return out
+
+
+allegro_energy.per_center_outputs = PER_CENTER_OUTPUTS

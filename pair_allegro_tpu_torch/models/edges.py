@@ -14,30 +14,41 @@ from pair_allegro_tpu_torch.ops.so3 import spherical_harmonics
 
 
 def table_edges(cfg, positions, types, edge_index, *, cell=None, edge_shifts=None,
-                edge_mask=None, edge_rev=None) -> dict:
-    """For the (N, K) j-table over all atoms: 'u' (N, K) envelope (zero on
-    masked slots), 'Y' (N, K, D) with D = (cfg.l_max + 1)^2, 'bessel'
-    (N, K, B) = bessel_basis(r) * u, and 'oh_j' (N, K, T) the neighbor
-    type one-hot (ones (N, K, 1) with one species).  With ``edge_rev`` the
-    position gradient is a gather (ops/scatter.py)."""
+                edge_mask=None, edge_rev=None, center_offset: int = 0, edge_vec=None,
+                edge_tjf=None) -> dict:
+    """For the (Nc, K) j-table of the centers [center_offset, center_offset
+    + Nc) (all N atoms by default; neighbors range over all atoms): 'u'
+    (Nc, K) envelope (zero on masked slots), 'Y' (Nc, K, D) with D =
+    (cfg.l_max + 1)^2, 'bessel' (Nc, K, B) = bessel_basis(r) * u, and
+    'oh_j' (Nc, K, T) the neighbor type one-hot (ones (Nc, K, 1) with one
+    species).  ``edge_vec`` (and ``edge_tjf``, the neighbor types as floats,
+    for a typed model) are the window's edge vectors before the shift
+    gathered by the caller (the row-chunk mode); else, with ``edge_rev``
+    and a table over all atoms, the position gradient is a gather
+    (ops/scatter.py); else the neighbor rows are gathered here."""
     dtype, dev = positions.dtype, positions.device
-    n, k = edge_index.shape
-    if n != positions.shape[0]:
-        raise ValueError(
-            f"edge_index has {n} rows for {positions.shape[0]} atoms: only the TABLE "
-            "layout over all atoms is ported (FLAT and windowed layouts are not)"
-        )
+    nc, k = edge_index.shape
+    c0 = int(center_offset)
+    if c0 < 0 or c0 + nc > positions.shape[0]:
+        raise ValueError(f"center window [{c0}, {c0 + nc}) outside {positions.shape[0]} atoms")
+    whole = nc == positions.shape[0]
     nt = cfg.num_types
     typed = nt > 1
+    pos_c = positions if whole else positions[c0:c0 + nc]
+    types_c = types if whole else types[c0:c0 + nc]
     pos_t = torch.cat([positions, types.to(dtype)[:, None]], 1) if typed else positions
-    if edge_rev is not None and edge_mask is not None:
+    if edge_vec is not None:
+        vec, tjf = edge_vec, edge_tjf
+        if typed and tjf is None:
+            raise ValueError("a typed model's window needs edge_tjf beside edge_vec")
+    elif edge_rev is not None and edge_mask is not None and whole:
         if typed:
             vec, tjf = table_edge_vec_typed(pos_t, edge_index, edge_rev, edge_mask)
         else:
             vec, tjf = table_edge_vec(pos_t, edge_index, edge_rev, edge_mask), None
     else:
         ext = pos_t[edge_index]
-        vec = (ext[..., :3] if typed else ext) - positions[:, None, :]
+        vec = (ext[..., :3] if typed else ext) - pos_c[:, None, :]
         tjf = ext[..., 3] if typed else None
     if edge_shifts is not None and cell is not None:
         vec = vec + edge_shifts.to(dtype) @ cell.to(dtype)
@@ -46,9 +57,9 @@ def table_edges(cfg, positions, types, edge_index, *, cell=None, edge_shifts=Non
     cut_mat = torch.as_tensor(cfg.cutoff_matrix(), dtype=dtype, device=dev)
     if typed:
         oh_j = (tjf[..., None] == torch.arange(nt, dtype=dtype, device=dev)).to(dtype)
-        r_cut = torch.einsum("nkt,nt->nk", oh_j, cut_mat[types])
+        r_cut = torch.einsum("nkt,nt->nk", oh_j, cut_mat[types_c])
     else:
-        oh_j = torch.ones((n, k, 1), dtype=dtype, device=dev)
+        oh_j = torch.ones((nc, k, 1), dtype=dtype, device=dev)
         r_cut = cut_mat[0, 0]
     u = polynomial_cutoff(r, r_cut, cfg.polynomial_cutoff_p)
     if edge_mask is not None:

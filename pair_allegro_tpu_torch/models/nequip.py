@@ -25,16 +25,22 @@ and E_i = scale[t_i] * readout_MLP(h[i, l=0, even]) + shift[t_i].
 The parameter tree keeps the JAX layout (``nequip_params_from_numpy``); the
 channels-last radial and gate columns and K3's weight layout are made from
 it per call.  Both l_max go through the entry-table message
-(``msg_generic_cl``).  Ported: l_max 1 and 2, one or two
-tracks, any number of species, both layouts.  Not ported: the
-channels-first generic path, l_max 3, remat=True, the bf16 hj tier,
-``shard_axis``.
+(``msg_generic_cl``); so does l_max 3, which K3 does not take.  Above
+l_max 3, or with ``PAT_NEQUIP_GENERIC=1``, the layers run the reference's
+generic channels-first path (``layer_fn`` / ``layer_fn_parity``,
+``models/nequip.py:733-866``): node features (N, C, D[, 2]), the message
+from ``uniform_tp`` per path, and no kernel.  With remat (``cfg.remat``,
+or "auto" wherever K3 does not run, as in the reference) each layer is a
+``torch.utils.checkpoint``.  Ported: l_max >= 1, one or two tracks, any
+number of species, both layouts.  Not ported: l_max 0 (the reference
+fails there too), the bf16 hj tier, ``shard_axis``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -49,9 +55,10 @@ from pair_allegro_tpu_torch.ops.nequip_conv import (
     prepare_radial,
     radial_cl,
 )
+from pair_allegro_tpu_torch.ops.remat import rematerialized
 from pair_allegro_tpu_torch.ops.scatter import segment_sum, table_gather_nodes
 from pair_allegro_tpu_torch.ops.so3 import sh_slice
-from pair_allegro_tpu_torch.ops.tp import tp_num_paths
+from pair_allegro_tpu_torch.ops.tp import paths_to_l, tp_num_paths, uniform_tp
 
 TANH_C = 1.5926  # 1/sqrt(E[tanh(x)^2]) for x ~ N(0, 1), as in the JAX model
 
@@ -73,7 +80,9 @@ class NequIPConfig:
     readout_mlp_depth: int = 1
     readout_mlp_width: int = 32
     avg_num_neighbors: float = 1.0
-    # "auto" and False keep no per-layer recompute; True is not ported
+    # recompute each layer's forward in the backward: True, False, or "auto"
+    # (resolved by the engines; where it reaches the model, on exactly when
+    # K3 does not run)
     remat: bool | str = "auto"
     per_edge_type_cutoff: tuple | None = None
     # two tracks (even and odd) per l, routed by pi XOR (l2 mod 2)
@@ -121,16 +130,26 @@ class NequIPConfig:
         return torch.finfo(dtype).bits // 8 * per
 
 
+def generic_path(cfg: NequIPConfig) -> bool:
+    """Whether the layers run the generic channels-first path: above l_max
+    3, or with ``PAT_NEQUIP_GENERIC`` set (the reference's switch, read per
+    call, ``models/nequip.py:633``)."""
+    return cfg.l_max > 3 or bool(os.environ.get("PAT_NEQUIP_GENERIC"))
+
+
 def conv_route(cfg: NequIPConfig, flat: bool, capture: bool = False, dtype=torch.float32,
                card: bool = True) -> bool:
     """Whether a call runs K3, routed as the reference routes it
-    (``models/nequip.py:642-666``): on the TABLE layout with ``fused_conv``,
-    without ``capture``, where K3 takes the widths (``kernel_takes`` beside
-    its wrapper, the counterpart of the reference's ``conv_viable``) and, on
-    the card (``card``), at f32 only (the kernel takes f32; on the CPU its
-    plain version takes any dtype).  Otherwise the plain channels-last
-    message path runs."""
+    (``models/nequip.py:633-666``): on the TABLE layout with ``fused_conv``,
+    without ``capture``, off the generic path, where K3 takes the widths
+    (``kernel_takes`` beside its wrapper, the counterpart of the
+    reference's ``conv_viable``; it takes l_max 1 and 2 only, as the
+    reference's kernel does) and, on the card (``card``), at f32 only (the
+    kernel takes f32; on the CPU its plain version takes any dtype).
+    Otherwise the plain message path runs."""
     if flat or capture or not cfg.fused_conv or (card and dtype != torch.float32):
+        return False
+    if generic_path(cfg):
         return False
     dims = mlp_dims(cfg.num_bessels, cfg.radial_mlp_width, cfg.radial_mlp_depth,
                     cfg.n_tracks * tp_num_paths(cfg.l_max) * cfg.num_features)
@@ -138,11 +157,9 @@ def conv_route(cfg: NequIPConfig, flat: bool, capture: bool = False, dtype=torch
 
 
 def _check_supported(cfg: NequIPConfig) -> None:
-    if cfg.l_max not in (1, 2):
-        raise NotImplementedError(f"l_max={cfg.l_max}: the port runs NequIP at l_max 1 and 2")
-    if cfg.remat is True:
-        raise NotImplementedError("remat=True is not ported (use 'auto' or False): "
-                                  "ROADMAP queue 1, item 2")
+    if cfg.l_max < 1:
+        raise NotImplementedError(f"l_max={cfg.l_max}: the port runs NequIP at l_max >= 1 "
+                                  "(the reference fails at l_max 0)")
 
 
 def nequip_init_numpy(cfg: NequIPConfig, seed: int = 0) -> dict:
@@ -224,6 +241,48 @@ def _self_connect(hb, w_t, types):
     return torch.einsum("tnde,nt->nde", per_t, onehot)
 
 
+def _parity_routing(lmax: int):
+    """Per (l3, tau): the (source track pi, path within l3) pairs that land
+    on track tau = pi XOR (l2 mod 2) (the reference's ``_ParityRouting``)."""
+    table = []
+    for l3 in range(lmax + 1):
+        per_tau = ([], [])
+        for p, (_l1, l2) in enumerate(paths_to_l(lmax, lmax, l3)):
+            for pi in (0, 1):
+                per_tau[pi ^ (l2 % 2)].append((pi, p))
+        table.append(per_tau)
+    return table
+
+
+def _msg_generic_cf(hj, Y, w, lmax: int):
+    """The generic channels-first message (``models/nequip.py:733-866``):
+    hj (..., C, D, T), Y (..., D), w (..., C, T, P) -> (..., C, D, T).
+    Each path's TP from ``uniform_tp`` is weighted per channel and summed
+    per output l; with two tracks the paths route to tau = pi XOR (l2 mod
+    2); norm 1/sqrt(contributions)."""
+    T = hj.shape[-1]
+    tp = [uniform_tp(hj[..., pi], Y, lmax) for pi in range(T)]
+    routing = _parity_routing(lmax) if T == 2 else None
+    tracks = [[] for _ in range(T)]
+    p_off = 0
+    for l3 in range(lmax + 1):
+        p_l = len(paths_to_l(lmax, lmax, l3))
+        for tau in range(T):
+            contribs = [(0, p) for p in range(p_l)] if T == 1 else routing[l3][tau]
+            acc = None
+            for pi in range(T):
+                sel = [p for (q, p) in contribs if q == pi]
+                if not sel:
+                    continue
+                t = tp[pi][l3][..., :, sel, :]  # (..., C, Psel, 2l3+1)
+                w_sel = w[..., :, pi, [p_off + p for p in sel]]
+                term = torch.einsum("...cpk,...cp->...ck", t, w_sel)
+                acc = term if acc is None else acc + term
+            tracks[tau].append(acc * (1.0 / math.sqrt(max(len(contribs), 1))))
+        p_off += p_l
+    return torch.stack([torch.cat(blocks, dim=-1) for blocks in tracks], dim=-1)
+
+
 def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index, *,
                   cell=None, edge_shifts=None, atom_mask=None, edge_mask=None,
                   edge_rev=None, capture: dict | None = None) -> dict:
@@ -235,11 +294,12 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
     pos[j] - pos[i] + edge_shifts @ cell.  With ``edge_rev`` (TABLE only,
     neighbors.device.reverse_table) the position and node-feature backwards
     are gathers.  K3 runs on the TABLE layout with ``fused_conv``; the FLAT
-    layout runs the plain message and ``segment_sum``, as in JAX.
-    ``capture``, when a dict, receives the final node features
-    channels-first, (N, C, D) or (N, C, D, 2) with parity, as the JAX
-    model's does, and sends the call through the plain message path, as
-    the reference does (``conv_route``).  Returns
+    layout runs the plain message and ``segment_sum``, as in JAX; above
+    l_max 3 or with ``PAT_NEQUIP_GENERIC=1`` the generic channels-first
+    layers run (``generic_path``).  ``capture``, when a dict, receives the
+    final node features channels-first, (N, C, D) or (N, C, D, 2) with
+    parity, as the JAX model's does, and sends the call through the plain
+    message path, as the reference does (``conv_route``).  Returns
     'atomic_energy' (N,) and 'total_energy' ()."""
     _check_supported(cfg)
     dtype = positions.dtype
@@ -259,6 +319,9 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
             return segment_sum(a, i_idx, n)
     else:
         k = edge_index.shape[1]
+        if edge_index.shape[0] != n:
+            raise ValueError(f"NequIP takes a TABLE over all {n} atoms, not "
+                             f"{edge_index.shape[0]} rows (message passing is not local)")
         geo = table_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
                           edge_mask=edge_mask, edge_rev=edge_rev)
         if edge_rev is not None and edge_mask is not None:
@@ -272,6 +335,7 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
             return a.sum(dim=1)
     u, Y, bessel = geo["u"], geo["Y"], geo["bessel"]
     use_k3 = conv_route(cfg, flat, capture is not None, dtype, positions.is_cuda)
+    generic = generic_path(cfg)
     if use_k3:
         e = n * k
         u_e, Y_e, bes_e = u.reshape(e, 1), Y.reshape(e, D), bessel.reshape(e, -1)
@@ -281,6 +345,7 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
     keys = (("self_w", "mix_w"), ("self_w_o", "mix_w_o"))[:T]
 
     def layer_step(layer, h):
+        """Channels-last: h (N, D, T, C)."""
         ws_cl = radial_cl([w.to(dtype) for w in layer["radial_mlp"]["w"]], C, P, T)
         if use_k3:
             hj = gather(h.reshape(n, D * T * C)).reshape(e, D * T * C)
@@ -312,10 +377,45 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
             tracks.append(torch.cat(parts, dim=1))
         return torch.stack(tracks, dim=2)
 
-    h = torch.zeros((n, D, T, C), dtype=dtype, device=positions.device)
-    h[:, 0, 0, :] = params["chem_embed"].to(dtype)[types]
+    def generic_step(layer, h):
+        """Channels-first (the reference's ``layer_fn`` / ``layer_fn_parity``):
+        h (N, C, D, T); the stored weight packings as they are."""
+        w = mlp_apply({"w": [t.to(dtype) for t in layer["radial_mlp"]["w"]]}, bessel)
+        w = (w * u[..., None]).reshape(*u.shape, C, T, P)
+        agg = agg_edges(_msg_generic_cf(gather(h), Y, w, lmax)) * inv_avg  # (N, C, D, T)
+        new = []
+        for tau, (sw, mw) in enumerate(keys):
+            blocks = []
+            for l3 in range(lmax + 1):
+                sl = sh_slice(l3)
+                sc = _self_connect(h[:, :, sl, tau].transpose(1, 2), layer[sw][l3].to(dtype),
+                                   types).transpose(1, 2)
+                mixed = torch.einsum("ncd,ce->ned", agg[:, :, sl, tau], layer[mw][l3].to(dtype))
+                blocks.append((sc + mixed) * (1.0 / math.sqrt(C)))
+            new.append(blocks)
+        act_even = F.silu(new[0][0][:, :, 0]) * act_c
+        gates = torch.sigmoid((act_even @ layer["gate_w"].to(dtype)) * (1.0 / math.sqrt(C)))
+        gates = gates.reshape(n, C, lmax, T)
+        tracks = []
+        for tau in range(T):
+            s = act_even if tau == 0 else torch.tanh(new[1][0][:, :, 0]) * TANH_C
+            parts = [s[:, :, None]]
+            parts += [new[tau][l3] * gates[:, :, l3 - 1 : l3, tau] for l3 in range(1, lmax + 1)]
+            tracks.append(torch.cat(parts, dim=2))
+        return torch.stack(tracks, dim=3)
+
+    remat = (not use_k3) if cfg.remat == "auto" else bool(cfg.remat)
+    step = generic_step if generic else layer_step
+    h = torch.zeros((n, C, D, T) if generic else (n, D, T, C), dtype=dtype,
+                    device=positions.device)
+    if generic:
+        h[:, :, 0, 0] = params["chem_embed"].to(dtype)[types]
+    else:
+        h[:, 0, 0, :] = params["chem_embed"].to(dtype)[types]
     for layer in params["layers"]:
-        h = layer_step(layer, h)
+        h = rematerialized(lambda h, layer=layer: step(layer, h), remat)(h)
+    if generic:
+        h = h.permute(0, 2, 3, 1)  # channels-last (N, D, T, C) for the readout
     if capture is not None:
         capture["node_features"] = h.permute(0, 3, 1, 2) if T == 2 else h[:, :, 0, :].transpose(1, 2)
 
@@ -324,3 +424,6 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
     if atom_mask is not None:
         e_atom = e_atom * atom_mask.to(dtype)
     return {"atomic_energy": e_atom, "total_energy": e_atom.sum()}
+
+
+nequip_energy.per_center_outputs = ("atomic_energy",)

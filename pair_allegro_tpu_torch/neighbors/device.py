@@ -269,48 +269,61 @@ _OFFS = np.array(
 
 def cell_list_neighbors(positions, cell, cutoff: float, grid, cell_capacity: int,
                         max_neighbors: int, atom_mask=None, types=None,
-                        cutoff_table: np.ndarray | None = None) -> NeighborData:
-    """Binned minimum-image build of the (N, K) TABLE (the reference's
-    ``flatten=False`` form).  With ``types`` + a symmetric ``cutoff_table``
-    candidates are filtered by the per-edge-type cutoff."""
+                        cutoff_table: np.ndarray | None = None, query_start: int = 0,
+                        n_query: int | None = None, bins_data: CellBins | None = None
+                        ) -> NeighborData:
+    """Binned minimum-image build of the TABLE (the reference's
+    ``flatten=False`` form): the (n_query, K) rows of the centers
+    [query_start, query_start + n_query) (all N atoms by default), whose
+    neighbors range over all atoms.  With ``types`` + a symmetric
+    ``cutoff_table`` candidates are filtered by the per-edge-type cutoff.
+    ``bins_data`` (:func:`build_cell_bins` of the same positions) lets a
+    caller bin once and build the rows window by window; a window's rows
+    equal those rows of the full build, and its overflow flag covers the
+    binning and its own rows only."""
     n = positions.shape[0]
     dtype, dev = positions.dtype, positions.device
     gx, gy, gz = grid
     typed = types is not None and cutoff_table is not None
-    b = build_cell_bins(positions, cell, cutoff, grid, cell_capacity, atom_mask,
-                        types=types if typed else None)
-    gq = torch.arange(n, device=dev)
+    b = bins_data if bins_data is not None else build_cell_bins(
+        positions, cell, cutoff, grid, cell_capacity, atom_mask,
+        types=types if typed else None)
+    nq = n if n_query is None else n_query
+    q0 = int(query_start)
+    rows = slice(q0, q0 + nq)
+    gq = torch.arange(q0, q0 + nq, device=dev)
     offs = torch.as_tensor(_OFFS, device=dev)
+    bins_q = b.bins[rows]
     nb = torch.stack(
         [
-            torch.remainder(b.bins[:, None, 0] + offs[None, :, 0], gx),
-            torch.remainder(b.bins[:, None, 1] + offs[None, :, 1], gy),
-            torch.remainder(b.bins[:, None, 2] + offs[None, :, 2], gz),
+            torch.remainder(bins_q[:, None, 0] + offs[None, :, 0], gx),
+            torch.remainder(bins_q[:, None, 1] + offs[None, :, 1], gy),
+            torch.remainder(bins_q[:, None, 2] + offs[None, :, 2], gz),
         ],
         dim=-1,
     )
-    nb_id = (nb[..., 0] * gy + nb[..., 1]) * gz + nb[..., 2]  # (N, 27)
+    nb_id = (nb[..., 0] * gy + nb[..., 1]) * gz + nb[..., 2]  # (NQ, 27)
     m_tot = 27 * cell_capacity
-    cand = b.table[nb_id].reshape(n, m_tot)
-    cand_frac = b.bin_frac[nb_id].reshape(n, m_tot, 3)
-    cand_wrap = b.bin_wrap[nb_id].reshape(n, m_tot, 3)
+    cand = b.table[nb_id].reshape(nq, m_tot)
+    cand_frac = b.bin_frac[nb_id].reshape(nq, m_tot, 3)
+    cand_wrap = b.bin_wrap[nb_id].reshape(nq, m_tot, 3)
 
-    df = cand_frac - b.frac_wrapped[:, None, :]
+    df = cand_frac - b.frac_wrapped[rows, None, :]
     mic = -torch.round(df)
     dx = (df + mic) @ cell
     d2 = torch.sum(dx * dx, dim=-1)
     if typed:
         ct = torch.as_tensor(cutoff_table, dtype=dtype, device=dev)
         n_t = ct.shape[0]
-        cut_rows = ct[types]  # (N, T)
-        cand_t = b.bin_type[nb_id].reshape(n, m_tot)
+        cut_rows = ct[types[rows]]  # (NQ, T)
+        cand_t = b.bin_type[nb_id].reshape(nq, m_tot)
         oh = (cand_t[..., None] == torch.arange(n_t, dtype=dtype, device=dev)).to(dtype)
         rc = torch.einsum("nmt,nt->nm", oh, cut_rows)
         valid = (cand < n) & (d2 <= rc * rc) & (cand != gq[:, None])
     else:
         valid = (cand < n) & (d2 <= cutoff * cutoff) & (cand != gq[:, None])
     if atom_mask is not None:
-        valid = valid & atom_mask[:, None] & b.bin_mask[nb_id].reshape(n, m_tot)
+        valid = valid & atom_mask[rows, None] & b.bin_mask[nb_id].reshape(nq, m_tot)
 
     row_overflow = torch.any(valid.sum(dim=1) > max_neighbors)
     ar = torch.arange(m_tot, device=dev)
@@ -318,7 +331,7 @@ def cell_list_neighbors(positions, cell, cutoff: float, grid, cell_capacity: int
     key_top, idx_top = torch.topk(col_key, max_neighbors, dim=1, sorted=True)
     keep = key_top > 0
     nbr = torch.where(keep, torch.gather(cand, 1, idx_top), torch.full_like(idx_top, n))
-    net_shift = mic + cand_wrap - b.wrap_shift[:, None, :]
+    net_shift = mic + cand_wrap - b.wrap_shift[rows, None, :]
     shf = torch.gather(net_shift, 1, idx_top[..., None].expand(-1, -1, 3)) * keep[..., None]
     mask_tab = nbr < n
     j_tab = torch.where(mask_tab, nbr, gq[:, None].expand_as(nbr))

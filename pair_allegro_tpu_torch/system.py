@@ -83,8 +83,14 @@ class System:
         pbc=None,
         dtype=torch.float32,
         device=None,
+        pad_to: int | None = None,
     ) -> "System":
-        """Build a System from host data on ``device`` (default: CUDA)."""
+        """Build a System from host data on ``device`` (default: CUDA).
+        With ``pad_to`` > N the system is padded to ``pad_to`` atoms with
+        masked ones (``valid`` False, type 0, unit mass, at rest) parked
+        far outside the data, as the reference pads (``system.py:106-110``,
+        the Kokkos fake-atom trick): a row-chunk engine then takes an atom
+        count its ``row_chunk`` divides."""
         dev = resolve_device(device)
         pos = np.asarray(positions, dtype=np.float64)
         n = pos.shape[0]
@@ -97,6 +103,15 @@ class System:
         else:
             cell_np = np.asarray(cell, dtype=np.float64).reshape(3, 3)
             pbc = (True, True, True) if pbc is None else tuple(pbc)
+        valid = np.ones((n,), dtype=bool)
+        if pad_to is not None and pad_to > n:
+            extent = float(np.abs(pos).max() + np.abs(cell_np).sum() + 100.0)
+            pad = pad_to - n
+            pos = np.concatenate([pos, np.full((pad, 3), extent)], axis=0)
+            vel = np.concatenate([vel, np.zeros((pad, 3))], axis=0)
+            typ = np.concatenate([typ, np.zeros((pad,), np.int64)], axis=0)
+            mas = np.concatenate([mas, np.ones((pad,))], axis=0)
+            valid = np.concatenate([valid, np.zeros((pad,), bool)], axis=0)
 
         def t(a, dt=dtype):
             return torch.as_tensor(a, dtype=dt, device=dev)
@@ -108,7 +123,7 @@ class System:
             masses=t(mas),
             cell=t(cell_np),
             pbc=pbc,
-            valid=torch.ones(n, dtype=torch.bool, device=dev),
+            valid=t(valid, torch.bool),
         )
 
 

@@ -45,6 +45,14 @@ def cuda():
     return torch.device("cuda")
 
 
+def _cotangents(outs, seed=7):
+    """Cotangents for ``outs`` from a seeded CPU generator, moved to the
+    outputs' device: a leg's inputs are the same alone and in the whole
+    suite (the global CUDA generator's state depends on the legs before)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(o.shape, generator=g, dtype=o.dtype).to(o.device) for o in outs]
+
+
 def _layer(cuda, ns, c, seed=0, lmax=2, parity=True, **fields):
     cfg = AllegroConfig(type_names=("A", "B"), r_max=4.0, l_max=lmax, num_layers=1,
                         num_scalar_features=ns, num_tensor_features=c, avg_num_neighbors=5.0,
@@ -74,7 +82,7 @@ def test_kernel_matches_plain(cuda, ns, c, k, first_v, last):
     out_k, out_r = ((out_k,), (out_r,)) if last else (out_k, out_r)
     for a, b in zip(out_k, out_r):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
-    cots = [torch.randn_like(o) for o in out_r]
+    cots = _cotangents(out_r)
     for a, b in zip(torch.autograd.grad(out_k, ins, cots), torch.autograd.grad(out_r, ins, cots)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
 
@@ -89,7 +97,7 @@ def test_kernel_matches_plain_other_lmax(cuda, lmax, parity, first_v, last):
     out_k, out_r = ((out_k,), (out_r,)) if last else (out_k, out_r)
     for a, b in zip(out_k, out_r):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
-    cots = [torch.randn_like(o) for o in out_r]
+    cots = _cotangents(out_r)
     for a, b in zip(torch.autograd.grad(out_k, ins, cots), torch.autograd.grad(out_r, ins, cots)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
 
@@ -195,7 +203,7 @@ def test_k3_kernel_matches_plain(cuda, lmax, T, c, k):
     out_k = nc_mod.nequip_conv(*ins, w, k, 12.0)
     out_r = nc_mod.nequip_conv_reference(*ins, w, k, 1.0 / math.sqrt(12.0))
     torch.testing.assert_close(out_k, out_r, atol=1e-4, rtol=1e-4)
-    cot = torch.randn_like(out_r)
+    (cot,) = _cotangents((out_r,))
     for a, b in zip(torch.autograd.grad(out_k, ins, cot), torch.autograd.grad(out_r, ins, cot)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
 
@@ -275,8 +283,27 @@ def test_k3_matches_plain_at_every_layout(cuda, case):
     out_k = nc_mod.nequip_conv(*ins, w, k, 12.0)
     out_r = nc_mod.nequip_conv_reference(*ins, w, k, 1.0 / math.sqrt(12.0))
     _tight("fwd", (out_k.detach(),), (out_r.detach(),))
-    cot = torch.randn_like(out_r)
+    (cot,) = _cotangents((out_r,))
     _tight("bwd", torch.autograd.grad(out_k, ins, cot), torch.autograd.grad(out_r, ins, cot))
+
+
+def test_k3_long_radial_product_over_cotangent_seeds(cuda):
+    """The case whose 768-wide hidden layer gives the last radial product a
+    768-term sum (K3_LAYOUT_CASES[18]), over 20 cotangent seeds: the
+    kernel's backward within the tight gate of the plain version at f64 on
+    the card, and of the plain f32 version (the gate of the layout leg)."""
+    from chip_smoke import K3_SPREAD_CASE, TIGHT_TOLS, k3_layout_operands, k3_seed_grads
+
+    assert K3_SPREAD_CASE == K3_LAYOUT_CASES[18]
+    atol, rtol = TIGHT_TOLS["bwd"]
+    w, ins = k3_layout_operands(cuda, *K3_SPREAD_CASE)
+    for seed in range(20):
+        g_k, g_p, g_64 = k3_seed_grads(w, ins, K3_SPREAD_CASE[3], 12.0, seed)
+        for want in (g_64, g_p):
+            for i, (a, b) in enumerate(zip(g_k, want)):
+                b = b.double()
+                err = float((a.double() - b).abs().max())
+                assert err <= atol + rtol * float(b.abs().max()), (seed, i, err)
 
 
 def test_k3_layout_refusals_mirror_the_launcher(cuda):
@@ -397,7 +424,7 @@ def _env_compare(mod, w, ins, fn, k, mode, drop_v=False):
     for a, b in zip(out_k, out_r):
         tol = 1e-4 + ENV_FWD_RTOL[mode] * float(b.abs().max())
         assert float((a.detach() - b).abs().max()) <= tol
-    cots = [torch.randn_like(o) for o in out_r]
+    cots = _cotangents(out_r)
     if drop_v:
         cots[0] = torch.zeros_like(cots[0])
         g_k = torch.autograd.grad(out_k[1], ins, cots[1])
@@ -584,7 +611,7 @@ def _k4_compare(w, ins, zero_dout=False):
     out_r = k4.tp_mix_fused_reference(*[t.detach() for t in ins], w)
     for a, b in zip(out_k, out_r):
         assert float((a.detach() - b).abs().max()) <= 1e-4 + 1e-4 * float(b.abs().max())
-    cots = [torch.randn_like(o) for o in out_r]
+    cots = _cotangents(out_r)
     if zero_dout:
         cots[0] = torch.zeros_like(cots[0])
     g_k = torch.autograd.grad(out_k, ins, cots)
@@ -902,7 +929,7 @@ def _check_pair(out_k, out_r, ins):
     out_r = out_r if isinstance(out_r, tuple) else (out_r,)
     for a, b in zip(out_k, out_r):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
-    cots = [torch.randn_like(o) for o in out_r]
+    cots = _cotangents(out_r)
     for a, b in zip(torch.autograd.grad(out_k, ins, cots), torch.autograd.grad(out_r, ins, cots)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
 
@@ -1072,7 +1099,7 @@ def _stack_compare(layers, ops, k, lmax, parity):
     out_r = k8.allegro_stack_reference(*ins, layers, k, lmax, 5.0, parity)
     assert float((out_k - out_r).detach().abs().max()) <= \
         1e-4 + 1e-4 * float(out_r.detach().abs().max())
-    cot = torch.randn_like(out_r)
+    (cot,) = _cotangents((out_r,))
     for a, b in zip(torch.autograd.grad(out_k, ins, cot), torch.autograd.grad(out_r, ins, cot)):
         assert float((a - b).abs().max()) <= 1e-4 + 1e-3 * float(b.abs().max())
 
@@ -1364,7 +1391,7 @@ def test_kernel_matches_plain_ragged_products(cuda, first_v, last):
     out_k, out_r = ((out_k,), (out_r,)) if last else (out_k, out_r)
     for a, b in zip(out_k, out_r):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
-    cots = [torch.randn_like(o) for o in out_r]
+    cots = _cotangents(out_r)
     for a, b in zip(torch.autograd.grad(out_k, ins, cots), torch.autograd.grad(out_r, ins, cots)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
 
@@ -1498,3 +1525,89 @@ def test_langevin_generator_state_round_trips_on_cuda(cuda, tmp_path, capsys):
     # the kernels' sums may run in another order: the same trajectory to f32
     torch.testing.assert_close(sa.positions, sc.positions, atol=1e-4, rtol=0)
     torch.testing.assert_close(sa.velocities, sc.velocities, atol=1e-3, rtol=1e-3)
+
+
+# --- the million-atom mode (row_chunk) and remat on the card ---------------
+
+
+def _flagship(cuda, pad_to=None, **fields):
+    cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, l_max=2, num_layers=3,
+                        num_scalar_features=64, num_tensor_features=32, avg_num_neighbors=12.0,
+                        output_charges=True, **fields)
+    pos, cell = fcc_lattice(5)
+    n = pos.shape[0]
+    s = System.create(pos, np.zeros(n, np.int64), cell=cell, masses=np.full(n, 63.546),
+                      device=cuda, pad_to=pad_to)
+    return cfg, allegro_params_from_numpy(allegro_init_numpy(cfg, 0), cfg, device=cuda), s
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_row_chunk_k1_matches_unchunked_on_the_card(cuda, remat):
+    """500 atoms in 4 windows of 125 rows against no windows, the K1 tier:
+    forces within 1e-5 eV/A, the same charges; each window's K1 forward
+    runs twice (the window's checkpoint recomputes it) and its layers take
+    no checkpoint of their own, whatever remat says."""
+    import dataclasses
+
+    from chip_smoke import launched_now, reset_launches
+
+    cfg, params, s = _flagship(cuda)
+    cfg = dataclasses.replace(cfg, remat=remat)
+    outs = {}
+    for rc in (None, 125):
+        eng = AllegroEngine(cfg, params, s, device=cuda, row_chunk=rc)
+        nb = eng.rebuild_fn(s, None)
+        reset_launches()
+        outs[rc] = eng.force_fn(s, nb)
+        torch.cuda.synchronize()
+        if rc:
+            assert launched_now() == {"K1": (2 * 3 * 4, 3 * 4)}
+    assert float((outs[125].forces - outs[None].forces).abs().max()) <= 1e-5
+    assert float((outs[125].extras["charges"] - outs[None].extras["charges"]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("model", ["allegro", "nequip"])
+def test_remat_on_the_card(cuda, model):
+    """remat=True against remat=False on K1 (Allegro) and K3 (NequIP):
+    forces within the tight gate, and the forward launches doubled."""
+    import dataclasses
+
+    from chip_smoke import TIGHT_TOLS, launched_now, make_nequip_case, reset_launches
+
+    from pair_allegro_tpu_torch.engine import NequIPEngine
+
+    atol, rtol = TIGHT_TOLS["bwd"]
+    res = {}
+    for remat in (False, True):
+        if model == "allegro":
+            cfg, params, s = _flagship(cuda)
+            eng = AllegroEngine(dataclasses.replace(cfg, remat=remat), params, s, device=cuda)
+        else:
+            cfg, params, s = make_nequip_case(5, cuda)
+            eng = NequIPEngine(dataclasses.replace(cfg, remat=remat), params, s, device=cuda)
+        nb = eng.rebuild_fn(s, None)
+        reset_launches()
+        f = eng.force_fn(s, nb).forces
+        torch.cuda.synchronize()
+        res[remat] = (f, launched_now())
+    kernel = "K1" if model == "allegro" else "K3"
+    assert res[False][1] == {kernel: (3, 3)} and res[True][1] == {kernel: (6, 3)}
+    f0, f1 = res[False][0], res[True][0]
+    assert float((f1 - f0).abs().max()) <= atol + rtol * float(f0.abs().max())
+
+
+def test_pad_to_on_the_card(cuda):
+    """500 atoms padded to 501 with masked atoms, in windows of 3 rows:
+    the real atoms' forces and energies match the unpadded, unchunked
+    system's; the padded row is zero."""
+    cfg, params, s = _flagship(cuda)
+    _, _, sp = _flagship(cuda, pad_to=501)
+    assert sp.n_atoms == 501 and int(sp.n_valid) == 500
+    eng0 = AllegroEngine(cfg, params, s, device=cuda)
+    eng1 = AllegroEngine(cfg, params, sp, device=cuda, row_chunk=3)
+    o0 = eng0.force_fn(s, eng0.rebuild_fn(s, None))
+    o1 = eng1.force_fn(sp, eng1.rebuild_fn(sp, None))
+    assert float((o1.forces[:500] - o0.forces).abs().max()) <= 1e-5
+    assert float(o1.forces[500].abs().max()) == 0.0 and float(o1.atomic_energy[500]) == 0.0
+    assert float((o1.atomic_energy[:500] - o0.atomic_energy).abs().max()) <= 1e-5
+    assert o1.extras["dipole"].shape == (3,)

@@ -58,5 +58,11 @@ def test_unknown_interior_is_refused():
 
 
 def test_remat_true_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        check_supported(AllegroConfig(type_names=("Cu",), r_max=4.5, remat=True))
+    """remat (ROADMAP queue 1, item 2) is ported: True is taken, and an
+    unresolved "auto" means on in the model, as in JAX."""
+    from pair_allegro_tpu_torch.models.allegro import remat_on
+
+    for remat in (True, False, "auto"):
+        cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, remat=remat)
+        check_supported(cfg)
+        assert remat_on(cfg) == (remat is not False)

@@ -430,11 +430,14 @@ def test_k4_tier_hands_the_kernel_contiguous_operands(monkeypatch):
     kw = _allegro_kw(2)
     _, _, tp = _allegro_params(kw)
     _, _, targs, tkw = _flat_case("cluster", 2)
-    make_potential(lambda *a, **k: allegro_energy(tp, AllegroConfig(**kw), *a, **k))(*targs, **tkw)
+    # remat off: one K4 call per layer (remat would call it again in the backward)
+    make_potential(lambda *a, **k: allegro_energy(tp, AllegroConfig(**kw, remat=False), *a, **k))(
+        *targs, **tkw)
     wide = {**kw, "num_tensor_features": 64}
     _, _, tpw = _allegro_params(wide)
     pos, cell, j_tab, s_tab, m_tab, rev = _table()
-    allegro_energy(tpw, AllegroConfig(**wide), torch.tensor(pos), torch.tensor(np.arange(40) % 2),
+    allegro_energy(tpw, AllegroConfig(**wide, remat=False), torch.tensor(pos),
+                   torch.tensor(np.arange(40) % 2),
                    torch.tensor(j_tab, dtype=torch.int64), cell=torch.tensor(cell),
                    edge_shifts=torch.tensor(s_tab), edge_mask=torch.tensor(m_tab))
     assert len(seen) == 4 and all(seen)

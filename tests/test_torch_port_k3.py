@@ -215,7 +215,10 @@ def test_products_are_on_the_tensor_cores():
     for gone in ("radial_last", "back_last", "hidden_fwd", "atomicAdd", "o_part", "o_g",
                  "gstride"):
         assert gone not in SRC
-    for func, n_mma in (("product_fwd", 3), ("product_bwd", 3), ("small_product", 3)):
+    for func, n_mma in (("product_terms", 3), ("product_bwd", 3), ("small_product", 3)):
         body = re.search(rf"void {func}\(.*?\n}}\n", SRC, re.S).group(0)
         assert body.count("mma_tf32(") == n_mma and body.count("split_tf32(") >= 4, func
+    # the last product is product_terms on one chain, or in chunks of 64 terms
+    body = re.search(r"void product_fwd\(.*?\n}\n", SRC, re.S).group(0)
+    assert body.count("product_terms<PG, RES>(") == 2 and "kc += 64" in body
     assert SRC.count("cp_async16(") == 1 and '#include "mma_ptx.cuh"' in SRC

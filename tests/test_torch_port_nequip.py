@@ -233,7 +233,7 @@ def test_engine_refuses_cpu_fallback_and_row_chunk():
     with pytest.raises(RuntimeError, match="CUDA"):
         NequIPEngine(cfg, tp, ts)
     with pytest.raises(NotImplementedError):
-        nequip_params_from_numpy(nequip_init_numpy(cfg, 0), dataclasses.replace(cfg, l_max=3),
+        nequip_params_from_numpy(nequip_init_numpy(cfg, 0), dataclasses.replace(cfg, l_max=0),
                                  device="cpu")
 
 
