@@ -107,7 +107,20 @@ Phases, each of which must pass (any failure exits non-zero):
      phase 5's steps/s; remat=True against remat=False on K1, K6/K7, K2,
      K5, K4 (slab) and K3 on the 500-atom table (the tight gate, twice the
      forward launches), and row_chunk=125 on each TABLE tier against none
-     (the model gate).
+     (the model gate);
+ 18. training and import at full width: 16 frames of 500-atom FCC Cu
+     (jitter 0.1 A) labelled by the flagship Allegro on the K1 tier
+     (energy, forces, the virial) and read back by ``data.load_frames``; a
+     perturbed student trained on ``for_training()`` (Adam, batch 4, 3
+     epochs, 12 train / 4 val frames) with no kernel launch, finite
+     losses and a falling val rmse_F (ms per update, frames/s, peak
+     memory); one batch's gradient on the card (f32) against the CPU (f64),
+     each leaf within 1e-3 of its max; the trained tree in AllegroEngine,
+     its K1 layouts cached before training: 3 / 3 K1 launches and forces
+     within 5e-4 of the plain path; NequIP (phase 6's config) 4 updates
+     with no K3 launch, then NequIPEngine with K3; ``cli train``,
+     ``cli import`` of a Lightning-style checkpoint of the trained tree
+     (equal to it exactly) and ``cli run`` (20 NVE steps, K1 its count).
 Phases 7, 8, 10, 12 and 14 print two bounds for K1, K2, K3, K4, K6, K7 and K8:
 with the products on the tensor cores in 3xTF32 (the kernels'
 ``bound_ms``) and on the CUDA cores alone (``bound_ms_f32``), and the
@@ -131,7 +144,7 @@ env`` only phase 8's K2 and K5 timings, ``--timings flat`` only phase 10's
 K4 timings, ``--timings nequip`` only phase 7's K3 timings, each at its
 main paths' shapes (the engines' first neighbor build, no MD run): run
 from two checkouts in one call, it compares two builds of those kernels.
-``--scale`` runs phase 5 and phase 17 alone; ``--profile scale`` prints
+``--scale`` runs phase 5 and phase 17 alone, ``--train`` phase 18 alone; ``--profile scale`` prints
 where one steady 1,000,188-atom force evaluation's device time goes;
 ``--profile allegro-chunked`` profiles phase 5's step in 4 windows;
 ``--k3-spread [n]`` prints K3's backward error (and the plain f32
@@ -2526,6 +2539,369 @@ def scale_phase(card):
     return counts, res
 
 
+# phase 18: labelled frames of 500-atom FCC Cu (5^3 cells, jitter 0.1 A),
+# split 12 train / 4 val, Adam, batch 4, 3 epochs; the card's gradient
+# against the CPU's at f64, per leaf relative to the leaf's max
+TRAIN_REP, TRAIN_FRAMES, TRAIN_VAL, TRAIN_BATCH, TRAIN_EPOCHS = 5, 16, 4, 4, 3
+TRAIN_LR, TRAIN_JITTER, GRAD_GATE = 1e-4, 0.1, 1e-3
+
+
+def perturbed(tree, scale=0.03):
+    """The student: each leaf times 1 + scale * sin(its flat index), as the
+    JAX package's tests/test_training.py:193-196 perturbs its teacher."""
+    import numpy as np
+
+    from pair_allegro_tpu_torch.train import tree_map
+
+    return tree_map(lambda a: a * (1.0 + scale * np.sin(np.arange(a.size).reshape(a.shape))),
+                    tree)
+
+
+def train_frames(path, cfg, tree):
+    """Write TRAIN_FRAMES frames of jittered FCC Cu labelled by the teacher
+    ``tree`` (energy, forces and the quoted virial) on the engine's default
+    tier (K1 on the card) to the extxyz file ``path``."""
+    import numpy as np
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+    from pair_allegro_tpu_torch.io.extxyz import write_extxyz
+    from pair_allegro_tpu_torch.models.allegro import allegro_params_from_numpy
+    from pair_allegro_tpu_torch.system import System, fcc_lattice
+
+    params = allegro_params_from_numpy(tree, cfg, device="cuda")
+    frames = []
+    for i in range(TRAIN_FRAMES):
+        pos, cell = fcc_lattice(TRAIN_REP, jitter=TRAIN_JITTER, seed=SEED + 100 + i)
+        system = System.create(pos, np.zeros(len(pos)), cell=cell, device="cuda")
+        eng = AllegroEngine(cfg, params, system, device="cuda")
+        out = eng.force_fn(system, eng.rebuild_fn(system, None))
+        virial = " ".join(f"{x:.9g}" for x in out.virial.double().cpu().numpy().reshape(-1))
+        frames.append({"symbols": np.array(["Cu"] * len(pos)), "positions": pos, "cell": cell,
+                       "pbc": (True, True, True), "forces": out.forces.double().cpu().numpy(),
+                       # the writer puts info values as they are: quote the 9 numbers
+                       "info": {"energy": f"{float(out.total_energy):.9g}",
+                                "virial": f'"{virial}"'}})
+    write_extxyz(path, frames)
+
+
+def batch_grads(cfg, energy_fn, tree, frames, device, dtype, w_virial=0.0):
+    """{leaf key: d(batch loss)/d(leaf)} as f64 numpy (zeros where the loss
+    does not reach the leaf), of ``tree`` on ``device`` at ``dtype``."""
+    import numpy as np
+    import torch
+
+    from pair_allegro_tpu_torch.checkpoint import flatten, params_from_numpy
+    from pair_allegro_tpu_torch.data import stack_frames
+    from pair_allegro_tpu_torch.train import leaves, make_batched_loss_fn, make_loss_fn
+
+    params = params_from_numpy(tree, cfg, device, dtype)
+    tensors = leaves(params)
+    for t in tensors:
+        t.requires_grad_(True)
+    loss_fn = make_batched_loss_fn(make_loss_fn(energy_fn, cfg.for_training(), w_virial=w_virial))
+    loss, _ = loss_fn(params, stack_frames(frames))
+    grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+    return {k: np.zeros(t.shape) if g is None else g.double().cpu().numpy()
+            for k, t, g in zip(flatten(params), tensors, grads)}
+
+
+def grad_errors(got, want):
+    """{leaf: max|got - want| / max|want|} (0 where both are zero)."""
+    import numpy as np
+
+    out = {}
+    for k, w in want.items():
+        scale = float(np.abs(w).max())
+        err = float(np.abs(got[k] - w).max())
+        out[k] = err / scale if scale else (0.0 if err == 0.0 else float("inf"))
+    return out
+
+
+def train_loop(step, params, state, frames, val_batch, val_loss, epochs, rng, card, label):
+    """``epochs`` of shuffled batches of TRAIN_BATCH frames; returns (params,
+    state, losses, val rmse_F per epoch, seconds of each update)."""
+    import torch
+
+    from pair_allegro_tpu_torch.data import stack_frames
+    from pair_allegro_tpu_torch.train import detached
+
+    losses, val_rmse, secs = [], [], []
+    for epoch in range(epochs):
+        order = rng.permutation(len(frames))
+        for b in range(len(order) // TRAIN_BATCH):
+            batch = stack_frames([frames[i] for i in order[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH]])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, metrics = step.update(params, state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        if val_batch is not None:
+            val_rmse.append(float(val_loss(detached(params), val_batch)[1]["rmse_f"]))
+            print(f"{label} epoch {epoch}: train loss {losses[-1]:.6e}, val rmse_F "
+                  f"{val_rmse[-1]:.6e} eV/A ({card})")
+    return params, state, losses, val_rmse, secs
+
+
+def lightning_checkpoint(path, tree, cfg):
+    """A Lightning-style checkpoint of ``tree`` in the upstream naming:
+    {'state_dict': {'model.' + dotted name: tensor}}, every 2-D leaf in
+    torch ``nn.Linear`` (out, in) orientation."""
+    import torch
+
+    from pair_allegro_tpu_torch.checkpoint import flatten
+    from pair_allegro_tpu_torch.import_torch import upstream_allegro_key_map
+
+    key_map, transposed = upstream_allegro_key_map(cfg)
+    sd = {"model." + key_map[k]: torch.tensor(a.T.copy() if k in transposed else a)
+          for k, a in flatten(tree).items()}
+    torch.save({"state_dict": sd, "epoch": 2, "global_step": 6}, path)
+
+
+def train_phase(card):
+    """Phase 18: training and import at full width on the card.
+    (a) 16 frames of 500-atom FCC Cu labelled by the flagship Allegro
+    (seeded weights, K1 tier: energy, forces, virial), written as extxyz
+    and read by ``data.load_frames`` onto the card; (b) a perturbed student
+    trained on ``for_training()`` with Adam, batch 4, 3 epochs (12 train /
+    4 val frames): no kernel launch, every loss finite, the last epoch's
+    val rmse_F below the first's; ms per update, frames/s, peak memory;
+    (c) one batch's gradient on the card (f32) against the CPU's (f64) of
+    the same tree and frames, per leaf, gate GRAD_GATE of the leaf's max;
+    (d) the trained tree through AllegroEngine on the original config, whose
+    K1 layouts were cached from the same leaves before training: exactly
+    3 / 3 K1 launches a force evaluation, forces within 5e-4 of the plain
+    path; (e) phase 6's NequIP, 4 updates with no K3 launch, then one
+    NequIPEngine evaluation (3 / 3 K3 launches, forces within 5e-4 of the
+    plain path); (f) ``cli train`` (2 epochs from a checkpoint), ``cli
+    import`` of a Lightning-style checkpoint of the trained tree through the
+    upstream key map (the imported tree equals the trained one exactly) and
+    ``cli run`` (20 NVE steps) on the imported .npz: K1 3 / 3 a force
+    evaluation, nothing else.  Validation runs without the forces' graph."""
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pair_allegro_tpu_torch import checkpoint as ckpt
+    from pair_allegro_tpu_torch import cli
+    from pair_allegro_tpu_torch.data import load_frames, stack_frames
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine, PairEngine
+    from pair_allegro_tpu_torch.io.extxyz import write_extxyz
+    from pair_allegro_tpu_torch.models.allegro import (
+        allegro_energy,
+        allegro_init_numpy,
+        allegro_params_from_numpy,
+    )
+    from pair_allegro_tpu_torch.models.nequip import nequip_energy, nequip_init_numpy
+    from pair_allegro_tpu_torch.system import System, fcc_lattice
+    from pair_allegro_tpu_torch.train import (
+        detached,
+        make_batched_loss_fn,
+        make_loss_fn,
+        make_train_step,
+    )
+
+    print(f"phase 18 on {card}")
+    device = "cuda"
+    t_phase = time.perf_counter()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_phase")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    cfg = flagship_cfg()
+    teacher = allegro_init_numpy(cfg, SEED)
+    student = perturbed(teacher)
+    path = f"{d}/frames.xyz"
+    t0 = time.perf_counter()
+    train_frames(path, cfg, teacher)
+    frames = load_frames(path, cfg.type_names, cfg.r_max, device=device)
+    shapes = {k: tuple(v.shape) for k, v in frames[0].items() if v is not None}
+    print(f"train frames: {len(frames)} of {int(frames[0]['n_atoms'])} atoms labelled on the K1 "
+          f"tier and read back onto {frames[0]['positions'].device} in "
+          f"{time.perf_counter() - t0:.2f} s; padded shapes {shapes}")
+    train, val = frames[:TRAIN_FRAMES - TRAIN_VAL], frames[TRAIN_FRAMES - TRAIN_VAL:]
+    val_batch = stack_frames(val)
+
+    # (b) training, with the engine's view of the leaves made before it
+    params = allegro_params_from_numpy(student, cfg, device=device)
+    views = detached(params)
+    pos, cell = fcc_lattice(TRAIN_REP, jitter=TRAIN_JITTER, seed=SEED + 99)
+    probe = System.create(pos, np.zeros(len(pos)), cell=cell, device=device)
+    eng = AllegroEngine(cfg, views, probe, device=device)
+    nb = eng.rebuild_fn(probe, None)
+    before = eng.force_fn(probe, nb)  # caches K1's layouts of these leaves
+    batched = make_batched_loss_fn(make_loss_fn(allegro_energy, cfg.for_training()))
+    val_loss = make_batched_loss_fn(make_loss_fn(allegro_energy, cfg.for_training(),
+                                                 create_graph=False))
+    step = make_train_step(batched, functools.partial(torch.optim.Adam, lr=TRAIN_LR))
+    state = step.init(params)
+    val0 = float(val_loss(views, val_batch)[1]["rmse_f"])
+    print(f"train: the student's val rmse_F before training {val0:.6e} eV/A")
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() / 2**30
+    params, state, losses, val_rmse, secs = train_loop(
+        step, params, state, train, val_batch, val_loss, TRAIN_EPOCHS,
+        np.random.RandomState(SEED), card, "train")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launched = launched_now()
+    steady = secs[1:]
+    ms = 1e3 * sum(steady) / len(steady)
+    print(f"train on {card}: {len(secs)} updates of batch {TRAIN_BATCH} ({TRAIN_BATCH} x "
+          f"{int(frames[0]['n_atoms'])} atoms, E_pad {shapes['edge_index'][1]}), "
+          f"{ms:.3f} ms per update over updates 2-{len(secs)} (first {secs[0] * 1e3:.3f} ms), "
+          f"{TRAIN_BATCH * 1e3 / ms:.4f} frames/s, peak device memory {peak:.3f} GiB "
+          f"({mem0:.3f} GiB before), launches during training {launched}, losses "
+          f"{[f'{x:.4e}' for x in losses]}")
+    if launched:
+        raise RuntimeError(f"training launched kernels: {launched}")
+    if not all(math.isfinite(x) for x in losses + val_rmse):
+        raise RuntimeError("training produced a non-finite loss")
+    if not val_rmse[-1] < val_rmse[0]:
+        raise RuntimeError(f"val rmse_F did not fall: {val_rmse}")
+
+    # (c) the card's gradient against the CPU's at f64, one batch
+    cpu_frames = load_frames(path, cfg.type_names, cfg.r_max, dtype=torch.float64,
+                             device="cpu")[:TRAIN_BATCH]
+    t0 = time.perf_counter()
+    g_card = batch_grads(cfg, allegro_energy, student, train[:TRAIN_BATCH], device,
+                         torch.float32)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_cpu = batch_grads(cfg, allegro_energy, student, cpu_frames, "cpu", torch.float64)
+    t_cpu = time.perf_counter() - t0
+    errs = grad_errors(g_card, g_cpu)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    unreached = [k for k, g in g_cpu.items() if not np.any(g)]
+    print(f"train gradient, card f32 against CPU f64 ({TRAIN_BATCH} frames, {len(errs)} leaves, "
+          f"{t_card:.2f} s on the card, {t_cpu:.2f} s on the CPU): max error relative to the "
+          f"leaf's max {worst[0][1]:.3e} ({worst[0][0]}; gate {GRAD_GATE:g}); next "
+          f"{[(k, f'{e:.2e}') for k, e in worst[1:4]]}; leaves the loss does not reach "
+          f"(zero on both) {unreached}")
+    if not worst[0][1] <= GRAD_GATE:
+        raise RuntimeError(f"the card's training gradient is off: {worst[:4]}")
+
+    # (d) the trained tree in the engine: the same views, updated in place
+    reset_launches()
+    after = eng.force_fn(probe, nb)
+    torch.cuda.synchronize()
+    launched_k1 = launched_now()
+    plain = AllegroEngine(cfg.for_training(), views, probe, device=device)
+    ref = plain.force_fn(probe, plain.rebuild_fn(probe, None))
+    df = float((after.forces - ref.forces).abs().max())
+    de = abs(float(after.total_energy) - float(ref.total_energy))
+    moved = float((after.forces - before.forces).abs().max())
+    print(f"trained tree on the K1 tier ({probe.n_atoms} atoms): launches {launched_k1} for one "
+          f"force evaluation, max|dF| {df:.3e} eV/A against the plain path (gate 5e-4), |dE| "
+          f"{de:.3e} eV of {float(ref.total_energy):.4f}, forces moved {moved:.3e} eV/A by "
+          f"training")
+    if launched_k1 != {"K1": (cfg.num_layers, cfg.num_layers)}:
+        raise RuntimeError(f"the trained tree's evaluation launched {launched_k1}")
+    if not df < 5e-4 or not moved > 0.0:
+        raise RuntimeError("the trained tree on the K1 tier is off the plain path, or stale")
+    del eng, plain, before, after, ref, params, state, views
+    torch.cuda.empty_cache()
+
+    # (e) NequIP: 4 updates on the plain message path, then K3 in the engine
+    ncfg = nequip_cfg()
+    nparams = ckpt.params_from_numpy(nequip_init_numpy(ncfg, SEED), ncfg, device)
+    nbatched = make_batched_loss_fn(make_loss_fn(nequip_energy, ncfg.for_training()))
+    nstep = make_train_step(nbatched, functools.partial(torch.optim.Adam, lr=TRAIN_LR))
+    nstate = nstep.init(nparams)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    nparams, nstate, nlosses, _, nsecs = train_loop(
+        nstep, nparams, nstate, frames, None, None, 1,
+        np.random.RandomState(SEED), card, "nequip train")
+    launched = launched_now()
+    npeak = torch.cuda.max_memory_allocated() / 2**30
+    nms = 1e3 * sum(nsecs[1:]) / len(nsecs[1:])
+    print(f"nequip train on {card}: {len(nsecs)} updates of batch {TRAIN_BATCH}, {nms:.3f} ms per "
+          f"update over updates 2-{len(nsecs)}, {TRAIN_BATCH * 1e3 / nms:.4f} frames/s, peak "
+          f"{npeak:.3f} GiB, launches {launched}, losses {[f'{x:.4e}' for x in nlosses]}")
+    if launched or not all(math.isfinite(x) for x in nlosses):
+        raise RuntimeError(f"NequIP training launched {launched} or lost finiteness")
+    reset_launches()
+    neng = NequIPEngine(ncfg, detached(nparams), probe, device=device)
+    nout = neng.force_fn(probe, neng.rebuild_fn(probe, None))
+    torch.cuda.synchronize()
+    launched_k3 = launched_now()
+    nplain = NequIPEngine(ncfg.for_training(), detached(nparams), probe, device=device)
+    nref = nplain.force_fn(probe, nplain.rebuild_fn(probe, None))
+    ndf = float((nout.forces - nref.forces).abs().max())
+    print(f"trained NequIP in NequIPEngine: launches {launched_k3}, max|dF| {ndf:.3e} eV/A "
+          f"against the plain path (gate 5e-4)")
+    if launched_k3 != {"K3": (ncfg.num_layers, ncfg.num_layers)} or not ndf < 5e-4:
+        raise RuntimeError(f"the trained NequIP's evaluation: {launched_k3}, max|dF| {ndf}")
+    del nparams, nstate, neng, nplain, nout, nref
+    torch.cuda.empty_cache()
+
+    # (f) the CLI: train, import, run
+    ckpt.save_params(f"{d}/student.npz", student, cfg, family="allegro")
+    train_conf = {"model": {"checkpoint": f"{d}/student.npz"}, "dataset": path,
+                  "val_fraction": TRAIN_VAL / TRAIN_FRAMES,
+                  "optimizer": {"name": "adam", "lr": TRAIN_LR}, "batch_size": TRAIN_BATCH,
+                  "epochs": 2, "log_every": 1, "seed": SEED, "out": f"{d}/trained.npz"}
+    conf_path = f"{d}/train.yaml"
+    with open(conf_path, "w") as f:
+        f.write(json.dumps(train_conf) + "\n")  # JSON on one line is a YAML flow mapping
+    reset_launches()
+    t0 = time.perf_counter()
+    if cli.main(["train", conf_path]) != 0:
+        raise RuntimeError("cli train returned non-zero")
+    torch.cuda.synchronize()
+    launched = launched_now()
+    print(f"cli train: 2 epochs in {time.perf_counter() - t0:.2f} s, launches {launched}")
+    if launched:
+        raise RuntimeError(f"cli train launched kernels: {launched}")
+    trained, _, _ = ckpt.load_params(f"{d}/trained.npz")
+    lightning_checkpoint(f"{d}/last.ckpt", trained, cfg)
+    model_conf = {"family": "allegro", "key_map": "upstream",
+                  "config": {k: v for k, v in dataclasses.asdict(cfg).items() if v is not None}}
+    with open(f"{d}/model.yaml", "w") as f:
+        f.write(json.dumps(model_conf) + "\n")
+    if cli.main(["import", f"{d}/last.ckpt", f"{d}/model.yaml", f"{d}/imported.npz"]) != 0:
+        raise RuntimeError("cli import returned non-zero")
+    with np.load(f"{d}/trained.npz") as a, np.load(f"{d}/imported.npz") as b:
+        leaves_a, leaves_b = ([k for k in z.files if not k.startswith("__")] for z in (a, b))
+        same = sorted(leaves_a) == sorted(leaves_b) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in leaves_a)
+    print(f"cli import: the imported tree equals the trained one exactly: {same}")
+    if not same:
+        raise RuntimeError("cli import does not give back the trained tree")
+    write_extxyz(f"{d}/cu.xyz", {"symbols": np.array(["Cu"] * len(pos)), "positions": pos,
+                                 "cell": cell, "pbc": (True, True, True)})
+    run_conf = dict(CLI_BASE, data=f"{d}/cu.xyz", model={"checkpoint": f"{d}/imported.npz"},
+                    integrator="nve", temp_K=50.0, steps=20, log_every=10)
+    with open(f"{d}/run.yaml", "w") as f:
+        f.write(json.dumps(run_conf) + "\n")
+    n_eval = [0]
+    force_fn = PairEngine.force_fn
+
+    def counted(self, system, neighbors):
+        n_eval[0] += 1
+        return force_fn(self, system, neighbors)
+
+    PairEngine.force_fn = counted
+    reset_launches()
+    try:
+        if cli.main(["run", f"{d}/run.yaml"]) != 0:
+            raise RuntimeError("cli run returned non-zero")
+    finally:
+        PairEngine.force_fn = force_fn
+    torch.cuda.synchronize()
+    launched = launched_now()
+    want = {"K1": (cfg.num_layers * n_eval[0],) * 2}
+    print(f"cli run on the imported tree: {n_eval[0]} force evaluations, launches {launched} "
+          f"(want {want})")
+    if launched != want:
+        raise RuntimeError(f"cli run launched {launched}, want {want}")
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _kind_of(name):
     """A coarse class of a device kernel's name, for the profile's summary."""
     n = name.lower()
@@ -2765,6 +3141,18 @@ def main() -> int:
         main_path("allegro")
         scale_phase(card)
         return 0
+    if sys.argv[1:2] == ["--train"]:  # phase 18 alone
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60)
+        card = smi.stdout.strip().splitlines()[0]
+        print(card)
+        for name in ("K1", "K3"):
+            kernel_modules()[name].LIB.start()
+        for name in ("K1", "K3"):
+            kernel_modules()[name].LIB.load()
+        train_phase(card)
+        return 0
     if sys.argv[1:2] == ["--k3-spread"]:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"],
@@ -2856,6 +3244,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     cli_phase(card)
     counts17, _ = scale_phase(card)
+    train_phase(card)
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):

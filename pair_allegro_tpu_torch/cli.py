@@ -32,8 +32,36 @@ LAMMPS input-script analog.  One YAML config describes the run:
     profile: {phases: true, trace_dir: trace/}  # rebuild / force ms; torch.profiler trace
 
 The config is read by ``io/config.py`` (a YAML subset), never by a YAML
-package.  ``run`` runs on the CUDA device unless ``--device cpu`` is given;
-without a GPU and without it, it raises ``resolve_device``'s error.
+package.  ``run`` and ``train`` run on the CUDA device unless ``--device
+cpu`` is given; without a GPU and without it, they raise
+``resolve_device``'s error.
+
+``train config.yaml`` trains or fine-tunes a model on an extxyz dataset
+(energy= and a forces column, optionally a quoted 9-value virial=), on the
+plain path (``for_training()``, no kernel), with the JAX CLI's keys:
+
+    model: {family: allegro, config: {...}} | {checkpoint: in.npz}
+    dataset: frames.xyz
+    val_dataset: other.xyz       # optional; default: val_fraction split
+    val_fraction: 0.1
+    loss: {energy: 1.0, force: 1.0, virial: 0.0, per_atom_energy: true}
+    optimizer: {name: adam, lr: 1e-3, weight_decay: 0.0}   # adam | adamw | sgd
+    ema_decay: 0.99              # optional EMA weights, evaluated and saved
+    batch_size: 4
+    epochs: 50
+    log_every: 5
+    seed: 0
+    dtype: float32
+    out: trained.npz
+
+The split and each epoch's order come from the JAX CLI's
+``np.random.RandomState(seed)`` calls, so both CLIs see the same batches.
+
+``import ckpt model.yaml [out.npz] [--inspect] [--lenient]`` converts a
+torch checkpoint (Lightning .ckpt, .pth, or a TorchScript package whose
+metadata fills r_max / type_names / per_edge_type_cutoff) to a ``.npz``;
+model.yaml holds ``family``, ``config`` and ``key_map: upstream | e3nn |
+{ours: theirs}`` (default upstream).
 
 Differences from the JAX package's CLI:
 * a random model (``model: {family, seed, config}``) is drawn with numpy
@@ -43,12 +71,15 @@ Differences from the JAX package's CLI:
   differ in the same way;
 * a JAX state file's ``rng_key`` is not continued: the noise generator is
   seeded from the key's words and prints a ``#`` line saying so;
-* ``sharding:`` and the ``train`` and ``import`` commands are not ported
-  (``NotImplementedError``); ``compile_cache:`` and ``PAT_COMPILE_CACHE``
+* ``sharding:`` is not ported (``NotImplementedError``), in ``run`` and
+  ``train``; ``import --lenient`` fills a missing key from the numpy init,
+  not from ``jax.random``; ``compile_cache:`` and ``PAT_COMPILE_CACHE``
   are accepted with a ``#`` line: eager PyTorch compiles nothing to cache,
   and the kernels are built once per source hash under ``build/``.
 
 Usage: python -m pair_allegro_tpu_torch.cli run config.yaml [--device cpu]
+       python -m pair_allegro_tpu_torch.cli train config.yaml [--device cpu]
+       python -m pair_allegro_tpu_torch.cli import last.ckpt model.yaml model.npz
        python -m pair_allegro_tpu_torch.cli info model.npz
 """
 
@@ -57,6 +88,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import os
 import sys
 import time
@@ -65,7 +97,9 @@ import numpy as np
 import torch
 
 from pair_allegro_tpu_torch import checkpoint as ckpt
+from pair_allegro_tpu_torch import import_torch as imp
 from pair_allegro_tpu_torch.computes import GlobalCompute, PerAtomCompute
+from pair_allegro_tpu_torch.data import load_frames, stack_frames
 from pair_allegro_tpu_torch.debug import debug_enabled, dump_edges
 from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine, TypeMapper
 from pair_allegro_tpu_torch.io.config import load_config
@@ -73,9 +107,19 @@ from pair_allegro_tpu_torch.io.dump import DumpWriter, host
 from pair_allegro_tpu_torch.io.extxyz import read_extxyz
 from pair_allegro_tpu_torch.io.lammps_data import read_lammps_data
 from pair_allegro_tpu_torch.md import integrate
-from pair_allegro_tpu_torch.models.allegro import AllegroConfig, allegro_init_numpy
-from pair_allegro_tpu_torch.models.nequip import NequIPConfig, nequip_init_numpy
+from pair_allegro_tpu_torch.models.allegro import (
+    AllegroConfig,
+    allegro_energy,
+    allegro_init_numpy,
+)
+from pair_allegro_tpu_torch.models.nequip import NequIPConfig, nequip_energy, nequip_init_numpy
 from pair_allegro_tpu_torch.system import System, Units, resolve_device
+from pair_allegro_tpu_torch.train import (
+    detached,
+    make_batched_loss_fn,
+    make_loss_fn,
+    make_train_step,
+)
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 THERMO_COLS = ["step", "pe", "ke", "etotal", "temp", "press", "n_edges"]
@@ -153,10 +197,7 @@ def _integrator_kwargs(conf: dict, integrator: str) -> dict:
 
 def cmd_run(args) -> int:
     conf = load_config(args.config) or {}
-    if conf.get("sharding"):
-        raise NotImplementedError(
-            "sharding: multi-device runs are not ported to pair_allegro_tpu_torch "
-            "(ROADMAP queue 1, item 9)")
+    _refuse_sharding(conf)
     device = resolve_device(args.device)
     if conf.get("compile_cache") or os.environ.get("PAT_COMPILE_CACHE"):
         print("# compile_cache: nothing to cache (eager PyTorch compiles nothing here; the "
@@ -295,10 +336,139 @@ def cmd_info(args) -> int:
     return 0
 
 
-def cmd_not_ported(args) -> int:
-    raise NotImplementedError(
-        f"'{args.cmd}' is not ported to pair_allegro_tpu_torch (ROADMAP queue 1, item 8: "
-        "training and import); use python -m pair_allegro_tpu.cli")
+def _refuse_sharding(conf: dict) -> None:
+    if conf.get("sharding"):
+        raise NotImplementedError(
+            "sharding: multi-device runs are not ported to pair_allegro_tpu_torch "
+            "(ROADMAP queue 1, item 9)")
+
+
+def _optimizer(oconf: dict):
+    """The ``torch.optim`` constructor of an ``optimizer:`` section, as the
+    JAX CLI picks its optax one: adamw (or adam with weight_decay), adam,
+    sgd."""
+    lr = float(oconf.get("lr", 1e-3))
+    wd = float(oconf.get("weight_decay", 0.0))
+    name = oconf.get("name", "adam")
+    if name == "adamw" or (name == "adam" and wd):
+        return functools.partial(torch.optim.AdamW, lr=lr, weight_decay=wd)
+    if name == "adam":
+        return functools.partial(torch.optim.Adam, lr=lr)
+    if name == "sgd":
+        return functools.partial(torch.optim.SGD, lr=lr)
+    raise SystemExit(f"unknown optimizer {name!r}")
+
+
+def cmd_train(args) -> int:
+    """Train or fine-tune on an extxyz dataset (the module docstring lists
+    the keys); writes the best validation epoch's tree to ``out``."""
+    conf = load_config(args.config) or {}
+    _refuse_sharding(conf)
+    device = resolve_device(args.device)
+    dtype = DTYPES[conf.get("dtype", "float32")]
+    cfg, params, family = _build_model(conf.get("model") or {}, dtype, device)
+    tcfg = cfg.for_training()
+    energy_fn = nequip_energy if family == "nequip" else allegro_energy
+
+    frames = load_frames(conf["dataset"], cfg.type_names, cfg.r_max, dtype=dtype,
+                         device=device)
+    rng = np.random.RandomState(int(conf.get("seed", 0)))
+    if conf.get("val_dataset"):
+        val_frames = load_frames(conf["val_dataset"], cfg.type_names, cfg.r_max, dtype=dtype,
+                                 device=device)
+    else:
+        n_val = max(1, int(len(frames) * float(conf.get("val_fraction", 0.1))))
+        idx = rng.permutation(len(frames))
+        val_frames = [frames[i] for i in idx[:n_val]]
+        frames = [frames[i] for i in idx[n_val:]]
+        if not frames:
+            raise SystemExit("val_fraction leaves no training frames")
+
+    lconf = conf.get("loss") or {}
+    loss_kw = dict(w_energy=float(lconf.get("energy", 1.0)),
+                   w_force=float(lconf.get("force", 1.0)),
+                   w_virial=float(lconf.get("virial", 0.0)),
+                   per_atom_energy=bool(lconf.get("per_atom_energy", True)))
+    batched = make_batched_loss_fn(make_loss_fn(energy_fn, tcfg, **loss_kw))
+    # validation takes no weight gradient: no graph through the forces
+    val_loss = make_batched_loss_fn(make_loss_fn(energy_fn, tcfg, **loss_kw,
+                                                 create_graph=False))
+    ema_decay = conf.get("ema_decay")
+    step = make_train_step(batched, _optimizer(conf.get("optimizer") or {}), ema_decay=ema_decay)
+    state = step.init(params)
+    bsz = int(conf.get("batch_size", min(4, len(frames))))
+    val_batch = stack_frames(val_frames)
+
+    def val_metrics(p):
+        m = val_loss(detached(p), val_batch)[1]
+        return float(m["rmse_f"]), float(m["mae_e_per_atom"])
+
+    epochs = int(conf.get("epochs", 10))
+    log_every = int(conf.get("log_every", max(1, epochs // 20)))
+    best = (np.inf, None)
+    print(f"# training {family}: {len(frames)} train / {len(val_frames)} val frames, "
+          f"batch {bsz}, {epochs} epochs")
+    for epoch in range(epochs):
+        order = rng.permutation(len(frames))
+        # wrap-around fill keeps every batch at the same size
+        n_batches = max(1, (len(order) + bsz - 1) // bsz)
+        pad = n_batches * bsz - len(order)
+        order = np.concatenate([order, order[:pad]]) if pad else order
+        last = {}
+        for b in range(n_batches):
+            batch = stack_frames([frames[i] for i in order[b * bsz:(b + 1) * bsz]])
+            params, state, last = step.update(params, state, batch)
+        eval_params = step.ema(state) if ema_decay else params
+        rmse_f, mae_e = val_metrics(eval_params)
+        if rmse_f < best[0]:  # a copy: the optimizer updates the leaves in place
+            best = (rmse_f, {k: np.array(v) for k, v in ckpt.flatten(eval_params).items()})
+        if epoch % log_every == 0 or epoch == epochs - 1:
+            print(f"epoch {epoch:4d}  loss {float(last['loss']):.4e}  "
+                  f"val rmse_F {rmse_f:.4e} eV/A  val mae_E/atom {mae_e:.4e} eV")
+
+    out = conf.get("out", "trained.npz")
+    saved = best[1] if best[1] is not None else ckpt.flatten(eval_params)
+    ckpt.save_params(out, ckpt._unflatten(saved), cfg, family=family)
+    print(f"# best val rmse_F {best[0]:.4e} eV/A -> {out}")
+    return 0
+
+
+def cmd_import(args) -> int:
+    """torch checkpoint -> ``.npz`` (the module docstring has the model
+    YAML); ``--inspect`` prints the checkpoint's tensors and a shape-matched
+    key-map proposal and writes nothing."""
+    mconf = load_config(args.model_config) or {}
+    family = mconf.get("family", "allegro")
+    cfg_kw = {k: ckpt.as_tuples(v) for k, v in (mconf.get("config") or {}).items()}
+    key_map = mconf.get("key_map", "upstream")
+    # a TorchScript package describes itself: its metadata fills r_max,
+    # type_names and per_edge_type_cutoff where the YAML does not set them
+    if imp._is_torchscript(args.ckpt):
+        _, meta = imp.load_torchscript_artifact(args.ckpt)
+        meta_kw = imp.config_kwargs_from_metadata(meta)
+        if meta_kw:
+            print(f"# artifact metadata: {meta_kw}")
+        for k, v in meta_kw.items():
+            cfg_kw.setdefault(k, v)
+    if family not in ("allegro", "nequip"):
+        raise SystemExit(f"unknown model family {family!r}")
+    cfg = AllegroConfig(**cfg_kw) if family == "allegro" else NequIPConfig(**cfg_kw)
+    if args.inspect:
+        print(imp.inspect_state_dict(imp.load_torch_state_dict(args.ckpt), imp.template(cfg)))
+        return 0
+    if args.out is None:
+        raise SystemExit("out path required (or pass --inspect)")
+    load = imp.import_allegro_checkpoint if family == "allegro" else imp.import_nequip_checkpoint
+    params, missing = load(args.ckpt, cfg, key_map=key_map, strict=not args.lenient)
+    if missing:
+        # every key: a silently half-initialised model is --lenient's worst outcome
+        print(f"# WARNING: {len(missing)} params kept at init values:")
+        for k in missing:
+            print(f"#   missing: {k}")
+    ckpt.save_params(args.out, params, cfg, family=family)
+    n = sum(a.size for a in ckpt.flatten(params).values())
+    print(f"# imported {n} parameters ({family}) -> {args.out}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -313,12 +483,21 @@ def main(argv=None) -> int:
     pi = sub.add_parser("info", help="describe a saved model checkpoint")
     pi.add_argument("model")
     pi.set_defaults(fn=cmd_info)
-    pt = sub.add_parser("train", help="not ported (ROADMAP queue 1, item 8)")
+    pt = sub.add_parser("train", help="train/fine-tune on an extxyz dataset")
     pt.add_argument("config")
-    pt.set_defaults(fn=cmd_not_ported)
-    pim = sub.add_parser("import", help="not ported (ROADMAP queue 1, item 8)")
-    pim.add_argument("rest", nargs=argparse.REMAINDER)
-    pim.set_defaults(fn=cmd_not_ported)
+    pt.add_argument("--device", default=None,
+                    help="torch device to train on (default: the CUDA device)")
+    pt.set_defaults(fn=cmd_train)
+    pim = sub.add_parser("import", help="import a torch training checkpoint to a .npz")
+    pim.add_argument("ckpt", help="torch .ckpt/.pth checkpoint or TorchScript package")
+    pim.add_argument("model_config", help="YAML with family + config (+ key_map)")
+    pim.add_argument("out", nargs="?", default=None, help="output .npz path")
+    pim.add_argument("--lenient", action="store_true",
+                     help="keep init values for params missing from the checkpoint")
+    pim.add_argument("--inspect", action="store_true",
+                     help="print the checkpoint's tensors and a shape-matched key-map "
+                     "proposal (refusing ambiguity) and exit without writing")
+    pim.set_defaults(fn=cmd_import)
     args = p.parse_args(argv)
     return args.fn(args)
 

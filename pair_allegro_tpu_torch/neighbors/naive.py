@@ -1,6 +1,7 @@
 """Host-side neighbor statistics for capacity sizing (numpy copy of
-``pair_allegro_tpu/neighbors/naive.py``: ``host_neighbor_stats`` and the
-exact list it falls back to when the box is too small to bin)."""
+``pair_allegro_tpu/neighbors/naive.py``: ``host_neighbor_stats``, the
+exact list it falls back to when the box is too small to bin, and
+``pad_edges``, which pads a training frame's edge list)."""
 
 from __future__ import annotations
 
@@ -125,3 +126,21 @@ def host_neighbor_stats(positions, cell, pbc, cutoff: float, types=None, cutoff_
                     ok = (cand < n) & (d2 <= cut2) & (cand != np.arange(n)[:, None])
                 neigh_count += ok.sum(axis=1)
     return int(neigh_count.sum()), int(neigh_count.max()) if n else 0
+
+
+def pad_edges(edge_index: np.ndarray, shifts: np.ndarray, n_pad: int, dump_atom: int = 0):
+    """Pad an edge list to ``n_pad`` slots with masked self-loops on
+    ``dump_atom``: (edge_index (2, n_pad) int32, shifts (n_pad, 3),
+    edge_mask (n_pad,) bool).  The padded slots are (dump, dump) edges with
+    zero shift, which the model masks with edge_mask."""
+    e = edge_index.shape[1]
+    if n_pad < e:
+        raise ValueError(f"edge capacity {n_pad} < actual edges {e}")
+    ei = np.full((2, n_pad), dump_atom, dtype=np.int32)
+    sh = np.zeros((n_pad, 3), dtype=shifts.dtype if shifts is not None else np.float64)
+    mask = np.zeros((n_pad,), dtype=bool)
+    ei[:, :e] = edge_index
+    if shifts is not None:
+        sh[:e] = shifts
+    mask[:e] = True
+    return ei, sh, mask

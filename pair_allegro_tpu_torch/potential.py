@@ -25,10 +25,15 @@ class ModelOutputs:
     extras: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
-def make_potential(energy_fn: Callable[..., dict]) -> Callable[..., ModelOutputs]:
+def make_potential(energy_fn: Callable[..., dict],
+                   create_graph: bool = False) -> Callable[..., ModelOutputs]:
     """Wrap ``energy_fn(positions, types, edge_index, cell=, edge_shifts=,
     atom_mask=, edge_mask=, **kw) -> dict`` (with 'total_energy' and
-    'atomic_energy') into a potential returning detached ModelOutputs."""
+    'atomic_energy') into a potential returning detached ModelOutputs.
+
+    With ``create_graph`` the outputs keep their graph instead: forces and
+    virial are differentiable again, so a loss can take the weights'
+    gradient of -dE/dr (training, ``train.make_loss_fn``)."""
 
     def potential(positions, types, edge_index, *, cell=None, edge_shifts=None,
                   atom_mask=None, edge_mask=None, compute_virial: bool = True,
@@ -44,17 +49,21 @@ def make_potential(energy_fn: Callable[..., dict]) -> Callable[..., ModelOutputs
                 edge_shifts=edge_shifts, atom_mask=atom_mask, edge_mask=edge_mask, **kw,
             )
             inputs = [pos, strain] if compute_virial else [pos]
-            grads = torch.autograd.grad(out["total_energy"], inputs)
+            grads = torch.autograd.grad(out["total_energy"], inputs, create_graph=create_graph)
         if compute_virial:
             virial = -0.5 * (grads[1] + grads[1].T)
         else:
             virial = torch.zeros((3, 3), dtype=dtype, device=dev)
+
+        def keep(t):
+            return t if create_graph else t.detach()
+
         extras = {
-            k: v.detach() for k, v in out.items() if k not in ("total_energy", "atomic_energy")
+            k: keep(v) for k, v in out.items() if k not in ("total_energy", "atomic_energy")
         }
         return ModelOutputs(
-            total_energy=out["total_energy"].detach(),
-            atomic_energy=out["atomic_energy"].detach(),
+            total_energy=keep(out["total_energy"]),
+            atomic_energy=keep(out["atomic_energy"]),
             forces=-grads[0],
             virial=virial,
             extras=extras,

@@ -8,9 +8,11 @@ kernel paths (K1 in its three forms, per-layer, K4 and stack tiers,
 NequIP, the FLAT layout of the dense strategy) against their CPU plain
 paths and regrows on the card; the routing predicates against the
 launchers; f64 systems and widths no kernel takes on the plain path;
-``cli run`` on the card against ``--device cpu``, and the CUDA noise
-generator's state across a restart.  Every test here needs a card and
-skips without one.
+``cli run`` on the card against ``--device cpu``, the CUDA noise
+generator's state across a restart; a training step on the card (no
+kernel launch), its gradient against the CPU's at f64, and the trained
+tree on the K1 tier against the plain path.  Every test here needs a card
+and skips without one.
 
 This file imports torch and the port only (no JAX), so that it also runs
 on a machine without JAX:
@@ -1611,3 +1613,155 @@ def test_pad_to_on_the_card(cuda):
     assert float(o1.forces[500].abs().max()) == 0.0 and float(o1.atomic_energy[500]) == 0.0
     assert float((o1.atomic_energy[:500] - o0.atomic_energy).abs().max()) <= 1e-5
     assert o1.extras["dipole"].shape == (3,)
+
+
+# training (train.py) on the card: a small Allegro on 500-atom frames (5^3
+# cells, 4 bins an axis, so the engine's table takes the K1 tier)
+TRAIN_KW = dict(type_names=("Cu",), r_max=4.0, l_max=2, num_layers=2, num_scalar_features=16,
+                num_tensor_features=8, avg_num_neighbors=12.0)
+
+
+def _kernel_launches():
+    from pair_allegro_tpu_torch.ops import (
+        embed_layer,
+        env_layer,
+        env_layer_mxu,
+        fused_stack,
+        nequip_conv,
+        readout_layer,
+        tp_mix_fused,
+    )
+
+    mods = (fl, nequip_conv, env_layer, env_layer_mxu, tp_mix_fused, embed_layer, readout_layer,
+            fused_stack)
+    return mods, lambda: sum(m.launches.fwd + m.launches.bwd for m in mods)
+
+
+def _train_frames(device, dtype, n=4):
+    """``n`` padded FLAT frames of 500 jittered Cu atoms labelled by the
+    teacher (seed 0) on the plain path, and the student's numpy tree."""
+    from pair_allegro_tpu_torch.models.allegro import allegro_energy
+    from pair_allegro_tpu_torch.neighbors.naive import neighbor_list_np, pad_edges
+    from pair_allegro_tpu_torch.potential import make_potential
+
+    cfg = AllegroConfig(**TRAIN_KW)
+    tree = allegro_init_numpy(cfg, 0)
+    teacher = allegro_params_from_numpy(tree, cfg, device=device, dtype=dtype)
+    pot = make_potential(lambda *a, **k: allegro_energy(teacher, cfg.for_training(), *a, **k))
+    frames, built = [], []
+    for i in range(n):
+        pos, cell = fcc_lattice(5, jitter=0.1, seed=10 + i)
+        built.append((pos, cell, *neighbor_list_np(pos, cell, (True,) * 3, cfg.r_max)))
+    e_pad = max(b[2].shape[1] for b in built) + 64
+    for pos, cell, ei, sh in built:
+        ei, sh, mask = pad_edges(ei, sh, e_pad)
+        f = {"positions": torch.tensor(pos, dtype=dtype, device=device),
+             "types": torch.zeros(len(pos), dtype=torch.int64, device=device),
+             "edge_index": torch.tensor(ei, dtype=torch.int64, device=device),
+             "cell": torch.tensor(cell, dtype=dtype, device=device),
+             "edge_shifts": torch.tensor(sh, dtype=dtype, device=device),
+             "edge_mask": torch.tensor(mask, device=device)}
+        out = pot(f["positions"], f["types"], f["edge_index"], cell=f["cell"],
+                  edge_shifts=f["edge_shifts"], edge_mask=f["edge_mask"])
+        f["forces"], f["energy"] = out.forces, out.total_energy
+        frames.append(f)
+
+    def perturb(t):
+        return t * (1.0 + 0.03 * np.sin(np.arange(t.size).reshape(t.shape)))
+
+    from pair_allegro_tpu_torch.train import tree_map
+
+    student = tree_map(perturb, tree)
+    return cfg, frames, student
+
+
+def _batch_grads(cfg, frames, tree, device, dtype):
+    from pair_allegro_tpu_torch.data import stack_frames
+    from pair_allegro_tpu_torch.models.allegro import allegro_energy
+    from pair_allegro_tpu_torch.train import leaves, make_batched_loss_fn, make_loss_fn
+
+    params = allegro_params_from_numpy(tree, cfg, device=device, dtype=dtype)
+    tensors = leaves(params)
+    for t in tensors:
+        t.requires_grad_(True)
+    loss, _ = make_batched_loss_fn(make_loss_fn(allegro_energy, cfg.for_training()))(
+        params, stack_frames(frames))
+    grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+    return [np.zeros(t.shape) if g is None else g.double().cpu().numpy()
+            for t, g in zip(tensors, grads)]
+
+
+def test_training_step_on_the_card_launches_no_kernel(cuda):
+    import functools
+
+    from pair_allegro_tpu_torch.data import stack_frames
+    from pair_allegro_tpu_torch.models.allegro import allegro_energy
+    from pair_allegro_tpu_torch.train import make_batched_loss_fn, make_loss_fn, make_train_step
+
+    cfg, frames, student = _train_frames(cuda, torch.float32, n=2)
+    params = allegro_params_from_numpy(student, cfg, device=cuda)
+    step = make_train_step(make_batched_loss_fn(make_loss_fn(allegro_energy, cfg.for_training())),
+                           functools.partial(torch.optim.Adam, lr=1e-4))
+    state = step.init(params)
+    mods, total = _kernel_launches()
+    for m in mods:
+        m.launches.reset()
+    params, state, metrics = step.update(params, state, stack_frames(frames))
+    torch.cuda.synchronize()
+    assert total() == 0
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+
+
+def test_training_gradient_on_the_card_matches_cpu_f64(cuda):
+    """One batch's gradient, the card at f32 against the CPU at f64 of the
+    same tree and frames: every leaf within 1e-3 of its max (the leaves the
+    loss does not reach are zero on both)."""
+    cfg, frames, student = _train_frames(cuda, torch.float32, n=2)
+    _, cpu_frames, _ = _train_frames("cpu", torch.float64, n=2)
+    got = _batch_grads(cfg, frames, student, cuda, torch.float32)
+    want = _batch_grads(cfg, cpu_frames, student, "cpu", torch.float64)
+    for g, w in zip(got, want):
+        scale = np.abs(w).max()
+        if scale == 0.0:
+            assert not np.any(g)
+        else:
+            assert np.abs(g - w).max() <= 1e-3 * scale
+
+
+def test_trained_tree_on_the_k1_tier_matches_plain(cuda):
+    """The tree trained in place on the card, through the same detached
+    views the K1 engine cached its layouts from before training: 2 / 2 K1
+    launches an evaluation, forces within the 5e-4 model gate of the plain
+    path, and moved by training (no stale layout)."""
+    import functools
+
+    from pair_allegro_tpu_torch.data import stack_frames
+    from pair_allegro_tpu_torch.models.allegro import allegro_energy
+    from pair_allegro_tpu_torch.train import (
+        detached,
+        make_batched_loss_fn,
+        make_loss_fn,
+        make_train_step,
+    )
+
+    cfg, frames, student = _train_frames(cuda, torch.float32, n=2)
+    params = allegro_params_from_numpy(student, cfg, device=cuda)
+    views = detached(params)
+    pos, cell = fcc_lattice(5, jitter=0.1, seed=99)
+    system = System.create(pos, np.zeros(len(pos)), cell=cell, device=cuda)
+    eng = AllegroEngine(cfg, views, system, device=cuda)
+    nb = eng.rebuild_fn(system, None)
+    before = eng.force_fn(system, nb)
+    step = make_train_step(make_batched_loss_fn(make_loss_fn(allegro_energy, cfg.for_training())),
+                           functools.partial(torch.optim.Adam, lr=1e-3))
+    state = step.init(params)
+    for _ in range(3):
+        params, state, _ = step.update(params, state, stack_frames(frames))
+    fl.launches.reset()
+    after = eng.force_fn(system, nb)
+    torch.cuda.synchronize()
+    assert (fl.launches.fwd, fl.launches.bwd) == (cfg.num_layers, cfg.num_layers)
+    plain = AllegroEngine(cfg.for_training(), views, system, device=cuda)
+    ref = plain.force_fn(system, plain.rebuild_fn(system, None))
+    assert float((after.forces - ref.forces).abs().max()) < 5e-4
+    assert float((after.forces - before.forces).abs().max()) > 1e-3

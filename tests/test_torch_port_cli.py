@@ -2,8 +2,8 @@
 ``cli run`` with a JAX-written checkpoint and state prints the JAX CLI's
 thermo columns at f64 (to 1e-8 relative); every example config runs with
 ``--device cpu`` (steps cut to 5 in a copy); ``info``; restarts resume bit
-for bit (nvt, langevin); computes columns; unported keys and commands are
-refused; without a GPU ``run`` raises unless told ``--device cpu``; the
+for bit (nvt, langevin); computes columns; ``sharding:`` is refused in
+``run`` and ``train``; without a GPU ``run`` raises unless told ``--device cpu``; the
 calculator and the edge set agree with the JAX package's."""
 
 import re
@@ -177,14 +177,12 @@ def test_computes_columns(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["run", "CONF"], "item 9"),
-    (["train", "CONF"], "item 8"),
-    (["import", "last.ckpt", "model.yaml", "out.npz", "--inspect"], "item 8"),
+    (["train", "CONF"], "item 9"),
 ])
 def test_unported_keys_and_commands_are_refused(tmp_path, argv, item):
     conf = _write(tmp_path, "run.yaml", {"data": FIXTURE, "sharding": {"n_devices": 8}})
     with pytest.raises(NotImplementedError, match=item):
-        main([conf if a == "CONF" else a for a in argv] + (["--device", "cpu"]
-                                                            if argv[0] == "run" else []))
+        main([conf if a == "CONF" else a for a in argv] + ["--device", "cpu"])
 
 
 def test_run_without_a_gpu_raises(tmp_path):

@@ -57,5 +57,6 @@ def test_every_port_module_is_scanned():
                  "ops.env_layer", "ops.env_layer_mxu", "ops.weight_cache", "ops.tp_mix_fused",
                  "ops.scatter", "neighbors.device", "ops.embed_layer", "ops.readout_layer",
                  "ops.fused_stack", "checkpoint", "cli", "computes", "calculator", "debug",
-                 "io.config", "io.dump", "io.extxyz", "io.lammps_data", "ops.remat"):
+                 "io.config", "io.dump", "io.extxyz", "io.lammps_data", "ops.remat", "train",
+                 "data", "import_torch"):
         assert f"pair_allegro_tpu_torch.{name}" in mods
