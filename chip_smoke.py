@@ -120,7 +120,28 @@ Phases, each of which must pass (any failure exits non-zero):
      within 5e-4 of the plain path; NequIP (phase 6's config) 4 updates
      with no K3 launch, then NequIPEngine with K3; ``cli train``,
      ``cli import`` of a Lightning-style checkpoint of the trained tree
-     (equal to it exactly) and ``cli run`` (20 NVE steps, K1 its count).
+     (equal to it exactly) and ``cli run`` (20 NVE steps, K1 its count);
+ 19. the multi-device engines with 4 shards sharing the card, at full
+     width: the C++ host runtime built (``native.available()``); the
+     replicated engine (``ShardedAllegroEngine``) against AllegroEngine on
+     the K1 and per-layer (K2) tiers, and the halo engine (4 z-slabs of
+     ~9.9 A, one hop) on the K1 tier: max|dF| <= 1e-5 eV/A, energy within
+     1e-6 relative, exactly 4 x 3 launches each way an evaluation; the
+     replicated engine at 2 shards on a 256-atom box that takes the dense
+     strategy, the same gates with 2 x 3 K4 launches; the halo
+     engine's NVE run with migration against AllegroEngine's on the same
+     run (40 + 40 steps in chunks of 5: steps/s of both and phase 5's,
+     migrations, regrows, the energy drift, K1 12 / 12 an evaluation; the
+     final positions, taken back to the original order through
+     ``atom_perm``, and the last etotal against the single engine's);
+     ShardedNequIPEngine against NequIPEngine (K3) within 5e-4
+     eV/A, with no K3 launch; data-parallel gradients (a batch of 4 frames
+     over 2 shards) within 1e-3 of each leaf's max of the unsharded batch's;
+     ``cli run --device cuda:0`` with ``sharding: {n_devices: 1}`` and
+     ``{n_devices: 4, mode: halo}`` (the card counted 4 times) and ``cli
+     train`` with ``sharding: {n_devices: 1}``; a second process with PAT_COMPILE_CACHE
+     loading every library from a copy of this run's builds with no nvcc
+     (or host compiler) run.
 Phases 7, 8, 10, 12 and 14 print two bounds for K1, K2, K3, K4, K6, K7 and K8:
 with the products on the tensor cores in 3xTF32 (the kernels'
 ``bound_ms``) and on the CUDA cores alone (``bound_ms_f32``), and the
@@ -144,7 +165,8 @@ env`` only phase 8's K2 and K5 timings, ``--timings flat`` only phase 10's
 K4 timings, ``--timings nequip`` only phase 7's K3 timings, each at its
 main paths' shapes (the engines' first neighbor build, no MD run): run
 from two checkouts in one call, it compares two builds of those kernels.
-``--scale`` runs phase 5 and phase 17 alone, ``--train`` phase 18 alone; ``--profile scale`` prints
+``--scale`` runs phase 5 and phase 17 alone, ``--train`` phase 18 alone, ``--sharded``
+phase 19 alone; ``--profile scale`` prints
 where one steady 1,000,188-atom force evaluation's device time goes;
 ``--profile allegro-chunked`` profiles phase 5's step in 4 windows;
 ``--k3-spread [n]`` prints K3's backward error (and the plain f32
@@ -2338,6 +2360,7 @@ def scale_path(card):
     the steady evaluation and the numbers printed."""
     import torch
 
+    from pair_allegro_tpu_torch import native
     from pair_allegro_tpu_torch.engine import AllegroEngine
 
     t0 = time.perf_counter()
@@ -2360,6 +2383,7 @@ def scale_path(card):
     res = {"atoms": n, "windows": windows, "row_chunk": SCALE_CHUNK,
            "K": eng.spec.max_neighbors, "edge_slots": n * eng.spec.max_neighbors,
            "edges": edges, "remat": eng.cfg.remat, "host_estimate_s": t_est,
+           "host_estimate_native": native.available(),
            "system_s": t_case, "rebuild_s": t_build, "rebuild_peak_gib": peak_build}
     want = {"K1": (2 * cfg.num_layers * windows, cfg.num_layers * windows)}
     counts = None
@@ -2391,7 +2415,8 @@ def scale_path(card):
                                f"overflow {overflow}")
     print(f"scale path ({card}): {n} atoms, {windows} windows of {SCALE_CHUNK} rows, "
           f"K={res['K']}, {res['edge_slots']} edge slots, {edges} counted edges, remat resolved "
-          f"{res['remat']}; host capacity estimate (numpy host_neighbor_stats) {t_est:.3f} s, "
+          f"{res['remat']}; host capacity estimate (host_neighbor_stats, C++ host runtime "
+          f"{native.available()}) {t_est:.3f} s, "
           f"system on the card {t_case:.3f} s, rebuild {t_build:.3f} s (peak "
           f"{peak_build:.3f} GiB), s/force first {res['first_s_per_force']:.4f}, steady "
           f"{res['steady_s_per_force']:.4f}")
@@ -2557,10 +2582,10 @@ def perturbed(tree, scale=0.03):
                     tree)
 
 
-def train_frames(path, cfg, tree):
-    """Write TRAIN_FRAMES frames of jittered FCC Cu labelled by the teacher
-    ``tree`` (energy, forces and the quoted virial) on the engine's default
-    tier (K1 on the card) to the extxyz file ``path``."""
+def train_frames(path, cfg, tree, n=TRAIN_FRAMES):
+    """Write ``n`` frames of jittered FCC Cu (TRAIN_REP^3 cells) labelled by the
+    teacher ``tree`` (energy, forces and the quoted virial) on the engine's
+    default tier (K1 on the card) to the extxyz file ``path``."""
     import numpy as np
 
     from pair_allegro_tpu_torch.engine import AllegroEngine
@@ -2570,7 +2595,7 @@ def train_frames(path, cfg, tree):
 
     params = allegro_params_from_numpy(tree, cfg, device="cuda")
     frames = []
-    for i in range(TRAIN_FRAMES):
+    for i in range(n):
         pos, cell = fcc_lattice(TRAIN_REP, jitter=TRAIN_JITTER, seed=SEED + 100 + i)
         system = System.create(pos, np.zeros(len(pos)), cell=cell, device="cuda")
         eng = AllegroEngine(cfg, params, system, device="cuda")
@@ -2584,14 +2609,15 @@ def train_frames(path, cfg, tree):
     write_extxyz(path, frames)
 
 
-def batch_grads(cfg, energy_fn, tree, frames, device, dtype, w_virial=0.0):
+def batch_grads(cfg, energy_fn, tree, frames, device, dtype, w_virial=0.0, mesh=None):
     """{leaf key: d(batch loss)/d(leaf)} as f64 numpy (zeros where the loss
-    does not reach the leaf), of ``tree`` on ``device`` at ``dtype``."""
+    does not reach the leaf), of ``tree`` on ``device`` at ``dtype``; with
+    ``mesh`` the batch is split over it (``data.shard_batch``)."""
     import numpy as np
     import torch
 
     from pair_allegro_tpu_torch.checkpoint import flatten, params_from_numpy
-    from pair_allegro_tpu_torch.data import stack_frames
+    from pair_allegro_tpu_torch.data import shard_batch, stack_frames
     from pair_allegro_tpu_torch.train import leaves, make_batched_loss_fn, make_loss_fn
 
     params = params_from_numpy(tree, cfg, device, dtype)
@@ -2599,7 +2625,8 @@ def batch_grads(cfg, energy_fn, tree, frames, device, dtype, w_virial=0.0):
     for t in tensors:
         t.requires_grad_(True)
     loss_fn = make_batched_loss_fn(make_loss_fn(energy_fn, cfg.for_training(), w_virial=w_virial))
-    loss, _ = loss_fn(params, stack_frames(frames))
+    batch = stack_frames(frames)
+    loss, _ = loss_fn(params, batch if mesh is None else shard_batch(batch, mesh, "dp"))
     grads = torch.autograd.grad(loss, tensors, allow_unused=True)
     return {k: np.zeros(t.shape) if g is None else g.double().cpu().numpy()
             for k, t, g in zip(flatten(params), tensors, grads)}
@@ -2902,6 +2929,449 @@ def train_phase(card):
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 19: the multi-device engines with SHARDS shards sharing the one card
+SHARDS = 4
+# halo NVE: 40 + 40 steps in chunks of 5.  The random weights heat the
+# bulk (~3,400 K at step 80) and blow it up near step 85 (the
+# single-device run's etotal jumps by ~2,800 eV within 5 steps): an atom
+# then crosses the halo's margin within one chunk, which no re-sort can
+# follow, so the run stops short of it
+SHARD_STEPS, SHARD_CHUNK = 40, 5
+SHARD_GATE_F, SHARD_GATE_E = 1e-5, 1e-6  # eV/A; relative
+# the halo NVE run against the single engine's on the same protocol: the
+# largest difference of an atom's final position (A) and the last etotal's
+# relative difference.  An H100 read 6.1e-5 A and 1.1e-7 (f32 sums in
+# another order, grown over 80 steps of a ~3,400 K bulk); a lost velocity
+# or a wrong permutation moves atoms by tenths of an A or more
+HALO_MD_GATE_X, HALO_MD_GATE_E = 1e-3, 1e-6
+
+
+def shard_mesh(n, axis="atoms"):
+    """n shards all on cuda:0."""
+    from pair_allegro_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, axis, devices="cuda:0")
+
+
+def sharded_parity(card, mode, kernel="K1", n_rep=11, n_shards=SHARDS):
+    """Phase 19a: the flagship Allegro on n_rep^3 FCC cells through the
+    replicated (``mode`` "replicated") or halo engine at ``n_shards``
+    shards on the card, against ``AllegroEngine`` on the same sorted
+    system: energy, max|dF|, max|dW|, and the launches of one evaluation,
+    exactly n_shards x 3 of ``kernel`` each way (K1 on the fused tier, K2
+    on the per-layer tier, K4 where the box is small enough for the dense
+    strategy).  Returns the numbers and (cfg, params, system, engine)."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+    from pair_allegro_tpu_torch.parallel import HaloShardedAllegroEngine, ShardedAllegroEngine
+
+    cfg, params, system = make_case(n_rep, None, **({"layer_fused": False} if kernel == "K2"
+                                                      else {}))
+    cls = HaloShardedAllegroEngine if mode == "halo" else ShardedAllegroEngine
+    system, _ = cls.prepare_system(system, n_shards)
+    single = AllegroEngine(cfg, params, system, skin=0.4)
+    o0 = single.force_fn(system, single.rebuild_fn(system, None))
+    eng = cls(cfg, params, system, shard_mesh(n_shards), skin=0.4)
+    nb = eng.rebuild_fn(system, None)
+    eng.force_fn(system, nb)  # warm: the weight layouts of this tree
+    torch.cuda.synchronize()
+    reset_launches()
+    o1 = eng.force_fn(system, nb)
+    torch.cuda.synchronize()
+    counts = launched_now()
+    want = {kernel: (n_shards * cfg.num_layers,) * 2}
+    e0, e1 = float(o0.total_energy), float(o1.total_energy)
+    res = {"mode": mode, "tier": kernel, "strategy": eng.spec.strategy, "shards": n_shards,
+           "atoms": system.n_atoms, "energy": e1, "energy_single": e0,
+           "rel_dE": abs(e1 - e0) / abs(e0), "max_abs_dF": max_err(o1.forces, o0.forces),
+           "max_abs_dW": max_err(o1.virial, o0.virial), "launches": counts}
+    extra = ""
+    if mode == "halo":
+        res.update(hops=eng.hops, n_ext=eng.n_ext, cov_min=eng.cov_min, K=eng.max_neighbors)
+        extra = (f", {eng.hops} hop(s), n_ext {eng.n_ext}, coverage {eng.cov_min:.3f} A, "
+                 f"K {eng.max_neighbors}")
+    print(f"sharded {mode} ({kernel} tier, {eng.spec.strategy} strategy, {card}): "
+          f"{system.n_atoms} atoms in {n_shards} shards on one device{extra}; E {e1:.6f} eV "
+          f"against {e0:.6f} (rel {res['rel_dE']:.3e}, gate {SHARD_GATE_E:g}), max|dF| "
+          f"{res['max_abs_dF']:.3e} eV/A (gate {SHARD_GATE_F:g}), max|dW| "
+          f"{res['max_abs_dW']:.3e} eV; launches fwd/bwd of one evaluation {counts} "
+          f"(want {want}); overflow {bool(nb.overflow)}")
+    if not (res["max_abs_dF"] <= SHARD_GATE_F and res["rel_dE"] <= SHARD_GATE_E
+            and counts == want and not bool(nb.overflow)):
+        raise RuntimeError(f"sharded {mode} ({kernel}) parity or launch gate failed: {res}")
+    del single, o0, o1, nb
+    torch.cuda.empty_cache()
+    return res, (cfg, params, system, eng)
+
+
+def _md_rate(eng, system, steps, chunk, migrate):
+    """NVE at 2 fs from 50 K through ``eng``: a warmup run of ``steps``, then
+    a timed run of ``steps``, in chunks of ``chunk``.  Returns (simulation,
+    rows of the timed run, its wall seconds, its force evaluations, its
+    launches, migrations and regrows before it)."""
+    import torch
+
+    from pair_allegro_tpu_torch.md.integrate import Simulation
+    from pair_allegro_tpu_torch.system import Units
+
+    n_eval = [0]
+
+    def force_fn(s, nb):
+        n_eval[0] += 1
+        return eng.force_fn(s, nb)
+
+    sim = Simulation(system, force_fn, eng.rebuild_fn, dt=2.0 * Units.fs, grow_fn=eng.grow,
+                     migrate_fn=eng.maybe_migrate if migrate else None)
+    sim.init_velocities(50.0, seed=SEED)
+    sim.run(steps, log_every=chunk)
+    torch.cuda.synchronize()
+    before = (sim.migrations, sim.regrows)
+    reset_launches()
+    n_eval[0] = 0
+    t0 = time.perf_counter()
+    rows = sim.run(steps, log_every=chunk)
+    torch.cuda.synchronize()
+    return sim, rows, time.perf_counter() - t0, n_eval[0], launched_now(), before
+
+
+def halo_md(card, case, steps=SHARD_STEPS, chunk=SHARD_CHUNK):
+    """Phase 19b: NVE at 2 fs from 50 K through the halo engine with
+    ``migrate_fn`` (and regrow), and through AllegroEngine on the same
+    sorted system with the same protocol, in turns: a warmup run of
+    ``steps`` and a timed run of ``steps`` each, in chunks of ``chunk``
+    (migrations happen at chunk ends).  Steps/s of both, migrations,
+    regrows, the energy drift over the timed run, and the launches: K1
+    3 x shards (halo) or 3 (single) per force evaluation.  The halo run
+    must end where the single engine's does: its last etotal, and its
+    final positions taken back to the original order through
+    ``atom_perm`` (modulo the cell, since a migration re-wraps them),
+    within HALO_MD_GATE_E and HALO_MD_GATE_X."""
+    import numpy as np
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+
+    cfg, params, system, eng = case
+    single = AllegroEngine(cfg, params, system, skin=0.4)
+    res, final = {}, {}
+    for name, e, shards in (("single", single, 1), ("halo", eng, eng.n_shards)):
+        sim, rows, wall, n_eval, counts, (mig0, reg0) = _md_rate(e, system, steps, chunk,
+                                                                  name == "halo")
+        want = {"K1": (3 * shards * n_eval,) * 2}
+        finite = bool(torch.isfinite(sim.state.forces).all()) and math.isfinite(
+            rows[-1]["etotal"])
+        r = {"steps_per_s": steps / wall, "ms_per_step": wall * 1e3 / steps,
+             "migrations_timed": sim.migrations - mig0, "migrations_total": sim.migrations,
+             "regrows_total": sim.regrows, "regrows_timed": sim.regrows - reg0,
+             "etotal_first": rows[0]["etotal"], "etotal_last": rows[-1]["etotal"],
+             "temp_last": rows[-1]["temp"], "force_evaluations": n_eval, "launches": counts}
+        print(f"{name} md ({card}): {shards} shard(s) on one device, {steps} + {steps} NVE "
+              f"steps in chunks of {chunk}: {r['steps_per_s']:.4f} steps/s "
+              f"({r['ms_per_step']:.3f} ms/step); migrations {r['migrations_timed']} in the "
+              f"timed run ({r['migrations_total']} in all), regrows {r['regrows_total']}; etotal "
+              f"over the timed run {r['etotal_first']:.4f} -> {r['etotal_last']:.4f} eV (drift "
+              f"{r['etotal_last'] - r['etotal_first']:.4f} eV, T {r['temp_last']:.1f} K); "
+              f"{n_eval} force evaluations, launches {counts} (want {want}); finite {finite}")
+        if not finite or counts != want:
+            raise RuntimeError(f"{name} md: non-finite state or launches {counts}, want {want}")
+        res[name] = r
+        x = sim.state.system.positions.double().cpu().numpy()
+        if sim.atom_perm is not None:  # row i of x is original atom atom_perm[i]
+            back = np.empty_like(x)
+            back[sim.atom_perm] = x
+            x = back
+        final[name] = x
+        del sim
+    cell = system.cell.double().cpu().numpy()
+    frac = (final["halo"] - final["single"]) @ np.linalg.inv(cell)
+    dx = float(np.abs((frac - np.round(frac)) @ cell).max())
+    e_s, e_h = res["single"]["etotal_last"], res["halo"]["etotal_last"]
+    de = abs(e_h - e_s) / abs(e_s)
+    res["halo_vs_single"] = {"max_abs_dx_A": dx, "rel_d_etotal": de}
+    print(f"halo md against single md ({card}): after {2 * steps} steps the final positions in "
+          f"the original order differ by max {dx:.3e} A (gate {HALO_MD_GATE_X:g}), the last "
+          f"etotal by {de:.3e} relative (gate {HALO_MD_GATE_E:g})")
+    if not (dx <= HALO_MD_GATE_X and de <= HALO_MD_GATE_E):
+        raise RuntimeError(f"halo md does not follow the single engine: {res['halo_vs_single']}")
+    ratio = res["halo"]["steps_per_s"] / res["single"]["steps_per_s"]
+    res["halo_over_single"] = ratio
+    phase5 = STEPS_PER_S.get("allegro")
+    print(f"halo md ({card}): {eng.n_shards} shards {res['halo']['steps_per_s']:.4f} steps/s "
+          f"against one device's {res['single']['steps_per_s']:.4f} on the same run "
+          f"({ratio:.4f}x)" + (f"; phase 5's K1 main path {phase5:.4f} steps/s in this call"
+                               if phase5 else "") + " (four shards' launches on one card: "
+          "what the mode costs there, not a multi-GPU number)")
+    if phase5:
+        res["phase5_steps_per_s"] = phase5
+    return res
+
+
+def sharded_nequip(card):
+    """Phase 19c: bench.py:nequip_line's NequIP through ShardedNequIPEngine
+    at SHARDS shards on the card against NequIPEngine (K3): forces within
+    the 5e-4 eV/A bench gate and no K3 launch in the sharded engine (its
+    plain message path, as in JAX)."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import NequIPEngine
+    from pair_allegro_tpu_torch.parallel import ShardedNequIPEngine
+
+    cfg, params, system = make_nequip_case(11, None)
+    system, _ = ShardedNequIPEngine.prepare_system(system, SHARDS)
+    single = NequIPEngine(cfg, params, system, skin=0.4)
+    reset_launches()
+    o0 = single.force_fn(system, single.rebuild_fn(system, None))
+    torch.cuda.synchronize()
+    single_counts = launched_now()
+    eng = ShardedNequIPEngine(cfg, params, system, shard_mesh(SHARDS), skin=0.4)
+    nb = eng.rebuild_fn(system, None)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o1 = eng.force_fn(system, nb)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launched_now()
+    df = max_err(o1.forces, o0.forces)
+    want0 = {"K3": (cfg.num_layers,) * 2}
+    res = {"atoms": system.n_atoms, "max_abs_dF": df,
+           "rel_dE": abs(float(o1.total_energy - o0.total_energy)) / abs(float(o0.total_energy)),
+           "launches": counts, "single_launches": single_counts, "sharded_force_s": secs}
+    print(f"sharded nequip ({card}): {system.n_atoms} atoms in {SHARDS} shards on one device "
+          f"against NequIPEngine: max|dF| {df:.3e} eV/A (gate 5e-4), rel dE {res['rel_dE']:.3e}; "
+          f"launches of the sharded evaluation {counts} (want none), of the single engine's "
+          f"{single_counts} (want {want0}); one sharded force evaluation {secs:.3f} s")
+    if not df < 5e-4 or counts or single_counts != want0:
+        raise RuntimeError(f"sharded nequip gate failed: {res}")
+    del single, eng, o0, o1, nb
+    return res
+
+
+def dp_train(card, d):
+    """Phase 19d: data-parallel training: one batch of 4 frames (phase 18's
+    labelled FCC Cu) split over 2 shards on the card (``data.shard_batch``)
+    against the unsharded batch, each leaf's gradient within GRAD_GATE of
+    the leaf's max, with no kernel launch."""
+    import numpy as np
+    import torch
+
+    from pair_allegro_tpu_torch.data import load_frames
+    from pair_allegro_tpu_torch.models.allegro import allegro_energy, allegro_init_numpy
+
+    cfg = flagship_cfg()
+    teacher = allegro_init_numpy(cfg, SEED)
+    path = f"{d}/frames.xyz"
+    train_frames(path, cfg, teacher, n=4)
+    frames = load_frames(path, cfg.type_names, cfg.r_max, device="cuda")
+    student = perturbed(teacher)
+    reset_launches()
+    g1 = batch_grads(cfg, allegro_energy, student, frames, "cuda", torch.float32)
+    g2 = batch_grads(cfg, allegro_energy, student, frames, "cuda", torch.float32,
+                     mesh=shard_mesh(2, "dp"))
+    torch.cuda.synchronize()
+    launched = launched_now()
+    errs = grad_errors(g2, g1)
+    worst = max(errs, key=errs.get)
+    print(f"dp train ({card}): {len(frames)} frames of {len(frames[0]['positions'])} atoms, "
+          f"batch split over 2 shards on one device against the unsharded batch: worst leaf "
+          f"{worst} {errs[worst]:.3e} of its max (gate {GRAD_GATE:g}); launches {launched}")
+    if not errs[worst] <= GRAD_GATE or launched or not np.isfinite(list(errs.values())).all():
+        raise RuntimeError(f"dp train gate failed: {errs[worst]} ({worst}), launches {launched}")
+    return {"worst_leaf": worst, "worst_rel_err": errs[worst]}, path
+
+
+def sharded_cli(card, d, frames_path):
+    """Phase 19e: the CLI's own sharded paths at full width: ``cli run
+    --device cuda:0`` with ``sharding: {n_devices: 1}`` (replicated, one
+    shard) and ``{n_devices: SHARDS, mode: halo}`` (the card counted SHARDS
+    times), 20 NVE steps each with a restart, and ``cli train`` with
+    ``sharding: {n_devices: 1}``.  Each run leg launches K1 3 x its shards
+    per force evaluation and nothing else; its restart holds the atoms in
+    their original order (each within 1 A of its start, modulo the cell);
+    training launches nothing."""
+    import numpy as np
+    import torch
+
+    from pair_allegro_tpu_torch import checkpoint as ckpt
+    from pair_allegro_tpu_torch import cli
+    from pair_allegro_tpu_torch.io.extxyz import write_extxyz
+    from pair_allegro_tpu_torch.models.allegro import allegro_init_numpy
+    from pair_allegro_tpu_torch.parallel import HaloShardedAllegroEngine, ShardedAllegroEngine
+    from pair_allegro_tpu_torch.system import fcc_lattice
+
+    steps = 20
+    pos, cell = fcc_lattice(11)
+    write_extxyz(f"{d}/cu.xyz", {"symbols": np.array(["Cu"] * len(pos)), "positions": pos,
+                                 "cell": cell, "pbc": (True, True, True)})
+    cfg = flagship_cfg()
+    ckpt.save_params(f"{d}/allegro.npz", allegro_init_numpy(cfg, SEED), cfg, family="allegro")
+    n_eval = [0]
+    originals = {cls: cls.force_fn for cls in (ShardedAllegroEngine, HaloShardedAllegroEngine)}
+
+    def counting(fn):
+        def counted(self, system, neighbors):
+            n_eval[0] += 1
+            return fn(self, system, neighbors)
+        return counted
+
+    res = {}
+    # "--device cuda:0" counts the one card n_devices times
+    dev_args = ["--device", "cuda:0"]
+    legs = [("replicated", {"n_devices": 1}, 1),
+            ("halo", {"n_devices": SHARDS, "mode": "halo"}, SHARDS)]
+    for cls, fn in originals.items():
+        cls.force_fn = counting(fn)
+    try:
+        for name, sharding, shards in legs:
+            conf = dict(CLI_BASE, data=f"{d}/cu.xyz", model={"checkpoint": f"{d}/allegro.npz"},
+                        integrator="nve", temp_K=50.0, steps=steps, log_every=steps // 2,
+                        sharding=sharding, restart={"path": f"{d}/{name}.npz"})
+            with open(f"{d}/{name}.yaml", "w") as f:
+                f.write(json.dumps(conf) + "\n")
+            n_eval[0] = 0
+            reset_launches()
+            t0 = time.perf_counter()
+            if cli.main(["run", f"{d}/{name}.yaml", *dev_args]) != 0:
+                raise RuntimeError(f"cli sharded {name} returned non-zero")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = launched_now()
+            want = {"K1": (3 * shards * n_eval[0],) * 2}
+            back, step, _, _ = ckpt.load_state(f"{d}/{name}.npz", device="cpu")
+            disp = back.positions.double().numpy() - pos
+            frac = disp @ np.linalg.inv(cell)
+            moved = float(np.abs((frac - np.round(frac)) @ cell).max())
+            res[name] = {"shards": shards, "force_evaluations": n_eval[0], "launches": launched,
+                         "seconds": secs, "max_move_A": moved}
+            print(f"cli sharded {name} ({card}): {shards} shard(s), {steps} NVE steps in "
+                  f"{secs:.2f} s with the set-up, {n_eval[0]} force evaluations, launches "
+                  f"{launched} (want {want}); restart at step {step}, {back.n_atoms} atoms in the "
+                  f"original order (largest move from the start {moved:.4f} A, modulo the cell)")
+            if launched != want or step != steps or back.n_atoms != len(pos) or not moved < 1.0:
+                raise RuntimeError(f"cli sharded {name} failed: {res[name]}")
+    finally:
+        for cls, fn in originals.items():
+            cls.force_fn = fn
+    conf = {"model": {"checkpoint": f"{d}/allegro.npz"}, "dataset": frames_path,
+            "val_fraction": 0.25, "batch_size": 2, "epochs": 1, "log_every": 1,
+            "optimizer": {"name": "adam", "lr": TRAIN_LR}, "out": f"{d}/trained.npz",
+            "sharding": {"n_devices": 1}}
+    with open(f"{d}/train.yaml", "w") as f:
+        f.write(json.dumps(conf) + "\n")
+    reset_launches()
+    if cli.main(["train", f"{d}/train.yaml", *dev_args]) != 0:
+        raise RuntimeError("cli train with sharding returned non-zero")
+    launched = launched_now()
+    trained = ckpt.load_params(f"{d}/trained.npz")[0]
+    finite = all(np.isfinite(a).all() for a in ckpt.flatten(trained).values())
+    print(f"cli train with sharding {{n_devices: 1}} ({card}): launches {launched} (want none), "
+          f"trained tree finite {finite}")
+    if launched or not finite:
+        raise RuntimeError("cli train with sharding failed")
+    res["train"] = {"launches": launched}
+    torch.cuda.empty_cache()
+    return res
+
+
+def compile_cache_leg(card, d):
+    """Phase 19f: every kernel library this process built or loaded, and the
+    host runtime, copied to a fresh directory; a subprocess with
+    PAT_COMPILE_CACHE set to it loads each of them from there and runs no
+    compiler (nvcc or the host's)."""
+    import shutil
+
+    from pair_allegro_tpu_torch import native
+
+    cache = f"{d}/compile_cache"
+    os.makedirs(cache)
+    # the libraries this process loaded (all of them in a full run)
+    loaded = {name: m.LIB for name, m in kernel_modules().items() if m.LIB._lib is not None}
+    for lib in loaded.values():
+        for p in lib.paths():
+            shutil.copy2(p, cache)
+    shutil.copy2(native.LIB.path(), cache)
+    code = (
+        "import json, sys\n"
+        "from pair_allegro_tpu_torch import native\n"
+        "from pair_allegro_tpu_torch.compile_cache import maybe_enable_from_env\n"
+        "import chip_smoke\n"
+        "assert maybe_enable_from_env()\n"
+        "mods = chip_smoke.kernel_modules()\n"
+        "libs = {id(mods[k].LIB): mods[k].LIB for k in json.loads(sys.argv[1])}.values()\n"
+        "paths = []\n"
+        "for lib in libs:\n"
+        "    lib.load()\n"
+        "    paths.append(str(lib.paths()[0]))\n"
+        "assert native.available()\n"
+        "paths.append(str(native.LIB.path()))\n"
+        "print(json.dumps({'nvcc_runs': sum(lib.build_seconds is not None for lib in libs),\n"
+        "                  'host_compiler_runs': int(native.LIB.build_seconds is not None),\n"
+        "                  'paths': paths}))\n"
+    )
+    env = dict(os.environ, PAT_COMPILE_CACHE=cache)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(sorted(loaded))],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"compile cache subprocess failed:\n{proc.stdout}\n{proc.stderr}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    inside = all(os.path.dirname(p) == os.path.abspath(cache) for p in res["paths"])
+    print(f"compile cache ({card}): a second process with PAT_COMPILE_CACHE loaded "
+          f"{len(res['paths'])} libraries (those of {', '.join(sorted(loaded))} and the host "
+          f"runtime) from the cache in {secs:.2f} s: nvcc runs {res['nvcc_runs']}, host compiler "
+          f"runs {res['host_compiler_runs']}, every path in the cache {inside}")
+    if res["nvcc_runs"] or res["host_compiler_runs"] or not inside:
+        raise RuntimeError(f"compile cache leg failed: {res}")
+    return {"nvcc_runs": res["nvcc_runs"], "host_compiler_runs": res["host_compiler_runs"],
+            "libraries": len(res["paths"]), "seconds": secs}
+
+
+def sharded_phase(card):
+    """Phase 19: the multi-device engines on the one card, every leg at
+    full width (the flagship Allegro and bench.py:nequip_line's NequIP on
+    5,324-atom FCC Cu): the host runtime built (``native.available()``);
+    the replicated engine at SHARDS shards against the single-device engine
+    on the K1 and per-layer (K2) tiers, and at 2 shards on a 256-atom box
+    that takes the dense strategy (K4); the halo engine at SHARDS slabs, the
+    same parity, then its NVE run with migration; sharded NequIP against
+    K3's engine; data-parallel gradients; the CLI's sharded ``run`` and
+    ``train``; the compile cache's second process.  Writes and removes
+    ``build/sharded_phase/``."""
+    import shutil
+
+    from pair_allegro_tpu_torch import native
+
+    print(f"phase 19 on {card}")
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise RuntimeError(f"the C++ host runtime is unavailable: {native.LIB.error}")
+    print(f"native host runtime: {native.LIB.path().name}, built in this process in "
+          f"{native.LIB.build_seconds or 0.0:.2f} s with {native.LIB.flags}")
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "sharded_phase")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    res = {}
+    res["replicated_k1"], _ = sharded_parity(card, "replicated")
+    res["replicated_k2"], _ = sharded_parity(card, "replicated", "K2")
+    # 256 atoms resolve to the dense strategy: FLAT center windows and K4
+    res["replicated_k4"], _ = sharded_parity(card, "replicated", "K4", n_rep=4, n_shards=2)
+    res["halo"], case = sharded_parity(card, "halo")
+    res["halo_md"] = halo_md(card, case)
+    del case
+    res["nequip"] = sharded_nequip(card)
+    res["dp_train"], frames_path = dp_train(card, d)
+    res["cli"] = sharded_cli(card, d, frames_path)
+    res["compile_cache"] = compile_cache_leg(card, d)
+    shutil.rmtree(d, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print("sharded phase result", json.dumps(res))
+    print(f"phase 19: {res['seconds']:.1f} s")
+    return res
+
+
 def _kind_of(name):
     """A coarse class of a device kernel's name, for the profile's summary."""
     n = name.lower()
@@ -3153,6 +3623,18 @@ def main() -> int:
             kernel_modules()[name].LIB.load()
         train_phase(card)
         return 0
+    if sys.argv[1:2] == ["--sharded"]:  # phase 19 alone
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True, timeout=60)
+        card = smi.stdout.strip().splitlines()[0]
+        print(card)
+        for name in ("K1", "K2", "K3", "K4"):
+            kernel_modules()[name].LIB.start()
+        for name in ("K1", "K2", "K3", "K4"):
+            kernel_modules()[name].LIB.load()
+        sharded_phase(card)
+        return 0
     if sys.argv[1:2] == ["--k3-spread"]:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"],
@@ -3245,6 +3727,7 @@ def main() -> int:
     cli_phase(card)
     counts17, _ = scale_phase(card)
     train_phase(card)
+    sharded = sharded_phase(card)
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):
@@ -3261,6 +3744,7 @@ def main() -> int:
             plain_ms_by_form={f: r["plain_ms"] for f, r in per.items()},
             bound_ms_by_form={f: r["bound_ms"] for f, r in per.items()},
             scale_path_launches=counts17["K1"][0 if kind == "fwd" else 1],
+            halo_path_launches=sharded["halo_md"]["halo"]["launches"]["K1"][0 if kind == "fwd" else 1],
         ))
     for kind, line in (("fwd", 289), ("bwd", 401)):
         # one call (one message-passing layer); num_layers calls per force evaluation

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch.compile_cache import maybe_enable_from_env
 from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine, TypeMapper
 from pair_allegro_tpu_torch.io.dump import host
 from pair_allegro_tpu_torch.models.nequip import NequIPConfig
@@ -29,6 +30,7 @@ class Calculator:
     """
 
     def __init__(self, cfg, params, dtype=torch.float32, device=None):
+        maybe_enable_from_env()  # PAT_COMPILE_CACHE, as the JAX calculator honours it
         self.cfg = cfg
         self.params = params
         self.dtype = dtype

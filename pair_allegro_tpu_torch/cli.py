@@ -30,6 +30,13 @@ LAMMPS input-script analog.  One YAML config describes the run:
       - {name: dip, quantity: dipole, style: global, length: 3}   # thermo columns
       - {name: q, quantity: charges, style: atom, ncols: 1}       # dump columns
     profile: {phases: true, trace_dir: trace/}  # rebuild / force ms; torch.profiler trace
+    sharding: {n_devices: 8, mode: replicated, row_chunk: 0}
+                                   # multi-device run (the mpirun -np N analog):
+                                   # replicated (positions replicated, work sharded)
+                                   # | halo (z-slabs, ghost exchange; Allegro only);
+                                   # with --device cuda:0 (or cpu) the shards share
+                                   # that one device
+    compile_cache: /path/to/cache  # build and load the compiled libraries there
 
 The config is read by ``io/config.py`` (a YAML subset), never by a YAML
 package.  ``run`` and ``train`` run on the CUDA device unless ``--device
@@ -53,6 +60,8 @@ plain path (``for_training()``, no kernel), with the JAX CLI's keys:
     seed: 0
     dtype: float32
     out: trained.npz
+    sharding: {n_devices: 2}     # data parallel: each batch's frames split
+                                 # over the devices (batch_size a multiple)
 
 The split and each epoch's order come from the JAX CLI's
 ``np.random.RandomState(seed)`` calls, so both CLIs see the same batches.
@@ -71,11 +80,17 @@ Differences from the JAX package's CLI:
   differ in the same way;
 * a JAX state file's ``rng_key`` is not continued: the noise generator is
   seeded from the key's words and prints a ``#`` line saying so;
-* ``sharding:`` is not ported (``NotImplementedError``), in ``run`` and
-  ``train``; ``import --lenient`` fills a missing key from the numpy init,
-  not from ``jax.random``; ``compile_cache:`` and ``PAT_COMPILE_CACHE``
-  are accepted with a ``#`` line: eager PyTorch compiles nothing to cache,
-  and the kernels are built once per source hash under ``build/``.
+* a mesh is the devices of one process (``parallel/mesh.py``): without
+  ``--device`` the GPUs ``cuda:0 ..``; ``--device cpu`` or ``--device
+  cuda:0`` counts that one device ``n_devices`` times (several shards
+  share it, as the JAX suite's virtual devices share the CPU); a sharded
+  run writes its dumps and restarts with the atoms in their original order
+  (the JAX CLI writes them in the sorted order), the halo mode's positions
+  wrapped into the box;
+* ``import --lenient`` fills a missing key from the numpy init, not from
+  ``jax.random``; ``compile_cache:`` and ``PAT_COMPILE_CACHE`` hold the
+  compiled kernel and host libraries (``compile_cache.py``), not XLA
+  executables.
 
 Usage: python -m pair_allegro_tpu_torch.cli run config.yaml [--device cpu]
        python -m pair_allegro_tpu_torch.cli train config.yaml [--device cpu]
@@ -98,8 +113,10 @@ import torch
 
 from pair_allegro_tpu_torch import checkpoint as ckpt
 from pair_allegro_tpu_torch import import_torch as imp
+from pair_allegro_tpu_torch.compile_cache import cache_dir as compile_cache_dir
+from pair_allegro_tpu_torch.compile_cache import enable_compile_cache, maybe_enable_from_env
 from pair_allegro_tpu_torch.computes import GlobalCompute, PerAtomCompute
-from pair_allegro_tpu_torch.data import load_frames, stack_frames
+from pair_allegro_tpu_torch.data import load_frames, shard_batch, stack_frames
 from pair_allegro_tpu_torch.debug import debug_enabled, dump_edges
 from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine, TypeMapper
 from pair_allegro_tpu_torch.io.config import load_config
@@ -113,6 +130,12 @@ from pair_allegro_tpu_torch.models.allegro import (
     allegro_init_numpy,
 )
 from pair_allegro_tpu_torch.models.nequip import NequIPConfig, nequip_energy, nequip_init_numpy
+from pair_allegro_tpu_torch.parallel import (
+    HaloShardedAllegroEngine,
+    ShardedAllegroEngine,
+    ShardedNequIPEngine,
+    make_mesh,
+)
 from pair_allegro_tpu_torch.system import System, Units, resolve_device
 from pair_allegro_tpu_torch.train import (
     detached,
@@ -197,11 +220,12 @@ def _integrator_kwargs(conf: dict, integrator: str) -> dict:
 
 def cmd_run(args) -> int:
     conf = load_config(args.config) or {}
-    _refuse_sharding(conf)
+    if conf.get("compile_cache"):
+        enable_compile_cache(str(conf["compile_cache"]))
+    if maybe_enable_from_env():
+        print(f"# compile_cache: the kernel and host libraries build and load in "
+              f"{compile_cache_dir()}")
     device = resolve_device(args.device)
-    if conf.get("compile_cache") or os.environ.get("PAT_COMPILE_CACHE"):
-        print("# compile_cache: nothing to cache (eager PyTorch compiles nothing here; the "
-              "kernels are built once per source hash under build/)")
     dtype = DTYPES[conf.get("dtype", "float32")]
     cfg, params, family = _build_model(conf.get("model") or {}, dtype, device)
 
@@ -224,12 +248,19 @@ def cmd_run(args) -> int:
         system = System.create(pos, types, cell=cell, masses=masses, pbc=pbc, dtype=dtype,
                                device=device)
 
-    engine_cls = NequIPEngine if family == "nequip" else AllegroEngine
-    eng = engine_cls(cfg, params, system, device=device, skin=float(conf.get("skin", 0.0)))
+    skin = float(conf.get("skin", 0.0))
+    order = None  # the sharded run's sorted order: NEW index -> ORIGINAL (-1: padding)
+    if conf.get("sharding"):
+        system, eng, order = _sharded_engine(conf["sharding"], cfg, params, system, family,
+                                             args.device, skin)
+    else:
+        engine_cls = NequIPEngine if family == "nequip" else AllegroEngine
+        eng = engine_cls(cfg, params, system, device=device, skin=skin)
     integrator = conf.get("integrator", "nve")
     sim = integrate.Simulation(
         system, eng.force_fn, eng.rebuild_fn, dt=float(conf.get("dt_fs", 1.0)) * Units.fs,
-        integrator=integrator, grow_fn=eng.grow, shrink_fn=eng.maybe_shrink,
+        integrator=integrator, grow_fn=eng.grow, shrink_fn=getattr(eng, "maybe_shrink", None),
+        migrate_fn=getattr(eng, "maybe_migrate", None),
         **_integrator_kwargs(conf, integrator),
     )
     if resume_from:
@@ -275,8 +306,23 @@ def cmd_run(args) -> int:
              for name, _, length in global_computes for j in range(length)]
     print(" ".join(f"{c:>14s}" for c in THERMO_COLS + gcols))
 
+    def original(state, *per_atom):
+        """The state's system (and per-atom arrays) in the original atom
+        order, padding dropped: the identity for an unsharded run."""
+        if order is None:
+            return (state.system, *per_atom)
+        cur = order if sim.atom_perm is None else order[sim.atom_perm]
+        idx = np.empty(int((cur >= 0).sum()), np.int64)
+        idx[cur[cur >= 0]] = np.flatnonzero(cur >= 0)
+        rows = torch.as_tensor(idx, device=state.system.device)
+        sys_ = state.system
+        sys_ = sys_.replace(positions=sys_.positions[rows], velocities=sys_.velocities[rows],
+                            types=sys_.types[rows], masses=sys_.masses[rows],
+                            valid=sys_.valid_mask()[rows])
+        return (sys_, *(a[rows] for a in per_atom))
+
     def write_restart(state):
-        ckpt.save_state(rst["path"], state.system, step=state.step,
+        ckpt.save_state(rst["path"], original(state)[0], step=state.step,
                         thermostat=state.thermostat, rng_state=state.generator.get_state())
 
     with contextlib.ExitStack() as stack:
@@ -289,11 +335,12 @@ def cmd_run(args) -> int:
                                        np.atleast_1d(host(comp(state, state.system))))
             print(line, flush=True)
             if dump_every and row["step"] % dump_every == 0:
-                writer.write_frame(
-                    row["step"], state.system, forces=state.forces,
-                    atomic_energy=state.atomic_energy,
-                    extras={n: comp(state, state.system) for n, comp in atom_computes},
-                )
+                names = [n for n, _ in atom_computes]
+                sys_, forces, e_atom, *cols = original(
+                    state, state.forces, state.atomic_energy,
+                    *(comp(state, state.system) for _, comp in atom_computes))
+                writer.write_frame(row["step"], sys_, forces=forces, atomic_energy=e_atom,
+                                   extras=dict(zip(names, cols)))
             if rst_every and row["step"] % rst_every == 0:
                 write_restart(state)
 
@@ -336,11 +383,48 @@ def cmd_info(args) -> int:
     return 0
 
 
-def _refuse_sharding(conf: dict) -> None:
-    if conf.get("sharding"):
-        raise NotImplementedError(
-            "sharding: multi-device runs are not ported to pair_allegro_tpu_torch "
-            "(ROADMAP queue 1, item 9)")
+def _mesh(shard_conf: dict, device_arg, axis_name: str):
+    """The mesh of a ``sharding:`` section: ``n_devices`` devices (0 or
+    absent: all GPUs); ``--device cpu`` or a device with an index
+    (``--device cuda:0``) counts that one device ``n_devices`` times."""
+    return make_mesh(int(shard_conf.get("n_devices", 0)) or None, axis_name, devices=device_arg)
+
+
+def _check_batch(bsz: int, mesh) -> None:
+    """A data-parallel batch must split evenly over the mesh (JAX's check)."""
+    if mesh is not None and bsz % mesh.size:
+        raise SystemExit(f"batch_size {bsz} must divide n_devices {mesh.size}")
+
+
+def _sharded_engine(shard_conf: dict, cfg, params, system, family: str, device_arg,
+                    skin: float):
+    """(system sorted for the mesh, engine, order): ``sharding:``'s
+    ``mode`` replicated (positions replicated, work sharded) or halo (z-slab
+    ghost exchange, Allegro only), as the JAX CLI picks them; order maps
+    each row of the sorted system to its original atom (-1: padding)."""
+    mesh = _mesh(shard_conf, device_arg, "atoms")
+    s = mesh.shape["atoms"]
+    mode = shard_conf.get("mode", "replicated")
+    row_chunk = int(shard_conf.get("row_chunk", 0)) or None
+    if mode not in ("replicated", "halo"):
+        raise SystemExit(f"sharding mode {mode!r} is not replicated or halo")
+    if family == "nequip":
+        if mode == "halo":
+            raise SystemExit(
+                "halo sharding requires strict locality; NequIP message "
+                "passing shards via mode: replicated (per-layer gather)"
+            )
+        system, perm = ShardedNequIPEngine.prepare_system(system, s)
+        eng = ShardedNequIPEngine(cfg, params, system, mesh, skin=skin)
+    elif mode == "halo":
+        system, perm = HaloShardedAllegroEngine.prepare_system(system, s)
+        eng = HaloShardedAllegroEngine(cfg, params, system, mesh, skin=skin, row_chunk=row_chunk)
+    else:
+        system, perm = ShardedAllegroEngine.prepare_system(system, s)
+        eng = ShardedAllegroEngine(cfg, params, system, mesh, skin=skin, row_chunk=row_chunk)
+    order = np.concatenate([perm, np.full(system.n_atoms - len(perm), -1)])
+    print(f"# sharding: {mode}, {s} shards on {', '.join(str(d) for d in mesh.devices)}")
+    return system, eng, order
 
 
 def _optimizer(oconf: dict):
@@ -363,8 +447,10 @@ def cmd_train(args) -> int:
     """Train or fine-tune on an extxyz dataset (the module docstring lists
     the keys); writes the best validation epoch's tree to ``out``."""
     conf = load_config(args.config) or {}
-    _refuse_sharding(conf)
     device = resolve_device(args.device)
+    mesh = _mesh(conf["sharding"], args.device, "dp") if conf.get("sharding") else None
+    if "batch_size" in conf:  # refuse before any loading
+        _check_batch(int(conf["batch_size"]), mesh)
     dtype = DTYPES[conf.get("dtype", "float32")]
     cfg, params, family = _build_model(conf.get("model") or {}, dtype, device)
     tcfg = cfg.for_training()
@@ -397,6 +483,7 @@ def cmd_train(args) -> int:
     step = make_train_step(batched, _optimizer(conf.get("optimizer") or {}), ema_decay=ema_decay)
     state = step.init(params)
     bsz = int(conf.get("batch_size", min(4, len(frames))))
+    _check_batch(bsz, mesh)
     val_batch = stack_frames(val_frames)
 
     def val_metrics(p):
@@ -407,7 +494,7 @@ def cmd_train(args) -> int:
     log_every = int(conf.get("log_every", max(1, epochs // 20)))
     best = (np.inf, None)
     print(f"# training {family}: {len(frames)} train / {len(val_frames)} val frames, "
-          f"batch {bsz}, {epochs} epochs")
+          f"batch {bsz}, {epochs} epochs" + (f", DP over {mesh.size} devices" if mesh else ""))
     for epoch in range(epochs):
         order = rng.permutation(len(frames))
         # wrap-around fill keeps every batch at the same size
@@ -417,6 +504,8 @@ def cmd_train(args) -> int:
         last = {}
         for b in range(n_batches):
             batch = stack_frames([frames[i] for i in order[b * bsz:(b + 1) * bsz]])
+            if mesh is not None:
+                batch = shard_batch(batch, mesh, "dp")
             params, state, last = step.update(params, state, batch)
         eval_params = step.ema(state) if ema_decay else params
         rmse_f, mae_e = val_metrics(eval_params)

@@ -5,9 +5,9 @@ Every frame of a dataset is padded to ONE ``(N_pad, E_pad)`` shape, the JAX
 package's contract: atoms to a multiple of ``pad_multiple``, edges to the
 largest frame's count plus 12.5% rounded up to 64, padded edges as (0, 0)
 self-loops killed by ``edge_mask``, padded atoms in no edge and out of
-``atom_mask``.  Frames stack along a leading batch axis (`stack_frames`).
-The JAX package's ``shard_batch`` (data-parallel batches) is not ported:
-multi-device training is ROADMAP queue 1, item 9.
+``atom_mask``.  Frames stack along a leading batch axis (`stack_frames`),
+and ``shard_batch`` splits a stacked batch over a device mesh for
+data-parallel training (``train.make_batched_loss_fn`` takes either).
 
 Targets follow the extxyz training convention: ``energy=`` on the comment
 line, a ``forces`` per-atom column, and optionally a 9-component
@@ -15,6 +15,8 @@ line, a ``forces`` per-atom column, and optionally a 9-component
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,7 +26,7 @@ from pair_allegro_tpu_torch.io.extxyz import read_extxyz
 from pair_allegro_tpu_torch.neighbors.naive import neighbor_list_np, pad_edges
 from pair_allegro_tpu_torch.system import resolve_device
 
-__all__ = ["load_frames", "stack_frames"]
+__all__ = ["load_frames", "stack_frames", "shard_batch", "ShardedBatch"]
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -162,3 +164,33 @@ def stack_frames(frames: list[dict]) -> dict:
         vals = [f[k] for f in frames]
         out[k] = None if vals[0] is None else torch.stack(vals)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedBatch:
+    """A stacked batch split over a mesh: ``shards[s]`` holds frames
+    [s * B/S, (s + 1) * B/S) as a stacked batch on ``devices[s]``."""
+
+    shards: tuple
+    devices: tuple
+
+
+def shard_batch(batch: dict, mesh, axis: str = "dp") -> ShardedBatch:
+    """Split a stacked batch's frames over ``mesh[axis]`` (the counterpart
+    of JAX's ``shard_batch``, ``data.py:191-207``): each shard's frames move
+    to its device.  The parameters stay where they are:
+    ``train.make_batched_loss_fn`` evaluates each shard's frames on its
+    device with the parameters moved there, differentiably, so the loss
+    gradient of each shard is taken on its device and their sum reaches the
+    parameters' device (the gradient all-reduce), as XLA's reduce does for
+    JAX's sharded vmap."""
+    n = next(v for v in batch.values() if v is not None).shape[0]
+    s = mesh.shape[axis]
+    if n % s:
+        raise ValueError(f"batch of {n} frames does not split over {s} devices")
+    per = n // s
+    shards = tuple(
+        {k: None if v is None else v[i * per:(i + 1) * per].to(dev) for k, v in batch.items()}
+        for i, dev in enumerate(mesh.devices)
+    )
+    return ShardedBatch(shards=shards, devices=tuple(mesh.devices))

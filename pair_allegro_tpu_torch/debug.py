@@ -24,7 +24,10 @@ def edge_set(neighbors, positions=None, cell=None) -> set:
     """Canonical edge tuples {(i, j, sx, sy, sz[, r])} of a NeighborData on
     the FLAT (2, E) or the TABLE (N, K) layout; with ``positions`` (and
     ``cell`` for periodic systems) each tuple carries the edge's length,
-    rounded to 1e-10."""
+    rounded to 1e-10.  A sharded engine's data is joined first
+    (``ShardedNeighbors.gathered``)."""
+    if hasattr(neighbors, "gathered"):
+        neighbors = neighbors.gathered()
     ei = host(neighbors.edge_index)
     mask = host(neighbors.edge_mask).reshape(-1)
     if ei.ndim == 2 and ei.shape[0] == 2 and mask.shape[0] == ei.shape[1]:  # FLAT

@@ -209,7 +209,16 @@ def make_rebuild_fn(spec: NeighborSpec, skin: float = 0.0, row_chunk: int | None
             nd.ref_positions = system.positions.clone()
         return nd
 
-    def rebuild(system: System, prev: NeighborData | None) -> NeighborData:
+    return skin_checked(build, skin)
+
+
+def skin_checked(build: Callable, skin: float) -> Callable:
+    """rebuild(system, prev) over ``build(system)``: with skin > 0 the
+    previous data (which keeps ``ref_positions``) stands until some atom
+    moved more than skin / 2 since it was built (one device reduction and
+    one host read per call)."""
+
+    def rebuild(system: System, prev):
         if prev is None or skin <= 0.0 or prev.ref_positions is None:
             return build(system)
         d = system.positions - prev.ref_positions

@@ -26,6 +26,7 @@ import inspect
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 from pair_allegro_tpu_torch.md.thermo import pressure_tensor, thermo_row
@@ -274,15 +275,23 @@ class Simulation:
     capacity overflow regrows and re-runs the chunk; without it the
     overflow raises (the chunk's results are invalid).  With ``shrink_fn``
     (``engine.maybe_shrink``) the capacity may shrink every
-    ``shrink_every`` chunks."""
+    ``shrink_every`` chunks.  With ``migrate_fn``
+    (``HaloShardedAllegroEngine.maybe_migrate``) the atoms may be re-sorted
+    into new slabs at a chunk boundary, and an overflowed chunk is first
+    re-run after a re-sort (at most ``MAX_MIGRATE_RETRIES`` times a chunk),
+    since drift past the halo's margin raises the same flag; ``atom_perm``
+    maps the current atom order to the original one."""
 
     MAX_CHUNK = 2000
+    # re-sorts of one chunk before its overflow is taken for capacity
+    MAX_MIGRATE_RETRIES = 8
 
     def __init__(self, system: System, force_fn, rebuild_fn, dt: float = 1.0e-3,
                  integrator: str = "nve", seed: int = 0,
                  grow_fn: Callable[..., Callable] | None = None,
                  shrink_fn: Callable[..., Callable | None] | None = None,
-                 shrink_every: int = 10, **integrator_kwargs):
+                 shrink_every: int = 10,
+                 migrate_fn: Callable[..., tuple] | None = None, **integrator_kwargs):
         if integrator not in _INTEGRATORS:
             raise ValueError(f"integrator {integrator!r} is not one of {sorted(_INTEGRATORS)}")
         self.force_fn = force_fn
@@ -291,6 +300,12 @@ class Simulation:
         self.integrator = integrator
         self.integrator_kwargs = integrator_kwargs
         self.grow_fn = grow_fn
+        # atom re-assignment to slabs (HaloShardedAllegroEngine.maybe_migrate),
+        # called with the current system at every chunk boundary; atom_perm
+        # composes its permutations: CURRENT index -> ORIGINAL (None: identity)
+        self.migrate_fn = migrate_fn
+        self.atom_perm: np.ndarray | None = None
+        self.migrations = 0
         self.shrink_fn = shrink_fn
         self.shrink_every = max(1, int(shrink_every))
         self._chunks_since_shrink = 0
@@ -333,6 +348,24 @@ class Simulation:
         self.regrows += 1
         self.state = self._rebind(backup, grow())
 
+    def _apply_migration(self, base: MDState) -> bool:
+        """Adopt ``migrate_fn``'s re-sorted system, if it proposes one, in
+        ``base``: neighbors and outputs rebuilt, ``atom_perm`` composed; the
+        step, thermostat scalars and noise generator carry over (the
+        re-sort is a relabeling and a wrap, under which the dynamics are
+        the same).  Returns whether it migrated."""
+        new_sys, perm, new_rebuild = self.migrate_fn(system=base.system)
+        if new_sys is None:
+            return False
+        self.migrations += 1
+        if new_rebuild is not None:  # more halo hops: a new exchange pattern
+            self.rebuild_fn = new_rebuild
+        self.state = self._rebind(dataclasses.replace(base, system=new_sys), self.rebuild_fn)
+        if perm is not None:
+            perm = np.asarray(perm)
+            self.atom_perm = self.atom_perm[perm] if self.atom_perm is not None else perm
+        return True
+
     def _maybe_shrink(self) -> None:
         """Adopt a smaller capacity mid-run: no work was lost, so the state
         stays and only its neighbors and (edge-shaped) outputs are rebuilt."""
@@ -346,6 +379,7 @@ class Simulation:
         log_every = max(1, min(log_every, n_steps, self.MAX_CHUNK))
         rows = []
         done = 0
+        migrate_retries = 0
         while done < n_steps:
             n_sub = min(log_every, n_steps - done)
             backup = self.state
@@ -357,6 +391,20 @@ class Simulation:
             self.state = state
             row = thermo_row(state)
             if row["overflow"]:
+                # drift past the halo's margin raises the flag too: re-sort
+                # first; a second overflow of the re-run chunk is capacity
+                if self.migrate_fn is not None:
+                    backup.generator.set_state(rng_backup)
+                    if self._apply_migration(backup):
+                        migrate_retries += 1
+                        if migrate_retries > self.MAX_MIGRATE_RETRIES:
+                            raise RuntimeError(
+                                "atom drift exceeds the halo coverage margin "
+                                f"within a single {n_sub}-step chunk even after "
+                                f"{self.MAX_MIGRATE_RETRIES} re-sorts — use a shorter "
+                                "log_every/chunk, more halo hops, or a larger skin"
+                            )
+                        continue
                 if self.grow_fn is None:
                     raise RuntimeError(
                         "neighbor capacity overflow during chunk: pass grow_fn "
@@ -369,6 +417,10 @@ class Simulation:
             if callback is not None:
                 callback(self.state, row)
             done += n_sub
+            migrate_retries = 0  # the cap is per chunk
+            if self.migrate_fn is not None:
+                # re-sort at half the margin, before the guard trips
+                self._apply_migration(self.state)
             if self.shrink_fn is not None:
                 self._chunks_since_shrink += 1
                 if self._chunks_since_shrink >= self.shrink_every:

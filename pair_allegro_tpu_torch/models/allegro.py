@@ -632,10 +632,12 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
     (``models/allegro.py:237-298``): the rows are the atoms
     [center_offset, center_offset + Nc) (``num_centers``, when given, must
     be Nc), ``atom_mask`` covers the window, and every per-center output
-    has Nc rows; ``edge_vec`` (Nc, K, 3) and, for a typed model,
-    ``edge_tjf`` (Nc, K) are the window's edge vectors before the shift and
-    neighbor types, gathered by the caller (the row-chunk mode,
-    engine._make_chunked_energy).
+    has Nc rows.  On FLAT the window is [center_offset, center_offset +
+    num_centers) (default: every atom) and every edge's center i lies in
+    it (the sharded engines' dense build).  ``edge_vec`` (Nc, K, 3) and,
+    for a typed model, ``edge_tjf`` (Nc, K) are the window's edge vectors
+    before the shift and neighbor types, gathered by the caller (the
+    row-chunk mode, engine._make_chunked_energy).
 
     Returns 'atomic_energy' (Nc,), 'total_energy' (), 'edge_energy' (Nc, K)
     or (E,) and, with ``output_charges``, 'charges' (Nc,) and 'dipole' (3,) =
@@ -646,13 +648,16 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
     tier = layer_tier(cfg, flat, capture is not None, dtype, positions.is_cuda)
     remat = remat_on(cfg, capture)
     if flat:
-        if center_offset or num_centers is not None or edge_vec is not None:
-            raise ValueError("center windows and edge_vec take the TABLE layout only")
-        n = positions.shape[0]
-        types_c, pos_c = types, positions
+        if edge_vec is not None:
+            raise ValueError("edge_vec takes the TABLE layout only")
+        c0 = int(center_offset)
+        n = positions.shape[0] - c0 if num_centers is None else num_centers
+        whole = c0 == 0 and n == positions.shape[0]
+        types_c = types if whole else types[c0:c0 + n]
+        pos_c = positions if whole else positions[c0:c0 + n]
         geo = flat_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
                          edge_mask=edge_mask)
-        agg, per_edge, spread = flat_reducers(edge_index[0], n)
+        agg, per_edge, spread = flat_reducers(edge_index[0] - c0 if c0 else edge_index[0], n)
         agg_rows = agg
     else:
         n, k = edge_index.shape

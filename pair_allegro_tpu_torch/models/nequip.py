@@ -32,8 +32,9 @@ generic channels-first path (``layer_fn`` / ``layer_fn_parity``,
 from ``uniform_tp`` per path, and no kernel.  With remat (``cfg.remat``,
 or "auto" wherever K3 does not run, as in the reference) each layer is a
 ``torch.utils.checkpoint``.  Ported: l_max >= 1, one or two tracks, any
-number of species, both layouts.  Not ported: l_max 0 (the reference
-fails there too), the bf16 hj tier, ``shard_axis``.
+number of species, both layouts, and node windows over a device mesh
+(``mesh``, JAX's ``shard_axis``).  Not ported: l_max 0 (the reference
+fails there too), the bf16 hj tier.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -138,16 +140,18 @@ def generic_path(cfg: NequIPConfig) -> bool:
 
 
 def conv_route(cfg: NequIPConfig, flat: bool, capture: bool = False, dtype=torch.float32,
-               card: bool = True) -> bool:
+               card: bool = True, sharded: bool = False) -> bool:
     """Whether a call runs K3, routed as the reference routes it
     (``models/nequip.py:633-666``): on the TABLE layout with ``fused_conv``,
     without ``capture``, off the generic path, where K3 takes the widths
     (``kernel_takes`` beside its wrapper, the counterpart of the
     reference's ``conv_viable``; it takes l_max 1 and 2 only, as the
     reference's kernel does) and, on the card (``card``), at f32 only (the
-    kernel takes f32; on the CPU its plain version takes any dtype).
-    Otherwise the plain message path runs."""
-    if flat or capture or not cfg.fused_conv or (card and dtype != torch.float32):
+    kernel takes f32; on the CPU its plain version takes any dtype), never
+    for a sharded call (``sharded``: JAX never runs its kernel under
+    ``shard_axis``, ``models/nequip.py:640-647``).  Otherwise the plain
+    message path runs."""
+    if flat or capture or sharded or not cfg.fused_conv or (card and dtype != torch.float32):
         return False
     if generic_path(cfg):
         return False
@@ -283,9 +287,64 @@ def _msg_generic_cf(hj, Y, w, lmax: int):
     return torch.stack([torch.cat(blocks, dim=-1) for blocks in tracks], dim=-1)
 
 
+def _node_windows(cfg: NequIPConfig, positions, types, edge_index, cell, edge_shifts,
+                  edge_mask, edge_rev, mesh):
+    """One record per node window: its device, first row c0 and row count nw,
+    its types, edge geometry ('u', 'Y', 'bessel'), ``gather`` (node rows to
+    its edges) and ``agg`` (its edges to its nw rows).  Without ``mesh`` the
+    one window is every atom, on either layout."""
+    n = positions.shape[0]
+    if mesh is None:
+        devs, tables = [positions.device], [(edge_index, edge_shifts, edge_mask, edge_rev)]
+    else:
+        if any(is_flat(ei) for ei in edge_index):
+            raise ValueError("sharded nequip requires the TABLE edge layout")
+        devs = list(mesh.devices)
+        tables = [(edge_index[s], None if edge_shifts is None else edge_shifts[s],
+                   None if edge_mask is None else edge_mask[s], None) for s in range(len(devs))]
+    out = []
+    c0 = 0
+    for dev, (ei, sh, em, rev) in zip(devs, tables):
+        pos, typ = positions.to(dev), types.to(dev)
+        cl = None if cell is None else cell.to(dev)
+        if is_flat(ei):
+            geo = flat_edges(cfg, pos, typ, ei, cell=cl, edge_shifts=sh, edge_mask=em)
+            nw, k = n, None
+
+            def gather(a, j=ei[1]):
+                return a.index_select(0, j)
+
+            def agg(a, i=ei[0]):
+                return segment_sum(a, i, n)
+        else:
+            nw, k = ei.shape
+            if mesh is None and nw != n:
+                raise ValueError(f"NequIP takes a TABLE over all {n} atoms, not {nw} rows "
+                                 "(message passing is not local)")
+            geo = table_edges(cfg, pos, typ, ei, cell=cl, edge_shifts=sh, edge_mask=em,
+                              edge_rev=rev, center_offset=c0)
+            if rev is not None and em is not None:
+                def gather(a, ei=ei, rev=rev):
+                    return table_gather_nodes(a, ei, rev)
+            else:
+                def gather(a, ei=ei):
+                    return a[ei]
+
+            def agg(a):
+                return a.sum(dim=1)
+        out.append(SimpleNamespace(dev=dev, c0=c0, nw=nw, k=k, flat=is_flat(ei),
+                                   types_w=typ if nw == n else typ[c0:c0 + nw], u=geo["u"],
+                                   Y=geo["Y"], bessel=geo["bessel"], gather=gather, agg=agg))
+        c0 += nw
+    if c0 != n and mesh is not None:
+        raise ValueError(f"the shards' windows cover {c0} rows, not the {n} atoms")
+    return out
+
+
 def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index, *,
                   cell=None, edge_shifts=None, atom_mask=None, edge_mask=None,
-                  edge_rev=None, capture: dict | None = None) -> dict:
+                  edge_rev=None, capture: dict | None = None, mesh=None,
+                  mesh_params: list | None = None) -> dict:
     """Per-atom energies on either edge layout.
 
     edge_index is the (N, K) TABLE j-table over all atoms, padded slots
@@ -299,121 +358,127 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
     layers run (``generic_path``).  ``capture``, when a dict, receives the
     final node features channels-first, (N, C, D) or (N, C, D, 2) with
     parity, as the JAX model's does, and sends the call through the plain
-    message path, as the reference does (``conv_route``).  Returns
-    'atomic_energy' (N,) and 'total_energy' ()."""
+    message path, as the reference does (``conv_route``).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; the JAX model's ``shard_axis``,
+    ``models/nequip.py:482-530``): multi-device message passing.
+    ``edge_index``, ``edge_shifts`` and ``edge_mask`` are then sequences of
+    one TABLE window per shard, shard s holding the rows of the atoms
+    [s * nw, (s + 1) * nw) with global j on ``mesh.devices[s]``.
+    Positions, types and node features are replicated; each shard computes
+    the messages and the update of its node window, and each layer's
+    windows are concatenated and handed to every shard (the all_gather;
+    autograd writes its reverse), so the messages cross the shards
+    num_layers hops.  A sharded call runs the plain message path
+    (``conv_route``), as JAX never runs its kernel under ``shard_axis``.
+    ``mesh_params`` is one copy of ``params`` per mesh device, made once
+    by the caller (``parallel.sharded.params_on``); without it every
+    shard uses ``params``, which must then live on its device.
+
+    Returns 'atomic_energy' (N,) and 'total_energy' ()."""
     _check_supported(cfg)
     dtype = positions.dtype
-    n = positions.shape[0]
+    n, home = positions.shape[0], positions.device
     C, lmax, T = cfg.num_features, cfg.l_max, cfg.n_tracks
     D, P = cfg.feature_dim, tp_num_paths(lmax)
-    flat = is_flat(edge_index)
-    if flat:
-        geo = flat_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
-                         edge_mask=edge_mask)
-        i_idx, j_idx = edge_index[0], edge_index[1]
-
-        def gather(a):
-            return a.index_select(0, j_idx)
-
-        def agg_edges(a):
-            return segment_sum(a, i_idx, n)
-    else:
-        k = edge_index.shape[1]
-        if edge_index.shape[0] != n:
-            raise ValueError(f"NequIP takes a TABLE over all {n} atoms, not "
-                             f"{edge_index.shape[0]} rows (message passing is not local)")
-        geo = table_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
-                          edge_mask=edge_mask, edge_rev=edge_rev)
-        if edge_rev is not None and edge_mask is not None:
-            def gather(a):
-                return table_gather_nodes(a, edge_index, edge_rev)
-        else:
-            def gather(a):
-                return a[edge_index]
-
-        def agg_edges(a):
-            return a.sum(dim=1)
-    u, Y, bessel = geo["u"], geo["Y"], geo["bessel"]
-    use_k3 = conv_route(cfg, flat, capture is not None, dtype, positions.is_cuda)
+    parts = _node_windows(cfg, positions, types, edge_index, cell, edge_shifts, edge_mask,
+                          edge_rev, mesh)
+    use_k3 = conv_route(cfg, parts[0].flat, capture is not None, dtype, positions.is_cuda,
+                        sharded=mesh is not None)
     generic = generic_path(cfg)
     if use_k3:
+        k = parts[0].k
         e = n * k
-        u_e, Y_e, bes_e = u.reshape(e, 1), Y.reshape(e, D), bessel.reshape(e, -1)
+        u_e, Y_e = parts[0].u.reshape(e, 1), parts[0].Y.reshape(e, D)
+        bes_e = parts[0].bessel.reshape(e, -1)
 
     inv_avg = 1.0 / math.sqrt(max(cfg.avg_num_neighbors, 1e-6))
     act_c = silu_norm_const()
     keys = (("self_w", "mix_w"), ("self_w_o", "mix_w_o"))[:T]
 
-    def layer_step(layer, h):
-        """Channels-last: h (N, D, T, C)."""
+    def layer_step(layer, h, p):
+        """Channels-last: h (N, D, T, C) -> the window's (nw, D, T, C)."""
+        nw = p.nw
         ws_cl = radial_cl([w.to(dtype) for w in layer["radial_mlp"]["w"]], C, P, T)
         if use_k3:
-            hj = gather(h.reshape(n, D * T * C)).reshape(e, D * T * C)
+            hj = p.gather(h.reshape(n, D * T * C)).reshape(e, D * T * C)
             k3 = prepare_radial(ws_cl, C, T, lmax)
             agg = nequip_conv(hj, bes_e, u_e, Y_e, k3, k, cfg.avg_num_neighbors)
             agg = agg.reshape(n, D, T, C)
         else:
-            w = mlp_apply({"w": ws_cl}, bessel) * u[..., None]
-            w = w.reshape(*u.shape, T, P, C)
-            agg = agg_edges(msg_generic_cl(gather(h), Y, w, lmax)) * inv_avg
+            w = mlp_apply({"w": ws_cl}, p.bessel) * p.u[..., None]
+            w = w.reshape(*p.u.shape, T, P, C)
+            agg = p.agg(msg_generic_cl(p.gather(h), p.Y, w, lmax)) * inv_avg
+        h_w = h if nw == n else h[p.c0:p.c0 + nw]
         new = []
         for tau, (sw, mw) in enumerate(keys):
             blocks = []
             for l3 in range(lmax + 1):
                 sl = sh_slice(l3)
-                sc = _self_connect(h[:, sl, tau, :], layer[sw][l3].to(dtype), types)
+                sc = _self_connect(h_w[:, sl, tau, :], layer[sw][l3].to(dtype), p.types_w)
                 mixed = agg[:, sl, tau, :] @ layer[mw][l3].to(dtype)
                 blocks.append((sc + mixed) * (1.0 / math.sqrt(C)))
             new.append(blocks)
         act_even = F.silu(new[0][0][:, 0, :]) * act_c
         gate_w = _gate_cl(layer["gate_w"].to(dtype), C, lmax, T)
         gates = torch.sigmoid((act_even @ gate_w) * (1.0 / math.sqrt(C)))
-        gates = gates.reshape(n, lmax, T, C)
+        gates = gates.reshape(nw, lmax, T, C)
         tracks = []
         for tau in range(T):
             s = act_even if tau == 0 else torch.tanh(new[1][0][:, 0, :]) * TANH_C
-            parts = [s[:, None, :]]
-            parts += [new[tau][l3] * gates[:, l3 - 1 : l3, tau, :] for l3 in range(1, lmax + 1)]
-            tracks.append(torch.cat(parts, dim=1))
+            parts_ = [s[:, None, :]]
+            parts_ += [new[tau][l3] * gates[:, l3 - 1 : l3, tau, :] for l3 in range(1, lmax + 1)]
+            tracks.append(torch.cat(parts_, dim=1))
         return torch.stack(tracks, dim=2)
 
-    def generic_step(layer, h):
+    def generic_step(layer, h, p):
         """Channels-first (the reference's ``layer_fn`` / ``layer_fn_parity``):
-        h (N, C, D, T); the stored weight packings as they are."""
-        w = mlp_apply({"w": [t.to(dtype) for t in layer["radial_mlp"]["w"]]}, bessel)
-        w = (w * u[..., None]).reshape(*u.shape, C, T, P)
-        agg = agg_edges(_msg_generic_cf(gather(h), Y, w, lmax)) * inv_avg  # (N, C, D, T)
+        h (N, C, D, T) -> the window's (nw, C, D, T); the stored weight
+        packings as they are."""
+        nw = p.nw
+        w = mlp_apply({"w": [t.to(dtype) for t in layer["radial_mlp"]["w"]]}, p.bessel)
+        w = (w * p.u[..., None]).reshape(*p.u.shape, C, T, P)
+        agg = p.agg(_msg_generic_cf(p.gather(h), p.Y, w, lmax)) * inv_avg  # (nw, C, D, T)
+        h_w = h if nw == n else h[p.c0:p.c0 + nw]
         new = []
         for tau, (sw, mw) in enumerate(keys):
             blocks = []
             for l3 in range(lmax + 1):
                 sl = sh_slice(l3)
-                sc = _self_connect(h[:, :, sl, tau].transpose(1, 2), layer[sw][l3].to(dtype),
-                                   types).transpose(1, 2)
+                sc = _self_connect(h_w[:, :, sl, tau].transpose(1, 2), layer[sw][l3].to(dtype),
+                                   p.types_w).transpose(1, 2)
                 mixed = torch.einsum("ncd,ce->ned", agg[:, :, sl, tau], layer[mw][l3].to(dtype))
                 blocks.append((sc + mixed) * (1.0 / math.sqrt(C)))
             new.append(blocks)
         act_even = F.silu(new[0][0][:, :, 0]) * act_c
         gates = torch.sigmoid((act_even @ layer["gate_w"].to(dtype)) * (1.0 / math.sqrt(C)))
-        gates = gates.reshape(n, C, lmax, T)
+        gates = gates.reshape(nw, C, lmax, T)
         tracks = []
         for tau in range(T):
             s = act_even if tau == 0 else torch.tanh(new[1][0][:, :, 0]) * TANH_C
-            parts = [s[:, :, None]]
-            parts += [new[tau][l3] * gates[:, :, l3 - 1 : l3, tau] for l3 in range(1, lmax + 1)]
-            tracks.append(torch.cat(parts, dim=2))
+            parts_ = [s[:, :, None]]
+            parts_ += [new[tau][l3] * gates[:, :, l3 - 1 : l3, tau] for l3 in range(1, lmax + 1)]
+            tracks.append(torch.cat(parts_, dim=2))
         return torch.stack(tracks, dim=3)
 
     remat = (not use_k3) if cfg.remat == "auto" else bool(cfg.remat)
     step = generic_step if generic else layer_step
-    h = torch.zeros((n, C, D, T) if generic else (n, D, T, C), dtype=dtype,
-                    device=positions.device)
+    # each window's copy of the layers
+    layers = [t["layers"] for t in mesh_params or [params] * len(parts)]
+
+    def all_windows(i, h):
+        """Layer i over every window; the windows' rows concatenated (the
+        all_gather) on the home device."""
+        outs = [step(layers[s][i], h.to(p.dev), p) for s, p in enumerate(parts)]
+        return outs[0] if len(outs) == 1 else torch.cat([o.to(home) for o in outs])
+
+    h = torch.zeros((n, C, D, T) if generic else (n, D, T, C), dtype=dtype, device=home)
     if generic:
         h[:, :, 0, 0] = params["chem_embed"].to(dtype)[types]
     else:
         h[:, 0, 0, :] = params["chem_embed"].to(dtype)[types]
-    for layer in params["layers"]:
-        h = rematerialized(lambda h, layer=layer: step(layer, h), remat)(h)
+    for i in range(len(params["layers"])):
+        h = rematerialized(lambda h, i=i: all_windows(i, h), remat)(h)
     if generic:
         h = h.permute(0, 2, 3, 1)  # channels-last (N, D, T, C) for the readout
     if capture is not None:

@@ -1,5 +1,5 @@
 """On-device neighbor builds (counterpart of
-``pair_allegro_tpu/neighbors/device.py:37-220, 239-443, 578-649``).
+``pair_allegro_tpu/neighbors/device.py:37-220, 239-649``).
 
 Two strategies, as in the reference:
 
@@ -11,6 +11,9 @@ Two strategies, as in the reference:
   (``static_image_shifts``), for small boxes and any box with a
   non-periodic axis.  It produces the FLAT layout, a (2, E) edge list
   compacted in the flat (shift, i, j) order.
+
+and ``halo_cell_list_neighbors``, the halo engine's build over a z-slab
+subdomain (local atoms and halo copies, z open).
 
 Capacity overflow is reported in a flag, not hidden; callers check it at
 chunk ends and regrow.
@@ -340,6 +343,110 @@ def cell_list_neighbors(positions, cell, cutoff: float, grid, cell_capacity: int
         edge_shifts=shf,
         edge_mask=mask_tab,
         overflow=b.overflow | row_overflow,
+    )
+
+
+def halo_cell_list_neighbors(pos_ext, cell, cutoff: float, grid_xy, gz_cap: int,
+                             cell_capacity: int, max_neighbors: int, n_centers: int,
+                             ext_mask=None) -> NeighborData:
+    """Binned build over a z-slab SUBDOMAIN, its own atoms and halo copies
+    (the reference's ``halo_cell_list_neighbors``, ``device.py:445-578``):
+    the halo engine's O(local) build (parallel/halo.py), the analog of LAMMPS
+    building lists over local + ghost atoms.
+
+    pos_ext (n_ext, 3): rows [0, n_centers) are the shard's own atoms (the
+    centers), the rest halo copies already shifted across the z boundary.
+    x and y are periodic (minimum image in the global cell); z is OPEN: the
+    halo copies are its images, so fractional z is used unwrapped and binned
+    over the subdomain's own range in at most ``gz_cap`` bins, each at least
+    ``cutoff`` wide along the slab normal (wider when ``gz_cap`` bins cannot
+    cover the range: always correct, at worst a bucket overflows, which is
+    flagged).  ``grid_xy`` (gx, gy) are the periodic axes' bin counts; a
+    cell whose plane heights / count fall below the cutoff flags overflow.
+
+    Returns TABLE-layout NeighborData whose j indices are EXT-frame rows."""
+    n_ext = pos_ext.shape[0]
+    dtype, dev = pos_ext.dtype, pos_ext.device
+    gx, gy = grid_xy
+    n_cells = gx * gy * gz_cap + 1  # +1: the sentinel bin of masked atoms
+    sent = n_cells - 1
+    inv_cell = inv3x3(cell)
+    frac = pos_ext @ inv_cell
+    heights = _cell_heights(cell)
+    geom_bad = (heights[0] / gx < cutoff) | (heights[1] / gy < cutoff)
+
+    wrap_xy = -torch.floor(frac[:, :2])
+    fxy = frac[:, :2] + wrap_xy  # [0, 1)
+    fz = frac[:, 2]  # unwrapped
+    wrap3 = torch.cat([wrap_xy, torch.zeros((n_ext, 1), dtype=dtype, device=dev)], dim=1)
+    f3 = torch.cat([fxy, fz[:, None]], dim=1)
+
+    if ext_mask is not None:
+        z_lo = torch.where(ext_mask, fz, torch.full_like(fz, float("inf"))).min()
+        z_hi = torch.where(ext_mask, fz, torch.full_like(fz, float("-inf"))).max()
+    else:
+        z_lo, z_hi = fz.min(), fz.max()
+    wz = torch.maximum(cutoff / heights[2], (z_hi - z_lo) / gz_cap) + 1e-12
+
+    bx = torch.clamp(torch.floor(fxy[:, 0] * gx).to(torch.int64), 0, gx - 1)
+    by = torch.clamp(torch.floor(fxy[:, 1] * gy).to(torch.int64), 0, gy - 1)
+    bz = torch.clamp(torch.floor((fz - z_lo) / wz).to(torch.int64), 0, gz_cap - 1)
+    cell_id = (bx * gy + by) * gz_cap + bz
+    if ext_mask is not None:
+        cell_id = torch.where(ext_mask, cell_id, torch.full_like(cell_id, sent))
+
+    order = torch.argsort(cell_id, stable=True)
+    sorted_cid = cell_id[order]
+    counts = torch.bincount(cell_id, minlength=n_cells)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n_ext, device=dev) - starts[sorted_cid]
+    bucket_overflow = torch.any(counts[:sent] > cell_capacity)
+    table = torch.full((n_cells, cell_capacity), n_ext, dtype=torch.int64, device=dev)
+    keep = rank < cell_capacity
+    table[sorted_cid[keep], rank[keep]] = order[keep]
+    table[sent] = n_ext  # the sentinel bin stays empty
+
+    table_safe = torch.clamp_max(table, n_ext - 1)
+    bin_f3 = f3[table_safe]
+    bin_wrap = wrap3[table_safe]
+
+    offs = torch.as_tensor(_OFFS, device=dev)
+    nx = torch.remainder(bx[:n_centers, None] + offs[None, :, 0], gx)
+    ny = torch.remainder(by[:n_centers, None] + offs[None, :, 1], gy)
+    nz = bz[:n_centers, None] + offs[None, :, 2]  # open axis: no wrap
+    z_ok = (nz >= 0) & (nz < gz_cap)
+    nb_id = torch.where(z_ok, (nx * gy + ny) * gz_cap + torch.clamp(nz, 0, gz_cap - 1),
+                        torch.full_like(nz, sent))
+    m_tot = 27 * cell_capacity
+    cand = table[nb_id].reshape(n_centers, m_tot)
+    cand_f3 = bin_f3[nb_id].reshape(n_centers, m_tot, 3)
+    cand_wrap = bin_wrap[nb_id].reshape(n_centers, m_tot, 3)
+
+    df = cand_f3 - f3[:n_centers, None, :]
+    mic = torch.cat([-torch.round(df[..., :2]), torch.zeros_like(df[..., 2:])], dim=-1)
+    dx = (df + mic) @ cell
+    d2 = torch.sum(dx * dx, dim=-1)
+    ids = torch.arange(n_centers, device=dev)
+    valid = (cand < n_ext) & (d2 <= cutoff * cutoff) & (cand != ids[:, None])
+    if ext_mask is not None:
+        bin_mask = ext_mask[table_safe]
+        valid = valid & ext_mask[:n_centers, None] & bin_mask[nb_id].reshape(n_centers, m_tot)
+
+    row_overflow = torch.any(valid.sum(dim=1) > max_neighbors)
+    ar = torch.arange(m_tot, device=dev)
+    col_key = torch.where(valid, m_tot - ar[None, :], torch.zeros_like(ar)[None, :])
+    key_top, idx_top = torch.topk(col_key, max_neighbors, dim=1, sorted=True)
+    keep = key_top > 0
+    nbr = torch.where(keep, torch.gather(cand, 1, idx_top), torch.full_like(idx_top, n_ext))
+    net_shift = mic + cand_wrap - wrap3[:n_centers, None, :]
+    shf = torch.gather(net_shift, 1, idx_top[..., None].expand(-1, -1, 3)) * keep[..., None]
+    mask_tab = nbr < n_ext
+    j_tab = torch.where(mask_tab, nbr, ids[:, None].expand_as(nbr))
+    return NeighborData(
+        edge_index=j_tab,
+        edge_shifts=shf,
+        edge_mask=mask_tab,
+        overflow=bucket_overflow | row_overflow | geom_bad,
     )
 
 

@@ -1,7 +1,8 @@
 """Host-side neighbor statistics for capacity sizing (numpy copy of
-``pair_allegro_tpu/neighbors/naive.py``: ``host_neighbor_stats``, the
-exact list it falls back to when the box is too small to bin, and
-``pad_edges``, which pads a training frame's edge list)."""
+``pair_allegro_tpu/neighbors/naive.py``: ``host_neighbor_stats``, with the
+native fast path where JAX takes it, the exact list it falls back to when
+the box is too small to bin, and ``pad_edges``, which pads a training
+frame's edge list)."""
 
 from __future__ import annotations
 
@@ -63,7 +64,11 @@ def neighbor_list_np(positions, cell, pbc, cutoff, types=None, cutoff_matrix=Non
 
 
 def host_neighbor_stats(positions, cell, pbc, cutoff: float, types=None, cutoff_matrix=None):
-    """(total_edge_count, max_neighbors_of_any_atom) by binned counting."""
+    """(total_edge_count, max_neighbors_of_any_atom) by binned counting.
+    An untyped count in a periodic box goes through the C++ host runtime
+    (``native.neighbor_stats``, as JAX does at ``naive.py:127-133``) and
+    falls through to numpy where that is unavailable or the box holds
+    fewer than 3 bins on an axis."""
     pos = np.asarray(positions, np.float64)
     n = pos.shape[0]
     typed = types is not None and cutoff_matrix is not None
@@ -71,6 +76,12 @@ def host_neighbor_stats(positions, cell, pbc, cutoff: float, types=None, cutoff_
         types = np.asarray(types, np.int64)
         cutoff_matrix = np.asarray(cutoff_matrix, np.float64)
     use_bins = cell is not None and all(pbc) and abs(np.linalg.det(cell)) > 1e-12
+    if use_bins and not typed:
+        from pair_allegro_tpu_torch import native
+
+        res = native.neighbor_stats(pos, cell, cutoff)
+        if res is not None:
+            return res
     if use_bins:
         cell_m = np.asarray(cell, np.float64)
         vol = abs(np.linalg.det(cell_m))

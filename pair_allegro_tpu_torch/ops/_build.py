@@ -2,8 +2,9 @@
 shared library with a plain C interface, loaded with ``ctypes``.
 
 Each library is built once per version of its sources (the file name
-carries a hash of them) into ``build/pair_allegro_tpu_torch/`` beside the
-package, with ``ptxas``'s register and spill report next to it.  Builds of
+carries a hash of them) into :func:`build_dir` (``build/pair_allegro_tpu_torch/``
+beside the package, or the directory ``compile_cache.enable_compile_cache``
+names), with ``ptxas``'s register and spill report next to it.  Builds of
 several libraries may run at once: :meth:`CudaLibrary.start` launches
 ``nvcc`` in the background and :meth:`CudaLibrary.load` waits for it.
 """
@@ -19,8 +20,17 @@ import time
 from pathlib import Path
 from typing import Callable
 
+from pair_allegro_tpu_torch import compile_cache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "pair_allegro_tpu_torch"
+
+
+def build_dir() -> Path:
+    """Where libraries are built and looked up: the compile cache's
+    directory when one is enabled, else :data:`BUILD_DIR`."""
+    cached = compile_cache.cache_dir()
+    return Path(cached) if cached else BUILD_DIR
 
 
 class LaunchCounts:
@@ -56,7 +66,7 @@ class CudaLibrary:
         for s in self.sources:
             h.update(s.read_bytes())
         tag = h.hexdigest()[:12]
-        base = BUILD_DIR / f"lib{self.stem}_{tag}"
+        base = build_dir() / f"lib{self.stem}_{tag}"
         return base.with_suffix(".so"), base.with_suffix(".ptxas.txt")
 
     def start(self) -> None:
@@ -65,7 +75,7 @@ class CudaLibrary:
         if self._lib is not None or self._proc is not None or out.exists():
             return
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         self._tmp = out.with_suffix(f".{os.getpid()}.tmp")
         self._t0 = time.time()
         self._proc = subprocess.Popen(

@@ -28,29 +28,12 @@ from typing import Any, Callable
 import torch
 
 from pair_allegro_tpu_torch.potential import make_potential
+from pair_allegro_tpu_torch.tree import leaves, tree_map
 
 # A training frame (data.load_frames): positions (N, 3), types (N,),
 # edge_index (2, E) or (N, K), forces (N, 3) and energy () targets;
 # optionally cell (3, 3), edge_shifts, atom_mask (N,), edge_mask, virial.
 Frame = dict[str, Any]
-
-
-def leaves(tree) -> list:
-    """The tensors of a tree of dicts and lists, in the tree's order."""
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in leaves(v)]
-    return [tree]
-
-
-def tree_map(fn, tree):
-    """``fn`` applied to every tensor of a tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def detached(params):
@@ -130,12 +113,31 @@ def make_batched_loss_fn(loss_fn) -> Callable[[dict, Frame], tuple[torch.Tensor,
     the mean of the per-frame losses and of each metric.  The frames run
     one after another; with a differentiable loss every frame's graph stays
     alive until the weights' gradient is taken, so training memory grows
-    with the batch size times the frame's edges."""
+    with the batch size times the frame's edges.
 
-    def batched(params, batch: Frame):
+    A ``data.ShardedBatch`` (``data.shard_batch``) is data-parallel: each
+    shard's frames run on its device with the parameters moved there by
+    ``.to`` (differentiable; no copy where they already are), and the
+    per-frame values come back to the parameters' device before the mean,
+    so the backward takes each shard's gradient on its device and sums
+    them into the parameters."""
+
+    def per_frame(params, batch):
         n = next(v for v in batch.values() if v is not None).shape[0]
-        per = [loss_fn(params, {k: None if v is None else v[b] for k, v in batch.items()})
-               for b in range(n)]
+        return [loss_fn(params, {k: None if v is None else v[b] for k, v in batch.items()})
+                for b in range(n)]
+
+    def batched(params, batch):
+        from pair_allegro_tpu_torch.data import ShardedBatch
+
+        if isinstance(batch, ShardedBatch):
+            home = leaves(params)[0].device
+            per = []
+            for dev, shard in zip(batch.devices, batch.shards):
+                for loss, metrics in per_frame(tree_map(lambda t: t.to(dev), params), shard):
+                    per.append((loss.to(home), {k: v.to(home) for k, v in metrics.items()}))
+        else:
+            per = per_frame(params, batch)
         loss = torch.stack([p[0] for p in per]).mean()
         metrics = {k: torch.stack([p[1][k] for p in per]).mean() for k in per[0][1]}
         return loss, metrics

@@ -1765,3 +1765,50 @@ def test_trained_tree_on_the_k1_tier_matches_plain(cuda):
     ref = plain.force_fn(system, plain.rebuild_fn(system, None))
     assert float((after.forces - ref.forces).abs().max()) < 5e-4
     assert float((after.forces - before.forces).abs().max()) > 1e-3
+
+
+# --- multi-device engines with their shards sharing the card ---------------
+
+
+@pytest.mark.parametrize("mode,n_shards,n_rep,kernel", [
+    ("replicated", 2, 5, "K1"), ("halo", 3, 6, "K1"), ("replicated", 2, 4, "K4")])
+def test_sharded_engines_on_the_card(cuda, mode, n_shards, n_rep, kernel):
+    """The replicated engine at S = 2 and the halo engine at S = 3 (its
+    least: 2h + 1 slabs) with every shard on cuda:0, the flagship widths:
+    forces within 1e-5 eV/A of the single-device engine (the same kernel
+    on the same rows), energy within 1e-6 relative, the charges alike, and
+    exactly S x 3 launches of the strategy's kernel each way an
+    evaluation: K1 on the cell list, K4 on the dense strategy that a
+    256-atom box resolves to (FLAT center windows)."""
+    from chip_smoke import launched_now, reset_launches
+
+    from pair_allegro_tpu_torch.parallel import (
+        HaloShardedAllegroEngine,
+        ShardedAllegroEngine,
+        make_mesh,
+    )
+
+    cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, l_max=2, num_layers=3,
+                        num_scalar_features=64, num_tensor_features=32, avg_num_neighbors=12.0,
+                        output_charges=True)
+    params = allegro_params_from_numpy(allegro_init_numpy(cfg, 0), cfg, device=cuda)
+    pos, cell = fcc_lattice(n_rep)
+    n = pos.shape[0]
+    s = System.create(pos, np.zeros(n, np.int64), cell=cell, masses=np.full(n, 63.546),
+                      device=cuda)
+    cls = HaloShardedAllegroEngine if mode == "halo" else ShardedAllegroEngine
+    s, _ = cls.prepare_system(s, n_shards)
+    eng = cls(cfg, params, s, make_mesh(n_shards, devices="cuda:0"))
+    single = AllegroEngine(cfg, params, s, device=cuda)
+    o0 = single.force_fn(s, single.rebuild_fn(s, None))
+    nb = eng.rebuild_fn(s, None)
+    assert not bool(nb.overflow)
+    reset_launches()
+    o1 = eng.force_fn(s, nb)
+    torch.cuda.synchronize()
+    assert eng.spec.strategy == ("dense" if kernel == "K4" else "cell_list")
+    assert launched_now() == {kernel: (3 * n_shards, 3 * n_shards)}
+    assert float((o1.forces - o0.forces).abs().max()) <= 1e-5
+    assert abs(float(o1.total_energy) - float(o0.total_energy)) <= 1e-6 * abs(
+        float(o0.total_energy))
+    assert float((o1.extras["charges"] - o0.extras["charges"]).abs().max()) <= 1e-6

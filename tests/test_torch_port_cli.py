@@ -25,6 +25,7 @@ from pair_allegro_tpu.models.allegro import allegro_init
 from pair_allegro_tpu.neighbors.device import cell_list_neighbors as jax_cell_list
 from pair_allegro_tpu.system import System as JaxSystem
 from pair_allegro_tpu_torch import checkpoint as ckpt
+from pair_allegro_tpu_torch import compile_cache
 from pair_allegro_tpu_torch.calculator import Calculator
 from pair_allegro_tpu_torch.cli import main
 from pair_allegro_tpu_torch.debug import edge_set
@@ -175,14 +176,24 @@ def test_computes_columns(tmp_path, capsys):
     np.testing.assert_allclose(rows[-1, -3:], dip, rtol=2e-5)
 
 
+# the ids of the cases from before `sharding:` was ported, when it was refused
 @pytest.mark.parametrize("argv,item", [
-    (["run", "CONF"], "item 9"),
-    (["train", "CONF"], "item 9"),
-])
+    (["run", "CONF"], "strict locality"),
+    (["train", "CONF"], "must divide"),
+], ids=["argv0-item 9", "argv1-item 9"])
 def test_unported_keys_and_commands_are_refused(tmp_path, argv, item):
-    conf = _write(tmp_path, "run.yaml", {"data": FIXTURE, "sharding": {"n_devices": 8}})
-    with pytest.raises(NotImplementedError, match=item):
-        main([conf if a == "CONF" else a for a in argv] + ["--device", "cpu"])
+    """`sharding:` configurations the JAX CLI refuses: halo on NequIP in
+    ``run``, a batch the devices do not divide in ``train``."""
+    nequip = {"family": "nequip", "config": {"type_names": ["Cu"], "r_max": 4.0,
+                                             "num_features": 4, "num_layers": 1}}
+    if argv[0] == "run":
+        conf = {"data": FIXTURE, "model": nequip, "sharding": {"n_devices": 8, "mode": "halo"}}
+    else:
+        conf = {"model": nequip, "dataset": FIXTURE, "batch_size": 3,
+                "sharding": {"n_devices": 2}}
+    path = _write(tmp_path, "run.yaml", conf)
+    with pytest.raises(SystemExit, match=item):
+        main([path if a == "CONF" else a for a in argv] + ["--device", "cpu"])
 
 
 def test_run_without_a_gpu_raises(tmp_path):
@@ -198,6 +209,8 @@ def test_debug_dump_and_trace(tmp_path, capsys, monkeypatch):
     """PAT_LOG_LEVEL=DEBUG prints the first build's edges; profile writes
     phase times and a torch.profiler trace; compile_cache is accepted."""
     monkeypatch.setenv("PAT_LOG_LEVEL", "DEBUG")
+    # the cache directory is process-wide: give it back after this test
+    monkeypatch.setattr(compile_cache, "_ENABLED", None)
     conf = {"data": FIXTURE, "model": {"checkpoint": _checkpoint(tmp_path)},
             "type_names": ["Cu"], "steps": 1, "compile_cache": str(tmp_path / "cache"),
             "profile": {"phases": True, "trace_dir": str(tmp_path / "trace")}}

@@ -179,9 +179,12 @@ def test_cli_imported_checkpoint_runs(tmp_path, capsys):
 
 
 def test_cli_train_refuses_sharding_and_a_missing_gpu(tmp_path):
+    """A data-parallel batch the devices do not divide is refused before
+    anything is loaded (``sharding:`` itself runs since it was ported); so
+    is the default device without a GPU."""
     conf = _write(tmp_path, "train.yaml", {"model": {"checkpoint": "x.npz"}, "dataset": "x.xyz",
-                                           "sharding": {"n_devices": 8}})
-    with pytest.raises(NotImplementedError, match="item 9"):
+                                           "batch_size": 4, "sharding": {"n_devices": 8}})
+    with pytest.raises(SystemExit, match="must divide n_devices 8"):
         main(["train", conf, "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")

@@ -58,5 +58,6 @@ def test_every_port_module_is_scanned():
                  "ops.scatter", "neighbors.device", "ops.embed_layer", "ops.readout_layer",
                  "ops.fused_stack", "checkpoint", "cli", "computes", "calculator", "debug",
                  "io.config", "io.dump", "io.extxyz", "io.lammps_data", "ops.remat", "train",
-                 "data", "import_torch"):
+                 "data", "import_torch", "native", "compile_cache", "parallel", "parallel.mesh",
+                 "parallel.sharded", "parallel.halo", "tree"):
         assert f"pair_allegro_tpu_torch.{name}" in mods
