@@ -6,8 +6,10 @@ Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit; the builds of K1 (csrc/fused_layer.cu),
      K3 (csrc/nequip_conv.cu), K2 (csrc/env_layer.cu), K5
      (csrc/env_layer_mxu.cu), K4 (csrc/tp_mix_fused.cu), K6 / K7
-     (csrc/embed_readout_layer.cu) and K8 (csrc/fused_stack.cu) with nvcc
-     for sm_90a, started together;
+     (csrc/embed_readout_layer.cu), K8 (csrc/fused_stack.cu) and the bf16
+     builds of K1, K2 (csrc/fused_layer_bf16.cu, csrc/env_layer_bf16.cu)
+     and K3 (csrc/nequip_conv_bf16.cu, a bf16 hj) with nvcc for sm_90a,
+     started together;
   2. K1 parity: the CUDA kernel against its plain PyTorch version, f32,
      forward and backward, for the first / middle / last forms, at flagship
      widths (ns=64, C=32, l_max=2) on a 500-atom FCC Cu neighbor table;
@@ -81,7 +83,11 @@ Phases, each of which must pass (any failure exits non-zero):
      benchmarks/accuracy.py's fixture (500 perturbed FCC Cu atoms), Allegro
      at flagship widths: f32 on the card against the port's plain path of
      the same model at f64 on the CPU, max|dF| <= 1e-4 eV/A (rms|dF| and
-     dE/atom printed); mxu_bf16 is printed, not gated;
+     dE/atom printed); mxu_bf16 is printed, not gated; the fast bf16 tiers
+     of phase 20 (the K1 tier and the per-layer paths tier at
+     interior="bf16", NequIP under PAT_NEQUIP_HJ=bf16) gated at twice the
+     distance from the same oracle of the port's CPU path at that setting
+     (f32 positions, the same bf16 casts), both distances printed;
  16. the CLI's run path (``pair_allegro_tpu_torch.cli.main(["run", ...])``
      in-process) at full width: phase 5's system written as extxyz, the
      flagship Allegro with the charge head and phase 6's NequIP written as
@@ -142,6 +148,22 @@ Phases, each of which must pass (any failure exits non-zero):
      train`` with ``sharding: {n_devices: 1}``; a second process with PAT_COMPILE_CACHE
      loading every library from a copy of this run's builds with no nvcc
      (or host compiler) run.
+ 20. the bf16 tiers (run before phase 15, which gates them too): K1's
+     bf16 build (interior="bf16") in its three forms, K2's at l_max 2 and 1
+     with parity, and K3's bf16-hj build (PAT_NEQUIP_HJ=bf16) at (l_max,
+     tracks) in {1, 2} x {1, 2}, forward and backward on the 500-atom
+     table, each against its plain version fed the same bf16-rounded inputs
+     and weights at f32 with the outputs rounded to bf16 (BF16_TOLS; K3's
+     f32 outputs within TOLS); the K1 tier and the per-layer paths tier at
+     interior="bf16" on the card and at bf16 on the CPU, each against the
+     CPU f32 path (the card within twice the CPU's distance; 3 + 3 bf16
+     launches); phase 5's run at interior="bf16" (3 + 3 K1-bf16
+     launches per force evaluation and no other kernel), the per-layer
+     paths tier at bf16 (3 + 3 K2-bf16) and phase 6's run under
+     PAT_NEQUIP_HJ=bf16 (3 + 3 K3-bf16), 60 + 60 steps each, their steps/s
+     and peak memory beside their f32 paths'; the bf16 builds' timings and
+     parity at those paths' shapes, with bounds at the bf16 tensor-core
+     rate and 2-byte numbers.
 Phases 7, 8, 10, 12 and 14 print two bounds for K1, K2, K3, K4, K6, K7 and K8:
 with the products on the tensor cores in 3xTF32 (the kernels'
 ``bound_ms``) and on the CUDA cores alone (``bound_ms_f32``), and the
@@ -184,6 +206,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 # H100 SXM: f32 outside the tensor cores, dense bf16 on the tensor cores and
 # HBM3 rate (NVIDIA data sheet)
@@ -324,12 +347,13 @@ def k1_terms(w, form, bwd):
     return per, io_in, io_out
 
 
-def k1_cost(w, e, k, form, bwd):
-    """(flops, bytes) one K1 call needs at E edge slots (``k1_terms``; f32,
-    weights included)."""
+def k1_cost(w, e, k, form, bwd, nb=4):
+    """(flops, bytes) one K1 call needs at E edge slots (``k1_terms``;
+    ``nb`` bytes a number: 4 at f32, 2 for the bf16 build, whose
+    activations and packed weights are bf16; weights included)."""
     per, io_in, io_out = k1_terms(w, form, bwd)
     n_w = sum(t.numel() for t in w.tensors())
-    return per * e, 4 * ((io_in + io_out) * e + n_w)
+    return per * e, nb * ((io_in + io_out) * e + n_w)
 
 
 def k1_products(w, form, bwd):
@@ -348,15 +372,17 @@ def k1_products(w, form, bwd):
     return 4 * ns * c + 2 * mlp + mix if bwd else 2 * ns * c + mlp + mix
 
 
-def bounds(flops, prod, nbytes):
+def bounds(flops, prod, nbytes, prod_rate=PEAK_TF32_FLOPS / 3):
     """The least time of a call with ``flops`` operations, ``prod`` of them
     in small products, moving ``nbytes``: on the tensor cores (``bound_ms``:
-    the products at PEAK_TF32_FLOPS / 3 and the rest at the f32 rate, the
-    larger of the two, since the tensor and the f32 pipes run side by side)
-    and on the CUDA cores alone (``bound_ms_f32``: every flop at the f32
-    rate); each the larger of its operations' time and the bytes' time."""
+    the products at ``prod_rate``, PEAK_TF32_FLOPS / 3 for the 3xTF32
+    kernels and PEAK_BF16_FLOPS for the bf16 builds, and the rest at the f32
+    rate, the larger of the two, since the tensor and the f32 pipes run
+    side by side) and on the CUDA cores alone (``bound_ms_f32``: every flop
+    at the f32 rate); each the larger of its operations' time and the
+    bytes' time."""
     t_b = nbytes / PEAK_BYTES * 1e3
-    t_tc = max(prod / (PEAK_TF32_FLOPS / 3), (flops - prod) / PEAK_F32_FLOPS) * 1e3
+    t_tc = max(prod / prod_rate, (flops - prod) / PEAK_F32_FLOPS) * 1e3
     t_f32 = flops / PEAK_F32_FLOPS * 1e3
     return dict(bound_ms=max(t_tc, t_b), bound_by="operations" if t_tc >= t_b else "bytes",
                 bound_ms_f32=max(t_f32, t_b), bound_by_f32="operations" if t_f32 >= t_b else "bytes")
@@ -600,11 +626,19 @@ PATHS = {
     "embed": ("allegro", {}, "K6", 60, False, {"PAT_L1_EMBED": "1"}),
     "stack": ("allegro", dict(fused_stack=True), "K8", 60, False, {}),
     "allegro-chunked": ("allegro", {}, "K1", 60, False, {}),
+    # phase 20: the bf16 tiers (K1's and K2's bf16 builds at interior="bf16",
+    # K3's bf16-hj build under PAT_NEQUIP_HJ=bf16)
+    "allegro-bf16": ("allegro", dict(interior="bf16"), "K1-bf16", 60, False, {}),
+    "perlayer-bf16": ("allegro", dict(layer_fused=False, interior="bf16"), "K2-bf16", 60, False,
+                      {}),
+    "nequip-hj-bf16": ("nequip", {}, "K3-bf16", 60, False, {"PAT_NEQUIP_HJ": "bf16"}),
 }
 # the paths that run the million-atom mode's windows: rows per window
 ROW_CHUNK = {"allegro-chunked": 1331}
-# steps/s of each main path run in this process (phase 17 reads phase 5's)
+# steps/s and the timed chunk's peak device memory (GiB) of each main path
+# run in this process (phases 17 and 20 read phase 5's and 6's)
 STEPS_PER_S = {}
+PEAK_GIB = {}
 
 
 def path_launches(path, cfg):
@@ -634,7 +668,8 @@ def env_vars(env):
 
 
 def kernel_modules():
-    """{kernel id: its wrapper module}, each with ``launches`` and ``LIB``."""
+    """{kernel id: its wrapper module}, each with ``launches`` and ``LIB``;
+    the bf16 builds of K1, K2 and K3 as 'K1-bf16', 'K2-bf16', 'K3-bf16'."""
     from pair_allegro_tpu_torch.ops import (
         embed_layer,
         env_layer,
@@ -647,7 +682,10 @@ def kernel_modules():
     )
 
     return {"K1": fused_layer, "K3": nequip_conv, "K2": env_layer, "K5": env_layer_mxu,
-            "K4": tp_mix_fused, "K6": embed_layer, "K7": readout_layer, "K8": fused_stack}
+            "K4": tp_mix_fused, "K6": embed_layer, "K7": readout_layer, "K8": fused_stack,
+            # the bf16 builds, counted apart (their wrappers' launches_bf16)
+            **{f"{name}-bf16": SimpleNamespace(launches=mod.launches_bf16, LIB=mod.LIB_BF16)
+               for name, mod in (("K1", fused_layer), ("K2", env_layer), ("K3", nequip_conv))}}
 
 
 def build_path(path):
@@ -732,6 +770,7 @@ def _main_path(path):
     finite = bool(torch.isfinite(st.forces).all()) and math.isfinite(rows[-1]["etotal"])
     steps_per_s = n_steps / wall
     STEPS_PER_S[path] = steps_per_s
+    PEAK_GIB[path] = peak
     spec = eng.spec
     cap = (f"max_edges={spec.max_edges} ({len(spec.shifts_table)} image shifts)"
            if spec.strategy == "dense" else f"K={spec.max_neighbors}")
@@ -823,11 +862,11 @@ def k1_timings(cfg, params, system, eng, errs):
     return res
 
 
-def timing(ms, pms, flops, prod, nbytes, weight_bytes):
+def timing(ms, pms, flops, prod, nbytes, weight_bytes, prod_rate=PEAK_TF32_FLOPS / 3):
     """A kernel row: its time, its plain version's, both bounds
     (``bounds``), and the weights its tiles stage from L2 (computed)."""
-    return dict(ms=ms, plain_ms=pms, **bounds(flops, prod, nbytes), gflop=flops / 1e9,
-                mbytes=nbytes / 1e6, staged_weight_mb=weight_bytes / 1e6)
+    return dict(ms=ms, plain_ms=pms, **bounds(flops, prod, nbytes, prod_rate),
+                gflop=flops / 1e9, mbytes=nbytes / 1e6, staged_weight_mb=weight_bytes / 1e6)
 
 
 def print_timing(label, r):
@@ -1310,7 +1349,7 @@ def perlayer_model_parity():
             raise RuntimeError(f"per-layer model parity gate failed ({mode})")
 
 
-def k2_cost(w, e, bwd):
+def k2_cost(w, e, bwd, nb=4):
     """(flops, bytes) one K2 call needs at E edge slots, counted from the
     function: the env sum (recomputed in the backward), 2 operations per
     channel and 3j entry (4 in the backward: dV and denv), the per-l3 mix
@@ -1329,7 +1368,7 @@ def k2_cost(w, e, bwd):
     ins = d * c + c + d + (d * cout + c * P[0] if bwd else 0)
     outs = d * c + c + d if bwd else d * cout + c * P[0]
     n_w = sum(t.numel() for t in w.leaves)
-    return per * e, 4 * ((ins + outs) * e + n_w)
+    return per * e, nb * ((ins + outs) * e + n_w)
 
 
 def mix_products(w):
@@ -1982,6 +2021,16 @@ ACCURACY_TIERS = (("K1 tier", "allegro", {}, {}, {"K1": 3}, True, False),
                    {}, _K5, False, False),
                   ("FLAT slab", "allegro", {}, {}, {"K4": 3}, True, True),
                   ("NequIP (K3)", "nequip", {}, {}, {"K3": 3}, True, False))
+# the fast bf16 tiers (phase 20's builds): (label, model, config fields,
+# environment, launches per force evaluation); each gated at twice the
+# distance from the f64 oracle of the port's CPU path at the same setting
+# (f32 positions, the same bf16 casts), not at 1e-4
+BF16_ACCURACY_TIERS = (("K1 tier, interior bf16", "allegro", dict(interior="bf16"), {},
+                        {"K1-bf16": 3}),
+                       ("per-layer paths, interior bf16", "allegro",
+                        dict(layer_fused=False, interior="bf16"), {}, {"K2-bf16": 3}),
+                       ("NequIP, hj bf16", "nequip", {}, {"PAT_NEQUIP_HJ": "bf16"},
+                        {"K3-bf16": 3}))
 
 
 def _accuracy_engine(model, tier, device, dtype, slab):
@@ -2049,6 +2098,34 @@ def accuracy_phase():
         if launched != {name: (k, k) for name, k in want.items()}:
             raise RuntimeError(f"accuracy {label}: launched {launched}, want {want}")
         worst[label] = mx
+    for label, model, tier, env, want in BF16_ACCURACY_TIERS:
+        f_ref = refs[model, False][0]
+        dist = {}
+        with env_vars(env):
+            for dev in ("cuda", "cpu"):
+                system, eng = _accuracy_engine(model, tier, dev, torch.float32, False)
+                nb = eng.rebuild_fn(system, None)
+                for m in mods.values():
+                    m.launches.reset()
+                out = eng.force_fn(system, nb)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launched = {name: (m.launches.fwd, m.launches.bwd) for name, m in mods.items()
+                                if m.launches.fwd or m.launches.bwd}
+                df = out.forces.double().cpu() - f_ref
+                dist[dev] = (float(df.abs().max()), float(df.norm(dim=1).pow(2).mean().sqrt()))
+        gate = 2.0 * dist["cpu"][0]
+        print(f"accuracy {label} ({n} perturbed FCC Cu atoms, f32 positions, against the CPU f64 "
+              f"plain path): the card max|dF| {dist['cuda'][0]:.3e} eV/A (rms "
+              f"{dist['cuda'][1]:.3e}), the port's CPU path at the same setting "
+              f"{dist['cpu'][0]:.3e} (rms {dist['cpu'][1]:.3e}); gate max|dF| <= 2 x the CPU's "
+              f"= {gate:.3e} eV/A (a fast tier: the accurate tiers' 1e-4 eV/A line is "
+              f"{'met' if dist['cuda'][0] <= 1e-4 else 'not met'}); launches {launched}")
+        if not dist["cuda"][0] <= gate:
+            raise RuntimeError(f"accuracy gate failed on the {label}")
+        if launched != {name: (k, k) for name, k in want.items()}:
+            raise RuntimeError(f"accuracy {label}: launched {launched}, want {want}")
+        worst[label] = dist["cuda"][0]
     return worst
 
 
@@ -3525,6 +3602,332 @@ def profile_scale():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the bf16 tiers
+# ---------------------------------------------------------------------------
+
+# a bf16 build against its plain version fed the same bf16-rounded inputs and
+# weights, computed in f32 and rounded to bf16 at the outputs (atol, rtol on
+# max|plain|): the kernels round their product operands to bf16 where the
+# plain version keeps f32
+BF16_TOLS = {"fwd": (1e-3, 8e-3), "bwd": (2e-3, 1.6e-2)}
+
+
+def rounded(tree):
+    """``tree`` (nested dicts / lists of tensors) with every leaf rounded to
+    bf16 and back to f32."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {key: rounded(v) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [rounded(v) for v in tree]
+    return tree.detach().to(torch.bfloat16).float()
+
+
+def k1_bf16_compare(label, form, ins32, layer, cfg, k, gen):
+    """K1's bf16 build on ``ins32`` rounded to bf16 against the plain
+    version at f32 on the same values with the layer's weights rounded,
+    forward and backward (a bf16 cotangent); returns the max abs errors."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import fused_layer as fl
+
+    first_v, last = FORMS[form]
+    inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    w = fl.k1_weights(layer, cfg.l_max, cfg.parity)
+    w_r = fl.prepare_layer(rounded(layer), cfg.l_max, cfg.parity)
+    ins = [t.detach().to(torch.bfloat16).requires_grad_(True) for t in ins32]
+    ref = [t.detach().float().requires_grad_(True) for t in ins]
+    out_k = fl.fused_layer(*ins, w, k, cfg.avg_num_neighbors, first_v=first_v, last=last)
+    out_r = fl.fused_layer_reference(*ref, w_r, k, inv_avg, first_v, last)
+    out_k, out_r = ((out_k,), (out_r,)) if last else (out_k, out_r)
+    cots = [torch.randn(o.shape, generator=gen, device=o.device).to(torch.bfloat16)
+            for o in out_r]
+    g_k = torch.autograd.grad(out_k, ins, cots)
+    g_r = torch.autograd.grad(out_r, ref, [c.float() for c in cots])
+    torch.cuda.synchronize()
+    errs = {}
+    for kind, got, want in (("fwd", out_k, out_r), ("bwd", g_k, g_r)):
+        errs[kind] = check("K1 bf16", f"{form:6s} {label}", kind, K1_NAMES, got,
+                           [t.to(torch.bfloat16) for t in want], BF16_TOLS[kind])
+    del ins, ref, out_k, out_r, g_k, g_r
+    torch.cuda.empty_cache()
+    return errs
+
+
+def k2_bf16_compare(label, ops32, mix, cfg, k, gen):
+    """K2's bf16 build against its plain version as ``k1_bf16_compare``."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+
+    inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    w = k2.k2_weights(mix, cfg.l_max, cfg.parity)
+    w_r = k2.prepare_mix(rounded(mix), cfg.l_max, cfg.parity)
+    ins = [t.detach().to(torch.bfloat16).requires_grad_(True) for t in ops32]
+    ref = [t.detach().float().requires_grad_(True) for t in ins]
+    out_k = k2.env_layer(*ins, w, k, cfg.avg_num_neighbors)
+    out_r = k2.env_layer_reference(*ref, w_r, k, inv_avg)
+    cots = [torch.randn(o.shape, generator=gen, device=o.device).to(torch.bfloat16)
+            for o in out_r]
+    g_k = torch.autograd.grad(out_k, ins, cots)
+    g_r = torch.autograd.grad(out_r, ref, [c.float() for c in cots])
+    torch.cuda.synchronize()
+    errs = {}
+    for kind, names, got, want in (("fwd", ("V'", "inv"), out_k, out_r),
+                                   ("bwd", K2_NAMES, g_k, g_r)):
+        errs[kind] = check("K2 bf16", label, kind, names, got,
+                           [t.to(torch.bfloat16) for t in want], BF16_TOLS[kind])
+    del ins, ref, out_k, out_r, g_k, g_r
+    torch.cuda.empty_cache()
+    return errs
+
+
+def k3_bf16_compare(label, ops32, w, k, avg, gen):
+    """K3's bf16-hj build on ``ops32`` with hj rounded to bf16, against the
+    plain version on the same hj values at f32: agg, dbessel, du and dY
+    within the f32 build's gates (TOLS), dhj (bf16) within the bf16 backward
+    gate against the plain version's rounded to bf16."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
+
+    inv_avg = 1.0 / math.sqrt(avg)
+    hj = ops32[0].detach().to(torch.bfloat16).requires_grad_(True)
+    rest = [t.detach().clone().requires_grad_(True) for t in ops32[1:]]
+    ref = [hj.detach().float().requires_grad_(True)] + [t.detach().clone().requires_grad_(True)
+                                                        for t in rest]
+    out_k = k3.nequip_conv(hj, *rest, w, k, avg)
+    out_r = k3.nequip_conv_reference(*ref, w, k, inv_avg)
+    cot = torch.randn(out_r.shape, generator=gen, device=out_r.device)
+    g_k = torch.autograd.grad(out_k, [hj, *rest], cot)
+    g_r = torch.autograd.grad(out_r, ref, cot)
+    torch.cuda.synchronize()
+    if out_k.dtype != torch.float32 or g_k[0].dtype != torch.bfloat16:
+        raise RuntimeError(f"K3 bf16-hj: agg {out_k.dtype}, dhj {g_k[0].dtype}")
+    errs = {"fwd": check("K3 bf16-hj", label, "fwd", ("agg",), (out_k,), (out_r,)),
+            "bwd": max(check("K3 bf16-hj", label, "bwd", K3_NAMES[:1], g_k[:1],
+                             [g_r[0].to(torch.bfloat16)], BF16_TOLS["bwd"]),
+                       check("K3 bf16-hj", label, "bwd", K3_NAMES[1:], g_k[1:], g_r[1:]))}
+    del hj, rest, ref, out_k, out_r, g_k, g_r
+    torch.cuda.empty_cache()
+    return errs
+
+
+def bf16_parity():
+    """Phase 20's kernel parity on the 500-atom table: K1's bf16 build in its
+    three forms at flagship widths, K2's at l_max 2 and 1 with parity, K3's
+    bf16-hj build at (l_max, tracks) in {1, 2} x {1, 2}; returns
+    {kernel: {"fwd": err, "bwd": err}}."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
+
+    errs = {name: {"fwd": 0.0, "bwd": 0.0} for name in ("K1-bf16", "K2-bf16", "K3-bf16")}
+
+    def keep(name, e):
+        errs[name] = {kind: max(errs[name][kind], e[kind]) for kind in e}
+
+    cfg, params, system = make_case(5, None, interior="bf16")
+    eng = AllegroEngine(cfg, params, system)
+    ops, Y, u, k = layer_operands(cfg, params, system, eng)
+    gen = torch.Generator(device=Y.device).manual_seed(SEED)
+    for li, form in enumerate(FORMS):
+        keep("K1-bf16", k1_bf16_compare("500 atoms", form, (*ops[form], Y, u),
+                                        params["layers"][li], cfg, k, gen))
+    for lmax in (2, 1):
+        cfg, params, system = make_case(5, None, l_max=lmax, interior="bf16")
+        ops, k = env_operands(cfg, params, system, AllegroEngine(cfg, params, system))
+        keep("K2-bf16", k2_bf16_compare(f"l_max={lmax} 500 atoms K={k}", ops,
+                                        params["layers"][1]["mix"], cfg, k, gen))
+    for lmax in (1, 2):
+        for parity in (False, True):
+            cfg, params, system = make_nequip_case(5, None, l_max=lmax, parity=parity)
+            ops, w, k = k3_operands(cfg, params, system, NequIPEngine(cfg, params, system))
+            keep("K3-bf16", k3_bf16_compare(f"l_max={lmax} T={cfg.n_tracks} 500 atoms K={k}",
+                                            ops, w, k, cfg.avg_num_neighbors, gen))
+    return errs
+
+
+def bf16_model_parity(tier, want):
+    """Phase 20: forces and charges of an ``interior="bf16"`` model on the
+    card (the bf16 build) and of the same model at bf16 on the CPU (the
+    plain versions), each against the model at f32 on the CPU: the card's
+    distance within twice the CPU bf16 path's (the two round at bf16 in
+    places of their own, so their distance from each other is no gate;
+    it is printed), with ``want`` launches per force evaluation."""
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+
+    mods = kernel_modules()
+    outs = {}
+    for dev, interior in (("cuda", "bf16"), ("cpu", "bf16"), ("cpu", "working")):
+        cfg, params, system = make_case(5, dev, output_charges=True, interior=interior, **tier)
+        eng = AllegroEngine(cfg, params, system, device=dev)
+        nb = eng.rebuild_fn(system, None)
+        for m in mods.values():
+            m.launches.reset()
+        o = eng.force_fn(system, nb)
+        if dev == "cuda":
+            launched = {name: (m.launches.fwd, m.launches.bwd) for name, m in mods.items()
+                        if m.launches.fwd or m.launches.bwd}
+        outs[dev, interior] = (o.forces.cpu(), o.extras["charges"].cpu(), float(o.total_energy))
+    (f_k, q_k, e_k), (f_p, q_p, e_p), (f_32, q_32, e_32) = outs.values()
+    dk = (max_err(f_k, f_32), max_err(q_k, q_32))
+    dp = (max_err(f_p, f_32), max_err(q_p, q_32))
+    print(f"bf16 model parity ({tier or 'K1 tier'}, interior bf16, 500 atoms, charges; against "
+          f"the CPU f32 path): the card max|dF| {dk[0]:.3e} eV/A, max|dq| {dk[1]:.3e}; the CPU "
+          f"bf16 path {dp[0]:.3e}, {dp[1]:.3e} (gate 2 x the CPU's); card against CPU at bf16 "
+          f"{max_err(f_k, f_p):.3e}, {max_err(q_k, q_p):.3e}; max|F| {float(f_32.abs().max()):.3f}; "
+          f"E {e_k:.6f}, {e_p:.6f}, {e_32:.6f} eV; launches on the card {launched}")
+    if not (dk[0] <= 2 * dp[0] and dk[1] <= 2 * dp[1]):
+        raise RuntimeError(f"bf16 model parity gate failed ({tier})")
+    if launched != {name: (n, n) for name, n in want.items()}:
+        raise RuntimeError(f"bf16 model parity ({tier}): launched {launched}, want {want}")
+
+
+def bf16_timings(path, cfg, params, system, eng, errs):
+    """Phase 20's timings at the bf16 main paths' shapes (CUDA events, warm):
+    K1's bf16 build per form (allegro-bf16), K2's (perlayer-bf16), K3's
+    bf16-hj build (nequip-hj-bf16), beside the plain version's time on the
+    same bf16 inputs and the bound with the products at PEAK_BF16_FLOPS and
+    the bf16 numbers at 2 bytes; parity at those shapes (into ``errs``).
+    Returns {(form, kind) or kind: row}."""
+    import torch
+
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
+    res = {}
+    bf = torch.bfloat16
+    if path == "allegro-bf16":
+        from pair_allegro_tpu_torch.ops import fused_layer as fl
+
+        ops, Y, u, k = layer_operands(cfg, params, system, eng)
+        e = Y.shape[1]
+        inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+        for li, (form, (first_v, last)) in enumerate(FORMS.items()):
+            layer = params["layers"][li]
+            w = fl.k1_weights(layer, cfg.l_max, cfg.parity)
+            x, V, Yb, ub = (t.to(bf) for t in (*ops[form], Y, u))
+            dxo = torch.randn(x.shape, generator=gen, device=x.device).to(bf)
+            dvo = None if last else torch.randn((Y.shape[0], w.mix[0].shape[1], e),
+                                                generator=gen, device=x.device).to(bf)
+            k_f = cuda_ms(lambda: fl._kernel_fwd(x, V, Yb, ub, w, k, inv_avg, first_v, last), 5)
+            k_b = cuda_ms(lambda: fl._kernel_bwd(x, V, Yb, ub, w, k, inv_avg, first_v, last, dxo,
+                                                 dvo), 5)
+            with torch.no_grad():
+                p_f = cuda_ms(lambda: fl.fused_layer_reference(x, V, Yb, ub, w, k, inv_avg,
+                                                               first_v, last), 2)
+            ins = [t.detach().clone().requires_grad_(True) for t in (x, V, Yb, ub)]
+            out = fl.fused_layer_reference(*ins, w, k, inv_avg, first_v, last)
+            outs, cots = ((out,), (dxo,)) if last else (out, (dxo, dvo))
+            p_b = cuda_ms(lambda: torch.autograd.grad(outs, ins, cots, retain_graph=True), 2)
+            del ins, out, outs
+            torch.cuda.empty_cache()
+            e2 = k1_bf16_compare(f"main path E={e}", form, (*ops[form], Y, u), layer, cfg, k, gen)
+            errs.update({kind: max(errs[kind], e2[kind]) for kind in e2})
+            for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
+                bwd = kind == "bwd"
+                flops, nbytes = k1_cost(w, e, k, form, bwd, nb=2)
+                res[(form, kind)] = timing(ms, pms, flops, k1_products(w, form, bwd) * e, nbytes,
+                                           k1_weight_bytes(w, form, bwd, n_tiles(e, k)) // 2,
+                                           PEAK_BF16_FLOPS)
+                print_timing(f"K1 bf16 {kind} {form:6s} E={e}", res[(form, kind)])
+    elif path == "perlayer-bf16":
+        from pair_allegro_tpu_torch.ops import env_layer as k2
+
+        ops, k = env_operands(cfg, params, system, eng)
+        e = ops[0].shape[-1]
+        inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+        w = k2.k2_weights(params["layers"][1]["mix"], cfg.l_max, cfg.parity)
+        opb = [t.to(bf) for t in ops]
+        out, inv = k2._kernel_fwd(*opb, w, k, inv_avg)
+        dout = torch.randn(out.shape, generator=gen, device=out.device).to(bf)
+        dinv = torch.randn(inv.shape, generator=gen, device=out.device).to(bf)
+        del out, inv
+        k_f = cuda_ms(lambda: k2._kernel_fwd(*opb, w, k, inv_avg), 5)
+        k_b = cuda_ms(lambda: k2._kernel_bwd(*opb, w, k, inv_avg, dout, dinv), 5)
+        with torch.no_grad():
+            p_f = cuda_ms(lambda: k2.env_layer_reference(*opb, w, k, inv_avg), 2)
+        ins = [t.detach().clone().requires_grad_(True) for t in opb]
+        outs = k2.env_layer_reference(*ins, w, k, inv_avg)
+        p_b = cuda_ms(lambda: torch.autograd.grad(outs, ins, (dout, dinv), retain_graph=True), 2)
+        del ins, outs
+        torch.cuda.empty_cache()
+        e2 = k2_bf16_compare(f"main path E={e}", ops, params["layers"][1]["mix"], cfg, k, gen)
+        errs.update({kind: max(errs[kind], e2[kind]) for kind in e2})
+        for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
+            bwd = kind == "bwd"
+            flops, nbytes = k2_cost(w, e, bwd, nb=2)
+            _, _, ring = k2.block_layout(w.c, w.cout, ops[0].shape[0], w.lmax, w.parity, bwd)
+            # the f32 build's staging halved (packed words): an upper estimate,
+            # as a packed l3 block may stay in the ring where an f32 one does not
+            staged = mix_weight_bytes(w, bwd, n_tiles(e, k), ring) // 2
+            res[kind] = timing(ms, pms, flops, mix_products(w) * e, nbytes, staged,
+                               PEAK_BF16_FLOPS)
+            print_timing(f"K2 bf16 {kind} E={e}", res[kind])
+    else:
+        from pair_allegro_tpu_torch.ops import nequip_conv as k3
+
+        ops, w, k = k3_operands(cfg, params, system, eng)
+        e = ops[0].shape[0]
+        inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+        opb = (ops[0].to(bf), *ops[1:])
+        dagg = torch.randn((e // k, ops[0].shape[1]), generator=gen, device=system.device)
+        k_f = cuda_ms(lambda: k3._kernel_fwd(*opb, w, k, inv_avg), 10)
+        k_b = cuda_ms(lambda: k3._kernel_bwd(*opb, w, k, inv_avg, dagg), 10)
+        with torch.no_grad():
+            p_f = cuda_ms(lambda: k3.nequip_conv_reference(*opb, w, k, inv_avg), 2)
+        ins = [t.detach().clone().requires_grad_(True) for t in opb]
+        out = k3.nequip_conv_reference(*ins, w, k, inv_avg)
+        p_b = cuda_ms(lambda: torch.autograd.grad(out, ins, dagg, retain_graph=True), 2)
+        del ins, out
+        torch.cuda.empty_cache()
+        e2 = k3_bf16_compare(f"l_max={w.lmax} T={w.n_tracks} main path E={e}", ops, w, k,
+                             cfg.avg_num_neighbors, gen)
+        errs.update({kind: max(errs[kind], e2[kind]) for kind in e2})
+        df = ops[0].shape[1]
+        for kind, ms, pms in (("fwd", k_f, p_f), ("bwd", k_b, p_b)):
+            bwd = kind == "bwd"
+            flops, prod, nbytes = k3_cost(w, e, k, bwd)
+            nbytes -= 2 * df * e * (2 if bwd else 1)  # hj (and dhj) at 2 bytes
+            res[kind] = timing(ms, pms, flops, prod, nbytes, k3_weight_bytes(w, e, k, bwd))
+            print_timing(f"K3 bf16-hj {kind} E={e}", res[kind])
+    return res
+
+
+def bf16_phase(card):
+    """Phase 20: the bf16 tiers.  Kernel parity of the three bf16 builds
+    (``bf16_parity``); model parity of the K1 tier and the per-layer paths
+    tier at interior="bf16" (``bf16_model_parity``); the main paths at full
+    width (``main_path``): phase 5's run at interior="bf16" (3 + 3 K1-bf16
+    launches per force evaluation and no other kernel), the per-layer paths
+    tier at bf16 (3 + 3 K2-bf16) and phase 6's NequIP run under
+    PAT_NEQUIP_HJ=bf16 (3 + 3 K3-bf16), each beside its f32 path's steps/s
+    and peak memory from this run; the bf16 kernels' timings at those
+    paths' shapes.  Returns (errs, times, counts)."""
+    import torch
+
+    errs = bf16_parity()
+    bf16_model_parity({}, {"K1-bf16": 3})
+    bf16_model_parity(dict(layer_fused=False), {"K2-bf16": 3})
+    times, counts = {}, {}
+    for path, f32_path in (("allegro-bf16", "allegro"), ("perlayer-bf16", "perlayer"),
+                           ("nequip-hj-bf16", "nequip")):
+        with env_vars(PATHS[path][5]):
+            cfg, params, system, eng, c = main_path(path)
+            kernel = PATHS[path][2]
+            counts[kernel] = c[kernel]
+            print(f"{path} main path on {card}: {STEPS_PER_S[path]:.4f} steps/s against "
+                  f"{f32_path}'s {STEPS_PER_S.get(f32_path, float('nan')):.4f} in this run "
+                  f"({STEPS_PER_S[path] / STEPS_PER_S.get(f32_path, float('nan')):.3f}x); peak "
+                  f"device memory of the timed chunk {PEAK_GIB[path]:.2f} GiB against "
+                  f"{PEAK_GIB.get(f32_path, float('nan')):.2f} GiB")
+            times[kernel] = bf16_timings(path, cfg, params, system, eng, errs[kernel])
+        del cfg, params, system, eng
+        torch.cuda.empty_cache()
+    return errs, times, counts
+
+
 TIMINGS = {"body": ("K1", "K6", "K8"), "env": ("K2", "K5"), "flat": ("K4",), "nequip": ("K3",)}
 
 
@@ -3722,8 +4125,9 @@ def main() -> int:
     times8, errs8 = stack_timings(scfg, sparams, ssystem, seng, errs8)
     del sparams, ssystem, seng
     torch.cuda.empty_cache()
-    accuracy_phase()
     card = smi.stdout.strip().splitlines()[0]
+    errs20, times20, counts20 = bf16_phase(card)
+    accuracy_phase()
     cli_phase(card)
     counts17, _ = scale_phase(card)
     train_phase(card)
@@ -3797,6 +4201,35 @@ def main() -> int:
             f"k8_fused_stack_{kind}", "pair_allegro_tpu_torch/csrc/fused_stack.cu",
             f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts_s["K8"], kind, errs8[kind],
             times8[kind], per="call", calls_per_force_evaluation=1, layers=scfg.num_layers,
+        ))
+    # the bf16 builds (phase 20): the bound with the bf16 products at
+    # PEAK_BF16_FLOPS (K3's products stay 3xTF32) and the bf16 numbers at 2 bytes
+    for kind, line in (("fwd", 1094), ("bwd", 1139)):
+        per = {f: times20["K1-bf16"][(f, kind)] for f in FORMS}
+        total = {key: sum(r[key] for r in per.values()) for key in ("ms", "plain_ms", "bound_ms")}
+        total["bound_by"] = ("operations" if all(r["bound_by"] == "operations"
+                                                 for r in per.values()) else "bytes")
+        kernels.append(kernel_entry(
+            f"k1_fused_layer_bf16_{kind}", "pair_allegro_tpu_torch/csrc/fused_layer_bf16.cu",
+            f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts20["K1-bf16"], kind,
+            errs20["K1-bf16"][kind], total, dtype="bf16",
+            ms_by_form={f: r["ms"] for f, r in per.items()},
+            plain_ms_by_form={f: r["plain_ms"] for f, r in per.items()},
+            bound_ms_by_form={f: r["bound_ms"] for f, r in per.items()},
+        ))
+    for kind, line in (("fwd", 803), ("bwd", 823)):
+        kernels.append(kernel_entry(
+            f"k2_env_layer_bf16_{kind}", "pair_allegro_tpu_torch/csrc/env_layer_bf16.cu",
+            f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts20["K2-bf16"], kind,
+            errs20["K2-bf16"][kind], times20["K2-bf16"][kind], per="call",
+            calls_per_force_evaluation=pcfg.num_layers, dtype="bf16",
+        ))
+    for kind, line in (("fwd", 289), ("bwd", 401)):
+        kernels.append(kernel_entry(
+            f"k3_nequip_conv_bf16_{kind}", "pair_allegro_tpu_torch/csrc/nequip_conv_bf16.cu",
+            f"pair_allegro_tpu/ops/pallas_nequip.py:{line}", counts20["K3-bf16"], kind,
+            errs20["K3-bf16"][kind], times20["K3-bf16"][kind], per="call",
+            calls_per_force_evaluation=ncfg.num_layers, dtype="bf16 hj",
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,14 @@
 // in by cp.async.  What K1 computes and why it is laid out so is at the top
 // of fused_layer.cu, what the prologue and the epilogue add at the top of
 // embed_readout_layer.cu.
+//
+// The body is templated on the activations' storage type (K1T<Act>): f32
+// for every form, and bf16 for PLAIN (fused_layer_bf16.cu, K1 on the
+// interior="bf16" tier).  At bf16 the activations are read from and written
+// to device memory as bf16 and converted to and from f32 in the shared
+// tiles, so the TP, the env sums and the elementwise work run in f32
+// registers, and every product runs one bf16 tensor-core pass on
+// pair-packed weights (allegro_mma.cuh prod).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,10 +63,16 @@ struct MlpTab {
 };
 constexpr int MT_WORDS = sizeof(MlpTab) / 4;
 
-struct K1P {
-  const float *x, *V, *Y, *u, *envw, *envwT, *lat, *latT, *mix, *mixT, *dxo, *dvo;
+// The launch's parameters; Act is the storage type of the activations and
+// their cotangents (x, V, Y, u in, xo, vo, dx, dV, dY, du out), whose
+// weights are f32 at f32 and pair-packed bf16 words at bf16.
+template <typename Act>
+struct K1T {
+  const Act *x, *V, *Y, *u;
+  const float *envw, *envwT, *lat, *latT, *mix, *mixT;
+  const Act *dxo, *dvo;
   const int* meta;
-  float *xo, *vo, *dx, *dV, *dY, *du;
+  Act *xo, *vo, *dx, *dV, *dY, *du;
   int ns, C, Cout, D, K, E, nlat, first_v, last, maxw, maxpc, in0;
   float inv_avg, cns;
   int o_env, o_denv, o_cat, o_V, o_pT, o_Y, o_u, o_du, o_R;
@@ -87,31 +101,33 @@ struct K1P {
   // by 16-byte cp.async
   int lds, ring, o_ring, o_perm, o_p, vec;
 };
+using K1P = K1T<float>;
 constexpr int P_WORDS = 128;  // shared words that hold STACK's copy of its layer's K1P
 static_assert(sizeof(K1P) <= 4 * P_WORDS, "K1P exceeds its shared-memory slot");
 
-__device__ __forceinline__ float* ring_of(const K1P& p) {
+template <typename Act>
+__device__ __forceinline__ float* ring_of(const K1T<Act>& p) {
   extern __shared__ float sm[];
   return sm + p.o_ring;
 }
 
 // x, V and the cotangents dx', dV' of a tile: STACK reads memory its own
 // kernel wrote, the other forms read-only inputs
-template <int F>
-__device__ __forceinline__ void load_act(const K1P& p, const float* src, int rows, int e0, int ne,
-                                         float* dst, int ld) {
+template <int F, typename Act>
+__device__ __forceinline__ void load_act(const K1T<Act>& p, const Act* src, int rows, int e0,
+                                         int ne, float* dst, int ld) {
   load_tile_async<F != STACK>(src, rows, p.E, e0, ne, dst, ld, p.vec);
 }
 
-template <int F, int L>
-__device__ __forceinline__ void load_act(const K1P& p, const float* src, int rows, int e0, int ne,
-                                         float* dst) {
+template <int F, int L, typename Act>
+__device__ __forceinline__ void load_act(const K1T<Act>& p, const Act* src, int rows, int e0,
+                                         int ne, float* dst) {
   load_act<F>(p, src, rows, e0, ne, dst, L);
 }
 
 // Y, u, the input rows and the heads' cotangents: read-only inputs
-template <int L>
-__device__ __forceinline__ void load_in(const K1P& p, const float* src, int rows, int e0, int ne,
+template <int L, typename Act, typename T>
+__device__ __forceinline__ void load_in(const K1T<Act>& p, const T* src, int rows, int e0, int ne,
                                         float* dst) {
   load_tile_async<true>(src, rows, p.E, e0, ne, dst, L, p.vec);
 }
@@ -126,9 +142,9 @@ __device__ __forceinline__ float dsilu(float z) {
 // Forward of a prologue / epilogue MLP on one tile: hin (t.dim[0] rows) ->
 // out (t.dim[t.n] rows); hidden activations ping-pong through hA / hB, and
 // the pre-activations are kept in zs (slots of t.maxw rows) when given.
-template <int L>
-__device__ void mlp_fwd(const K1P& p, const MlpTab& t, const float* w, const float* hin, float* hA,
-                        float* hB, float* zs, float* out) {
+template <int L, typename Act>
+__device__ void mlp_fwd(const K1T<Act>& p, const MlpTab& t, const float* w, const float* hin,
+                        float* hA, float* hB, float* zs, float* out) {
   for (int li = 0; li < t.n; ++li) {
     const int din = t.dim[li], dout = t.dim[li + 1];
     const bool hidden = li < t.n - 1;
@@ -159,8 +175,8 @@ __device__ void mlp_fwd(const K1P& p, const MlpTab& t, const float* w, const flo
 // Backward of mlp_fwd from g (t.dim[t.n] rows) with the kept pre-activations
 // zs; g and g2 (each as wide as the widest layer) ping-pong and g is
 // overwritten.  Returns the buffer that holds d(hin) (t.dim[0] rows).
-template <int L>
-__device__ float* mlp_bwd(const K1P& p, const MlpTab& t, const float* w, const float* wT,
+template <int L, typename Act>
+__device__ float* mlp_bwd(const K1T<Act>& p, const MlpTab& t, const float* w, const float* wT,
                           const float* zs, float* g, float* g2) {
   for (int li = t.n - 1; li >= 0; --li) {
     const int din = t.dim[li], dout = t.dim[li + 1];
@@ -194,9 +210,9 @@ __device__ float* mlp_bwd(const K1P& p, const MlpTab& t, const float* w, const f
 // The input rows go to ins (t.dim[0] rows, the padding rows zeroed), hidden
 // activations ping-pong through hA / hB; with zs the pre-activations are
 // kept there and x0 (before * u) in x0s.
-template <int L>
-__device__ void embed_x(const K1P& p, const MlpTab& t, int e0, int ne, const float* us, float* xs,
-                        float* ins, float* hA, float* hB, float* zs, float* x0s) {
+template <int L, typename Act>
+__device__ void embed_x(const K1T<Act>& p, const MlpTab& t, int e0, int ne, const float* us,
+                        float* xs, float* ins, float* hA, float* hB, float* zs, float* x0s) {
   load_in<L>(p, p.in, p.n_in, e0, ne, ins);
   for (int q = threadIdx.x; q < (t.dim[0] - p.n_in) * ET; q += NT)
     ins[(p.n_in + q / ET) * L + q % ET] = 0.f;
@@ -213,8 +229,8 @@ __device__ void embed_x(const K1P& p, const MlpTab& t, int e0, int ne, const flo
 // env[d*C + c] = inv_avg * sum over the center's edges of wz[c] * Y[d];
 // xs (ns rows), Ys, us and wz (C rows) are scratch tiles (EMBED: the
 // prologue's scratch starts at wz).
-template <int F, int L>
-__device__ void center_env(const K1P& p, const MlpTab* mt, int center, float* env, float* xs,
+template <int F, int L, typename Act>
+__device__ void center_env(const K1T<Act>& p, const MlpTab* mt, int center, float* env, float* xs,
                            float* Ys, float* us, float* wz) {
   const int C = p.C, D = p.D;
   for (int q = threadIdx.x; q < D * C; q += NT) env[q] = 0.f;
@@ -230,7 +246,7 @@ __device__ void center_env(const K1P& p, const MlpTab* mt, int center, float* en
       load_act<F, L>(p, p.x, p.ns, e0, ne, xs);
       tiles_ready();
     }
-    mma_tile(p.envw, p.ns, C, xs, L, wz, L, p.cns, ET, ring_of(p), p.ring);
+    prod<Act>(p.envw, p.ns, C, xs, L, wz, L, p.cns, ET, ring_of(p), p.ring);
     __syncthreads();
     // (d, c) = (q % D, q / D): a warp reads few distinct wz rows
     for (int q = threadIdx.x; q < D * C; q += NT) {
@@ -246,8 +262,8 @@ __device__ void center_env(const K1P& p, const MlpTab* mt, int center, float* en
 }
 
 // V0 = pT * Y on one tile
-template <int L>
-__device__ void build_v0(const K1P& p, const float* pTs, const float* Ys, float* Vs) {
+template <int L, typename Act>
+__device__ void build_v0(const K1T<Act>& p, const float* pTs, const float* Ys, float* Vs) {
   for (int q = threadIdx.x; q < p.D * p.C * ET; q += NT) {
     const int row = q / ET, n = q % ET;
     Vs[row * LDV + n] = pTs[(row % p.C) * L + n] * Ys[(row / p.C) * L + n];
@@ -256,9 +272,9 @@ __device__ void build_v0(const K1P& p, const float* pTs, const float* Ys, float*
 
 // x (into cat rows [0, ns)), Y, u and V (built from pT when first_v); EMBED
 // makes x and pT in the prologue, with its scratch at scr.
-template <int F, int L>
-__device__ void load_edges(const K1P& p, const MlpTab* mt, int e0, int ne, float* cat, float* Ys,
-                           float* us, float* Vs, float* pTs, float* scr) {
+template <int F, int L, typename Act>
+__device__ void load_edges(const K1T<Act>& p, const MlpTab* mt, int e0, int ne, float* cat,
+                           float* Ys, float* us, float* Vs, float* pTs, float* scr) {
   const int C = p.C, D = p.D;
   load_in<L>(p, p.Y, D, e0, ne, Ys);
   load_in<L>(p, p.u, 1, e0, ne, us);
@@ -284,8 +300,8 @@ __device__ void load_edges(const K1P& p, const MlpTab* mt, int e0, int ne, float
 // latent MLP forward on one tile: input cat (in0 rows), hidden activations
 // ping-pong through hA/hB; pre-activations saved into zs when given; the
 // output (ns rows) goes to out.
-template <int L>
-__device__ void latent_fwd(const K1P& p, const Meta& m, const float* cat, float* hA, float* hB,
+template <int L, typename Act>
+__device__ void latent_fwd(const K1T<Act>& p, const Meta& m, const float* cat, float* hA, float* hB,
                            float* zs, float* out) {
   const float* hin = cat;
   for (int li = 0; li < p.nlat; ++li) {
@@ -293,8 +309,8 @@ __device__ void latent_fwd(const K1P& p, const Meta& m, const float* cat, float*
     const bool hidden = li < p.nlat - 1;
     float* h = (li & 1) ? hB : hA;
     float* z = !hidden ? out : (zs ? zs + (size_t)li * p.maxw * L : h);
-    mma_tile(p.lat + m.latoff[li], din, dout, hin, L, z, L, rsqrtf((float)din), ET, ring_of(p),
-             p.ring);
+    prod<Act>(p.lat + wofs<Act>(m.latoff[li]), din, dout, hin, L, z, L, rsqrtf((float)din), ET,
+              ring_of(p), p.ring);
     __syncthreads();
     if (hidden) {
       for (int q = threadIdx.x; q < dout * ET; q += NT) {
@@ -308,8 +324,8 @@ __device__ void latent_fwd(const K1P& p, const Meta& m, const float* cat, float*
 }
 
 // x' = (x + xn * u) / sqrt(2) in place of x (cat rows [0, ns))
-template <int L>
-__device__ void residual_in_place(const K1P& p, float* cat, const float* xn, const float* us) {
+template <int L, typename Act>
+__device__ void residual_in_place(const K1T<Act>& p, float* cat, const float* xn, const float* us) {
   for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
     const int s = q / ET, n = q % ET;
     cat[s * L + n] = (cat[s * L + n] + xn[s * L + n] * us[n]) * R2;
@@ -321,8 +337,8 @@ __device__ void residual_in_place(const K1P& p, float* cat, const float* xn, con
 // row head(x') * u to device memory.  Scratch: two ping-pong buffers of
 // xmaxw rows and one output row per head (xn may lie there: the residual
 // consumes it first).
-template <int L>
-__device__ void heads_fwd(const K1P& p, const MlpTab* mt, float* cat, const float* xn,
+template <int L, typename Act>
+__device__ void heads_fwd(const K1T<Act>& p, const MlpTab* mt, float* cat, const float* xn,
                           const float* us, int e0, int ne, float* scr) {
   residual_in_place<L>(p, cat, xn, us);
   float* hA = scr;
@@ -341,8 +357,8 @@ __device__ void heads_fwd(const K1P& p, const MlpTab* mt, float* cat, const floa
 // d(c * head(x') * u)/dx', and dus = sum over heads of c * head(x').
 // Scratch: two ping-pong buffers of max(xmaxw, ns) rows, the heads'
 // pre-activations (hzrows) and two rows.
-template <int L>
-__device__ void heads_bwd(const K1P& p, const MlpTab* mt, float* cat, const float* xn,
+template <int L, typename Act>
+__device__ void heads_bwd(const K1T<Act>& p, const MlpTab* mt, float* cat, const float* xn,
                           const float* us, int e0, int ne, float* dxo, float* dus, float* scr) {
   const int hg = imax(p.xmaxw, p.ns);
   float* P0 = scr;
@@ -373,8 +389,8 @@ __device__ void heads_bwd(const K1P& p, const MlpTab* mt, float* cat, const floa
 // EMBED backward prologue on one tile, after the env backward: the whole
 // dx = the pass-1 partial (device memory) + dxa; du += sum_s dx * x0; and
 // d(in) = the two-body MLP's backward of dx * u, its real n_in rows.
-template <int L>
-__device__ void embed_bwd(const K1P& p, const MlpTab& t, int e0, int ne, const float* us,
+template <int L, typename Act>
+__device__ void embed_bwd(const K1T<Act>& p, const MlpTab& t, int e0, int ne, const float* us,
                           float* dxa, const float* x0s, const float* tbz, float* gA, float* gB) {
   for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
     const int s = q / ET, n = q % ET;
@@ -395,7 +411,8 @@ __device__ void embed_bwd(const K1P& p, const MlpTab& t, int e0, int ne, const f
   }
 }
 
-__device__ void load_tables(const K1P& p) {
+template <typename Act>
+__device__ void load_tables(const K1T<Act>& p) {
   extern __shared__ float sm[];
   for (int q = threadIdx.x; q < 2 * MT_WORDS; q += NT)
     reinterpret_cast<int*>(sm + p.o_mt)[q] = __ldg(p.mt + q);
@@ -403,8 +420,8 @@ __device__ void load_tables(const K1P& p) {
 
 // One layer's forward for the block's center (blockIdx.x), the tables
 // already in shared memory (m, and mt for EMBED / READOUT).
-template <int F, int L>
-__device__ __forceinline__ void layer_fwd(const K1P& p, const Meta& m, const MlpTab* mt) {
+template <int F, int L, typename Act>
+__device__ __forceinline__ void layer_fwd(const K1T<Act>& p, const Meta& m, const MlpTab* mt) {
   extern __shared__ float sm[];
   const int center = blockIdx.x;
   float* env = sm + p.o_env;
@@ -428,14 +445,14 @@ __device__ __forceinline__ void layer_fwd(const K1P& p, const Meta& m, const Mlp
     for (int r = 0; r < nrows; ++r) {
       const int kd = m.rowP[r] * p.C;
       // the mix block loads while the TP runs
-      if (!p.last && !mix_resident(m, r, kd, p.Cout, p.ring))
-        mma_stage(p.mix + m.rowmix[r], kd, p.Cout, ring, p.ring);
+      if (!p.last && !resident<Act>(m, r, kd, p.Cout, p.ring))
+        stage<Act>(p.mix + wofs<Act>(m.rowmix[r]), kd, p.Cout, ring, p.ring);
       float* T = r == 0 ? cat + p.ns * L : R;  // row 0 is inv (p-major)
       tp_row_reg(p.C, m, r, Vs, env, T, L);
       __syncthreads();
       if (!p.last) {
-        mma_tile(p.mix + m.rowmix[r], kd, p.Cout, T, L, p.vo + (size_t)r * p.Cout * p.E + e0,
-                 p.E, m.rownorm[r], ne, ring, p.ring, true);
+        prod<Act>(p.mix + wofs<Act>(m.rowmix[r]), kd, p.Cout, T, L,
+                  p.vo + (size_t)r * p.Cout * p.E + e0, p.E, m.rownorm[r], ne, ring, p.ring, true);
         __syncthreads();
       }
     }
@@ -446,7 +463,7 @@ __device__ __forceinline__ void layer_fwd(const K1P& p, const Meta& m, const Mlp
       for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
         const int s = q / ET, n = q % ET;
         if (n < ne)
-          p.xo[(size_t)s * p.E + e0 + n] = (cat[s * L + n] + xn[s * L + n] * us[n]) * R2;
+          st_act(p.xo + (size_t)s * p.E + e0 + n, (cat[s * L + n] + xn[s * L + n] * us[n]) * R2);
       }
     }
     __syncthreads();
@@ -455,8 +472,8 @@ __device__ __forceinline__ void layer_fwd(const K1P& p, const Meta& m, const Mlp
 
 // One layer's backward for the block's center, the tables already in
 // shared memory.
-template <int F, int L>
-__device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const MlpTab* mt) {
+template <int F, int L, typename Act>
+__device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, const MlpTab* mt) {
   extern __shared__ float sm[];
   const int center = blockIdx.x;
   const int C = p.C, D = p.D, ns = p.ns, E = p.E;
@@ -491,8 +508,8 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
   auto issue_row = [&](int r, int e0, int ne) {
     load_act<F, L>(p, p.dvo + (size_t)r * p.Cout * E, p.Cout, e0, ne, dVo);
     const int kd = m.rowP[r] * C;
-    if (!mix_resident(m, r, p.Cout, kd, p.ring))
-      mma_stage(p.mixT + m.rowmix[r], p.Cout, kd, ring, p.ring);
+    if (!resident<Act>(m, r, p.Cout, kd, p.ring))
+      stage<Act>(p.mixT + wofs<Act>(m.rowmix[r]), p.Cout, kd, ring, p.ring);
   };
 
   // pass 1: latent forward + backward, TP/mix backward, denv accumulation
@@ -527,7 +544,8 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
         }
         __syncthreads();
       }
-      mma_tile(p.latT + m.latoff[li], dout, din, g, L, g2, L, rsqrtf((float)din), ET, ring, p.ring);
+      prod<Act>(p.latT + wofs<Act>(m.latoff[li]), dout, din, g, L, g2, L, rsqrtf((float)din), ET,
+                ring, p.ring);
       __syncthreads();
       float* tmp = g;
       g = g2;
@@ -538,10 +556,10 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
     // inv rows of cat so that phase 2 may reuse the scratch.
     for (int q = threadIdx.x; q < ns * ET; q += NT) {
       const int s = q / ET, n = q % ET;
-      if (n < ne) p.dx[(size_t)s * E + e0 + n] = dxo[s * L + n] * R2 + g[s * L + n];
+      if (n < ne) st_act(p.dx + (size_t)s * E + e0 + n, dxo[s * L + n] * R2 + g[s * L + n]);
     }
     for (int n = threadIdx.x; n < ne; n += NT)
-      p.du[e0 + n] = F == STACK && p.acc ? p.du[e0 + n] + dus[n] : dus[n];
+      st_act(p.du + e0 + n, F == STACK && p.acc ? ld_act(p.du + e0 + n) + dus[n] : dus[n]);
     for (int q = threadIdx.x; q < (p.in0 - ns) * ET; q += NT) {
       const int row = ns + q / ET, n = q % ET;
       cat[row * L + n] = g[row * L + n];
@@ -555,8 +573,8 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
       const float* dTr = dinv;
       if (!p.last) {
         tiles_ready();
-        mma_tile(p.mixT + m.rowmix[r], p.Cout, m.rowP[r] * C, dVo, L, dT, L, m.rownorm[r], ET,
-                 ring, p.ring, true);
+        prod<Act>(p.mixT + wofs<Act>(m.rowmix[r]), p.Cout, m.rowP[r] * C, dVo, L, dT, L,
+                  m.rownorm[r], ET, ring, p.ring, true);
         __syncthreads();
         if (r + 1 < nrows) issue_row(r + 1, e0, ne);  // loads while this row's TP runs
         if (r == 0) {
@@ -599,23 +617,23 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
         const int cc = q / ET, n = q % ET;
         float s = 0.f;
         for (int d = 0; d < D; ++d) s = fmaf(dVs[(d * C + cc) * LDV + n], Ys[d * L + n], s);
-        if (n < ne) p.dV[(size_t)cc * E + e0 + n] = s;
+        if (n < ne) st_act(p.dV + (size_t)cc * E + e0 + n, s);
       }
       for (int q = threadIdx.x; q < D * ET; q += NT) {  // dY = sum_c dV0[d] * pT
         const int d = q / ET, n = q % ET;
         float s = 0.f;
         for (int cc = 0; cc < C; ++cc) s = fmaf(dVs[(d * C + cc) * LDV + n], pTs[cc * L + n], s);
-        if (F == STACK && p.acc && n < ne) s += p.dY[(size_t)d * E + e0 + n];
-        if (n < ne) p.dY[(size_t)d * E + e0 + n] = s;
+        if (F == STACK && p.acc && n < ne) s += ld_act(p.dY + (size_t)d * E + e0 + n);
+        if (n < ne) st_act(p.dY + (size_t)d * E + e0 + n, s);
       }
     } else {
       for (int q = threadIdx.x; q < D * C * ET; q += NT) {
         const int row = q / ET, n = q % ET;
-        if (n < ne) p.dV[(size_t)row * E + e0 + n] = dVs[row * LDV + n];
+        if (n < ne) st_act(p.dV + (size_t)row * E + e0 + n, dVs[row * LDV + n]);
       }
       for (int q = threadIdx.x; !(F == STACK && p.acc) && q < D * ET; q += NT) {
         const int d = q / ET, n = q % ET;
-        if (n < ne) p.dY[(size_t)d * E + e0 + n] = 0.f;
+        if (n < ne) st_act(p.dY + (size_t)d * E + e0 + n, 0.f);
       }
     }
     __syncthreads();
@@ -645,7 +663,7 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
       load_act<F, L>(p, p.x, ns, e0, ne, cat);
       tiles_ready();
     }
-    mma_tile(p.envw, ns, C, cat, L, wz0, L, p.cns, ET, ring, p.ring);
+    prod<Act>(p.envw, ns, C, cat, L, wz0, L, p.cns, ET, ring, p.ring);
     for (int q = threadIdx.x; q < C * ET; q += NT) {
       const int cc = q / ET, n = q % ET;
       float s = 0.f;
@@ -657,12 +675,15 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
       const int d = q / ET, n = q % ET;
       float s = 0.f;
       for (int cc = 0; cc < C; ++cc) s = fmaf(denv[d * C + cc], wz0[cc * L + n], s);
-      if (n < ne) p.dY[(size_t)d * E + e0 + n] += s * us[n];
+      if (n < ne) {
+        Act* q = p.dY + (size_t)d * E + e0 + n;
+        st_act(q, ld_act(q) + s * us[n]);
+      }
     }
     for (int n = threadIdx.x; n < ne; n += NT) {
       float s = 0.f;
       for (int cc = 0; cc < C; ++cc) s = fmaf(dwz[cc * L + n], wz0[cc * L + n], s);
-      p.du[e0 + n] += s;
+      st_act(p.du + e0 + n, ld_act(p.du + e0 + n) + s);
     }
     __syncthreads();
     for (int q = threadIdx.x; q < C * ET; q += NT) {
@@ -670,22 +691,25 @@ __device__ __forceinline__ void layer_bwd(const K1P& p, const Meta& m, const Mlp
       dwz[cc * L + n] *= us[n];
     }
     __syncthreads();
-    mma_tile(p.envwT, C, ns, dwz, L, dxa, L, p.cns, ET, ring, p.ring);
+    prod<Act>(p.envwT, C, ns, dwz, L, dxa, L, p.cns, ET, ring, p.ring);
     __syncthreads();
     if constexpr (F == EMBED) {
       embed_bwd<L>(p, mt[0], e0, ne, us, dxa, x0s, tbz, tA, tB);
     } else {
       for (int q = threadIdx.x; q < ns * ET; q += NT) {
         const int s = q / ET, n = q % ET;
-        if (n < ne) p.dx[(size_t)s * E + e0 + n] += dxa[s * L + n];
+        if (n < ne) {
+          Act* q = p.dx + (size_t)s * E + e0 + n;
+          st_act(q, ld_act(q) + dxa[s * L + n]);
+        }
       }
     }
     __syncthreads();
   }
 }
 
-template <int F, int L>
-__global__ void __launch_bounds__(NT, 2) k1_fwd_kernel(const __grid_constant__ K1P p) {
+template <int F, int L, typename Act>
+__global__ void __launch_bounds__(NT, 2) k1_fwd_kernel(const __grid_constant__ K1T<Act> p) {
   extern __shared__ float sm[];
   if constexpr (F != PLAIN) load_tables(p);
   load_meta(p.meta, reinterpret_cast<int*>(sm));
@@ -693,8 +717,8 @@ __global__ void __launch_bounds__(NT, 2) k1_fwd_kernel(const __grid_constant__ K
                   reinterpret_cast<const MlpTab*>(sm + p.o_mt));
 }
 
-template <int F, int L>
-__global__ void __launch_bounds__(NT, 1) k1_bwd_kernel(const __grid_constant__ K1P p) {
+template <int F, int L, typename Act>
+__global__ void __launch_bounds__(NT, 1) k1_bwd_kernel(const __grid_constant__ K1T<Act> p) {
   extern __shared__ float sm[];
   if constexpr (F != PLAIN) load_tables(p);
   load_meta(p.meta, reinterpret_cast<int*>(sm));
@@ -706,26 +730,27 @@ __global__ void __launch_bounds__(NT, 1) k1_bwd_kernel(const __grid_constant__ K
 // ptrs: x, V, Y, u, envw, envwT, lat, latT, mix, mixT, dxo, dvo, meta,
 //       xo, vo, dx, dV, dY, du  (unused ones may be 0)
 // dims: ns, C, Cout, D, K, E, nlat, first_v, last, maxw, maxpc, in0
-void k1_params(K1P& p, const unsigned long long* ptrs, const int* dims, float inv_avg) {
-  p.x = (const float*)ptrs[0];
-  p.V = (const float*)ptrs[1];
-  p.Y = (const float*)ptrs[2];
-  p.u = (const float*)ptrs[3];
+template <typename Act>
+void k1_params(K1T<Act>& p, const unsigned long long* ptrs, const int* dims, float inv_avg) {
+  p.x = (const Act*)ptrs[0];
+  p.V = (const Act*)ptrs[1];
+  p.Y = (const Act*)ptrs[2];
+  p.u = (const Act*)ptrs[3];
   p.envw = (const float*)ptrs[4];
   p.envwT = (const float*)ptrs[5];
   p.lat = (const float*)ptrs[6];
   p.latT = (const float*)ptrs[7];
   p.mix = (const float*)ptrs[8];
   p.mixT = (const float*)ptrs[9];
-  p.dxo = (const float*)ptrs[10];
-  p.dvo = (const float*)ptrs[11];
+  p.dxo = (const Act*)ptrs[10];
+  p.dvo = (const Act*)ptrs[11];
   p.meta = (const int*)ptrs[12];
-  p.xo = (float*)ptrs[13];
-  p.vo = (float*)ptrs[14];
-  p.dx = (float*)ptrs[15];
-  p.dV = (float*)ptrs[16];
-  p.dY = (float*)ptrs[17];
-  p.du = (float*)ptrs[18];
+  p.xo = (Act*)ptrs[13];
+  p.vo = (Act*)ptrs[14];
+  p.dx = (Act*)ptrs[15];
+  p.dV = (Act*)ptrs[16];
+  p.dY = (Act*)ptrs[17];
+  p.du = (Act*)ptrs[18];
   p.ns = dims[0];
   p.C = dims[1];
   p.Cout = dims[2];
@@ -746,14 +771,16 @@ bool aligned16(const void* q) { return ((uintptr_t)q & 15) == 0; }
 // Whether the tiles of p load as 16-byte cp.async (every row start and
 // tile start 16-byte aligned), and whether the weights the products stage
 // are 16-byte aligned (the wrappers' layouts always are).
-bool tiles_vec(const K1P& p) {
+template <typename Act>
+bool tiles_vec(const K1T<Act>& p) {
   const void* act[] = {p.x, p.V, p.Y, p.u, p.dxo, p.dvo, p.in, p.dh0, p.dh1};
   bool ok = p.E % 4 == 0 && p.K % 4 == 0;
   for (const void* q : act) ok = ok && aligned16(q);
   return ok;
 }
 
-bool weights_aligned(const K1P& p) {
+template <typename Act>
+bool weights_aligned(const K1T<Act>& p) {
   const void* w[] = {p.envw, p.envwT, p.lat, p.latT, p.mix, p.mixT, p.te, p.teT, p.ew, p.ewT};
   bool ok = true;
   for (const void* q : w) ok = ok && aligned16(q);
@@ -768,8 +795,8 @@ bool weights_aligned(const K1P& p) {
 // (allegro_mma.cuh).  Every region starts on 16 bytes (cp.async).  Returns
 // the block's bytes, or a negative code for a shape the kernel does not
 // take.
-template <int F>
-int layer_layout(int bwd, K1P& p) {
+template <int F, typename Act>
+int layer_layout(int bwd, K1T<Act>& p) {
   p.cns = 1.0f / sqrtf((float)p.ns);
   if (p.D > MAX_D || p.nlat < 1 || p.nlat > MAX_LAT) return -1;
   if (NT % p.C || NT / p.C > ET) return -2;  // C a multiple of 8: the TP's cells
@@ -846,16 +873,16 @@ int layer_layout(int bwd, K1P& p) {
 // stride the layout chose.  Returns 0, a negative code for a shape the
 // kernel does not take (-9: a weight not 16-byte aligned), or the
 // cudaError_t of the launch.
-template <int F>
-int layer_launch(int bwd, K1P& p, void* stream) {
+template <int F, typename Act>
+int layer_launch(int bwd, K1T<Act>& p, void* stream) {
   const int bytes = layer_layout<F>(bwd, p);
   if (bytes < 0) return bytes;
   if (!weights_aligned(p)) return -9;
   p.vec = tiles_vec(p);
   const bool wide = p.lds == LDS_WIDE;
-  void (*kernel)(const K1P) =
-      bwd ? (wide ? k1_bwd_kernel<F, LDS_WIDE> : k1_bwd_kernel<F, LDS_MIN>)
-          : (wide ? k1_fwd_kernel<F, LDS_WIDE> : k1_fwd_kernel<F, LDS_MIN>);
+  void (*kernel)(const K1T<Act>) =
+      bwd ? (wide ? k1_bwd_kernel<F, LDS_WIDE, Act> : k1_bwd_kernel<F, LDS_MIN, Act>)
+          : (wide ? k1_fwd_kernel<F, LDS_WIDE, Act> : k1_fwd_kernel<F, LDS_MIN, Act>);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;

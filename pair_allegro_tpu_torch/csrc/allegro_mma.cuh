@@ -36,10 +36,23 @@
 // forms before them took.  The body and K2 are built for each stride: a
 // stride read at run time cost the backward ~9% on the H100 (PERF.md).
 //
+// bf16 operands (K1 and K2 built on __nv_bfloat16 activations).  The same
+// product (mma_tile's PAIRS form) runs one mma.sync.m16n8k16 bf16 pass a
+// k-step of 16 with f32 accumulation, the rounding of the TPU kernels' bf16
+// dots (pallas_stack.py _mm: one pass, f32 accumulation).  Its weights are
+// pair-packed by the wrapper: a (Kd, M) matrix is stored as Kd/2 rows of M
+// 32-bit words, word (k2, m) holding A[2 k2][m] in its low and A[2 k2 + 1][m]
+// in its high half, so the ring stages them unchanged, in half the bytes,
+// and an A fragment is the same four word loads as a TF32 one.  B stays an
+// f32 shared tile, its pairs rounded to bf16 as the fragments load.
+// prod / stage / resident pick the f32 or the bf16 form from the
+// activations' storage type.
+//
 // The PTX primitives (mma.sync, cvt.rna.tf32, cp.async and its groups, and
 // their g++ stand-in emulations) are in mma_ptx.cuh, which K5 shares.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -127,12 +140,22 @@ struct WarpTile {
   __device__ WarpTile() : wm((threadIdx.x >> 5) / WN), n0((threadIdx.x >> 5) % WN * 8) {}
 };
 
-// The warp's up to TW/8 m16n8 accumulators (hi*hi' in acc, the corrections
-// in cor) of the pass at output row g0 to out[r*ldo + n], n < nvalid.
-template <int TW>
-__device__ __forceinline__ void mma_store(const float (&acc)[TW / 8][4],
-                                          const float (&cor)[TW / 8][4], int g0, int m16, int M,
-                                          float* out, int ldo, float scale, int nvalid) {
+// Activation storage: f32, or bf16 (rounded to nearest on store).
+template <typename T>
+constexpr bool IS_BF16 = false;
+template <>
+constexpr bool IS_BF16<__nv_bfloat16> = true;
+
+__device__ __forceinline__ float ld_act(const float* q) { return *q; }
+__device__ __forceinline__ float ld_act(const __nv_bfloat16* q) { return __bfloat162float(*q); }
+__device__ __forceinline__ void st_act(float* q, float v) { *q = v; }
+__device__ __forceinline__ void st_act(__nv_bfloat16* q, float v) { *q = __float2bfloat16_rn(v); }
+
+// The warp's up to TW/8 m16n8 accumulators of the pass at output row g0 to
+// out[r*ldo + n], n < nvalid, times scale.
+template <int TW, typename O>
+__device__ __forceinline__ void mma_store(const float (&acc)[TW / 8][4], int g0, int m16, int M,
+                                          O* out, int ldo, float scale, int nvalid) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const WarpTile<TW> w;
@@ -145,19 +168,70 @@ __device__ __forceinline__ void mma_store(const float (&acc)[TW / 8][4],
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + 8 * h;
       if (r >= M) continue;
-      if (n < nvalid) out[(size_t)r * ldo + n] = (acc[i][2 * h] + cor[i][2 * h]) * scale;
-      if (n + 1 < nvalid)
-        out[(size_t)r * ldo + n + 1] = (acc[i][2 * h + 1] + cor[i][2 * h + 1]) * scale;
+      if (n < nvalid) st_act(out + (size_t)r * ldo + n, acc[i][2 * h] * scale);
+      if (n + 1 < nvalid) st_act(out + (size_t)r * ldo + n + 1, acc[i][2 * h + 1] * scale);
     }
   }
 }
 
-// mma_tile without a ring (rw = 0): the A fragments straight from device
-// memory through the read-only cache, rows past Kd and M read as 0.
+// hi*hi' in acc and the two correction terms in cor, summed before the store
 template <int TW>
+__device__ __forceinline__ void fold(float (&acc)[TW / 8][4], const float (&cor)[TW / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < TW / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] += cor[i][j];
+}
+
+// Two f32 values of B's column as one bf16 pair (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// B's fragment of the lane's k row k (and k + 4) of a k-step, column n: two
+// TF32 splits (hi in bh, lo in bl), or with PAIRS two bf16 pairs of word row
+// k (elements 2k, 2k + 1; then + 8) in bh; rows past Kr (A's stored rows)
+// read as 0.
+template <bool PAIRS>
+__device__ __forceinline__ void b_frag(const float* B, int ldb, int k, int Kr, int n,
+                                       uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+  if constexpr (PAIRS) {
+    bh[0] = k < Kr ? pack_bf16(B[2 * k * ldb + n], B[(2 * k + 1) * ldb + n]) : 0u;
+    bh[1] = k + 4 < Kr ? pack_bf16(B[(2 * k + 8) * ldb + n], B[(2 * k + 9) * ldb + n]) : 0u;
+  } else {
+    split_tf32(k < Kr ? B[k * ldb + n] : 0.f, bh[0], bl[0]);
+    split_tf32(k + 4 < Kr ? B[(k + 4) * ldb + n] : 0.f, bh[1], bl[1]);
+  }
+}
+
+// One m16 tile's k-step from A's four fragment values (rows m, m + 8 of k
+// rows k, k + 4): 3xTF32 into acc (hi*hi') and cor (the two correction
+// terms), or with PAIRS the four pair-packed words in one bf16 pass.
+template <bool PAIRS>
+__device__ __forceinline__ void k_step(const float (&av)[4], const uint32_t (&bh)[2],
+                                       const uint32_t (&bl)[2], float* acc, float* cor) {
+  if constexpr (PAIRS) {
+    const uint32_t a[4] = {__float_as_uint(av[0]), __float_as_uint(av[1]),
+                           __float_as_uint(av[2]), __float_as_uint(av[3])};
+    mma_bf16(acc, a, bh);
+  } else {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(av[q], ah[q], al[q]);
+    mma_tf32(cor, al, bh);
+    mma_tf32(cor, ah, bl);
+    mma_tf32(acc, ah, bh);
+  }
+}
+
+// mma_tile without a ring (rw = 0): the A fragments straight from device
+// memory through the read-only cache, rows past Kr and M read as 0.
+template <int TW, typename O, bool PAIRS>
 __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, const float* B,
-                                int ldb, float* out, int ldo, float scale, int nvalid) {
+                                int ldb, O* out, int ldo, float scale, int nvalid) {
   constexpr int TPW = TW / 8, WM = WarpTile<TW>::WM;
+  const int Kr = PAIRS ? Kd >> 1 : Kd;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const WarpTile<TW> w;
@@ -165,12 +239,11 @@ __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, cons
   for (int g0 = 0; g0 < M; g0 += MG) {
     const int m16 = (min(MG, M - g0) + 15) >> 4;
     float acc[TPW][4] = {}, cor[TPW][4] = {};
-    for (int k0 = 0; k0 < Kd; k0 += 8) {
+    for (int k0 = 0; k0 < Kr; k0 += 8) {
       const int k = k0 + t;
-      const bool v0 = k < Kd, v1 = k + 4 < Kd;
+      const bool v0 = k < Kr, v1 = k + 4 < Kr;
       uint32_t bh[2], bl[2];
-      split_tf32(v0 ? B[k * ldb + n0 + g] : 0.f, bh[0], bl[0]);
-      split_tf32(v1 ? B[(k + 4) * ldb + n0 + g] : 0.f, bh[1], bl[1]);
+      b_frag<PAIRS>(B, ldb, k, Kr, n0 + g, bh, bl);
       const float* A0 = A + (size_t)k * M;
       const float* A1 = A0 + 4 * (size_t)M;
 #pragma unroll
@@ -178,18 +251,16 @@ __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, cons
         const int mt = wm + WM * i;
         if (mt < m16) {
           const int m0 = g0 + mt * 16 + g, m1 = m0 + 8;
-          uint32_t ah[4], al[4];
-          split_tf32(v0 && m0 < M ? __ldg(A0 + m0) : 0.f, ah[0], al[0]);
-          split_tf32(v0 && m1 < M ? __ldg(A0 + m1) : 0.f, ah[1], al[1]);
-          split_tf32(v1 && m0 < M ? __ldg(A1 + m0) : 0.f, ah[2], al[2]);
-          split_tf32(v1 && m1 < M ? __ldg(A1 + m1) : 0.f, ah[3], al[3]);
-          mma_tf32(cor[i], al, bh);
-          mma_tf32(cor[i], ah, bl);
-          mma_tf32(acc[i], ah, bh);
+          const float av[4] = {v0 && m0 < M ? __ldg(A0 + m0) : 0.f,
+                               v0 && m1 < M ? __ldg(A0 + m1) : 0.f,
+                               v1 && m0 < M ? __ldg(A1 + m0) : 0.f,
+                               v1 && m1 < M ? __ldg(A1 + m1) : 0.f};
+          k_step<PAIRS>(av, bh, bl, acc[i], cor[i]);
         }
       }
     }
-    mma_store<TW>(acc, cor, g0, m16, M, out, ldo, scale, nvalid);
+    if constexpr (!PAIRS) fold<TW>(acc, cor);
+    mma_store<TW>(acc, g0, m16, M, out, ldo, scale, nvalid);
   }
 }
 
@@ -197,31 +268,35 @@ __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, cons
 // == 0, A 16-byte aligned), n < TW; only n < nvalid is written.  staged:
 // the first pass's first two chunks are in the ring already (mma_stage, or
 // an A that ring_holds left there).  The caller synchronises the block
-// before reading out or reusing B or the ring.
-template <int TW = ET>
+// before reading out or reusing B or the ring.  PAIRS: the bf16 form, A
+// pair-packed (Kd even, Kd / 2 word rows staged and read as the f32 form's
+// rows), B rounded to bf16 pairs as it loads, one m16n8k16 pass a k-step of
+// 16.
+template <int TW = ET, typename O = float, bool PAIRS = false>
 __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float* B, int ldb,
-                         float* out, int ldo, float scale, int nvalid, float* ring, int rw,
+                         O* out, int ldo, float scale, int nvalid, float* ring, int rw,
                          bool staged = false) {
   constexpr int TPW = TW / 8, WM = WarpTile<TW>::WM;
   if (rw == 0) {
-    mma_tile_direct<TW>(A, Kd, M, B, ldb, out, ldo, scale, nvalid);
+    mma_tile_direct<TW, O, PAIRS>(A, Kd, M, B, ldb, out, ldo, scale, nvalid);
     return;
   }
+  const int Kr = PAIRS ? Kd >> 1 : Kd;  // A's stored rows
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const WarpTile<TW> w;
   const int wm = w.wm, n0 = w.n0;
   for (int g0 = 0; g0 < M; g0 += MG) {
     const int mg = min(MG, M - g0);
-    const Chunks c = chunks(Kd, mg, rw);
+    const Chunks c = chunks(Kr, mg, rw);
     const int m16 = (mg + 15) >> 4;
     const int sw = c.swz ? t << 3 : 0;
     // hi*hi' and the two correction terms in separate accumulators: two
     // independent mma chains per tile
     float acc[TPW][4] = {}, cor[TPW][4] = {};
     if (!(staged && g0 == 0)) {
-      stage_chunk(A, Kd, M, g0, mg, c, 0, ring, rw);
-      if (c.n > 1) stage_chunk(A, Kd, M, g0, mg, c, 1, ring, rw);
+      stage_chunk(A, Kr, M, g0, mg, c, 0, ring, rw);
+      if (c.n > 1) stage_chunk(A, Kr, M, g0, mg, c, 1, ring, rw);
     }
     for (int ch = 0; ch < c.n; ++ch) {
       if (ch + 1 < c.n)
@@ -230,13 +305,11 @@ __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float
         cp_async_wait<0>();
       __syncthreads();
       const float* As = ring + (ch & 1) * (rw / 2);
-      const int k0 = ch * c.kc, kend = min(c.kc, Kd - k0);
+      const int k0 = ch * c.kc, kend = min(c.kc, Kr - k0);
 #pragma unroll 2
       for (int kk = 0; kk < kend; kk += 8) {
-        const int k = k0 + kk + t;
         uint32_t bh[2], bl[2];
-        split_tf32(k < Kd ? B[k * ldb + n0 + g] : 0.f, bh[0], bl[0]);
-        split_tf32(k + 4 < Kd ? B[(k + 4) * ldb + n0 + g] : 0.f, bh[1], bl[1]);
+        b_frag<PAIRS>(B, ldb, k0 + kk + t, Kr, n0 + g, bh, bl);
         const float* A0 = As + (kk + t) * c.sa;
         const float* A1 = A0 + 4 * c.sa;
 #pragma unroll
@@ -244,25 +317,54 @@ __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float
           const int mt = wm + WM * i;
           if (mt < m16) {
             const int m0 = (mt * 16 + g) ^ sw, m1 = (mt * 16 + g + 8) ^ sw;
-            uint32_t ah[4], al[4];
-            split_tf32(A0[m0], ah[0], al[0]);
-            split_tf32(A0[m1], ah[1], al[1]);
-            split_tf32(A1[m0], ah[2], al[2]);
-            split_tf32(A1[m1], ah[3], al[3]);
-            mma_tf32(cor[i], al, bh);
-            mma_tf32(cor[i], ah, bl);
-            mma_tf32(acc[i], ah, bh);
+            const float av[4] = {A0[m0], A0[m1], A1[m0], A1[m1]};
+            k_step<PAIRS>(av, bh, bl, acc[i], cor[i]);
           }
         }
       }
       if (ch + 2 < c.n) {
         __syncthreads();  // every warp is done with this stage
-        stage_chunk(A, Kd, M, g0, mg, c, ch + 2, ring, rw);
+        stage_chunk(A, Kr, M, g0, mg, c, ch + 2, ring, rw);
       }
     }
-    mma_store<TW>(acc, cor, g0, m16, M, out, ldo, scale, nvalid);
+    if constexpr (!PAIRS) fold<TW>(acc, cor);
+    mma_store<TW>(acc, g0, m16, M, out, ldo, scale, nvalid);
     if (g0 + MG < M) __syncthreads();  // the next pass restages the ring
   }
+}
+
+// The product on the activations' storage type Act: mma_tile's 3xTF32
+// form (f32, A as given) or its bf16 form (bf16, A pair-packed).
+template <typename Act, int TW = ET, typename O>
+__device__ __forceinline__ void prod(const float* __restrict__ A, int Kd, int M, const float* B,
+                                     int ldb, O* out, int ldo, float scale, int nvalid,
+                                     float* ring, int rw, bool staged = false) {
+  mma_tile<TW, O, IS_BF16<Act>>(A, Kd, M, B, ldb, out, ldo, scale, nvalid, ring, rw, staged);
+}
+
+// The rows the ring holds of A (Kd, M) at Act: Kd, or Kd / 2 pair-packed words.
+template <typename Act>
+__device__ __forceinline__ int wrows(int Kd) {
+  return IS_BF16<Act> ? Kd >> 1 : Kd;
+}
+
+// A weight matrix's offset in its flat buffer, given in f32 elements (the
+// Meta table's): halved in the pair-packed buffer.
+template <typename Act>
+__device__ __forceinline__ int wofs(int off) {
+  return IS_BF16<Act> ? off >> 1 : off;
+}
+
+// mma_stage, ring_holds and mix_resident of prod's A at Act
+template <typename Act>
+__device__ __forceinline__ void stage(const float* __restrict__ A, int Kd, int M, float* ring,
+                                      int rw) {
+  mma_stage(A, wrows<Act>(Kd), M, ring, rw);
+}
+
+template <typename Act>
+__device__ __forceinline__ bool resident(const Meta& m, int r, int Kd, int M, int rw) {
+  return mix_resident(m, r, wrows<Act>(Kd), M, rw);
 }
 
 // dst[r*ld + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < TW: issued
@@ -284,6 +386,33 @@ __device__ void load_tile_async(const float* __restrict__ src, int rows, int E, 
       const int r = q / TW, n = q % TW;
       const float* s = src + (size_t)r * E + e0 + n;
       dst[r * ld + n] = n < ne ? (RO ? __ldg(s) : __ldcg(s)) : 0.f;
+    }
+  }
+}
+
+// The same tile from bf16 rows, converted to f32 as it loads (synchronous,
+// two edges a load where the pairs are 4-byte aligned).  Visible after
+// tiles_ready().
+template <bool RO, int TW = ET>
+__device__ void load_tile_async(const __nv_bfloat16* __restrict__ src, int rows, int E, int e0,
+                                int ne, float* dst, int ld, bool vec) {
+  if (vec) {  // E, e0 even and src 4-byte aligned
+    for (int q = threadIdx.x; q < rows * (TW / 2); q += NT) {
+      const int r = q / (TW / 2), n2 = (q % (TW / 2)) * 2;
+      float2 v = make_float2(0.f, 0.f);
+      if (n2 < ne) {
+        const __nv_bfloat162* s2 =
+            reinterpret_cast<const __nv_bfloat162*>(src + (size_t)r * E + e0 + n2);
+        v = __bfloat1622float2(RO ? __ldg(s2) : __ldcg(s2));
+        if (n2 + 1 >= ne) v.y = 0.f;
+      }
+      dst[r * ld + n2] = v.x;
+      dst[r * ld + n2 + 1] = v.y;
+    }
+  } else {
+    for (int q = threadIdx.x; q < rows * TW; q += NT) {
+      const int r = q / TW, n = q % TW;
+      dst[r * ld + n] = n < ne ? __bfloat162float(src[(size_t)r * E + e0 + n]) : 0.f;
     }
   }
 }

@@ -1,5 +1,6 @@
 // K2: the per-layer env-fused TP + mix of an Allegro layer as a hand-written
-// Hopper kernel pair (f32).
+// Hopper kernel pair (f32; env_layer_bf16.cu builds this file on bf16
+// activations).
 //
 // Replaces the TPU kernels pair_allegro_tpu/ops/pallas_stack.py
 // _env_layer_fwd_kernel / _env_layer_bwd_kernel (entry tp_mix_env_fused_t,
@@ -60,10 +61,20 @@
 
 namespace {
 
-struct K2P {
-  const float *V, *wz, *Y, *mix, *mixT, *dout, *dinv;
+// the activations' storage type: f32 here; env_layer_bf16.cu builds this
+// file at __nv_bfloat16 (its mix weights then pair-packed bf16 words, its
+// products one bf16 tensor-core pass: allegro_mma.cuh prod)
+#ifndef K2_ACT
+#define K2_ACT float
+#endif
+
+template <typename Act>
+struct K2T {
+  const Act *V, *wz, *Y;
+  const float *mix, *mixT;
+  const Act *dout, *dinv;
   const int* meta;
-  float *out, *inv, *dV, *dwz, *dY;
+  Act *out, *inv, *dV, *dwz, *dY;
   int C, Cout, D, K, E, maxpc, P0;
   float inv_avg;
   // the product tiles' row stride (LDS_WIDE, or LDS_MIN where the layout
@@ -74,8 +85,8 @@ struct K2P {
 
 // env[d*C + c] = inv_avg * sum over the center's edges of wz[c] * Y[d];
 // wzs (C rows) and Ys (D rows) are scratch tiles at stride L.
-template <int L>
-__device__ void center_env(const K2P& p, int center, float* env, float* wzs, float* Ys) {
+template <int L, typename Act>
+__device__ void center_env(const K2T<Act>& p, int center, float* env, float* wzs, float* Ys) {
   const int C = p.C, D = p.D;
   for (int q = threadIdx.x; q < D * C; q += NT) env[q] = 0.f;
   for (int t0 = 0; t0 < p.K; t0 += ET) {
@@ -96,8 +107,8 @@ __device__ void center_env(const K2P& p, int center, float* env, float* wzs, flo
   __syncthreads();
 }
 
-template <int L>
-__global__ void __launch_bounds__(NT, 2) k2_fwd_kernel(const __grid_constant__ K2P p) {
+template <int L, typename Act>
+__global__ void __launch_bounds__(NT, 2) k2_fwd_kernel(const __grid_constant__ K2T<Act> p) {
   extern __shared__ float sm[];
   load_meta(p.meta, reinterpret_cast<int*>(sm));
   const Meta& m = *reinterpret_cast<const Meta*>(sm);
@@ -116,26 +127,26 @@ __global__ void __launch_bounds__(NT, 2) k2_fwd_kernel(const __grid_constant__ K
     for (int r = 0; r < p.D; ++r) {
       const int kd = m.rowP[r] * C;
       // the mix block loads while the TP runs
-      if (!mix_resident(m, r, kd, p.Cout, p.ring))
-        mma_stage(p.mix + m.rowmix[r], kd, p.Cout, ring, p.ring);
+      if (!resident<Act>(m, r, kd, p.Cout, p.ring))
+        stage<Act>(p.mix + wofs<Act>(m.rowmix[r]), kd, p.Cout, ring, p.ring);
       tp_row_reg(C, m, r, Vs, env, T, L);
       __syncthreads();
       if (r == 0) {  // inv, c-major: row c*P0 + pp of T's row pp*C + c
         for (int q = threadIdx.x; q < p.P0 * C * ET; q += NT) {
           const int row = q / ET, n = q % ET;
           const int pp = row / C, c = row % C;
-          if (n < ne) p.inv[(size_t)(c * p.P0 + pp) * E + e0 + n] = T[row * L + n];
+          if (n < ne) st_act(p.inv + (size_t)(c * p.P0 + pp) * E + e0 + n, T[row * L + n]);
         }
       }
-      mma_tile(p.mix + m.rowmix[r], kd, p.Cout, T, L, p.out + (size_t)r * p.Cout * E + e0, E,
-               m.rownorm[r], ne, ring, p.ring, true);
+      prod<Act>(p.mix + wofs<Act>(m.rowmix[r]), kd, p.Cout, T, L,
+                p.out + (size_t)r * p.Cout * E + e0, E, m.rownorm[r], ne, ring, p.ring, true);
       __syncthreads();
     }
   }
 }
 
-template <int L>
-__global__ void __launch_bounds__(NT, 2) k2_bwd_kernel(const __grid_constant__ K2P p) {
+template <int L, typename Act>
+__global__ void __launch_bounds__(NT, 2) k2_bwd_kernel(const __grid_constant__ K2T<Act> p) {
   extern __shared__ float sm[];
   load_meta(p.meta, reinterpret_cast<int*>(sm));
   const Meta& m = *reinterpret_cast<const Meta*>(sm);
@@ -157,8 +168,8 @@ __global__ void __launch_bounds__(NT, 2) k2_bwd_kernel(const __grid_constant__ K
   auto issue_row = [&](int r, int e0, int ne) {
     load_tile_async<true>(p.dout + (size_t)r * p.Cout * E, p.Cout, E, e0, ne, dVo, L, p.vec);
     const int kd = m.rowP[r] * C;
-    if (!mix_resident(m, r, p.Cout, kd, p.ring))
-      mma_stage(p.mixT + m.rowmix[r], p.Cout, kd, ring, p.ring);
+    if (!resident<Act>(m, r, p.Cout, kd, p.ring))
+      stage<Act>(p.mixT + wofs<Act>(m.rowmix[r]), p.Cout, kd, ring, p.ring);
   };
 
   // pass 1: mix and TP backward per edge tile, denv accumulation
@@ -169,15 +180,15 @@ __global__ void __launch_bounds__(NT, 2) k2_bwd_kernel(const __grid_constant__ K
     issue_row(0, e0, ne);
     for (int r = 0; r < D; ++r) {
       tiles_ready();
-      mma_tile(p.mixT + m.rowmix[r], p.Cout, m.rowP[r] * C, dVo, L, dT, L, m.rownorm[r], ET, ring,
-               p.ring, true);
+      prod<Act>(p.mixT + wofs<Act>(m.rowmix[r]), p.Cout, m.rowP[r] * C, dVo, L, dT, L,
+                m.rownorm[r], ET, ring, p.ring, true);
       __syncthreads();
       if (r + 1 < D) issue_row(r + 1, e0, ne);  // loads while this row's TP runs
       if (r == 0) {  // + dinv, which arrives c-major (row c*P0 + pp)
         for (int q = threadIdx.x; q < p.P0 * C * ET; q += NT) {
           const int row = q / ET, n = q % ET;
           const int pp = row / C, c = row % C;
-          if (n < ne) dT[row * L + n] += __ldg(p.dinv + (size_t)(c * p.P0 + pp) * E + e0 + n);
+          if (n < ne) dT[row * L + n] += ld_act(p.dinv + (size_t)(c * p.P0 + pp) * E + e0 + n);
         }
         __syncthreads();
       }
@@ -186,7 +197,7 @@ __global__ void __launch_bounds__(NT, 2) k2_bwd_kernel(const __grid_constant__ K
     }
     for (int q = threadIdx.x; q < D * C * ET; q += NT) {
       const int row = q / ET, n = q % ET;
-      if (n < ne) p.dV[(size_t)row * E + e0 + n] = dVs[row * LDV + n];
+      if (n < ne) st_act(p.dV + (size_t)row * E + e0 + n, dVs[row * LDV + n]);
     }
     __syncthreads();
   }
@@ -205,20 +216,21 @@ __global__ void __launch_bounds__(NT, 2) k2_bwd_kernel(const __grid_constant__ K
       const int cc = q / ET, n = q % ET;
       float s = 0.f;
       for (int d = 0; d < D; ++d) s = fmaf(denv[d * C + cc], Ys[d * L + n], s);
-      if (n < ne) p.dwz[(size_t)cc * E + e0 + n] = s;
+      if (n < ne) st_act(p.dwz + (size_t)cc * E + e0 + n, s);
     }
     for (int q = threadIdx.x; q < D * ET; q += NT) {
       const int d = q / ET, n = q % ET;
       float s = 0.f;
       for (int cc = 0; cc < C; ++cc) s = fmaf(denv[d * C + cc], wzs[cc * L + n], s);
-      if (n < ne) p.dY[(size_t)d * E + e0 + n] = s;
+      if (n < ne) st_act(p.dY + (size_t)d * E + e0 + n, s);
     }
     __syncthreads();
   }
 }
 
 // dims: C, Cout, D, K, E, maxpc, P0
-void k2_params(K2P& p, const int* dims) {
+template <typename Act>
+void k2_params(K2T<Act>& p, const int* dims) {
   p.C = dims[0];
   p.Cout = dims[1];
   p.D = dims[2];
@@ -234,7 +246,8 @@ void k2_params(K2P& p, const int* dims) {
 // on 16 bytes (cp.async), then the ring: its cap (RING_FWD, RING_BWD) or
 // what is left under budget bytes when less, not below RING_MIN, or none
 // when ring is false.  Returns the block's bytes, or -6 if it does not fit.
-int k2_plan(int bwd, K2P& p, int L, int budget, bool ring) {
+template <typename Act>
+int k2_plan(int bwd, K2T<Act>& p, int L, int budget, bool ring) {
   int off = 0;
   auto take = [&](int words) {
     const int o = off;
@@ -270,7 +283,8 @@ int k2_plan(int bwd, K2P& p, int L, int budget, bool ring) {
 // SM at LDS_WIDE with the block kept, PERF.md), then in the whole shared
 // memory; else LDS_MIN without the ring.  Returns the block's bytes, or a
 // negative code for a shape the kernel does not take.
-int k2_layout(int bwd, K2P& p) {
+template <typename Act>
+int k2_layout(int bwd, K2T<Act>& p) {
   if (p.D < 1 || p.D > MAX_D) return -1;
   if (NT % p.C || NT / p.C > ET) return -2;  // the TP's cells (C a multiple of 8)
   if (p.K < 1 || p.E % p.K) return -3;
@@ -297,7 +311,7 @@ int k2_meta_words() { return META_WORDS; }
 // The shared-memory bytes of a launch at these dims, or the negative
 // refusal code (the sum ops/env_layer.py's block_layout mirrors).
 int k2_layout_bytes(int bwd, const int* dims) {
-  K2P p{};
+  K2T<K2_ACT> p{};
   k2_params(p, dims);
   return k2_layout(bwd, p);
 }
@@ -309,20 +323,21 @@ int k2_layout_bytes(int bwd, const int* dims) {
 // weight not 16-byte aligned), or the cudaError_t of the launch.
 int k2_launch(int bwd, const unsigned long long* ptrs, const int* dims, float inv_avg,
               void* stream) {
-  K2P p{};
-  p.V = (const float*)ptrs[0];
-  p.wz = (const float*)ptrs[1];
-  p.Y = (const float*)ptrs[2];
+  using Act = K2_ACT;
+  K2T<Act> p{};
+  p.V = (const Act*)ptrs[0];
+  p.wz = (const Act*)ptrs[1];
+  p.Y = (const Act*)ptrs[2];
   p.mix = (const float*)ptrs[3];
   p.mixT = (const float*)ptrs[4];
   p.meta = (const int*)ptrs[5];
-  p.dout = (const float*)ptrs[6];
-  p.dinv = (const float*)ptrs[7];
-  p.out = (float*)ptrs[8];
-  p.inv = (float*)ptrs[9];
-  p.dV = (float*)ptrs[10];
-  p.dwz = (float*)ptrs[11];
-  p.dY = (float*)ptrs[12];
+  p.dout = (const Act*)ptrs[6];
+  p.dinv = (const Act*)ptrs[7];
+  p.out = (Act*)ptrs[8];
+  p.inv = (Act*)ptrs[9];
+  p.dV = (Act*)ptrs[10];
+  p.dwz = (Act*)ptrs[11];
+  p.dY = (Act*)ptrs[12];
   k2_params(p, dims);
   p.inv_avg = inv_avg;
   const int bytes = k2_layout(bwd, p);
@@ -331,8 +346,9 @@ int k2_launch(int bwd, const unsigned long long* ptrs, const int* dims, float in
   p.vec = p.E % 4 == 0 && p.K % 4 == 0 && aligned16(p.V) && aligned16(p.wz) && aligned16(p.Y) &&
           (!bwd || aligned16(p.dout));
   const bool wide = p.lds == LDS_WIDE;
-  void (*kernel)(const K2P) = bwd ? (wide ? k2_bwd_kernel<LDS_WIDE> : k2_bwd_kernel<LDS_MIN>)
-                                  : (wide ? k2_fwd_kernel<LDS_WIDE> : k2_fwd_kernel<LDS_MIN>);
+  void (*kernel)(const K2T<Act>) =
+      bwd ? (wide ? k2_bwd_kernel<LDS_WIDE, Act> : k2_bwd_kernel<LDS_MIN, Act>)
+          : (wide ? k2_fwd_kernel<LDS_WIDE, Act> : k2_fwd_kernel<LDS_MIN, Act>);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;

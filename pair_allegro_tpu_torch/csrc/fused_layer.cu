@@ -1,4 +1,5 @@
-// K1: one whole Allegro layer as a hand-written Hopper kernel pair (f32).
+// K1: one whole Allegro layer as a hand-written Hopper kernel pair (f32;
+// fused_layer_bf16.cu builds this file on bf16 activations).
 //
 // Replaces the TPU kernels pair_allegro_tpu/ops/pallas_stack.py
 // _layer1_fwd_kernel / _layer1_bwd_kernel (entry allegro_layer_fused_t).
@@ -57,6 +58,12 @@
 
 #include "allegro_layer.cuh"
 
+// the activations' storage type: f32 here; fused_layer_bf16.cu builds this
+// file at __nv_bfloat16
+#ifndef K1_ACT
+#define K1_ACT float
+#endif
+
 extern "C" {
 
 // words of the Meta table the wrapper builds (checked by the wrapper)
@@ -65,7 +72,7 @@ int k1_meta_words() { return META_WORDS; }
 // The shared-memory bytes of a launch at these dims (k1_launch's), or the
 // negative refusal code: the sum ops/fused_layer.py's block_bytes mirrors.
 int k1_layout_bytes(int bwd, const int* dims) {
-  K1P p{};
+  K1T<K1_ACT> p{};
   const unsigned long long none[19] = {};
   k1_params(p, none, dims, 1.0f);
   return layer_layout<PLAIN>(bwd, p);
@@ -78,7 +85,7 @@ int k1_layout_bytes(int bwd, const int* dims) {
 // cudaError_t of the launch (layer_launch in allegro_layer.cuh).
 int k1_launch(int bwd, const unsigned long long* ptrs, const int* dims, float inv_avg,
               void* stream) {
-  K1P p{};
+  K1T<K1_ACT> p{};
   k1_params(p, ptrs, dims, inv_avg);
   return layer_launch<PLAIN>(bwd, p, stream);
 }

@@ -1,4 +1,5 @@
-// K3: the fused NequIP convolution as a hand-written Hopper kernel pair (f32).
+// K3: the fused NequIP convolution as a hand-written Hopper kernel pair (f32;
+// nequip_conv_bf16.cu builds this file with a bf16 hj, K3_HJ below).
 //
 // Replaces the TPU kernels pair_allegro_tpu/ops/pallas_nequip.py
 // _conv_fwd_kernel / _conv_bwd_kernel (entry nequip_conv_fused).  On the
@@ -75,6 +76,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/nequip_conv.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -82,7 +84,30 @@
 #include "mma_ptx.cuh"
 #include "nequip_tp_table.cuh"
 
+// the storage type of the gathered rows hj and of their cotangent dhj: f32
+// here; nequip_conv_bf16.cu builds this file at __nv_bfloat16, the
+// PAT_NEQUIP_HJ=bf16 boundary (pallas_nequip.py upcasts hj in the kernel)
+#ifndef K3_HJ
+#define K3_HJ float
+#endif
+
 namespace {
+
+// hj values: two neighbouring channels (4- or 8-byte aligned) or one,
+// upcast to f32 once in registers; dhj stored at hj's type (rounded to
+// nearest at bf16)
+__device__ __forceinline__ float2 ld_hj2(const float* q) {
+  return __ldg(reinterpret_cast<const float2*>(q));
+}
+__device__ __forceinline__ float2 ld_hj2(const __nv_bfloat16* q) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(q)));
+}
+__device__ __forceinline__ float ld_hj(const float* q) { return __ldg(q); }
+__device__ __forceinline__ float ld_hj(const __nv_bfloat16* q) {
+  return __bfloat162float(__ldg(q));
+}
+__device__ __forceinline__ void st_hj(float* q, float v) { *q = v; }
+__device__ __forceinline__ void st_hj(__nv_bfloat16* q, float v) { *q = __float2bfloat16_rn(v); }
 
 constexpr int NT = 256;  // threads per block: 8 warps
 constexpr int NWARP = NT / 32;
@@ -100,8 +125,10 @@ constexpr int ET_FWD[N_ET_FWD] = {64, 32, 16, 8};
 constexpr int ET_BWD[N_ET_BWD] = {128, 64, 32, 16, 8};
 
 struct K3P {
-  const float *hj, *bes, *u, *Y, *w, *wl, *dagg;
-  float *agg, *dhj, *dbes, *du, *dY;
+  const K3_HJ* hj;
+  const float *bes, *u, *Y, *w, *wl, *dagg;
+  K3_HJ* dhj;
+  float *agg, *dbes, *du, *dY;
   int C, K, E, nw;
   int wdim[MAX_W + 1];
   int woff[MAX_W];
@@ -478,7 +505,7 @@ __device__ __forceinline__ void fwd_pass(const K3P& p, const float* sm, const fl
   for (int h2 = 0; h2 < 2; ++h2) {
     const int n = mt * 16 + g + 8 * h2;
     if (c >= C || n >= ne) continue;
-    const float* row = p.hj + (size_t)(e0 + n) * df + c;
+    const K3_HJ* row = p.hj + (size_t)(e0 + n) * df + c;
     float y[D], w0[PG], w1[PG], h0[DT], h1[DT];
 #pragma unroll
     for (int d = 0; d < D; ++d) y[d] = ys[n * D + d];
@@ -490,9 +517,7 @@ __device__ __forceinline__ void fwd_pass(const K3P& p, const float* sm, const fl
     }
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
-      const float2 v = in_pass<T, NG, GI>(i)
-                           ? __ldg(reinterpret_cast<const float2*>(row + i * C))
-                           : make_float2(0.f, 0.f);
+      const float2 v = in_pass<T, NG, GI>(i) ? ld_hj2(row + i * C) : make_float2(0.f, 0.f);
       h0[i] = v.x;
       h1[i] = v.y;
     }
@@ -590,13 +615,11 @@ __device__ __forceinline__ void bwd_pass(const K3P& p, const float* sm, const fl
     for (int h2 = 0; h2 < 2; ++h2) {
       const int n = mt * 16 + g + 8 * h2, c = cb + 2 * t;
       const bool ok = c < C && n < ne;
-      const float* row = p.hj + (size_t)(e0 + (ok ? n : 0)) * df + c;
+      const K3_HJ* row = p.hj + (size_t)(e0 + (ok ? n : 0)) * df + c;
       const float* grow = p.dagg + (size_t)((e0 + (ok ? n : 0)) / p.K) * df + c;
 #pragma unroll
       for (int i = 0; i < DT; ++i) {
-        hv[h2][i] = ok && in_pass<T, NG, GI>(i)
-                        ? __ldg(reinterpret_cast<const float2*>(row + i * C))
-                        : make_float2(0.f, 0.f);
+        hv[h2][i] = ok && in_pass<T, NG, GI>(i) ? ld_hj2(row + i * C) : make_float2(0.f, 0.f);
         gv[h2][i] = ok ? __ldg(reinterpret_cast<const float2*>(grow + i * C))
                        : make_float2(0.f, 0.f);
       }
@@ -617,7 +640,7 @@ __device__ __forceinline__ void bwd_pass(const K3P& p, const float* sm, const fl
       if (n < ne && c < C) {
         const int e = e0 + n;
         const float* gp = p.dagg + (size_t)(e / p.K) * df + c;
-        const float* hp = p.hj + (size_t)e * df + c;
+        const K3_HJ* hp = p.hj + (size_t)e * df + c;
         float gl[DT], h[DT], dh[DT], y[D], w[PG], dyl[D];
 #pragma unroll
         for (int i = 0; i < DT; ++i) {
@@ -626,7 +649,7 @@ __device__ __forceinline__ void bwd_pass(const K3P& p, const float* sm, const fl
             h[i] = hc ? hv[h2][i].y : hv[h2][i].x;
           } else {
             gl[i] = __ldg(gp + i * C) * p.inv_avg;
-            h[i] = in_pass<T, NG, GI>(i) ? __ldg(hp + i * C) : 0.f;
+            h[i] = in_pass<T, NG, GI>(i) ? ld_hj(hp + i * C) : 0.f;
           }
           dh[i] = 0.f;
         }
@@ -640,10 +663,10 @@ __device__ __forceinline__ void bwd_pass(const K3P& p, const float* sm, const fl
         for (int j = 0; j < PG; ++j) w[j] = acc[j][slot] * s_last * uu;
         tp_bwd<LMAX, T, GI>(y, w, gl, h, dh, dw, dyl);
         if (x0 == 0) {
-          float* dp = p.dhj + (size_t)e * df + c;
+          K3_HJ* dp = p.dhj + (size_t)e * df + c;
 #pragma unroll
           for (int i = 0; i < DT; ++i)
-            if (in_pass<T, NG, GI>(i)) dp[i * C] = dh[i];
+            if (in_pass<T, NG, GI>(i)) st_hj(dp + i * C, dh[i]);
           float s = 0.f;
 #pragma unroll
           for (int j = 0; j < PG; ++j) s = fmaf(dw[j], acc[j][slot], s);
@@ -878,7 +901,7 @@ int k3_launch(int bwd, int lmax, int n_tracks, const unsigned long long* ptrs, c
   K3P p{};
   const int smem = k3_plan(p, bwd != 0, lmax, n_tracks, dims);
   if (smem < 0) return smem;
-  p.hj = (const float*)ptrs[0];
+  p.hj = (const K3_HJ*)ptrs[0];
   p.bes = (const float*)ptrs[1];
   p.u = (const float*)ptrs[2];
   p.Y = (const float*)ptrs[3];
@@ -886,7 +909,7 @@ int k3_launch(int bwd, int lmax, int n_tracks, const unsigned long long* ptrs, c
   p.wl = (const float*)ptrs[5];
   p.dagg = (const float*)ptrs[6];
   p.agg = (float*)ptrs[7];
-  p.dhj = (float*)ptrs[8];
+  p.dhj = (K3_HJ*)ptrs[8];
   p.dbes = (float*)ptrs[9];
   p.du = (float*)ptrs[10];
   p.dY = (float*)ptrs[11];

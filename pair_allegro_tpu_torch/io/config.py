@@ -81,6 +81,11 @@ def _resolve_plain(s: str, no: int):
         return False
     if s[0] in "&*!|>%@`":
         raise _error(no, f"{s!r}: {_OUTSIDE}")
+    if s == "=" or (s[0] in "-?:" and (len(s) == 1 or s[1] in " \t")):
+        # a block indicator where a value stands (PyYAML's scanner and
+        # parser refuse these), or '=' (its constructor refuses the value tag)
+        raise _error(no, f"{s!r}: an indicator ('-', '?' or ':' alone or before a blank, or '=') "
+                         "is not a plain scalar")
     if s == "<<":
         raise _error(no, "merge keys are outside the supported subset")
     if ": " in s or s.endswith(":"):

@@ -28,10 +28,21 @@ on both edge layouts, in the tiers the JAX model chooses (``layer_tier``):
   per center (``segment_sum`` on FLAT), handed back to the edges and K4
   (ops/tp_mix_fused.py) for TP + mix (JAX ``layer_fn_t``);
 * ``fused_tp=False`` (``for_training()``), ``capture``, widths no kernel
-  of the route takes, on the card any dtype but f32, or the per-layer
-  rounding modes (``mxu_bf16``, ``mxu_bf16x3``) at any dtype but f32: the
-  plain channels-last path on either layout (JAX ``layer_fn``), no kernel;
-  the only tier whose weight gradients are finite.
+  of the route takes, on the card any interior dtype but f32 and bf16 (and
+  at bf16 every tier but K1's and the per-layer ``paths`` one), or the
+  per-layer rounding modes (``mxu_bf16``, ``mxu_bf16x3``) at any dtype but
+  f32: the plain channels-last path on either layout (JAX ``layer_fn``),
+  no kernel; the only tier whose weight gradients are finite.
+
+``interior="bf16"`` (JAX's memory tier) runs the layer stack on bf16
+operands: geometry (edge vectors, Y, u, the Bessel basis), the two-body MLP
+and the final energy sums stay in the working dtype, and the interior is
+cast where the reference casts it (``models/allegro.py:397-400, 591-620,
+761-762``): on the feature-major tiers x, u and Y (pT then a bf16 product
+of the bf16 x), on the plain and K4 tiers x, V, Y and u; the readout runs
+on x cast back.  On the card the K1 tier runs K1's bf16 build and the
+per-layer ``paths`` tier K2's; K5, K6/K7, K8 and K4 have no bf16 build, so
+those tiers run the plain path at bf16 (``layer_tier``).
 
 Per ordered edge (i, j): two-body x0 = MLP2b([onehot(t_i); onehot(t_j);
 Bessel(r)]) * u, pT = W_embed^T x0 / sqrt(ns), V0 = pT * Y; the layers; then
@@ -84,8 +95,7 @@ INTERIORS = ("working", "bf16")
 class AllegroConfig:
     """Hyperparameters, with the field names and defaults of the JAX
     package's ``AllegroConfig``, so that the config dict a JAX checkpoint
-    carries builds this one.  ``interior`` is carried at its default
-    "working" only (``check_supported``)."""
+    carries builds this one."""
 
     type_names: tuple[str, ...]
     r_max: float
@@ -107,7 +117,8 @@ class AllegroConfig:
     # (engine._resolve_remat) and which means True where it reaches the model
     remat: bool | str = "auto"
     # interior compute dtype of the layer stack: "working" (the positions'
-    # dtype) is ported; "bf16" is not
+    # dtype) or "bf16" (the layers on bf16 operands: half the per-edge bytes;
+    # geometry and the energy sums stay in the working dtype)
     interior: str = "working"
     # the kernel tiers (weight cotangents NaN); False runs the plain path
     fused_tp: bool = True
@@ -142,10 +153,16 @@ class AllegroConfig:
         same, so train with this config and run MD with the original."""
         return dataclasses.replace(self, fused_tp=False, fused_stack=False)
 
+    def interior_dtype(self, dtype=torch.float32) -> torch.dtype:
+        """The layer stack's dtype at working dtype ``dtype`` (JAX's cdtype)."""
+        return torch.bfloat16 if self.interior == "bf16" else dtype
+
     def live_bytes_per_edge(self, flat: bool = False, dtype=torch.float32) -> int:
         """A rough upper estimate of the force evaluation's device bytes per
-        edge slot, for the tier this config runs on the card at ``dtype``
-        on the TABLE layout or, with ``flat``, on the FLAT one.  Every tier
+        edge slot, for the tier this config runs on the card at working dtype
+        ``dtype`` on the TABLE layout or, with ``flat``, on the FLAT one.  The
+        geometry (64 numbers) counts at ``dtype``, everything else at the
+        interior's dtype (2 bytes with ``interior="bf16"``).  Every tier
         but the stack keeps each layer's V (D*C numbers) and its cotangent,
         a few scalar-feature tensors and the geometry; the per-layer tier
         also keeps per layer wz (C), inv (C*P0), the latent MLP's input x
@@ -163,7 +180,8 @@ class AllegroConfig:
         per = 2 * d * c * self.num_layers + 6 * ns + 64
         P = num_paths_per_l(self.l_max, self.l_max, self.l_max, self.parity)
         hidden = 2 * self.allegro_mlp_hidden_layers_depth * self.allegro_mlp_hidden_layers_width
-        tier = layer_tier(self, flat, dtype=dtype)
+        cdtype = self.interior_dtype(dtype)
+        tier = layer_tier(self, flat, dtype=cdtype)
         if tier == "stack":
             per = ns + (self.num_layers - 1) * (ns + d * c) + ns + d * c + 6 * ns + 64
         elif tier == "k1-nopos":  # V0 materialised, and its cotangent
@@ -175,7 +193,7 @@ class AllegroConfig:
         elif tier == "plain":
             n_t = c * sum(p * (2 * l3 + 1) for l3, p in enumerate(P))
             per += self.num_layers * (2 * n_t + c * P[0] + ns + hidden)
-        return torch.finfo(dtype).bits // 8 * per
+        return torch.finfo(cdtype).bits // 8 * (per - 64) + torch.finfo(dtype).bits // 8 * 64
 
     def cutoff_matrix(self) -> np.ndarray:
         """(num_types, num_types) per-edge-type cutoffs, defaulting to r_max."""
@@ -187,23 +205,23 @@ class AllegroConfig:
         return m
 
 
-def env_fused_viable(cfg: AllegroConfig) -> bool:
+def env_fused_viable(cfg: AllegroConfig, dtype=torch.float32) -> bool:
     """Whether the env-fused kernel of the config's TABLE tier (K1, or K2 /
-    K5 with ``layer_fused=False``) takes the model's widths: each kernel's
-    own refusal conditions and shared-memory sum (``kernel_takes`` beside
-    its wrapper), decided from the shapes before any launch.  The
-    reference's ``pallas_stack.env_fused_viable`` asks the same of the
-    TPU's blocks; where it is False both send the model to K4."""
+    K5 with ``layer_fused=False``) takes the model's widths at ``dtype``:
+    each kernel's own refusal conditions and shared-memory sum
+    (``kernel_takes`` beside its wrapper), decided from the shapes before
+    any launch.  The reference's ``pallas_stack.env_fused_viable`` asks the
+    same of the TPU's blocks; where it is False both send the model to K4."""
     d = (cfg.l_max + 1) ** 2
     c, ns = cfg.num_tensor_features, cfg.num_scalar_features
     P = num_paths_per_l(cfg.l_max, cfg.l_max, cfg.l_max, cfg.parity)
     if cfg.layer_fused:
         latd = (ns + c * P[0], *[cfg.allegro_mlp_hidden_layers_width]
                 * cfg.allegro_mlp_hidden_layers_depth, ns)
-        return k1_takes(ns, c, c, d, latd, cfg.l_max, cfg.parity)
+        return k1_takes(ns, c, c, d, latd, cfg.l_max, cfg.parity, dtype)
     if cfg.tp_mode == "paths":
-        return k2_takes(c, c, d, cfg.l_max, cfg.parity)
-    return k5_takes(c, c, d, P[0], cfg.tp_mode)
+        return k2_takes(c, c, d, cfg.l_max, cfg.parity, dtype)
+    return dtype == torch.float32 and k5_takes(c, c, d, P[0], cfg.tp_mode)
 
 
 def stack_viable(cfg: AllegroConfig) -> bool:
@@ -243,13 +261,18 @@ def embed_readout_viable(cfg: AllegroConfig) -> bool:
 
 def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torch.float32,
                card: bool = True) -> str:
-    """The tier a call runs, routed as the reference routes it
-    (``models/allegro.py:403-506, 670-758``): 'plain' with ``capture``,
-    and on the card (``card``) at any ``dtype`` but f32 (the kernels take
-    f32 only, and the reference runs every other dtype on its XLA path; on
-    the CPU every tier runs its kernels' plain versions, which take any
-    dtype); 'stack' on the TABLE layout with ``fused_stack is True`` where
-    K8 takes the model (``stack_viable``), whatever ``fused_tp`` and
+    """The tier a call runs at interior dtype ``dtype`` (the reference's
+    cdtype: ``AllegroConfig.interior_dtype``), routed as the reference
+    routes it (``models/allegro.py:403-506, 670-758``): 'plain' with
+    ``capture``, and on the card (``card``) at any ``dtype`` but f32 and
+    bf16 (the reference runs every other dtype on its XLA path; on the CPU
+    every tier runs its kernels' plain versions, which take any dtype).  On
+    the card at bf16 only K1 ('k1', 'k1-nopos') and K2 (per-layer
+    ``paths``) have bf16 builds: the stack, 'k1-embed', the per-layer
+    ``mxu_*`` modes and K4 run 'plain' there, an explicit rule (the
+    reference's TPU runs K6/K7, K8 and K5 on bf16 operands, its FLAT layer
+    on XLA).  Otherwise: 'stack' on the TABLE layout with ``fused_stack is
+    True`` where K8 takes the model (``stack_viable``), whatever ``fused_tp`` and
     ``layer_fused`` say, as the reference's ``use_stack``; else as if
     ``fused_stack`` were False: 'plain' with ``fused_tp=False``; 'k4' on
     the FLAT layout, whatever ``layer_fused`` and ``tp_mode`` say (the
@@ -270,31 +293,30 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torc
     exact per-layer modes (``paths``, ``mxu_highest``) keep 'perlayer' on
     the CPU at any dtype: their kernels' plain versions are exact, and
     they are what the f64 tests hold to JAX."""
-    if capture or (card and dtype != torch.float32):
+    if capture or (card and dtype not in (torch.float32, torch.bfloat16)):
         return "plain"
+    f32_only = card and dtype != torch.float32  # a tier whose kernel has no bf16 build
     if not flat and cfg.fused_stack is True and stack_viable(cfg):
-        return "stack"
+        return "plain" if f32_only else "stack"
     if not cfg.fused_tp:
         return "plain"
-    if flat or not env_fused_viable(cfg):
-        return "k4" if k4_viable(cfg) else "plain"
+    if flat or not env_fused_viable(cfg, dtype if card else torch.float32):
+        return "k4" if k4_viable(cfg) and not f32_only else "plain"
     if cfg.tier == "perlayer" and cfg.tp_mode in ROUNDING_MODES and dtype != torch.float32:
         return "plain"
     if cfg.tier != "k1":
-        return cfg.tier
+        return "plain" if f32_only and cfg.tp_mode != "paths" else cfg.tier
     if os.environ.get("PAT_L1_POSITIONAL", "1") == "0":
         return "k1-nopos"
     if (os.environ.get("PAT_L1_EMBED", "0") == "1" and cfg.num_layers >= 2
             and embed_readout_viable(cfg)):
-        return "k1-embed"
+        return "plain" if f32_only else "k1-embed"
     return "k1"
 
 
 def check_supported(cfg: AllegroConfig) -> None:
     if cfg.interior not in INTERIORS:
         raise ValueError(f"interior {cfg.interior!r} is not one of {INTERIORS}")
-    if cfg.interior == "bf16":
-        raise NotImplementedError("interior='bf16' is not ported: ROADMAP queue 1, item 11")
     if cfg.tp_mode not in TP_MODES:
         raise ValueError(f"tp_mode {cfg.tp_mode!r} is not one of {TP_MODES}")
 
@@ -381,14 +403,20 @@ def _two_body_in(cfg: AllegroConfig, types, geo, n: int, k: int) -> torch.Tensor
     )
 
 
-def _feature_major(params, cfg, types, geo, n: int, k: int) -> dict:
+def _feature_major(params, cfg, types, geo, n: int, k: int, cdtype=None) -> dict:
+    """The feature-major operands: the two-body MLP in the working dtype,
+    then 'xT', 'uT', 'Y_T' cast to the interior dtype ``cdtype`` (default:
+    the working one) and 'pT' the interior's product of the cast xT, as the
+    reference's env-fused tier makes them."""
     u = geo["u"]
     uT = u.reshape(1, n * k)
     xT = mlp_apply_t(params["two_body_mlp"], _two_body_in(cfg, types, geo, n, k)) * uT  # (ns, E)
+    cdtype = cdtype or xT.dtype
+    xT = xT.to(cdtype)
     ns = params["tensor_embed"].shape[0]
-    pT = (params["tensor_embed"].to(xT.dtype).T @ xT) * (1.0 / math.sqrt(ns))  # (C, E)
-    return {"u": u, "uT": uT, "Y_T": geo["Y"].reshape(n * k, -1).T.contiguous(), "xT": xT,
-            "pT": pT}
+    pT = (params["tensor_embed"].to(cdtype).T @ xT) * (1.0 / math.sqrt(ns))  # (C, E)
+    Y_T = geo["Y"].reshape(n * k, -1).T.to(cdtype).contiguous()
+    return {"u": u, "uT": uT.to(cdtype), "Y_T": Y_T, "xT": xT, "pT": pT}
 
 
 def allegro_inputs(params: dict, cfg: AllegroConfig, positions, types, edge_index, *,
@@ -412,9 +440,13 @@ def embed_inputs(cfg: AllegroConfig, positions, types, edge_index, *, cell=None,
     return _embed_major(cfg, types, geo, n, k)
 
 
-def _embed_major(cfg, types, geo, n: int, k: int) -> dict:
-    return {"in_T": _two_body_in(cfg, types, geo, n, k),
-            "Y_T": geo["Y"].reshape(n * k, -1).T.contiguous(), "uT": geo["u"].reshape(1, n * k)}
+def _embed_major(cfg, types, geo, n: int, k: int, cdtype=None) -> dict:
+    """K6's operands, at the interior dtype ``cdtype`` (default: the
+    working one; the reference casts in_T, Y and u, ``models/allegro.py:696``)."""
+    cdtype = cdtype or geo["u"].dtype
+    return {"in_T": _two_body_in(cfg, types, geo, n, k).to(cdtype),
+            "Y_T": geo["Y"].reshape(n * k, -1).T.to(cdtype).contiguous(),
+            "uT": geo["u"].reshape(1, n * k).to(cdtype)}
 
 
 def _k1_layers(params, cfg, xT, pT, Y_T, uT, k, positional=True, remat=False):
@@ -496,16 +528,22 @@ def _perlayer_layers(params, cfg, xT, pT, Y_T, uT, k, remat=False):
     return xT
 
 
-def _plain_layers(params, cfg, x, Y, u, agg, per_edge, capture, remat=False):
+def _plain_layers(params, cfg, x, Y, u, agg, per_edge, capture, remat=False, cdtype=None):
     """The plain tier (JAX ``layer_fn``, ``models/allegro.py:515-537``),
     channels-last on the layout's edge batch ((N, K) or (E,)): ``agg`` sums
     each center's edges, ``per_edge`` hands a per-center tensor back to the
-    edges (broadcastable); returns the final latent (..., ns).  With
-    ``remat`` (never with ``capture``) each layer is a checkpoint."""
+    edges (broadcastable); returns the final latent (..., ns) at the
+    interior dtype ``cdtype`` (default: x's), to which x, V0, Y and u are
+    cast after V0 is made (``models/allegro.py:761-762``).  With ``remat``
+    (never with ``capture``) each layer is a checkpoint."""
     inv_avg = 1.0 / math.sqrt(max(cfg.avg_num_neighbors, 1e-6))
     ns = x.shape[-1]
     p_embed = (x @ params["tensor_embed"].to(x.dtype)) * (1.0 / math.sqrt(ns))
     V = p_embed[..., :, None] * Y[..., None, :]  # (N, K, C, D)
+    if cdtype is not None and cdtype != x.dtype:
+        x, V, Y, u = (t.to(cdtype) for t in (x, V, Y, u))
+    if capture is not None:
+        capture["two_body_latent"] = x
 
     def step(layer, li, x, V):
         w_env = (x @ layer["env_weight"].to(x.dtype)) * (1.0 / math.sqrt(ns)) * u[..., None]
@@ -644,8 +682,9 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
     sum_i q_i r_i over the centers."""
     check_supported(cfg)
     dtype = positions.dtype
+    cdtype = cfg.interior_dtype(dtype)
     flat = is_flat(edge_index)
-    tier = layer_tier(cfg, flat, capture is not None, dtype, positions.is_cuda)
+    tier = layer_tier(cfg, flat, capture is not None, cdtype, positions.is_cuda)
     remat = remat_on(cfg, capture)
     if flat:
         if edge_vec is not None:
@@ -682,14 +721,14 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
             return a[:, :, None].expand(*a.shape, k).reshape(a.shape[0], n * k)
     u = geo["u"]
     if tier == "k1-embed":
-        ins = _embed_major(cfg, types_c, geo, n, k)
+        ins = _embed_major(cfg, types_c, geo, n, k, cdtype)
         rows = _embed_layers(params, cfg, ins["in_T"], ins["Y_T"], ins["uT"], k, remat)
         rows = dict(zip(("readout_mlp", "charge_mlp"), rows))
 
         def head(name):  # the heads ran in K7's epilogue
-            return rows[name].reshape(n, k)
+            return rows[name].reshape(n, k).to(dtype)
     elif tier in ("stack", "k1", "k1-nopos", "perlayer"):
-        ins = _feature_major(params, cfg, types_c, geo, n, k)
+        ins = _feature_major(params, cfg, types_c, geo, n, k, cdtype)
         if tier == "stack":  # no remat, as in JAX: K8's backward recomputes its forward
             xT = fused_stack(ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], params["layers"], k,
                              cfg.l_max, cfg.avg_num_neighbors, cfg.parity)
@@ -700,6 +739,8 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
             xT = _k1_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k,
                             positional=tier == "k1", remat=remat)
 
+        xT = xT.to(dtype)
+
         def head(name):
             return mlp_apply_t(params[name], xT)[0].reshape(n, k) * u
     else:
@@ -708,14 +749,14 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
         else:
             x_in = _two_body_in(cfg, types_c, geo, n, k).T.reshape(n, k, -1)
         x = mlp_apply(params["two_body_mlp"], x_in) * u[..., None]
-        if capture is not None:
-            capture["two_body_latent"] = x
         if tier == "plain":
-            x = _plain_layers(params, cfg, x, geo["Y"], u, agg, per_edge, capture, remat)
+            x = _plain_layers(params, cfg, x, geo["Y"], u, agg, per_edge, capture, remat, cdtype)
         else:
             d, ns = geo["Y"].shape[-1], x.shape[-1]
-            x = _k4_layers(params, cfg, x.reshape(-1, ns), geo["Y"].reshape(-1, d), u.reshape(-1),
-                           agg_rows, spread, remat).reshape(x.shape)
+            x, Y_e, u_e = (t.to(cdtype) for t in (x.reshape(-1, ns), geo["Y"].reshape(-1, d),
+                                                   u.reshape(-1)))
+            x = _k4_layers(params, cfg, x, Y_e, u_e, agg_rows, spread, remat).reshape(*u.shape, ns)
+        x = x.to(dtype)
 
         def head(name):
             return mlp_apply(params[name], x)[..., 0] * u

@@ -32,9 +32,14 @@ generic channels-first path (``layer_fn`` / ``layer_fn_parity``,
 from ``uniform_tp`` per path, and no kernel.  With remat (``cfg.remat``,
 or "auto" wherever K3 does not run, as in the reference) each layer is a
 ``torch.utils.checkpoint``.  Ported: l_max >= 1, one or two tracks, any
-number of species, both layouts, and node windows over a device mesh
-(``mesh``, JAX's ``shard_axis``).  Not ported: l_max 0 (the reference
-fails there too), the bf16 hj tier.
+number of species, both layouts, node windows over a device mesh
+(``mesh``, JAX's ``shard_axis``), and the bf16 hj tier: with
+``PAT_NEQUIP_HJ=bf16`` (read per call, ``hj_bf16``) a call on K3's route at
+f32 gathers the flat node rows through a bf16 boundary, as the reference
+does (``models/nequip.py:135-147, 880-881``): K3 (its bf16-hj build on the
+card, its plain version on the CPU) upcasts hj and computes in f32, and
+the gather's reverse-table backward sums the bf16 cotangent in f32.  Not
+ported: l_max 0 (the reference fails there too).
 """
 
 from __future__ import annotations
@@ -130,6 +135,12 @@ class NequIPConfig:
             tpc = self.n_tracks * tp_num_paths(self.l_max) * self.num_features
             per += self.num_layers * (2 * tpc + 6 * df)
         return torch.finfo(dtype).bits // 8 * per
+
+
+def hj_bf16() -> bool:
+    """``PAT_NEQUIP_HJ=bf16``: gather the node rows for K3 through a bf16
+    boundary (the reference's ``_hj_bf16``, read per call)."""
+    return os.environ.get("PAT_NEQUIP_HJ", "") == "bf16"
 
 
 def generic_path(cfg: NequIPConfig) -> bool:
@@ -401,7 +412,10 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
         nw = p.nw
         ws_cl = radial_cl([w.to(dtype) for w in layer["radial_mlp"]["w"]], C, P, T)
         if use_k3:
-            hj = p.gather(h.reshape(n, D * T * C)).reshape(e, D * T * C)
+            hsrc = h.reshape(n, D * T * C)
+            if hj_bf16() and dtype == torch.float32:
+                hsrc = hsrc.to(torch.bfloat16)
+            hj = p.gather(hsrc).reshape(e, D * T * C)
             k3 = prepare_radial(ws_cl, C, T, lmax)
             agg = nequip_conv(hj, bes_e, u_e, Y_e, k3, k, cfg.avg_num_neighbors)
             agg = agg.reshape(n, D, T, C)

@@ -13,8 +13,11 @@ products:
   inv = T[l3=0] as (C*P0, E), c-major (row c*P0 + p: ``scalar_part``'s order)
 
 On a CUDA tensor :func:`env_layer` launches the hand-written Hopper kernel
-pair in ``csrc/env_layer.cu``; on a CPU tensor it runs
-:func:`env_layer_reference`, the plain PyTorch version of the same function.
+pair in ``csrc/env_layer.cu``, or at bf16 its bf16 build
+``csrc/env_layer_bf16.cu`` (the ``interior="bf16"`` tier: bf16 operands, f32
+sums in registers, the mix one bf16 tensor-core pass on pair-packed
+weights); on a CPU tensor it runs :func:`env_layer_reference`, the plain
+PyTorch version of the same function, at the tensors' dtype.
 Weight cotangents come back NaN-filled, the contract of the TPU kernel
 (``pallas_stack.py:1007``).
 """
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -48,12 +52,14 @@ from pair_allegro_tpu_torch.ops.fused_layer import (
     _meta_table,
     _row_tables,
     _to_pmajor,
+    pack_pairs,
     table_fits,
 )
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()
+launches = LaunchCounts()  # the f32 kernel's
+launches_bf16 = LaunchCounts()  # the bf16 build's
 
 
 def widths_ok(c: int, cout: int, d: int) -> bool:
@@ -88,12 +94,16 @@ def block_layout(c: int, cout: int, d: int, lmax: int, parity: bool,
     return 4 * (fixed + rows * LDS_MIN), LDS_MIN, 0
 
 
-def kernel_takes(c: int, cout: int, d: int, lmax: int, parity: bool) -> bool:
-    """Whether ``k2_launch`` (csrc/env_layer.cu) takes these widths,
-    forward and backward: its refusal conditions, the 3j table the wrapper
-    builds and its shared-memory sum (``block_layout``), mirrored here so
+def kernel_takes(c: int, cout: int, d: int, lmax: int, parity: bool,
+                 dtype=torch.float32) -> bool:
+    """Whether ``k2_launch`` (csrc/env_layer.cu, or its bf16 build
+    env_layer_bf16.cu) takes these widths at ``dtype``, forward and
+    backward: a build of that dtype, its refusal conditions, the 3j table
+    the wrapper builds and its shared-memory sum (``block_layout``; the bf16
+    build's is the same, its tiles f32 in shared memory), mirrored here so
     that a caller decides before any launch."""
-    return table_fits(lmax, parity) and widths_ok(c, cout, d) and all(
+    return dtype in (torch.float32, torch.bfloat16) and table_fits(lmax, parity) and widths_ok(
+        c, cout, d) and all(
         block_layout(c, cout, d, lmax, parity, bwd)[0] <= SMEM_MAX for bwd in (False, True))
 
 
@@ -119,6 +129,13 @@ class K2Weights:
     @property
     def cout(self) -> int:
         return self.mix[0].shape[1]
+
+    @functools.cached_property
+    def packed(self) -> tuple:
+        """The bf16 build's mix and mixT, each l3 block pair-packed
+        (``fused_layer.pack_pairs``), flat in the f32 order."""
+        return (torch.cat([pack_pairs(w).reshape(-1) for w in self.mix]),
+                torch.cat([pack_pairs(w.T).reshape(-1) for w in self.mix]))
 
 
 def mix_leaves(mix: dict, lmax: int) -> tuple:
@@ -204,8 +221,10 @@ def _bind(lib):
         raise RuntimeError("kernel table layout differs from the wrapper's")
 
 
-LIB = CudaLibrary("k2_env_layer", [CSRC / "env_layer.cu", CSRC / "allegro_mma.cuh",
-                                   CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"], _bind)
+_HEADERS = [CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"]
+LIB = CudaLibrary("k2_env_layer", [CSRC / "env_layer.cu", *_HEADERS], _bind)
+LIB_BF16 = CudaLibrary("k2_env_layer_bf16",
+                       [CSRC / "env_layer_bf16.cu", CSRC / "env_layer.cu", *_HEADERS], _bind)
 
 
 def _dims(w: K2Weights, d: int, c: int, K: int, e: int):
@@ -214,7 +233,8 @@ def _dims(w: K2Weights, d: int, c: int, K: int, e: int):
 
 
 def _launch(bwd: bool, w: K2Weights, Vt, K: int, inv_avg: float, ptrs):
-    lib = LIB.load()
+    bf16 = Vt.dtype == torch.bfloat16
+    lib = (LIB_BF16 if bf16 else LIB).load()
     d, c, e = Vt.shape
     dims = _dims(w, d, c, K, e)
     arr = (ctypes.c_ulonglong * 13)(*ptrs)
@@ -222,12 +242,20 @@ def _launch(bwd: bool, w: K2Weights, Vt, K: int, inv_avg: float, ptrs):
         stream = torch.cuda.current_stream(Vt.device).cuda_stream
         rc = lib.k2_launch(int(bwd), arr, dims, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K2 {'backward' if bwd else 'forward'} launch failed (code {rc}): "
-                           "a negative code is a shape the kernel does not take")
+        raise RuntimeError(f"K2{' bf16' if bf16 else ''} {'backward' if bwd else 'forward'} "
+                           f"launch failed (code {rc}): a negative code is a shape the kernel "
+                           "does not take")
+    counts = launches_bf16 if bf16 else launches
     if bwd:
-        launches.bwd += 1
+        counts.bwd += 1
     else:
-        launches.fwd += 1
+        counts.fwd += 1
+
+
+def _mix_ptrs(w: K2Weights, Vt) -> list:
+    """mix and mixT of the launcher's ptrs: f32, or pair-packed at bf16."""
+    bf16 = Vt.dtype == torch.bfloat16
+    return [t.data_ptr() for t in (w.packed if bf16 else (w.mix_flat, w.mixT_flat))]
 
 
 def _kernel_fwd(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float):
@@ -235,17 +263,16 @@ def _kernel_fwd(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float):
     p0 = num_paths_per_l(w.lmax, w.lmax, 0, w.parity)[0]
     out = torch.empty((d, w.cout, e), dtype=Vt.dtype, device=Vt.device)
     inv = torch.empty((c * p0, e), dtype=Vt.dtype, device=Vt.device)
-    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), w.mix_flat.data_ptr(),
-            w.mixT_flat.data_ptr(), w.meta.data_ptr(), 0, 0, out.data_ptr(), inv.data_ptr(), 0, 0, 0]
+    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), *_mix_ptrs(w, Vt), w.meta.data_ptr(),
+            0, 0, out.data_ptr(), inv.data_ptr(), 0, 0, 0]
     _launch(False, w, Vt, K, inv_avg, ptrs)
     return out, inv
 
 
 def _kernel_bwd(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float, dout, dinv):
     dV, dwz, dY = torch.empty_like(Vt), torch.empty_like(wzt), torch.empty_like(yt)
-    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), w.mix_flat.data_ptr(),
-            w.mixT_flat.data_ptr(), w.meta.data_ptr(), dout.data_ptr(), dinv.data_ptr(), 0, 0,
-            dV.data_ptr(), dwz.data_ptr(), dY.data_ptr()]
+    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), *_mix_ptrs(w, Vt), w.meta.data_ptr(),
+            dout.data_ptr(), dinv.data_ptr(), 0, 0, dV.data_ptr(), dwz.data_ptr(), dY.data_ptr()]
     _launch(True, w, Vt, K, inv_avg, ptrs)
     return dV, dwz, dY
 
@@ -279,9 +306,12 @@ class _EnvLayer(torch.autograd.Function):
         return (*grads, None, None, None, *nan_w)
 
 
-def check_operands(name: str, Vt, wzt, yt, d: int, c: int, K: int, weights) -> None:
-    """Shapes, devices and, for CUDA tensors, the kernel's dtype and
-    contiguity; raises on what the kernel does not take."""
+def check_operands(name: str, Vt, wzt, yt, d: int, c: int, K: int, weights,
+                   dtypes=(torch.float32,)) -> None:
+    """Shapes, devices and, for CUDA tensors, the kernel's dtypes (V, wz
+    and Y all of one of ``dtypes``: K2 takes float32 and, in its bf16 build,
+    bfloat16; the weights float32) and contiguity; raises on what the
+    kernel does not take."""
     e = Vt.shape[-1]
     if (tuple(Vt.shape) != (d, c, e) or tuple(wzt.shape) != (c, e) or tuple(yt.shape) != (d, e)
             or K < 1 or e % K):
@@ -291,8 +321,11 @@ def check_operands(name: str, Vt, wzt, yt, d: int, c: int, K: int, weights) -> N
     if any(t.device != Vt.device for t in ts):
         raise ValueError(f"{name}: all tensors must be on one device")
     if Vt.is_cuda:
-        if any(t.dtype != torch.float32 for t in ts):
-            raise TypeError(f"{name}: the CUDA kernel takes float32 tensors only")
+        if (Vt.dtype not in dtypes or any(t.dtype != Vt.dtype for t in (wzt, yt))
+                or any(t.dtype != torch.float32 for t in weights)):
+            names = " or all ".join(str(t).removeprefix("torch.") for t in dtypes)
+            raise TypeError(f"{name}: the CUDA kernel takes V, wz and Y all {names}, and float32 "
+                            "weights")
         if any(not t.is_contiguous() for t in (Vt, wzt, yt)):
             raise ValueError(f"{name}: CUDA inputs must be contiguous")
 
@@ -301,9 +334,11 @@ def env_layer(Vt, wzt, yt, w: K2Weights, K: int, avg_num_neighbors: float):
     """K2 on the feature-major TABLE layout: Vt (D, C, E), wzt (C, E) env
     weights already * u, yt (D, E); E = n_centers * K.  Returns (Vt'
     (D, Cout, E), inv (C*P0, E) c-major).  CUDA tensors launch the kernel
-    (f32 and contiguous only; a shape beyond its shared memory raises);
-    CPU tensors take :func:`env_layer_reference`."""
+    (contiguous, f32 or bf16 (:func:`check_operands`); a shape beyond its
+    shared memory raises); CPU tensors take :func:`env_layer_reference` at
+    their dtype."""
     d = (w.lmax + 1) ** 2
-    check_operands("env_layer", Vt, wzt, yt, d, w.c, K, w.leaves)
+    check_operands("env_layer", Vt, wzt, yt, d, w.c, K, w.leaves,
+                   (torch.float32, torch.bfloat16))
     inv_avg = 1.0 / math.sqrt(max(avg_num_neighbors, 1e-6))
     return _EnvLayer.apply(Vt, wzt, yt, w, K, inv_avg, *w.leaves)

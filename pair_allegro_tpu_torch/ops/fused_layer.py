@@ -11,9 +11,13 @@ TABLE edge list (E = n_centers * K, each center's K edges contiguous):
 
 On a CUDA tensor :func:`fused_layer` launches the hand-written Hopper kernel
 pair in ``csrc/fused_layer.cu`` (built with ``nvcc`` at first use, bound with
-``ctypes``); on a CPU tensor it runs :func:`fused_layer_reference`, the plain
-PyTorch version of the same function.  What bounds the kernel on the card and
-what its design does about it is written at the top of the CUDA source.
+``ctypes``), or at bf16 its bf16 build ``csrc/fused_layer_bf16.cu`` (the
+``interior="bf16"`` tier: bf16 activations, f32 sums in registers, one bf16
+tensor-core pass per product on the weights :func:`pack_pairs` lays out);
+on a CPU tensor it runs :func:`fused_layer_reference`, the plain PyTorch
+version of the same function, at the tensors' dtype.  What bounds the
+kernel on the card and what its design does about it is written at the top
+of the CUDA sources.
 
 Weight cotangents come back NaN-filled, the contract of the TPU kernel
 (``pallas_stack.py:1363``): MD forces never need them, and a training-style
@@ -53,7 +57,8 @@ _META_DTYPE = np.dtype(
 )
 
 
-launches = LaunchCounts()
+launches = LaunchCounts()  # the f32 kernel's
+launches_bf16 = LaunchCounts()  # the bf16 build's
 
 # the launchers' constants (csrc/allegro_tiles.cuh): threads per block, the
 # edge tile, the shared memory a block may use, and what it may use where
@@ -154,12 +159,16 @@ def block_bytes(*args, **kwargs) -> int:
     return block_layout(*args, **kwargs)[0]
 
 
-def kernel_takes(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool) -> bool:
-    """Whether ``k1_launch`` (csrc/fused_layer.cu) takes a layer of these
-    widths in every form, forward and backward: its refusal conditions and
-    its shared-memory sum, mirrored here so that a caller decides before
-    any launch."""
-    return widths_ok(ns, c, cout, d, latd, lmax, parity) and all(
+def kernel_takes(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool,
+                 dtype=torch.float32) -> bool:
+    """Whether ``k1_launch`` (csrc/fused_layer.cu, or its bf16 build
+    fused_layer_bf16.cu) takes a layer of these widths at ``dtype`` in every
+    form, forward and backward: a build of that dtype, its refusal
+    conditions and its shared-memory sum, mirrored here so that a caller
+    decides before any launch.  The bf16 build keeps its tiles f32 in
+    shared memory and its ring as many words, so its sum is the f32 one."""
+    return dtype in (torch.float32, torch.bfloat16) and widths_ok(
+        ns, c, cout, d, latd, lmax, parity) and all(
         block_bytes(ns, c, cout, d, latd, lmax, parity, first_v, bwd) <= SMEM_MAX
         for first_v in (False, True) for bwd in (False, True))
 
@@ -195,6 +204,34 @@ class K1Weights:
 
     def tensors(self):
         return self.leaves
+
+    def weights(self) -> tuple:
+        """env_w, env_wT, lat, latT, mix and mixT, the launcher's order."""
+        return (self.env_w, self.env_wT, self.lat_flat, self.latT_flat, self.mix_flat,
+                self.mixT_flat)
+
+    @functools.cached_property
+    def packed(self) -> tuple:
+        """:meth:`weights` for the bf16 build: each matrix
+        :func:`pack_pairs`-ed, the flat buffers in the f32 order (every
+        offset halves)."""
+        def flat(ts):
+            return torch.cat([pack_pairs(t).reshape(-1) for t in ts]).contiguous()
+
+        return (pack_pairs(self.env_w), pack_pairs(self.env_wT), flat(self.lat),
+                flat([w.T for w in self.lat]), flat(self.mix), flat([w.T for w in self.mix]))
+
+
+def pack_pairs(w: torch.Tensor) -> torch.Tensor:
+    """A (Kd, M) weight matrix (Kd even) as the bf16 kernels read it: Kd/2
+    rows of M int32 words, word (k2, m) holding bf16(w[2 k2, m]) in its low
+    and bf16(w[2 k2 + 1, m]) in its high half (csrc/allegro_mma.cuh), the
+    pairs of the k16 tensor-core fragments."""
+    kd, m = w.shape
+    if kd % 2:
+        raise ValueError(f"pack_pairs: {kd} rows, want an even count")
+    pairs = w.detach().to(torch.bfloat16).reshape(kd // 2, 2, m).transpose(1, 2).contiguous()
+    return pairs.view(torch.int32).reshape(kd // 2, m)
 
 
 def layer_leaves(layer: dict, lmax: int) -> tuple:
@@ -359,24 +396,33 @@ def _bind(lib):
         raise RuntimeError("kernel table layout differs from the wrapper's")
 
 
-LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu", CSRC / "allegro_layer.cuh",
-                                      CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh",
-                                      CSRC / "mma_ptx.cuh"], _bind)
+_HEADERS = [CSRC / "allegro_layer.cuh", CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh",
+            CSRC / "mma_ptx.cuh"]
+LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu", *_HEADERS], _bind)
+LIB_BF16 = CudaLibrary("k1_fused_layer_bf16",
+                       [CSRC / "fused_layer_bf16.cu", CSRC / "fused_layer.cu", *_HEADERS], _bind)
 
 
-def _launch(bwd: bool, dims, inv_avg, ptrs, device):
-    lib = LIB.load()
+def _launch(bwd: bool, dims, inv_avg, ptrs, device, bf16: bool = False):
+    lib = (LIB_BF16 if bf16 else LIB).load()
     arr = (ctypes.c_ulonglong * 19)(*ptrs)
     dm = (ctypes.c_int * 12)(*dims)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.k1_launch(int(bwd), arr, dm, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K1 {'backward' if bwd else 'forward'} launch failed (code {rc})")
+        raise RuntimeError(f"K1{' bf16' if bf16 else ''} {'backward' if bwd else 'forward'} "
+                           f"launch failed (code {rc})")
+    counts = launches_bf16 if bf16 else launches
     if bwd:
-        launches.bwd += 1
+        counts.bwd += 1
     else:
-        launches.fwd += 1
+        counts.fwd += 1
+
+
+def _weight_ptrs(w: K1Weights, bf16: bool) -> list:
+    """envw .. mixT of the launcher's ptrs: f32, or pair-packed for bf16."""
+    return [t.data_ptr() for t in (w.packed if bf16 else w.weights())]
 
 
 def kernel_dims(w: K1Weights, d: int, K: int, e: int, first_v: bool, last: bool) -> list:
@@ -393,12 +439,11 @@ def _kernel_fwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last):
     c, cout = w.env_w.shape[1], w.mix[0].shape[1]
     xo = torch.empty_like(xt)
     vo = None if last else torch.empty((yt.shape[0], cout, e), dtype=xt.dtype, device=xt.device)
-    ptrs = [xt.data_ptr(), Vt.data_ptr(), yt.data_ptr(), ut.data_ptr(),
-            w.env_w.data_ptr(), w.env_wT.data_ptr(), w.lat_flat.data_ptr(),
-            w.latT_flat.data_ptr(), w.mix_flat.data_ptr(), w.mixT_flat.data_ptr(), 0, 0,
-            w.meta.data_ptr(), xo.data_ptr(), 0 if last else vo.data_ptr(), 0, 0, 0, 0]
+    bf16 = xt.dtype == torch.bfloat16
+    ptrs = [xt.data_ptr(), Vt.data_ptr(), yt.data_ptr(), ut.data_ptr(), *_weight_ptrs(w, bf16),
+            0, 0, w.meta.data_ptr(), xo.data_ptr(), 0 if last else vo.data_ptr(), 0, 0, 0, 0]
     _launch(False, kernel_dims(w, yt.shape[0], K, xt.shape[1], first_v, last), inv_avg, ptrs,
-            xt.device)
+            xt.device, bf16)
     return xo if last else (xo, vo)
 
 
@@ -407,13 +452,12 @@ def _kernel_bwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last, dxo, dvo):
     dV = torch.empty_like(Vt)
     dY = torch.empty_like(yt)
     du = torch.empty_like(ut)
-    ptrs = [xt.data_ptr(), Vt.data_ptr(), yt.data_ptr(), ut.data_ptr(),
-            w.env_w.data_ptr(), w.env_wT.data_ptr(), w.lat_flat.data_ptr(),
-            w.latT_flat.data_ptr(), w.mix_flat.data_ptr(), w.mixT_flat.data_ptr(),
+    bf16 = xt.dtype == torch.bfloat16
+    ptrs = [xt.data_ptr(), Vt.data_ptr(), yt.data_ptr(), ut.data_ptr(), *_weight_ptrs(w, bf16),
             dxo.data_ptr(), 0 if last else dvo.data_ptr(), w.meta.data_ptr(), 0, 0,
             dx.data_ptr(), dV.data_ptr(), dY.data_ptr(), du.data_ptr()]
     _launch(True, kernel_dims(w, yt.shape[0], K, xt.shape[1], first_v, last), inv_avg, ptrs,
-            xt.device)
+            xt.device, bf16)
     return dx, dV, dY, du
 
 
@@ -455,8 +499,9 @@ def fused_layer(xt, Vt, yt, ut, w: K1Weights, K: int, avg_num_neighbors: float,
     xt (ns, E); Vt (D, C, E), or the (C, E) tensor embedding pT when
     ``first_v`` (V0 = pT * Y is built inside); yt (D, E); ut (1, E);
     E = n_centers * K.  Returns xt' (``last``: no V output) or (xt', Vt').
-    CUDA tensors launch the kernel (f32 and contiguous only); CPU tensors
-    take :func:`fused_layer_reference`."""
+    CUDA tensors launch the kernel (contiguous, and all four f32, or all four
+    bf16 for the bf16 build; the weights are the tree's f32 leaves either
+    way); CPU tensors take :func:`fused_layer_reference` at their dtype."""
     ns, e = xt.shape
     d_dim = yt.shape[0]
     c = w.env_w.shape[1]
@@ -470,8 +515,11 @@ def fused_layer(xt, Vt, yt, ut, w: K1Weights, K: int, avg_num_neighbors: float,
     if any(t.device != xt.device for t in ts):
         raise ValueError("fused_layer: all tensors must be on one device")
     if xt.is_cuda:
-        if any(t.dtype != torch.float32 for t in ts):
-            raise TypeError("fused_layer: the CUDA kernel takes float32 tensors only")
+        if (xt.dtype not in (torch.float32, torch.bfloat16)
+                or any(t.dtype != xt.dtype for t in (Vt, yt, ut))
+                or any(t.dtype != torch.float32 for t in w.tensors())):
+            raise TypeError("fused_layer: the CUDA kernel takes x, V, Y and u all float32 or all "
+                            "bfloat16, and float32 weights")
         if any(not t.is_contiguous() for t in (xt, Vt, yt, ut)):
             raise ValueError("fused_layer: CUDA inputs must be contiguous")
     inv_avg = 1.0 / math.sqrt(max(avg_num_neighbors, 1e-6))

@@ -18,7 +18,14 @@ the gradient of the second factor only.
 On a CUDA tensor :func:`nequip_conv` launches the hand-written Hopper kernel
 pair in ``csrc/nequip_conv.cu`` (built with ``nvcc`` at first use, bound
 with ``ctypes``); on a CPU tensor it runs :func:`nequip_conv_reference`, the
-plain PyTorch version of the same function.  What bounds the kernel on the
+plain PyTorch version of the same function.
+
+Dtypes: every operand is f32, except that ``hj`` may be bf16 (the
+``PAT_NEQUIP_HJ=bf16`` boundary, ``models/nequip.py``): the kernel's bf16
+build ``csrc/nequip_conv_bf16.cu`` reads it as bf16 and upcasts it in
+registers, computes in f32 and returns an f32 ``agg``; its backward returns
+``dhj`` at hj's dtype, bf16, and the rest at f32.  The plain version
+upcasts hj the same way.  What bounds the kernel on the
 card and what its design does about it is written at the top of the CUDA
 source.  Weight cotangents come back NaN-filled, the contract of the TPU
 kernel (``pallas_nequip.py:645-647``).
@@ -44,7 +51,8 @@ _MAX_W = 8  # radial MLP weight matrices the kernel takes (K3P::wdim in the sour
 NT, SMEM_MAX = 256, 232448
 ET_FWD, ET_BWD = (64, 32, 16, 8), (128, 64, 32, 16, 8)
 
-launches = LaunchCounts()
+launches = LaunchCounts()  # the f32 kernel's
+launches_bf16 = LaunchCounts()  # the bf16-hj build's
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -201,8 +209,10 @@ def msg_generic_cl(hj, Y, w, lmax: int):
 def nequip_conv_reference(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float):
     """The same function as the kernel, in plain PyTorch on the same layout:
     hj (E, D*T*C), bessel (E, B), u (E, 1), Y (E, D) -> agg (E / K, D*T*C).
-    Goes through torch autograd."""
+    A bf16 hj is upcast once to bessel's dtype, as the kernel does (its
+    cotangent then comes back at bf16).  Goes through torch autograd."""
     e = hj.shape[0]
+    hj = hj.to(bessel.dtype)
     C, T, lmax = w.C, w.n_tracks, w.lmax
     D, P = (lmax + 1) ** 2, tp_num_paths(lmax)
     wr = mlp_apply({"w": w.ws}, bessel) * u
@@ -259,6 +269,8 @@ def _bind(lib):
 
 LIB = CudaLibrary("k3_nequip_conv", [CSRC / "nequip_conv.cu", HEADER, CSRC / "mma_ptx.cuh"],
                   _bind)
+LIB_BF16 = CudaLibrary("k3_nequip_conv_bf16", [CSRC / "nequip_conv_bf16.cu", CSRC / "nequip_conv.cu",
+                                              HEADER, CSRC / "mma_ptx.cuh"], _bind)
 
 
 def launch_dims(w: K3Weights, K: int, E: int):
@@ -268,8 +280,9 @@ def launch_dims(w: K3Weights, K: int, E: int):
                                              *([0] * (_MAX_W + 1 - len(dims))))
 
 
-def _launch(bwd: bool, w: K3Weights, K: int, E: int, inv_avg: float, ptrs, device):
-    lib = LIB.load()
+def _launch(bwd: bool, w: K3Weights, K: int, E: int, inv_avg: float, ptrs, device,
+            bf16: bool = False):
+    lib = (LIB_BF16 if bf16 else LIB).load()
     dm = launch_dims(w, K, E)
     arr = (ctypes.c_ulonglong * 12)(*ptrs)
     with torch.cuda.device(device):
@@ -277,19 +290,21 @@ def _launch(bwd: bool, w: K3Weights, K: int, E: int, inv_avg: float, ptrs, devic
         rc = lib.k3_launch(int(bwd), w.lmax, w.n_tracks, arr, dm, ctypes.c_float(inv_avg),
                            ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K3 {'backward' if bwd else 'forward'} launch failed (code {rc})")
+        raise RuntimeError(f"K3{' bf16-hj' if bf16 else ''} {'backward' if bwd else 'forward'} "
+                           f"launch failed (code {rc})")
+    counts = launches_bf16 if bf16 else launches
     if bwd:
-        launches.bwd += 1
+        counts.bwd += 1
     else:
-        launches.fwd += 1
+        counts.fwd += 1
 
 
 def _kernel_fwd(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float):
     e, df = hj.shape
-    agg = torch.empty((e // K, df), dtype=hj.dtype, device=hj.device)
+    agg = torch.empty((e // K, df), dtype=bessel.dtype, device=hj.device)
     ptrs = [hj.data_ptr(), bessel.data_ptr(), u.data_ptr(), Y.data_ptr(), w.flat.data_ptr(),
             w.last.data_ptr(), 0, agg.data_ptr(), 0, 0, 0, 0]
-    _launch(False, w, K, e, inv_avg, ptrs, hj.device)
+    _launch(False, w, K, e, inv_avg, ptrs, hj.device, hj.dtype == torch.bfloat16)
     return agg
 
 
@@ -301,7 +316,7 @@ def _kernel_bwd(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float, dagg):
     ptrs = [hj.data_ptr(), bessel.data_ptr(), u.data_ptr(), Y.data_ptr(), w.flat.data_ptr(),
             w.last.data_ptr(), dagg.data_ptr(), 0, dhj.data_ptr(), dbes.data_ptr(),
             du.data_ptr(), dY.data_ptr()]
-    _launch(True, w, K, hj.shape[0], inv_avg, ptrs, hj.device)
+    _launch(True, w, K, hj.shape[0], inv_avg, ptrs, hj.device, hj.dtype == torch.bfloat16)
     return dhj, dbes, du, dY
 
 
@@ -338,8 +353,9 @@ def nequip_conv(hj, bessel, u, Y, w: K3Weights, K: int, avg_num_neighbors: float
 
     hj (E, D*T*C) the gathered neighbor rows, lanes (d*T + tau)*C + c;
     bessel (E, B) = bessel_basis(r) * u; u (E, 1); Y (E, D); E = N * K.
-    Returns agg (N, D*T*C).  CUDA tensors launch the kernel (f32 and
-    contiguous only); CPU tensors take :func:`nequip_conv_reference`."""
+    Returns agg (N, D*T*C), f32.  CUDA tensors launch the kernel
+    (contiguous, every operand f32 but hj, which may be bf16: the bf16-hj
+    build); CPU tensors take :func:`nequip_conv_reference`."""
     C, T, lmax = w.C, w.n_tracks, w.lmax
     d = (lmax + 1) ** 2
     e = hj.shape[0]
@@ -354,8 +370,10 @@ def nequip_conv(hj, bessel, u, Y, w: K3Weights, K: int, avg_num_neighbors: float
     if any(t.device != hj.device for t in ts):
         raise ValueError("nequip_conv: all tensors must be on one device")
     if hj.is_cuda:
-        if any(t.dtype != torch.float32 for t in ts):
-            raise TypeError("nequip_conv: the CUDA kernel takes float32 tensors only")
+        if hj.dtype not in (torch.float32, torch.bfloat16) or any(
+                t.dtype != torch.float32 for t in ts[1:]):
+            raise TypeError("nequip_conv: the CUDA kernel takes float32 tensors, and hj in "
+                            "float32 or bfloat16")
         if any(not t.is_contiguous() for t in (hj, bessel, u, Y)):
             raise ValueError("nequip_conv: CUDA inputs must be contiguous")
         if hj.data_ptr() % 8:  # the kernel reads hj as pairs of channels

@@ -1,5 +1,5 @@
-"""Edge -> atom reductions and the gathers of the two edge layouts
-(counterpart of ``pair_allegro_tpu/ops/scatter.py:18-163``).
+"""Edge -> atom reductions and the gathers of the two edge layouts, and the
+masked mean (counterpart of ``pair_allegro_tpu/ops/scatter.py``).
 
 ``segment_sum`` is the per-atom reduction of the FLAT (2, E) layout, an
 ``index_add`` over unsorted ids (its backward is a gather).  On the TABLE
@@ -83,7 +83,10 @@ class _TableGatherNodes(torch.autograd.Function):
     Slots whose rev is the sentinel N*K (padding, edges without a mirror)
     are clamped onto a real row and zeroed after the gather, so no zero row
     is appended to the (E, feat) cotangent.  The zeroing is in place on the
-    gathered buffer: one (E, feat) allocation instead of two."""
+    gathered buffer: one (E, feat) allocation instead of two.  A bf16
+    cotangent (the NequIP bf16 hj boundary) is summed in f32 and returned
+    at bf16, as the reference does (``ops/scatter.py:150-159``): a K-deep
+    bf16 sum would cost ~1% relative."""
 
     @staticmethod
     def forward(ctx, h, j_idx, rev_idx):
@@ -100,6 +103,8 @@ class _TableGatherNodes(torch.autograd.Function):
         rows = gflat.index_select(0, torch.clamp_max(rev_idx, n * k - 1).reshape(-1))
         rows = rows.reshape(n, k, *feat)
         rows.masked_fill_(~valid.reshape(n, k, *([1] * len(feat))), 0.0)
+        if g.dtype == torch.bfloat16:
+            return rows.sum(dim=1, dtype=torch.float32).to(g.dtype), None, None
         return rows.sum(dim=1), None, None
 
 
@@ -107,3 +112,13 @@ def table_gather_nodes(h, j_idx, rev_idx):
     """out[i, k, ...] = h[j_idx[i, k], ...] with the gather-based backward
     (valid when the table rows are all atoms and the table is symmetric)."""
     return _TableGatherNodes.apply(h, j_idx, rev_idx)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis=None, eps: float = 1e-12):
+    """The mean of ``x`` over the entries where ``mask`` is set, along
+    ``axis`` (every axis when None), never dividing by less than ``eps``
+    (counterpart of ``ops/scatter.py:166``)."""
+    m = mask.to(x.dtype)
+    if axis is None:
+        return (x * m).sum() / torch.clamp(m.sum(), min=eps)
+    return (x * m).sum(dim=axis) / torch.clamp(m.sum(dim=axis), min=eps)

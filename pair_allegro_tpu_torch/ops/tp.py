@@ -195,3 +195,46 @@ def tp_mix_combined(V, env, ws: dict, lmax: int, M=None, parity: bool = False):
     w0 = torch.as_tensor(W3[:, :p0], dtype=V.dtype, device=V.device)
     inv = outer.reshape(*batch, c, d * d) @ w0
     return Vp, inv.reshape(*batch, c * p0)
+
+
+def uniform_tp_packed(x, y, lmax_out: int, parity: bool = False):
+    """All-path channelwise TP as one product with the dense 3j matrix
+    (counterpart of ``ops/tp.py:189``): x (..., C, D1), y (..., C, D2) or
+    (..., D2) -> (..., C, OUT) in ``packed_tp_table``'s column layout, the
+    same numbers as :func:`uniform_tp` stacked in that order."""
+    lx = math.isqrt(x.shape[-1]) - 1
+    if y.dim() == x.dim() - 1:
+        y = y.unsqueeze(-2)
+    ly = math.isqrt(y.shape[-1]) - 1
+    W, _ = packed_tp_table(lx, ly, lmax_out, parity)
+    outer = x[..., :, None] * y[..., None, :]  # (..., C, D1, D2)
+    return outer.reshape(*outer.shape[:-2], -1) @ torch.as_tensor(W, dtype=x.dtype,
+                                                                  device=x.device)
+
+
+def packed_scalar_part(T, lmax_x: int, lmax_y: int, lmax_out: int, parity: bool = False):
+    """The l3=0 invariant columns of a packed TP output as (..., C*P0),
+    c-major (counterpart of ``ops/tp.py:210``)."""
+    _, layout = packed_tp_table(lmax_x, lmax_y, lmax_out, parity)
+    off, p0 = layout[0]
+    t = T[..., off:off + p0]  # (..., C, P0)
+    return t.reshape(*t.shape[:-2], -1)
+
+
+def tp_mix_apply_packed(ws: dict, T, lmax_x: int, lmax_y: int, lmax_out: int,
+                        parity: bool = False):
+    """:func:`tp_mix_apply` on a packed TP output (counterpart of
+    ``ops/tp.py:278``): the same c-major mix weights, T (..., C, OUT) ->
+    (..., C_out, (lmax_out+1)^2)."""
+    _, layout = packed_tp_table(lmax_x, lmax_y, lmax_out, parity)
+    c_in = T.shape[-2]
+    pieces = []
+    for l3, (off, p) in enumerate(layout):
+        if p == 0:
+            continue
+        k = 2 * l3 + 1
+        t = T[..., off:off + p * k].reshape(*T.shape[:-2], c_in, p, k)
+        t = torch.movedim(t, -1, -3).reshape(*t.shape[:-3], k, c_in * p)
+        m = (t @ ws[f"l{l3}"].to(t.dtype)) * (1.0 / math.sqrt(c_in * p))
+        pieces.append(torch.movedim(m, -1, -2))  # (..., C_out, k)
+    return torch.cat(pieces, dim=-1)

@@ -3,7 +3,9 @@
 each precision mode), K4 (csrc/tp_mix_fused.cu), K6 / K7
 (csrc/embed_readout_layer.cu) and K8 (csrc/fused_stack.cu) against their
 plain PyTorch versions on the card, f32, forward and backward, for every
-form; launch counting; the wrappers' refusals on the card; the models'
+form; the bf16 builds of K1 and K2 (interior="bf16") and K3 (a bf16 hj)
+against their plain versions on the same bf16-rounded values, their
+routes and launches; launch counting; the wrappers' refusals on the card; the models'
 kernel paths (K1 in its three forms, per-layer, K4 and stack tiers,
 NequIP, the FLAT layout of the dense strategy) against their CPU plain
 paths and regrows on the card; the routing predicates against the
@@ -704,13 +706,14 @@ def test_k2_k4_layouts_mirror_the_launchers(cuda):
     from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
     from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 
-    lib2, lib4 = k2.LIB.load(), k4.LIB.load()
+    lib4 = k4.LIB.load()
+    lib2s = (k2.LIB.load(), k2.LIB_BF16.load())  # the bf16 build lays out the same block
     for c, cout, lmax, parity in [(32, 32, 2, True), (8, 4, 0, True), (128, 132, 1, False),
                                   (64, 256, 2, True), (128, 128, 2, True), (64, 64, 3, True),
                                   (152, 152, 2, True), (12, 20, 1, True), (256, 256, 2, True)]:
         d, P = (lmax + 1) ** 2, num_paths_per_l(lmax, lmax, lmax, parity)
         for bwd in (False, True):
-            if k2.widths_ok(c, cout, d):
+            for lib2 in lib2s if k2.widths_ok(c, cout, d) else ():
                 want = k2.block_layout(c, cout, d, lmax, parity, bwd)[0]
                 got = lib2.k2_layout_bytes(int(bwd), (ctypes.c_int * 7)(c, cout, d, 8, 64,
                                                                         max(P) * c, P[0]))
@@ -1345,12 +1348,13 @@ def test_k3_k4_kernel_takes_mirror_the_launchers(cuda, kernel, width, takes):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("form", ["k1", "k6", "k7", "k8"])
+@pytest.mark.parametrize("form", ["k1", "k1-bf16", "k6", "k7", "k8"])
 def test_layouts_mirror_the_launchers(cuda, form):
     """block_bytes (the sum kernel_takes of K1, K6, K7 and K8 compare with
     the limit) equals the library's own layer_layout sum, and refuses
     exactly where the library refuses for shared memory, over 288 widths
-    (the widths the library refuses otherwise widths_ok refuses too)."""
+    (the widths the library refuses otherwise widths_ok refuses too); K1's
+    bf16 build lays out the same block as its f32 build."""
     import ctypes
     import itertools
 
@@ -1358,19 +1362,23 @@ def test_layouts_mirror_the_launchers(cuda, form):
     from pair_allegro_tpu_torch.ops import fused_stack as k8
     from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 
-    lib = {"k1": fl.LIB, "k6": k6.LIB, "k7": k6.LIB, "k8": k8.LIB}[form].load()
+    lib = {"k1": fl.LIB, "k1-bf16": fl.LIB_BF16, "k6": k6.LIB, "k7": k6.LIB,
+           "k8": k8.LIB}[form].load()
     for ns, c, lmax, parity, width, bwd in itertools.product(
             (16, 64, 128), (8, 32, 48, 64), (1, 2, 3), (True, False), (32, 64), (0, 1)):
         d, P = (lmax + 1) ** 2, num_paths_per_l(lmax, lmax, lmax, parity)
         latd = (ns + c * P[0], width, width, ns)
-        first_v, last = form in ("k1", "k6", "k8"), form == "k7"
+        first_v, last = form in ("k1", "k1-bf16", "k6", "k8"), form == "k7"
         dims = [ns, c, c, d, 64, 640, 3, int(first_v), int(last), width, max(P) * c, latd[0],
                 10, width, 2 * width, 2]
         arr = (ctypes.c_int * len(dims))(*dims)
-        got = {"k1": lambda: lib.k1_layout_bytes(bwd, arr), "k8": lambda: lib.k8_layout_bytes(bwd, arr),
+        got = {"k1": lambda: lib.k1_layout_bytes(bwd, arr),
+               "k1-bf16": lambda: lib.k1_layout_bytes(bwd, arr),
+               "k8": lambda: lib.k8_layout_bytes(bwd, arr),
                "k6": lambda: lib.er_layout_bytes(1, bwd, arr),
                "k7": lambda: lib.er_layout_bytes(2, bwd, arr)}[form]()
-        name = {"k1": "plain", "k6": "embed", "k7": "readout", "k8": "stack"}[form]
+        name = {"k1": "plain", "k1-bf16": "plain", "k6": "embed", "k7": "readout",
+                "k8": "stack"}[form]
         mirror = fl.block_bytes(ns, c, c, d, latd, lmax, parity, first_v, bool(bwd), name, 10,
                                 width, 2 * width)
         if got == -6:  # the shared-memory refusal
@@ -1812,3 +1820,235 @@ def test_sharded_engines_on_the_card(cuda, mode, n_shards, n_rep, kernel):
     assert abs(float(o1.total_energy) - float(o0.total_energy)) <= 1e-6 * abs(
         float(o0.total_energy))
     assert float((o1.extras["charges"] - o0.extras["charges"]).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# The bf16 builds: K1 and K2 on bf16 operands (interior="bf16"), K3 on a
+# bf16 hj (PAT_NEQUIP_HJ=bf16), each against its plain version fed the same
+# bf16-rounded inputs and weights, computed in f32 and rounded to bf16 at
+# the outputs
+# ---------------------------------------------------------------------------
+
+BF16_TOLS = {"fwd": (1e-3, 8e-3), "bwd": (2e-3, 1.6e-2)}  # atol, rtol on max|plain|
+
+
+def _rounded(tree):
+    """A tree (or tensor) with every leaf rounded to bf16 and back to f32."""
+    if isinstance(tree, dict):
+        return {k: _rounded(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rounded(v) for v in tree]
+    return tree.detach().to(torch.bfloat16).float()
+
+
+def _assert_bf16_close(got, want, kind):
+    """bf16 kernel outputs against the f32 plain version's, rounded to bf16."""
+    atol, rtol = BF16_TOLS[kind]
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        b = b.detach().to(torch.bfloat16).float()
+        err = float((a.detach().float() - b).abs().max())
+        assert err <= atol + rtol * float(b.abs().max()), (kind, err, float(b.abs().max()))
+
+
+def _layer_tree(cuda, ns, c, seed=0, lmax=2, parity=True, **fields):
+    cfg = AllegroConfig(type_names=("A", "B"), r_max=4.0, l_max=lmax, num_layers=1,
+                        num_scalar_features=ns, num_tensor_features=c, avg_num_neighbors=5.0,
+                        parity=parity, **fields)
+    return allegro_params_from_numpy(allegro_init_numpy(cfg, seed), cfg, device=cuda)["layers"][0]
+
+
+def _bf16_layer_case(cuda, ns, c, k, first_v, nc=6, seed=1, **fields):
+    """K1's weights (the bf16 build's), the plain version's (rounded to
+    bf16), and bf16 operands."""
+    layer = _layer_tree(cuda, ns, c, **fields)
+    ins = [t.to(torch.bfloat16).requires_grad_(True)
+           for t in _operands(cuda, ns, c, k, nc, first_v, seed)]
+    return fl.k1_weights(layer, 2, True), fl.prepare_layer(_rounded(layer), 2, True), ins
+
+
+@pytest.mark.parametrize("ns,c,k", [(16, 8, 32), (64, 32, 64), (64, 32, 40)])
+@pytest.mark.parametrize("first_v,last", FORMS)
+def test_bf16_kernel_matches_plain(cuda, ns, c, k, first_v, last):
+    w, w_r, ins = _bf16_layer_case(cuda, ns, c, k, first_v)
+    ref = [t.detach().float().requires_grad_(True) for t in ins]
+    f0, b0, g0 = fl.launches_bf16.fwd, fl.launches_bf16.bwd, fl.launches.fwd + fl.launches.bwd
+    out_k = fl.fused_layer(*ins, w, k, 5.0, first_v=first_v, last=last)
+    out_r = fl.fused_layer_reference(*ref, w_r, k, 1.0 / math.sqrt(5.0), first_v, last)
+    out_k, out_r = ((out_k,), (out_r,)) if last else (out_k, out_r)
+    _assert_bf16_close(out_k, out_r, "fwd")
+    cots = [t.to(torch.bfloat16) for t in _cotangents(out_r)]
+    _assert_bf16_close(torch.autograd.grad(out_k, ins, cots),
+                       torch.autograd.grad(out_r, ref, [t.float() for t in cots]), "bwd")
+    assert (fl.launches_bf16.fwd - f0, fl.launches_bf16.bwd - b0) == (1, 1)
+    assert fl.launches.fwd + fl.launches.bwd == g0
+
+
+@pytest.mark.parametrize("ns,c,width,depth,lds,ring", WIDE_LAYOUTS)
+@pytest.mark.parametrize("first_v,last", FORMS)
+def test_bf16_kernel_matches_plain_wide_layouts(cuda, ns, c, width, depth, lds, ring, first_v,
+                                                last):
+    """K1's bf16 build at the wide latent MLPs of the f32 leg: the backward
+    at the tile stride LDS_MIN, and at ns 8 with three 256-wide layers with
+    no weight ring (mma_tile_direct's bf16 form: the packed words read from
+    device memory), K = 40."""
+    w, w_r, ins = _bf16_layer_case(cuda, ns, c, 40, first_v, nc=5, seed=11,
+                                   allegro_mlp_hidden_layers_width=width,
+                                   allegro_mlp_hidden_layers_depth=depth)
+    _, got_lds, got_ring = fl.block_layout(ns, c, c, 9, w.dims[3], 2, True, first_v, True)
+    assert (got_lds, got_ring > 0) == (lds, ring)
+    ref = [t.detach().float().requires_grad_(True) for t in ins]
+    out_k = fl.fused_layer(*ins, w, 40, 5.0, first_v=first_v, last=last)
+    out_r = fl.fused_layer_reference(*ref, w_r, 40, 1.0 / math.sqrt(5.0), first_v, last)
+    out_k, out_r = ((out_k,), (out_r,)) if last else (out_k, out_r)
+    _assert_bf16_close(out_k, out_r, "fwd")
+    cots = [t.to(torch.bfloat16) for t in _cotangents(out_r)]
+    _assert_bf16_close(torch.autograd.grad(out_k, ins, cots),
+                       torch.autograd.grad(out_r, ref, [t.float() for t in cots]), "bwd")
+
+
+# (l_max, parity, C, K): at C 64 (l_max 2) one block an SM backward, at C 128
+# (l_max 1) the forward at the tile stride LDS_MIN with a ring of 2,728 words
+@pytest.mark.parametrize("lmax,parity,c,k", [(1, True, 32, 64), (2, True, 32, 64), (1, True, 8, 40),
+                                             (2, True, 8, 40), (2, True, 64, 40),
+                                             (1, True, 128, 24)])
+def test_bf16_env_kernel_matches_plain(cuda, lmax, parity, c, k):
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+
+    _, _, ins, _, _ = _env_case(cuda, "paths", c, k, 6, lmax, parity, 3)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
+
+    P = num_paths_per_l(lmax, lmax, lmax, parity)
+    mix = {f"l{l3}": torch.randn(c * P[l3], c, generator=g).to(cuda) for l3 in range(lmax + 1)}
+    w = k2.k2_weights(mix, lmax, parity)
+    w_r = k2.prepare_mix(_rounded(mix), lmax, parity)
+    ins = [t.to(torch.bfloat16).requires_grad_(True) for t in ins]
+    ref = [t.detach().float().requires_grad_(True) for t in ins]
+    f0, b0 = k2.launches_bf16.fwd, k2.launches_bf16.bwd
+    out_k = k2.env_layer(*ins, w, k, 5.0)
+    out_r = k2.env_layer_reference(*ref, w_r, k, 1.0 / math.sqrt(5.0))
+    _assert_bf16_close(out_k, out_r, "fwd")
+    cots = [t.to(torch.bfloat16) for t in _cotangents(out_r)]
+    _assert_bf16_close(torch.autograd.grad(out_k, ins, cots),
+                       torch.autograd.grad(out_r, ref, [t.float() for t in cots]), "bwd")
+    assert (k2.launches_bf16.fwd - f0, k2.launches_bf16.bwd - b0) == (1, 1)
+
+
+@pytest.mark.parametrize("c,k", [(64, 64), (32, 40)])
+@pytest.mark.parametrize("lmax,T", [(1, 1), (1, 2), (2, 1), (2, 2)])
+def test_k3_bf16_hj_matches_plain(cuda, lmax, T, c, k):
+    """K3's bf16-hj build against the plain version on the same hj values
+    at f32: agg, dbessel, du and dY within the f32 build's gates, dhj (bf16)
+    within the bf16 backward gate."""
+    from pair_allegro_tpu_torch.ops import nequip_conv as nc_mod
+
+    w, (hj, bes, u, Y) = _k3_case(cuda, lmax, T, c, k, 6, 1)
+    hj = hj.to(torch.bfloat16).requires_grad_(True)
+    rest = [t.requires_grad_(True) for t in (bes, u, Y)]
+    ref = [hj.detach().float().requires_grad_(True)] + [t.detach().requires_grad_(True)
+                                                        for t in rest]
+    f0, b0 = nc_mod.launches_bf16.fwd, nc_mod.launches_bf16.bwd
+    out_k = nc_mod.nequip_conv(hj, *rest, w, k, 12.0)
+    out_r = nc_mod.nequip_conv_reference(*ref, w, k, 1.0 / math.sqrt(12.0))
+    assert out_k.dtype == torch.float32
+    torch.testing.assert_close(out_k, out_r, atol=1e-4, rtol=1e-4)
+    (cot,) = _cotangents((out_r,))
+    g_k = torch.autograd.grad(out_k, [hj, *rest], cot)
+    g_r = torch.autograd.grad(out_r, ref, cot)
+    _assert_bf16_close(g_k[:1], g_r[:1], "bwd")
+    for a, b in zip(g_k[1:], g_r[1:]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+    assert (nc_mod.launches_bf16.fwd - f0, nc_mod.launches_bf16.bwd - b0) == (1, 1)
+
+
+def _all_launches():
+    from pair_allegro_tpu_torch.ops import (
+        embed_layer,
+        env_layer,
+        env_layer_mxu,
+        fused_stack,
+        nequip_conv,
+        readout_layer,
+        tp_mix_fused,
+    )
+
+    mods = {"K1": fl, "K2": env_layer, "K3": nequip_conv, "K4": tp_mix_fused,
+            "K5": env_layer_mxu, "K6": embed_layer, "K7": readout_layer, "K8": fused_stack}
+    counts = {name: m.launches for name, m in mods.items()}
+    counts.update({f"{name}-bf16": mods[name].launches_bf16 for name in ("K1", "K2", "K3")})
+    return counts
+
+
+def _launched(counts):
+    return {name: (c.fwd, c.bwd) for name, c in counts.items() if c.fwd or c.bwd}
+
+
+# (config fields, environment, launches per force evaluation on the card)
+BF16_ROUTES = [
+    ({}, {}, {"K1-bf16": 2}),
+    ({}, {"PAT_L1_POSITIONAL": "0"}, {"K1-bf16": 2}),
+    (dict(layer_fused=False), {}, {"K2-bf16": 2}),
+    ({}, {"PAT_L1_EMBED": "1"}, {}),  # K6 / K7 have no bf16 build: the plain path
+    (dict(fused_stack=True), {}, {}),  # nor K8
+    (dict(layer_fused=False, tp_mode="mxu_highest"), {}, {}),  # nor K5
+]
+
+
+@pytest.mark.parametrize("fields,env,want", BF16_ROUTES)
+def test_bf16_routes_count_their_launches(cuda, fields, env, want, monkeypatch):
+    """interior="bf16" on the card: the K1 tier launches K1's bf16 build and
+    the per-layer paths tier K2's, once a layer each way, and nothing else;
+    the tiers whose kernels have no bf16 build launch nothing.  Forces and
+    energy come back f32 and finite."""
+    for name in ("PAT_L1_POSITIONAL", "PAT_L1_EMBED"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, num_layers=2, num_scalar_features=16,
+                        num_tensor_features=8, avg_num_neighbors=12.0, interior="bf16", **fields)
+    params = allegro_params_from_numpy(allegro_init_numpy(cfg, 0), cfg, device=cuda)
+    pos, cell = fcc_lattice(5)
+    system = System.create(pos, np.zeros(len(pos), np.int64), cell=cell, device=cuda)
+    eng = AllegroEngine(cfg, params, system)
+    nb = eng.rebuild_fn(system, None)
+    counts = _all_launches()
+    for c in counts.values():
+        c.reset()
+    out = eng.force_fn(system, nb)
+    torch.cuda.synchronize()
+    assert out.forces.dtype == torch.float32 and torch.isfinite(out.forces).all()
+    assert _launched(counts) == {name: (n, n) for name, n in want.items()}
+
+
+def test_nequip_hj_bf16_counts_its_launches(cuda, monkeypatch):
+    """PAT_NEQUIP_HJ=bf16 on the card: K3's bf16-hj build once a layer each
+    way, the f32 build never; forces within 1e-2 max|F| of the f32 path (an
+    H100 run read 3.0e-3 of max|F|: h rounded to bf16 moves the forces by
+    that much; JAX's own test holds the tier to 5e-2)."""
+    from pair_allegro_tpu_torch.engine import NequIPEngine
+    from pair_allegro_tpu_torch.models.nequip import (
+        NequIPConfig,
+        nequip_init_numpy,
+        nequip_params_from_numpy,
+    )
+
+    cfg = NequIPConfig(type_names=("Cu",), r_max=4.5, l_max=1, num_layers=2, num_features=16,
+                       avg_num_neighbors=12.0)
+    params = nequip_params_from_numpy(nequip_init_numpy(cfg, 0), cfg, device=cuda)
+    pos, cell = fcc_lattice(5)
+    system = System.create(pos, np.zeros(len(pos), np.int64), cell=cell, device=cuda)
+    eng = NequIPEngine(cfg, params, system)
+    nb = eng.rebuild_fn(system, None)
+    counts = _all_launches()
+    forces = {}
+    for hj in ("", "bf16"):
+        monkeypatch.setenv("PAT_NEQUIP_HJ", hj)
+        for c in counts.values():
+            c.reset()
+        forces[hj] = eng.force_fn(system, nb).forces
+        torch.cuda.synchronize()
+        want = "K3-bf16" if hj else "K3"
+        assert _launched(counts) == {want: (2, 2)}
+    fmax = float(forces[""].abs().max())
+    assert float((forces["bf16"] - forces[""]).abs().max()) <= 1e-2 * fmax

@@ -1,7 +1,7 @@
 """The port's ``AllegroConfig`` against the JAX package's: every field of
 the JAX config, with its default, so that the config dict a JAX checkpoint
 carries (``checkpoint.save_params`` writes ``dataclasses.asdict(cfg)``)
-builds the port's config; ``interior`` is taken at "working" only."""
+builds the port's config, ``interior="bf16"`` included."""
 
 import dataclasses
 import json
@@ -45,11 +45,26 @@ def test_jax_checkpoint_config_builds_the_port_config(tmp_path):
 
 
 def test_interior_bf16_is_not_ported():
-    cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, interior="bf16")
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+    """interior="bf16" (refused until the bf16 tier was ported; the name is
+    kept) builds, converts a tree and runs on the CPU: a 32-atom box on
+    every tier gives finite f32 energies and forces."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine
+    from pair_allegro_tpu_torch.system import System, fcc_lattice
+
+    pos, cell = fcc_lattice(2)
+    for tier in (dict(), dict(layer_fused=False), dict(fused_tp=False), dict(fused_stack=True)):
+        cfg = AllegroConfig(type_names=("Cu",), r_max=4.0, l_max=1, num_layers=2,
+                            num_scalar_features=8, num_tensor_features=8, interior="bf16", **tier)
         check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        allegro_params_from_numpy(allegro_init_numpy(cfg), cfg, device="cpu")
+        params = allegro_params_from_numpy(allegro_init_numpy(cfg), cfg, device="cpu")
+        assert all(t.dtype == torch.float32 for t in params["per_type_scale"].reshape(1))
+        system = System.create(pos, np.zeros(len(pos), np.int64), cell=cell, device="cpu")
+        eng = AllegroEngine(cfg, params, system, device="cpu")
+        out = eng.force_fn(system, eng.rebuild_fn(system, None))
+        assert out.forces.dtype == torch.float32 and out.total_energy.dtype == torch.float32
+        assert torch.isfinite(out.forces).all() and torch.isfinite(out.total_energy)
 
 
 def test_unknown_interior_is_refused():

@@ -199,7 +199,41 @@ def test_config_scalars_and_nesting():
     ("a:\n  b: 1\n c: 2\n", 3),
     ("a: [1,\n  2]\n", 1),
     ("a: 2001-12-14\n", 1),
+    ("a: -\n", 1),
+    ("a: - 1\n", 1),
+    ("a: ? b\n", 1),
+    ("a: ?\n", 1),
+    ("a:\n  - b: - 1\n", 2),
+    ("a: [- 1]\n", 1),
+    ("a: {b: - 1}\n", 1),
+    ("a: =\n", 1),
+    ("type_names: - Cu\n", 1),
 ])
 def test_config_refuses_constructs_outside_the_subset(text, line):
     with pytest.raises(ValueError, match=f"config line {line}:"):
         parse_config(text)
+    if text in YAML_REFUSES:  # outside YAML itself, not only outside the subset
+        with pytest.raises(yaml.YAMLError):
+            yaml.safe_load(text)
+
+
+# the cases above that PyYAML refuses too (the others are YAML the subset omits)
+YAML_REFUSES = {"a: -\n", "a: - 1\n", "a: ? b\n", "a: ?\n", "a:\n  - b: - 1\n", "a: [- 1]\n",
+                "a: {b: - 1}\n", "a: =\n", "type_names: - Cu\n"}
+
+
+def test_cli_run_refuses_a_config_the_jax_cli_refuses(tmp_path):
+    """examples/cu_nve.yaml with ``type_names: - Cu``: both CLIs refuse it
+    while reading the config, before any model runs."""
+    from pair_allegro_tpu.cli import main as jax_main
+    from pair_allegro_tpu_torch.cli import main as torch_main
+
+    text = (ROOT / "examples" / "cu_nve.yaml").read_text()
+    bad = [ln if not ln.startswith("type_names:") else "type_names: - Cu" for ln in text.splitlines()]
+    assert bad != text.splitlines()
+    path = tmp_path / "bad.yaml"
+    path.write_text("\n".join(bad) + "\n")
+    with pytest.raises(yaml.YAMLError, match="sequence entries are not allowed here"):
+        jax_main(["run", str(path)])
+    with pytest.raises(ValueError, match="config line [0-9]+: '- Cu'"):
+        torch_main(["run", str(path), "--device", "cpu"])

@@ -456,15 +456,24 @@ def test_every_library_lists_the_headers_its_source_includes(name):
 def test_k2_k4_products_are_on_the_tensor_cores():
     """No FFMA product, shared-memory TP row or atomic is left in K2 and K4:
     their mix and mixT run mma_tile (3xTF32 mma.sync) with the weights
-    staged by mma_stage (cp.async), their TP rows keep sums in registers."""
+    staged by mma_stage (cp.async), their TP rows keep sums in registers.
+    K2 reaches them through prod / stage (allegro_mma.cuh), which run
+    mma_tile and mma_stage at f32 and the bf16 product on the same ring at
+    bf16."""
     tiles = SRC["allegro_tiles.cuh"]
     for gone in ("gemm_tile", "tp_row(", "tp_row_edges", "load_tile("):
         assert gone not in tiles
+    mma = SRC["allegro_mma.cuh"]
+    dispatch = {"prod<Act>": re.search(r"void prod\(.*?\n}\n", mma, re.S).group(0),
+                "stage<Act>": re.search(r"void stage\(.*?\n}\n", mma, re.S).group(0)}
+    assert "mma_tile<TW, O, IS_BF16<Act>>(" in dispatch["prod<Act>"]
+    assert "mma_stage(" in dispatch["stage<Act>"]
     for name, tp in (("env_layer.cu", ("tp_row_reg(", "tp_row_bwd(")),
                      ("tp_mix_fused.cu", ("tp_row_reg_edges<", "tp_row_bwd_edges<"))):
         src = SRC[name]
         assert "atomicAdd" not in src and "__ldg(A" not in src
-        assert src.count("mma_tile") >= 2 and src.count("mma_stage") >= 2
+        assert (src.count("mma_tile") + src.count("prod<Act>") >= 2
+                and src.count("mma_stage") + src.count("stage<Act>") >= 2)
         assert all(t in src for t in tp)
         assert '#include "allegro_mma.cuh"' in src
 

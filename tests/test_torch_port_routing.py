@@ -40,7 +40,7 @@ def _clean_env(monkeypatch):
 
 # config fields, flat, environment -> the tier at f32 (the CPU keeps it at
 # any dtype but for the per-layer rounding modes; the card runs 'plain' at
-# any other dtype)
+# any other dtype, but at bf16 the tiers of K1's and K2's bf16 builds)
 TIERS = [
     ({}, False, {}, "k1"),
     ({}, False, {"PAT_L1_EMBED": "1"}, "k1-embed"),
@@ -61,7 +61,9 @@ def test_card_routes_every_dtype_but_f32_to_plain(fields, flat, env, tier, monke
     assert layer_tier(cfg, flat) == layer_tier(cfg, flat, dtype=torch.float32) == tier
     rounding = tier == "perlayer" and cfg.tp_mode in ("mxu_bf16", "mxu_bf16x3")
     for dtype in (torch.float64, torch.bfloat16, torch.float16):
-        assert layer_tier(cfg, flat, dtype=dtype) == "plain"
+        bf16_build = dtype == torch.bfloat16 and (
+            tier in ("k1", "k1-nopos") or (tier == "perlayer" and cfg.tp_mode == "paths"))
+        assert layer_tier(cfg, flat, dtype=dtype) == (tier if bf16_build else "plain")
         assert layer_tier(cfg, flat, dtype=dtype, card=False) == ("plain" if rounding else tier)
     # the card's memory check counts the plain tier, in the dtype's bytes
     plain = dataclasses.replace(cfg, fused_tp=False, fused_stack=False)

@@ -296,13 +296,12 @@ def test_config_tier_fields():
     train = dataclasses.replace(cfg, fused_stack="auto").for_training()
     assert (train.fused_tp, train.fused_stack, train.tier) == (False, False, "plain")
     tree = {"layers": []}
-    for bad, err in ((dict(interior="bf16"), NotImplementedError),
-                     (dict(tp_mode="mxu_fp8"), ValueError)):
+    for bad, err in ((dict(tp_mode="mxu_fp8"), ValueError),):
         with pytest.raises(err):
             allegro_params_from_numpy(tree, dataclasses.replace(cfg, num_layers=0, **bad),
                                       device="cpu")
-    # the fused stack (K8) and remat are ported: fused_stack=True and remat=True are accepted
-    for ok in (dict(fused_stack=True), dict(remat=True)):
+    # the fused stack (K8), remat and the bf16 interior are ported: they are accepted
+    for ok in (dict(fused_stack=True), dict(remat=True), dict(interior="bf16")):
         allegro_params_from_numpy(tree, dataclasses.replace(cfg, num_layers=0, **ok),
                                   device="cpu")
 
