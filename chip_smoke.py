@@ -7,9 +7,12 @@ Phases, each of which must pass (any failure exits non-zero):
      K3 (csrc/nequip_conv.cu), K2 (csrc/env_layer.cu), K5
      (csrc/env_layer_mxu.cu), K4 (csrc/tp_mix_fused.cu), K6 / K7
      (csrc/embed_readout_layer.cu), K8 (csrc/fused_stack.cu) and the bf16
-     builds of K1, K2 (csrc/fused_layer_bf16.cu, csrc/env_layer_bf16.cu)
-     and K3 (csrc/nequip_conv_bf16.cu, a bf16 hj) with nvcc for sm_90a,
-     started together;
+     builds of K1, K2 (csrc/fused_layer_bf16.cu, csrc/env_layer_bf16.cu),
+     K3 (csrc/nequip_conv_bf16.cu, a bf16 hj), K6 / K7
+     (csrc/embed_readout_layer_bf16.cu) and K8 (csrc/fused_stack_bf16.cu)
+     with nvcc for sm_90a, started together; phases 2-4 start once K1's
+     is built, each other library loads at its first use, and every
+     build's ptxas report prints after phase 4;
   2. K1 parity: the CUDA kernel against its plain PyTorch version, f32,
      forward and backward, for the first / middle / last forms, at flagship
      widths (ns=64, C=32, l_max=2) on a 500-atom FCC Cu neighbor table;
@@ -84,8 +87,9 @@ Phases, each of which must pass (any failure exits non-zero):
      at flagship widths: f32 on the card against the port's plain path of
      the same model at f64 on the CPU, max|dF| <= 1e-4 eV/A (rms|dF| and
      dE/atom printed); mxu_bf16 is printed, not gated; the fast bf16 tiers
-     of phase 20 (the K1 tier and the per-layer paths tier at
-     interior="bf16", NequIP under PAT_NEQUIP_HJ=bf16) gated at twice the
+     of phase 20 (the K1 tier, its embed/readout form, the stack and the
+     per-layer paths tier at interior="bf16", NequIP under
+     PAT_NEQUIP_HJ=bf16) gated at twice the
      distance from the same oracle of the port's CPU path at that setting
      (f32 positions, the same bf16 casts), both distances printed;
  16. the CLI's run path (``pair_allegro_tpu_torch.cli.main(["run", ...])``
@@ -150,20 +154,27 @@ Phases, each of which must pass (any failure exits non-zero):
      (or host compiler) run.
  20. the bf16 tiers (run before phase 15, which gates them too): K1's
      bf16 build (interior="bf16") in its three forms, K2's at l_max 2 and 1
-     with parity, and K3's bf16-hj build (PAT_NEQUIP_HJ=bf16) at (l_max,
-     tracks) in {1, 2} x {1, 2}, forward and backward on the 500-atom
-     table, each against its plain version fed the same bf16-rounded inputs
-     and weights at f32 with the outputs rounded to bf16 (BF16_TOLS; K3's
-     f32 outputs within TOLS); the K1 tier and the per-layer paths tier at
-     interior="bf16" on the card and at bf16 on the CPU, each against the
-     CPU f32 path (the card within twice the CPU's distance; 3 + 3 bf16
-     launches); phase 5's run at interior="bf16" (3 + 3 K1-bf16
+     with parity, K3's bf16-hj build (PAT_NEQUIP_HJ=bf16) at (l_max,
+     tracks) in {1, 2} x {1, 2}, K6's and K7's (K7 with and without the
+     charge head) and K8's (3 layers at l_max 2 and 1, 1 and 2 layers),
+     forward and backward on the 500-atom table, each against its plain
+     version fed the same bf16-rounded inputs and weights at f32 with the
+     outputs rounded to bf16 (BF16_TOLS; K3's f32 outputs within TOLS; K8's
+     plain version rounds x and V to bf16 between the layers, as the
+     build's stores do: ``fused_stack.stack_rounded_reference``); the K1
+     tier, its embed/readout form, the stack and the per-layer paths tier
+     at interior="bf16" on the card and at bf16 on the CPU, each against
+     the CPU f32 path (the card within twice the CPU's distance; the bf16
+     launches only); phase 5's run at interior="bf16" (3 + 3 K1-bf16
      launches per force evaluation and no other kernel), the per-layer
-     paths tier at bf16 (3 + 3 K2-bf16) and phase 6's run under
-     PAT_NEQUIP_HJ=bf16 (3 + 3 K3-bf16), 60 + 60 steps each, their steps/s
+     paths tier at bf16 (3 + 3 K2-bf16), phase 6's run under
+     PAT_NEQUIP_HJ=bf16 (3 + 3 K3-bf16), the embed/readout form at bf16
+     (embed-bf16: 1 K6-bf16, 1 K1-bf16, 1 K7-bf16 each way) and the stack
+     at bf16 (stack-bf16: 1 + 1 K8-bf16), 60 + 60 steps each, their steps/s
      and peak memory beside their f32 paths'; the bf16 builds' timings and
      parity at those paths' shapes, with bounds at the bf16 tensor-core
-     rate and 2-byte numbers.
+     rate and 2-byte numbers, beside their plain versions' times at bf16.
+A "phase clock" line after each phase gives its wall seconds.
 Phases 7, 8, 10, 12 and 14 print two bounds for K1, K2, K3, K4, K6, K7 and K8:
 with the products on the tensor cores in 3xTF32 (the kernels'
 ``bound_ms``) and on the CUDA cores alone (``bound_ms_f32``), and the
@@ -415,12 +426,13 @@ def _mlp_ops(dims):
     return sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
 
 
-def k6_cost(w, e, bwd):
+def k6_cost(w, e, bwd, nb=4):
     """(flops, bytes) one K6 call needs at E edge slots: K1's first form
     (``k1_terms``) with the prologue x = MLP2b(in) * u, pT = W_te^T x /
     sqrt(ns) (the backward adds its recompute, the two-body MLP's backward,
     W_te dpT and the du and dx * u terms); the input rows in place of x and
-    pT, d(in) in place of dx and dpT (f32, weights included)."""
+    pT, d(in) in place of dx and dpT (``nb`` bytes a number: 4 at f32, 2 for
+    the bf16 build; weights included)."""
     ns, c = w.te.shape
     per, io_in, io_out = k1_terms(w.layer, "first", bwd)
     mlp = _mlp_ops(w.tb_dims)
@@ -432,7 +444,7 @@ def k6_cost(w, e, bwd):
     else:
         per += pro
     n_w = sum(t.numel() for t in w.tensors())
-    return per * e, 4 * ((io_in + swap + io_out) * e + n_w)
+    return per * e, nb * ((io_in + swap + io_out) * e + n_w)
 
 
 def k6_products(w, bwd):
@@ -486,12 +498,12 @@ def k8_weight_bytes(w, bwd, tiles):
     return sum(fwd[:-1]) + sum(k1_weight_bytes(lw, f, True, tiles) for lw, f in zip(w.k1, forms))
 
 
-def k7_cost(w, e, bwd):
+def k7_cost(w, e, bwd, nb=4):
     """(flops, bytes) one K7 call needs at E edge slots: K1's last form
     (``k1_terms``) with the heads head(x') * u as epilogue (the backward adds
     x' and the heads' forward, their backward and du); the heads' rows in
     place of x' (forward), their cotangents in place of dx' (backward)
-    (f32, weights included)."""
+    (``nb`` bytes a number, as ``k6_cost``; weights included)."""
     ns = w.layer.env_w.shape[0]
     per, io_in, io_out = k1_terms(w.layer, "last", bwd)
     heads = sum(_mlp_ops(h) + 1 for h in w.heads_dims)
@@ -503,7 +515,7 @@ def k7_cost(w, e, bwd):
         per += heads
         io_out += nh - ns
     n_w = sum(t.numel() for t in w.tensors())
-    return per * e, 4 * ((io_in + io_out) * e + n_w)
+    return per * e, nb * ((io_in + io_out) * e + n_w)
 
 
 def cuda_ms(fn, reps):
@@ -632,6 +644,10 @@ PATHS = {
     "perlayer-bf16": ("allegro", dict(layer_fused=False, interior="bf16"), "K2-bf16", 60, False,
                       {}),
     "nequip-hj-bf16": ("nequip", {}, "K3-bf16", 60, False, {"PAT_NEQUIP_HJ": "bf16"}),
+    # K6's, K7's and K8's bf16 builds: the embed/readout form and the stack
+    # at interior="bf16"
+    "embed-bf16": ("allegro", dict(interior="bf16"), "K6-bf16", 60, False, {"PAT_L1_EMBED": "1"}),
+    "stack-bf16": ("allegro", dict(fused_stack=True, interior="bf16"), "K8-bf16", 60, False, {}),
 }
 # the paths that run the million-atom mode's windows: rows per window
 ROW_CHUNK = {"allegro-chunked": 1331}
@@ -647,8 +663,10 @@ def path_launches(path, cfg):
     kernel = PATHS[path][2]
     if path == "embed":
         return {"K6": 1, "K1": cfg.num_layers - 2, "K7": 1}
-    if path == "stack":
-        return {"K8": 1}
+    if path == "embed-bf16":
+        return {"K6-bf16": 1, "K1-bf16": cfg.num_layers - 2, "K7-bf16": 1}
+    if path in ("stack", "stack-bf16"):
+        return {kernel: 1}
     return {kernel: cfg.num_layers} if kernel else {}
 
 
@@ -669,7 +687,8 @@ def env_vars(env):
 
 def kernel_modules():
     """{kernel id: its wrapper module}, each with ``launches`` and ``LIB``;
-    the bf16 builds of K1, K2 and K3 as 'K1-bf16', 'K2-bf16', 'K3-bf16'."""
+    the bf16 builds as 'K1-bf16', 'K2-bf16', 'K3-bf16', 'K6-bf16',
+    'K7-bf16' and 'K8-bf16' (K6's and K7's in one library)."""
     from pair_allegro_tpu_torch.ops import (
         embed_layer,
         env_layer,
@@ -685,7 +704,9 @@ def kernel_modules():
             "K4": tp_mix_fused, "K6": embed_layer, "K7": readout_layer, "K8": fused_stack,
             # the bf16 builds, counted apart (their wrappers' launches_bf16)
             **{f"{name}-bf16": SimpleNamespace(launches=mod.launches_bf16, LIB=mod.LIB_BF16)
-               for name, mod in (("K1", fused_layer), ("K2", env_layer), ("K3", nequip_conv))}}
+               for name, mod in (("K1", fused_layer), ("K2", env_layer), ("K3", nequip_conv),
+                                 ("K6", embed_layer), ("K7", readout_layer),
+                                 ("K8", fused_stack))}}
 
 
 def build_path(path):
@@ -1886,14 +1907,14 @@ def stack_calls(cfg, params, k):
     return (lambda *o: k8.fused_stack(*o, *args), lambda *o: k8.allegro_stack_reference(*o, *args))
 
 
-def k8_cost(w, e, bwd):
+def k8_cost(w, e, bwd, nb=4):
     """(flops, bytes) one K8 call needs at E edge slots: per layer K1's
     terms for that layer's form (``k1_terms``: the first builds V0, the
     last has no mix), with the forward's per-layer values taken as known to
     the backward (the kernel's recompute of layers 0 .. L-2 is not
     counted); the stack's own rows read and written once: x0, pT, Y, u
-    (and dx_final) in, x_final (or dx0, dpT, dY, du) out (f32, weights
-    included)."""
+    (and dx_final) in, x_final (or dx0, dpT, dY, du) out (``nb`` bytes a
+    number, as ``k6_cost``; weights included)."""
     n_l = len(w.k1)
     per = sum(k1_terms(lw, (li == 0, li == n_l - 1), bwd)[0] for li, lw in enumerate(w.k1))
     ns, c = w.k1[0].dims[:2]
@@ -1901,7 +1922,7 @@ def k8_cost(w, e, bwd):
     rows_in = ns + c + d + 1 + (ns if bwd else 0)
     rows_out = ns + c + d + 1 if bwd else ns
     n_w = sum(t.numel() for t in w.tensors())
-    return per * e, 4 * ((rows_in + rows_out) * e + n_w)
+    return per * e, nb * ((rows_in + rows_out) * e + n_w)
 
 
 def stack_parity():
@@ -2027,6 +2048,10 @@ ACCURACY_TIERS = (("K1 tier", "allegro", {}, {}, {"K1": 3}, True, False),
 # (f32 positions, the same bf16 casts), not at 1e-4
 BF16_ACCURACY_TIERS = (("K1 tier, interior bf16", "allegro", dict(interior="bf16"), {},
                         {"K1-bf16": 3}),
+                       ("embed path, interior bf16", "allegro", dict(interior="bf16"),
+                        {"PAT_L1_EMBED": "1"}, {"K6-bf16": 1, "K1-bf16": 1, "K7-bf16": 1}),
+                       ("stack path, interior bf16", "allegro",
+                        dict(fused_stack=True, interior="bf16"), {}, {"K8-bf16": 1}),
                        ("per-layer paths, interior bf16", "allegro",
                         dict(layer_fused=False, interior="bf16"), {}, {"K2-bf16": 3}),
                        ("NequIP, hj bf16", "nequip", {}, {"PAT_NEQUIP_HJ": "bf16"},
@@ -3715,16 +3740,77 @@ def k3_bf16_compare(label, ops32, w, k, avg, gen):
     return errs
 
 
+def bf16_pair(kernel, label, fn, ref, ops32, outs, names, gen):
+    """A bf16 build (``fn``) on ``ops32`` rounded to bf16 against its plain
+    version (``ref``, on weights rounded to bf16) at f32 on the same values,
+    forward and backward (bf16 cotangents), within BF16_TOLS; returns the
+    max abs errors."""
+    import torch
+
+    bf = torch.bfloat16
+    ins = [t.detach().to(bf).requires_grad_(True) for t in ops32]
+    refs = [t.detach().float().requires_grad_(True) for t in ins]
+    out_k, out_r = _tup(fn(*ins)), _tup(ref(*refs))
+    cots = [torch.randn(o.shape, generator=gen, device=o.device).to(bf) for o in out_r]
+    g_k = torch.autograd.grad(out_k, ins, cots)
+    g_r = torch.autograd.grad(out_r, refs, [c.float() for c in cots])
+    torch.cuda.synchronize()
+    if any(t.dtype != bf for t in (*out_k, *g_k)):
+        raise RuntimeError(f"{kernel} {label}: the bf16 build returned another dtype")
+    errs = {kind: check(kernel, label, kind, nm, got, [t.to(bf) for t in want], BF16_TOLS[kind])
+            for kind, nm, got, want in (("fwd", outs, out_k, out_r), ("bwd", names, g_k, g_r))}
+    del ins, refs, out_k, out_r, cots, g_k, g_r
+    torch.cuda.empty_cache()
+    return errs
+
+
+def er_bf16_calls(cfg, params, k):
+    """K6's and K7's bf16 builds (wrapper, plain version on the tree
+    rounded to bf16 with its constants rounded as the build rounds them,
+    output names, operand names) as functions of their operands."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    avg, inv_avg = cfg.avg_num_neighbors, 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    lmax, parity, charges = cfg.l_max, cfg.parity, cfg.output_charges
+    w6, w7 = k6.k6_weights(params, lmax, parity), k7.k7_weights(params, lmax, parity, charges)
+    w6_r = k6.prepare_embed(rounded(params), lmax, parity)
+    w7_r = k7.prepare_readout(rounded(params), lmax, parity, charges)
+    return {"K6-bf16": (lambda *a: k6.embed_layer(*a, w6, k, avg),
+                        lambda *a: k6.embed_layer_reference(*a, w6_r, k, inv_avg,
+                                                            scalars=torch.bfloat16),
+                        ("x'", "V'"), K6_NAMES),
+            "K7-bf16": (lambda *a: k7.readout_layer(*a, w7, k, avg),
+                        lambda *a: k7.readout_layer_reference(*a, w7_r, k, inv_avg,
+                                                              scalars=torch.bfloat16),
+                        ("e", "q")[:1 + charges], K1_NAMES)}
+
+
+def stack_bf16_calls(cfg, params, k):
+    """K8's bf16 build (wrapper, plain version: ``stack_rounded_reference``
+    on the layers rounded to bf16) as functions of its operands."""
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    layers_r = rounded(params["layers"])
+    args = (k, cfg.l_max, cfg.avg_num_neighbors, cfg.parity)
+    return (lambda *o: k8.fused_stack(*o, params["layers"], *args),
+            lambda *o: k8.stack_rounded_reference(*o, layers_r, *args))
+
+
 def bf16_parity():
     """Phase 20's kernel parity on the 500-atom table: K1's bf16 build in its
     three forms at flagship widths, K2's at l_max 2 and 1 with parity, K3's
-    bf16-hj build at (l_max, tracks) in {1, 2} x {1, 2}; returns
-    {kernel: {"fwd": err, "bwd": err}}."""
+    bf16-hj build at (l_max, tracks) in {1, 2} x {1, 2}, K6's and K7's
+    (K7 with and without the charge head) and K8's (3 layers at l_max 2 and
+    1, 1 and 2 layers); returns {kernel: {"fwd": err, "bwd": err}}."""
     import torch
 
     from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
 
-    errs = {name: {"fwd": 0.0, "bwd": 0.0} for name in ("K1-bf16", "K2-bf16", "K3-bf16")}
+    errs = {name: {"fwd": 0.0, "bwd": 0.0} for name in ("K1-bf16", "K2-bf16", "K3-bf16",
+                                                         "K6-bf16", "K7-bf16", "K8-bf16")}
 
     def keep(name, e):
         errs[name] = {kind: max(errs[name][kind], e[kind]) for kind in e}
@@ -3747,21 +3833,46 @@ def bf16_parity():
             ops, w, k = k3_operands(cfg, params, system, NequIPEngine(cfg, params, system))
             keep("K3-bf16", k3_bf16_compare(f"l_max={lmax} T={cfg.n_tracks} 500 atoms K={k}",
                                             ops, w, k, cfg.avg_num_neighbors, gen))
+    for charges in (True, False):
+        cfg, params, system = make_case(5, None, output_charges=charges, interior="bf16")
+        ops6, ops7, k = er_operands(cfg, params, system, AllegroEngine(cfg, params, system))
+        calls = er_bf16_calls(cfg, params, k)
+        label = f"500 atoms K={k}" + (", charge head" if charges else "")
+        for name, ops in (("K6-bf16", ops6), ("K7-bf16", ops7)):
+            if name == "K7-bf16" or charges:
+                keep(name, bf16_pair(name, label, *calls[name][:2], ops, *calls[name][2:], gen))
+    for tier in (dict(), dict(l_max=1), dict(num_layers=1), dict(num_layers=2)):
+        cfg, params, system = make_case(5, None, fused_stack=True, interior="bf16", **tier)
+        ops, k = stack_operands(cfg, params, system, AllegroEngine(cfg, params, system))
+        keep("K8-bf16", bf16_pair("K8-bf16", f"l_max={cfg.l_max} {cfg.num_layers} layers 500 "
+                                  f"atoms K={k}", *stack_bf16_calls(cfg, params, k), ops, ("x",),
+                                  K8_NAMES, gen))
     return errs
 
 
-def bf16_model_parity(tier, want):
+def bf16_model_parity(tier, want, env=None, ref=None):
     """Phase 20: forces and charges of an ``interior="bf16"`` model on the
     card (the bf16 build) and of the same model at bf16 on the CPU (the
     plain versions), each against the model at f32 on the CPU: the card's
     distance within twice the CPU bf16 path's (the two round at bf16 in
     places of their own, so their distance from each other is no gate;
-    it is printed), with ``want`` launches per force evaluation."""
+    it is printed), with ``want`` launches per force evaluation; ``env``
+    the environment of the tier (the embed/readout form's); ``ref`` the CPU
+    f32 path's (forces, charges, energy) from an earlier call, which every
+    tier shares: each computes that function at f32.  Returns ``ref``."""
+    with env_vars(env or {}):
+        return _bf16_model_parity(tier, want, env, ref)
+
+
+def _bf16_model_parity(tier, want, env, ref):
     from pair_allegro_tpu_torch.engine import AllegroEngine
 
     mods = kernel_modules()
     outs = {}
     for dev, interior in (("cuda", "bf16"), ("cpu", "bf16"), ("cpu", "working")):
+        if (dev, interior) == ("cpu", "working") and ref is not None:
+            outs[dev, interior] = ref
+            continue
         cfg, params, system = make_case(5, dev, output_charges=True, interior=interior, **tier)
         eng = AllegroEngine(cfg, params, system, device=dev)
         nb = eng.rebuild_fn(system, None)
@@ -3775,29 +3886,35 @@ def bf16_model_parity(tier, want):
     (f_k, q_k, e_k), (f_p, q_p, e_p), (f_32, q_32, e_32) = outs.values()
     dk = (max_err(f_k, f_32), max_err(q_k, q_32))
     dp = (max_err(f_p, f_32), max_err(q_p, q_32))
-    print(f"bf16 model parity ({tier or 'K1 tier'}, interior bf16, 500 atoms, charges; against "
+    print(f"bf16 model parity ({tier or env or 'K1 tier'}, interior bf16, 500 atoms, charges; against "
           f"the CPU f32 path): the card max|dF| {dk[0]:.3e} eV/A, max|dq| {dk[1]:.3e}; the CPU "
           f"bf16 path {dp[0]:.3e}, {dp[1]:.3e} (gate 2 x the CPU's); card against CPU at bf16 "
           f"{max_err(f_k, f_p):.3e}, {max_err(q_k, q_p):.3e}; max|F| {float(f_32.abs().max()):.3f}; "
           f"E {e_k:.6f}, {e_p:.6f}, {e_32:.6f} eV; launches on the card {launched}")
     if not (dk[0] <= 2 * dp[0] and dk[1] <= 2 * dp[1]):
-        raise RuntimeError(f"bf16 model parity gate failed ({tier})")
+        raise RuntimeError(f"bf16 model parity gate failed ({tier or env})")
     if launched != {name: (n, n) for name, n in want.items()}:
-        raise RuntimeError(f"bf16 model parity ({tier}): launched {launched}, want {want}")
+        raise RuntimeError(f"bf16 model parity ({tier or env}): launched {launched}, want {want}")
+    return outs["cpu", "working"]
 
 
-def bf16_timings(path, cfg, params, system, eng, errs):
+def bf16_timings(path, cfg, params, system, eng, all_errs):
     """Phase 20's timings at the bf16 main paths' shapes (CUDA events, warm):
     K1's bf16 build per form (allegro-bf16), K2's (perlayer-bf16), K3's
-    bf16-hj build (nequip-hj-bf16), beside the plain version's time on the
-    same bf16 inputs and the bound with the products at PEAK_BF16_FLOPS and
-    the bf16 numbers at 2 bytes; parity at those shapes (into ``errs``).
-    Returns {(form, kind) or kind: row}."""
+    bf16-hj build (nequip-hj-bf16), K6's and K7's (embed-bf16), K8's
+    (stack-bf16), beside the plain version's time on the same bf16 inputs
+    and the bound with the products at PEAK_BF16_FLOPS and the bf16 numbers
+    at 2 bytes; parity at those shapes (into ``all_errs``, {kernel: errs}).
+    Returns {kernel: {(form, kind) or kind: row}}."""
     import torch
 
     gen = torch.Generator(device=system.device).manual_seed(SEED)
     res = {}
     bf = torch.bfloat16
+    errs = all_errs[PATHS[path][2]]
+    if path in ("embed-bf16", "stack-bf16"):
+        return (er_bf16_timings if path == "embed-bf16" else stack_bf16_timings)(
+            cfg, params, system, eng, all_errs, gen)
     if path == "allegro-bf16":
         from pair_allegro_tpu_torch.ops import fused_layer as fl
 
@@ -3892,7 +4009,104 @@ def bf16_timings(path, cfg, params, system, eng, errs):
             nbytes -= 2 * df * e * (2 if bwd else 1)  # hj (and dhj) at 2 bytes
             res[kind] = timing(ms, pms, flops, prod, nbytes, k3_weight_bytes(w, e, k, bwd))
             print_timing(f"K3 bf16-hj {kind} E={e}", res[kind])
+    return {PATHS[path][2]: res}
+
+
+def _time_pair(fn_k, fn_kb, ref, ins_b, cots):
+    """(kernel fwd, kernel bwd, plain fwd, plain bwd) ms of a bf16 build and
+    its plain version at bf16 on ``ins_b``, the plain backward from
+    ``cots``."""
+    import torch
+
+    k_f = cuda_ms(fn_k, 5)
+    k_b = cuda_ms(fn_kb, 5)
+    with torch.no_grad():
+        p_f = cuda_ms(lambda: ref(*ins_b), 2)
+    ins = [t.detach().clone().requires_grad_(True) for t in ins_b]
+    outs = _tup(ref(*ins))
+    p_b = cuda_ms(lambda: torch.autograd.grad(outs, ins, cots, retain_graph=True), 2)
+    del ins, outs
+    torch.cuda.empty_cache()
+    return k_f, k_b, p_f, p_b
+
+
+def er_bf16_timings(cfg, params, system, eng, all_errs, gen):
+    """Phase 20 (embed-bf16): K6's and K7's bf16 builds timed at the embed
+    main path's shapes beside their plain versions at bf16 (the
+    ``interior="bf16"`` CPU path's functions), bounds at PEAK_BF16_FLOPS and
+    2-byte numbers; parity at those shapes."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    bf = torch.bfloat16
+    ops6, ops7, k = er_operands(cfg, params, system, eng)
+    e = ops6[0].shape[1]
+    inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    calls = er_bf16_calls(cfg, params, k)
+    w6 = k6.k6_weights(params, cfg.l_max, cfg.parity)
+    w7 = k7.k7_weights(params, cfg.l_max, cfg.parity, cfg.output_charges)
+    res = {}
+    for name, mod, ref, w, ops, cost, prods, wbytes in (
+            ("K6-bf16", k6, k6.embed_layer_reference, w6, ops6, k6_cost, k6_products,
+             k6_weight_bytes),
+            ("K7-bf16", k7, k7.readout_layer_reference, w7, ops7, k7_cost, k7_products,
+             k7_weight_bytes)):
+        opb = [t.to(bf) for t in ops]
+        cots = [torch.randn(o.shape, generator=gen, device=system.device).to(bf)
+                for o in _tup(mod._kernel_fwd(*opb, w, k, inv_avg))]
+        bwd_args = tuple(cots) if name == "K6-bf16" else (cots,)
+        times = _time_pair(lambda: mod._kernel_fwd(*opb, w, k, inv_avg),
+                           lambda: mod._kernel_bwd(*opb, w, k, inv_avg, *bwd_args),
+                           lambda *a: ref(*a, w, k, inv_avg), opb, cots)
+        del opb, cots, bwd_args
+        e2 = bf16_pair(name, f"embed-bf16 main path E={e}", *calls[name][:2], ops,
+                       *calls[name][2:], gen)
+        all_errs[name] = {kind: max(all_errs[name][kind], e2[kind]) for kind in e2}
+        res[name] = {}
+        for kind, ms, pms in (("fwd", times[0], times[2]), ("bwd", times[1], times[3])):
+            bwd = kind == "bwd"
+            flops, nbytes = cost(w, e, bwd, nb=2)
+            res[name][kind] = timing(ms, pms, flops, prods(w, bwd) * e, nbytes,
+                                     wbytes(w, bwd, n_tiles(e, k)) // 2, PEAK_BF16_FLOPS)
+            print_timing(f"{name} {kind} E={e}", res[name][kind])
     return res
+
+
+def stack_bf16_timings(cfg, params, system, eng, all_errs, gen):
+    """Phase 20 (stack-bf16): K8's bf16 build timed at the stack main path's
+    shapes beside its plain version at bf16 (``allegro_stack_reference``,
+    the CPU path's function), bounds at PEAK_BF16_FLOPS and 2-byte numbers;
+    parity at those shapes (against ``stack_rounded_reference``)."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    bf = torch.bfloat16
+    ops, k = stack_operands(cfg, params, system, eng)
+    e = ops[0].shape[1]
+    inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    w = k8.stack_weights(params["layers"], cfg.l_max, cfg.parity)
+    opb = [t.to(bf) for t in ops]
+    dxo = torch.randn(ops[0].shape, generator=gen, device=system.device).to(bf)
+    times = _time_pair(lambda: k8._kernel_fwd(*opb, w, k, inv_avg),
+                       lambda: k8._kernel_bwd(*opb, w, k, inv_avg, dxo),
+                       lambda *a: k8.allegro_stack_reference(*a, params["layers"], k, cfg.l_max,
+                                                             cfg.avg_num_neighbors, cfg.parity),
+                       opb, (dxo,))
+    del opb, dxo
+    e2 = bf16_pair("K8-bf16", f"stack-bf16 main path E={e}", *stack_bf16_calls(cfg, params, k),
+                   ops, ("x",), K8_NAMES, gen)
+    all_errs["K8-bf16"] = {kind: max(all_errs["K8-bf16"][kind], e2[kind]) for kind in e2}
+    res = {}
+    for kind, ms, pms in (("fwd", times[0], times[2]), ("bwd", times[1], times[3])):
+        bwd = kind == "bwd"
+        flops, nbytes = k8_cost(w, e, bwd, nb=2)
+        res[kind] = timing(ms, pms, flops, k8_products(w, bwd) * e, nbytes,
+                           k8_weight_bytes(w, bwd, n_tiles(e, k)) // 2, PEAK_BF16_FLOPS)
+        print_timing(f"K8-bf16 {kind} E={e} ({cfg.num_layers} layers)", res[kind])
+    return {"K8-bf16": res}
 
 
 def bf16_phase(card):
@@ -3902,27 +4116,34 @@ def bf16_phase(card):
     width (``main_path``): phase 5's run at interior="bf16" (3 + 3 K1-bf16
     launches per force evaluation and no other kernel), the per-layer paths
     tier at bf16 (3 + 3 K2-bf16) and phase 6's NequIP run under
-    PAT_NEQUIP_HJ=bf16 (3 + 3 K3-bf16), each beside its f32 path's steps/s
-    and peak memory from this run; the bf16 kernels' timings at those
-    paths' shapes.  Returns (errs, times, counts)."""
+    PAT_NEQUIP_HJ=bf16 (3 + 3 K3-bf16), the embed/readout form under
+    PAT_L1_EMBED=1 (1 K6-bf16, 1 K1-bf16 and 1 K7-bf16 each way) and the
+    stack (1 + 1 K8-bf16) at interior="bf16", each beside its f32 path's
+    steps/s and peak memory from this run; the bf16 kernels' timings at
+    those paths' shapes.  Returns (errs, times, counts)."""
     import torch
 
     errs = bf16_parity()
-    bf16_model_parity({}, {"K1-bf16": 3})
-    bf16_model_parity(dict(layer_fused=False), {"K2-bf16": 3})
+    ref = bf16_model_parity({}, {"K1-bf16": 3})
+    bf16_model_parity(dict(layer_fused=False), {"K2-bf16": 3}, ref=ref)
+    bf16_model_parity({}, {"K6-bf16": 1, "K1-bf16": 1, "K7-bf16": 1}, {"PAT_L1_EMBED": "1"}, ref)
+    bf16_model_parity(dict(fused_stack=True), {"K8-bf16": 1}, ref=ref)
     times, counts = {}, {}
     for path, f32_path in (("allegro-bf16", "allegro"), ("perlayer-bf16", "perlayer"),
-                           ("nequip-hj-bf16", "nequip")):
+                           ("nequip-hj-bf16", "nequip"), ("embed-bf16", "embed"),
+                           ("stack-bf16", "stack")):
         with env_vars(PATHS[path][5]):
             cfg, params, system, eng, c = main_path(path)
             kernel = PATHS[path][2]
-            counts[kernel] = c[kernel]
+            for name in path_launches(path, cfg):
+                counts.setdefault(path, {})[name] = c[name]
+            counts.setdefault(kernel, c[kernel])
             print(f"{path} main path on {card}: {STEPS_PER_S[path]:.4f} steps/s against "
                   f"{f32_path}'s {STEPS_PER_S.get(f32_path, float('nan')):.4f} in this run "
                   f"({STEPS_PER_S[path] / STEPS_PER_S.get(f32_path, float('nan')):.3f}x); peak "
                   f"device memory of the timed chunk {PEAK_GIB[path]:.2f} GiB against "
                   f"{PEAK_GIB.get(f32_path, float('nan')):.2f} GiB")
-            times[kernel] = bf16_timings(path, cfg, params, system, eng, errs[kernel])
+            times.update(bf16_timings(path, cfg, params, system, eng, errs))
         del cfg, params, system, eng
         torch.cuda.empty_cache()
     return errs, times, counts
@@ -3971,8 +4192,24 @@ def timings(which):
     return 0
 
 
+class PhaseClock:
+    """Prints each phase's wall seconds and the script's so far."""
+
+    def __init__(self, t0):
+        self.t0 = self.last = t0
+
+    def __call__(self, label):
+        now = time.perf_counter()
+        print(f"phase clock: phase {label} {now - self.last:.1f} s, script {now - self.t0:.1f} s",
+              flush=True)
+        self.last = now
+
+
 def kernel_entry(name, source, replaces, counts, kind, err, r, **extra):
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+    """One kernel of the last line's list; ``kernel`` is its id (K1 .. K8,
+    a bf16 build with -bf16), read from ``name``."""
+    kid = name.split("_")[0].upper() + ("-bf16" if "_bf16_" in name else "")
+    return {"name": name, "kernel": kid, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[kind], "max_abs_err": err, "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, **extra}
@@ -4064,41 +4301,57 @@ def main() -> int:
     libs = list(libs.values())
     for _, lib in libs:
         lib.start()  # one nvcc per source, all started together
-    for name, lib in libs:
-        lib.load()
-        print(f"{name} build: nvcc {lib.build_seconds or 0.0:.1f} s, all builds + load "
-              f"{time.perf_counter() - t0:.1f} s")
-        for line in lib.paths()[1].read_text().splitlines():
-            if "registers" in line or "Function properties for" in line or "spill" in line:
-                print(f"ptxas {name}:", line.strip())
+    # phase 2 needs K1 alone: the other builds finish while the first phases
+    # run, each loaded at its first use; load_all reports them all
+    kernel_modules()["K1"].LIB.load()
+    clock = PhaseClock(t0)
+    clock("1 (K1 built; the other builds continue)")
+
+    def load_all():
+        for name, lib in libs:
+            lib.load()
+            print(f"{name} build: nvcc {lib.build_seconds or 0.0:.1f} s, started at 0.0 s")
+            for line in lib.paths()[1].read_text().splitlines():
+                if "registers" in line or "Function properties for" in line or "spill" in line:
+                    print(f"ptxas {name}:", line.strip())
 
     from pair_allegro_tpu_torch.engine import AllegroEngine
 
     cfg, params, system = make_case(5, None)
     errs = k1_parity(cfg, params, system, AllegroEngine(cfg, params, system))
+    clock("2")
     errs3 = k3_parity()
     errs_env = env_parity()
+    clock("3")
     model_parity()
     perlayer_model_parity()
     nequip_model_parity()
+    clock("4")
+    load_all()
+    clock("1 (every build loaded)")
     errs4 = k4_parity()
     flat_model_parity()
+    clock("9 (parity)")
     errs_er = er_parity()
     model_parity({"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1})
     model_parity({"PAT_L1_POSITIONAL": "0"})
+    clock("11")
     errs8 = stack_parity()
     model_parity(want={"K8": 1}, tier=dict(fused_stack=True))
     f64_parity()
+    clock("13")
     cfg, params, system, eng, counts = main_path("allegro")
     counts = counts["K1"]
     times = k1_timings(cfg, params, system, eng, errs)
     del cfg, params, system, eng
     torch.cuda.empty_cache()
+    clock("5 and 7 (K1)")
     ncfg, nparams, nsystem, neng, counts3 = main_path("nequip")
     counts3 = counts3["K3"]
     times3, errs3 = k3_timings(ncfg, nparams, nsystem, neng, errs3)
     del nparams, nsystem, neng
     torch.cuda.empty_cache()
+    clock("6 and 7 (K3)")
     pcfg, pparams, psystem, peng, counts2 = main_path("perlayer")
     counts2 = counts2["K2"]
     times_env = env_timings(pcfg, pparams, psystem, peng, errs_env)
@@ -4106,6 +4359,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts5 = main_path("perlayer-mxu")[-1]["K5"]
     torch.cuda.empty_cache()
+    clock("8")
     fcfg, fparams, fsystem, feng, counts4 = main_path("flat")
     counts4 = counts4["K4"]
     b_ms, b_gib = rebuild_ms(fsystem, feng)
@@ -4117,21 +4371,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_path("nequip-flat")
     torch.cuda.empty_cache()
+    clock("10")
     ecfg, eparams, esystem, eeng, counts_e = main_path("embed")
     times_er, errs_er = er_timings(ecfg, eparams, esystem, eeng, errs_er)
     del eparams, esystem, eeng
     torch.cuda.empty_cache()
+    clock("12")
     scfg, sparams, ssystem, seng, counts_s = main_path("stack")
     times8, errs8 = stack_timings(scfg, sparams, ssystem, seng, errs8)
     del sparams, ssystem, seng
     torch.cuda.empty_cache()
+    clock("14")
     card = smi.stdout.strip().splitlines()[0]
     errs20, times20, counts20 = bf16_phase(card)
+    clock("20")
     accuracy_phase()
+    clock("15")
     cli_phase(card)
+    clock("16")
     counts17, _ = scale_phase(card)
+    clock("17")
     train_phase(card)
+    clock("18")
     sharded = sharded_phase(card)
+    clock("19")
 
     kernels = []
     for kind, line in (("fwd", 1094), ("bwd", 1139)):
@@ -4230,6 +4493,23 @@ def main() -> int:
             f"pair_allegro_tpu/ops/pallas_nequip.py:{line}", counts20["K3-bf16"], kind,
             errs20["K3-bf16"][kind], times20["K3-bf16"][kind], per="call",
             calls_per_force_evaluation=ncfg.num_layers, dtype="bf16 hj",
+        ))
+    for kind, line6, line7 in (("fwd", 1404, 1538), ("bwd", 1439, 1572)):
+        # one call each (the first and the last layer) per force evaluation
+        for name, stem, line in (("K6-bf16", "k6_embed_layer_bf16", line6),
+                                 ("K7-bf16", "k7_readout_layer_bf16", line7)):
+            kernels.append(kernel_entry(
+                f"{stem}_{kind}", "pair_allegro_tpu_torch/csrc/embed_readout_layer_bf16.cu",
+                f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts20["embed-bf16"][name], kind,
+                errs20[name][kind], times20[name][kind], per="call", calls_per_force_evaluation=1,
+                k1_launches_on_the_path=counts20["embed-bf16"]["K1-bf16"][kind], dtype="bf16",
+            ))
+    for kind, line in (("fwd", 538), ("bwd", 572)):
+        kernels.append(kernel_entry(
+            f"k8_fused_stack_bf16_{kind}", "pair_allegro_tpu_torch/csrc/fused_stack_bf16.cu",
+            f"pair_allegro_tpu/ops/pallas_stack.py:{line}", counts20["K8-bf16"], kind,
+            errs20["K8-bf16"][kind], times20["K8-bf16"][kind], per="call",
+            calls_per_force_evaluation=1, layers=scfg.num_layers, dtype="bf16",
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,13 +24,20 @@
 // of fused_layer.cu, what the prologue and the epilogue add at the top of
 // embed_readout_layer.cu.
 //
-// The body is templated on the activations' storage type (K1T<Act>): f32
-// for every form, and bf16 for PLAIN (fused_layer_bf16.cu, K1 on the
-// interior="bf16" tier).  At bf16 the activations are read from and written
-// to device memory as bf16 and converted to and from f32 in the shared
-// tiles, so the TP, the env sums and the elementwise work run in f32
-// registers, and every product runs one bf16 tensor-core pass on
-// pair-packed weights (allegro_mma.cuh prod).
+// The body is templated on the activations' storage type (K1T<Act>): f32,
+// and bf16 for the interior="bf16" tier in every form (fused_layer_bf16.cu:
+// K1; embed_readout_layer_bf16.cu: K6 and K7; fused_stack_bf16.cu: K8).  At
+// bf16 the activations are read from and written to device memory as bf16
+// and converted to and from f32 in the shared tiles, so the TP, the env
+// sums and the elementwise work run in f32 registers, and every product,
+// the prologue's and the epilogue's MLP layers and the tensor embed
+// included, runs one bf16 tensor-core pass on pair-packed weights
+// (allegro_mma.cuh prod); a head's width-1 last layer is a row sum on its
+// bf16-rounded weights, unpacked from their pairs (wcol).  The prologue's
+// and the epilogue's MLPs and the tensor embed apply their constants (the
+// fan-in scales, the SiLU norm, 1/sqrt(ns)) rounded to bf16 and round a
+// width-1 layer's operands and products, as the TPU kernels do at bf16
+// (rnd); the K1 body's constants stay f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -64,8 +71,10 @@ struct MlpTab {
 constexpr int MT_WORDS = sizeof(MlpTab) / 4;
 
 // The launch's parameters; Act is the storage type of the activations and
-// their cotangents (x, V, Y, u in, xo, vo, dx, dV, dY, du out), whose
-// weights are f32 at f32 and pair-packed bf16 words at bf16.
+// their cotangents (x, V, Y, u, the input rows and the heads' cotangents
+// in; xo, vo, dx, dV, dY, du, d(in) and the heads' rows out), whose
+// weights (envw .. mixT, te, teT, ew, ewT) are f32 at f32 and pair-packed
+// bf16 words at bf16.
 template <typename Act>
 struct K1T {
   const Act *x, *V, *Y, *u;
@@ -85,14 +94,18 @@ struct K1T {
   // the two-body MLP (EMBED) or of either head (READOUT)
   int xmaxw, hzrows;
   // EMBED: the (n_in, E) two-body input rows, W_te (ns, C) and its
-  // transpose, d(in) (n_in, E); dx is then scratch for the pass-1 partial
-  const float *in, *te, *teT;
-  float* din;
+  // transpose, d(in) (n_in, E), and the backward's f32 scratch part
+  // (ns + 1, E) for the pass-1 partials of dx (which EMBED does not
+  // return) and du, so that du rounds to Act once, at its last store
+  const Act* in;
+  const float *te, *teT;
+  Act* din;
+  float* part;
   int n_in;
   // READOUT: heads (1 or 2), their cotangent rows and output rows (1, E)
   int nhead;
-  const float *dh0, *dh1;
-  float *ho0, *ho1;
+  const Act *dh0, *dh1;
+  Act *ho0, *ho1;
   // STACK backward: add dY and du to what the later layers left there
   int acc;
   // the product tiles' row stride (LDS_WIDE, or LDS_MIN where the layout
@@ -139,6 +152,50 @@ __device__ __forceinline__ float dsilu(float z) {
   return s * (1.0f + z * (1.0f - s));
 }
 
+// Element k of a width-1 weight column at w: f32, or at bf16 half of the
+// pair-packed word k / 2 (low half for even k).
+template <typename Act>
+__device__ __forceinline__ float wcol(const float* w, int k) {
+  if constexpr (IS_BF16<Act>) {
+    const uint32_t word = __float_as_uint(w[k >> 1]);
+    return __uint_as_float((k & 1 ? word >> 16 : word & 0xffffu) << 16);
+  } else {
+    return w[k];
+  }
+}
+
+// v as the TPU kernel holds it at the storage type: at bf16 rounded to
+// bf16 (JAX keeps the prologue's and the epilogue's values in bf16 and
+// rounds a Python constant to bf16 where it multiplies one), else v.
+template <typename Act>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (IS_BF16<Act>) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+// The pass-1 partials of dx (ns rows) and du (one row): in the outputs dx
+// and du, or for EMBED in the f32 scratch part.
+template <int F, typename Act>
+__device__ __forceinline__ auto* dx_part(const K1T<Act>& p) {
+  if constexpr (F == EMBED) {
+    return p.part;
+  } else {
+    return p.dx;
+  }
+}
+
+template <int F, typename Act>
+__device__ __forceinline__ auto* du_part(const K1T<Act>& p) {
+  if constexpr (F == EMBED) {
+    return p.part + (size_t)p.ns * p.E;
+  } else {
+    return p.du;
+  }
+}
+
 // Forward of a prologue / epilogue MLP on one tile: hin (t.dim[0] rows) ->
 // out (t.dim[t.n] rows); hidden activations ping-pong through hA / hB, and
 // the pre-activations are kept in zs (slots of t.maxw rows) when given.
@@ -150,21 +207,23 @@ __device__ void mlp_fwd(const K1T<Act>& p, const MlpTab& t, const float* w, cons
     const bool hidden = li < t.n - 1;
     float* h = (li & 1) ? hB : hA;
     float* z = !hidden ? out : (zs ? zs + (size_t)li * t.maxw * L : h);
+    const float scale = rnd<Act>(t.scale[li]);
     if (dout == 1) {  // a head's last layer: one weighted row sum per edge
-      const float* wl = w + t.off[li];
+      const float* wl = w + wofs<Act>(t.off[li]);
       for (int n = threadIdx.x; n < ET; n += NT) {
         float s = 0.f;
-        for (int k = 0; k < din; ++k) s = fmaf(wl[k], hin[k * L + n], s);
-        z[n] = s * t.scale[li];
+        for (int k = 0; k < din; ++k) s += rnd<Act>(wcol<Act>(wl, k) * rnd<Act>(hin[k * L + n]));
+        z[n] = s * scale;
       }
     } else {
-      mma_tile(w + t.off[li], din, dout, hin, L, z, L, t.scale[li], ET, ring_of(p), p.ring);
+      prod<Act>(w + wofs<Act>(t.off[li]), din, dout, hin, L, z, L, scale, ET, ring_of(p), p.ring);
     }
     __syncthreads();
     if (hidden) {
+      const float c = rnd<Act>(SILU_C);
       for (int q = threadIdx.x; q < dout * ET; q += NT) {
         const int row = q / ET, n = q % ET;
-        h[row * L + n] = silu(z[row * L + n]) * SILU_C;
+        h[row * L + n] = silu(z[row * L + n]) * c;
       }
       __syncthreads();
       hin = h;
@@ -178,24 +237,26 @@ __device__ void mlp_fwd(const K1T<Act>& p, const MlpTab& t, const float* w, cons
 template <int L, typename Act>
 __device__ float* mlp_bwd(const K1T<Act>& p, const MlpTab& t, const float* w, const float* wT,
                           const float* zs, float* g, float* g2) {
+  const float c = rnd<Act>(SILU_C);
   for (int li = t.n - 1; li >= 0; --li) {
     const int din = t.dim[li], dout = t.dim[li + 1];
+    const float scale = rnd<Act>(t.scale[li]);
     if (li < t.n - 1) {
       const float* z = zs + (size_t)li * t.maxw * L;
       for (int q = threadIdx.x; q < dout * ET; q += NT) {
         const int row = q / ET, n = q % ET;
-        g[row * L + n] *= dsilu(z[row * L + n]) * SILU_C;
+        g[row * L + n] *= dsilu(z[row * L + n]) * c;
       }
       __syncthreads();
     }
     if (dout == 1) {  // outer product with the width-1 layer's weights
-      const float* wl = w + t.off[li];
+      const float* wl = w + wofs<Act>(t.off[li]);
       for (int q = threadIdx.x; q < din * ET; q += NT) {
         const int k = q / ET, n = q % ET;
-        g2[k * L + n] = wl[k] * g[n] * t.scale[li];
+        g2[k * L + n] = wcol<Act>(wl, k) * g[n] * scale;
       }
     } else {
-      mma_tile(wT + t.off[li], dout, din, g, L, g2, L, t.scale[li], ET, ring_of(p), p.ring);
+      prod<Act>(wT + wofs<Act>(t.off[li]), dout, din, g, L, g2, L, scale, ET, ring_of(p), p.ring);
     }
     __syncthreads();
     float* tmp = g;
@@ -281,7 +342,7 @@ __device__ void load_edges(const K1T<Act>& p, const MlpTab* mt, int e0, int ne, 
   if constexpr (F == EMBED) {
     float* hA = scr + mt[0].dim[0] * L;
     embed_x<L>(p, mt[0], e0, ne, us, cat, scr, hA, hA + mt[0].maxw * L, nullptr, nullptr);
-    mma_tile(p.te, p.ns, C, cat, L, pTs, L, p.cns, ET, ring_of(p), p.ring);
+    prod<Act>(p.te, p.ns, C, cat, L, pTs, L, rnd<Act>(p.cns), ET, ring_of(p), p.ring);
     __syncthreads();
     build_v0<L>(p, pTs, Ys, Vs);
   } else {
@@ -346,8 +407,8 @@ __device__ void heads_fwd(const K1T<Act>& p, const MlpTab* mt, float* cat, const
   for (int h = 0; h < p.nhead; ++h) {
     float* raw = hB + (p.xmaxw + h) * L;
     mlp_fwd<L>(p, mt[h], p.ew, cat, hA, hB, nullptr, raw);
-    float* out = h ? p.ho1 : p.ho0;
-    for (int n = threadIdx.x; n < ne; n += NT) out[e0 + n] = raw[n] * us[n];
+    Act* out = h ? p.ho1 : p.ho0;
+    for (int n = threadIdx.x; n < ne; n += NT) st_act(out + e0 + n, raw[n] * us[n]);
   }
 }
 
@@ -387,14 +448,17 @@ __device__ void heads_bwd(const K1T<Act>& p, const MlpTab* mt, float* cat, const
 }
 
 // EMBED backward prologue on one tile, after the env backward: the whole
-// dx = the pass-1 partial (device memory) + dxa; du += sum_s dx * x0; and
-// d(in) = the two-body MLP's backward of dx * u, its real n_in rows.
+// dx = the pass-1 partial (f32 scratch) + dxa; du = its partial + sum_s dx
+// * x0, stored once; and d(in) = the two-body MLP's backward of dx * u,
+// its real n_in rows.
 template <int L, typename Act>
 __device__ void embed_bwd(const K1T<Act>& p, const MlpTab& t, int e0, int ne, const float* us,
                           float* dxa, const float* x0s, const float* tbz, float* gA, float* gB) {
+  const float* dxp = dx_part<EMBED>(p);
+  const float* dup = du_part<EMBED>(p);
   for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
     const int s = q / ET, n = q % ET;
-    const float v = n < ne ? p.dx[(size_t)s * p.E + e0 + n] + dxa[s * L + n] : 0.f;
+    const float v = n < ne ? dxp[(size_t)s * p.E + e0 + n] + dxa[s * L + n] : 0.f;
     dxa[s * L + n] = v;
     gA[s * L + n] = v * us[n];
   }
@@ -402,12 +466,12 @@ __device__ void embed_bwd(const K1T<Act>& p, const MlpTab& t, int e0, int ne, co
   for (int n = threadIdx.x; n < ne; n += NT) {
     float s = 0.f;
     for (int q = 0; q < p.ns; ++q) s = fmaf(dxa[q * L + n], x0s[q * L + n], s);
-    p.du[e0 + n] += s;
+    st_act(p.du + e0 + n, dup[e0 + n] + s);
   }
   const float* g = mlp_bwd<L>(p, t, p.ew, p.ewT, tbz, gA, gB);
   for (int q = threadIdx.x; q < p.n_in * ET; q += NT) {
     const int row = q / ET, n = q % ET;
-    if (n < ne) p.din[(size_t)row * p.E + e0 + n] = g[row * L + n];
+    if (n < ne) st_act(p.din + (size_t)row * p.E + e0 + n, g[row * L + n]);
   }
 }
 
@@ -551,15 +615,18 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
       g = g2;
       g2 = tmp;
     }
-    // g = dcat (in0 rows).  The dx and du partials go to device memory and
-    // are completed in pass 2 by this same block; dinv moves into the dead
-    // inv rows of cat so that phase 2 may reuse the scratch.
+    // g = dcat (in0 rows).  The dx and du partials go to device memory (for
+    // EMBED its f32 scratch) and are completed in pass 2 by this same
+    // block; dinv moves into the dead inv rows of cat so that phase 2 may
+    // reuse the scratch.
+    auto* dxp = dx_part<F>(p);
+    auto* dup = du_part<F>(p);
     for (int q = threadIdx.x; q < ns * ET; q += NT) {
       const int s = q / ET, n = q % ET;
-      if (n < ne) st_act(p.dx + (size_t)s * E + e0 + n, dxo[s * L + n] * R2 + g[s * L + n]);
+      if (n < ne) st_act(dxp + (size_t)s * E + e0 + n, dxo[s * L + n] * R2 + g[s * L + n]);
     }
     for (int n = threadIdx.x; n < ne; n += NT)
-      st_act(p.du + e0 + n, F == STACK && p.acc ? ld_act(p.du + e0 + n) + dus[n] : dus[n]);
+      st_act(dup + e0 + n, F == STACK && p.acc ? ld_act(dup + e0 + n) + dus[n] : dus[n]);
     for (int q = threadIdx.x; q < (p.in0 - ns) * ET; q += NT) {
       const int row = ns + q / ET, n = q % ET;
       cat[row * L + n] = g[row * L + n];
@@ -603,14 +670,14 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
         const int d = q / ET, n = q % ET;
         float s = 0.f;
         for (int cc = 0; cc < C; ++cc) s = fmaf(dVs[(d * C + cc) * LDV + n], pTs[cc * L + n], s);
-        if (n < ne) p.dY[(size_t)d * E + e0 + n] = s;
+        if (n < ne) st_act(p.dY + (size_t)d * E + e0 + n, s);
       }
       __syncthreads();
-      mma_tile(p.teT, C, ns, dp, L, dxe, L, p.cns, ET, ring, p.ring);
+      prod<Act>(p.teT, C, ns, dp, L, dxe, L, rnd<Act>(p.cns), ET, ring, p.ring);
       __syncthreads();
       for (int q = threadIdx.x; q < ns * ET; q += NT) {
         const int s = q / ET, n = q % ET;
-        if (n < ne) p.dx[(size_t)s * E + e0 + n] += dxe[s * L + n];
+        if (n < ne) dxp[(size_t)s * E + e0 + n] += dxe[s * L + n];
       }
     } else if (p.first_v) {
       for (int q = threadIdx.x; q < C * ET; q += NT) {  // dpT = sum_d dV0[d] * Y[d]
@@ -683,7 +750,8 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
     for (int n = threadIdx.x; n < ne; n += NT) {
       float s = 0.f;
       for (int cc = 0; cc < C; ++cc) s = fmaf(dwz[cc * L + n], wz0[cc * L + n], s);
-      st_act(p.du + e0 + n, ld_act(p.du + e0 + n) + s);
+      auto* dq = du_part<F>(p) + e0 + n;
+      st_act(dq, ld_act(dq) + s);
     }
     __syncthreads();
     for (int q = threadIdx.x; q < C * ET; q += NT) {

@@ -1,5 +1,6 @@
 // K6 and K7: the embed-fused first and the readout-fused last Allegro layer
-// as hand-written Hopper kernel pairs (f32).
+// as hand-written Hopper kernel pairs (f32; embed_readout_layer_bf16.cu
+// builds this file on bf16 activations).
 //
 // Replace the TPU kernels pair_allegro_tpu/ops/pallas_stack.py
 // _layer1e_fwd_kernel / _layer1e_bwd_kernel (entry
@@ -32,10 +33,11 @@
 //    stays independent of K, as K1's is.
 //  * the backward knows the whole dx only in pass 2, after the env
 //    backward (it needs the complete per-center denv).  Pass 1 writes its
-//    partial, the tensor embed's W_te dpT / sqrt(ns) included, to a device
-//    scratch of x's shape (where K1 writes its dx output); pass 2 completes
-//    it, adds sum_s dx * x0 to du and runs the two-body MLP's backward on
-//    dx * u to d(in).
+//    partial, the tensor embed's W_te dpT / sqrt(ns) included, and du's to
+//    an f32 device scratch (ns + 1, E) (where K1 writes its dx and du
+//    outputs), so that at bf16 du rounds once, at its last store; pass 2
+//    completes them, adds sum_s dx * x0 to du and runs the two-body MLP's
+//    backward on dx * u to d(in).
 //  * the two-body input width 2T + B (10 at the flagship) need not be a
 //    multiple of 4, which the products' 16-byte weight staging needs: the
 //    wrapper pads the first weight with zero rows (its transpose with zero
@@ -56,6 +58,12 @@
 
 #include "allegro_layer.cuh"
 
+// the activations' storage type: f32 here; embed_readout_layer_bf16.cu
+// builds this file at __nv_bfloat16
+#ifndef K1_ACT
+#define K1_ACT float
+#endif
+
 extern "C" {
 
 // words of the Meta table and of one MlpTab (checked by the wrappers)
@@ -66,7 +74,7 @@ int er_mt_words() { return MT_WORDS; }
 // or the negative refusal code: the sum ops/fused_layer.py's block_bytes
 // mirrors.
 int er_layout_bytes(int form, int bwd, const int* dims) {
-  K1P p{};
+  K1T<K1_ACT> p{};
   const unsigned long long none[19] = {};
   k1_params(p, none, dims, 1.0f);
   p.n_in = dims[12];
@@ -80,25 +88,28 @@ int er_layout_bytes(int form, int bwd, const int* dims) {
 
 // form 1 (K6) or 2 (K7).
 // ptrs: K1's 19 (k1_params), then in, te, teT, din, mt, ew, ewT, dh0, dh1,
-//       ho0, ho1  (unused ones may be 0)
+//       ho0, ho1, part  (unused ones may be 0; the activations' at K1_ACT,
+//       the weights f32 or, at bf16, pair-packed; part f32)
 // dims: K1's 12, then n_in, xmaxw, hzrows, nhead
 // Returns 0, a negative code for a shape the kernel does not take, or the
 // cudaError_t of the launch.
 int er_launch(int form, int bwd, const unsigned long long* ptrs, const int* dims, float inv_avg,
               void* stream) {
-  K1P p{};
+  using Act = K1_ACT;
+  K1T<Act> p{};
   k1_params(p, ptrs, dims, inv_avg);
-  p.in = (const float*)ptrs[19];
+  p.in = (const Act*)ptrs[19];
   p.te = (const float*)ptrs[20];
   p.teT = (const float*)ptrs[21];
-  p.din = (float*)ptrs[22];
+  p.din = (Act*)ptrs[22];
   p.mt = (const int*)ptrs[23];
   p.ew = (const float*)ptrs[24];
   p.ewT = (const float*)ptrs[25];
-  p.dh0 = (const float*)ptrs[26];
-  p.dh1 = (const float*)ptrs[27];
-  p.ho0 = (float*)ptrs[28];
-  p.ho1 = (float*)ptrs[29];
+  p.dh0 = (const Act*)ptrs[26];
+  p.dh1 = (const Act*)ptrs[27];
+  p.ho0 = (Act*)ptrs[28];
+  p.ho1 = (Act*)ptrs[29];
+  p.part = (float*)ptrs[30];
   p.n_in = dims[12];
   p.xmaxw = dims[13];
   p.hzrows = dims[14];

@@ -1,5 +1,5 @@
 // K8: the whole Allegro layer stack as one hand-written Hopper kernel pair
-// (f32).
+// (f32; fused_stack_bf16.cu builds this file on bf16 activations).
 //
 // Replaces the TPU kernels pair_allegro_tpu/ops/pallas_stack.py
 // _stack_fwd_kernel / _stack_bwd_kernel (through _stack_call and the
@@ -57,23 +57,32 @@
 
 #include "allegro_layer.cuh"
 
+// the activations' storage type: f32 here; fused_stack_bf16.cu builds this
+// file at __nv_bfloat16
+#ifndef K1_ACT
+#define K1_ACT float
+#endif
+
 namespace {
 
 constexpr int MAX_LAYERS = 8;
+using Act = K1_ACT;
+using KP = K1T<Act>;
 
 struct K8P {
-  K1P layer[MAX_LAYERS];
+  KP layer[MAX_LAYERS];
   int L;
 };
 static_assert(sizeof(K8P) <= 4096, "K8's kernel argument exceeds 4 KB");
+static_assert(sizeof(KP) <= 4 * P_WORDS, "a layer's parameters exceed their shared slot");
 
 // Copies layer l's parameters into their shared slot, where the body reads
 // them for the whole layer (after the barrier).
-__device__ const K1P& layer_params(const K8P& p, int l) {
+__device__ const KP& layer_params(const K8P& p, int l) {
   extern __shared__ float sm[];
-  K1P* lp = reinterpret_cast<K1P*>(sm + p.layer[0].o_p);
+  KP* lp = reinterpret_cast<KP*>(sm + p.layer[0].o_p);
   const int* src = reinterpret_cast<const int*>(&p.layer[l]);
-  for (int q = threadIdx.x; q < (int)(sizeof(K1P) / 4); q += NT) reinterpret_cast<int*>(lp)[q] = src[q];
+  for (int q = threadIdx.x; q < (int)(sizeof(KP) / 4); q += NT) reinterpret_cast<int*>(lp)[q] = src[q];
   __syncthreads();
   return *lp;
 }
@@ -116,7 +125,7 @@ int k8_max_layers() { return MAX_LAYERS; }
 // layer shares K1's first-form layout), or the negative refusal code: the
 // sum ops/fused_layer.py's block_bytes mirrors.
 int k8_layout_bytes(int bwd, const int* dims) {
-  K1P p{};
+  KP p{};
   const unsigned long long none[19] = {};
   k1_params(p, none, dims, 1.0f);
   p.first_v = 1;
@@ -125,7 +134,9 @@ int k8_layout_bytes(int bwd, const int* dims) {
 }
 
 // ptrs: Y, u, meta, x0, pT, xo, xs, vs, dxo, dx, dvc, dpT, dY, du, then per
-//       layer envw, envwT, lat, latT, mix, mixT  (unused ones may be 0)
+//       layer envw, envwT, lat, latT, mix, mixT  (unused ones may be 0; the
+//       activations, the stores and the stash at K1_ACT, the weights f32
+//       or, at bf16, pair-packed)
 //   forward:  x0, pT -> xo (also the x store); vs the (D*C, E) V store
 //   backward: x0, pT, dxo -> dx, dpT, dY, du; xs ((L-1)*ns, E) and vs
 //             ((L-1)*D*C, E) the stash, dvc the (D*C, E) carried dV
@@ -137,7 +148,7 @@ int k8_launch(int bwd, const unsigned long long* ptrs, const int* dims, float in
               void* stream) {
   const int L = dims[12];
   if (L < 1 || L > MAX_LAYERS) return -8;
-  K1P base{};
+  KP base{};
   const unsigned long long k1[19] = {0, 0, ptrs[0], ptrs[1], 0, 0, 0, 0, 0, 0,
                                      0, 0, ptrs[2], 0, 0, 0, 0, 0, 0};
   k1_params(base, k1, dims, inv_avg);
@@ -146,14 +157,14 @@ int k8_launch(int bwd, const unsigned long long* ptrs, const int* dims, float in
   const int bytes = layer_layout<STACK>(bwd, base);
   if (bytes < 0) return bytes;
 
-  auto f = [&](int i) { return reinterpret_cast<float*>(ptrs[i]); };
-  const float *x0 = f(3), *pT = f(4), *dxo = f(8);
-  float *xo = f(5), *xs = f(6), *vs = f(7), *dx = f(9), *dvc = f(10);
+  auto f = [&](int i) { return reinterpret_cast<Act*>(ptrs[i]); };
+  const Act *x0 = f(3), *pT = f(4), *dxo = f(8);
+  Act *xo = f(5), *xs = f(6), *vs = f(7), *dx = f(9), *dvc = f(10);
   const size_t xrows = (size_t)base.ns * base.E, vrows = (size_t)base.D * base.C * base.E;
   K8P kp{};
   kp.L = L;
   for (int l = 0; l < L; ++l) {
-    K1P& q = kp.layer[l];
+    KP& q = kp.layer[l];
     q = base;
     const unsigned long long* w = ptrs + 14 + 6 * l;
     q.envw = (const float*)w[0];

@@ -40,9 +40,11 @@ and the final energy sums stay in the working dtype, and the interior is
 cast where the reference casts it (``models/allegro.py:397-400, 591-620,
 761-762``): on the feature-major tiers x, u and Y (pT then a bf16 product
 of the bf16 x), on the plain and K4 tiers x, V, Y and u; the readout runs
-on x cast back.  On the card the K1 tier runs K1's bf16 build and the
-per-layer ``paths`` tier K2's; K5, K6/K7, K8 and K4 have no bf16 build, so
-those tiers run the plain path at bf16 (``layer_tier``).
+on x cast back.  On the card the K1 tier runs K1's bf16 build (its
+embed/readout form K6's and K7's), the stack K8's and the per-layer
+``paths`` tier K2's; the per-layer ``mxu_*`` modes (K5) and K4 run the plain
+path at bf16, as the reference has no bf16 kernel for them
+(``layer_tier``).
 
 Per ordered edge (i, j): two-body x0 = MLP2b([onehot(t_i); onehot(t_j);
 Bessel(r)]) * u, pT = W_embed^T x0 / sqrt(ns), V0 = pT * Y; the layers; then
@@ -74,7 +76,13 @@ from pair_allegro_tpu_torch.ops.fused_layer import fused_layer, k1_weights
 from pair_allegro_tpu_torch.ops.fused_layer import kernel_takes as k1_takes
 from pair_allegro_tpu_torch.ops.fused_stack import fused_stack
 from pair_allegro_tpu_torch.ops.fused_stack import kernel_takes as k8_takes
-from pair_allegro_tpu_torch.ops.mlp import mlp_apply, mlp_apply_t, mlp_dims, silu_norm_const
+from pair_allegro_tpu_torch.ops.mlp import (
+    mlp_apply,
+    mlp_apply_t,
+    mlp_dims,
+    silu_norm_const,
+    weak_scalar,
+)
 from pair_allegro_tpu_torch.ops.readout_layer import k7_weights, readout_layer
 from pair_allegro_tpu_torch.ops.readout_layer import kernel_takes as k7_takes
 from pair_allegro_tpu_torch.ops.remat import rematerialized
@@ -224,15 +232,15 @@ def env_fused_viable(cfg: AllegroConfig, dtype=torch.float32) -> bool:
     return dtype == torch.float32 and k5_takes(c, c, d, P[0], cfg.tp_mode)
 
 
-def stack_viable(cfg: AllegroConfig) -> bool:
+def stack_viable(cfg: AllegroConfig, dtype=torch.float32) -> bool:
     """Whether K8 (``kernel_takes`` beside its wrapper) takes the model's
-    layer stack, decided from the shapes before any launch."""
+    layer stack at ``dtype``, decided from the shapes before any launch."""
     d = (cfg.l_max + 1) ** 2
     c, ns = cfg.num_tensor_features, cfg.num_scalar_features
     P = num_paths_per_l(cfg.l_max, cfg.l_max, cfg.l_max, cfg.parity)
     latd = mlp_dims(ns + c * P[0], cfg.allegro_mlp_hidden_layers_width,
                     cfg.allegro_mlp_hidden_layers_depth, ns)
-    return k8_takes(ns, c, d, latd, cfg.l_max, cfg.parity, cfg.num_layers)
+    return k8_takes(ns, c, d, latd, cfg.l_max, cfg.parity, cfg.num_layers, dtype)
 
 
 def k4_viable(cfg: AllegroConfig) -> bool:
@@ -242,9 +250,10 @@ def k4_viable(cfg: AllegroConfig) -> bool:
     return k4_takes(c, c, (cfg.l_max + 1) ** 2, cfg.l_max, cfg.parity)
 
 
-def embed_readout_viable(cfg: AllegroConfig) -> bool:
+def embed_readout_viable(cfg: AllegroConfig, dtype=torch.float32) -> bool:
     """Whether K6 and K7 (``kernel_takes`` beside their wrappers) take the
-    model's widths, decided from the shapes before any launch."""
+    model's widths at ``dtype``, decided from the shapes before any
+    launch."""
     d = (cfg.l_max + 1) ** 2
     c, ns = cfg.num_tensor_features, cfg.num_scalar_features
     P = num_paths_per_l(cfg.l_max, cfg.l_max, cfg.l_max, cfg.parity)
@@ -255,8 +264,8 @@ def embed_readout_viable(cfg: AllegroConfig) -> bool:
     head = mlp_dims(ns, cfg.readout_mlp_hidden_layers_width,
                     cfg.readout_mlp_hidden_layers_depth, 1)
     heads = (head, head) if cfg.output_charges else (head,)
-    return (k6_takes(ns, c, d, latd, cfg.l_max, cfg.parity, tb)
-            and k7_takes(ns, c, d, latd, cfg.l_max, cfg.parity, heads))
+    return (k6_takes(ns, c, d, latd, cfg.l_max, cfg.parity, tb, dtype)
+            and k7_takes(ns, c, d, latd, cfg.l_max, cfg.parity, heads, dtype))
 
 
 def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torch.float32,
@@ -266,13 +275,9 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torc
     routes it (``models/allegro.py:403-506, 670-758``): 'plain' with
     ``capture``, and on the card (``card``) at any ``dtype`` but f32 and
     bf16 (the reference runs every other dtype on its XLA path; on the CPU
-    every tier runs its kernels' plain versions, which take any dtype).  On
-    the card at bf16 only K1 ('k1', 'k1-nopos') and K2 (per-layer
-    ``paths``) have bf16 builds: the stack, 'k1-embed', the per-layer
-    ``mxu_*`` modes and K4 run 'plain' there, an explicit rule (the
-    reference's TPU runs K6/K7, K8 and K5 on bf16 operands, its FLAT layer
-    on XLA).  Otherwise: 'stack' on the TABLE layout with ``fused_stack is
-    True`` where K8 takes the model (``stack_viable``), whatever ``fused_tp`` and
+    every tier runs its kernels' plain versions, which take any dtype).
+    Otherwise: 'stack' on the TABLE layout with ``fused_stack is True``
+    where K8 takes the model (``stack_viable``), whatever ``fused_tp`` and
     ``layer_fused`` say, as the reference's ``use_stack``; else as if
     ``fused_stack`` were False: 'plain' with ``fused_tp=False``; 'k4' on
     the FLAT layout, whatever ``layer_fused`` and ``tp_mode`` say (the
@@ -286,6 +291,15 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torc
     (``embed_readout_viable``), 'k1-embed' falls back to 'k1', the same
     function (the reference's TPU blocks have no such limit).
 
+    On the card at bf16 K1 (every form, the embed/readout form's K6 and K7
+    included), K8 and K2 (the per-layer ``paths`` mode) run their bf16
+    builds, as the reference's TPU runs those kernels on bf16 operands; the
+    per-layer ``mxu_*`` modes and K4 run 'plain' there, an explicit rule:
+    the reference's K5 (``tp_mix_env_fused_t`` in an ``mxu_*`` mode) raises
+    on bf16 operands, as its f32 product is stored into a bf16 output, and
+    its K4 layer (``use_fused``) is f32 only, so its bf16 model runs both
+    on XLA.
+
     The rounding modes ``tp_mode="mxu_bf16"`` / ``"mxu_bf16x3"`` act only
     at f32: at any other dtype the reference never takes its env-fused
     tier, so it runs its exact plain layer function (``layer_fn``), and a
@@ -296,11 +310,12 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torc
     if capture or (card and dtype not in (torch.float32, torch.bfloat16)):
         return "plain"
     f32_only = card and dtype != torch.float32  # a tier whose kernel has no bf16 build
-    if not flat and cfg.fused_stack is True and stack_viable(cfg):
-        return "plain" if f32_only else "stack"
+    kdtype = dtype if card else torch.float32  # the dtype a kernel would run at
+    if not flat and cfg.fused_stack is True and stack_viable(cfg, kdtype):
+        return "stack"
     if not cfg.fused_tp:
         return "plain"
-    if flat or not env_fused_viable(cfg, dtype if card else torch.float32):
+    if flat or not env_fused_viable(cfg, kdtype):
         return "k4" if k4_viable(cfg) and not f32_only else "plain"
     if cfg.tier == "perlayer" and cfg.tp_mode in ROUNDING_MODES and dtype != torch.float32:
         return "plain"
@@ -309,8 +324,8 @@ def layer_tier(cfg: AllegroConfig, flat: bool, capture: bool = False, dtype=torc
     if os.environ.get("PAT_L1_POSITIONAL", "1") == "0":
         return "k1-nopos"
     if (os.environ.get("PAT_L1_EMBED", "0") == "1" and cfg.num_layers >= 2
-            and embed_readout_viable(cfg)):
-        return "plain" if f32_only else "k1-embed"
+            and embed_readout_viable(cfg, kdtype)):
+        return "k1-embed"
     return "k1"
 
 
@@ -414,7 +429,7 @@ def _feature_major(params, cfg, types, geo, n: int, k: int, cdtype=None) -> dict
     cdtype = cdtype or xT.dtype
     xT = xT.to(cdtype)
     ns = params["tensor_embed"].shape[0]
-    pT = (params["tensor_embed"].to(cdtype).T @ xT) * (1.0 / math.sqrt(ns))  # (C, E)
+    pT = (params["tensor_embed"].to(cdtype).T @ xT) * weak_scalar(1.0 / math.sqrt(ns), cdtype)
     Y_T = geo["Y"].reshape(n * k, -1).T.to(cdtype).contiguous()
     return {"u": u, "uT": uT.to(cdtype), "Y_T": Y_T, "xT": xT, "pT": pT}
 
@@ -501,9 +516,10 @@ def env_step(layer, cfg: AllegroConfig, xT, Vt, Y_T, uT, k):
     """One layer of the per-layer tier (JAX ``env_step``,
     ``models/allegro.py:626-657``): K2 or K5 for env + TP + mix, the latent
     MLP with its first layer split over [x; inv], the residual.  Returns
-    (xT', Vt'); the last layer's Vt' is computed and unused, as in JAX."""
-    ns = xT.shape[0]
-    wzT = (layer["env_weight"].to(xT.dtype).T @ xT) * (1.0 / math.sqrt(ns)) * uT
+    (xT', Vt'); the last layer's Vt' is computed and unused, as in JAX.
+    The constants round as JAX's do at xT's dtype (``mlp.weak_scalar``)."""
+    ns, dt = xT.shape[0], xT.dtype
+    wzT = (layer["env_weight"].to(dt).T @ xT) * weak_scalar(1.0 / math.sqrt(ns), dt) * uT
     if cfg.tp_mode == "paths":
         w = k2_weights(layer["mix"], cfg.l_max, cfg.parity)
         Vt, invT = env_layer(Vt, wzT.contiguous(), Y_T, w, k, cfg.avg_num_neighbors)
@@ -511,13 +527,13 @@ def env_step(layer, cfg: AllegroConfig, xT, Vt, Y_T, uT, k):
         w = k5_weights(layer["mix"], cfg.l_max, cfg.parity, cfg.tp_mode)
         Vt, invT = env_layer_mxu(Vt, wzT.contiguous(), Y_T, w, k, cfg.avg_num_neighbors)
     lat = layer["latent_mlp"]["w"]
-    w0 = lat[0].to(xT.dtype)
-    h = (w0[:ns].T @ xT + w0[ns:].T @ invT) * (1.0 / math.sqrt(w0.shape[0]))
+    w0 = lat[0].to(dt)
+    h = (w0[:ns].T @ xT + w0[ns:].T @ invT) * weak_scalar(1.0 / math.sqrt(w0.shape[0]), dt)
     if len(lat) == 1:
         x_new = h
     else:
-        x_new = mlp_apply_t({"w": lat[1:]}, F.silu(h) * silu_norm_const())
-    return (xT + x_new * uT) * (1.0 / math.sqrt(2.0)), Vt
+        x_new = mlp_apply_t({"w": lat[1:]}, F.silu(h) * weak_scalar(silu_norm_const(), dt))
+    return (xT + x_new * uT) * weak_scalar(1.0 / math.sqrt(2.0), dt), Vt
 
 
 def _perlayer_layers(params, cfg, xT, pT, Y_T, uT, k, remat=False):
@@ -534,8 +550,9 @@ def _plain_layers(params, cfg, x, Y, u, agg, per_edge, capture, remat=False, cdt
     each center's edges, ``per_edge`` hands a per-center tensor back to the
     edges (broadcastable); returns the final latent (..., ns) at the
     interior dtype ``cdtype`` (default: x's), to which x, V0, Y and u are
-    cast after V0 is made (``models/allegro.py:761-762``).  With ``remat``
-    (never with ``capture``) each layer is a checkpoint."""
+    cast after V0 is made (``models/allegro.py:761-762``); the layers'
+    constants round as JAX's do at that dtype (``mlp.weak_scalar``).  With
+    ``remat`` (never with ``capture``) each layer is a checkpoint."""
     inv_avg = 1.0 / math.sqrt(max(cfg.avg_num_neighbors, 1e-6))
     ns = x.shape[-1]
     p_embed = (x @ params["tensor_embed"].to(x.dtype)) * (1.0 / math.sqrt(ns))
@@ -546,15 +563,16 @@ def _plain_layers(params, cfg, x, Y, u, agg, per_edge, capture, remat=False, cdt
         capture["two_body_latent"] = x
 
     def step(layer, li, x, V):
-        w_env = (x @ layer["env_weight"].to(x.dtype)) * (1.0 / math.sqrt(ns)) * u[..., None]
-        env = agg(w_env[..., :, None] * Y[..., None, :]) * inv_avg  # (N, C, D)
+        w_env = ((x @ layer["env_weight"].to(x.dtype)) * weak_scalar(1.0 / math.sqrt(ns), x.dtype)
+                 * u[..., None])
+        env = agg(w_env[..., :, None] * Y[..., None, :]) * weak_scalar(inv_avg, x.dtype)
         T = uniform_tp(V, per_edge(env).expand(V.shape), cfg.l_max, cfg.parity)
         inv = scalar_part(T)
         if capture is not None:
             capture[f"layer{li}/invariants"] = inv
         V = tp_mix_apply(layer["mix"], T)
         x_new = mlp_apply(layer["latent_mlp"], torch.cat([x, inv], dim=-1))
-        return (x + x_new * u[..., None]) * (1.0 / math.sqrt(2.0)), V
+        return (x + x_new * u[..., None]) * weak_scalar(1.0 / math.sqrt(2.0), x.dtype), V
 
     for li, layer in enumerate(params["layers"]):
         x, V = rematerialized(lambda x, V, layer=layer, li=li: step(layer, li, x, V), remat)(x, V)

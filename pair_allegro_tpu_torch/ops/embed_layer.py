@@ -11,12 +11,22 @@ TABLE edge list:
 with in = [onehot(t_i); onehot(t_j); Bessel * u], (2T + B, E).  Returns
 (x', V').  On a CUDA tensor :func:`embed_layer` launches the kernel pair in
 ``csrc/embed_readout_layer.cu`` (built with ``nvcc`` at first use, bound
-with ``ctypes``; the same library holds K7, ops/readout_layer.py); on a CPU
-tensor it runs :func:`embed_layer_reference`, the plain PyTorch version.
+with ``ctypes``; the same library holds K7, ops/readout_layer.py), or at
+bf16 its bf16 build ``csrc/embed_readout_layer_bf16.cu`` (the
+``interior="bf16"`` tier: bf16 activations, f32 sums in registers, one bf16
+tensor-core pass per product on pair-packed weights); on a CPU tensor it
+runs :func:`embed_layer_reference`, the plain PyTorch version, at the
+tensors' dtype.
 
-The port is exact f32, which is what the TPU kernel computes with
+At f32 the port is exact f32, which is what the TPU kernel computes with
 ``PAT_EMBED_PREC=highest``; that knob (bf16x3 dots in the prologue) and the
 block-lane knobs ``PAT_L1_BE`` / ``PAT_L1_BE_BWD`` have no counterpart here.
+At bf16 the plain version rounds where the TPU kernel does: every product
+one bf16 pass with f32 accumulation on bf16-cast weights, and the
+prologue's constants (fan-in scales, the SiLU norm, 1/sqrt(ns)) rounded to
+bf16, as JAX's weakly typed Python floats are (``mlp.weak_scalar``); the
+bf16 build rounds the same constants, and its f32 oracle on the card is
+the plain version at f32 with ``scalars=torch.bfloat16``.
 Weight cotangents come back NaN-filled for every leaf the kernel reads, the
 two-body MLP and ``tensor_embed`` included (``pallas_stack.py:1699``).
 """
@@ -25,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -33,25 +44,34 @@ import torch.nn.functional as F
 
 from pair_allegro_tpu_torch.ops import fused_layer as fl
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
-from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t
+from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t, weak_scalar
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()
+launches = LaunchCounts()  # the f32 kernel's (K6)
+launches_bf16 = LaunchCounts()  # the bf16 build's (K6)
 
 MT_WORDS = fl.MT_WORDS
 
 
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
 def mlp_layout(ws, base: int = 0):
-    """(blocks, table, maxw) of a prologue or epilogue MLP for the kernel:
-    its (in, out) weights with the first one's rows padded with zeros to a
-    multiple of 4, and the int32 words of its MlpTab, the blocks' offsets
-    counted from ``base`` floats and each layer's scale 1/sqrt(real fan-in).
-    The transposes' blocks sit at the same offsets."""
+    """(blocks, table, maxw, offsets, end) of a prologue or epilogue MLP for
+    the kernel: its (in, out) weights with the first one's rows padded with
+    zeros to a multiple of 4, and the int32 words of its MlpTab, the
+    blocks' offsets counted from ``base`` floats and each layer's scale
+    1/sqrt(real fan-in).  Each block starts on a multiple of 8 floats, so
+    its pair-packed copy (half the offset) starts on 16 bytes too; ``end``
+    is the offset after the last.  The transposes' blocks sit at the same
+    offsets (:func:`mlp_flat`)."""
     blocks = [F.pad(ws[0], (0, 0, 0, -ws[0].shape[0] % 4)), *ws[1:]]
     dims = [blocks[0].shape[0]] + [w.shape[1] for w in ws]
     hidden = dims[1:-1]
     maxw = max(hidden) if hidden else 4
-    offs = base + np.cumsum([0] + [b.numel() for b in blocks])[:-1]
+    offs = base + np.cumsum([0] + [_ceil8(b.numel()) for b in blocks])
+    offs, end = offs[:-1], int(offs[-1])
     tab = np.zeros(MT_WORDS, np.int32)
     tab[0], tab[1] = len(ws), maxw
     d0 = 2
@@ -60,7 +80,25 @@ def mlp_layout(ws, base: int = 0):
     tab[d0:d0 + len(dims)] = dims
     tab[o0:o0 + len(ws)] = offs
     tab[s0:s0 + len(ws)] = np.array([1.0 / math.sqrt(w.shape[0]) for w in ws], np.float32).view(np.int32)
-    return blocks, tab, maxw
+    return blocks, tab, maxw, [int(o) for o in offs], end
+
+
+def mlp_flat(blocks, offs, end: int, transpose: bool = False, packed: bool = False):
+    """The kernel's flat weight buffer of MLP blocks at their offsets (in
+    floats, :func:`mlp_layout`), zeros between them: f32, or with
+    ``packed`` each block ``fused_layer.pack_pairs``-ed at half its offset
+    (int32 words).  ``transpose`` stores each block's transpose; a width-1
+    block's transpose, which the kernel never reads, packs as zeros."""
+    dev = blocks[0].device
+    buf = torch.zeros(end // 2 if packed else end, dtype=torch.int32 if packed else torch.float32,
+                      device=dev)
+    for b, o in zip(blocks, offs):
+        m = b.T if transpose else b
+        if not packed:
+            buf[o:o + m.numel()] = m.reshape(-1)
+        elif m.shape[0] % 2 == 0:
+            buf[o // 2:o // 2 + m.numel() // 2] = fl.pack_pairs(m).reshape(-1)
+    return buf
 
 
 def mlp_widths_ok(dims, last: int | None = None) -> bool:
@@ -73,12 +111,16 @@ def mlp_widths_ok(dims, last: int | None = None) -> bool:
 
 
 def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
-                 tb_dims: tuple) -> bool:
-    """Whether ``er_launch`` (csrc/embed_readout_layer.cu) takes K6 at these
-    widths, forward and backward: K1's conditions (ops/fused_layer.py), the
-    two-body MLP's (``tb_dims`` = (2T + B, hidden..., ns)) and the shared
-    memory sum with the prologue's rows, mirrored here so that a caller
-    decides before any launch."""
+                 tb_dims: tuple, dtype=torch.float32) -> bool:
+    """Whether ``er_launch`` (csrc/embed_readout_layer.cu, or its bf16 build
+    embed_readout_layer_bf16.cu) takes K6 at these widths at ``dtype``,
+    forward and backward: a build of that dtype, K1's conditions
+    (ops/fused_layer.py), the two-body MLP's (``tb_dims`` = (2T + B,
+    hidden..., ns)) and the shared memory sum with the prologue's rows,
+    mirrored here so that a caller decides before any launch.  The bf16
+    build keeps f32 tiles, so its sum is the f32 one."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
     if not fl.widths_ok(ns, c, c, d, latd, lmax, parity) or not mlp_widths_ok(tb_dims, ns):
         return False
     hidden = tb_dims[1:-1]
@@ -92,11 +134,13 @@ def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
 class K6Weights:
     """The first layer's K1 layout (``layer``) with the prologue's weights:
     the two-body MLP as the kernel reads it (``ew`` / ``ewT`` flat blocks and
-    transposes, the first padded; ``mt`` its MlpTab and an empty one) and as
-    the plain version reads it (``tb``), and W_te (ns, C) with its
-    transpose.  Detached copies; ``leaves`` are the tree's own tensors (the
-    two-body weights, tensor_embed, the layer's), which receive the (NaN)
-    weight cotangents."""
+    transposes, the first padded, at ``offs`` of ``end`` floats; ``mt`` its
+    MlpTab and an empty one) and as the plain version reads it (``tb``),
+    and W_te (ns, C) with its transpose.  Detached copies; ``leaves`` are
+    the tree's own tensors (the two-body weights, tensor_embed, the
+    layer's), which receive the (NaN) weight cotangents.  :attr:`packed`
+    holds the bf16 build's copies, made at its first launch and replaced
+    with the object when a leaf changes (``k6_weights``)."""
 
     layer: fl.K1Weights
     tb: tuple
@@ -107,6 +151,18 @@ class K6Weights:
     mt: torch.Tensor
     xmaxw: int
     leaves: tuple
+    blocks: tuple
+    offs: tuple
+    end: int
+
+    @functools.cached_property
+    def packed(self) -> dict:
+        """W_te, its transpose and the two-body MLP's blocks (at half their
+        offsets) pair-packed (``fused_layer.pack_pairs``) for the bf16
+        build; the layer's are ``layer.packed``."""
+        return {"te": fl.pack_pairs(self.te), "teT": fl.pack_pairs(self.teT),
+                "ew": mlp_flat(self.blocks, self.offs, self.end, packed=True),
+                "ewT": mlp_flat(self.blocks, self.offs, self.end, transpose=True, packed=True)}
 
     @property
     def n_in(self) -> int:
@@ -129,7 +185,7 @@ def prepare_embed(params: dict, lmax: int, parity: bool) -> K6Weights:
     """K6's weights (see :class:`K6Weights`) made anew from the tree;
     :func:`k6_weights` is the cached accessor."""
     tb = tuple(w.detach() for w in params["two_body_mlp"]["w"])
-    blocks, tab, maxw = mlp_layout(tb)
+    blocks, tab, maxw, offs, end = mlp_layout(tb)
     te = params["tensor_embed"].detach()
     mt = np.concatenate([tab, np.zeros(MT_WORDS, np.int32)])
     return K6Weights(
@@ -137,11 +193,14 @@ def prepare_embed(params: dict, lmax: int, parity: bool) -> K6Weights:
         tb=tb,
         te=te.contiguous(),
         teT=te.T.contiguous(),
-        ew=torch.cat([b.reshape(-1) for b in blocks]).contiguous(),
-        ewT=torch.cat([b.T.reshape(-1) for b in blocks]).contiguous(),
+        ew=mlp_flat(blocks, offs, end),
+        ewT=mlp_flat(blocks, offs, end, transpose=True),
         mt=torch.from_numpy(mt).to(te.device),
         xmaxw=maxw,
         leaves=embed_leaves(params, lmax),
+        blocks=tuple(blocks),
+        offs=tuple(offs),
+        end=end,
     )
 
 
@@ -157,12 +216,14 @@ def k6_weights(params: dict, lmax: int, parity: bool) -> K6Weights:
 # ---------------------------------------------------------------------------
 
 
-def embed_layer_reference(in_t, yt, ut, w: K6Weights, K: int, inv_avg: float):
+def embed_layer_reference(in_t, yt, ut, w: K6Weights, K: int, inv_avg: float, scalars=None):
     """The same function as the kernel in plain PyTorch: in_t (2T + B, E),
     yt (D, E), ut (1, E) -> (x' (ns, E), V' (D, C, E)); goes through torch
-    autograd."""
-    x = mlp_apply_t({"w": w.tb}, in_t) * ut
-    pT = (w.te.to(x.dtype).T @ x) * (1.0 / math.sqrt(x.shape[0]))
+    autograd.  The prologue's constants round as JAX's do at the dtype
+    ``scalars`` (default: the operands'; ``mlp.mlp_apply_t``)."""
+    sd = scalars or in_t.dtype
+    x = mlp_apply_t({"w": w.tb}, in_t, sd) * ut
+    pT = (w.te.to(x.dtype).T @ x) * weak_scalar(1.0 / math.sqrt(x.shape[0]), sd)
     return fl.fused_layer_reference(x, pT, yt, ut, w.layer, K, inv_avg, first_v=True)
 
 
@@ -172,7 +233,7 @@ def embed_layer_reference(in_t, yt, ut, w: K6Weights, K: int, inv_avg: float):
 
 _PTRS = ("x", "V", "Y", "u", "envw", "envwT", "lat", "latT", "mix", "mixT", "dxo", "dvo", "meta",
          "xo", "vo", "dx", "dV", "dY", "du", "in", "te", "teT", "din", "mt", "ew", "ewT", "dh0",
-         "dh1", "ho0", "ho1")
+         "dh1", "ho0", "ho1", "part")
 EMBED, READOUT = 1, 2  # enum Form (csrc/allegro_layer.cuh)
 
 
@@ -192,62 +253,72 @@ def _bind(lib):
         raise RuntimeError("kernel table layouts differ from the wrappers'")
 
 
-LIB = CudaLibrary("k6k7_embed_readout_layer",
-                  [CSRC / "embed_readout_layer.cu", CSRC / "allegro_layer.cuh",
-                   CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"],
-                  _bind)
+_SOURCES = [CSRC / "embed_readout_layer.cu", CSRC / "allegro_layer.cuh",
+            CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"]
+LIB = CudaLibrary("k6k7_embed_readout_layer", _SOURCES, _bind)
+LIB_BF16 = CudaLibrary("k6k7_embed_readout_layer_bf16",
+                       [CSRC / "embed_readout_layer_bf16.cu", *_SOURCES], _bind)
 
 
 def launch(form: int, bwd: bool, w: fl.K1Weights, ts: dict, d: int, K: int, e: int,
-           extra_dims: list, inv_avg: float, counts: LaunchCounts, device) -> None:
-    """One K6 or K7 launch: ``ts`` maps the launcher's pointer names (_PTRS)
-    to tensors (the layer's K1 weights are added here, absent names are
-    0); ``extra_dims`` = (n_in, xmaxw, hzrows, nhead).  Raises on any
-    refusal or launch error; counts the launch."""
-    ts = {"envw": w.env_w, "envwT": w.env_wT, "lat": w.lat_flat, "latT": w.latT_flat,
-          "mix": w.mix_flat, "mixT": w.mixT_flat, "meta": w.meta, **ts}
+           extra_dims: list, inv_avg: float, counts: tuple, device, bf16: bool) -> None:
+    """One K6 or K7 launch, of the bf16 build with ``bf16``: ``ts`` maps the
+    launcher's pointer names (_PTRS) to tensors (the layer's K1 weights,
+    f32 or pair-packed, are added here; absent names are 0);
+    ``extra_dims`` = (n_in, xmaxw, hzrows, nhead); ``counts`` the kernel's
+    (f32, bf16) launch counts, indexed by ``bf16``.  Raises on any refusal
+    or launch error; counts the launch."""
+    lw = w.packed if bf16 else w.weights()
+    ts = {**dict(zip(("envw", "envwT", "lat", "latT", "mix", "mixT"), lw)), "meta": w.meta, **ts}
     first_v, last = form == EMBED, form == READOUT
     dims = fl.kernel_dims(w, d, K, e, first_v, last) + list(extra_dims)
-    lib = LIB.load()
+    lib = (LIB_BF16 if bf16 else LIB).load()
     arr = (ctypes.c_ulonglong * len(_PTRS))(*(ts[k].data_ptr() if k in ts else 0 for k in _PTRS))
     dm = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.er_launch(form, int(bwd), arr, dm, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K{6 if form == EMBED else 7} {'backward' if bwd else 'forward'} "
-                           f"launch failed (code {rc})")
+        raise RuntimeError(f"K{6 if form == EMBED else 7}{' bf16' if bf16 else ''} "
+                           f"{'backward' if bwd else 'forward'} launch failed (code {rc})")
+    c = counts[bf16]
     if bwd:
-        counts.bwd += 1
+        c.bwd += 1
     else:
-        counts.fwd += 1
+        c.fwd += 1
 
 
 def _extra(w: K6Weights) -> list:
     return [w.n_in, w.xmaxw, (len(w.tb) - 1) * w.xmaxw, 0]
 
 
-def _common(w: K6Weights) -> dict:
-    return {"te": w.te, "teT": w.teT, "mt": w.mt, "ew": w.ew, "ewT": w.ewT}
+def _common(w: K6Weights, bf16: bool) -> dict:
+    src = w.packed if bf16 else {"te": w.te, "teT": w.teT, "ew": w.ew, "ewT": w.ewT}
+    return {"mt": w.mt, **{k: src[k] for k in ("te", "teT", "ew", "ewT")}}
 
 
 def _kernel_fwd(in_t, yt, ut, w: K6Weights, K, inv_avg):
     ns, c = w.te.shape
     d, e = yt.shape
+    bf16 = yt.dtype == torch.bfloat16
     xo = torch.empty((ns, e), dtype=yt.dtype, device=yt.device)
     vo = torch.empty((d, c, e), dtype=yt.dtype, device=yt.device)
-    launch(EMBED, False, w.layer, {"Y": yt, "u": ut, "in": in_t, "xo": xo, "vo": vo, **_common(w)},
-           d, K, e, _extra(w), inv_avg, launches, yt.device)
+    launch(EMBED, False, w.layer, {"Y": yt, "u": ut, "in": in_t, "xo": xo, "vo": vo,
+                                   **_common(w, bf16)},
+           d, K, e, _extra(w), inv_avg, (launches, launches_bf16), yt.device, bf16)
     return xo, vo
 
 
 def _kernel_bwd(in_t, yt, ut, w: K6Weights, K, inv_avg, dxo, dvo):
     d, e = yt.shape
-    dx = torch.empty((w.te.shape[0], e), dtype=yt.dtype, device=yt.device)  # pass-1 scratch
+    bf16 = yt.dtype == torch.bfloat16
+    # the pass-1 partials of dx and du, f32 at either dtype
+    part = torch.empty((w.te.shape[0] + 1, e), dtype=torch.float32, device=yt.device)
     din, dY, du = torch.empty_like(in_t), torch.empty_like(yt), torch.empty_like(ut)
-    launch(EMBED, True, w.layer, {"Y": yt, "u": ut, "in": in_t, "dxo": dxo, "dvo": dvo, "dx": dx,
-                                  "dY": dY, "du": du, "din": din, **_common(w)},
-           d, K, e, _extra(w), inv_avg, launches, yt.device)
+    launch(EMBED, True, w.layer, {"Y": yt, "u": ut, "in": in_t, "dxo": dxo, "dvo": dvo,
+                                  "part": part, "dY": dY, "du": du, "din": din,
+                                  **_common(w, bf16)},
+           d, K, e, _extra(w), inv_avg, (launches, launches_bf16), yt.device, bf16)
     return din, dY, du
 
 
@@ -282,15 +353,19 @@ class _EmbedLayer(torch.autograd.Function):
 
 def check_operands(name: str, ts, w_tensors, want: dict) -> None:
     """The wrappers' checks: shapes (``want`` maps an operand's index to its
-    shape), one device, and on a CUDA device f32 and contiguous."""
+    shape), one device, and on a CUDA device contiguous operands all f32
+    or all bf16 (the bf16 build) with f32 weights."""
     for i, shape in want.items():
         if tuple(ts[i].shape) != tuple(shape):
             raise ValueError(f"{name}: operand {i} has shape {tuple(ts[i].shape)}, want {tuple(shape)}")
     if any(t.device != ts[0].device for t in (*ts, *w_tensors)):
         raise ValueError(f"{name}: all tensors must be on one device")
     if ts[0].is_cuda:
-        if any(t.dtype != torch.float32 for t in (*ts, *w_tensors)):
-            raise TypeError(f"{name}: the CUDA kernel takes float32 tensors only")
+        if (ts[0].dtype not in (torch.float32, torch.bfloat16)
+                or any(t.dtype != ts[0].dtype for t in ts)
+                or any(t.dtype != torch.float32 for t in w_tensors)):
+            raise TypeError(f"{name}: the CUDA kernel takes operands all float32 or all bfloat16, "
+                            f"and float32 weights")
         if any(not t.is_contiguous() for t in ts):
             raise ValueError(f"{name}: CUDA inputs must be contiguous")
 
@@ -299,7 +374,8 @@ def embed_layer(in_t, yt, ut, w: K6Weights, K: int, avg_num_neighbors: float):
     """The first Allegro layer with the two-body MLP and the tensor embed
     fused in: in_t (2T + B, E) two-body input rows, yt (D, E), ut (1, E),
     E = n_centers * K.  Returns (x' (ns, E), V' (D, C, E)).  CUDA tensors
-    launch K6; CPU tensors take :func:`embed_layer_reference`."""
+    launch K6 (all f32, or all bf16 for its bf16 build); CPU tensors take
+    :func:`embed_layer_reference` at their dtype."""
     d, e = yt.shape
     if d != (w.layer.lmax + 1) ** 2 or K < 1 or e % K:
         raise ValueError(f"embed_layer: D={d}, K={K}, E={e} do not fit the layer")

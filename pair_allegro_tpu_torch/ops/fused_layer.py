@@ -230,8 +230,8 @@ def pack_pairs(w: torch.Tensor) -> torch.Tensor:
     kd, m = w.shape
     if kd % 2:
         raise ValueError(f"pack_pairs: {kd} rows, want an even count")
-    pairs = w.detach().to(torch.bfloat16).reshape(kd // 2, 2, m).transpose(1, 2).contiguous()
-    return pairs.view(torch.int32).reshape(kd // 2, m)
+    pairs = w.detach().to(torch.bfloat16).reshape(kd // 2, 2, m).transpose(1, 2)
+    return pairs.reshape(kd // 2, 2 * m).view(torch.int32)
 
 
 def layer_leaves(layer: dict, lmax: int) -> tuple:

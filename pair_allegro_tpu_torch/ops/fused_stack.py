@@ -14,9 +14,12 @@ layer,
 and returns x_final (ns, E); V never leaves the kernel.  On a CUDA tensor
 :func:`fused_stack` launches the hand-written Hopper kernel pair in
 ``csrc/fused_stack.cu`` (one launch forward, one backward; K1's body in
-``csrc/allegro_layer.cuh`` run once per layer); on a CPU tensor it runs
-:func:`allegro_stack_reference`, the plain PyTorch version of the same
-function.  The backward returns dx0, dpT, dY and du; weight cotangents come
+``csrc/allegro_layer.cuh`` run once per layer), or at bf16 its bf16 build
+``csrc/fused_stack_bf16.cu`` (the ``interior="bf16"`` tier: bf16
+activations, x and V rounded to bf16 at every layer boundary and stashed
+so, one bf16 tensor-core pass per product on pair-packed weights); on a
+CPU tensor it runs :func:`allegro_stack_reference`, the plain PyTorch
+version of the same function, at the tensors' dtype.  The backward returns dx0, dpT, dY and du; weight cotangents come
 back NaN-filled, the contract of the TPU kernel (``pallas_stack.py:780-782``).
 """
 
@@ -31,22 +34,26 @@ import torch
 from pair_allegro_tpu_torch.ops import fused_layer as fl
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.embed_layer import check_operands
-from pair_allegro_tpu_torch.ops.mlp import mlp_apply
+from pair_allegro_tpu_torch.ops.mlp import mlp_apply, weak_scalar
 from pair_allegro_tpu_torch.ops.tp import scalar_part, tp_mix_apply, uniform_tp
 
-launches = LaunchCounts()
+launches = LaunchCounts()  # the f32 kernel's
+launches_bf16 = LaunchCounts()  # the bf16 build's
 
 MAX_LAYERS = 8  # K8P::layer in csrc/fused_stack.cu (one kernel argument of <= 4 KB)
 
 
 def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
-                 n_layers: int) -> bool:
-    """Whether ``k8_launch`` (csrc/fused_stack.cu) takes a stack of
-    ``n_layers`` layers of these widths, forward and backward: K1's width
-    conditions, the shared-memory sum of K1's first form (the layout every
-    layer of the stack shares) and the layer count, mirrored here so that a
+                 n_layers: int, dtype=torch.float32) -> bool:
+    """Whether ``k8_launch`` (csrc/fused_stack.cu, or its bf16 build
+    fused_stack_bf16.cu) takes a stack of ``n_layers`` layers of these
+    widths at ``dtype``, forward and backward: a build of that dtype, K1's
+    width conditions, the shared-memory sum of K1's first form (the layout
+    every layer of the stack shares; the bf16 build's tiles are f32, so
+    its sum is the f32 one) and the layer count, mirrored here so that a
     caller decides before any launch."""
-    return (1 <= n_layers <= MAX_LAYERS and fl.widths_ok(ns, c, c, d, latd, lmax, parity)
+    return (dtype in (torch.float32, torch.bfloat16) and 1 <= n_layers <= MAX_LAYERS
+            and fl.widths_ok(ns, c, c, d, latd, lmax, parity)
             and all(fl.block_bytes(ns, c, c, d, latd, lmax, parity, True, bwd, "stack") <= fl.SMEM_MAX
                     for bwd in (False, True)))
 
@@ -85,22 +92,45 @@ def allegro_stack_reference(x0T, pT, Y_T, uT, layers, K: int, lmax: int,
     """The same function as the kernel in plain PyTorch, as the reference's
     ``allegro_stack_ref`` computes it (channels-last inside): x0T (ns, E),
     pT (C, E), Y_T (D, E), uT (1, E), ``layers`` the tree's layer list.
-    Returns x_final (ns, E).  Goes through torch autograd."""
+    Returns x_final (ns, E).  Goes through torch autograd.  The constants
+    round as JAX's do at the operands' dtype (``mlp.weak_scalar``)."""
     ns, e = x0T.shape
     nc = e // K
     inv_avg = 1.0 / math.sqrt(max(avg_num_neighbors, 1e-6))
     x, Y, u = x0T.T, Y_T.T, uT.reshape(e, 1)
     V = pT.T.unsqueeze(-1) * Y.unsqueeze(-2)  # (E, C, D)
+    cns, ia, r2 = (weak_scalar(c, x.dtype) for c in (1 / math.sqrt(ns), inv_avg, 1 / math.sqrt(2)))
     for layer in layers:
-        w_env = (x @ layer["env_weight"].to(x.dtype)) * (1.0 / math.sqrt(ns)) * u
+        w_env = (x @ layer["env_weight"].to(x.dtype)) * cns * u
         env = (w_env.unsqueeze(-1) * Y.unsqueeze(-2)).reshape(nc, K, *V.shape[1:]).sum(1)
-        env_e = (env * inv_avg).unsqueeze(1).expand(nc, K, *V.shape[1:]).reshape(V.shape)
+        env_e = (env * ia).unsqueeze(1).expand(nc, K, *V.shape[1:]).reshape(V.shape)
         T = uniform_tp(V, env_e, lmax, parity)
         inv = scalar_part(T)
         V = tp_mix_apply(layer["mix"], T)
-        x = (x + mlp_apply(layer["latent_mlp"], torch.cat([x, inv], dim=-1)) * u) \
-            * (1.0 / math.sqrt(2.0))
+        x = (x + mlp_apply(layer["latent_mlp"], torch.cat([x, inv], dim=-1)) * u) * r2
     return x.T.contiguous()
+
+
+def stack_rounded_reference(x0T, pT, Y_T, uT, layers, K: int, lmax: int,
+                            avg_num_neighbors: float, parity: bool):
+    """The function of K8's bf16 build in plain PyTorch at the operands'
+    dtype (f32, fed bf16 values): K1's plain version per layer
+    (``fused_layer_reference``: first, middle and last forms), with x and V
+    rounded to bf16 between the layers, where the build's device-memory
+    stores round them; the round trip's backward rounds the carried
+    cotangents too.  Returns x_final (ns, E); the card's parity checks hold
+    the bf16 build to it."""
+    def r(t):
+        return t.to(torch.bfloat16).to(t.dtype)
+
+    inv_avg = 1.0 / math.sqrt(max(avg_num_neighbors, 1e-6))
+    x, V, n = x0T, pT, len(layers)
+    for li, layer in enumerate(layers):
+        out = fl.fused_layer_reference(x, V, Y_T, uT, fl.prepare_layer(layer, lmax, parity), K,
+                                       inv_avg, li == 0, li == n - 1)
+        if li == n - 1:
+            return out
+        x, V = r(out[0]), r(out[1])
 
 
 # ---------------------------------------------------------------------------
@@ -124,9 +154,10 @@ def _bind(lib):
         raise RuntimeError("kernel table layout or layer limit differs from the wrapper's")
 
 
-LIB = CudaLibrary("k8_fused_stack", [CSRC / "fused_stack.cu", CSRC / "allegro_layer.cuh",
-                                      CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh",
-                                      CSRC / "mma_ptx.cuh"], _bind)
+_SOURCES = [CSRC / "fused_stack.cu", CSRC / "allegro_layer.cuh", CSRC / "allegro_mma.cuh",
+            CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"]
+LIB = CudaLibrary("k8_fused_stack", _SOURCES, _bind)
+LIB_BF16 = CudaLibrary("k8_fused_stack_bf16", [CSRC / "fused_stack_bf16.cu", *_SOURCES], _bind)
 
 # the launcher's pointer slots (k8_launch in csrc/fused_stack.cu), before
 # the six per layer
@@ -134,29 +165,32 @@ _PTRS = ("Y", "u", "meta", "x0", "pT", "xo", "xs", "vs", "dxo", "dx", "dvc", "dp
 
 
 def _launch(bwd: bool, w: K8Weights, ts: dict, K: int, inv_avg: float):
-    """One K8 launch: ``ts`` maps _PTRS names to tensors (absent or None
-    names are 0).  Raises on any refusal or launch error; counts the
-    launch."""
+    """One K8 launch, of the bf16 build when Y is bf16: ``ts`` maps _PTRS
+    names to tensors (absent or None names are 0); each layer's weights
+    f32, or pair-packed for the bf16 build.  Raises on any refusal or
+    launch error; counts the launch."""
     ts = {"meta": w.k1[0].meta, **ts}
     Y = ts["Y"]
     d, e = Y.shape
+    bf16 = Y.dtype == torch.bfloat16
     ptrs = [0 if ts.get(k) is None else ts[k].data_ptr() for k in _PTRS]
     for lw in w.k1:
-        ptrs += [lw.env_w.data_ptr(), lw.env_wT.data_ptr(), lw.lat_flat.data_ptr(),
-                 lw.latT_flat.data_ptr(), lw.mix_flat.data_ptr(), lw.mixT_flat.data_ptr()]
+        ptrs += [t.data_ptr() for t in (lw.packed if bf16 else lw.weights())]
     dims = fl.kernel_dims(w.k1[0], d, K, e, True, False) + [len(w.k1)]
-    lib = LIB.load()
+    lib = (LIB_BF16 if bf16 else LIB).load()
     arr = (ctypes.c_ulonglong * len(ptrs))(*ptrs)
     dm = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(Y.device):
         stream = torch.cuda.current_stream(Y.device).cuda_stream
         rc = lib.k8_launch(int(bwd), arr, dm, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K8 {'backward' if bwd else 'forward'} launch failed (code {rc})")
+        raise RuntimeError(f"K8{' bf16' if bf16 else ''} {'backward' if bwd else 'forward'} "
+                           f"launch failed (code {rc})")
+    counts = launches_bf16 if bf16 else launches
     if bwd:
-        launches.bwd += 1
+        counts.bwd += 1
     else:
-        launches.fwd += 1
+        counts.fwd += 1
 
 
 def _kernel_fwd(x0T, pT, Y_T, uT, w: K8Weights, K: int, inv_avg: float):
@@ -219,9 +253,10 @@ def fused_stack(x0T, pT, Y_T, uT, layers, K: int, lmax: int, avg_num_neighbors: 
     x0T (ns, E) the two-body latent (already times u), pT (C, E) the tensor
     embedding (already over sqrt(ns)), Y_T (D, E), uT (1, E), E =
     n_centers * K, ``layers`` the tree's layer list.  Returns x_final (ns,
-    E).  CUDA tensors launch K8 (f32 and contiguous only; the launcher
-    refuses a stack it does not take, see :func:`kernel_takes`); CPU
-    tensors take :func:`allegro_stack_reference`."""
+    E).  CUDA tensors launch K8 (contiguous, all f32, or all bf16 for its
+    bf16 build; the launcher refuses a stack it does not take, see
+    :func:`kernel_takes`); CPU tensors take :func:`allegro_stack_reference`
+    at their dtype."""
     w = stack_weights(layers, lmax, parity)
     ns, e = x0T.shape
     d = (lmax + 1) ** 2

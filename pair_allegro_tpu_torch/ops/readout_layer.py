@@ -11,15 +11,20 @@ the TABLE edge list:
 Returns e_row (1, E), or (e_row, q_row) with the charge head, both already
 multiplied by u; the (ns, E) final latent never exists in device memory.  On
 a CUDA tensor :func:`readout_layer` launches the kernel pair in
-``csrc/embed_readout_layer.cu`` (the library of ops/embed_layer.py); on a
-CPU tensor it runs :func:`readout_layer_reference`, the plain PyTorch
-version.  Weight cotangents come back NaN-filled for every leaf the kernel
-reads, the heads' included (``pallas_stack.py:1751``).
+``csrc/embed_readout_layer.cu`` (the library of ops/embed_layer.py), or at
+bf16 its bf16 build ``csrc/embed_readout_layer_bf16.cu``; on a CPU tensor it
+runs :func:`readout_layer_reference`, the plain PyTorch version, at the
+tensors' dtype (at bf16 the heads round as the TPU kernel's do: bf16
+constants, the width-1 layer a row sum of bf16 products, ``mlp_apply_t``;
+the bf16 build rounds the same, and its f32 oracle on the card passes
+``scalars=torch.bfloat16``).  Weight cotangents come back NaN-filled for every leaf
+the kernel reads, the heads' included (``pallas_stack.py:1751``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -27,19 +32,22 @@ import torch
 
 from pair_allegro_tpu_torch.ops import fused_layer as fl
 from pair_allegro_tpu_torch.ops._build import LaunchCounts
-from pair_allegro_tpu_torch.ops.embed_layer import (
-    LIB,  # noqa: F401  (K7's library, shared with K6)
+from pair_allegro_tpu_torch.ops.embed_layer import (  # noqa: F401  (LIB*: K7's, shared with K6)
+    LIB,
+    LIB_BF16,
     MT_WORDS,
     READOUT,
     check_operands,
     launch,
+    mlp_flat,
     mlp_layout,
     mlp_widths_ok,
 )
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()
+launches = LaunchCounts()  # the f32 kernel's (K7)
+launches_bf16 = LaunchCounts()  # the bf16 build's (K7)
 
 
 def _head_shape(heads_dims):
@@ -50,12 +58,16 @@ def _head_shape(heads_dims):
 
 
 def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
-                 heads_dims: tuple) -> bool:
-    """Whether ``er_launch`` (csrc/embed_readout_layer.cu) takes K7 at these
-    widths, forward and backward: K1's conditions (ops/fused_layer.py), the
-    heads' (``heads_dims``: one (ns, hidden..., 1) per head, one or two) and
-    the shared memory sum with the epilogue's rows, mirrored here so that a
-    caller decides before any launch."""
+                 heads_dims: tuple, dtype=torch.float32) -> bool:
+    """Whether ``er_launch`` (csrc/embed_readout_layer.cu, or its bf16 build
+    embed_readout_layer_bf16.cu) takes K7 at these widths at ``dtype``,
+    forward and backward: a build of that dtype, K1's conditions
+    (ops/fused_layer.py), the heads' (``heads_dims``: one (ns, hidden...,
+    1) per head, one or two) and the shared memory sum with the epilogue's
+    rows, mirrored here so that a caller decides before any launch (the
+    bf16 build's sum is the f32 one: its tiles are f32)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
     if not fl.widths_ok(ns, c, c, d, latd, lmax, parity) or not 1 <= len(heads_dims) <= 2:
         return False
     if any(h[0] != ns or not mlp_widths_ok(h, 1) for h in heads_dims):
@@ -69,10 +81,12 @@ def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
 class K7Weights:
     """The last layer's K1 layout (``layer``) with the epilogue's heads (the
     readout, then the charge head): as the kernel reads them (``ew`` / ``ewT``
-    flat blocks and transposes, ``mt`` one MlpTab per head) and as the plain
-    version reads them (``heads``).  Detached copies; ``leaves`` are the
+    flat ``blocks`` and transposes at ``offs`` of ``end`` floats, ``mt`` one
+    MlpTab per head) and as the plain version reads them (``heads``).  Detached copies; ``leaves`` are the
     tree's own tensors (the layer's, then the heads'), which receive the
-    (NaN) weight cotangents."""
+    (NaN) weight cotangents.  :attr:`packed` holds the bf16 build's
+    copies, made at its first launch and replaced with the object when a
+    leaf changes (``k7_weights``)."""
 
     layer: fl.K1Weights
     heads: tuple
@@ -80,6 +94,17 @@ class K7Weights:
     ewT: torch.Tensor
     mt: torch.Tensor
     leaves: tuple
+    blocks: tuple
+    offs: tuple
+    end: int
+
+    @functools.cached_property
+    def packed(self) -> dict:
+        """The heads' blocks and their transposes pair-packed at half their
+        offsets (:func:`mlp_flat`) for the bf16 build; the layer's are
+        ``layer.packed``."""
+        return {"ew": mlp_flat(self.blocks, self.offs, self.end, packed=True),
+                "ewT": mlp_flat(self.blocks, self.offs, self.end, transpose=True, packed=True)}
 
     @property
     def heads_dims(self) -> tuple:
@@ -100,21 +125,24 @@ def prepare_readout(params: dict, lmax: int, parity: bool, charges: bool) -> K7W
     :func:`k7_weights` is the cached accessor."""
     names = ["readout_mlp"] + (["charge_mlp"] if charges else [])
     heads = tuple(tuple(w.detach() for w in params[h]["w"]) for h in names)
-    blocks, tabs, base = [], [], 0
+    blocks, offs, tabs, base = [], [], [], 0
     for ws in heads:
-        b, tab, _ = mlp_layout(ws, base)
+        b, tab, _, o, base = mlp_layout(ws, base)
         blocks += b
+        offs += o
         tabs.append(tab)
-        base += sum(t.numel() for t in b)
     tabs += [np.zeros(MT_WORDS, np.int32)] * (2 - len(tabs))
     dev = heads[0][0].device
     return K7Weights(
         layer=fl.prepare_layer(params["layers"][-1], lmax, parity),
         heads=heads,
-        ew=torch.cat([b.reshape(-1) for b in blocks]).contiguous(),
-        ewT=torch.cat([b.T.reshape(-1) for b in blocks]).contiguous(),
+        ew=mlp_flat(blocks, offs, base),
+        ewT=mlp_flat(blocks, offs, base, transpose=True),
         mt=torch.from_numpy(np.concatenate(tabs)).to(dev),
         leaves=readout_leaves(params, lmax, charges),
+        blocks=tuple(blocks),
+        offs=tuple(offs),
+        end=base,
     )
 
 
@@ -130,12 +158,13 @@ def k7_weights(params: dict, lmax: int, parity: bool, charges: bool) -> K7Weight
 # ---------------------------------------------------------------------------
 
 
-def readout_layer_reference(xt, Vt, yt, ut, w: K7Weights, K: int, inv_avg: float):
+def readout_layer_reference(xt, Vt, yt, ut, w: K7Weights, K: int, inv_avg: float, scalars=None):
     """The same function as the kernel in plain PyTorch: xt (ns, E), Vt (D,
     C, E), yt (D, E), ut (1, E) -> e_row (1, E) or (e_row, q_row); goes
-    through torch autograd."""
+    through torch autograd.  The heads' constants round as JAX's do at the
+    dtype ``scalars`` (default: the operands'; ``mlp.mlp_apply_t``)."""
     xf = fl.fused_layer_reference(xt, Vt, yt, ut, w.layer, K, inv_avg, last=True)
-    rows = tuple(mlp_apply_t({"w": ws}, xf) * ut for ws in w.heads)
+    rows = tuple(mlp_apply_t({"w": ws}, xf, scalars) * ut for ws in w.heads)
     return rows if len(rows) > 1 else rows[0]
 
 
@@ -148,21 +177,30 @@ def _extra(w: K7Weights) -> list:
     return [0, *_head_shape(w.heads_dims), len(w.heads)]
 
 
+def _heads(w: K7Weights, bf16: bool) -> dict:
+    src = w.packed if bf16 else {"ew": w.ew, "ewT": w.ewT}
+    return {"mt": w.mt, "ew": src["ew"], "ewT": src["ewT"]}
+
+
 def _kernel_fwd(xt, Vt, yt, ut, w: K7Weights, K, inv_avg):
     d, e = yt.shape
+    bf16 = xt.dtype == torch.bfloat16
     rows = [torch.empty_like(ut) for _ in w.heads]
-    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, "mt": w.mt, "ew": w.ew, "ewT": w.ewT,
+    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, **_heads(w, bf16),
           **{f"ho{h}": r for h, r in enumerate(rows)}}
-    launch(READOUT, False, w.layer, ts, d, K, e, _extra(w), inv_avg, launches, xt.device)
+    launch(READOUT, False, w.layer, ts, d, K, e, _extra(w), inv_avg, (launches, launches_bf16),
+           xt.device, bf16)
     return tuple(rows) if len(rows) > 1 else rows[0]
 
 
 def _kernel_bwd(xt, Vt, yt, ut, w: K7Weights, K, inv_avg, cots):
     d, e = yt.shape
+    bf16 = xt.dtype == torch.bfloat16
     dx, dV, dY, du = (torch.empty_like(t) for t in (xt, Vt, yt, ut))
-    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, "mt": w.mt, "ew": w.ew, "ewT": w.ewT, "dx": dx,
-          "dV": dV, "dY": dY, "du": du, **{f"dh{h}": c for h, c in enumerate(cots)}}
-    launch(READOUT, True, w.layer, ts, d, K, e, _extra(w), inv_avg, launches, xt.device)
+    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, **_heads(w, bf16), "dx": dx, "dV": dV, "dY": dY,
+          "du": du, **{f"dh{h}": c for h, c in enumerate(cots)}}
+    launch(READOUT, True, w.layer, ts, d, K, e, _extra(w), inv_avg, (launches, launches_bf16),
+           xt.device, bf16)
     return dx, dV, dY, du
 
 
@@ -201,8 +239,9 @@ def readout_layer(xt, Vt, yt, ut, w: K7Weights, K: int, avg_num_neighbors: float
     """The last Allegro layer with the readout (and charge) head fused in:
     xt (ns, E), Vt (D, C, E), yt (D, E), ut (1, E), E = n_centers * K.
     Returns e_row (1, E), or (e_row, q_row) with the charge head, both
-    multiplied by u.  CUDA tensors launch K7; CPU tensors take
-    :func:`readout_layer_reference`."""
+    multiplied by u.  CUDA tensors launch K7 (all f32, or all bf16 for its
+    bf16 build); CPU tensors take :func:`readout_layer_reference` at their
+    dtype."""
     ns, e = xt.shape
     d = yt.shape[0]
     c = w.layer.env_w.shape[1]

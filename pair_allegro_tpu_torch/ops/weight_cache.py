@@ -7,7 +7,10 @@ each leaf by a weak reference and its ``_version`` counter, which every
 in-place operation advances.  So a steady MD run pays no launches for them,
 and a training step or an edit of the tree is never stale.  The copies are
 made without autograd; gradients reach the leaves through the autograd
-Functions, which take the leaves themselves as inputs.
+Functions, which take the leaves themselves as inputs.  The bf16 builds'
+pair-packed copies (``packed`` of K1Weights, K6Weights, K7Weights) are
+properties of the cached object, made at its first bf16 launch, so they
+are replaced with it when a leaf changes.
 """
 
 from __future__ import annotations

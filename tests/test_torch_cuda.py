@@ -3,9 +3,10 @@
 each precision mode), K4 (csrc/tp_mix_fused.cu), K6 / K7
 (csrc/embed_readout_layer.cu) and K8 (csrc/fused_stack.cu) against their
 plain PyTorch versions on the card, f32, forward and backward, for every
-form; the bf16 builds of K1 and K2 (interior="bf16") and K3 (a bf16 hj)
-against their plain versions on the same bf16-rounded values, their
-routes and launches; launch counting; the wrappers' refusals on the card; the models'
+form; the bf16 builds of K1, K2, K6, K7 and K8 (interior="bf16") and K3
+(a bf16 hj) against their plain versions on the same bf16-rounded values,
+their re-packed weights after an in-place update, their refusals, routes
+and launches; launch counting; the wrappers' refusals on the card; the models'
 kernel paths (K1 in its three forms, per-layer, K4 and stack tiers,
 NequIP, the FLAT layout of the dense strategy) against their CPU plain
 paths and regrows on the card; the routing predicates against the
@@ -1348,13 +1349,15 @@ def test_k3_k4_kernel_takes_mirror_the_launchers(cuda, kernel, width, takes):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("form", ["k1", "k1-bf16", "k6", "k7", "k8"])
+@pytest.mark.parametrize("form", ["k1", "k1-bf16", "k6", "k7", "k8", "k6-bf16", "k7-bf16",
+                                  "k8-bf16"])
 def test_layouts_mirror_the_launchers(cuda, form):
     """block_bytes (the sum kernel_takes of K1, K6, K7 and K8 compare with
     the limit) equals the library's own layer_layout sum, and refuses
     exactly where the library refuses for shared memory, over 288 widths
-    (the widths the library refuses otherwise widths_ok refuses too); K1's
-    bf16 build lays out the same block as its f32 build."""
+    (the widths the library refuses otherwise widths_ok refuses too); the
+    bf16 builds of K1, K6, K7 and K8 lay out the same blocks as their f32
+    builds."""
     import ctypes
     import itertools
 
@@ -1362,8 +1365,9 @@ def test_layouts_mirror_the_launchers(cuda, form):
     from pair_allegro_tpu_torch.ops import fused_stack as k8
     from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 
-    lib = {"k1": fl.LIB, "k1-bf16": fl.LIB_BF16, "k6": k6.LIB, "k7": k6.LIB,
-           "k8": k8.LIB}[form].load()
+    lib = {"k1": fl.LIB, "k1-bf16": fl.LIB_BF16, "k6": k6.LIB, "k7": k6.LIB, "k8": k8.LIB,
+           "k6-bf16": k6.LIB_BF16, "k7-bf16": k6.LIB_BF16, "k8-bf16": k8.LIB_BF16}[form].load()
+    form = form.removesuffix("-bf16") if form != "k1-bf16" else form
     for ns, c, lmax, parity, width, bwd in itertools.product(
             (16, 64, 128), (8, 32, 48, 64), (1, 2, 3), (True, False), (32, 64), (0, 1)):
         d, P = (lmax + 1) ** 2, num_paths_per_l(lmax, lmax, lmax, parity)
@@ -1962,6 +1966,172 @@ def test_k3_bf16_hj_matches_plain(cuda, lmax, T, c, k):
     assert (nc_mod.launches_bf16.fwd - f0, nc_mod.launches_bf16.bwd - b0) == (1, 1)
 
 
+# K6, K7 and K8 on bf16 operands (embed_readout_layer_bf16.cu,
+# fused_stack_bf16.cu), against their plain versions as K1's bf16 build
+# above; K8's is fused_stack.stack_rounded_reference (K1's per layer, x and
+# V rounded to bf16 between the layers, where the build's stores round them)
+
+
+def _bf16_er(cuda, kernel, ns, c, k, lmax, charges, names=("A", "B"), seed=1, **kw):
+    """The tree, bf16 operands and the two calls of K6 or K7: the wrapper
+    on the cached weights (the bf16 build's), the plain version on weights
+    made from the tree rounded to bf16 with its constants rounded as the
+    build's (``scalars``), both read from the tree per call."""
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    cfg, params = _er_case(cuda, ns, c, lmax, charges, names=names, **kw)
+    n_in = 2 * len(names) + cfg.num_bessels
+    ops = _er_operands(cuda, n_in, ns, c, k, 5, lmax, seed)
+    inv_avg = 1.0 / math.sqrt(5.0)
+    if kernel == "k6":
+        keys = ("in", "Y", "u")
+        calls = (lambda *a: k6.embed_layer(*a, k6.k6_weights(params, lmax, True), k, 5.0),
+                 lambda *a: k6.embed_layer_reference(
+                     *a, k6.prepare_embed(_rounded(params), lmax, True), k, inv_avg,
+                     scalars=torch.bfloat16))
+    else:
+        keys = ("x", "V", "Y", "u")
+        calls = (lambda *a: k7.readout_layer(*a, k7.k7_weights(params, lmax, True, charges), k,
+                                             5.0),
+                 lambda *a: k7.readout_layer_reference(
+                     *a, k7.prepare_readout(_rounded(params), lmax, True, charges), k, inv_avg,
+                     scalars=torch.bfloat16))
+    ins = [ops[key].to(torch.bfloat16).requires_grad_(True) for key in keys]
+    return params, ins, calls
+
+
+def _bf16_pair(calls, ins):
+    """The bf16 build against the plain version at f32 on the same values,
+    forward and backward (bf16 cotangents)."""
+    ref = [t.detach().float().requires_grad_(True) for t in ins]
+    out_k, out_r = calls[0](*ins), calls[1](*ref)
+    out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    out_r = out_r if isinstance(out_r, tuple) else (out_r,)
+    _assert_bf16_close(out_k, out_r, "fwd")
+    cots = [t.to(torch.bfloat16) for t in _cotangents(out_r)]
+    _assert_bf16_close(torch.autograd.grad(out_k, ins, cots),
+                       torch.autograd.grad(out_r, ref, [t.float() for t in cots]), "bwd")
+
+
+@pytest.mark.parametrize("ns,c,k,lmax,names", [(64, 32, 64, 2, ("Cu",)), (64, 32, 64, 1, ("Cu",)),
+                                               (16, 8, 40, 2, ("A", "B")), (32, 16, 20, 3, ("A", "B"))])
+def test_bf16_k6_matches_plain(cuda, ns, c, k, lmax, names):
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+
+    _, ins, calls = _bf16_er(cuda, "k6", ns, c, k, lmax, False, names)
+    f0, b0, g0 = k6.launches_bf16.fwd, k6.launches_bf16.bwd, k6.launches.fwd + k6.launches.bwd
+    _bf16_pair(calls, ins)
+    assert (k6.launches_bf16.fwd - f0, k6.launches_bf16.bwd - b0) == (1, 1)
+    assert k6.launches.fwd + k6.launches.bwd == g0
+
+
+@pytest.mark.parametrize("charges", [False, True])
+@pytest.mark.parametrize("ns,c,k,lmax", [(64, 32, 64, 2), (64, 32, 64, 1), (16, 8, 40, 2)])
+def test_bf16_k7_matches_plain(cuda, ns, c, k, lmax, charges):
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    _, ins, calls = _bf16_er(cuda, "k7", ns, c, k, lmax, charges)
+    f0, b0, g0 = k7.launches_bf16.fwd, k7.launches_bf16.bwd, k7.launches.fwd + k7.launches.bwd
+    _bf16_pair(calls, ins)
+    assert (k7.launches_bf16.fwd - f0, k7.launches_bf16.bwd - b0) == (1, 1)
+    assert k7.launches.fwd + k7.launches.bwd == g0
+
+
+@pytest.mark.parametrize("kernel", ["k6", "k7"])
+@pytest.mark.parametrize("ns,c,width,depth,lds,ring", WIDE_LAYOUTS)
+def test_bf16_k6_k7_match_plain_wide_layouts(cuda, kernel, ns, c, width, depth, lds, ring):
+    """K6's and K7's bf16 builds at the wide latent MLPs of K1's legs (the
+    backward at the tile stride LDS_MIN, with the ring and without it),
+    K = 40."""
+    _, ins, calls = _bf16_er(cuda, kernel, ns, c, 40, 2, kernel == "k7", seed=11,
+                             allegro_mlp_hidden_layers_width=width,
+                             allegro_mlp_hidden_layers_depth=depth)
+    _bf16_pair(calls, ins)
+
+
+def _bf16_stack(cuda, ns, c, lmax, layers, k, parity=True, **fields):
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    layers_, ops = _stack_case(cuda, ns, c, lmax, layers, k, 6, parity=parity, **fields)
+    ins = [t.to(torch.bfloat16).requires_grad_(True) for t in ops]
+    return layers_, ins, (lambda *a: k8.fused_stack(*a, layers_, k, lmax, 5.0, parity),
+                          lambda *a: k8.stack_rounded_reference(*a, _rounded(layers_), k, lmax,
+                                                                5.0, parity))
+
+
+@pytest.mark.parametrize("ns,c,lmax,layers,k,parity", [
+    (64, 32, 2, 3, 64, True), (64, 32, 1, 3, 64, True), (64, 32, 2, 1, 64, True),
+    (64, 32, 2, 2, 40, True), (16, 8, 2, 3, 20, True), (16, 8, 2, 3, 24, False),
+    (16, 8, 3, 2, 33, True)])
+def test_bf16_k8_matches_plain(cuda, ns, c, lmax, layers, k, parity):
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    _, ins, calls = _bf16_stack(cuda, ns, c, lmax, layers, k, parity)
+    f0, b0, g0 = k8.launches_bf16.fwd, k8.launches_bf16.bwd, k8.launches.fwd + k8.launches.bwd
+    _bf16_pair(calls, ins)
+    assert (k8.launches_bf16.fwd - f0, k8.launches_bf16.bwd - b0) == (1, 1)
+    assert k8.launches.fwd + k8.launches.bwd == g0
+
+
+@pytest.mark.parametrize("ns,c,width,depth,lds,ring", WIDE_LAYOUTS)
+def test_bf16_k8_matches_plain_wide_layouts(cuda, ns, c, width, depth, lds, ring):
+    _, ins, calls = _bf16_stack(cuda, ns, c, 2, 3, 40, allegro_mlp_hidden_layers_width=width,
+                                allegro_mlp_hidden_layers_depth=depth)
+    _bf16_pair(calls, ins)
+
+
+@pytest.mark.parametrize("kernel", ["k6", "k7", "k8"])
+def test_bf16_packed_weights_follow_in_place_updates(cuda, kernel):
+    """The bf16 builds' pair-packed weights are made anew after an in-place
+    update of a leaf they read: the run after the update matches the plain
+    version on the updated weights."""
+    if kernel == "k8":
+        tree, ins, calls = _bf16_stack(cuda, 16, 8, 2, 2, 32)
+    else:
+        tree, ins, calls = _bf16_er(cuda, kernel, 16, 8, 32, 2, True)
+    calls[0](*ins)
+    with torch.no_grad():
+        if kernel == "k8":
+            tree[1]["latent_mlp"]["w"][0].mul_(-0.5)
+            tree[0]["mix"]["l1"].add_(0.25)
+        elif kernel == "k6":
+            tree["two_body_mlp"]["w"][1].mul_(1.5)
+            tree["tensor_embed"].add_(0.25)
+        else:
+            tree["readout_mlp"]["w"][-1].mul_(-0.5)
+            tree["charge_mlp"]["w"][0].add_(0.5)
+    _bf16_pair(calls, ins)
+
+
+def test_bf16_builds_raise_on_refusal_and_build_failure(cuda, tmp_path, monkeypatch):
+    """No fallback on the card: a width the bf16 build refuses (C = 48, the
+    TP's cells) raises at the launch, and so does a bf16 build that does not
+    compile; neither runs the plain version."""
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+    from pair_allegro_tpu_torch.ops._build import CudaLibrary
+
+    _, ins, calls = _bf16_er(cuda, "k6", 16, 48, 32, 2, False)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        calls[0](*ins)
+    _, ins, calls = _bf16_stack(cuda, 16, 48, 2, 2, 32)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        calls[0](*ins)
+    broken = tmp_path / "broken.cu"
+    broken.write_text("this is not CUDA\n")
+    monkeypatch.setattr(k8, "LIB_BF16", CudaLibrary("broken_k8_bf16", [broken], k8._bind))
+    _, ins, calls = _bf16_stack(cuda, 16, 8, 2, 2, 32)
+    f0 = k8.launches_bf16.fwd
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        calls[0](*ins)
+    assert k8.launches_bf16.fwd == f0
+    monkeypatch.setattr(k6, "LIB_BF16", CudaLibrary("broken_k6k7_bf16", [broken], k6._bind))
+    _, ins, calls = _bf16_er(cuda, "k7", 16, 8, 32, 2, True)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        calls[0](*ins)
+
+
 def _all_launches():
     from pair_allegro_tpu_torch.ops import (
         embed_layer,
@@ -1976,7 +2146,8 @@ def _all_launches():
     mods = {"K1": fl, "K2": env_layer, "K3": nequip_conv, "K4": tp_mix_fused,
             "K5": env_layer_mxu, "K6": embed_layer, "K7": readout_layer, "K8": fused_stack}
     counts = {name: m.launches for name, m in mods.items()}
-    counts.update({f"{name}-bf16": mods[name].launches_bf16 for name in ("K1", "K2", "K3")})
+    counts.update({f"{name}-bf16": mods[name].launches_bf16
+                   for name in ("K1", "K2", "K3", "K6", "K7", "K8")})
     return counts
 
 
@@ -1989,18 +2160,19 @@ BF16_ROUTES = [
     ({}, {}, {"K1-bf16": 2}),
     ({}, {"PAT_L1_POSITIONAL": "0"}, {"K1-bf16": 2}),
     (dict(layer_fused=False), {}, {"K2-bf16": 2}),
-    ({}, {"PAT_L1_EMBED": "1"}, {}),  # K6 / K7 have no bf16 build: the plain path
-    (dict(fused_stack=True), {}, {}),  # nor K8
-    (dict(layer_fused=False, tp_mode="mxu_highest"), {}, {}),  # nor K5
+    ({}, {"PAT_L1_EMBED": "1"}, {"K6-bf16": 1, "K7-bf16": 1}),  # 2 layers: no K1 between
+    (dict(fused_stack=True), {}, {"K8-bf16": 1}),
+    (dict(layer_fused=False, tp_mode="mxu_highest"), {}, {}),  # K5 has no bf16 build
 ]
 
 
 @pytest.mark.parametrize("fields,env,want", BF16_ROUTES)
 def test_bf16_routes_count_their_launches(cuda, fields, env, want, monkeypatch):
     """interior="bf16" on the card: the K1 tier launches K1's bf16 build and
-    the per-layer paths tier K2's, once a layer each way, and nothing else;
-    the tiers whose kernels have no bf16 build launch nothing.  Forces and
-    energy come back f32 and finite."""
+    the per-layer paths tier K2's, once a layer each way, the embed form
+    K6's and K7's, the stack K8's once, and nothing else; the per-layer
+    mxu_* modes (K5 has no bf16 build) launch nothing.  Forces and energy
+    come back f32 and finite."""
     for name in ("PAT_L1_POSITIONAL", "PAT_L1_EMBED"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
@@ -2019,6 +2191,74 @@ def test_bf16_routes_count_their_launches(cuda, fields, env, want, monkeypatch):
     torch.cuda.synchronize()
     assert out.forces.dtype == torch.float32 and torch.isfinite(out.forces).all()
     assert _launched(counts) == {name: (n, n) for name, n in want.items()}
+
+
+def _fixture_table(seed=0, n=40, k=20):
+    """The CPU tests' (N, K) neighbor table (``_table`` of
+    tests/test_torch_port_nequip_conv.py): n random atoms in a periodic 7 A
+    box, cutoff 3, K = 20, with the reverse table."""
+    from pair_allegro_tpu_torch.neighbors.device import reverse_table
+    from pair_allegro_tpu_torch.neighbors.naive import neighbor_list_np
+
+    pos = np.random.RandomState(seed).rand(n, 3) * 7.0
+    cell = np.eye(3) * 7.0
+    ei, sh = neighbor_list_np(pos, cell, (True,) * 3, 3.0)
+    j_tab, s_tab, m_tab = np.zeros((n, k), np.int64), np.zeros((n, k, 3)), np.zeros((n, k), bool)
+    cnt = np.zeros(n, int)
+    for (i, j), s in zip(ei.T, sh):
+        j_tab[i, cnt[i]], s_tab[i, cnt[i]], m_tab[i, cnt[i]] = j, s, True
+        cnt[i] += 1
+    for i in range(n):
+        j_tab[i, cnt[i]:] = i
+    rev = reverse_table(torch.from_numpy(j_tab), torch.from_numpy(s_tab))
+    return pos, cell, j_tab, s_tab, m_tab, rev.numpy()
+
+
+@pytest.mark.parametrize("layers", [2, 3])
+def test_bf16_embed_tier_matches_cpu_bf16_path(cuda, layers, monkeypatch):
+    """The embed form (PAT_L1_EMBED=1) at interior="bf16" on the card (K6-,
+    K1- and K7-bf16) against the same model on the CPU's bf16 plain path,
+    which rounds the prologue's and the epilogue's constants as JAX's
+    kernels do, within the bf16 model gate of the CPU tests (|dE| <= 5e-3
+    max(1, |E|), max|dF| <= 2e-2 max|F|), on the CPU tests' ``_kw(3)`` /
+    ``_case(3)`` fixture (its table of 40 atoms, every atom of type A,
+    typed cutoffs, 16 / 8 features, l_max 2, charges; no remat, so one
+    launch each way), the port's own random weights."""
+    from pair_allegro_tpu_torch.models.allegro import allegro_energy
+    from pair_allegro_tpu_torch.potential import make_potential
+
+    monkeypatch.setenv("PAT_L1_EMBED", "1")
+    monkeypatch.delenv("PAT_L1_POSITIONAL", raising=False)
+    cfg = AllegroConfig(type_names=("A", "B"), per_edge_type_cutoff=((3.0, 2.8), (2.8, 2.6)),
+                        r_max=3.0, l_max=2, num_layers=layers, num_scalar_features=16,
+                        num_tensor_features=8, avg_num_neighbors=6.0, output_charges=True,
+                        interior="bf16", remat=False)
+    tree = allegro_init_numpy(cfg, 0)
+    pos, cell, j_tab, s_tab, m_tab, rev = _fixture_table()
+    counts = _all_launches()
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = allegro_params_from_numpy(tree, cfg, device=dev)
+        pot = make_potential(lambda *a, params=params, **k: allegro_energy(params, cfg, *a, **k))
+        args = [torch.tensor(a).to(dev) for a in (pos, np.zeros(len(pos), np.int64), j_tab)]
+        kw = {name: torch.tensor(a).to(dev) for name, a in
+              (("cell", cell), ("edge_shifts", s_tab), ("edge_mask", m_tab), ("edge_rev", rev))}
+        args[0], kw["cell"], kw["edge_shifts"] = (t.float() for t in (args[0], kw["cell"],
+                                                                        kw["edge_shifts"]))
+        for c in counts.values():
+            c.reset()
+        out = pot(*args, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            want = {"K6-bf16": 1, "K7-bf16": 1, **({"K1-bf16": layers - 2} if layers > 2 else {})}
+            assert _launched(counts) == {name: (n, n) for name, n in want.items()}
+        outs.append((float(out.total_energy), out.forces.detach().cpu().double()))
+    (e_k, f_k), (e_p, f_p) = outs
+    d_e, d_f, max_f = abs(e_k - e_p), float((f_k - f_p).abs().max()), float(f_p.abs().max())
+    print(f"embed tier bf16, {layers} layers, card against CPU: |dE| {d_e:.3e} (E {e_p:.4f}), "
+          f"max|dF| {d_f:.3e} of max|F| {max_f:.3f}")
+    assert torch.isfinite(f_k).all()
+    assert d_e <= 5e-3 * max(1.0, abs(e_p)) and d_f <= 2e-2 * max_f
 
 
 def test_nequip_hj_bf16_counts_its_launches(cuda, monkeypatch):

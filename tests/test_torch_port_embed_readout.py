@@ -369,12 +369,14 @@ def test_layer_tier_routing(env, fields, flat, capture, tier, monkeypatch):
     """layer_tier reads PAT_L1_EMBED and PAT_L1_POSITIONAL per call, with
     the reference's defaults and precedence (models/allegro.py:474-479,
     670-674); capture, fused_tp=False and the FLAT layout keep their
-    tiers; K6 / K7's refusals fall back to the positional K1 tier.  The
-    memory estimate follows the tier."""
+    tiers; K6 / K7's refusals fall back to the positional K1 tier.  On the
+    card at bf16 (K6's and K7's bf16 build) every tier stays but K4, which
+    has none.  The memory estimate follows the tier."""
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     cfg = AllegroConfig(type_names=("Cu",), r_max=4.5, **fields)
     assert layer_tier(cfg, flat, capture) == tier
+    assert layer_tier(cfg, flat, capture, torch.bfloat16) == ("plain" if tier == "k4" else tier)
     if tier == "k1-nopos":  # V0 (D*C) and its cotangent on top of K1's count
         with monkeypatch.context() as m:
             m.delenv("PAT_L1_POSITIONAL")

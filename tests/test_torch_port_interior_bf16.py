@@ -18,10 +18,11 @@ against the JAX package on the CPU, at f32 positions.
 * Kernels: K1's plain version (three forms) and K2's at bf16 against JAX's
   ``allegro_layer_fused_t`` / ``tp_mix_env_fused_t`` in interpret mode at
   bf16, forward and VJP.
-* Routing on the card (``card=True``): K1 and the per-layer ``paths`` tier
-  keep their kernels at bf16, the stack, the embed form, the ``mxu_*``
-  modes and K4 run the plain path; ``kernel_takes`` at bf16; and the
-  memory estimate at bf16."""
+* Routing on the card (``card=True``): K1 (its embed form too), the stack
+  and the per-layer ``paths`` tier keep their kernels at bf16, the
+  ``mxu_*`` modes and K4 run the plain path; ``kernel_takes`` at bf16; and
+  the memory estimate at bf16.  The embed form and the stack at bf16 are
+  held to JAX in tests/test_torch_port_embed_stack_bf16.py."""
 
 import dataclasses
 
@@ -225,8 +226,8 @@ def test_k2_plain_matches_jax_kernel_interpret_bf16(monkeypatch):
 ROUTES = [  # (config fields, environment, tier on the card at bf16, at f32)
     ({}, {}, "k1", "k1"),
     ({}, {"PAT_L1_POSITIONAL": "0"}, "k1-nopos", "k1-nopos"),
-    ({}, {"PAT_L1_EMBED": "1"}, "plain", "k1-embed"),
-    (dict(fused_stack=True), {}, "plain", "stack"),
+    ({}, {"PAT_L1_EMBED": "1"}, "k1-embed", "k1-embed"),
+    (dict(fused_stack=True), {}, "stack", "stack"),
     (dict(layer_fused=False), {}, "perlayer", "perlayer"),
     (dict(layer_fused=False, tp_mode="mxu_highest"), {}, "plain", "perlayer"),
     (dict(layer_fused=False, tp_mode="mxu_bf16"), {}, "plain", "perlayer"),

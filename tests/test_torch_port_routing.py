@@ -40,7 +40,8 @@ def _clean_env(monkeypatch):
 
 # config fields, flat, environment -> the tier at f32 (the CPU keeps it at
 # any dtype but for the per-layer rounding modes; the card runs 'plain' at
-# any other dtype, but at bf16 the tiers of K1's and K2's bf16 builds)
+# any other dtype, but at bf16 the tiers of the bf16 builds: K1's (with
+# K6's and K7's in the embed form), K8's and K2's)
 TIERS = [
     ({}, False, {}, "k1"),
     ({}, False, {"PAT_L1_EMBED": "1"}, "k1-embed"),
@@ -62,7 +63,8 @@ def test_card_routes_every_dtype_but_f32_to_plain(fields, flat, env, tier, monke
     rounding = tier == "perlayer" and cfg.tp_mode in ("mxu_bf16", "mxu_bf16x3")
     for dtype in (torch.float64, torch.bfloat16, torch.float16):
         bf16_build = dtype == torch.bfloat16 and (
-            tier in ("k1", "k1-nopos") or (tier == "perlayer" and cfg.tp_mode == "paths"))
+            tier in ("k1", "k1-nopos", "k1-embed", "stack")
+            or (tier == "perlayer" and cfg.tp_mode == "paths"))
         assert layer_tier(cfg, flat, dtype=dtype) == (tier if bf16_build else "plain")
         assert layer_tier(cfg, flat, dtype=dtype, card=False) == ("plain" if rounding else tier)
     # the card's memory check counts the plain tier, in the dtype's bytes

@@ -158,6 +158,9 @@ ROUTES = [
     (dict(fused_stack=True), True, False, torch.float32, {}, "k4"),
     (dict(fused_stack=True, fused_tp=False), True, False, torch.float32, {}, "plain"),
     (dict(fused_stack=True), False, False, torch.float64, {}, "plain"),
+    # K8 has a bf16 build (interior="bf16"); where it refuses, as at f32
+    (dict(fused_stack=True), False, False, torch.bfloat16, {}, "stack"),
+    (dict(fused_stack=True, num_layers=9), False, False, torch.bfloat16, {}, "k1"),
     # K8 takes at most 8 layers, and K1's widths: where it refuses, the
     # call routes as if fused_stack were False
     (dict(fused_stack=True, num_layers=9), False, False, torch.float32, {}, "k1"),
