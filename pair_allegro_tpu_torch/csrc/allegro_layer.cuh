@@ -32,12 +32,25 @@
 // sums and the elementwise work run in f32 registers, and every product,
 // the prologue's and the epilogue's MLP layers and the tensor embed
 // included, runs one bf16 tensor-core pass on pair-packed weights
-// (allegro_mma.cuh prod); a head's width-1 last layer is a row sum on its
-// bf16-rounded weights, unpacked from their pairs (wcol).  The prologue's
-// and the epilogue's MLPs and the tensor embed apply their constants (the
-// fan-in scales, the SiLU norm, 1/sqrt(ns)) rounded to bf16 and round a
-// width-1 layer's operands and products, as the TPU kernels do at bf16
-// (rnd); the K1 body's constants stay f32.
+// (allegro_mma.cuh prod_f); a head's width-1 last layer is a row sum on its
+// bf16-rounded weights, unpacked from their pairs (wcol).  The prologue's and
+// the epilogue's MLPs and the tensor embed apply their constants (the fan-in
+// scales, the SiLU norm, 1/sqrt(ns)) rounded to bf16 and round a width-1
+// layer's operands and products, as the TPU kernels do at bf16 (rnd); so
+// does the K1 body: its constants (the fan-in scales, the SiLU norm,
+// 1/sqrt(ns), 1/sqrt(2); the wrappers round 1/sqrt(avg), the 3j weights and
+// the mix norms of the table they pass) apply rounded to bf16, where JAX's
+// weakly typed Python floats take the values' dtype.
+//
+// On f32 activations the body's products take the build's form (K1_MMA,
+// allegro_mma.cuh): 3xTF32 (fused_layer.cu and the other f32 sources),
+// bf16x3 (the *_bf16x3.cu builds: the precision policy's kernel_high and
+// high) or one bf16 pass on pair-packed weights (the *_onepass.cu builds:
+// its default), so the body computes what the TPU kernels' _mm computes
+// under each policy.  The readout heads stay 3xTF32 in every build (JAX's
+// _mm_exact); the prologue (the two-body MLP and the tensor embed) takes
+// the body's form, or 3xTF32 where the launch sets pro_exact
+// (PAT_EMBED_PREC=highest, JAX's _mm_embed).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,10 +61,22 @@
 
 namespace {
 
+#ifndef K1_MMA
+#define K1_MMA TF32X3
+#endif
+
 constexpr float SILU_C = 1.6790564307512243f;
 constexpr float R2 = 0.70710678118654752f;
 
 enum Form { PLAIN = 0, EMBED = 1, READOUT = 2, STACK = 3 };
+
+// The body's product form (Mma): the build's on f32 activations, one bf16
+// pass on bf16 ones; and the f32-accurate form of the heads and of an
+// exact prologue (one bf16 pass at bf16, as JAX's _mm_exact falls back).
+template <typename Act>
+constexpr int BODY = IS_BF16<Act> ? (int)BF16P : (int)K1_MMA;
+template <typename Act>
+constexpr int EXACT = ACT_FORM<Act>;
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
@@ -108,6 +133,9 @@ struct K1T {
   Act *ho0, *ho1;
   // STACK backward: add dY and du to what the later layers left there
   int acc;
+  // EMBED: the prologue's products in EXACT form (its weights f32, or at
+  // bf16 pair-packed) rather than the body's
+  int pro_exact;
   // the product tiles' row stride (LDS_WIDE, or LDS_MIN where the layout
   // needs it; the kernels are built for each), the weight ring (words, 0 for none; offset), the backward's
   // j-ordered entries, the STACK copy of this K1P, and whether tiles load
@@ -152,13 +180,19 @@ __device__ __forceinline__ float dsilu(float z) {
   return s * (1.0f + z * (1.0f - s));
 }
 
-// Element k of a width-1 weight column at w: f32, or at bf16 half of the
-// pair-packed word k / 2 (low half for even k).
-template <typename Act>
+// Element k of a width-1 weight column at w in form FM: f32, or half of the
+// pair-packed word k / 2 (low half for even k); BF16X3 (which no head
+// takes) the sum of the hi and lo words' halves.
+__device__ __forceinline__ float half_of(uint32_t word, int k) {
+  return __uint_as_float((k & 1 ? word >> 16 : word & 0xffffu) << 16);
+}
+
+template <int FM>
 __device__ __forceinline__ float wcol(const float* w, int k) {
-  if constexpr (IS_BF16<Act>) {
-    const uint32_t word = __float_as_uint(w[k >> 1]);
-    return __uint_as_float((k & 1 ? word >> 16 : word & 0xffffu) << 16);
+  if constexpr (FM == BF16P) {
+    return half_of(__float_as_uint(w[k >> 1]), k);
+  } else if constexpr (FM == BF16X3) {
+    return half_of(__float_as_uint(w[k & ~1]), k) + half_of(__float_as_uint(w[(k & ~1) + 1]), k);
   } else {
     return w[k];
   }
@@ -199,7 +233,7 @@ __device__ __forceinline__ auto* du_part(const K1T<Act>& p) {
 // Forward of a prologue / epilogue MLP on one tile: hin (t.dim[0] rows) ->
 // out (t.dim[t.n] rows); hidden activations ping-pong through hA / hB, and
 // the pre-activations are kept in zs (slots of t.maxw rows) when given.
-template <int L, typename Act>
+template <int L, int FM, typename Act>
 __device__ void mlp_fwd(const K1T<Act>& p, const MlpTab& t, const float* w, const float* hin,
                         float* hA, float* hB, float* zs, float* out) {
   for (int li = 0; li < t.n; ++li) {
@@ -209,14 +243,14 @@ __device__ void mlp_fwd(const K1T<Act>& p, const MlpTab& t, const float* w, cons
     float* z = !hidden ? out : (zs ? zs + (size_t)li * t.maxw * L : h);
     const float scale = rnd<Act>(t.scale[li]);
     if (dout == 1) {  // a head's last layer: one weighted row sum per edge
-      const float* wl = w + wofs<Act>(t.off[li]);
+      const float* wl = w + wofs_f<FM>(t.off[li]);
       for (int n = threadIdx.x; n < ET; n += NT) {
         float s = 0.f;
-        for (int k = 0; k < din; ++k) s += rnd<Act>(wcol<Act>(wl, k) * rnd<Act>(hin[k * L + n]));
+        for (int k = 0; k < din; ++k) s += rnd<Act>(wcol<FM>(wl, k) * rnd<Act>(hin[k * L + n]));
         z[n] = s * scale;
       }
     } else {
-      prod<Act>(w + wofs<Act>(t.off[li]), din, dout, hin, L, z, L, scale, ET, ring_of(p), p.ring);
+      prod_f<FM>(w + wofs_f<FM>(t.off[li]), din, dout, hin, L, z, L, scale, ET, ring_of(p), p.ring);
     }
     __syncthreads();
     if (hidden) {
@@ -234,7 +268,7 @@ __device__ void mlp_fwd(const K1T<Act>& p, const MlpTab& t, const float* w, cons
 // Backward of mlp_fwd from g (t.dim[t.n] rows) with the kept pre-activations
 // zs; g and g2 (each as wide as the widest layer) ping-pong and g is
 // overwritten.  Returns the buffer that holds d(hin) (t.dim[0] rows).
-template <int L, typename Act>
+template <int L, int FM, typename Act>
 __device__ float* mlp_bwd(const K1T<Act>& p, const MlpTab& t, const float* w, const float* wT,
                           const float* zs, float* g, float* g2) {
   const float c = rnd<Act>(SILU_C);
@@ -250,13 +284,14 @@ __device__ float* mlp_bwd(const K1T<Act>& p, const MlpTab& t, const float* w, co
       __syncthreads();
     }
     if (dout == 1) {  // outer product with the width-1 layer's weights
-      const float* wl = w + wofs<Act>(t.off[li]);
+      const float* wl = w + wofs_f<FM>(t.off[li]);
       for (int q = threadIdx.x; q < din * ET; q += NT) {
         const int k = q / ET, n = q % ET;
-        g2[k * L + n] = wcol<Act>(wl, k) * g[n] * scale;
+        g2[k * L + n] = wcol<FM>(wl, k) * g[n] * scale;
       }
     } else {
-      prod<Act>(wT + wofs<Act>(t.off[li]), dout, din, g, L, g2, L, scale, ET, ring_of(p), p.ring);
+      prod_f<FM>(wT + wofs_f<FM>(t.off[li]), dout, din, g, L, g2, L, scale, ET, ring_of(p),
+                 p.ring);
     }
     __syncthreads();
     float* tmp = g;
@@ -279,7 +314,10 @@ __device__ void embed_x(const K1T<Act>& p, const MlpTab& t, int e0, int ne, cons
     ins[(p.n_in + q / ET) * L + q % ET] = 0.f;
   tiles_ready();
   float* x0 = x0s ? x0s : xs;
-  mlp_fwd<L>(p, t, p.ew, ins, hA, hB, zs, x0);
+  if (p.pro_exact)
+    mlp_fwd<L, EXACT<Act>>(p, t, p.ew, ins, hA, hB, zs, x0);
+  else
+    mlp_fwd<L, BODY<Act>>(p, t, p.ew, ins, hA, hB, zs, x0);
   for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
     const int s = q / ET, n = q % ET;
     xs[s * L + n] = x0[s * L + n] * us[n];
@@ -307,7 +345,7 @@ __device__ void center_env(const K1T<Act>& p, const MlpTab* mt, int center, floa
       load_act<F, L>(p, p.x, p.ns, e0, ne, xs);
       tiles_ready();
     }
-    prod<Act>(p.envw, p.ns, C, xs, L, wz, L, p.cns, ET, ring_of(p), p.ring);
+    prod_f<BODY<Act>>(p.envw, p.ns, C, xs, L, wz, L, rnd<Act>(p.cns), ET, ring_of(p), p.ring);
     __syncthreads();
     // (d, c) = (q % D, q / D): a warp reads few distinct wz rows
     for (int q = threadIdx.x; q < D * C; q += NT) {
@@ -342,7 +380,10 @@ __device__ void load_edges(const K1T<Act>& p, const MlpTab* mt, int e0, int ne, 
   if constexpr (F == EMBED) {
     float* hA = scr + mt[0].dim[0] * L;
     embed_x<L>(p, mt[0], e0, ne, us, cat, scr, hA, hA + mt[0].maxw * L, nullptr, nullptr);
-    prod<Act>(p.te, p.ns, C, cat, L, pTs, L, rnd<Act>(p.cns), ET, ring_of(p), p.ring);
+    if (p.pro_exact)
+      prod_f<EXACT<Act>>(p.te, p.ns, C, cat, L, pTs, L, rnd<Act>(p.cns), ET, ring_of(p), p.ring);
+    else
+      prod_f<BODY<Act>>(p.te, p.ns, C, cat, L, pTs, L, rnd<Act>(p.cns), ET, ring_of(p), p.ring);
     __syncthreads();
     build_v0<L>(p, pTs, Ys, Vs);
   } else {
@@ -370,13 +411,14 @@ __device__ void latent_fwd(const K1T<Act>& p, const Meta& m, const float* cat, f
     const bool hidden = li < p.nlat - 1;
     float* h = (li & 1) ? hB : hA;
     float* z = !hidden ? out : (zs ? zs + (size_t)li * p.maxw * L : h);
-    prod<Act>(p.lat + wofs<Act>(m.latoff[li]), din, dout, hin, L, z, L, rsqrtf((float)din), ET,
-              ring_of(p), p.ring);
+    prod_f<BODY<Act>>(p.lat + wofs_f<BODY<Act>>(m.latoff[li]), din, dout, hin, L, z, L,
+                      rnd<Act>(1.0f / sqrtf((float)din)), ET, ring_of(p), p.ring);
     __syncthreads();
     if (hidden) {
+      const float c = rnd<Act>(SILU_C);
       for (int q = threadIdx.x; q < dout * ET; q += NT) {
         const int row = q / ET, n = q % ET;
-        h[row * L + n] = silu(z[row * L + n]) * SILU_C;
+        h[row * L + n] = silu(z[row * L + n]) * c;
       }
       __syncthreads();
       hin = h;
@@ -389,7 +431,7 @@ template <int L, typename Act>
 __device__ void residual_in_place(const K1T<Act>& p, float* cat, const float* xn, const float* us) {
   for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
     const int s = q / ET, n = q % ET;
-    cat[s * L + n] = (cat[s * L + n] + xn[s * L + n] * us[n]) * R2;
+    cat[s * L + n] = (cat[s * L + n] + xn[s * L + n] * us[n]) * rnd<Act>(R2);
   }
   __syncthreads();
 }
@@ -406,7 +448,7 @@ __device__ void heads_fwd(const K1T<Act>& p, const MlpTab* mt, float* cat, const
   float* hB = hA + p.xmaxw * L;
   for (int h = 0; h < p.nhead; ++h) {
     float* raw = hB + (p.xmaxw + h) * L;
-    mlp_fwd<L>(p, mt[h], p.ew, cat, hA, hB, nullptr, raw);
+    mlp_fwd<L, EXACT<Act>>(p, mt[h], p.ew, cat, hA, hB, nullptr, raw);
     Act* out = h ? p.ho1 : p.ho0;
     for (int n = threadIdx.x; n < ne; n += NT) st_act(out + e0 + n, raw[n] * us[n]);
   }
@@ -430,7 +472,7 @@ __device__ void heads_bwd(const K1T<Act>& p, const MlpTab* mt, float* cat, const
   residual_in_place<L>(p, cat, xn, us);
   for (int n = threadIdx.x; n < ET; n += NT) dus[n] = 0.f;
   for (int h = 0; h < p.nhead; ++h) {
-    mlp_fwd<L>(p, mt[h], p.ew, cat, P0, P1, hz, raw);
+    mlp_fwd<L, EXACT<Act>>(p, mt[h], p.ew, cat, P0, P1, hz, raw);
     load_in<L>(p, h ? p.dh1 : p.dh0, 1, e0, ne, cot);
     tiles_ready();
     for (int n = threadIdx.x; n < ET; n += NT) {
@@ -438,7 +480,7 @@ __device__ void heads_bwd(const K1T<Act>& p, const MlpTab* mt, float* cat, const
       P0[n] = cot[n] * us[n];
     }
     __syncthreads();
-    const float* g = mlp_bwd<L>(p, mt[h], p.ew, p.ewT, hz, P0, P1);
+    const float* g = mlp_bwd<L, EXACT<Act>>(p, mt[h], p.ew, p.ewT, hz, P0, P1);
     for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
       const int s = q / ET, n = q % ET;
       dxo[s * L + n] = (h ? dxo[s * L + n] : 0.f) + g[s * L + n];
@@ -468,7 +510,8 @@ __device__ void embed_bwd(const K1T<Act>& p, const MlpTab& t, int e0, int ne, co
     for (int q = 0; q < p.ns; ++q) s = fmaf(dxa[q * L + n], x0s[q * L + n], s);
     st_act(p.du + e0 + n, dup[e0 + n] + s);
   }
-  const float* g = mlp_bwd<L>(p, t, p.ew, p.ewT, tbz, gA, gB);
+  const float* g = p.pro_exact ? mlp_bwd<L, EXACT<Act>>(p, t, p.ew, p.ewT, tbz, gA, gB)
+                               : mlp_bwd<L, BODY<Act>>(p, t, p.ew, p.ewT, tbz, gA, gB);
   for (int q = threadIdx.x; q < p.n_in * ET; q += NT) {
     const int row = q / ET, n = q % ET;
     if (n < ne) st_act(p.din + (size_t)row * p.E + e0 + n, g[row * L + n]);
@@ -509,14 +552,15 @@ __device__ __forceinline__ void layer_fwd(const K1T<Act>& p, const Meta& m, cons
     for (int r = 0; r < nrows; ++r) {
       const int kd = m.rowP[r] * p.C;
       // the mix block loads while the TP runs
-      if (!p.last && !resident<Act>(m, r, kd, p.Cout, p.ring))
-        stage<Act>(p.mix + wofs<Act>(m.rowmix[r]), kd, p.Cout, ring, p.ring);
+      if (!p.last && !resident_f<BODY<Act>>(m, r, kd, p.Cout, p.ring))
+        stage_f<BODY<Act>>(p.mix + wofs_f<BODY<Act>>(m.rowmix[r]), kd, p.Cout, ring, p.ring);
       float* T = r == 0 ? cat + p.ns * L : R;  // row 0 is inv (p-major)
       tp_row_reg(p.C, m, r, Vs, env, T, L);
       __syncthreads();
       if (!p.last) {
-        prod<Act>(p.mix + wofs<Act>(m.rowmix[r]), kd, p.Cout, T, L,
-                  p.vo + (size_t)r * p.Cout * p.E + e0, p.E, m.rownorm[r], ne, ring, p.ring, true);
+        prod_f<BODY<Act>>(p.mix + wofs_f<BODY<Act>>(m.rowmix[r]), kd, p.Cout, T, L,
+                          p.vo + (size_t)r * p.Cout * p.E + e0, p.E, m.rownorm[r], ne, ring,
+                          p.ring, true);
         __syncthreads();
       }
     }
@@ -527,7 +571,8 @@ __device__ __forceinline__ void layer_fwd(const K1T<Act>& p, const Meta& m, cons
       for (int q = threadIdx.x; q < p.ns * ET; q += NT) {
         const int s = q / ET, n = q % ET;
         if (n < ne)
-          st_act(p.xo + (size_t)s * p.E + e0 + n, (cat[s * L + n] + xn[s * L + n] * us[n]) * R2);
+          st_act(p.xo + (size_t)s * p.E + e0 + n,
+                 (cat[s * L + n] + xn[s * L + n] * us[n]) * rnd<Act>(R2));
       }
     }
     __syncthreads();
@@ -563,6 +608,7 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
   float* dVs = R;
   float* dT = dVs + D * C * LDV;
   float* dVo = dT + p.maxpc * L;
+  const float r2 = rnd<Act>(R2), silu_c = rnd<Act>(SILU_C);
 
   build_jperm(m, D, perm);
   center_env<F, L>(p, mt, center, env, cat, Ys, us, R);
@@ -572,8 +618,8 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
   auto issue_row = [&](int r, int e0, int ne) {
     load_act<F, L>(p, p.dvo + (size_t)r * p.Cout * E, p.Cout, e0, ne, dVo);
     const int kd = m.rowP[r] * C;
-    if (!resident<Act>(m, r, p.Cout, kd, p.ring))
-      stage<Act>(p.mixT + wofs<Act>(m.rowmix[r]), p.Cout, kd, ring, p.ring);
+    if (!resident_f<BODY<Act>>(m, r, p.Cout, kd, p.ring))
+      stage_f<BODY<Act>>(p.mixT + wofs_f<BODY<Act>>(m.rowmix[r]), p.Cout, kd, ring, p.ring);
   };
 
   // pass 1: latent forward + backward, TP/mix backward, denv accumulation
@@ -589,11 +635,11 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
     for (int n = threadIdx.x; n < ET; n += NT) {
       float s = 0.f;
       for (int q = 0; q < ns; ++q) s = fmaf(dxo[q * L + n], xn[q * L + n], s);
-      dus[n] = F == READOUT ? fmaf(s, R2, dus[n]) : s * R2;
+      dus[n] = F == READOUT ? fmaf(s, r2, dus[n]) : s * r2;
     }
     for (int q = threadIdx.x; q < ns * ET; q += NT) {
       const int s = q / ET, n = q % ET;
-      gA[s * L + n] = dxo[s * L + n] * us[n] * R2;
+      gA[s * L + n] = dxo[s * L + n] * us[n] * r2;
     }
     __syncthreads();
     float* g = gA;
@@ -604,12 +650,12 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
         const float* z = zs + (size_t)li * p.maxw * L;
         for (int q = threadIdx.x; q < dout * ET; q += NT) {
           const int row = q / ET, n = q % ET;
-          g[row * L + n] *= dsilu(z[row * L + n]) * SILU_C;
+          g[row * L + n] *= dsilu(z[row * L + n]) * silu_c;
         }
         __syncthreads();
       }
-      prod<Act>(p.latT + wofs<Act>(m.latoff[li]), dout, din, g, L, g2, L, rsqrtf((float)din), ET,
-                ring, p.ring);
+      prod_f<BODY<Act>>(p.latT + wofs_f<BODY<Act>>(m.latoff[li]), dout, din, g, L, g2, L,
+                        rnd<Act>(1.0f / sqrtf((float)din)), ET, ring, p.ring);
       __syncthreads();
       float* tmp = g;
       g = g2;
@@ -623,7 +669,7 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
     auto* dup = du_part<F>(p);
     for (int q = threadIdx.x; q < ns * ET; q += NT) {
       const int s = q / ET, n = q % ET;
-      if (n < ne) st_act(dxp + (size_t)s * E + e0 + n, dxo[s * L + n] * R2 + g[s * L + n]);
+      if (n < ne) st_act(dxp + (size_t)s * E + e0 + n, dxo[s * L + n] * r2 + g[s * L + n]);
     }
     for (int n = threadIdx.x; n < ne; n += NT)
       st_act(dup + e0 + n, F == STACK && p.acc ? ld_act(dup + e0 + n) + dus[n] : dus[n]);
@@ -640,8 +686,8 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
       const float* dTr = dinv;
       if (!p.last) {
         tiles_ready();
-        prod<Act>(p.mixT + wofs<Act>(m.rowmix[r]), p.Cout, m.rowP[r] * C, dVo, L, dT, L,
-                  m.rownorm[r], ET, ring, p.ring, true);
+        prod_f<BODY<Act>>(p.mixT + wofs_f<BODY<Act>>(m.rowmix[r]), p.Cout, m.rowP[r] * C, dVo, L,
+                          dT, L, m.rownorm[r], ET, ring, p.ring, true);
         __syncthreads();
         if (r + 1 < nrows) issue_row(r + 1, e0, ne);  // loads while this row's TP runs
         if (r == 0) {
@@ -673,7 +719,10 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
         if (n < ne) st_act(p.dY + (size_t)d * E + e0 + n, s);
       }
       __syncthreads();
-      prod<Act>(p.teT, C, ns, dp, L, dxe, L, rnd<Act>(p.cns), ET, ring, p.ring);
+      if (p.pro_exact)
+        prod_f<EXACT<Act>>(p.teT, C, ns, dp, L, dxe, L, rnd<Act>(p.cns), ET, ring, p.ring);
+      else
+        prod_f<BODY<Act>>(p.teT, C, ns, dp, L, dxe, L, rnd<Act>(p.cns), ET, ring, p.ring);
       __syncthreads();
       for (int q = threadIdx.x; q < ns * ET; q += NT) {
         const int s = q / ET, n = q % ET;
@@ -730,7 +779,7 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
       load_act<F, L>(p, p.x, ns, e0, ne, cat);
       tiles_ready();
     }
-    prod<Act>(p.envw, ns, C, cat, L, wz0, L, p.cns, ET, ring, p.ring);
+    prod_f<BODY<Act>>(p.envw, ns, C, cat, L, wz0, L, rnd<Act>(p.cns), ET, ring, p.ring);
     for (int q = threadIdx.x; q < C * ET; q += NT) {
       const int cc = q / ET, n = q % ET;
       float s = 0.f;
@@ -759,7 +808,7 @@ __device__ __forceinline__ void layer_bwd(const K1T<Act>& p, const Meta& m, cons
       dwz[cc * L + n] *= us[n];
     }
     __syncthreads();
-    prod<Act>(p.envwT, C, ns, dwz, L, dxa, L, p.cns, ET, ring, p.ring);
+    prod_f<BODY<Act>>(p.envwT, C, ns, dwz, L, dxa, L, rnd<Act>(p.cns), ET, ring, p.ring);
     __syncthreads();
     if constexpr (F == EMBED) {
       embed_bwd<L>(p, mt[0], e0, ne, us, dxa, x0s, tbz, tA, tB);

@@ -37,7 +37,7 @@
 // stride read at run time cost the backward ~9% on the H100 (PERF.md).
 //
 // bf16 operands (K1 and K2 built on __nv_bfloat16 activations).  The same
-// product (mma_tile's PAIRS form) runs one mma.sync.m16n8k16 bf16 pass a
+// product (mma_tile's BF16P form) runs one mma.sync.m16n8k16 bf16 pass a
 // k-step of 16 with f32 accumulation, the rounding of the TPU kernels' bf16
 // dots (pallas_stack.py _mm: one pass, f32 accumulation).  Its weights are
 // pair-packed by the wrapper: a (Kd, M) matrix is stored as Kd/2 rows of M
@@ -47,6 +47,24 @@
 // f32 shared tile, its pairs rounded to bf16 as the fragments load.
 // prod / stage / resident pick the f32 or the bf16 form from the
 // activations' storage type.
+//
+// bf16x3 (the layer body's bf16x3 builds on f32 activations: the TPU
+// kernels' Precision.HIGH, written out as pallas_stack.py _mm writes it).
+// Each operand is split a = hi + lo with hi = bf16(a), lo = bf16(a - hi),
+// and a k-step of 16 runs three m16n8k16 bf16 passes: hi*hi' into acc and
+// hi*lo' + lo*hi' into cor, folded in f32 as the 3xTF32 form folds.  The
+// wrapper lays A out as hi and lo pair-packed words with their rows
+// interleaved (row 2 k2 the hi pairs of A rows 2 k2, 2 k2 + 1; row 2 k2 + 1
+// their lo pairs; ops/fused_layer.pack_x3): Kd rows of M words, the f32
+// layout's bytes, so the ring, its chunks of KC rows (a multiple of 16
+// here) and the tile strides stay as they are.  B's hi and lo pairs are
+// made as its fragments load.  Where the ring leaves less than 16 rows a
+// stage, the product reads its weights without the ring.
+//
+// The form is a template parameter (Mma): TF32X3, BF16P (one pass on
+// pair-packed words) or BF16X3.  prod / stage / resident pick TF32X3 or
+// BF16P from the activations' storage type (K2, K4); the layer body picks
+// its own form per product (allegro_layer.cuh).
 //
 // The PTX primitives (mma.sync, cvt.rna.tf32, cp.async and its groups, and
 // their g++ stand-in emulations) are in mma_ptx.cuh, which K5 shares.
@@ -78,31 +96,45 @@ constexpr int RING_MIN = 2 * 8 * (MG + 8);
 // fragment).
 __host__ __device__ constexpr int ps_of(int tw) { return tw == 32 ? LDS_WIDE : tw == 16 ? 24 : 8; }
 
-// Staging geometry of a product pass of width mg: chunk rows and row stride.
+// The product forms: 3xTF32 on f32 A; one bf16 pass on pair-packed A; bf16x3
+// on hi / lo pair-packed A with interleaved rows.
+enum Mma { TF32X3 = 0, BF16P = 1, BF16X3 = 2 };
+
+// A's stored rows (words of M) per k-step: 8 (TF32X3: k 8; BF16P: k 16), or
+// 16 (BF16X3: hi and lo rows of k 16)
+template <int FM>
+constexpr int KQ = FM == BF16X3 ? 16 : 8;
+
+// Staging geometry of a product pass of width mg: chunk rows (a multiple of
+// q, 0 where the ring holds less) and row stride.
 struct Chunks {
-  int sa, kc, n;
+  int sa, kc, n, q;
   bool swz;
 };
 
-__device__ __forceinline__ Chunks chunks(int Kd, int mg, int ring) {
+__device__ __forceinline__ Chunks chunks(int Kd, int mg, int ring, int q = 8) {
   Chunks c;
+  c.q = q;
   c.swz = mg % 32 == 0;
   c.sa = c.swz ? mg : (mg + 15) / 16 * 16 + 8;
-  c.kc = (ring / 2 / c.sa) & ~7;
-  c.n = (Kd + c.kc - 1) / c.kc;
+  c.kc = (ring / 2 / c.sa) & ~(q - 1);
+  c.n = c.kc ? (Kd + c.kc - 1) / c.kc : 0;
   return c;
 }
 
 // Whether a product of A (Kd, M) leaves all of A in the ring (one pass, at
 // most two chunks), so that the next product on the same A may skip staging.
-__device__ __forceinline__ bool ring_holds(int Kd, int M, int ring) {
-  return ring > 0 && M <= MG && chunks(Kd, M, ring).n <= 2;
+__device__ __forceinline__ bool ring_holds(int Kd, int M, int ring, int q = 8) {
+  if (ring <= 0 || M > MG) return false;
+  const Chunks c = chunks(Kd, M, ring, q);
+  return c.kc > 0 && c.n <= 2;
 }
 
 // Whether row r's mix (or mixT) block is the one the previous row left in
 // the ring.
-__device__ __forceinline__ bool mix_resident(const Meta& m, int r, int Kd, int M, int rw) {
-  return r > 0 && m.rowmix[r] == m.rowmix[r - 1] && ring_holds(Kd, M, rw);
+__device__ __forceinline__ bool mix_resident(const Meta& m, int r, int Kd, int M, int rw,
+                                             int q = 8) {
+  return r > 0 && m.rowmix[r] == m.rowmix[r - 1] && ring_holds(Kd, M, rw, q);
 }
 
 // Issue chunk ch of the pass at output rows [g0, g0 + mg) into its stage.
@@ -110,7 +142,7 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ A, int Kd,
                                             int mg, const Chunks& c, int ch, float* ring, int rw) {
   float* dst = ring + (ch & 1) * (rw / 2);
   const int k0 = ch * c.kc;
-  const int rows = min(c.kc, (Kd - k0 + 7) & ~7);
+  const int rows = min(c.kc, (Kd - k0 + c.q - 1) & ~(c.q - 1));
   const int q4 = mg >> 2;
   for (int q = threadIdx.x; q < rows * q4; q += NT) {
     const int kk = q / q4, m4 = (q % q4) * 4, k = k0 + kk;
@@ -120,12 +152,14 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ A, int Kd,
   cp_async_commit();
 }
 
-// Stage the first chunks of A (Kd, M) ahead of mma_tile(..., staged = true).
+// Stage the first chunks of A (Kd stored rows, M) ahead of mma_tile(...,
+// staged = true).
 __device__ __forceinline__ void mma_stage(const float* __restrict__ A, int Kd, int M, float* ring,
-                                          int rw) {
+                                          int rw, int q = 8) {
   if (rw == 0) return;
   const int mg = min(MG, M);
-  const Chunks c = chunks(Kd, mg, rw);
+  const Chunks c = chunks(Kd, mg, rw, q);
+  if (c.kc == 0) return;
   stage_chunk(A, Kd, M, 0, mg, c, 0, ring, rw);
   if (c.n > 1) stage_chunk(A, Kd, M, 0, mg, c, 1, ring, rw);
 }
@@ -189,49 +223,88 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// B's fragment of the lane's k row k (and k + 4) of a k-step, column n: two
-// TF32 splits (hi in bh, lo in bl), or with PAIRS two bf16 pairs of word row
-// k (elements 2k, 2k + 1; then + 8) in bh; rows past Kr (A's stored rows)
+// Two f32 values as JAX's bf16 split: the pair of hi = bf16(x) in hi, the
+// pair of lo = bf16(x - hi) in lo.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// B's fragment of the lane's k row k (and k + 4) of a k-step, column n:
+// TF32X3 two TF32 splits (hi in bh, lo in bl); BF16P two bf16 pairs of pair
+// row k (elements 2k, 2k + 1; then + 8) in bh; BF16X3 the same pairs split
+// hi (bh) / lo (bl).  Rows past Kr (TF32X3: B's rows; else its pair rows)
 // read as 0.
-template <bool PAIRS>
+template <int FM>
 __device__ __forceinline__ void b_frag(const float* B, int ldb, int k, int Kr, int n,
                                        uint32_t (&bh)[2], uint32_t (&bl)[2]) {
-  if constexpr (PAIRS) {
+  if constexpr (FM == BF16P) {
     bh[0] = k < Kr ? pack_bf16(B[2 * k * ldb + n], B[(2 * k + 1) * ldb + n]) : 0u;
     bh[1] = k + 4 < Kr ? pack_bf16(B[(2 * k + 8) * ldb + n], B[(2 * k + 9) * ldb + n]) : 0u;
+  } else if constexpr (FM == BF16X3) {
+    const bool v0 = k < Kr, v1 = k + 4 < Kr;
+    split_bf16(v0 ? B[2 * k * ldb + n] : 0.f, v0 ? B[(2 * k + 1) * ldb + n] : 0.f, bh[0], bl[0]);
+    split_bf16(v1 ? B[(2 * k + 8) * ldb + n] : 0.f, v1 ? B[(2 * k + 9) * ldb + n] : 0.f, bh[1],
+               bl[1]);
   } else {
     split_tf32(k < Kr ? B[k * ldb + n] : 0.f, bh[0], bl[0]);
     split_tf32(k + 4 < Kr ? B[(k + 4) * ldb + n] : 0.f, bh[1], bl[1]);
   }
 }
 
-// One m16 tile's k-step from A's four fragment values (rows m, m + 8 of k
-// rows k, k + 4): 3xTF32 into acc (hi*hi') and cor (the two correction
-// terms), or with PAIRS the four pair-packed words in one bf16 pass.
-template <bool PAIRS>
-__device__ __forceinline__ void k_step(const float (&av)[4], const uint32_t (&bh)[2],
-                                       const uint32_t (&bl)[2], float* acc, float* cor) {
-  if constexpr (PAIRS) {
+// One m16 tile's k-step from A's fragment values: TF32X3 av (rows m, m + 8
+// of k rows k, k + 4) as three TF32 passes into acc (hi*hi') and cor (the
+// two correction terms); BF16P the four pair-packed words av in one bf16
+// pass; BF16X3 the hi words av and the lo words al in three bf16 passes
+// (acc: hi*hi'; cor: hi*lo' + lo*hi').
+template <int FM>
+__device__ __forceinline__ void k_step(const float (&av)[4], const float (&al)[4],
+                                       const uint32_t (&bh)[2], const uint32_t (&bl)[2],
+                                       float* acc, float* cor) {
+  if constexpr (FM == BF16P) {
     const uint32_t a[4] = {__float_as_uint(av[0]), __float_as_uint(av[1]),
                            __float_as_uint(av[2]), __float_as_uint(av[3])};
     mma_bf16(acc, a, bh);
+  } else if constexpr (FM == BF16X3) {
+    const uint32_t ah[4] = {__float_as_uint(av[0]), __float_as_uint(av[1]),
+                            __float_as_uint(av[2]), __float_as_uint(av[3])};
+    const uint32_t a2[4] = {__float_as_uint(al[0]), __float_as_uint(al[1]),
+                            __float_as_uint(al[2]), __float_as_uint(al[3])};
+    mma_bf16(cor, a2, bh);
+    mma_bf16(cor, ah, bl);
+    mma_bf16(acc, ah, bh);
   } else {
-    uint32_t ah[4], al[4];
+    uint32_t ah[4], a2[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) split_tf32(av[q], ah[q], al[q]);
-    mma_tf32(cor, al, bh);
+    for (int q = 0; q < 4; ++q) split_tf32(av[q], ah[q], a2[q]);
+    mma_tf32(cor, a2, bh);
     mma_tf32(cor, ah, bl);
     mma_tf32(acc, ah, bh);
   }
 }
 
+// A's stored rows (TF32X3, BF16X3: Kd; BF16P: Kd / 2 pair-packed word rows)
+// and B's fragment rows (TF32X3: Kd; the bf16 forms: Kd / 2 pairs).
+template <int FM>
+__device__ __forceinline__ int stored_rows(int Kd) {
+  return FM == BF16P ? Kd >> 1 : Kd;
+}
+
+template <int FM>
+__device__ __forceinline__ int frag_rows(int Kd) {
+  return FM == TF32X3 ? Kd : Kd >> 1;
+}
+
 // mma_tile without a ring (rw = 0): the A fragments straight from device
-// memory through the read-only cache, rows past Kr and M read as 0.
-template <int TW, typename O, bool PAIRS>
+// memory through the read-only cache, rows past Kd and M read as 0.
+template <int TW, typename O, int FM>
 __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, const float* B,
                                 int ldb, O* out, int ldo, float scale, int nvalid) {
   constexpr int TPW = TW / 8, WM = WarpTile<TW>::WM;
-  const int Kr = PAIRS ? Kd >> 1 : Kd;
+  const int Kr = frag_rows<FM>(Kd);
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const WarpTile<TW> w;
@@ -243,9 +316,10 @@ __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, cons
       const int k = k0 + t;
       const bool v0 = k < Kr, v1 = k + 4 < Kr;
       uint32_t bh[2], bl[2];
-      b_frag<PAIRS>(B, ldb, k, Kr, n0 + g, bh, bl);
-      const float* A0 = A + (size_t)k * M;
-      const float* A1 = A0 + 4 * (size_t)M;
+      b_frag<FM>(B, ldb, k, Kr, n0 + g, bh, bl);
+      // the stored row of fragment row k (BF16X3: its hi row; lo follows)
+      const float* A0 = A + (size_t)(FM == BF16X3 ? 2 * k : k) * M;
+      const float* A1 = A0 + (FM == BF16X3 ? 8 : 4) * (size_t)M;
 #pragma unroll
       for (int i = 0; i < TPW; ++i) {
         const int mt = wm + WM * i;
@@ -255,11 +329,18 @@ __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, cons
                                v0 && m1 < M ? __ldg(A0 + m1) : 0.f,
                                v1 && m0 < M ? __ldg(A1 + m0) : 0.f,
                                v1 && m1 < M ? __ldg(A1 + m1) : 0.f};
-          k_step<PAIRS>(av, bh, bl, acc[i], cor[i]);
+          float al[4] = {};
+          if constexpr (FM == BF16X3) {
+            al[0] = v0 && m0 < M ? __ldg(A0 + M + m0) : 0.f;
+            al[1] = v0 && m1 < M ? __ldg(A0 + M + m1) : 0.f;
+            al[2] = v1 && m0 < M ? __ldg(A1 + M + m0) : 0.f;
+            al[3] = v1 && m1 < M ? __ldg(A1 + M + m1) : 0.f;
+          }
+          k_step<FM>(av, al, bh, bl, acc[i], cor[i]);
         }
       }
     }
-    if constexpr (!PAIRS) fold<TW>(acc, cor);
+    if constexpr (FM != BF16P) fold<TW>(acc, cor);
     mma_store<TW>(acc, g0, m16, M, out, ldo, scale, nvalid);
   }
 }
@@ -268,29 +349,35 @@ __device__ void mma_tile_direct(const float* __restrict__ A, int Kd, int M, cons
 // == 0, A 16-byte aligned), n < TW; only n < nvalid is written.  staged:
 // the first pass's first two chunks are in the ring already (mma_stage, or
 // an A that ring_holds left there).  The caller synchronises the block
-// before reading out or reusing B or the ring.  PAIRS: the bf16 form, A
-// pair-packed (Kd even, Kd / 2 word rows staged and read as the f32 form's
-// rows), B rounded to bf16 pairs as it loads, one m16n8k16 pass a k-step of
-// 16.
-template <int TW = ET, typename O = float, bool PAIRS = false>
+// before reading out or reusing B or the ring.  FM (Mma): TF32X3, A f32;
+// BF16P, A pair-packed (Kd even, Kd / 2 word rows staged and read as the
+// f32 form's rows), B rounded to bf16 pairs as it loads, one m16n8k16 pass
+// a k-step of 16; BF16X3, A hi / lo pair-packed with interleaved rows (Kd
+// even, Kd word rows), B split as it loads, three passes a k-step of 16.
+template <int TW = ET, typename O = float, int FM = TF32X3>
 __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float* B, int ldb,
                          O* out, int ldo, float scale, int nvalid, float* ring, int rw,
                          bool staged = false) {
-  constexpr int TPW = TW / 8, WM = WarpTile<TW>::WM;
-  if (rw == 0) {
-    mma_tile_direct<TW, O, PAIRS>(A, Kd, M, B, ldb, out, ldo, scale, nvalid);
+  constexpr int TPW = TW / 8, WM = WarpTile<TW>::WM, Q = KQ<FM>;
+  const int Kr = stored_rows<FM>(Kd);  // A's stored rows
+  if (rw == 0 || chunks(Kr, min(MG, M), rw, Q).kc == 0) {
+    mma_tile_direct<TW, O, FM>(A, Kd, M, B, ldb, out, ldo, scale, nvalid);
     return;
   }
-  const int Kr = PAIRS ? Kd >> 1 : Kd;  // A's stored rows
+  const int Kf = frag_rows<FM>(Kd);  // B's fragment rows
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const WarpTile<TW> w;
   const int wm = w.wm, n0 = w.n0;
   for (int g0 = 0; g0 < M; g0 += MG) {
     const int mg = min(MG, M - g0);
-    const Chunks c = chunks(Kr, mg, rw);
+    const Chunks c = chunks(Kr, mg, rw, Q);
     const int m16 = (mg + 15) >> 4;
-    const int sw = c.swz ? t << 3 : 0;
+    // the swizzle of the lane's A rows (stage_chunk's, by stored row mod 4):
+    // row kk + t (TF32X3, BF16P), hi row kk + 2t and lo row kk + 2t + 1
+    // (BF16X3); rows + 4 (+ 8) alike
+    const int sw = c.swz ? (FM == BF16X3 ? ((2 * t) & 3) << 3 : t << 3) : 0;
+    const int swl = c.swz ? ((2 * t + 1) & 3) << 3 : 0;
     // hi*hi' and the two correction terms in separate accumulators: two
     // independent mma chains per tile
     float acc[TPW][4] = {}, cor[TPW][4] = {};
@@ -307,18 +394,28 @@ __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float
       const float* As = ring + (ch & 1) * (rw / 2);
       const int k0 = ch * c.kc, kend = min(c.kc, Kr - k0);
 #pragma unroll 2
-      for (int kk = 0; kk < kend; kk += 8) {
+      for (int kk = 0; kk < kend; kk += Q) {
         uint32_t bh[2], bl[2];
-        b_frag<PAIRS>(B, ldb, k0 + kk + t, Kr, n0 + g, bh, bl);
-        const float* A0 = As + (kk + t) * c.sa;
-        const float* A1 = A0 + 4 * c.sa;
+        // B's fragment row: the stored row (TF32X3, BF16P) or the pair row
+        // (BF16X3: two stored rows a pair row)
+        b_frag<FM>(B, ldb, (FM == BF16X3 ? (k0 + kk) / 2 : k0 + kk) + t, Kf, n0 + g, bh, bl);
+        const float* A0 = As + (FM == BF16X3 ? kk + 2 * t : kk + t) * c.sa;
+        const float* A1 = A0 + (FM == BF16X3 ? 8 : 4) * c.sa;
 #pragma unroll
         for (int i = 0; i < TPW; ++i) {
           const int mt = wm + WM * i;
           if (mt < m16) {
             const int m0 = (mt * 16 + g) ^ sw, m1 = (mt * 16 + g + 8) ^ sw;
             const float av[4] = {A0[m0], A0[m1], A1[m0], A1[m1]};
-            k_step<PAIRS>(av, bh, bl, acc[i], cor[i]);
+            float al[4] = {};
+            if constexpr (FM == BF16X3) {
+              const int l0 = (mt * 16 + g) ^ swl, l1 = (mt * 16 + g + 8) ^ swl;
+              al[0] = A0[c.sa + l0];
+              al[1] = A0[c.sa + l1];
+              al[2] = A1[c.sa + l0];
+              al[3] = A1[c.sa + l1];
+            }
+            k_step<FM>(av, al, bh, bl, acc[i], cor[i]);
           }
         }
       }
@@ -327,11 +424,42 @@ __device__ void mma_tile(const float* __restrict__ A, int Kd, int M, const float
         stage_chunk(A, Kr, M, g0, mg, c, ch + 2, ring, rw);
       }
     }
-    if constexpr (!PAIRS) fold<TW>(acc, cor);
+    if constexpr (FM != BF16P) fold<TW>(acc, cor);
     mma_store<TW>(acc, g0, m16, M, out, ldo, scale, nvalid);
     if (g0 + MG < M) __syncthreads();  // the next pass restages the ring
   }
 }
+
+// The product, its staging and its ring check in form FM, A's Kd and its
+// offsets (the Meta table's, in f32 elements) given as for f32 weights.
+template <int FM, int TW = ET, typename O>
+__device__ __forceinline__ void prod_f(const float* __restrict__ A, int Kd, int M,
+                                       const float* B, int ldb, O* out, int ldo, float scale,
+                                       int nvalid, float* ring, int rw, bool staged = false) {
+  mma_tile<TW, O, FM>(A, Kd, M, B, ldb, out, ldo, scale, nvalid, ring, rw, staged);
+}
+
+template <int FM>
+__device__ __forceinline__ void stage_f(const float* __restrict__ A, int Kd, int M, float* ring,
+                                        int rw) {
+  mma_stage(A, stored_rows<FM>(Kd), M, ring, rw, KQ<FM>);
+}
+
+template <int FM>
+__device__ __forceinline__ bool resident_f(const Meta& m, int r, int Kd, int M, int rw) {
+  return mix_resident(m, r, stored_rows<FM>(Kd), M, rw, KQ<FM>);
+}
+
+// A weight matrix's offset in its flat buffer, given in f32 elements (the
+// Meta table's): halved in the pair-packed buffer.
+template <int FM>
+__device__ __forceinline__ int wofs_f(int off) {
+  return FM == BF16P ? off >> 1 : off;
+}
+
+// The form of the activations' storage type Act: TF32X3 (f32) or BF16P (bf16)
+template <typename Act>
+constexpr int ACT_FORM = IS_BF16<Act> ? BF16P : TF32X3;
 
 // The product on the activations' storage type Act: mma_tile's 3xTF32
 // form (f32, A as given) or its bf16 form (bf16, A pair-packed).
@@ -339,32 +467,30 @@ template <typename Act, int TW = ET, typename O>
 __device__ __forceinline__ void prod(const float* __restrict__ A, int Kd, int M, const float* B,
                                      int ldb, O* out, int ldo, float scale, int nvalid,
                                      float* ring, int rw, bool staged = false) {
-  mma_tile<TW, O, IS_BF16<Act>>(A, Kd, M, B, ldb, out, ldo, scale, nvalid, ring, rw, staged);
+  mma_tile<TW, O, ACT_FORM<Act>>(A, Kd, M, B, ldb, out, ldo, scale, nvalid, ring, rw, staged);
 }
 
 // The rows the ring holds of A (Kd, M) at Act: Kd, or Kd / 2 pair-packed words.
 template <typename Act>
 __device__ __forceinline__ int wrows(int Kd) {
-  return IS_BF16<Act> ? Kd >> 1 : Kd;
+  return stored_rows<ACT_FORM<Act>>(Kd);
 }
 
-// A weight matrix's offset in its flat buffer, given in f32 elements (the
-// Meta table's): halved in the pair-packed buffer.
+// wofs_f, stage_f and resident_f of prod's A at Act
 template <typename Act>
 __device__ __forceinline__ int wofs(int off) {
-  return IS_BF16<Act> ? off >> 1 : off;
+  return wofs_f<ACT_FORM<Act>>(off);
 }
 
-// mma_stage, ring_holds and mix_resident of prod's A at Act
 template <typename Act>
 __device__ __forceinline__ void stage(const float* __restrict__ A, int Kd, int M, float* ring,
                                       int rw) {
-  mma_stage(A, wrows<Act>(Kd), M, ring, rw);
+  mma_stage(A, wrows<Act>(Kd), M, ring, rw, KQ<ACT_FORM<Act>>);
 }
 
 template <typename Act>
 __device__ __forceinline__ bool resident(const Meta& m, int r, int Kd, int M, int rw) {
-  return mix_resident(m, r, wrows<Act>(Kd), M, rw);
+  return resident_f<ACT_FORM<Act>>(m, r, Kd, M, rw);
 }
 
 // dst[r*ld + n] = src[r*E + e0 + n] for n < ne, 0 for ne <= n < TW: issued

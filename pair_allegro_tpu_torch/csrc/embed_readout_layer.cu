@@ -90,7 +90,8 @@ int er_layout_bytes(int form, int bwd, const int* dims) {
 // ptrs: K1's 19 (k1_params), then in, te, teT, din, mt, ew, ewT, dh0, dh1,
 //       ho0, ho1, part  (unused ones may be 0; the activations' at K1_ACT,
 //       the weights f32 or, at bf16, pair-packed; part f32)
-// dims: K1's 12, then n_in, xmaxw, hzrows, nhead
+// dims: K1's 12, then n_in, xmaxw, hzrows, nhead, pro_exact (K6: the
+//       prologue's products 3xTF32 on f32 weights, PAT_EMBED_PREC=highest)
 // Returns 0, a negative code for a shape the kernel does not take, or the
 // cudaError_t of the launch.
 int er_launch(int form, int bwd, const unsigned long long* ptrs, const int* dims, float inv_avg,
@@ -114,6 +115,7 @@ int er_launch(int form, int bwd, const unsigned long long* ptrs, const int* dims
   p.xmaxw = dims[13];
   p.hzrows = dims[14];
   p.nhead = dims[15];
+  p.pro_exact = dims[16];
   if (form == EMBED) return layer_launch<EMBED>(bwd, p, stream);
   if (form == READOUT) return layer_launch<READOUT>(bwd, p, stream);
   return -8;

@@ -1,0 +1,15 @@
+// K1 in one bf16 pass on f32 operands: the one-layer fused Allegro kernel pair of fused_layer.cu,
+// built with the layer body's products in the one-pass form (allegro_mma.cuh
+// BF16P) for the matmul precision policy default (ops/prec.py).  There the
+// TPU kernels pallas_stack.py _layer1_fwd_kernel / _layer1_bwd_kernel run each
+// f32 dot at Precision.DEFAULT: one bf16 MXU pass with f32 accumulation.
+//
+// Activations, tiles and every elementwise step are f32 as in the 3xTF32
+// build; each product runs one mma.sync.m16n8k16 bf16 pass a k-step of 16 on
+// weights the wrapper pair-packs (ops/fused_layer.pack_pairs, as the bf16
+// build's), B rounded to bf16 pairs as its fragments load.
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+//        -Xcompiler -fPIC (see ops/fused_layer.py).
+
+#define K1_MMA BF16P
+#include "fused_layer.cu"

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops.geometry import inv3x3
 
 
@@ -122,6 +123,7 @@ def dense_build_bytes(n_atoms: int, n_shifts: int, max_edges: int, itemsize: int
     return cand * per_cand + (max_edges + _DUMP) * per_edge
 
 
+@prec.under_glue  # the glue's precision (ops/prec.py), as JAX's get_matmul_precision()
 def dense_neighbors(positions, cell, shifts_table: np.ndarray, cutoff: float, max_edges: int,
                     atom_mask=None, query_start: int = 0, n_query: int | None = None, pbc=None,
                     types=None, cutoff_table: np.ndarray | None = None,
@@ -225,6 +227,7 @@ class CellBins(NamedTuple):
     bin_type: torch.Tensor | None = None
 
 
+@prec.under_glue
 def build_cell_bins(positions, cell, cutoff: float, grid, cell_capacity: int,
                     atom_mask=None, types=None) -> CellBins:
     """O(N) binning: a stable sort by bin id, then per-bin attribute tables."""
@@ -270,6 +273,7 @@ _OFFS = np.array(
 )
 
 
+@prec.under_glue
 def cell_list_neighbors(positions, cell, cutoff: float, grid, cell_capacity: int,
                         max_neighbors: int, atom_mask=None, types=None,
                         cutoff_table: np.ndarray | None = None, query_start: int = 0,
@@ -346,6 +350,7 @@ def cell_list_neighbors(positions, cell, cutoff: float, grid, cell_capacity: int
     )
 
 
+@prec.under_glue
 def halo_cell_list_neighbors(pos_ext, cell, cutoff: float, grid_xy, gz_cap: int,
                              cell_capacity: int, max_neighbors: int, n_centers: int,
                              ext_mask=None) -> NeighborData:

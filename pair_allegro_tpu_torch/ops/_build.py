@@ -6,7 +6,8 @@ carries a hash of them) into :func:`build_dir` (``build/pair_allegro_tpu_torch/`
 beside the package, or the directory ``compile_cache.enable_compile_cache``
 names), with ``ptxas``'s register and spill report next to it.  Builds of
 several libraries may run at once: :meth:`CudaLibrary.start` launches
-``nvcc`` in the background and :meth:`CudaLibrary.load` waits for it.
+``nvcc`` in the background and :meth:`CudaLibrary.load` waits for it; both
+may be called from several threads.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable
@@ -55,10 +57,11 @@ class CudaLibrary:
         self.sources = sources
         self.bind = bind
         self.build_seconds = None  # wall time of this process's nvcc run, if it ran
+        self.started = None  # when that run started (time.time())
         self._lib = None
         self._proc = None  # the running nvcc, between start() and load()
         self._tmp = None
-        self._t0 = 0.0
+        self._lock = threading.RLock()
 
     def paths(self) -> tuple[Path, Path]:
         """(shared library, ptxas report) of the current sources."""
@@ -71,36 +74,40 @@ class CudaLibrary:
 
     def start(self) -> None:
         """Start nvcc in the background unless the library is built or building."""
-        out, _ = self.paths()
-        if self._lib is not None or self._proc is not None or out.exists():
-            return
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        self._tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        self._t0 = time.time()
-        self._proc = subprocess.Popen(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(self._tmp),
-             str(self.sources[0])],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        )
+        with self._lock:
+            out, _ = self.paths()
+            if self._lib is not None or self._proc is not None or out.exists():
+                return
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            self._tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            self.started = time.time()
+            self._proc = subprocess.Popen(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(self._tmp),
+                 str(self.sources[0])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
 
     def load(self) -> ctypes.CDLL:
         """The loaded library, building it first if needed."""
-        if self._lib is not None:
-            return self._lib
-        self.start()
-        out, report = self.paths()
-        if self._proc is not None:
-            stdout, stderr = self._proc.communicate()
-            rc = self._proc.returncode
-            self._proc = None
-            if rc != 0:
-                raise RuntimeError(f"nvcc failed for {self.sources[0]}:\n{stdout}\n{stderr}")
-            os.replace(self._tmp, out)
-            self.build_seconds = time.time() - self._t0
-            report.write_text(stderr)
-        lib = ctypes.CDLL(str(out))
-        self.bind(lib)
-        self._lib = lib
-        return lib
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
+            self.start()
+            out, report = self.paths()
+            if self._proc is not None:
+                stdout, stderr = self._proc.communicate()
+                rc = self._proc.returncode
+                self._proc = None
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed for {self.sources[0]}:\n{stdout}\n{stderr}")
+                # nvcc's wall time, read from its output's write time: load()
+                # may come long after the build finished
+                self.build_seconds = os.path.getmtime(self._tmp) - self.started
+                os.replace(self._tmp, out)
+                report.write_text(stderr)
+            lib = ctypes.CDLL(str(out))
+            self.bind(lib)
+            self._lib = lib
+            return lib

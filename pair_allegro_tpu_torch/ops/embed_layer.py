@@ -18,9 +18,13 @@ tensor-core pass per product on pair-packed weights); on a CPU tensor it
 runs :func:`embed_layer_reference`, the plain PyTorch version, at the
 tensors' dtype.
 
-At f32 the port is exact f32, which is what the TPU kernel computes with
-``PAT_EMBED_PREC=highest``; that knob (bf16x3 dots in the prologue) and the
-block-lane knobs ``PAT_L1_BE`` / ``PAT_L1_BE_BWD`` have no counterpart here.
+At f32 the products follow the matmul precision policy (``ops/prec.py``),
+as K1's do (``fused_layer``): the call's kernel mode picks the build (f32
+3xTF32, ``embed_readout_layer_bf16x3.cu`` or ``embed_readout_layer_onepass.cu``)
+and the plain version's products (``prec.kmm``); the prologue takes the
+body's mode, or f32-accurate products under ``PAT_EMBED_PREC=highest``
+(read per call, as JAX reads it per trace: ``_mm_embed``).  The block-lane
+knobs ``PAT_L1_BE`` / ``PAT_L1_BE_BWD`` have no counterpart here.
 At bf16 the plain version rounds where the TPU kernel does: every product
 one bf16 pass with f32 accumulation on bf16-cast weights, and the
 prologue's constants (fan-in scales, the SiLU norm, 1/sqrt(ns)) rounded to
@@ -37,18 +41,22 @@ import ctypes
 import dataclasses
 import functools
 import math
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from pair_allegro_tpu_torch.ops import fused_layer as fl
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t, weak_scalar
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()  # the f32 kernel's (K6)
+launches = LaunchCounts()  # the f32 kernel's (K6, 3xTF32 products)
 launches_bf16 = LaunchCounts()  # the bf16 build's (K6)
+launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's (K6)
+launches_onepass = LaunchCounts()  # the f32 one-pass build's (K6)
 
 MT_WORDS = fl.MT_WORDS
 
@@ -83,21 +91,26 @@ def mlp_layout(ws, base: int = 0):
     return blocks, tab, maxw, [int(o) for o in offs], end
 
 
-def mlp_flat(blocks, offs, end: int, transpose: bool = False, packed: bool = False):
+def mlp_flat(blocks, offs, end: int, transpose: bool = False, build: str = "tf32x3"):
     """The kernel's flat weight buffer of MLP blocks at their offsets (in
-    floats, :func:`mlp_layout`), zeros between them: f32, or with
-    ``packed`` each block ``fused_layer.pack_pairs``-ed at half its offset
-    (int32 words).  ``transpose`` stores each block's transpose; a width-1
+    floats, :func:`mlp_layout`), zeros between them, in the layout of
+    ``build`` (``fused_layer.build_for``): f32; pair-packed (the bf16 and
+    one-pass builds: each block ``fused_layer.pack_pairs``-ed at half its
+    offset, int32 words); or bf16x3 (``fused_layer.pack_x3`` at its
+    offset).  ``transpose`` stores each block's transpose; a width-1
     block's transpose, which the kernel never reads, packs as zeros."""
     dev = blocks[0].device
-    buf = torch.zeros(end // 2 if packed else end, dtype=torch.int32 if packed else torch.float32,
-                      device=dev)
+    halve = build in ("bf16", "onepass")
+    buf = torch.zeros(end // 2 if halve else end,
+                      dtype=torch.float32 if build == "tf32x3" else torch.int32, device=dev)
     for b, o in zip(blocks, offs):
         m = b.T if transpose else b
-        if not packed:
+        if build == "tf32x3":
             buf[o:o + m.numel()] = m.reshape(-1)
-        elif m.shape[0] % 2 == 0:
+        elif m.shape[0] % 2 == 0 and halve:
             buf[o // 2:o // 2 + m.numel() // 2] = fl.pack_pairs(m).reshape(-1)
+        elif m.shape[0] % 2 == 0:
+            buf[o:o + m.numel()] = fl.pack_x3(m).reshape(-1)
     return buf
 
 
@@ -117,8 +130,8 @@ def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
     forward and backward: a build of that dtype, K1's conditions
     (ops/fused_layer.py), the two-body MLP's (``tb_dims`` = (2T + B,
     hidden..., ns)) and the shared memory sum with the prologue's rows,
-    mirrored here so that a caller decides before any launch.  The bf16
-    build keeps f32 tiles, so its sum is the f32 one."""
+    mirrored here so that a caller decides before any launch.  Every
+    build keeps f32 tiles, so its sum is the f32 one whatever the policy."""
     if dtype not in (torch.float32, torch.bfloat16):
         return False
     if not fl.widths_ok(ns, c, c, d, latd, lmax, parity) or not mlp_widths_ok(tb_dims, ns):
@@ -158,11 +171,26 @@ class K6Weights:
     @functools.cached_property
     def packed(self) -> dict:
         """W_te, its transpose and the two-body MLP's blocks (at half their
-        offsets) pair-packed (``fused_layer.pack_pairs``) for the bf16
-        build; the layer's are ``layer.packed``."""
+        offsets) pair-packed (``fused_layer.pack_pairs``) for the bf16 and
+        one-pass builds; the layer's are ``layer.packed``."""
         return {"te": fl.pack_pairs(self.te), "teT": fl.pack_pairs(self.teT),
-                "ew": mlp_flat(self.blocks, self.offs, self.end, packed=True),
-                "ewT": mlp_flat(self.blocks, self.offs, self.end, transpose=True, packed=True)}
+                "ew": mlp_flat(self.blocks, self.offs, self.end, build="bf16"),
+                "ewT": mlp_flat(self.blocks, self.offs, self.end, transpose=True, build="bf16")}
+
+    @functools.cached_property
+    def packed_x3(self) -> dict:
+        """The same for the bf16x3 build (``fused_layer.pack_x3``, the f32
+        offsets); the layer's are ``layer.packed_x3``."""
+        return {"te": fl.pack_x3(self.te), "teT": fl.pack_x3(self.teT),
+                "ew": mlp_flat(self.blocks, self.offs, self.end, build="bf16x3"),
+                "ewT": mlp_flat(self.blocks, self.offs, self.end, transpose=True,
+                                build="bf16x3")}
+
+    def prologue(self, build: str) -> dict:
+        """te, teT, ew and ewT in the layout of ``build``."""
+        if build == "tf32x3":
+            return {"te": self.te, "teT": self.teT, "ew": self.ew, "ewT": self.ewT}
+        return self.packed_x3 if build == "bf16x3" else self.packed
 
     @property
     def n_in(self) -> int:
@@ -216,15 +244,28 @@ def k6_weights(params: dict, lmax: int, parity: bool) -> K6Weights:
 # ---------------------------------------------------------------------------
 
 
-def embed_layer_reference(in_t, yt, ut, w: K6Weights, K: int, inv_avg: float, scalars=None):
+def embed_exact() -> bool:
+    """Whether the prologue's products are f32-accurate whatever the policy
+    (``PAT_EMBED_PREC=highest``; the default 'policy' gives them the body's
+    mode), read per call as JAX's ``_mm_embed`` reads it per trace."""
+    return os.environ.get("PAT_EMBED_PREC", "policy") == "highest"
+
+
+def embed_layer_reference(in_t, yt, ut, w: K6Weights, K: int, inv_avg: float, scalars=None,
+                          mode: str | None = None, exact: bool | None = None):
     """The same function as the kernel in plain PyTorch: in_t (2T + B, E),
     yt (D, E), ut (1, E) -> (x' (ns, E), V' (D, C, E)); goes through torch
-    autograd.  The prologue's constants round as JAX's do at the dtype
-    ``scalars`` (default: the operands'; ``mlp.mlp_apply_t``)."""
+    autograd.  The constants round as JAX's do at the dtype ``scalars``
+    (default: the operands'; ``mlp.mlp_apply_t``); the products are in
+    kernel ``mode`` (default: the policy's), the prologue's f32-accurate
+    with ``exact`` (default: :func:`embed_exact`)."""
     sd = scalars or in_t.dtype
-    x = mlp_apply_t({"w": w.tb}, in_t, sd) * ut
-    pT = (w.te.to(x.dtype).T @ x) * weak_scalar(1.0 / math.sqrt(x.shape[0]), sd)
-    return fl.fused_layer_reference(x, pT, yt, ut, w.layer, K, inv_avg, first_v=True)
+    mode = mode or prec.kernel_mode(in_t.dtype)
+    exact = embed_exact() if exact is None else exact
+    pro = "tf32x3" if exact else mode
+    x = mlp_apply_t({"w": w.tb}, in_t, sd, pro) * ut
+    pT = prec.kmm(w.te.to(x.dtype).T, x, pro, weak_scalar(1.0 / math.sqrt(x.shape[0]), sd))
+    return fl.fused_layer_reference(x, pT, yt, ut, w.layer, K, inv_avg, True, False, mode, sd)
 
 
 # ---------------------------------------------------------------------------
@@ -258,67 +299,80 @@ _SOURCES = [CSRC / "embed_readout_layer.cu", CSRC / "allegro_layer.cuh",
 LIB = CudaLibrary("k6k7_embed_readout_layer", _SOURCES, _bind)
 LIB_BF16 = CudaLibrary("k6k7_embed_readout_layer_bf16",
                        [CSRC / "embed_readout_layer_bf16.cu", *_SOURCES], _bind)
+LIB_BF16X3 = CudaLibrary("k6k7_embed_readout_layer_bf16x3",
+                         [CSRC / "embed_readout_layer_bf16x3.cu", *_SOURCES], _bind)
+LIB_ONEPASS = CudaLibrary("k6k7_embed_readout_layer_onepass",
+                          [CSRC / "embed_readout_layer_onepass.cu", *_SOURCES], _bind)
+
+
+# each build's (library, K6 launch counts); K7 pairs the same libraries
+# with its own counts
+BUILDS = {"tf32x3": (LIB, launches), "bf16": (LIB_BF16, launches_bf16),
+          "bf16x3": (LIB_BF16X3, launches_bf16x3), "onepass": (LIB_ONEPASS, launches_onepass)}
 
 
 def launch(form: int, bwd: bool, w: fl.K1Weights, ts: dict, d: int, K: int, e: int,
-           extra_dims: list, inv_avg: float, counts: tuple, device, bf16: bool) -> None:
-    """One K6 or K7 launch, of the bf16 build with ``bf16``: ``ts`` maps the
-    launcher's pointer names (_PTRS) to tensors (the layer's K1 weights,
-    f32 or pair-packed, are added here; absent names are 0);
-    ``extra_dims`` = (n_in, xmaxw, hzrows, nhead); ``counts`` the kernel's
-    (f32, bf16) launch counts, indexed by ``bf16``.  Raises on any refusal
-    or launch error; counts the launch."""
-    lw = w.packed if bf16 else w.weights()
-    ts = {**dict(zip(("envw", "envwT", "lat", "latT", "mix", "mixT"), lw)), "meta": w.meta, **ts}
+           extra_dims: list, inv_avg: float, builds: dict, device, build: str) -> None:
+    """One K6 or K7 launch of ``build`` (``fused_layer.build_for``): ``ts``
+    maps the launcher's pointer names (_PTRS) to tensors (the layer's K1
+    weights in the build's layout, and its table, are added here; absent
+    names are 0); ``extra_dims`` = (n_in, xmaxw, hzrows, nhead,
+    pro_exact); ``builds`` the kernel's (library, launch counts) by build.  Raises on
+    any refusal or launch error; counts the launch."""
+    meta, ia = fl.launch_scalars(w, build, inv_avg)
+    ts = {**dict(zip(("envw", "envwT", "lat", "latT", "mix", "mixT"), w.layout(build))),
+          "meta": meta, **ts}
     first_v, last = form == EMBED, form == READOUT
     dims = fl.kernel_dims(w, d, K, e, first_v, last) + list(extra_dims)
-    lib = (LIB_BF16 if bf16 else LIB).load()
+    lib, counts = builds[build]
+    lib = lib.load()
     arr = (ctypes.c_ulonglong * len(_PTRS))(*(ts[k].data_ptr() if k in ts else 0 for k in _PTRS))
     dm = (ctypes.c_int * len(dims))(*dims)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.er_launch(form, int(bwd), arr, dm, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
+        rc = lib.er_launch(form, int(bwd), arr, dm, ctypes.c_float(ia), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K{6 if form == EMBED else 7}{' bf16' if bf16 else ''} "
+        raise RuntimeError(f"K{6 if form == EMBED else 7} ({build}) "
                            f"{'backward' if bwd else 'forward'} launch failed (code {rc})")
-    c = counts[bf16]
-    if bwd:
-        c.bwd += 1
-    else:
-        c.fwd += 1
+    fl.count(counts, bwd)
 
 
-def _extra(w: K6Weights) -> list:
-    return [w.n_in, w.xmaxw, (len(w.tb) - 1) * w.xmaxw, 0]
+def _extra(w: K6Weights, pro_exact: bool) -> list:
+    return [w.n_in, w.xmaxw, (len(w.tb) - 1) * w.xmaxw, 0, int(pro_exact)]
 
 
-def _common(w: K6Weights, bf16: bool) -> dict:
-    src = w.packed if bf16 else {"te": w.te, "teT": w.teT, "ew": w.ew, "ewT": w.ewT}
-    return {"mt": w.mt, **{k: src[k] for k in ("te", "teT", "ew", "ewT")}}
+def _common(w: K6Weights, build: str, exact: bool) -> tuple:
+    """(the prologue's pointers and table, pro_exact) of a launch of
+    ``build``: an exact prologue takes the f32 weights (at bf16 the
+    pair-packed ones: JAX's _mm_exact is one bf16 pass there)."""
+    pro = ("bf16" if build == "bf16" else "tf32x3") if exact else build
+    return {"mt": w.mt, **w.prologue(pro)}, pro != build
 
 
-def _kernel_fwd(in_t, yt, ut, w: K6Weights, K, inv_avg):
+def _kernel_fwd(in_t, yt, ut, w: K6Weights, K, inv_avg, mode=None, exact=None):
+    """One forward launch of the build of ``mode`` (default: the policy's),
+    the prologue exact with ``exact`` (default: :func:`embed_exact`)."""
     ns, c = w.te.shape
     d, e = yt.shape
-    bf16 = yt.dtype == torch.bfloat16
+    build = fl.build_for(yt.dtype, mode)
+    ptr, pro_exact = _common(w, build, embed_exact() if exact is None else exact)
     xo = torch.empty((ns, e), dtype=yt.dtype, device=yt.device)
     vo = torch.empty((d, c, e), dtype=yt.dtype, device=yt.device)
-    launch(EMBED, False, w.layer, {"Y": yt, "u": ut, "in": in_t, "xo": xo, "vo": vo,
-                                   **_common(w, bf16)},
-           d, K, e, _extra(w), inv_avg, (launches, launches_bf16), yt.device, bf16)
+    launch(EMBED, False, w.layer, {"Y": yt, "u": ut, "in": in_t, "xo": xo, "vo": vo, **ptr},
+           d, K, e, _extra(w, pro_exact), inv_avg, BUILDS, yt.device, build)
     return xo, vo
 
 
-def _kernel_bwd(in_t, yt, ut, w: K6Weights, K, inv_avg, dxo, dvo):
+def _kernel_bwd(in_t, yt, ut, w: K6Weights, K, inv_avg, dxo, dvo, mode=None, exact=None):
     d, e = yt.shape
-    bf16 = yt.dtype == torch.bfloat16
+    build = fl.build_for(yt.dtype, mode)
+    ptr, pro_exact = _common(w, build, embed_exact() if exact is None else exact)
     # the pass-1 partials of dx and du, f32 at either dtype
     part = torch.empty((w.te.shape[0] + 1, e), dtype=torch.float32, device=yt.device)
     din, dY, du = torch.empty_like(in_t), torch.empty_like(yt), torch.empty_like(ut)
     launch(EMBED, True, w.layer, {"Y": yt, "u": ut, "in": in_t, "dxo": dxo, "dvo": dvo,
-                                  "part": part, "dY": dY, "du": du, "din": din,
-                                  **_common(w, bf16)},
-           d, K, e, _extra(w), inv_avg, (launches, launches_bf16), yt.device, bf16)
+                                  "part": part, "dY": dY, "du": du, "din": din, **ptr},
+           d, K, e, _extra(w, pro_exact), inv_avg, BUILDS, yt.device, build)
     return din, dY, du
 
 
@@ -329,22 +383,24 @@ class _EmbedLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, in_t, yt, ut, w, K, inv_avg, *weights):
-        ctx.cfg = (w, K, inv_avg)
+        mode, exact = prec.kernel_mode(in_t.dtype), embed_exact()
+        ctx.cfg = (w, K, inv_avg, mode, exact)
         ctx.save_for_backward(in_t, yt, ut)
         if in_t.is_cuda:
-            return _kernel_fwd(in_t, yt, ut, w, K, inv_avg)
-        return embed_layer_reference(in_t, yt, ut, w, K, inv_avg)
+            return _kernel_fwd(in_t, yt, ut, w, K, inv_avg, mode, exact)
+        return embed_layer_reference(in_t, yt, ut, w, K, inv_avg, mode=mode, exact=exact)
 
     @staticmethod
     def backward(ctx, dxo, dvo):
-        w, K, inv_avg = ctx.cfg
+        w, K, inv_avg, mode, exact = ctx.cfg
         in_t, yt, ut = ctx.saved_tensors
         if in_t.is_cuda:
-            grads = _kernel_bwd(in_t, yt, ut, w, K, inv_avg, dxo.contiguous(), dvo.contiguous())
+            grads = _kernel_bwd(in_t, yt, ut, w, K, inv_avg, dxo.contiguous(), dvo.contiguous(),
+                                mode, exact)
         else:
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_(True) for t in (in_t, yt, ut)]
-                out = embed_layer_reference(*ins, w, K, inv_avg)
+                out = embed_layer_reference(*ins, w, K, inv_avg, mode=mode, exact=exact)
                 grads = torch.autograd.grad(out, ins, (dxo, dvo), allow_unused=True)
             grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, ins)]
         nan_w = [torch.full_like(t, float("nan")) for t in w.tensors()]

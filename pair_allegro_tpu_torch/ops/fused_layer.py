@@ -19,6 +19,16 @@ version of the same function, at the tensors' dtype.  What bounds the
 kernel on the card and what its design does about it is written at the top
 of the CUDA sources.
 
+The products follow the matmul precision policy (``ops/prec.py``): at f32
+the call's :func:`prec.kernel_mode` picks the build, ``tf32x3`` (3xTF32,
+``fused_layer.cu``), ``bf16x3`` (``fused_layer_bf16x3.cu``: JAX's HIGH
+split on the weights :func:`pack_x3` lays out) or ``bf16`` (one pass,
+``fused_layer_onepass.cu``), and the plain version computes the same
+mode's products (``prec.kmm``).  The forward fixes the mode its backward
+uses.  At bf16 the build and the plain version round the Python-float
+constants as JAX's weak typing does (``mlp.weak_scalar``; the card's f32
+oracle passes ``scalars=torch.bfloat16``).
+
 Weight cotangents come back NaN-filled, the contract of the TPU kernel
 (``pallas_stack.py:1363``): MD forces never need them, and a training-style
 use fails loudly instead of silently returning zeros.
@@ -35,8 +45,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
-from pair_allegro_tpu_torch.ops.mlp import silu_norm_const
+from pair_allegro_tpu_torch.ops.mlp import silu_norm_const, weak_scalar
 from pair_allegro_tpu_torch.ops.tp import _nonzeros, num_paths_per_l
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
@@ -57,8 +68,10 @@ _META_DTYPE = np.dtype(
 )
 
 
-launches = LaunchCounts()  # the f32 kernel's
-launches_bf16 = LaunchCounts()  # the bf16 build's
+launches = LaunchCounts()  # the f32 kernel's (3xTF32 products)
+launches_bf16 = LaunchCounts()  # the bf16 build's (bf16 operands)
+launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's
+launches_onepass = LaunchCounts()  # the f32 one-pass build's
 
 # the launchers' constants (csrc/allegro_tiles.cuh): threads per block, the
 # edge tile, the shared memory a block may use, and what it may use where
@@ -161,12 +174,13 @@ def block_bytes(*args, **kwargs) -> int:
 
 def kernel_takes(ns: int, c: int, cout: int, d: int, latd: tuple, lmax: int, parity: bool,
                  dtype=torch.float32) -> bool:
-    """Whether ``k1_launch`` (csrc/fused_layer.cu, or its bf16 build
-    fused_layer_bf16.cu) takes a layer of these widths at ``dtype`` in every
-    form, forward and backward: a build of that dtype, its refusal
-    conditions and its shared-memory sum, mirrored here so that a caller
-    decides before any launch.  The bf16 build keeps its tiles f32 in
-    shared memory and its ring as many words, so its sum is the f32 one."""
+    """Whether ``k1_launch`` (csrc/fused_layer.cu, or a build of ``dtype``:
+    ``build_for``) takes a layer of these widths in every form, forward and
+    backward: its refusal conditions and its shared-memory sum, mirrored
+    here so that a caller decides before any launch.  Every build keeps its
+    tiles f32 in shared memory and its ring as many words (a bf16x3 ring
+    too shallow for a 16-row chunk reads its weights without it), so its
+    sum is the f32 one and the answer does not depend on the policy."""
     return dtype in (torch.float32, torch.bfloat16) and widths_ok(
         ns, c, cout, d, latd, lmax, parity) and all(
         block_bytes(ns, c, cout, d, latd, lmax, parity, first_v, bwd) <= SMEM_MAX
@@ -212,14 +226,41 @@ class K1Weights:
 
     @functools.cached_property
     def packed(self) -> tuple:
-        """:meth:`weights` for the bf16 build: each matrix
+        """:meth:`weights` for the bf16 and one-pass builds: each matrix
         :func:`pack_pairs`-ed, the flat buffers in the f32 order (every
         offset halves)."""
-        def flat(ts):
-            return torch.cat([pack_pairs(t).reshape(-1) for t in ts]).contiguous()
+        return self._packs(pack_pairs)
 
-        return (pack_pairs(self.env_w), pack_pairs(self.env_wT), flat(self.lat),
+    @functools.cached_property
+    def packed_x3(self) -> tuple:
+        """:meth:`weights` for the bf16x3 build: each matrix
+        :func:`pack_x3`-ed, in the f32 layout's bytes and offsets."""
+        return self._packs(pack_x3)
+
+    def _packs(self, pack) -> tuple:
+        def flat(ts):
+            return torch.cat([pack(t).reshape(-1) for t in ts]).contiguous()
+
+        return (pack(self.env_w), pack(self.env_wT), flat(self.lat),
                 flat([w.T for w in self.lat]), flat(self.mix), flat([w.T for w in self.mix]))
+
+    def layout(self, build: str) -> tuple:
+        """The launcher's weights (:meth:`weights`' order) for ``build``
+        (:func:`build_for`); the packed copies are made at the first launch
+        that wants them and go with this object when a leaf changes."""
+        if build == "tf32x3":
+            return self.weights()
+        return self.packed_x3 if build == "bf16x3" else self.packed
+
+    @functools.cached_property
+    def meta_bf16(self) -> torch.Tensor:
+        """:attr:`meta` with the 3j weights and the mix norms rounded to
+        bf16, for the bf16 build: JAX applies them as weakly typed Python
+        floats to bf16 values."""
+        m = np.frombuffer(self.meta.cpu().numpy().tobytes(), _META_DTYPE).copy()
+        for f in ("w", "rownorm"):
+            m[f] = torch.from_numpy(m[f]).to(torch.bfloat16).float().numpy()
+        return torch.from_numpy(np.frombuffer(m.tobytes(), np.int32).copy()).to(self.meta.device)
 
 
 def pack_pairs(w: torch.Tensor) -> torch.Tensor:
@@ -232,6 +273,32 @@ def pack_pairs(w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pack_pairs: {kd} rows, want an even count")
     pairs = w.detach().to(torch.bfloat16).reshape(kd // 2, 2, m).transpose(1, 2)
     return pairs.reshape(kd // 2, 2 * m).view(torch.int32)
+
+
+def pack_x3(w: torch.Tensor) -> torch.Tensor:
+    """A (Kd, M) weight matrix (Kd even) as the bf16x3 kernels read it: the
+    hi and lo parts of JAX's split (``hi = bf16(w)``, ``lo = bf16(w - hi)``)
+    each :func:`pack_pairs`-ed, their word rows interleaved (row 2 k2 the
+    hi pairs of rows 2 k2 and 2 k2 + 1, row 2 k2 + 1 their lo pairs): Kd
+    rows of M int32 words, the f32 layout's bytes (csrc/allegro_mma.cuh)."""
+    kd, m = w.shape
+    w = w.detach().float()
+    hi = w.to(torch.bfloat16).float()
+    lo = (w - hi).to(torch.bfloat16).float()
+    return torch.stack([pack_pairs(hi), pack_pairs(lo)], 1).reshape(kd, m)
+
+
+def build_for(dtype: torch.dtype, mode: str | None = None) -> str:
+    """The build of the layer body a launch at ``dtype`` takes in kernel
+    ``mode`` (default: the policy's, ``prec.kernel_mode``): 'bf16' (bf16
+    operands), or at f32 'tf32x3', 'bf16x3' or 'onepass' (a one-pass
+    product on f32 operands)."""
+    mode = mode or prec.kernel_mode(dtype)
+    if mode not in prec.MODES:
+        raise ValueError(f"unknown kernel mode {mode!r}; one of {prec.MODES}")
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "onepass" if mode == "bf16" else mode
 
 
 def layer_leaves(layer: dict, lmax: int) -> tuple:
@@ -333,24 +400,36 @@ def k1_weights(layer: dict, lmax: int, parity: bool) -> K1Weights:
 # ---------------------------------------------------------------------------
 
 
-def _silu_c(z):
-    return F.silu(z) * silu_norm_const()
-
-
 def fused_layer_reference(xt, Vt, yt, ut, w: K1Weights, K: int, inv_avg: float,
-                          first_v: bool = False, last: bool = False):
+                          first_v: bool = False, last: bool = False, mode: str | None = None,
+                          scalars: torch.dtype | None = None, x_env=None):
     """The same function as the kernel, in plain PyTorch on the same
     feature-major layout: xt (ns, E), Vt (D, C, E) or pT (C, E) when
     ``first_v``, yt (D, E), ut (1, E).  Returns xt' or (xt', Vt'); goes
-    through torch autograd."""
+    through torch autograd.  Its products (wz, the mix, the latent MLP) are
+    ``prec.kmm`` in kernel ``mode`` (default: the policy's for the
+    operands' dtype, ``prec.kernel_mode``); the env sum is an f32 sum
+    under every mode.  The Python-float constants (1/sqrt(ns), 1/sqrt(avg),
+    the 3j weights, the mix norms, the fan-in scales, the SiLU norm,
+    1/sqrt(2)) apply as JAX applies them to values of dtype ``scalars``
+    (default: the operands'; ``mlp.weak_scalar``): rounded at bf16.
+    ``x_env`` (default: xt, the same values) is the x the env product
+    reads, so that a caller may treat its cotangent apart."""
+    mode = mode or prec.kernel_mode(xt.dtype)
+    sd = scalars or xt.dtype
+
+    def c(v):
+        return weak_scalar(v, sd)
+
     ns, e = xt.shape
     d_dim = yt.shape[0]
-    c = w.env_w.shape[1]
+    ch = w.env_w.shape[1]
     nc = e // K
-    wz = (w.env_w.T.to(xt.dtype) @ xt) * (1.0 / math.sqrt(ns)) * ut  # (C, E)
+    wz = prec.kmm(w.env_w.T.to(xt.dtype), xt if x_env is None else x_env, mode,
+                  c(1.0 / math.sqrt(ns))) * ut  # (C, E)
     A = wz.unsqueeze(0) * yt.unsqueeze(1)  # (D, C, E)
-    env = A.reshape(d_dim, c, nc, K).sum(-1) * inv_avg
-    env_e = env.unsqueeze(-1).expand(d_dim, c, nc, K).reshape(d_dim, c, e)
+    env = A.reshape(d_dim, ch, nc, K).sum(-1) * c(inv_avg)
+    env_e = env.unsqueeze(-1).expand(d_dim, ch, nc, K).reshape(d_dim, ch, e)
     V = Vt.unsqueeze(0) * yt.unsqueeze(1) if first_v else Vt
     rows = _row_tables(w.lmax, w.parity)
     P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
@@ -359,20 +438,20 @@ def fused_layer_reference(xt, Vt, yt, ut, w: K1Weights, K: int, inv_avg: float,
     for r, (ents, l3) in enumerate(rows[:1] if last else rows):
         acc = [None] * P[l3]
         for p, i, j, wv in ents:
-            t = (wv * V[i]) * env_e[j]
+            t = (c(wv) * V[i]) * env_e[j]
             acc[p] = t if acc[p] is None else acc[p] + t
-        t_r = torch.cat([a if a is not None else V.new_zeros(c, e) for a in acc], 0)
+        t_r = torch.cat([a if a is not None else V.new_zeros(ch, e) for a in acc], 0)
         if r == 0:
             inv = t_r  # (P0*C, E) p-major
         if not last:
             m = w.mix[l3].to(xt.dtype)
-            out_rows.append((m.T @ t_r) * (1.0 / math.sqrt(P[l3] * c)))
+            out_rows.append(prec.kmm(m.T, t_r, mode, c(1.0 / math.sqrt(P[l3] * ch))))
     h = torch.cat([xt, inv], 0)
     for li, wl in enumerate(w.lat):
-        h = (wl.to(xt.dtype).T @ h) * (1.0 / math.sqrt(wl.shape[0]))
+        h = prec.kmm(wl.to(xt.dtype).T, h, mode, c(1.0 / math.sqrt(wl.shape[0])))
         if li < len(w.lat) - 1:
-            h = _silu_c(h)
-    x_out = (xt + h * ut) * (1.0 / math.sqrt(2.0))
+            h = F.silu(h) * c(silu_norm_const())
+    x_out = (xt + h * ut) * c(1.0 / math.sqrt(2.0))
     if last:
         return x_out
     return x_out, torch.stack(out_rows, 0)
@@ -401,28 +480,46 @@ _HEADERS = [CSRC / "allegro_layer.cuh", CSRC / "allegro_mma.cuh", CSRC / "allegr
 LIB = CudaLibrary("k1_fused_layer", [CSRC / "fused_layer.cu", *_HEADERS], _bind)
 LIB_BF16 = CudaLibrary("k1_fused_layer_bf16",
                        [CSRC / "fused_layer_bf16.cu", CSRC / "fused_layer.cu", *_HEADERS], _bind)
+LIB_BF16X3 = CudaLibrary("k1_fused_layer_bf16x3",
+                         [CSRC / "fused_layer_bf16x3.cu", CSRC / "fused_layer.cu", *_HEADERS],
+                         _bind)
+LIB_ONEPASS = CudaLibrary("k1_fused_layer_onepass",
+                          [CSRC / "fused_layer_onepass.cu", CSRC / "fused_layer.cu", *_HEADERS],
+                          _bind)
 
 
-def _launch(bwd: bool, dims, inv_avg, ptrs, device, bf16: bool = False):
-    lib = (LIB_BF16 if bf16 else LIB).load()
-    arr = (ctypes.c_ulonglong * 19)(*ptrs)
-    dm = (ctypes.c_int * 12)(*dims)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.k1_launch(int(bwd), arr, dm, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"K1{' bf16' if bf16 else ''} {'backward' if bwd else 'forward'} "
-                           f"launch failed (code {rc})")
-    counts = launches_bf16 if bf16 else launches
+# each build's (library, launch counts), looked up at each launch
+BUILDS = {"tf32x3": (LIB, launches), "bf16": (LIB_BF16, launches_bf16),
+          "bf16x3": (LIB_BF16X3, launches_bf16x3), "onepass": (LIB_ONEPASS, launches_onepass)}
+
+
+def count(counts: LaunchCounts, bwd: bool) -> None:
     if bwd:
         counts.bwd += 1
     else:
         counts.fwd += 1
 
 
-def _weight_ptrs(w: K1Weights, bf16: bool) -> list:
-    """envw .. mixT of the launcher's ptrs: f32, or pair-packed for bf16."""
-    return [t.data_ptr() for t in (w.packed if bf16 else w.weights())]
+def _launch(bwd: bool, dims, inv_avg, ptrs, device, build: str):
+    lib, counts = BUILDS[build]
+    lib = lib.load()
+    arr = (ctypes.c_ulonglong * 19)(*ptrs)
+    dm = (ctypes.c_int * 12)(*dims)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.k1_launch(int(bwd), arr, dm, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"K1 ({build}) {'backward' if bwd else 'forward'} "
+                           f"launch failed (code {rc})")
+    count(counts, bwd)
+
+
+def launch_scalars(w: K1Weights, build: str, inv_avg: float) -> tuple:
+    """(meta table, 1/sqrt(avg)) of a launch: for the bf16 build rounded
+    as JAX's weak typing rounds them (``meta_bf16``, ``mlp.weak_scalar``)."""
+    if build == "bf16":
+        return w.meta_bf16, weak_scalar(inv_avg, torch.bfloat16)
+    return w.meta, inv_avg
 
 
 def kernel_dims(w: K1Weights, d: int, K: int, e: int, first_v: bool, last: bool) -> list:
@@ -434,30 +531,35 @@ def kernel_dims(w: K1Weights, d: int, K: int, e: int, first_v: bool, last: bool)
             max(hidden) if hidden else 4, max(P) * c, latd[0]]
 
 
-def _kernel_fwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last):
-    ns, e = xt.shape
-    c, cout = w.env_w.shape[1], w.mix[0].shape[1]
+def _kernel_fwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last, mode=None):
+    """One forward launch of the build of ``mode`` (default: the policy's)."""
+    build = build_for(xt.dtype, mode)
+    cout = w.mix[0].shape[1]
+    e = xt.shape[1]
     xo = torch.empty_like(xt)
     vo = None if last else torch.empty((yt.shape[0], cout, e), dtype=xt.dtype, device=xt.device)
-    bf16 = xt.dtype == torch.bfloat16
-    ptrs = [xt.data_ptr(), Vt.data_ptr(), yt.data_ptr(), ut.data_ptr(), *_weight_ptrs(w, bf16),
-            0, 0, w.meta.data_ptr(), xo.data_ptr(), 0 if last else vo.data_ptr(), 0, 0, 0, 0]
-    _launch(False, kernel_dims(w, yt.shape[0], K, xt.shape[1], first_v, last), inv_avg, ptrs,
-            xt.device, bf16)
+    meta, ia = launch_scalars(w, build, inv_avg)
+    ptrs = [xt.data_ptr(), Vt.data_ptr(), yt.data_ptr(), ut.data_ptr(),
+            *(t.data_ptr() for t in w.layout(build)), 0, 0, meta.data_ptr(), xo.data_ptr(),
+            0 if last else vo.data_ptr(), 0, 0, 0, 0]
+    _launch(False, kernel_dims(w, yt.shape[0], K, e, first_v, last), ia, ptrs, xt.device, build)
     return xo if last else (xo, vo)
 
 
-def _kernel_bwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last, dxo, dvo):
+def _kernel_bwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last, dxo, dvo, mode=None):
+    """One backward launch of the build of ``mode`` (default: the policy's)."""
+    build = build_for(xt.dtype, mode)
     dx = torch.empty_like(xt)
     dV = torch.empty_like(Vt)
     dY = torch.empty_like(yt)
     du = torch.empty_like(ut)
-    bf16 = xt.dtype == torch.bfloat16
-    ptrs = [xt.data_ptr(), Vt.data_ptr(), yt.data_ptr(), ut.data_ptr(), *_weight_ptrs(w, bf16),
-            dxo.data_ptr(), 0 if last else dvo.data_ptr(), w.meta.data_ptr(), 0, 0,
+    meta, ia = launch_scalars(w, build, inv_avg)
+    ptrs = [xt.data_ptr(), Vt.data_ptr(), yt.data_ptr(), ut.data_ptr(),
+            *(t.data_ptr() for t in w.layout(build)), dxo.data_ptr(),
+            0 if last else dvo.data_ptr(), meta.data_ptr(), 0, 0,
             dx.data_ptr(), dV.data_ptr(), dY.data_ptr(), du.data_ptr()]
-    _launch(True, kernel_dims(w, yt.shape[0], K, xt.shape[1], first_v, last), inv_avg, ptrs,
-            xt.device, bf16)
+    _launch(True, kernel_dims(w, yt.shape[0], K, xt.shape[1], first_v, last), ia, ptrs,
+            xt.device, build)
     return dx, dV, dY, du
 
 
@@ -468,23 +570,24 @@ class _FusedLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xt, Vt, yt, ut, w, K, inv_avg, first_v, last, *weights):
-        ctx.cfg = (w, K, inv_avg, first_v, last)
+        mode = prec.kernel_mode(xt.dtype)
+        ctx.cfg = (w, K, inv_avg, first_v, last, mode)
         ctx.save_for_backward(xt, Vt, yt, ut)
         if xt.is_cuda:
-            return _kernel_fwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last)
-        return fused_layer_reference(xt, Vt, yt, ut, w, K, inv_avg, first_v, last)
+            return _kernel_fwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last, mode)
+        return fused_layer_reference(xt, Vt, yt, ut, w, K, inv_avg, first_v, last, mode)
 
     @staticmethod
     def backward(ctx, dxo, dvo=None):
-        w, K, inv_avg, first_v, last = ctx.cfg
+        w, K, inv_avg, first_v, last, mode = ctx.cfg
         xt, Vt, yt, ut = ctx.saved_tensors
         if xt.is_cuda:
             grads = _kernel_bwd(xt, Vt, yt, ut, w, K, inv_avg, first_v, last,
-                                dxo.contiguous(), None if last else dvo.contiguous())
+                                dxo.contiguous(), None if last else dvo.contiguous(), mode)
         else:
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_(True) for t in (xt, Vt, yt, ut)]
-                out = fused_layer_reference(*ins, w, K, inv_avg, first_v, last)
+                out = fused_layer_reference(*ins, w, K, inv_avg, first_v, last, mode)
                 outs, cots = ((out,), (dxo,)) if last else (out, (dxo, dvo))
                 grads = torch.autograd.grad(outs, ins, cots, allow_unused=True)
             grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, ins)]

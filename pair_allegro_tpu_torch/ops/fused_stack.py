@@ -21,6 +21,9 @@ so, one bf16 tensor-core pass per product on pair-packed weights); on a
 CPU tensor it runs :func:`allegro_stack_reference`, the plain PyTorch
 version of the same function, at the tensors' dtype.  The backward returns dx0, dpT, dY and du; weight cotangents come
 back NaN-filled, the contract of the TPU kernel (``pallas_stack.py:780-782``).
+At f32 the products follow the matmul precision policy as K1's do
+(``ops/prec.py``; the builds ``fused_stack_bf16x3.cu`` and
+``fused_stack_onepass.cu``, and the plain version's ``prec.kmm``).
 """
 
 from __future__ import annotations
@@ -32,13 +35,16 @@ import math
 import torch
 
 from pair_allegro_tpu_torch.ops import fused_layer as fl
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.embed_layer import check_operands
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply, weak_scalar
 from pair_allegro_tpu_torch.ops.tp import scalar_part, tp_mix_apply, uniform_tp
 
-launches = LaunchCounts()  # the f32 kernel's
+launches = LaunchCounts()  # the f32 kernel's (3xTF32 products)
 launches_bf16 = LaunchCounts()  # the bf16 build's
+launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's
+launches_onepass = LaunchCounts()  # the f32 one-pass build's
 
 MAX_LAYERS = 8  # K8P::layer in csrc/fused_stack.cu (one kernel argument of <= 4 KB)
 
@@ -51,7 +57,8 @@ def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
     width conditions, the shared-memory sum of K1's first form (the layout
     every layer of the stack shares; the bf16 build's tiles are f32, so
     its sum is the f32 one) and the layer count, mirrored here so that a
-    caller decides before any launch."""
+    caller decides before any launch.  Every build lays out the same
+    block, so the answer does not depend on the policy."""
     return (dtype in (torch.float32, torch.bfloat16) and 1 <= n_layers <= MAX_LAYERS
             and fl.widths_ok(ns, c, c, d, latd, lmax, parity)
             and all(fl.block_bytes(ns, c, c, d, latd, lmax, parity, True, bwd, "stack") <= fl.SMEM_MAX
@@ -88,12 +95,15 @@ def stack_weights(layers, lmax: int, parity: bool) -> K8Weights:
 
 
 def allegro_stack_reference(x0T, pT, Y_T, uT, layers, K: int, lmax: int,
-                            avg_num_neighbors: float, parity: bool):
+                            avg_num_neighbors: float, parity: bool, mode: str | None = None):
     """The same function as the kernel in plain PyTorch, as the reference's
     ``allegro_stack_ref`` computes it (channels-last inside): x0T (ns, E),
     pT (C, E), Y_T (D, E), uT (1, E), ``layers`` the tree's layer list.
     Returns x_final (ns, E).  Goes through torch autograd.  The constants
-    round as JAX's do at the operands' dtype (``mlp.weak_scalar``)."""
+    round as JAX's do at the operands' dtype (``mlp.weak_scalar``); the
+    products (wz, the mix, the latent MLP) are ``prec.kmm`` in kernel
+    ``mode`` (default: the policy's), the env sum an f32 sum."""
+    mode = mode or prec.kernel_mode(x0T.dtype)
     ns, e = x0T.shape
     nc = e // K
     inv_avg = 1.0 / math.sqrt(max(avg_num_neighbors, 1e-6))
@@ -101,24 +111,42 @@ def allegro_stack_reference(x0T, pT, Y_T, uT, layers, K: int, lmax: int,
     V = pT.T.unsqueeze(-1) * Y.unsqueeze(-2)  # (E, C, D)
     cns, ia, r2 = (weak_scalar(c, x.dtype) for c in (1 / math.sqrt(ns), inv_avg, 1 / math.sqrt(2)))
     for layer in layers:
-        w_env = (x @ layer["env_weight"].to(x.dtype)) * cns * u
+        w_env = prec.kmm(x, layer["env_weight"].to(x.dtype), mode, cns) * u
         env = (w_env.unsqueeze(-1) * Y.unsqueeze(-2)).reshape(nc, K, *V.shape[1:]).sum(1)
         env_e = (env * ia).unsqueeze(1).expand(nc, K, *V.shape[1:]).reshape(V.shape)
         T = uniform_tp(V, env_e, lmax, parity)
         inv = scalar_part(T)
-        V = tp_mix_apply(layer["mix"], T)
-        x = (x + mlp_apply(layer["latent_mlp"], torch.cat([x, inv], dim=-1)) * u) * r2
+        V = tp_mix_apply(layer["mix"], T, mode)
+        x = (x + mlp_apply(layer["latent_mlp"], torch.cat([x, inv], dim=-1), mode) * u) * r2
     return x.T.contiguous()
 
 
+class _RoundCotangent(torch.autograd.Function):
+    """The identity, whose backward rounds the cotangent to bf16."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
 def stack_rounded_reference(x0T, pT, Y_T, uT, layers, K: int, lmax: int,
-                            avg_num_neighbors: float, parity: bool):
+                            avg_num_neighbors: float, parity: bool,
+                            scalars: torch.dtype = torch.bfloat16):
     """The function of K8's bf16 build in plain PyTorch at the operands'
     dtype (f32, fed bf16 values): K1's plain version per layer
-    (``fused_layer_reference``: first, middle and last forms), with x and V
-    rounded to bf16 between the layers, where the build's device-memory
-    stores round them; the round trip's backward rounds the carried
-    cotangents too.  Returns x_final (ns, E); the card's parity checks hold
+    (``fused_layer_reference``: first, middle and last forms) with the
+    build's one-pass products (mode 'bf16') and its bf16 constants
+    (``scalars``; f32 constants give the function of the body before it
+    rounded them, which the card's checks hold apart), x and V rounded to
+    bf16 between the layers, where the build's device-memory stores round
+    them.  The backward rounds where the build's stores do: the carried
+    dx and dV, and before them dx's first-pass share (the residual's and
+    the latent MLP's), to which the build adds the env product's in a
+    second pass.  Returns x_final (ns, E); the card's parity checks hold
     the bf16 build to it."""
     def r(t):
         return t.to(torch.bfloat16).to(t.dtype)
@@ -126,8 +154,9 @@ def stack_rounded_reference(x0T, pT, Y_T, uT, layers, K: int, lmax: int,
     inv_avg = 1.0 / math.sqrt(max(avg_num_neighbors, 1e-6))
     x, V, n = x0T, pT, len(layers)
     for li, layer in enumerate(layers):
-        out = fl.fused_layer_reference(x, V, Y_T, uT, fl.prepare_layer(layer, lmax, parity), K,
-                                       inv_avg, li == 0, li == n - 1)
+        out = fl.fused_layer_reference(_RoundCotangent.apply(x), V, Y_T, uT,
+                                       fl.prepare_layer(layer, lmax, parity), K, inv_avg, li == 0,
+                                       li == n - 1, "bf16", scalars, x_env=x)
         if li == n - 1:
             return out
         x, V = r(out[0]), r(out[1])
@@ -158,50 +187,58 @@ _SOURCES = [CSRC / "fused_stack.cu", CSRC / "allegro_layer.cuh", CSRC / "allegro
             CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"]
 LIB = CudaLibrary("k8_fused_stack", _SOURCES, _bind)
 LIB_BF16 = CudaLibrary("k8_fused_stack_bf16", [CSRC / "fused_stack_bf16.cu", *_SOURCES], _bind)
+LIB_BF16X3 = CudaLibrary("k8_fused_stack_bf16x3", [CSRC / "fused_stack_bf16x3.cu", *_SOURCES],
+                         _bind)
+LIB_ONEPASS = CudaLibrary("k8_fused_stack_onepass", [CSRC / "fused_stack_onepass.cu", *_SOURCES],
+                          _bind)
+
+
+# each build's (library, launch counts), looked up at each launch
+BUILDS = {"tf32x3": (LIB, launches), "bf16": (LIB_BF16, launches_bf16),
+          "bf16x3": (LIB_BF16X3, launches_bf16x3), "onepass": (LIB_ONEPASS, launches_onepass)}
 
 # the launcher's pointer slots (k8_launch in csrc/fused_stack.cu), before
 # the six per layer
 _PTRS = ("Y", "u", "meta", "x0", "pT", "xo", "xs", "vs", "dxo", "dx", "dvc", "dpT", "dY", "du")
 
 
-def _launch(bwd: bool, w: K8Weights, ts: dict, K: int, inv_avg: float):
-    """One K8 launch, of the bf16 build when Y is bf16: ``ts`` maps _PTRS
-    names to tensors (absent or None names are 0); each layer's weights
-    f32, or pair-packed for the bf16 build.  Raises on any refusal or
-    launch error; counts the launch."""
-    ts = {"meta": w.k1[0].meta, **ts}
-    Y = ts["Y"]
-    d, e = Y.shape
-    bf16 = Y.dtype == torch.bfloat16
+def _launch(bwd: bool, w: K8Weights, ts: dict, K: int, inv_avg: float, build: str):
+    """One K8 launch of ``build`` (``fused_layer.build_for``): ``ts`` maps
+    _PTRS names to tensors (absent or None names are 0); each layer's
+    weights in the build's layout.  Raises on any refusal or launch error;
+    counts the launch."""
+    meta, ia = fl.launch_scalars(w.k1[0], build, inv_avg)
+    ts = {"meta": meta, **ts}
+    d, e = ts["Y"].shape
     ptrs = [0 if ts.get(k) is None else ts[k].data_ptr() for k in _PTRS]
     for lw in w.k1:
-        ptrs += [t.data_ptr() for t in (lw.packed if bf16 else lw.weights())]
+        ptrs += [t.data_ptr() for t in lw.layout(build)]
     dims = fl.kernel_dims(w.k1[0], d, K, e, True, False) + [len(w.k1)]
-    lib = (LIB_BF16 if bf16 else LIB).load()
+    lib, counts = BUILDS[build]
+    lib = lib.load()
     arr = (ctypes.c_ulonglong * len(ptrs))(*ptrs)
     dm = (ctypes.c_int * len(dims))(*dims)
-    with torch.cuda.device(Y.device):
-        stream = torch.cuda.current_stream(Y.device).cuda_stream
-        rc = lib.k8_launch(int(bwd), arr, dm, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
+    with torch.cuda.device(ts["Y"].device):
+        stream = torch.cuda.current_stream(ts["Y"].device).cuda_stream
+        rc = lib.k8_launch(int(bwd), arr, dm, ctypes.c_float(ia), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K8{' bf16' if bf16 else ''} {'backward' if bwd else 'forward'} "
+        raise RuntimeError(f"K8 ({build}) {'backward' if bwd else 'forward'} "
                            f"launch failed (code {rc})")
-    counts = launches_bf16 if bf16 else launches
-    if bwd:
-        counts.bwd += 1
-    else:
-        counts.fwd += 1
+    fl.count(counts, bwd)
 
 
-def _kernel_fwd(x0T, pT, Y_T, uT, w: K8Weights, K: int, inv_avg: float):
+def _kernel_fwd(x0T, pT, Y_T, uT, w: K8Weights, K: int, inv_avg: float, mode=None):
+    """One forward launch of the build of ``mode`` (default: the policy's)."""
     (d, e), c, L = Y_T.shape, pT.shape[0], len(w.k1)
+    build = fl.build_for(x0T.dtype, mode)
     xo = torch.empty_like(x0T)
     vs = torch.empty((d * c, e), dtype=x0T.dtype, device=x0T.device) if L > 1 else None
-    _launch(False, w, {"Y": Y_T, "u": uT, "x0": x0T, "pT": pT, "xo": xo, "vs": vs}, K, inv_avg)
+    _launch(False, w, {"Y": Y_T, "u": uT, "x0": x0T, "pT": pT, "xo": xo, "vs": vs}, K, inv_avg,
+            build)
     return xo
 
 
-def _kernel_bwd(x0T, pT, Y_T, uT, w: K8Weights, K: int, inv_avg: float, dxo):
+def _kernel_bwd(x0T, pT, Y_T, uT, w: K8Weights, K: int, inv_avg: float, dxo, mode=None):
     (ns, e), d, c, L = x0T.shape, Y_T.shape[0], pT.shape[0], len(w.k1)
     dev, dt = x0T.device, x0T.dtype
     stash = {}
@@ -210,8 +247,9 @@ def _kernel_bwd(x0T, pT, Y_T, uT, w: K8Weights, K: int, inv_avg: float, dxo):
                  "vs": torch.empty(((L - 1) * d * c, e), dtype=dt, device=dev),
                  "dvc": torch.empty((d * c, e), dtype=dt, device=dev)}
     dx, dpT, dY, du = (torch.empty_like(t) for t in (x0T, pT, Y_T, uT))
+    build = fl.build_for(x0T.dtype, mode)
     _launch(True, w, {"Y": Y_T, "u": uT, "x0": x0T, "pT": pT, "dxo": dxo, "dx": dx, "dpT": dpT,
-                      "dY": dY, "du": du, **stash}, K, inv_avg)
+                      "dY": dY, "du": du, **stash}, K, inv_avg, build)
     return dx, dpT, dY, du
 
 
@@ -222,22 +260,23 @@ class _FusedStack(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x0T, pT, Y_T, uT, w, K, avg, *weights):
-        ctx.cfg = (w, K, avg)
+        mode = prec.kernel_mode(x0T.dtype)
+        ctx.cfg = (w, K, avg, mode)
         ctx.save_for_backward(x0T, pT, Y_T, uT)
         if x0T.is_cuda:
-            return _kernel_fwd(x0T, pT, Y_T, uT, w, K, _inv_avg(avg))
-        return allegro_stack_reference(x0T, pT, Y_T, uT, w.tree, K, w.lmax, avg, w.parity)
+            return _kernel_fwd(x0T, pT, Y_T, uT, w, K, _inv_avg(avg), mode)
+        return allegro_stack_reference(x0T, pT, Y_T, uT, w.tree, K, w.lmax, avg, w.parity, mode)
 
     @staticmethod
     def backward(ctx, dxo):
-        w, K, avg = ctx.cfg
+        w, K, avg, mode = ctx.cfg
         ins = ctx.saved_tensors
         if ins[0].is_cuda:
-            grads = _kernel_bwd(*ins, w, K, _inv_avg(avg), dxo.contiguous())
+            grads = _kernel_bwd(*ins, w, K, _inv_avg(avg), dxo.contiguous(), mode)
         else:
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_(True) for t in ins]
-                out = allegro_stack_reference(*ins, w.tree, K, w.lmax, avg, w.parity)
+                out = allegro_stack_reference(*ins, w.tree, K, w.lmax, avg, w.parity, mode)
                 grads = torch.autograd.grad(out, ins, dxo)
         nan_w = [torch.full_like(t, float("nan")) for t in w.tensors()]
         return (*grads, None, None, None, *nan_w)

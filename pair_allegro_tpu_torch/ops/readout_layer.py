@@ -18,7 +18,10 @@ tensors' dtype (at bf16 the heads round as the TPU kernel's do: bf16
 constants, the width-1 layer a row sum of bf16 products, ``mlp_apply_t``;
 the bf16 build rounds the same, and its f32 oracle on the card passes
 ``scalars=torch.bfloat16``).  Weight cotangents come back NaN-filled for every leaf
-the kernel reads, the heads' included (``pallas_stack.py:1751``).
+the kernel reads, the heads' included (``pallas_stack.py:1751``).  At f32 the
+layer's products follow the matmul precision policy as K1's do (the builds
+``embed_readout_layer_bf16x3.cu`` and ``_onepass.cu``); the heads stay
+f32-accurate under every policy, as JAX's ``_mm_exact`` keeps them.
 """
 
 from __future__ import annotations
@@ -32,9 +35,11 @@ import torch
 
 from pair_allegro_tpu_torch.ops import fused_layer as fl
 from pair_allegro_tpu_torch.ops._build import LaunchCounts
-from pair_allegro_tpu_torch.ops.embed_layer import (  # noqa: F401  (LIB*: K7's, shared with K6)
+from pair_allegro_tpu_torch.ops.embed_layer import (  # LIB*: K7's, shared with K6
     LIB,
     LIB_BF16,
+    LIB_BF16X3,
+    LIB_ONEPASS,
     MT_WORDS,
     READOUT,
     check_operands,
@@ -43,11 +48,17 @@ from pair_allegro_tpu_torch.ops.embed_layer import (  # noqa: F401  (LIB*: K7's,
     mlp_layout,
     mlp_widths_ok,
 )
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()  # the f32 kernel's (K7)
+launches = LaunchCounts()  # the f32 kernel's (K7, 3xTF32 products)
 launches_bf16 = LaunchCounts()  # the bf16 build's (K7)
+launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's (K7)
+launches_onepass = LaunchCounts()  # the f32 one-pass build's (K7)
+# each build's (library, K7 launch counts): K6's libraries
+BUILDS = {"tf32x3": (LIB, launches), "bf16": (LIB_BF16, launches_bf16),
+          "bf16x3": (LIB_BF16X3, launches_bf16x3), "onepass": (LIB_ONEPASS, launches_onepass)}
 
 
 def _head_shape(heads_dims):
@@ -64,8 +75,8 @@ def kernel_takes(ns: int, c: int, d: int, latd: tuple, lmax: int, parity: bool,
     forward and backward: a build of that dtype, K1's conditions
     (ops/fused_layer.py), the heads' (``heads_dims``: one (ns, hidden...,
     1) per head, one or two) and the shared memory sum with the epilogue's
-    rows, mirrored here so that a caller decides before any launch (the
-    bf16 build's sum is the f32 one: its tiles are f32)."""
+    rows, mirrored here so that a caller decides before any launch (every
+    build's sum is the f32 one, whatever the policy: its tiles are f32)."""
     if dtype not in (torch.float32, torch.bfloat16):
         return False
     if not fl.widths_ok(ns, c, c, d, latd, lmax, parity) or not 1 <= len(heads_dims) <= 2:
@@ -103,8 +114,8 @@ class K7Weights:
         """The heads' blocks and their transposes pair-packed at half their
         offsets (:func:`mlp_flat`) for the bf16 build; the layer's are
         ``layer.packed``."""
-        return {"ew": mlp_flat(self.blocks, self.offs, self.end, packed=True),
-                "ewT": mlp_flat(self.blocks, self.offs, self.end, transpose=True, packed=True)}
+        return {"ew": mlp_flat(self.blocks, self.offs, self.end, build="bf16"),
+                "ewT": mlp_flat(self.blocks, self.offs, self.end, transpose=True, build="bf16")}
 
     @property
     def heads_dims(self) -> tuple:
@@ -158,13 +169,17 @@ def k7_weights(params: dict, lmax: int, parity: bool, charges: bool) -> K7Weight
 # ---------------------------------------------------------------------------
 
 
-def readout_layer_reference(xt, Vt, yt, ut, w: K7Weights, K: int, inv_avg: float, scalars=None):
+def readout_layer_reference(xt, Vt, yt, ut, w: K7Weights, K: int, inv_avg: float, scalars=None,
+                            mode: str | None = None):
     """The same function as the kernel in plain PyTorch: xt (ns, E), Vt (D,
     C, E), yt (D, E), ut (1, E) -> e_row (1, E) or (e_row, q_row); goes
-    through torch autograd.  The heads' constants round as JAX's do at the
-    dtype ``scalars`` (default: the operands'; ``mlp.mlp_apply_t``)."""
-    xf = fl.fused_layer_reference(xt, Vt, yt, ut, w.layer, K, inv_avg, last=True)
-    rows = tuple(mlp_apply_t({"w": ws}, xf, scalars) * ut for ws in w.heads)
+    through torch autograd.  The constants round as JAX's do at the dtype
+    ``scalars`` (default: the operands'; ``mlp.mlp_apply_t``); the layer's
+    products are in kernel ``mode`` (default: the policy's), the heads'
+    f32-accurate under every mode (JAX's ``_mm_exact``)."""
+    sd = scalars or xt.dtype
+    xf = fl.fused_layer_reference(xt, Vt, yt, ut, w.layer, K, inv_avg, False, True, mode, sd)
+    rows = tuple(mlp_apply_t({"w": ws}, xf, sd) * ut for ws in w.heads)
     return rows if len(rows) > 1 else rows[0]
 
 
@@ -174,33 +189,34 @@ def readout_layer_reference(xt, Vt, yt, ut, w: K7Weights, K: int, inv_avg: float
 
 
 def _extra(w: K7Weights) -> list:
-    return [0, *_head_shape(w.heads_dims), len(w.heads)]
+    return [0, *_head_shape(w.heads_dims), len(w.heads), 0]
 
 
-def _heads(w: K7Weights, bf16: bool) -> dict:
-    src = w.packed if bf16 else {"ew": w.ew, "ewT": w.ewT}
+def _heads(w: K7Weights, build: str) -> dict:
+    """The heads' pointers: f32 in every f32 build (3xTF32, as JAX's
+    ``_mm_exact``), pair-packed in the bf16 build."""
+    src = w.packed if build == "bf16" else {"ew": w.ew, "ewT": w.ewT}
     return {"mt": w.mt, "ew": src["ew"], "ewT": src["ewT"]}
 
 
-def _kernel_fwd(xt, Vt, yt, ut, w: K7Weights, K, inv_avg):
+def _kernel_fwd(xt, Vt, yt, ut, w: K7Weights, K, inv_avg, mode=None):
+    """One forward launch of the build of ``mode`` (default: the policy's)."""
     d, e = yt.shape
-    bf16 = xt.dtype == torch.bfloat16
+    build = fl.build_for(xt.dtype, mode)
     rows = [torch.empty_like(ut) for _ in w.heads]
-    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, **_heads(w, bf16),
+    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, **_heads(w, build),
           **{f"ho{h}": r for h, r in enumerate(rows)}}
-    launch(READOUT, False, w.layer, ts, d, K, e, _extra(w), inv_avg, (launches, launches_bf16),
-           xt.device, bf16)
+    launch(READOUT, False, w.layer, ts, d, K, e, _extra(w), inv_avg, BUILDS, xt.device, build)
     return tuple(rows) if len(rows) > 1 else rows[0]
 
 
-def _kernel_bwd(xt, Vt, yt, ut, w: K7Weights, K, inv_avg, cots):
+def _kernel_bwd(xt, Vt, yt, ut, w: K7Weights, K, inv_avg, cots, mode=None):
     d, e = yt.shape
-    bf16 = xt.dtype == torch.bfloat16
+    build = fl.build_for(xt.dtype, mode)
     dx, dV, dY, du = (torch.empty_like(t) for t in (xt, Vt, yt, ut))
-    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, **_heads(w, bf16), "dx": dx, "dV": dV, "dY": dY,
+    ts = {"x": xt, "V": Vt, "Y": yt, "u": ut, **_heads(w, build), "dx": dx, "dV": dV, "dY": dY,
           "du": du, **{f"dh{h}": c for h, c in enumerate(cots)}}
-    launch(READOUT, True, w.layer, ts, d, K, e, _extra(w), inv_avg, (launches, launches_bf16),
-           xt.device, bf16)
+    launch(READOUT, True, w.layer, ts, d, K, e, _extra(w), inv_avg, BUILDS, xt.device, build)
     return dx, dV, dY, du
 
 
@@ -212,22 +228,24 @@ class _ReadoutLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xt, Vt, yt, ut, w, K, inv_avg, *weights):
-        ctx.cfg = (w, K, inv_avg)
+        mode = prec.kernel_mode(xt.dtype)
+        ctx.cfg = (w, K, inv_avg, mode)
         ctx.save_for_backward(xt, Vt, yt, ut)
         if xt.is_cuda:
-            return _kernel_fwd(xt, Vt, yt, ut, w, K, inv_avg)
-        return readout_layer_reference(xt, Vt, yt, ut, w, K, inv_avg)
+            return _kernel_fwd(xt, Vt, yt, ut, w, K, inv_avg, mode)
+        return readout_layer_reference(xt, Vt, yt, ut, w, K, inv_avg, mode=mode)
 
     @staticmethod
     def backward(ctx, *cots):
-        w, K, inv_avg = ctx.cfg
+        w, K, inv_avg, mode = ctx.cfg
         xt, Vt, yt, ut = ctx.saved_tensors
         if xt.is_cuda:
-            grads = _kernel_bwd(xt, Vt, yt, ut, w, K, inv_avg, [c.contiguous() for c in cots])
+            grads = _kernel_bwd(xt, Vt, yt, ut, w, K, inv_avg, [c.contiguous() for c in cots],
+                                mode)
         else:
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_(True) for t in (xt, Vt, yt, ut)]
-                out = readout_layer_reference(*ins, w, K, inv_avg)
+                out = readout_layer_reference(*ins, w, K, inv_avg, mode=mode)
                 outs = out if isinstance(out, tuple) else (out,)
                 grads = torch.autograd.grad(outs, ins, cots, allow_unused=True)
             grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, ins)]

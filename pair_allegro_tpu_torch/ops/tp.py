@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops.so3 import real_wigner_3j, sh_slice
 
 
@@ -115,9 +116,11 @@ def uniform_tp(x: torch.Tensor, y: torch.Tensor, lmax_out: int, parity: bool = F
     return out
 
 
-def tp_mix_apply(ws: dict, tp_out: list) -> torch.Tensor:
+def tp_mix_apply(ws: dict, tp_out: list, mode: str | None = None) -> torch.Tensor:
     """Per-l3 (channel, path) -> channel mix; weights have c-major rows
-    (row = c*P + p, the ``tp_mix_init`` contract).  Returns (..., C_out, D)."""
+    (row = c*P + p, the ``tp_mix_init`` contract).  Returns (..., C_out, D).
+    The products are ``prec.kmm`` in kernel ``mode`` where one is given (a
+    kernel's plain version), else plain."""
     pieces = []
     for l3, t in enumerate(tp_out):
         if t is None:
@@ -126,7 +129,9 @@ def tp_mix_apply(ws: dict, tp_out: list) -> torch.Tensor:
         c_in, p = t.shape[-3], t.shape[-2]
         t = torch.movedim(t, -1, -3)  # (..., k, c, p)
         t = t.reshape(*t.shape[:-2], c_in * p)
-        m = (t @ w.to(t.dtype)) * (1.0 / math.sqrt(c_in * p))
+        wt = w.to(t.dtype)
+        scale = 1.0 / math.sqrt(c_in * p)
+        m = prec.kmm(t, wt, mode, scale) if mode else (t @ wt) * scale
         pieces.append(torch.movedim(m, -1, -2))
     return torch.cat(pieces, dim=-1)
 
@@ -175,7 +180,12 @@ def combined_tp_mix_matrix(ws: dict, lmax: int, dtype=torch.float32, parity: boo
         k3 = 2 * l3 + 1
         w3 = torch.as_tensor(W3[:, off : off + p * k3].reshape(d * d, p, k3), dtype=dtype, device=dev)
         wmix = ws[f"l{l3}"].to(dtype).reshape(c_in, p, c_out)
-        m_l = torch.einsum("xpk,cpd->cxkd", w3, wmix) * (1.0 / math.sqrt(c_in * p))
+        # einsum("xpk,cpd->cxkd") as one product, exact f32 under every
+        # policy as JAX pins it (precision="highest")
+        a = w3.permute(0, 2, 1).reshape(d * d * k3, p)
+        b = wmix.permute(1, 0, 2).reshape(p, c_in * c_out)
+        m_l = prec.exact_mm(a, b).reshape(d * d, k3, c_in, c_out).permute(2, 0, 1, 3)
+        m_l = m_l * (1.0 / math.sqrt(c_in * p))
         blocks.append(m_l.reshape(c_in, d * d, k3 * c_out))
     return torch.cat(blocks, dim=-1).reshape(c_in * d * d, d * c_out)
 

@@ -7,10 +7,12 @@ each leaf by a weak reference and its ``_version`` counter, which every
 in-place operation advances.  So a steady MD run pays no launches for them,
 and a training step or an edit of the tree is never stale.  The copies are
 made without autograd; gradients reach the leaves through the autograd
-Functions, which take the leaves themselves as inputs.  The bf16 builds'
-pair-packed copies (``packed`` of K1Weights, K6Weights, K7Weights) are
-properties of the cached object, made at its first bf16 launch, so they
-are replaced with it when a leaf changes.
+Functions, which take the leaves themselves as inputs.  The other builds'
+layouts are properties of the cached object, one per build (``layout`` /
+``packed`` / ``packed_x3`` of K1Weights, ``prologue`` of K6Weights): the
+bf16 and one-pass builds' pair-packed copies and the bf16x3 build's hi / lo
+copies, each made at its build's first launch, so they are replaced with
+the object when a leaf changes.
 """
 
 from __future__ import annotations

@@ -12,6 +12,8 @@ from typing import Any, Callable
 
 import torch
 
+from pair_allegro_tpu_torch.ops import prec
+
 
 @dataclasses.dataclass
 class ModelOutputs:
@@ -33,19 +35,26 @@ def make_potential(energy_fn: Callable[..., dict],
 
     With ``create_graph`` the outputs keep their graph instead: forces and
     virial are differentiable again, so a loss can take the weights'
-    gradient of -dE/dr (training, ``train.make_loss_fn``)."""
+    gradient of -dE/dr (training, ``train.make_loss_fn``).
+
+    The whole evaluation, forward and backward, runs in one
+    ``prec.glue_scope``: the glue's products take the matmul precision
+    policy's (TF32 on the card under 'high' and 'default'), their backward
+    too, which autograd runs after each forward product has returned.  The
+    strain's products stay exact f32 (``prec.exact_mm``), as JAX pins them
+    at "highest"."""
 
     def potential(positions, types, edge_index, *, cell=None, edge_shifts=None,
                   atom_mask=None, edge_mask=None, compute_virial: bool = True,
                   **kw: Any) -> ModelOutputs:
         dtype, dev = positions.dtype, positions.device
-        with torch.enable_grad():
+        with torch.enable_grad(), prec.glue_scope():
             pos = positions.detach().requires_grad_(True)
             strain = torch.zeros((3, 3), dtype=dtype, device=dev, requires_grad=compute_virial)
             defm = torch.eye(3, dtype=dtype, device=dev) + strain
             out = energy_fn(
-                pos @ defm, types, edge_index,
-                cell=None if cell is None else cell @ defm,
+                prec.exact_mm(pos, defm), types, edge_index,
+                cell=None if cell is None else prec.exact_mm(cell, defm),
                 edge_shifts=edge_shifts, atom_mask=atom_mask, edge_mask=edge_mask, **kw,
             )
             inputs = [pos, strain] if compute_virial else [pos]

@@ -32,8 +32,8 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path on the CPU"
         )
     if dev.type == "cuda":
-        # the reference is exact f32 at the XLA level: keep TF32 off
-        torch.backends.cuda.matmul.allow_tf32 = False
+        # the glue's f32 products take TF32 only where the matmul precision
+        # policy asks for it (ops/prec.py glue_scope); no convolution runs
         torch.backends.cudnn.allow_tf32 = False
     return dev
 

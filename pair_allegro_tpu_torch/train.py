@@ -27,6 +27,7 @@ from typing import Any, Callable
 
 import torch
 
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.potential import make_potential
 from pair_allegro_tpu_torch.tree import leaves, tree_map
 
@@ -181,7 +182,8 @@ def make_train_step(loss_fn, optimizer, ema_decay: float | None = None) -> Train
         opt, ema = state if ema_decay else (state, None)
         tensors = leaves(params)
         loss, metrics = loss_fn(params, frame)
-        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        with prec.glue_scope():  # the weights' gradient at the glue's precision too
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         for t, g in zip(tensors, grads):
             t.grad = torch.zeros_like(t) if g is None else g
         opt.step()

@@ -43,6 +43,17 @@ pytestmark = pytest.mark.cuda
 FORMS = [(False, False), (True, False), (False, True), (True, True)]
 
 
+@pytest.fixture(autouse=True)
+def _tf32x3_policy():
+    """Every leg runs under the matmul precision policy 'highest' (the
+    3xTF32 builds, exact f32 glue), as written before the policy reached
+    the kernels; the policy legs (``-k policy``) set each policy inside."""
+    from pair_allegro_tpu_torch.ops.prec import matmul_precision
+
+    with matmul_precision("highest"):
+        yield
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -1878,14 +1889,25 @@ def test_bf16_kernel_matches_plain(cuda, ns, c, k, first_v, last):
     ref = [t.detach().float().requires_grad_(True) for t in ins]
     f0, b0, g0 = fl.launches_bf16.fwd, fl.launches_bf16.bwd, fl.launches.fwd + fl.launches.bwd
     out_k = fl.fused_layer(*ins, w, k, 5.0, first_v=first_v, last=last)
-    out_r = fl.fused_layer_reference(*ref, w_r, k, 1.0 / math.sqrt(5.0), first_v, last)
+    # the build's function: one-pass products, its constants rounded to bf16
+    out_r = fl.fused_layer_reference(*ref, w_r, k, 1.0 / math.sqrt(5.0), first_v, last, "bf16",
+                                     torch.bfloat16)
     out_k, out_r = ((out_k,), (out_r,)) if last else (out_k, out_r)
     _assert_bf16_close(out_k, out_r, "fwd")
     cots = [t.to(torch.bfloat16) for t in _cotangents(out_r)]
-    _assert_bf16_close(torch.autograd.grad(out_k, ins, cots),
-                       torch.autograd.grad(out_r, ref, [t.float() for t in cots]), "bwd")
+    g_k = torch.autograd.grad(out_k, ins, cots)
+    g_r = torch.autograd.grad(out_r, ref, [t.float() for t in cots])
+    _assert_bf16_close(g_k, g_r, "bwd")
     assert (fl.launches_bf16.fwd - f0, fl.launches_bf16.bwd - b0) == (1, 1)
     assert fl.launches.fwd + fl.launches.bwd == g0
+    # the body rounds its constants as JAX's K1 does: the build reproduces
+    # the rounded-constant version's departure from the f32-constant one
+    base = [t.detach().float().requires_grad_(True) for t in ins]
+    out_b = fl.fused_layer_reference(*base, w_r, k, 1.0 / math.sqrt(5.0), first_v, last, "bf16",
+                                     torch.float32)
+    out_b = (out_b,) if last else out_b
+    _constants_share("K1 bf16", (out_k, g_k), (out_r, g_r),
+                     (out_b, torch.autograd.grad(out_b, base, [t.float() for t in cots])))
 
 
 @pytest.mark.parametrize("ns,c,width,depth,lds,ring", WIDE_LAYOUTS)
@@ -1989,29 +2011,46 @@ def _bf16_er(cuda, kernel, ns, c, k, lmax, charges, names=("A", "B"), seed=1, **
         calls = (lambda *a: k6.embed_layer(*a, k6.k6_weights(params, lmax, True), k, 5.0),
                  lambda *a: k6.embed_layer_reference(
                      *a, k6.prepare_embed(_rounded(params), lmax, True), k, inv_avg,
-                     scalars=torch.bfloat16))
+                     scalars=torch.bfloat16, mode="bf16"))
     else:
         keys = ("x", "V", "Y", "u")
         calls = (lambda *a: k7.readout_layer(*a, k7.k7_weights(params, lmax, True, charges), k,
                                              5.0),
                  lambda *a: k7.readout_layer_reference(
                      *a, k7.prepare_readout(_rounded(params), lmax, True, charges), k, inv_avg,
-                     scalars=torch.bfloat16))
+                     scalars=torch.bfloat16, mode="bf16"))
     ins = [ops[key].to(torch.bfloat16).requires_grad_(True) for key in keys]
     return params, ins, calls
 
 
+def _constants_share(kernel, got, want, base):
+    """chip_smoke's gate of the weak-typing repair: the build's share of
+    the rounded-constant plain version's departure from the f32-constant
+    one (``got``, ``want``, ``base``: (outputs, gradients) each)."""
+    from chip_smoke import constants_share
+
+    constants_share(kernel, "card leg", got, want, base)
+
+
 def _bf16_pair(calls, ins):
     """The bf16 build against the plain version at f32 on the same values,
-    forward and backward (bf16 cotangents)."""
+    forward and backward (bf16 cotangents); with a third call (the plain
+    version with f32 constants) also the repair's gate."""
     ref = [t.detach().float().requires_grad_(True) for t in ins]
     out_k, out_r = calls[0](*ins), calls[1](*ref)
     out_k = out_k if isinstance(out_k, tuple) else (out_k,)
     out_r = out_r if isinstance(out_r, tuple) else (out_r,)
     _assert_bf16_close(out_k, out_r, "fwd")
     cots = [t.to(torch.bfloat16) for t in _cotangents(out_r)]
-    _assert_bf16_close(torch.autograd.grad(out_k, ins, cots),
-                       torch.autograd.grad(out_r, ref, [t.float() for t in cots]), "bwd")
+    g_k = torch.autograd.grad(out_k, ins, cots)
+    g_r = torch.autograd.grad(out_r, ref, [t.float() for t in cots])
+    _assert_bf16_close(g_k, g_r, "bwd")
+    if len(calls) > 2:
+        base = [t.detach().float().requires_grad_(True) for t in ins]
+        out_b = calls[2](*base)
+        out_b = out_b if isinstance(out_b, tuple) else (out_b,)
+        _constants_share("bf16 build", (out_k, g_k), (out_r, g_r),
+                         (out_b, torch.autograd.grad(out_b, base, [t.float() for t in cots])))
 
 
 @pytest.mark.parametrize("ns,c,k,lmax,names", [(64, 32, 64, 2, ("Cu",)), (64, 32, 64, 1, ("Cu",)),
@@ -2057,7 +2096,9 @@ def _bf16_stack(cuda, ns, c, lmax, layers, k, parity=True, **fields):
     ins = [t.to(torch.bfloat16).requires_grad_(True) for t in ops]
     return layers_, ins, (lambda *a: k8.fused_stack(*a, layers_, k, lmax, 5.0, parity),
                           lambda *a: k8.stack_rounded_reference(*a, _rounded(layers_), k, lmax,
-                                                                5.0, parity))
+                                                                5.0, parity),
+                          lambda *a: k8.stack_rounded_reference(*a, _rounded(layers_), k, lmax,
+                                                                5.0, parity, torch.float32))
 
 
 @pytest.mark.parametrize("ns,c,lmax,layers,k,parity", [
@@ -2072,6 +2113,40 @@ def test_bf16_k8_matches_plain(cuda, ns, c, lmax, layers, k, parity):
     _bf16_pair(calls, ins)
     assert (k8.launches_bf16.fwd - f0, k8.launches_bf16.bwd - b0) == (1, 1)
     assert k8.launches.fwd + k8.launches.bwd == g0
+
+
+@pytest.mark.parametrize("ns,c,lmax,k", [(64, 32, 2, 64), (64, 32, 1, 64), (16, 8, 2, 20)])
+def test_bf16_k8_runs_the_k1_body_per_layer(cuda, ns, c, lmax, k):
+    """K8's bf16 build against K1's bf16 build chained over the same three
+    layers (first, middle and last forms, x and V bf16 between them as
+    K8's stores hold them): forward and backward within BF16_TOLS, and the
+    share of the rounded-constant oracle's departure from the f32-constant
+    one that each reproduces (``chip_smoke.mode_share``), printed."""
+    from chip_smoke import mode_share
+
+    layers_, ins, calls = _bf16_stack(cuda, ns, c, lmax, 3, k)
+    ws = [fl.k1_weights(layer, lmax, True) for layer in layers_]
+    ins1 = [t.detach().clone().requires_grad_(True) for t in ins]
+    out8 = calls[0](*ins)
+    x, V = fl.fused_layer(*ins1, ws[0], k, 5.0, first_v=True)
+    x, V = fl.fused_layer(x, V, *ins1[2:], ws[1], k, 5.0)
+    out1 = fl.fused_layer(x, V, *ins1[2:], ws[2], k, 5.0, last=True)
+    cots = [t.to(torch.bfloat16) for t in _cotangents((out8,))]
+    g8 = torch.autograd.grad(out8, ins, cots)
+    g1 = torch.autograd.grad(out1, ins1, cots)
+    _assert_bf16_close((out8,), (out1,), "fwd")
+    _assert_bf16_close(g8, g1, "bwd")
+    same = float((out8 == out1).float().mean())
+    refs = []
+    for f in calls[1:]:
+        r = [t.detach().float().requires_grad_(True) for t in ins]
+        o = f(*r)
+        refs.append(((o,), torch.autograd.grad(o, r, [t.float() for t in cots])))
+    (o_r, g_r), (o_b, g_b) = refs
+    print(f"K8 against three K1 launches (ns={ns}, C={c}, l_max={lmax}, K={k}): x_final equal on "
+          f"{same:.4f} of its entries; shares of the rounded-constant departure, K8 "
+          f"{mode_share((out8,), o_r, o_b):.4f} fwd, {mode_share(g8, g_r, g_b):.4f} bwd; the K1 "
+          f"chain {mode_share((out1,), o_r, o_b):.4f} fwd, {mode_share(g1, g_r, g_b):.4f} bwd")
 
 
 @pytest.mark.parametrize("ns,c,width,depth,lds,ring", WIDE_LAYOUTS)
@@ -2110,6 +2185,7 @@ def test_bf16_builds_raise_on_refusal_and_build_failure(cuda, tmp_path, monkeypa
     compile; neither runs the plain version."""
     from pair_allegro_tpu_torch.ops import embed_layer as k6
     from pair_allegro_tpu_torch.ops import fused_stack as k8
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
     from pair_allegro_tpu_torch.ops._build import CudaLibrary
 
     _, ins, calls = _bf16_er(cuda, "k6", 16, 48, 32, 2, False)
@@ -2120,13 +2196,15 @@ def test_bf16_builds_raise_on_refusal_and_build_failure(cuda, tmp_path, monkeypa
         calls[0](*ins)
     broken = tmp_path / "broken.cu"
     broken.write_text("this is not CUDA\n")
-    monkeypatch.setattr(k8, "LIB_BF16", CudaLibrary("broken_k8_bf16", [broken], k8._bind))
+    monkeypatch.setitem(k8.BUILDS, "bf16", (CudaLibrary("broken_k8_bf16", [broken], k8._bind),
+                                            k8.launches_bf16))
     _, ins, calls = _bf16_stack(cuda, 16, 8, 2, 2, 32)
     f0 = k8.launches_bf16.fwd
     with pytest.raises(RuntimeError, match="nvcc failed"):
         calls[0](*ins)
     assert k8.launches_bf16.fwd == f0
-    monkeypatch.setattr(k6, "LIB_BF16", CudaLibrary("broken_k6k7_bf16", [broken], k6._bind))
+    monkeypatch.setitem(k7.BUILDS, "bf16", (CudaLibrary("broken_k6k7_bf16", [broken], k6._bind),
+                                            k7.launches_bf16))
     _, ins, calls = _bf16_er(cuda, "k7", 16, 8, 32, 2, True)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         calls[0](*ins)
@@ -2292,3 +2370,186 @@ def test_nequip_hj_bf16_counts_its_launches(cuda, monkeypatch):
         assert _launched(counts) == {want: (2, 2)}
     fmax = float(forces[""].abs().max())
     assert float((forces["bf16"] - forces[""]).abs().max()) <= 1e-2 * fmax
+
+
+# ---------------------------------------------------------------------------
+# The matmul precision policy (ops/prec.py): the bf16x3 and one-pass builds
+# of the layer body (K1, K6, K7, K8), the glue's TF32 on cuBLAS
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ns,c,k", [(16, 8, 32), (64, 32, 64)])
+@pytest.mark.parametrize("first_v,last", FORMS)
+def test_policy_k1_builds_match_plain(cuda, ns, c, k, first_v, last):
+    """K1 under kernel_high (the bf16x3 build) and default (the one-pass
+    build) against the plain version at that mode, one launch each way of
+    that build, with the wrong-mode controls (chip_smoke.policy_compare)."""
+    from chip_smoke import K1_NAMES, policy_compare
+
+    w = _layer(cuda, ns, c)
+    ops = _operands(cuda, ns, c, k, 6, first_v, 1)
+    policy_compare("K1", f"{ns}/{c} K={k}",
+                   lambda *a: fl.fused_layer(*a, w, k, 5.0, first_v=first_v, last=last),
+                   lambda m: (lambda *a: fl.fused_layer_reference(*a, w, k, 1.0 / math.sqrt(5.0),
+                                                                  first_v, last, m)),
+                   ops, K1_NAMES, ("x'",) if last else ("x'", "V'"))
+
+
+@pytest.mark.parametrize("embed_prec", ["policy", "highest"])
+@pytest.mark.parametrize("ns,c,k,lmax", [(64, 32, 64, 2), (16, 8, 40, 1)])
+def test_policy_k6_builds_match_plain(cuda, ns, c, k, lmax, embed_prec, monkeypatch):
+    """K6's bf16x3 and one-pass builds, the prologue at the body's mode or
+    3xTF32 (PAT_EMBED_PREC=highest)."""
+    from chip_smoke import K6_NAMES, policy_compare
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+
+    monkeypatch.setenv("PAT_EMBED_PREC", embed_prec)
+    cfg, params = _er_case(cuda, ns, c, lmax, False)
+    ops = _er_operands(cuda, 2 * 2 + cfg.num_bessels, ns, c, k, 5, lmax, 3)
+    w = k6.k6_weights(params, lmax, True)
+    policy_compare("K6", f"{ns}/{c} K={k} l_max={lmax} PAT_EMBED_PREC={embed_prec}",
+                   lambda *a: k6.embed_layer(*a, w, k, 5.0),
+                   lambda m: (lambda *a: k6.embed_layer_reference(*a, w, k, 1.0 / math.sqrt(5.0),
+                                                                  mode=m)),
+                   [ops[key] for key in ("in", "Y", "u")], K6_NAMES, ("x'", "V'"))
+
+
+@pytest.mark.parametrize("charges", [False, True])
+@pytest.mark.parametrize("ns,c,k,lmax", [(64, 32, 64, 2), (16, 8, 40, 1)])
+def test_policy_k7_builds_match_plain(cuda, ns, c, k, lmax, charges):
+    """K7's bf16x3 and one-pass builds (the heads 3xTF32 in both)."""
+    from chip_smoke import K1_NAMES, policy_compare
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+
+    cfg, params = _er_case(cuda, ns, c, lmax, charges)
+    ops = _er_operands(cuda, 12, ns, c, k, 5, lmax, 4)
+    w = k7.k7_weights(params, lmax, True, charges)
+    policy_compare("K7", f"{ns}/{c} K={k} l_max={lmax} charges={charges}",
+                   lambda *a: k7.readout_layer(*a, w, k, 5.0),
+                   lambda m: (lambda *a: k7.readout_layer_reference(*a, w, k, 1.0 / math.sqrt(5.0),
+                                                                    mode=m)),
+                   [ops[key] for key in ("x", "V", "Y", "u")], K1_NAMES, ("e", "q"))
+
+
+@pytest.mark.parametrize("ns,c,lmax,layers,k", [(64, 32, 2, 3, 64), (16, 8, 1, 2, 24)])
+def test_policy_k8_builds_match_plain(cuda, ns, c, lmax, layers, k):
+    """K8's bf16x3 and one-pass builds against allegro_stack_reference at
+    the mode."""
+    from chip_smoke import K8_NAMES, policy_compare
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+
+    layers_, ops = _stack_case(cuda, ns, c, lmax, layers, k, 5)
+    args = (layers_, k, lmax, 5.0, True)
+    policy_compare("K8", f"{ns}/{c} l_max={lmax} {layers} layers K={k}",
+                   lambda *o: k8.fused_stack(*o, *args),
+                   lambda m: (lambda *o: k8.allegro_stack_reference(*o, *args, mode=m)),
+                   ops, K8_NAMES, ("x",))
+
+
+@pytest.mark.parametrize("ns,c,width,depth,lds,ring", WIDE_LAYOUTS)
+def test_policy_bf16x3_wide_layouts(cuda, ns, c, width, depth, lds, ring):
+    """The bf16x3 build at the wide latent MLPs of the f32 legs (tile stride
+    LDS_MIN with a ring too shallow for 16-row chunks, and without a ring):
+    its products read their weights without the ring there."""
+    from chip_smoke import K1_NAMES, policy_compare
+
+    w = _layer(cuda, ns, c, seed=11, allegro_mlp_hidden_layers_width=width,
+               allegro_mlp_hidden_layers_depth=depth)
+    ops = _operands(cuda, ns, c, 40, 5, False, 12)
+    policy_compare("K1", f"wide {width}x{depth}",
+                   lambda *a: fl.fused_layer(*a, w, 40, 5.0),
+                   lambda m: (lambda *a: fl.fused_layer_reference(*a, w, 40, 1.0 / math.sqrt(5.0),
+                                                                  False, False, m)),
+                   ops, K1_NAMES, ("x'", "V'"))
+
+
+@pytest.mark.parametrize("policy,build", [("highest", ""), ("mixed", ""),
+                                          ("kernel_high", "-bf16x3"), ("high", "-bf16x3"),
+                                          ("default", "-1pass")])
+@pytest.mark.parametrize("tier,env,want", [
+    ({}, {}, {"K1": 3}), ({}, {"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1}),
+    (dict(fused_stack=True), {}, {"K8": 1})])
+def test_policy_routes_count_their_builds(cuda, policy, build, tier, env, want, monkeypatch):
+    """A force evaluation of the flagship-width model under each policy
+    launches the policy's build of each kernel of its tier and no other,
+    and its forces match the CPU path under the same policy: within the
+    model gate 5e-4 where the card's glue is exact f32 ('highest',
+    'kernel_high'), within 5e-2 where it takes TF32 (the CPU's does not;
+    an H100 read 1.2e-2 eV/A)."""
+    from chip_smoke import kernel_modules
+    from pair_allegro_tpu_torch.ops.prec import matmul_precision
+
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    mods = kernel_modules()
+    forces = []
+    with matmul_precision(policy):
+        for dev in ("cuda", "cpu"):
+            cfg, params, system = _flagship(dev, **tier)
+            eng = AllegroEngine(cfg, params, system, device=dev)
+            nb = eng.rebuild_fn(system, None)
+            for m in mods.values():
+                m.launches.reset()
+            forces.append(eng.force_fn(system, nb).forces.cpu())
+            if dev == "cuda":
+                launched = {n: (m.launches.fwd, m.launches.bwd) for n, m in mods.items()
+                            if m.launches.fwd or m.launches.bwd}
+    assert launched == {name + build: (n, n) for name, n in want.items()}
+    gate = 5e-4 if policy in ("highest", "kernel_high") else 5e-2
+    assert float((forces[0] - forces[1]).abs().max()) < gate
+
+
+def test_policy_glue_follows_the_policy(cuda):
+    """The glue on cuBLAS: TF32-size error forward and backward under
+    'high' (the backward runs inside make_potential's scope), f32 under
+    'highest' and after the context, exact_mm exact (chip_smoke.glue_leg)."""
+    from chip_smoke import glue_leg
+
+    flag = torch.backends.cuda.matmul.allow_tf32
+    glue_leg()
+    assert torch.backends.cuda.matmul.allow_tf32 == flag
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k6", "k7", "k8"])
+def test_policy_packed_weights_follow_in_place_updates(cuda, kernel):
+    """The bf16x3 build's packed weights (``packed_x3``) are remade when a
+    leaf changes in place: after an update the build matches the plain
+    version on the new weights."""
+    from chip_smoke import K1_NAMES, K6_NAMES, K8_NAMES, policy_compare
+    from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import fused_stack as k8
+    from pair_allegro_tpu_torch.ops import readout_layer as k7
+    from pair_allegro_tpu_torch.ops.prec import matmul_precision
+
+    cfg, params = _er_case(cuda, 16, 8, 2, True)
+    ops = _er_operands(cuda, 12, 16, 8, 24, 4, 2, 5)
+    inv = 1.0 / math.sqrt(5.0)
+    if kernel == "k1":
+        def w():
+            return fl.k1_weights(params["layers"][0], 2, True)
+        fn = (lambda *a: fl.fused_layer(*a, w(), 24, 5.0))
+        ref = (lambda m: (lambda *a: fl.fused_layer_reference(*a, w(), 24, inv, False, False, m)))
+        args, names, outs = [ops[key] for key in ("x", "V", "Y", "u")], K1_NAMES, ("x'", "V'")
+    elif kernel == "k6":
+        fn = (lambda *a: k6.embed_layer(*a, k6.k6_weights(params, 2, True), 24, 5.0))
+        ref = (lambda m: (lambda *a: k6.embed_layer_reference(
+            *a, k6.k6_weights(params, 2, True), 24, inv, mode=m)))
+        args, names, outs = [ops[key] for key in ("in", "Y", "u")], K6_NAMES, ("x'", "V'")
+    elif kernel == "k7":
+        fn = (lambda *a: k7.readout_layer(*a, k7.k7_weights(params, 2, True, True), 24, 5.0))
+        ref = (lambda m: (lambda *a: k7.readout_layer_reference(
+            *a, k7.k7_weights(params, 2, True, True), 24, inv, mode=m)))
+        args, names, outs = [ops[key] for key in ("x", "V", "Y", "u")], K1_NAMES, ("e", "q")
+    else:
+        fn = (lambda *o: k8.fused_stack(*o, params["layers"], 24, 2, 5.0, True))
+        ref = (lambda m: (lambda *o: k8.allegro_stack_reference(*o, params["layers"], 24, 2, 5.0,
+                                                                 True, mode=m)))
+        args = [ops["x"], ops["V"][0], ops["Y"], ops["u"]]
+        names, outs = K8_NAMES, ("x",)
+    with matmul_precision("kernel_high"):
+        fn(*args)  # caches the bf16x3 layouts
+    with torch.no_grad():
+        for leaf in (params["layers"][0]["env_weight"], params["readout_mlp"]["w"][0],
+                     params["two_body_mlp"]["w"][0], params["layers"][-1]["mix"]["l0"]):
+            leaf.mul_(1.5)
+    policy_compare(kernel.upper(), "after an in-place update", fn, ref, args, names, outs)

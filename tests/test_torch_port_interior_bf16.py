@@ -25,6 +25,7 @@ against the JAX package on the CPU, at f32 positions.
   held to JAX in tests/test_torch_port_embed_stack_bf16.py."""
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -184,7 +185,13 @@ def test_k1_plain_matches_jax_kernel_interpret_bf16(first_v, last, monkeypatch):
             for a, b in zip(t_out, j_out)]
     g_t = torch.autograd.grad(t_out, tin, [torch.tensor(c).to(torch.bfloat16) for c in cots])
     gerrs = [_rel_err(a.float().numpy(), np.asarray(b, np.float32)) for a, b in zip(g_t, g_j)]
-    print(f"K1 bf16 first_v={first_v} last={last}: fwd {errs}, bwd {gerrs}")
+    # before the K1 body rounded its constants as JAX's weak typing does: f32 constants
+    old = fl.fused_layer_reference(*[t.detach() for t in tin], w, K, 1.0 / math.sqrt(AVG),
+                                   first_v, last, None, torch.float32)
+    old_errs = [_rel_err(a.float().numpy(), np.asarray(b, np.float32))
+                for a, b in zip((old,) if last else old, j_out)]
+    print(f"K1 bf16 first_v={first_v} last={last}: fwd {errs}, bwd {gerrs}; fwd with f32 "
+          f"constants (before) {old_errs}")
     assert all(t.dtype == torch.bfloat16 for t in (*t_out, *g_t))
     assert max(errs) <= KERNEL_TOLS[0] and max(gerrs) <= KERNEL_TOLS[1]
 

@@ -59,5 +59,5 @@ def test_every_port_module_is_scanned():
                  "ops.fused_stack", "checkpoint", "cli", "computes", "calculator", "debug",
                  "io.config", "io.dump", "io.extxyz", "io.lammps_data", "ops.remat", "train",
                  "data", "import_torch", "native", "compile_cache", "parallel", "parallel.mesh",
-                 "parallel.sharded", "parallel.halo", "tree"):
+                 "parallel.sharded", "parallel.halo", "tree", "ops.prec"):
         assert f"pair_allegro_tpu_torch.{name}" in mods

@@ -466,7 +466,7 @@ def test_k2_k4_products_are_on_the_tensor_cores():
     mma = SRC["allegro_mma.cuh"]
     dispatch = {"prod<Act>": re.search(r"void prod\(.*?\n}\n", mma, re.S).group(0),
                 "stage<Act>": re.search(r"void stage\(.*?\n}\n", mma, re.S).group(0)}
-    assert "mma_tile<TW, O, IS_BF16<Act>>(" in dispatch["prod<Act>"]
+    assert "mma_tile<TW, O, ACT_FORM<Act>>(" in dispatch["prod<Act>"]
     assert "mma_stage(" in dispatch["stage<Act>"]
     for name, tp in (("env_layer.cu", ("tp_row_reg(", "tp_row_bwd(")),
                      ("tp_mix_fused.cu", ("tp_row_reg_edges<", "tp_row_bwd_edges<"))):
