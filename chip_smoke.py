@@ -10,9 +10,10 @@ Phases, each of which must pass (any failure exits non-zero):
      builds of K1, K2 (csrc/fused_layer_bf16.cu, csrc/env_layer_bf16.cu),
      K3 (csrc/nequip_conv_bf16.cu, a bf16 hj), K6 / K7
      (csrc/embed_readout_layer_bf16.cu) and K8 (csrc/fused_stack_bf16.cu),
-     and the bf16x3 and one-pass builds of K1, K6 / K7 and K8 on f32
-     operands (csrc/*_bf16x3.cu, csrc/*_onepass.cu: the precision policy's
-     kernel_high / high and default modes), with nvcc for sm_90a, as many
+     and the bf16x3 and one-pass builds of K1, K6 / K7, K8, K2, K4 and K3
+     (K3 with an f32 and a bf16 hj) on f32 operands (csrc/*_bf16x3.cu,
+     csrc/*_onepass.cu: the precision policy's kernel_high / high and
+     default modes), with nvcc for sm_90a, as many
      at once as the host has cores, K1's first; phases 2-14 start once
      K1's is built, each other library loads at its first use, and every
      build's ptxas report prints after phase 14;
@@ -184,7 +185,10 @@ Phases, each of which must pass (any failure exits non-zero):
      every other phase runs under 'highest': the 3xTF32 builds and exact
      f32 glue): the bf16x3 and one-pass builds of K1 (three forms), K6
      (also under PAT_EMBED_PREC=highest), K7 (charge head) and K8 (3
-     layers) on the 500-atom table, each under its policy (kernel_high,
+     layers) on the 500-atom table, K2 (the per-layer tier's second layer)
+     and K3 (f32 and bf16 hj) there at l_max 2 and 1, and K4 on a
+     256-atom dense build at l_max 2 and 1 (all edges and a tail that is no
+     multiple of any edge tile), each under its policy (kernel_high,
      default) against its plain version at its mode (prec.kmm), forward
      and backward, one launch each way of that build and no other; the
      bf16x3 builds within TOLS and reproducing 0.75-1.25 of the bf16x3
@@ -194,14 +198,18 @@ Phases, each of which must pass (any failure exits non-zero):
      TOLS on the 3xTF32 plain version; the glue leg (a make_potential
      evaluation on cuBLAS: TF32-size error forward and backward under
      'high', f32 under 'highest' and after the context, exact_mm exact);
-     the K1, embed and stack main paths under kernel_high (the default
-     policy: 3 + 3 K1-bf16x3; 1 K6-bf16x3, 1 K1-bf16x3, 1 K7-bf16x3; 1 + 1
-     K8-bf16x3 launches per force evaluation and no other kernel) and under
-     default (the one-pass builds), 60 + 60 steps each, steps/s beside
-     phases 5, 12 and 14's under 'highest'; the new builds' timings and
-     parity at those paths' shapes (bounds: three bf16 passes at 989
-     TFLOP/s for bf16x3, one for one-pass).  Phase 15 runs its tiers under
-     'highest' and 'kernel_high', gated at 1e-4 eV/A, and one tier each
+     the K1, embed, stack, per-layer (K2), FLAT slab (K4), NequIP (K3) and
+     NequIP bf16-hj main paths under kernel_high (the default policy: 3 + 3
+     K1-bf16x3; 1 K6-bf16x3, 1 K1-bf16x3, 1 K7-bf16x3; 1 + 1 K8-bf16x3;
+     3 + 3 K2-bf16x3, K4-bf16x3, K3-bf16x3, K3hj-bf16x3 launches per force
+     evaluation and no other kernel) and under default (the one-pass
+     builds), 60 + 60 steps each, steps/s beside phases 5, 6, 8, 10, 12
+     and 14's (and 20's bf16-hj path) under 'highest'; the new builds'
+     timings and parity at those paths' shapes (K2, K4 and K3 beside their
+     3xTF32 builds timed alternately in the same call; bounds: three bf16
+     passes at 989 TFLOP/s for bf16x3, one for one-pass).  Phase 15 runs
+     its tiers under 'highest' and 'kernel_high' (the K1, K2, K3, K4, K6,
+     K7 and K8 launches the policy's builds), gated at 1e-4 eV/A, and one tier each
      under 'mixed', 'high' and 'default' (every tier with --policy), within
      the largest gate of the fast bf16 tiers (twice their CPU paths'
      distance).
@@ -230,8 +238,8 @@ K4 timings, ``--timings nequip`` only phase 7's K3 timings, each at its
 main paths' shapes (the engines' first neighbor build, no MD run): run
 from two checkouts in one call, it compares two builds of those kernels.
 ``--scale`` runs phase 5 and phase 17 alone, ``--train`` phase 18 alone, ``--sharded``
-phase 19 alone, ``--policy`` phases 5, 12 and 14's main paths, then 21 and
-15 (the precision policy); ``--profile scale`` prints
+phase 19 alone, ``--policy`` phase 21 (with the 'highest' runs of its
+paths) and 15 (the precision policy); ``--profile scale`` prints
 where one steady 1,000,188-atom force evaluation's device time goes;
 ``--profile allegro-chunked`` profiles phase 5's step in 4 windows;
 ``--k3-spread [n]`` prints K3's backward error (and the plain f32
@@ -681,19 +689,29 @@ PATHS = {
     # at interior="bf16"
     "embed-bf16": ("allegro", dict(interior="bf16"), "K6-bf16", 60, False, {"PAT_L1_EMBED": "1"}),
     "stack-bf16": ("allegro", dict(fused_stack=True, interior="bf16"), "K8-bf16", 60, False, {}),
-    # phase 21: the K1, embed and stack paths under the precision policies
-    # kernel_high (the default: the bf16x3 builds) and default (the
-    # one-pass builds), run under POLICY_PATHS' policy
-    **{f"{path}-{b}": (m, tier, f"{kern}-{b}", 60, False, env)
-       for path, (m, tier, kern, _, _, env) in (
-           ("allegro", ("allegro", {}, "K1", 0, 0, {})),
-           ("embed", ("allegro", {}, "K6", 0, 0, {"PAT_L1_EMBED": "1"})),
-           ("stack", ("allegro", dict(fused_stack=True), "K8", 0, 0, {})))
+    # phase 21: the K1, embed, stack, per-layer, FLAT slab, NequIP and
+    # NequIP bf16-hj paths under the precision policies kernel_high (the
+    # default: the bf16x3 builds) and default (the one-pass builds), run
+    # under POLICY_PATHS' policy
+    **{f"{path}-{b}": (m, tier, f"{kern}-{b}", 60, slab, env)
+       for path, (m, tier, kern, slab, env) in (
+           ("allegro", ("allegro", {}, "K1", False, {})),
+           ("embed", ("allegro", {}, "K6", False, {"PAT_L1_EMBED": "1"})),
+           ("stack", ("allegro", dict(fused_stack=True), "K8", False, {})),
+           ("perlayer", ("allegro", dict(layer_fused=False), "K2", False, {})),
+           ("flat", ("allegro", {}, "K4", True, {})),
+           ("nequip", ("nequip", {}, "K3", False, {})),
+           ("nequip-hj", ("nequip", {}, "K3hj", False, {"PAT_NEQUIP_HJ": "bf16"})))
        for b in ("bf16x3", "1pass")},
 }
+# phase 21's paths, each with its 'highest' path (whose steps/s it prints
+# beside its own) and the kernel whose builds it times
+POLICY_BASE = {"allegro": ("allegro", "K1"), "embed": ("embed", "K6"), "stack": ("stack", "K8"),
+               "perlayer": ("perlayer", "K2"), "flat": ("flat", "K4"),
+               "nequip": ("nequip", "K3"), "nequip-hj": ("nequip-hj-bf16", "K3hj")}
 # the policy each phase-21 path runs under (the others: the script's,
 # "highest")
-POLICY_PATHS = {f"{path}-{b}": pol for path in ("allegro", "embed", "stack")
+POLICY_PATHS = {f"{path}-{b}": pol for path in POLICY_BASE
                 for b, pol in (("bf16x3", "kernel_high"), ("1pass", "default"))}
 # the paths that run the million-atom mode's windows: rows per window
 ROW_CHUNK = {"allegro-chunked": 1331}
@@ -734,8 +752,10 @@ def kernel_modules():
     """{kernel id: its wrapper module}, each with ``launches`` and ``LIB``;
     the bf16 builds as 'K1-bf16', 'K2-bf16', 'K3-bf16', 'K6-bf16',
     'K7-bf16' and 'K8-bf16' (K6's and K7's in one library); the f32 builds
-    of the layer body's other product modes (phase 21) as 'K1-bf16x3',
-    'K1-1pass', and so on for K6, K7 and K8."""
+    of the policy's other product modes (phase 21) as 'K1-bf16x3',
+    'K1-1pass', and so on for K6, K7, K8, K2, K4 and K3, and K3's with a
+    bf16 hj as 'K3hj-bf16x3' and 'K3hj-1pass' (its 3xTF32 one is
+    'K3-bf16')."""
     from pair_allegro_tpu_torch.ops import (
         embed_layer,
         env_layer,
@@ -760,7 +780,13 @@ def kernel_modules():
                for name, mod, lib_of in (("K1", fused_layer, fused_layer),
                                          ("K6", embed_layer, embed_layer),
                                          ("K7", readout_layer, embed_layer),
-                                         ("K8", fused_stack, fused_stack))
+                                         ("K8", fused_stack, fused_stack),
+                                         ("K2", env_layer, env_layer),
+                                         ("K4", tp_mix_fused, tp_mix_fused),
+                                         ("K3", nequip_conv, nequip_conv))
+               for b, attr in (("bf16x3", "bf16x3"), ("1pass", "onepass"))},
+            **{f"K3hj-{b}": SimpleNamespace(launches=getattr(nequip_conv, f"launches_bf16_{attr}"),
+                                            LIB=getattr(nequip_conv, f"LIB_BF16_{attr.upper()}"))
                for b, attr in (("bf16x3", "bf16x3"), ("1pass", "onepass"))}}
 
 
@@ -2158,8 +2184,8 @@ def accuracy_phase(every_tier=False):
     fixture: each tier of ACCURACY_TIERS at f32 on the card against the
     port's plain path of the same model at f64 on the CPU (the oracle,
     which matches JAX to 1e-10 in the CPU tests), under each matmul
-    precision policy (the K1 / K6 / K7 / K8 launches are the policy's
-    builds): under 'highest' and 'kernel_high' max|dF| <= 1e-4 eV/A on every
+    precision policy (every launch but K5's is the policy's build):
+    under 'highest' and 'kernel_high' max|dF| <= 1e-4 eV/A on every
     tier, under 'mixed', 'high' and 'default' (on GLUE_POLICY_TIERS' tier
     unless ``every_tier``) within the bf16 model gate (the largest of the
     fast bf16 tiers' gates below, each twice its CPU path's distance), with
@@ -2214,7 +2240,7 @@ def accuracy_phase(every_tier=False):
             for label, model, tier, env, want, gated, slab in ACCURACY_TIERS:
                 if not (exact or every_tier or GLUE_POLICY_TIERS[pol] == label):
                     continue
-                want = {(k + b if k in ("K1", "K6", "K7", "K8") else k): v for k, v in want.items()}
+                want = {(k if k == "K5" else k + b): v for k, v in want.items()}
                 f_ref, e_ref, strategy = refs[model, slab]
                 with env_vars(env):
                     system, eng = _accuracy_engine(model, tier, "cuda", torch.float32, slab)
@@ -4333,10 +4359,16 @@ POLICIES = ("highest", "mixed", "kernel_high", "high", "default")
 
 
 def mode_share(got, ref, base):
-    """<got - base, ref - base> / |ref - base|^2 over every output: the
-    share of ``ref``'s departure from ``base`` that ``got`` reproduces."""
+    """<got - base, ref - base> / |ref - base|^2 over every f32 output:
+    the share of ``ref``'s departure from ``base`` that ``got`` reproduces.
+    A bf16 output (K3's dhj with a bf16 hj) is left out: both sides round
+    it to bf16, and its one-ulp flips would outweigh the mode's departure."""
+    import torch
+
     num = den = 0.0
     for a, b, c in zip(got, ref, base):
+        if b.dtype == torch.bfloat16:
+            continue
         d = b.detach().double() - c.detach().double()
         num += float(((a.detach().double() - c.detach().double()) * d).sum())
         den += float((d * d).sum())
@@ -4355,20 +4387,38 @@ def must_fail(kernel, label, kind, got, ref, tols):
     return worst
 
 
-def policy_compare(kernel, label, fn, ref, ops, names, outs):
+def mode_check(tag, label, kind, names, got, want, tols):
+    """``check`` of each output at ``tols``, a bf16 output (K3's dhj with a
+    bf16 hj, rounded to bf16 on both sides: a one-ulp flip of an element
+    near max exceeds the f32 gates) at BF16_TOLS."""
+    import torch
+
+    return max(check(tag, label, kind, (nm,), (a,), (b,),
+                     BF16_TOLS[kind] if b.dtype == torch.bfloat16 else tols)
+               for nm, a, b in zip(names, got, want))
+
+
+# the builds K3 with a bf16 hj launches in each mode
+K3HJ_IDS = {"tf32x3": "K3-bf16", "bf16x3": "K3hj-bf16x3", "bf16": "K3hj-1pass"}
+
+
+def policy_compare(kernel, label, fn, ref, ops, names, outs, ids=None):
     """Phase 21: a kernel's wrapper ``fn`` under each mode's policy against
     its plain version ``ref(mode)`` at that mode, forward and backward
     (seeded cotangents), with exactly one launch each way of the mode's
-    build; the bf16x3 build within TOLS, the one-pass build within
-    MODE_TOLS, each build's share of its mode's departure within
-    SHARE_GATE; the controls: the 3xTF32 build's share outside SHARE_GATE, the one-pass
-    build beyond the bf16x3 gate and beyond TOLS against the 3xTF32 plain
-    version.  Returns {mode: {"fwd": err, "bwd": err, "share": (f, b)}}."""
+    build (``ids[mode]``, by default ``kernel`` and the mode's suffix); the
+    bf16x3 build within TOLS, the one-pass build within MODE_TOLS (a bf16
+    output within BF16_TOLS: ``mode_check``), each build's share of its
+    mode's departure within SHARE_GATE; the controls: the 3xTF32 build's
+    share outside SHARE_GATE, the one-pass build beyond the bf16x3 gate and
+    beyond TOLS against the 3xTF32 plain version.  Returns {mode: {"fwd":
+    err, "bwd": err, "share": (f, b)}}."""
     import torch
 
     from pair_allegro_tpu_torch.ops.prec import matmul_precision
 
     mods = kernel_modules()
+    ids = ids or {mode: kernel + b for mode, (_, b, _) in MODES.items()}
     res, cots = {}, None
     for mode, (pol, b, _) in MODES.items():
         ins = [t.detach().clone().requires_grad_(True) for t in ops]
@@ -4382,9 +4432,9 @@ def policy_compare(kernel, label, fn, ref, ops, names, outs):
         torch.cuda.synchronize()
         grew = {n: (m.launches.fwd - before[n][0], m.launches.bwd - before[n][1])
                 for n, m in mods.items() if (m.launches.fwd, m.launches.bwd) != before[n]}
-        if grew != {kernel + b: (1, 1)}:
+        if grew != {ids[mode]: (1, 1)}:
             raise RuntimeError(f"{kernel} {label} under {pol}: launched {grew}, want "
-                               f"{{{kernel + b!r}: (1, 1)}}")
+                               f"{{{ids[mode]!r}: (1, 1)}}")
         refs = [t.detach().clone().requires_grad_(True) for t in ops]
         out_r = _tup(ref(mode)(*refs))
         g_r = torch.autograd.grad(out_r, refs, cots)
@@ -4393,8 +4443,8 @@ def policy_compare(kernel, label, fn, ref, ops, names, outs):
     base = res["tf32x3"][1]
     for mode in ("bf16x3", "bf16"):
         (out_k, g_k), (out_r, g_r) = res[mode]
-        tag = kernel + MODES[mode][1]
-        errs[mode] = {kind: check(tag, label, kind, nm, got, want, MODE_TOLS[mode][kind])
+        tag = ids[mode]
+        errs[mode] = {kind: mode_check(tag, label, kind, nm, got, want, MODE_TOLS[mode][kind])
                       for kind, nm, got, want in (("fwd", outs, out_k, out_r),
                                                   ("bwd", names, g_k, g_r))}
         shares = tuple(mode_share(got, want, b0) for got, want, b0 in
@@ -4426,13 +4476,22 @@ def policy_parity():
     """Phase 21's kernel legs on the 500-atom table at flagship widths
     (``policy_compare``): K1 in its three forms, K6, K7 with the charge head
     and K8 (3 layers), and K6 under PAT_EMBED_PREC=highest (its prologue
-    3xTF32 in the bf16x3 and one-pass builds).  Returns {kernel id: {"fwd":
-    err, "bwd": err}} of each build."""
-    from pair_allegro_tpu_torch.engine import AllegroEngine
+    3xTF32 in the bf16x3 and one-pass builds); K2 (the per-layer tier's
+    second layer) and K3 with an f32 and a bf16 hj (the NequIP path's first
+    layer) on the 500-atom table, and K4 (the second layer) on a 256-atom
+    dense build, all edges and a tail that is no multiple of any edge tile,
+    each at l_max 2 and 1.  Returns {kernel id: {"fwd": err, "bwd": err}} of
+    each build."""
+    import torch
+
+    from pair_allegro_tpu_torch.engine import AllegroEngine, NequIPEngine
     from pair_allegro_tpu_torch.ops import embed_layer as k6
+    from pair_allegro_tpu_torch.ops import env_layer as k2
     from pair_allegro_tpu_torch.ops import fused_layer as fl
     from pair_allegro_tpu_torch.ops import fused_stack as k8
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
     from pair_allegro_tpu_torch.ops import readout_layer as k7
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
 
     errs = {}
 
@@ -4476,6 +4535,38 @@ def policy_parity():
         "K8", f"{cfg.num_layers} layers 500 atoms K={k}", lambda *o: k8.fused_stack(*o, *args),
         lambda m: (lambda *o: k8.allegro_stack_reference(*o, *args, mode=m)),
         ops8, K8_NAMES, ("x",)))
+    for lmax in (2, 1):
+        cfg, params, system = make_case(5, None, l_max=lmax)
+        ops2, k = env_operands(cfg, params, system, AllegroEngine(cfg, params, system))
+        w2 = k2.k2_weights(params["layers"][1]["mix"], cfg.l_max, cfg.parity)
+        avg = cfg.avg_num_neighbors
+        keep("K2", policy_compare(
+            "K2", f"l_max={lmax} 500 atoms K={k}", lambda *a: k2.env_layer(*a, w2, k, avg),
+            lambda m: (lambda *a: k2.env_layer_reference(*a, w2, k, 1.0 / math.sqrt(avg), m)),
+            ops2, K2_NAMES, ("V'", "inv")))
+        cfg, params, system = make_case(4, None, l_max=lmax)
+        (V, env), w4 = k4_operands(cfg, params, system, AllegroEngine(cfg, params, system))
+        e = V.shape[-1]
+        cut = e - 13 if (e - 13) % 8 else e - 14
+        for lab, ops4 in ((f"E={e}", (V, env)),
+                          (f"tail E={cut}", (V[..., :cut].contiguous(),
+                                             env[..., :cut].contiguous()))):
+            keep("K4", policy_compare(
+                "K4", f"l_max={lmax} 256 atoms dense {lab}", lambda *a: k4.tp_mix_fused_t(*a, w4),
+                lambda m: (lambda *a: k4.tp_mix_fused_reference(*a, w4, m)),
+                ops4, K4_NAMES, ("V'", "inv")))
+        cfg, params, system = make_nequip_case(5, None, l_max=lmax)
+        ops3, w3, k = k3_operands(cfg, params, system, NequIPEngine(cfg, params, system))
+        avg = cfg.avg_num_neighbors
+        for hj, kid, ids in ((torch.float32, "K3", None), (torch.bfloat16, "K3hj", K3HJ_IDS)):
+            keep(kid, policy_compare(
+                "K3", f"{'bf16' if ids else 'f32'} hj l_max={lmax} T={w3.n_tracks} 500 atoms "
+                f"K={k}", lambda *a: k3.nequip_conv(*a, w3, k, avg),
+                lambda m: (lambda *a: k3.nequip_conv_reference(*a, w3, k, 1.0 / math.sqrt(avg),
+                                                               m)),
+                (ops3[0].to(hj), *ops3[1:]), K3_NAMES, ("agg",), ids))
+        del ops2, ops3, V, env
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -4558,15 +4649,126 @@ def glue_leg():
     return errs
 
 
+def policy_timings(kid, cfg, params, system, eng, mode, errs):
+    """Phase 21's timings of K2, K4, K3 or K3hj (K3 with a bf16 hj) at the
+    main path's shapes (CUDA events, warm): fwd / bwd ms of the build of
+    ``mode`` and of the 3xTF32 build, timed alternately in this call, the
+    plain version's at ``mode``, and the bound with the products at the
+    mode's rate; the build held against the plain version there
+    (MODE_TOLS; a bf16 dhj at BF16_TOLS), into ``errs``.  Returns {kind:
+    row}, each row with ``ms_tf32x3`` beside ``ms``."""
+    import torch
+
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+    from pair_allegro_tpu_torch.ops import nequip_conv as k3
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    gen = torch.Generator(device=system.device).manual_seed(SEED)
+    rate = MODES[mode][2]
+    tag = K3HJ_IDS[mode] if kid == "K3hj" else kid + MODES[mode][1]
+    inv_avg = 1.0 / math.sqrt(cfg.avg_num_neighbors)
+    if kid == "K2":
+        ops, k = env_operands(cfg, params, system, eng)
+        w = k2.k2_weights(params["layers"][1]["mix"], cfg.l_max, cfg.parity)
+        e, names, outs = ops[0].shape[-1], K2_NAMES, ("V'", "inv")
+
+        def fwd(m):
+            return k2._kernel_fwd(*ops, w, k, inv_avg, m)
+
+        def bwd(m):
+            return k2._kernel_bwd(*ops, w, k, inv_avg, *cots, m)
+
+        def plain(*a):
+            return k2.env_layer_reference(*a, w, k, inv_avg, mode)
+
+        def cost(b):
+            flops, nbytes = k2_cost(w, e, b)
+            _, _, ring = k2.block_layout(w.c, w.cout, ops[0].shape[0], w.lmax, w.parity, b)
+            return flops, mix_products(w) * e, nbytes, mix_weight_bytes(w, b, n_tiles(e, k), ring)
+    elif kid == "K4":
+        ops, w = k4_operands(cfg, params, system, eng)
+        e, names, outs = ops[0].shape[-1], K4_NAMES, ("V'", "inv")
+
+        def fwd(m):
+            return k4._kernel_fwd(*ops, w, m)
+
+        def bwd(m):
+            return k4._kernel_bwd(*ops, w, *cots, m)
+
+        def plain(*a):
+            return k4.tp_mix_fused_reference(*a, w, mode)
+
+        def cost(b):
+            flops, nbytes = k4_cost(w, e, b)
+            _, tile, ring = k4.block_layout(w.c, w.cout, ops[0].shape[0], w.lmax, w.parity, b)
+            return flops, mix_products(w) * e, nbytes, mix_weight_bytes(w, b, -(-e // tile), ring)
+    else:
+        ops, w, k = k3_operands(cfg, params, system, eng)
+        hj_bf16 = kid == "K3hj"
+        ops = (ops[0].to(torch.bfloat16), *ops[1:]) if hj_bf16 else ops
+        e, names, outs = ops[0].shape[0], K3_NAMES, ("agg",)
+        df = ops[0].shape[1]
+
+        def fwd(m):
+            return k3._kernel_fwd(*ops, w, k, inv_avg, m)
+
+        def bwd(m):
+            return k3._kernel_bwd(*ops, w, k, inv_avg, *cots, m)
+
+        def plain(*a):
+            return k3.nequip_conv_reference(*a, w, k, inv_avg, mode)
+
+        def cost(b):
+            flops, prod, nbytes = k3_cost(w, e, k, b)
+            if hj_bf16:
+                nbytes -= 2 * df * e * (2 if b else 1)  # hj (and dhj) at 2 bytes
+            return flops, prod, nbytes, k3_weight_bytes(w, e, k, b)
+    out = _tup(fwd(mode))
+    cots = [torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype) for o in out]
+    got = (out, bwd(mode))
+    ms = {}
+    for kind, call in (("fwd", fwd), ("bwd", bwd)):
+        runs = {m: [] for m in (mode, "tf32x3")}
+        for _ in range(2):  # the mode's build and the 3xTF32 one, alternately
+            for m in runs:
+                runs[m].append(cuda_ms(lambda: call(m), 5))
+        ms[kind] = {m: sum(r) / len(r) for m, r in runs.items()}
+    with torch.no_grad():
+        p_f = cuda_ms(lambda: plain(*ops), 2)
+    ins = [t.detach().clone().requires_grad_(True) for t in ops]
+    ref = _tup(plain(*ins))
+    p_b = cuda_ms(lambda: torch.autograd.grad(ref, ins, cots, retain_graph=True), 2)
+    want = (ref, torch.autograd.grad(ref, ins, cots))
+    torch.cuda.synchronize()
+    label = f"main path E={e}"
+    for i, (kind, nm) in enumerate((("fwd", outs), ("bwd", names))):
+        errs[kind] = max(errs[kind], mode_check(tag, label, kind, nm, got[i], want[i],
+                                                MODE_TOLS[mode][kind]))
+    del ins, ref, want, got, out
+    torch.cuda.empty_cache()
+    res = {}
+    for kind, pms in (("fwd", p_f), ("bwd", p_b)):
+        flops, prod, nbytes, staged = cost(kind == "bwd")
+        res[kind] = dict(timing(ms[kind][mode], pms, flops, prod, nbytes, staged, rate),
+                         ms_tf32x3=ms[kind]["tf32x3"])
+        print_timing(f"{tag} {kind} E={e}", res[kind])
+        print(f"{tag} {kind} E={e}: {ms[kind][mode]:.4f} ms against the 3xTF32 build's "
+              f"{ms[kind]['tf32x3']:.4f} ms in this call "
+              f"({ms[kind][mode] / ms[kind]['tf32x3']:.3f}x)")
+    return res
+
+
 def policy_phase(card):
     """Phase 21: the matmul precision policy.  The bf16x3 and one-pass
-    builds of K1, K6, K7 and K8 against their plain versions at each mode
-    with the wrong-mode controls (``policy_parity``); the glue leg
-    (``glue_leg``); the K1, embed and stack main paths under kernel_high
-    (the default: the bf16x3 builds, exact launch counts) and default (the
-    one-pass builds), their steps/s beside phase 5's, 12's and 14's under
-    highest; the new builds' timings at those paths' shapes (bounds at the
-    mode's product rate).  Returns (errs, times, counts)."""
+    builds of K1, K6, K7, K8, K2, K4 and K3 against their plain versions at
+    each mode with the wrong-mode controls (``policy_parity``); the glue leg
+    (``glue_leg``); the K1, embed, stack, per-layer, FLAT, NequIP and
+    NequIP bf16-hj main paths under kernel_high (the default: the bf16x3
+    builds, exact launch counts) and default (the one-pass builds), their
+    steps/s beside the same paths' under highest (POLICY_BASE); the new
+    builds' timings at those paths' shapes (bounds at the mode's product
+    rate; K2, K4 and K3 beside their 3xTF32 builds in this call).  Returns
+    (errs, times, counts, glue)."""
     import torch
 
     from pair_allegro_tpu_torch.ops.prec import matmul_precision
@@ -4574,7 +4776,10 @@ def policy_phase(card):
     errs = policy_parity()
     glue = glue_leg()
     times, counts = {}, {}
-    for path, f32_path in (("allegro", "allegro"), ("embed", "embed"), ("stack", "stack")):
+    for path, (f32_path, kid) in POLICY_BASE.items():
+        if f32_path not in STEPS_PER_S:  # its 'highest' run, where no earlier phase made it
+            main_path(f32_path)
+            torch.cuda.empty_cache()
         for mode in ("bf16x3", "bf16"):
             pol, b, rate = MODES[mode]
             name = f"{path}-{b[1:]}"
@@ -4586,27 +4791,28 @@ def policy_phase(card):
                   f"under highest in this run "
                   f"({STEPS_PER_S[name] / STEPS_PER_S.get(f32_path, float('nan')):.3f}x); peak "
                   f"{PEAK_GIB[name]:.2f} GiB against {PEAK_GIB.get(f32_path, float('nan')):.2f}")
+            tag = K3HJ_IDS[mode] if kid == "K3hj" else kid + b
             with env_vars(PATHS[name][5]), matmul_precision(pol):
                 zero = {"fwd": 0.0, "bwd": 0.0}
                 tols = MODE_TOLS[mode]
                 if path == "allegro":
-                    times["K1" + b] = k1_timings(cfg, params, system, eng, errs["K1" + b], rate,
-                                                 "K1" + b, tols)
+                    times[tag] = k1_timings(cfg, params, system, eng, errs[tag], rate, tag, tols)
                 elif path == "embed":
                     r, e = er_timings(cfg, params, system, eng,
                                       {"K6": errs["K6" + b], "K7": errs["K7" + b]}, rate, b, tols)
                     errs["K6" + b], errs["K7" + b] = e["K6"], e["K7"]
                     times["K6" + b] = {kind: r[("K6", kind)] for kind in ("fwd", "bwd")}
                     times["K7" + b] = {kind: r[("K7", kind)] for kind in ("fwd", "bwd")}
+                elif path == "stack":
+                    times[tag], errs[tag] = stack_timings(
+                        cfg, params, system, eng, dict(errs.get(tag, zero)), rate, tag, tols)
                 else:
-                    times["K8" + b], errs["K8" + b] = stack_timings(
-                        cfg, params, system, eng, dict(errs.get("K8" + b, zero)), rate, "K8" + b,
-                        tols)
+                    times[tag] = policy_timings(kid, cfg, params, system, eng, mode, errs[tag])
             del cfg, params, system, eng
             torch.cuda.empty_cache()
-    for path in ("allegro", "embed", "stack"):
+    for path, (f32_path, _) in POLICY_BASE.items():
         print(f"{path} steps/s by policy on {card}: highest "
-              f"{STEPS_PER_S.get(path, float('nan')):.4f}, kernel_high "
+              f"{STEPS_PER_S.get(f32_path, float('nan')):.4f}, kernel_high "
               f"{STEPS_PER_S[path + '-bf16x3']:.4f}, default {STEPS_PER_S[path + '-1pass']:.4f}")
     return errs, times, counts, glue
 
@@ -4753,9 +4959,7 @@ def main() -> int:
             lib.start()
         for lib in libs:
             lib.load()
-        for path in ("allegro", "embed", "stack"):  # the 'highest' steps/s beside phase 21's
-            main_path(path)
-        policy_phase(card)
+        policy_phase(card)  # runs each path's 'highest' run beside its own
         accuracy_phase(every_tier=True)
         return 0
     if sys.argv[1:2] == ["--k3-spread"]:
@@ -5041,6 +5245,27 @@ def main() -> int:
                 kind, errs21["K8" + b][kind], times21["K8" + b][kind], kid="K8" + b, per="call",
                 calls_per_force_evaluation=1, layers=scfg.num_layers,
             ))
+        # K2, K4 and K3 (f32 and bf16 hj): one call (one layer); num_layers
+        # calls per force evaluation; the 3xTF32 build's ms of this call beside
+        for kid, stem_k, src, lines, run, layers in (
+                ("K2", "k2_env_layer", "env_layer", ("pallas_stack.py", 803, 823),
+                 "perlayer", pcfg.num_layers),
+                ("K4", "k4_tp_mix_fused", "tp_mix_fused", ("pallas_tp.py", 117, 153), "flat",
+                 fcfg.num_layers),
+                ("K3", "k3_nequip_conv", "nequip_conv", ("pallas_nequip.py", 289, 401), "nequip",
+                 ncfg.num_layers),
+                ("K3hj", "k3_nequip_conv_bf16", "nequip_conv_bf16", ("pallas_nequip.py", 289, 401),
+                 "nequip-hj", ncfg.num_layers)):
+            tag = K3HJ_IDS["bf16x3" if b == "-bf16x3" else "bf16"] if kid == "K3hj" else kid + b
+            for kind, line in (("fwd", lines[1]), ("bwd", lines[2])):
+                kernels.append(kernel_entry(
+                    f"{stem_k}_{stem}_{kind}", f"pair_allegro_tpu_torch/csrc/{src}_{stem}.cu",
+                    f"pair_allegro_tpu/ops/{lines[0]}:{line}", counts21[path % run][tag], kind,
+                    errs21[tag][kind], times21[tag][kind], kid=tag, per="call",
+                    calls_per_force_evaluation=layers,
+                    ms_tf32x3=times21[tag][kind]["ms_tf32x3"],
+                    **({"dtype": "bf16 hj"} if kid == "K3hj" else {}),
+                ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -76,7 +76,7 @@ enum Form { PLAIN = 0, EMBED = 1, READOUT = 2, STACK = 3 };
 template <typename Act>
 constexpr int BODY = IS_BF16<Act> ? (int)BF16P : (int)K1_MMA;
 template <typename Act>
-constexpr int EXACT = ACT_FORM<Act>;
+constexpr int EXACT = IS_BF16<Act> ? (int)BF16P : (int)TF32X3;
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 

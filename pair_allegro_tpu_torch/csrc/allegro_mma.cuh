@@ -61,10 +61,11 @@
 // made as its fragments load.  Where the ring leaves less than 16 rows a
 // stage, the product reads its weights without the ring.
 //
-// The form is a template parameter (Mma): TF32X3, BF16P (one pass on
-// pair-packed words) or BF16X3.  prod / stage / resident pick TF32X3 or
-// BF16P from the activations' storage type (K2, K4); the layer body picks
-// its own form per product (allegro_layer.cuh).
+// The form is a template parameter (Mma, mma_ptx.cuh): TF32X3, BF16P (one
+// pass on pair-packed words) or BF16X3.  prod / stage / resident (K2, K4)
+// pick BF16P on bf16 activations and the build's MIX_MMA on f32 ones (the
+// precision policy's builds: env_layer_bf16x3.cu, tp_mix_fused_onepass.cu,
+// ...); the layer body picks its own form per product (allegro_layer.cuh).
 //
 // The PTX primitives (mma.sync, cvt.rna.tf32, cp.async and its groups, and
 // their g++ stand-in emulations) are in mma_ptx.cuh, which K5 shares.
@@ -95,10 +96,6 @@ constexpr int RING_MIN = 2 * 8 * (MG + 8);
 // fragment loads (k * ldb mod 32 = 0, 8, 16, 24 over the 4 k of a
 // fragment).
 __host__ __device__ constexpr int ps_of(int tw) { return tw == 32 ? LDS_WIDE : tw == 16 ? 24 : 8; }
-
-// The product forms: 3xTF32 on f32 A; one bf16 pass on pair-packed A; bf16x3
-// on hi / lo pair-packed A with interleaved rows.
-enum Mma { TF32X3 = 0, BF16P = 1, BF16X3 = 2 };
 
 // A's stored rows (words of M) per k-step: 8 (TF32X3: k 8; BF16P: k 16), or
 // 16 (BF16X3: hi and lo rows of k 16)
@@ -457,12 +454,21 @@ __device__ __forceinline__ int wofs_f(int off) {
   return FM == BF16P ? off >> 1 : off;
 }
 
-// The form of the activations' storage type Act: TF32X3 (f32) or BF16P (bf16)
-template <typename Act>
-constexpr int ACT_FORM = IS_BF16<Act> ? BF16P : TF32X3;
+// The form of K2's and K4's products on f32 activations, the build's
+// (MIX_MMA): TF32X3 in env_layer.cu and tp_mix_fused.cu, BF16X3 in their
+// *_bf16x3.cu builds, BF16P in their *_onepass.cu builds
+#ifndef MIX_MMA
+#define MIX_MMA TF32X3
+#endif
 
-// The product on the activations' storage type Act: mma_tile's 3xTF32
-// form (f32, A as given) or its bf16 form (bf16, A pair-packed).
+// The form of the activations' storage type Act: the build's MIX_MMA (f32)
+// or BF16P (bf16)
+template <typename Act>
+constexpr int ACT_FORM = IS_BF16<Act> ? (int)BF16P : (int)MIX_MMA;
+
+// The product on the activations' storage type Act: mma_tile in ACT_FORM
+// (f32: A as MIX_MMA lays it out, f32, pack_x3 or pair-packed; bf16: A
+// pair-packed).
 template <typename Act, int TW = ET, typename O>
 __device__ __forceinline__ void prod(const float* __restrict__ A, int Kd, int M, const float* B,
                                      int ldb, O* out, int ldo, float scale, int nvalid,
@@ -470,7 +476,7 @@ __device__ __forceinline__ void prod(const float* __restrict__ A, int Kd, int M,
   mma_tile<TW, O, ACT_FORM<Act>>(A, Kd, M, B, ldb, out, ldo, scale, nvalid, ring, rw, staged);
 }
 
-// The rows the ring holds of A (Kd, M) at Act: Kd, or Kd / 2 pair-packed words.
+// The rows the ring holds of A (Kd, M) at Act: Kd, or Kd / 2 pair-packed words (BF16P).
 template <typename Act>
 __device__ __forceinline__ int wrows(int Kd) {
   return stored_rows<ACT_FORM<Act>>(Kd);

@@ -1,6 +1,7 @@
 // K2: the per-layer env-fused TP + mix of an Allegro layer as a hand-written
 // Hopper kernel pair (f32; env_layer_bf16.cu builds this file on bf16
-// activations).
+// activations, env_layer_bf16x3.cu and env_layer_onepass.cu on f32 ones with
+// the mix in the matmul precision policy's other forms).
 //
 // Replaces the TPU kernels pair_allegro_tpu/ops/pallas_stack.py
 // _env_layer_fwd_kernel / _env_layer_bwd_kernel (entry tp_mix_env_fused_t,
@@ -36,7 +37,8 @@
 //    (tp_row_bwd) meets each row's entries in j order, sums denv per run of
 //    equal j in registers and reduces it across the warp, so no atomics;
 //  * the mix and its transpose run mma.sync m16n8k8 in 3xTF32 (f32
-//    accuracy), rows = output features, columns = the tile's edges, the
+//    accuracy; the build's form, MIX_MMA in allegro_mma.cuh: bf16x3 or one
+//    bf16 pass m16n8k16 in the policy's other builds), rows = output features, columns = the tile's edges, the
 //    weights staged through a two-stage cp.async ring while the row's TP
 //    runs; an l3 block stays in the ring over its 2 l3 + 1 rows (a tile
 //    stages 45 KB of mix weights, not 143 KB); the forward writes V'

@@ -1,5 +1,6 @@
-// PTX primitives of the tensor-core kernels: the body of K1, K6, K7 and K8
-// (allegro_mma.cuh) and K5 (env_layer_mxu.cu).
+// PTX primitives of the tensor-core kernels: the body of K1, K6, K7 and K8,
+// K2 and K4 (allegro_mma.cuh), K3 (nequip_conv.cu) and K5 (env_layer_mxu.cu),
+// and the product forms the matmul precision policy picks among (Mma).
 //
 //  * tf32_rna / split_tf32: cvt.rna.tf32.f32 as two integer operations, and
 //    the 3xTF32 split x = hi + lo with hi = rna_tf32(x), lo = rna_tf32(x - hi);
@@ -21,6 +22,13 @@
 #endif
 
 namespace {
+
+// The product forms of the tensor-core kernels: 3xTF32 on f32 operands
+// (f32 accuracy: the matmul precision policies highest and mixed), one
+// bf16 pass (default, and every bf16 operand) and bf16x3 (JAX's HIGH:
+// kernel_high and high).  allegro_mma.cuh runs them on bf16 fragments,
+// nequip_conv.cu on TF32 fragments that carry bf16 values.
+enum Mma { TF32X3 = 0, BF16P = 1, BF16X3 = 2 };
 
 // cvt.rna.tf32.f32 by two full-rate integer operations: add half a unit of
 // the 11th mantissa bit to the magnitude's bits, clear the 13 bits below

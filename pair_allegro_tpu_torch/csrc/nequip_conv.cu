@@ -1,5 +1,7 @@
 // K3: the fused NequIP convolution as a hand-written Hopper kernel pair (f32;
-// nequip_conv_bf16.cu builds this file with a bf16 hj, K3_HJ below).
+// nequip_conv_bf16.cu builds this file with a bf16 hj, K3_HJ below, and
+// nequip_conv{,_bf16}_{bf16x3,onepass}.cu with the radial products in the
+// matmul precision policy's other forms, K3_MMA below).
 //
 // Replaces the TPU kernels pair_allegro_tpu/ops/pallas_nequip.py
 // _conv_fwd_kernel / _conv_bwd_kernel (entry nequip_conv_fused).  On the
@@ -72,7 +74,19 @@
 //  * the block's layout (edge tile, weight resident or not) is picked by
 //    the launcher, the widest tile first with the weight resident, and
 //    mirrored by ops/nequip_conv.py:block_layout, so a caller decides
-//    before any launch.
+//    before any launch;
+//  * the radial products (the hidden layers, the last product and its
+//    backward) take the build's form (K3_MMA, mma_ptx.cuh Mma), the
+//    products pallas_nequip.py _dot / _dot_t compute under the precision
+//    policy: 3xTF32 here (highest, mixed), bf16x3 (kernel_high, high: JAX's
+//    split hi = bf16(x), lo = bf16(x - hi) of both operands, hi*hi' +
+//    hi*lo' + lo*hi') or one pass on bf16-rounded operands (default).  All
+//    three keep the m16n8k8 TF32 fragments: a bf16 value is exact in TF32,
+//    so a TF32 mma of bf16 values is the bf16 product, summed in f32.  The
+//    backward's last product splits the cotangent as it stands (gs = dw *
+//    u, then the hidden layers' dz after silu'), the scale applied after,
+//    as JAX's _dot_t(g, w) * scale.  The per-center sum stays an f32 sum
+//    under every policy.
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see ops/nequip_conv.py).
 
@@ -89,6 +103,14 @@
 // PAT_NEQUIP_HJ=bf16 boundary (pallas_nequip.py upcasts hj in the kernel)
 #ifndef K3_HJ
 #define K3_HJ float
+#endif
+
+// the radial products' form (mma_ptx.cuh Mma): TF32X3 here; the *_bf16x3.cu
+// builds BF16X3, the *_onepass.cu builds BF16P (the radial activations are
+// f32 in every build, so the bf16-hj builds take the policy's form too, as
+// pallas_nequip.py _kprec of their dtype does)
+#ifndef K3_MMA
+#define K3_MMA TF32X3
 #endif
 
 namespace {
@@ -161,6 +183,35 @@ __device__ __forceinline__ float dsilu(float z) {
   return s * (1.0f + z * (1.0f - s));
 }
 
+// An operand's parts in the build's form, each a TF32 fragment register:
+// TF32X3 hi = rna_tf32(x), lo = rna_tf32(x - hi); BF16X3 hi = bf16(x), lo =
+// bf16(x - hi), rounded to nearest even (pallas_nequip.py _split_bf16);
+// BF16P hi = bf16(x), lo unused.
+__device__ __forceinline__ void split_op(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (K3_MMA == TF32X3) {
+    split_tf32(x, hi, lo);
+  } else {
+    // cvt.rn.bf16.f32, then the bf16 bits to the top of an f32 word (on the
+    // H100 faster than rounding by four integer operations: PERF.md)
+    const float h = __bfloat162float(__float2bfloat16_rn(x));
+    hi = __float_as_uint(h);
+    lo = K3_MMA == BF16X3 ? __float_as_uint(__bfloat162float(__float2bfloat16_rn(x - h))) : 0u;
+  }
+}
+
+// One k-step of a product from split_op's parts: the correction terms
+// lo*hi' and hi*lo' into cor (none in one pass), then hi*hi' into acc (cor
+// may be acc: one accumulation chain).
+__device__ __forceinline__ void mma_op(float* acc, float* cor, const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                       const uint32_t (&bl)[2]) {
+  if constexpr (K3_MMA != BF16P) {
+    mma_tf32(cor, al, bh);
+    mma_tf32(cor, ah, bl);
+  }
+  mma_tf32(acc, ah, bh);
+}
+
 // ---------------------------------------------------------------------------
 // Tiles and the radial hidden layers
 // ---------------------------------------------------------------------------
@@ -181,7 +232,7 @@ __device__ void load_tile(const K3P& p, float* sm, int e0, int ne) {
   for (int n = threadIdx.x; n < p.et; n += NT) sm[p.o_u + n] = n < ne ? __ldg(p.u + e0 + n) : 0.f;
 }
 
-// A small product of the tile on the tensor cores (3xTF32): out = s *
+// A small product of the tile on the tensor cores (the build's form): out = s *
 // in^T Wk for the tile's edges, feature-major at row stride ldx, rows nd ..
 // r8(nd) zero; in (r8(kd) rows, zero past kd) feature-major; Wk(k, n) =
 // W[k * nd + n], or with wt W[n * kd + k] (the transpose, for the
@@ -203,17 +254,15 @@ __device__ void small_product(const float* __restrict__ W, bool wt, int kd, int 
       for (int k0 = kc; k0 < min(kc + 64, r8(kd)); k0 += 8) {
         const float* x = in + (k0 + t) * ldx + e;
         uint32_t ah[4], al[4], bh[2], bl[2];
-        split_tf32(r0 ? x[0] : 0.f, ah[0], al[0]);
-        split_tf32(r1 ? x[8] : 0.f, ah[1], al[1]);
-        split_tf32(r0 ? x[4 * ldx] : 0.f, ah[2], al[2]);
-        split_tf32(r1 ? x[4 * ldx + 8] : 0.f, ah[3], al[3]);
+        split_op(r0 ? x[0] : 0.f, ah[0], al[0]);
+        split_op(r1 ? x[8] : 0.f, ah[1], al[1]);
+        split_op(r0 ? x[4 * ldx] : 0.f, ah[2], al[2]);
+        split_op(r1 ? x[4 * ldx + 8] : 0.f, ah[3], al[3]);
         const int k = k0 + t;
-        split_tf32(nv && k < kd ? __ldg(W + (wt ? n * kd + k : k * nd + n)) : 0.f, bh[0], bl[0]);
-        split_tf32(nv && k + 4 < kd ? __ldg(W + (wt ? n * kd + k + 4 : (k + 4) * nd + n)) : 0.f,
-                   bh[1], bl[1]);
-        mma_tf32(part, al, bh);
-        mma_tf32(part, ah, bl);
-        mma_tf32(part, ah, bh);
+        split_op(nv && k < kd ? __ldg(W + (wt ? n * kd + k : k * nd + n)) : 0.f, bh[0], bl[0]);
+        split_op(nv && k + 4 < kd ? __ldg(W + (wt ? n * kd + k + 4 : (k + 4) * nd + n)) : 0.f,
+                 bh[1], bl[1]);
+        mma_op(part, part, ah, al, bh, bl);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[i] += part[i];
@@ -270,8 +319,8 @@ __device__ void stage_w(const K3P& p, float* Ws, int hin, int tpc) {
 // acc[j] += X^T Wlast over the rows kb .. ke (multiples of 8) for the
 // warp's m16 edge tile mt (rows: edges mt*16 + g and + 8 of the tile) and
 // n8 tile j = columns (lo + j) * C + cb .. + 8 of the last weight
-// (channels cb .. cb + 8 of radial weight lo + j), unscaled, in 3xTF32 on
-// one accumulation chain.  X: feature-major (r8(hin) rows, zero past hin)
+// (channels cb .. cb + 8 of radial weight lo + j), unscaled, in the build's
+// form on one accumulation chain.  X: feature-major (r8(hin) rows, zero past hin)
 // at row stride ldx; with RES the resident weight Ws (row stride sa, zero
 // past hin and tpc: no guard), else p.wl (row stride tpc) through the
 // read-only cache.
@@ -287,10 +336,10 @@ __device__ __forceinline__ void product_terms(const K3P& p, const float* X, cons
   for (int k0 = kb; k0 < ke; k0 += 8) {
     const float* x = X + (k0 + t) * p.ldx + e;
     uint32_t ah[4], al[4];
-    split_tf32(r0 ? x[0] : 0.f, ah[0], al[0]);
-    split_tf32(r1 ? x[8] : 0.f, ah[1], al[1]);
-    split_tf32(r0 ? x[4 * p.ldx] : 0.f, ah[2], al[2]);
-    split_tf32(r1 ? x[4 * p.ldx + 8] : 0.f, ah[3], al[3]);
+    split_op(r0 ? x[0] : 0.f, ah[0], al[0]);
+    split_op(r1 ? x[8] : 0.f, ah[1], al[1]);
+    split_op(r0 ? x[4 * p.ldx] : 0.f, ah[2], al[2]);
+    split_op(r1 ? x[4 * p.ldx + 8] : 0.f, ah[3], al[3]);
     const bool k_lo = cv && k0 + t < hin, k_hi = cv && k0 + t + 4 < hin;
 #pragma unroll
     for (int j = 0; j < PG; ++j) {
@@ -305,11 +354,9 @@ __device__ __forceinline__ void product_terms(const K3P& p, const float* X, cons
         b1 = k_hi ? __ldg(w + 4 * (size_t)tpc) : 0.f;
       }
       uint32_t bh[2], bl[2];
-      split_tf32(b0, bh[0], bl[0]);
-      split_tf32(b1, bh[1], bl[1]);
-      mma_tf32(acc[j], al, bh);
-      mma_tf32(acc[j], ah, bl);
-      mma_tf32(acc[j], ah, bh);
+      split_op(b0, bh[0], bl[0]);
+      split_op(b1, bh[1], bl[1]);
+      mma_op(acc[j], acc[j], ah, al, bh, bl);
     }
   }
 }
@@ -347,10 +394,10 @@ __device__ __forceinline__ void product_fwd(const K3P& p, const float* X, const 
 // layout product_fwd left, columns (lo + j) * C + cb ..), each accumulator
 // used as an m16k8 A fragment with k = t <- column 2t and k = t + 4 <-
 // column 2t + 1, the B fragment the matching pair of Wlast columns of row
-// x0 + 8 jj + g.  The pass's 8 PG terms are summed on the tensor cores
-// (with RES the hi*hi' term and the corrections in two chains; one chain
-// where the weight is read from device memory, whose guards take the
-// registers), the passes in f32.
+// x0 + 8 jj + g.  The pass's 8 PG terms are summed on the tensor cores in
+// the build's form, gs split as it stands (with RES the hi*hi' term and the
+// corrections in two chains; one chain where the weight is read from device
+// memory, whose guards take the registers), the passes in f32.
 template <int PG, bool RES>
 __device__ __forceinline__ void product_bwd(const K3P& p, const float (&acc)[PG][4],
                                             const float* Ws, int hin, int tpc, int mt, int cb,
@@ -366,10 +413,10 @@ __device__ __forceinline__ void product_bwd(const K3P& p, const float (&acc)[PG]
 #pragma unroll
   for (int j = 0; j < PG; ++j) {
     uint32_t ah[4], al[4];
-    split_tf32(acc[j][0], ah[0], al[0]);
-    split_tf32(acc[j][2], ah[1], al[1]);
-    split_tf32(acc[j][1], ah[2], al[2]);
-    split_tf32(acc[j][3], ah[3], al[3]);
+    split_op(acc[j][0], ah[0], al[0]);
+    split_op(acc[j][2], ah[1], al[1]);
+    split_op(acc[j][1], ah[2], al[2]);
+    split_op(acc[j][3], ah[3], al[3]);
     const int m = (lo + j) * p.C + cb + 2 * t;
 #pragma unroll
     for (int jj = 0; jj < XC / 8; ++jj) {
@@ -382,11 +429,9 @@ __device__ __forceinline__ void product_bwd(const K3P& p, const float (&acc)[PG]
           b = cv && kr < hin ? __ldg(reinterpret_cast<const float2*>(p.wl + (size_t)kr * tpc + m))
                              : make_float2(0.f, 0.f);
         uint32_t bh[2], bl[2];
-        split_tf32(b.x, bh[0], bl[0]);
-        split_tf32(b.y, bh[1], bl[1]);
-        mma_tf32(RES ? pc[jj] : ph[jj], al, bh);
-        mma_tf32(RES ? pc[jj] : ph[jj], ah, bl);
-        mma_tf32(ph[jj], ah, bh);
+        split_op(b.x, bh[0], bl[0]);
+        split_op(b.y, bh[1], bl[1]);
+        mma_op(ph[jj], RES ? pc[jj] : ph[jj], ah, al, bh, bl);
       }
     }
   }

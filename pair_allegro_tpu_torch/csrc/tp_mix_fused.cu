@@ -1,5 +1,6 @@
 // K4: the per-edge TP + mix of an Allegro layer as a hand-written Hopper
-// kernel pair (f32).
+// kernel pair (f32; tp_mix_fused_bf16x3.cu and tp_mix_fused_onepass.cu build
+// this file with the mix in the matmul precision policy's other forms).
 //
 // Replaces the TPU kernels pair_allegro_tpu/ops/pallas_tp.py _fwd_kernel /
 // _bwd_kernel (entries tp_mix_fused / tp_mix_fused_t).  On the (D, C, E)
@@ -37,9 +38,11 @@
 //    memory without atomics or a barrier between rows, denv summed per run
 //    of equal j in registers;
 //  * the mix and its transpose run mma.sync m16n8k8 in 3xTF32 (f32
-//    accuracy) with the weights staged through a two-stage cp.async ring
-//    while the row's TP runs, an l3 block kept in the ring over its 2 l3 +
-//    1 rows; the forward writes V' from the accumulators to device memory,
+//    accuracy; the build's form, MIX_MMA in allegro_mma.cuh: bf16x3 or
+//    one bf16 pass m16n8k16 in the policy's other builds, on the weights
+//    the wrapper lays out for them) with the weights staged through a
+//    two-stage cp.async ring while the row's TP runs, an l3 block kept in
+//    the ring over its 2 l3 + 1 rows; the forward writes V' from the accumulators to device memory,
 //    the backward loads row r+1's dV' tile and mixT block while row r's TP
 //    runs;
 //  * TW is 32, 16 or 8 (the product's 8 warps arranged to the tile's
@@ -91,8 +94,8 @@ __global__ void __launch_bounds__(NT, 2) k4_fwd_kernel(const __grid_constant__ K
   for (int r = 0; r < D; ++r) {
     const int kd = m.rowP[r] * C;
     // the mix block loads while the TP runs
-    if (!mix_resident(m, r, kd, p.Cout, p.ring))
-      mma_stage(p.mix + m.rowmix[r], kd, p.Cout, ring, p.ring);
+    if (!resident<float>(m, r, kd, p.Cout, p.ring))
+      stage<float>(p.mix + wofs<float>(m.rowmix[r]), kd, p.Cout, ring, p.ring);
     tp_row_reg_edges<TW>(C, m, r, Vs, envs, T, PS);
     __syncthreads();
     if (r == 0) {  // inv (E, C*P0): column c*P0 + pp is T's row
@@ -102,8 +105,8 @@ __global__ void __launch_bounds__(NT, 2) k4_fwd_kernel(const __grid_constant__ K
         p.inv[(size_t)(e0 + n) * cp0 + col] = T[col * PS + n];
       }
     }
-    mma_tile<TW>(p.mix + m.rowmix[r], kd, p.Cout, T, PS, p.out + (size_t)r * p.Cout * E + e0, E,
-                 m.rownorm[r], ne, ring, p.ring, true);
+    prod<float, TW>(p.mix + wofs<float>(m.rowmix[r]), kd, p.Cout, T, PS,
+                    p.out + (size_t)r * p.Cout * E + e0, E, m.rownorm[r], ne, ring, p.ring, true);
     __syncthreads();
   }
 }
@@ -128,8 +131,8 @@ __global__ void __launch_bounds__(NT, 2) k4_bwd_kernel(const __grid_constant__ K
   auto issue_row = [&](int r) {
     load_tile_async<true, TW>(p.dout + (size_t)r * p.Cout * E, p.Cout, E, e0, ne, dVo, PS, p.vec);
     const int kd = m.rowP[r] * C;
-    if (!mix_resident(m, r, p.Cout, kd, p.ring))
-      mma_stage(p.mixT + m.rowmix[r], p.Cout, kd, ring, p.ring);
+    if (!resident<float>(m, r, p.Cout, kd, p.ring))
+      stage<float>(p.mixT + wofs<float>(m.rowmix[r]), p.Cout, kd, ring, p.ring);
   };
 
   build_jperm(m, D, perm);
@@ -142,8 +145,8 @@ __global__ void __launch_bounds__(NT, 2) k4_bwd_kernel(const __grid_constant__ K
   issue_row(0);
   for (int r = 0; r < D; ++r) {
     tiles_ready();
-    mma_tile<TW>(p.mixT + m.rowmix[r], p.Cout, m.rowP[r] * C, dVo, PS, dT, PS, m.rownorm[r], TW,
-                 ring, p.ring, true);
+    prod<float, TW>(p.mixT + wofs<float>(m.rowmix[r]), p.Cout, m.rowP[r] * C, dVo, PS, dT, PS,
+                    m.rownorm[r], TW, ring, p.ring, true);
     __syncthreads();
     if (r + 1 < D) issue_row(r + 1);  // loads while this row's TP runs
     if (r == 0) {  // + dinv, which arrives (E, C*P0): column c*P0 + pp is dT's row

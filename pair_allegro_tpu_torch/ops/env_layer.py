@@ -18,6 +18,16 @@ pair in ``csrc/env_layer.cu``, or at bf16 its bf16 build
 sums in registers, the mix one bf16 tensor-core pass on pair-packed
 weights); on a CPU tensor it runs :func:`env_layer_reference`, the plain
 PyTorch version of the same function, at the tensors' dtype.
+
+The mix follows the matmul precision policy (``ops/prec.py``), as K1's
+products do: at f32 the call's :func:`prec.kernel_mode` picks the build
+(``fused_layer.build_for``), ``tf32x3`` (``env_layer.cu``), ``bf16x3``
+(``env_layer_bf16x3.cu``, on the weights ``fused_layer.pack_x3`` lays out)
+or one pass (``env_layer_onepass.cu``, on the bf16 build's pair-packed
+weights), and the plain version computes the same mode's products
+(``prec.kmm``, the scale after the product as JAX's ``_mm(w.T, t) *
+norm``).  The forward fixes the mode its backward uses.  The env sum is an
+f32 sum under every policy.
 Weight cotangents come back NaN-filled, the contract of the TPU kernel
 (``pallas_stack.py:1007``).
 """
@@ -32,6 +42,7 @@ import math
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.fused_layer import (
     _MAX_D,
@@ -52,14 +63,19 @@ from pair_allegro_tpu_torch.ops.fused_layer import (
     _meta_table,
     _row_tables,
     _to_pmajor,
+    build_for,
+    count,
     pack_pairs,
+    pack_x3,
     table_fits,
 )
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()  # the f32 kernel's
-launches_bf16 = LaunchCounts()  # the bf16 build's
+launches = LaunchCounts()  # the f32 kernel's (3xTF32 mix)
+launches_bf16 = LaunchCounts()  # the bf16 build's (bf16 operands)
+launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's
+launches_onepass = LaunchCounts()  # the f32 one-pass build's
 
 
 def widths_ok(c: int, cout: int, d: int) -> bool:
@@ -96,19 +112,50 @@ def block_layout(c: int, cout: int, d: int, lmax: int, parity: bool,
 
 def kernel_takes(c: int, cout: int, d: int, lmax: int, parity: bool,
                  dtype=torch.float32) -> bool:
-    """Whether ``k2_launch`` (csrc/env_layer.cu, or its bf16 build
-    env_layer_bf16.cu) takes these widths at ``dtype``, forward and
+    """Whether ``k2_launch`` (csrc/env_layer.cu, or a build of ``dtype``:
+    ``fused_layer.build_for``) takes these widths at ``dtype``, forward and
     backward: a build of that dtype, its refusal conditions, the 3j table
-    the wrapper builds and its shared-memory sum (``block_layout``; the bf16
-    build's is the same, its tiles f32 in shared memory), mirrored here so
-    that a caller decides before any launch."""
+    the wrapper builds and its shared-memory sum (``block_layout``), mirrored
+    here so that a caller decides before any launch.  Every build keeps its
+    tiles f32 in shared memory and its ring as many words (the bf16x3
+    weights take the f32 bytes, the pair-packed ones half; a ring too shallow
+    for a 16-row bf16x3 chunk reads its weights without it), so its sum is
+    the f32 one and the answer does not depend on the policy."""
     return dtype in (torch.float32, torch.bfloat16) and table_fits(lmax, parity) and widths_ok(
         c, cout, d) and all(
         block_layout(c, cout, d, lmax, parity, bwd)[0] <= SMEM_MAX for bwd in (False, True))
 
 
+class MixLayouts:
+    """The launchers' mix and mixT of K2 and K4 for each build: ``blocks``
+    (the per-l3 matrices in the order of ``mix_flat``, whose transposes
+    make ``mixT_flat``) as they are (3xTF32), ``fused_layer.pack_x3``-ed in
+    the f32 bytes and offsets (bf16x3), or ``pack_pairs``-ed in half of
+    them, every offset halved (one pass, and K2's bf16 build); the packed
+    copies are made at the first launch that wants them and go with the
+    object when a leaf changes."""
+
+    @functools.cached_property
+    def packed(self) -> tuple:
+        return self._packs(pack_pairs)
+
+    @functools.cached_property
+    def packed_x3(self) -> tuple:
+        return self._packs(pack_x3)
+
+    def _packs(self, pack) -> tuple:
+        return (torch.cat([pack(w).reshape(-1) for w in self.blocks]).contiguous(),
+                torch.cat([pack(w.T).reshape(-1) for w in self.blocks]).contiguous())
+
+    def layout(self, build: str) -> tuple:
+        """mix and mixT for ``build`` (``fused_layer.build_for``)."""
+        if build == "tf32x3":
+            return self.mix_flat, self.mixT_flat
+        return self.packed_x3 if build == "bf16x3" else self.packed
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
-class K2Weights:
+class K2Weights(MixLayouts):
     """One layer's mix weights in the kernel's layout: p-major rows (row =
     p*C + c) per l3, flat and transposed (for the backward), and the 3j row
     table; detached copies made from ``leaves``, the tree's c-major mix
@@ -130,12 +177,9 @@ class K2Weights:
     def cout(self) -> int:
         return self.mix[0].shape[1]
 
-    @functools.cached_property
-    def packed(self) -> tuple:
-        """The bf16 build's mix and mixT, each l3 block pair-packed
-        (``fused_layer.pack_pairs``), flat in the f32 order."""
-        return (torch.cat([pack_pairs(w).reshape(-1) for w in self.mix]),
-                torch.cat([pack_pairs(w.T).reshape(-1) for w in self.mix]))
+    @property
+    def blocks(self) -> tuple:
+        return self.mix
 
 
 def mix_leaves(mix: dict, lmax: int) -> tuple:
@@ -181,10 +225,14 @@ def edge_env(wzt, yt, K: int, inv_avg: float) -> torch.Tensor:
     return env.unsqueeze(-1).expand(d, c, e // K, K).reshape(d, c, e)
 
 
-def env_layer_reference(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float):
+def env_layer_reference(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float,
+                        mode: str | None = None):
     """The same function as the kernel, in plain PyTorch on the same
     layout: Vt (D, C, E), wzt (C, E), yt (D, E) -> (Vt' (D, Cout, E),
-    inv (C*P0, E) c-major).  Goes through torch autograd."""
+    inv (C*P0, E) c-major).  The mix is ``prec.kmm`` in kernel ``mode``
+    (default: the policy's for the operands' dtype, ``prec.kernel_mode``),
+    the env sum an f32 sum under every mode.  Goes through torch autograd."""
+    mode = mode or prec.kernel_mode(Vt.dtype)
     d, c, e = Vt.shape
     env_e = edge_env(wzt, yt, K, inv_avg)
     P = num_paths_per_l(w.lmax, w.lmax, w.lmax, w.parity)
@@ -198,7 +246,8 @@ def env_layer_reference(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float):
         if r == 0:
             inv = torch.stack(tiles, 1).reshape(c * P[0], e)
         t_r = torch.cat(tiles, 0)  # (P*C, E) p-major
-        out_rows.append((w.mix[l3].to(Vt.dtype).T @ t_r) * (1.0 / math.sqrt(P[l3] * c)))
+        out_rows.append(prec.kmm(w.mix[l3].to(Vt.dtype).T, t_r, mode,
+                                 1.0 / math.sqrt(P[l3] * c)))
     return torch.stack(out_rows, 0), inv
 
 
@@ -223,8 +272,13 @@ def _bind(lib):
 
 _HEADERS = [CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"]
 LIB = CudaLibrary("k2_env_layer", [CSRC / "env_layer.cu", *_HEADERS], _bind)
-LIB_BF16 = CudaLibrary("k2_env_layer_bf16",
-                       [CSRC / "env_layer_bf16.cu", CSRC / "env_layer.cu", *_HEADERS], _bind)
+LIB_BF16, LIB_BF16X3, LIB_ONEPASS = (
+    CudaLibrary(f"k2_env_layer_{b}", [CSRC / f"env_layer_{b}.cu", CSRC / "env_layer.cu", *_HEADERS],
+                _bind) for b in ("bf16", "bf16x3", "onepass"))
+
+# each build's (library, launch counts), looked up at each launch
+BUILDS = {"tf32x3": (LIB, launches), "bf16": (LIB_BF16, launches_bf16),
+          "bf16x3": (LIB_BF16X3, launches_bf16x3), "onepass": (LIB_ONEPASS, launches_onepass)}
 
 
 def _dims(w: K2Weights, d: int, c: int, K: int, e: int):
@@ -232,9 +286,9 @@ def _dims(w: K2Weights, d: int, c: int, K: int, e: int):
     return (ctypes.c_int * 7)(c, w.cout, d, K, e, max(P) * c, P[0])
 
 
-def _launch(bwd: bool, w: K2Weights, Vt, K: int, inv_avg: float, ptrs):
-    bf16 = Vt.dtype == torch.bfloat16
-    lib = (LIB_BF16 if bf16 else LIB).load()
+def _launch(bwd: bool, w: K2Weights, Vt, K: int, inv_avg: float, ptrs, build: str):
+    lib, counts = BUILDS[build]
+    lib = lib.load()
     d, c, e = Vt.shape
     dims = _dims(w, d, c, K, e)
     arr = (ctypes.c_ulonglong * 13)(*ptrs)
@@ -242,38 +296,34 @@ def _launch(bwd: bool, w: K2Weights, Vt, K: int, inv_avg: float, ptrs):
         stream = torch.cuda.current_stream(Vt.device).cuda_stream
         rc = lib.k2_launch(int(bwd), arr, dims, ctypes.c_float(inv_avg), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K2{' bf16' if bf16 else ''} {'backward' if bwd else 'forward'} "
+        raise RuntimeError(f"K2 ({build}) {'backward' if bwd else 'forward'} "
                            f"launch failed (code {rc}): a negative code is a shape the kernel "
                            "does not take")
-    counts = launches_bf16 if bf16 else launches
-    if bwd:
-        counts.bwd += 1
-    else:
-        counts.fwd += 1
+    count(counts, bwd)
 
 
-def _mix_ptrs(w: K2Weights, Vt) -> list:
-    """mix and mixT of the launcher's ptrs: f32, or pair-packed at bf16."""
-    bf16 = Vt.dtype == torch.bfloat16
-    return [t.data_ptr() for t in (w.packed if bf16 else (w.mix_flat, w.mixT_flat))]
-
-
-def _kernel_fwd(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float):
+def _kernel_fwd(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float, mode=None):
+    """One forward launch of the build of ``mode`` (default: the policy's)."""
+    build = build_for(Vt.dtype, mode)
     d, c, e = Vt.shape
     p0 = num_paths_per_l(w.lmax, w.lmax, 0, w.parity)[0]
     out = torch.empty((d, w.cout, e), dtype=Vt.dtype, device=Vt.device)
     inv = torch.empty((c * p0, e), dtype=Vt.dtype, device=Vt.device)
-    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), *_mix_ptrs(w, Vt), w.meta.data_ptr(),
-            0, 0, out.data_ptr(), inv.data_ptr(), 0, 0, 0]
-    _launch(False, w, Vt, K, inv_avg, ptrs)
+    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(),
+            *(t.data_ptr() for t in w.layout(build)), w.meta.data_ptr(), 0, 0, out.data_ptr(),
+            inv.data_ptr(), 0, 0, 0]
+    _launch(False, w, Vt, K, inv_avg, ptrs, build)
     return out, inv
 
 
-def _kernel_bwd(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float, dout, dinv):
+def _kernel_bwd(Vt, wzt, yt, w: K2Weights, K: int, inv_avg: float, dout, dinv, mode=None):
+    """One backward launch of the build of ``mode`` (default: the policy's)."""
+    build = build_for(Vt.dtype, mode)
     dV, dwz, dY = torch.empty_like(Vt), torch.empty_like(wzt), torch.empty_like(yt)
-    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(), *_mix_ptrs(w, Vt), w.meta.data_ptr(),
-            dout.data_ptr(), dinv.data_ptr(), 0, 0, dV.data_ptr(), dwz.data_ptr(), dY.data_ptr()]
-    _launch(True, w, Vt, K, inv_avg, ptrs)
+    ptrs = [Vt.data_ptr(), wzt.data_ptr(), yt.data_ptr(),
+            *(t.data_ptr() for t in w.layout(build)), w.meta.data_ptr(), dout.data_ptr(),
+            dinv.data_ptr(), 0, 0, dV.data_ptr(), dwz.data_ptr(), dY.data_ptr()]
+    _launch(True, w, Vt, K, inv_avg, ptrs, build)
     return dV, dwz, dY
 
 
@@ -285,22 +335,24 @@ class _EnvLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Vt, wzt, yt, w, K, inv_avg, *leaves):
-        ctx.cfg = (w, K, inv_avg)
+        mode = prec.kernel_mode(Vt.dtype)
+        ctx.cfg = (w, K, inv_avg, mode)
         ctx.save_for_backward(Vt, wzt, yt)
         if Vt.is_cuda:
-            return _kernel_fwd(Vt, wzt, yt, w, K, inv_avg)
-        return env_layer_reference(Vt, wzt, yt, w, K, inv_avg)
+            return _kernel_fwd(Vt, wzt, yt, w, K, inv_avg, mode)
+        return env_layer_reference(Vt, wzt, yt, w, K, inv_avg, mode)
 
     @staticmethod
     def backward(ctx, dout, dinv):
-        w, K, inv_avg = ctx.cfg
+        w, K, inv_avg, mode = ctx.cfg
         Vt, wzt, yt = ctx.saved_tensors
         if Vt.is_cuda:
-            grads = _kernel_bwd(Vt, wzt, yt, w, K, inv_avg, dout.contiguous(), dinv.contiguous())
+            grads = _kernel_bwd(Vt, wzt, yt, w, K, inv_avg, dout.contiguous(), dinv.contiguous(),
+                                mode)
         else:
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_(True) for t in (Vt, wzt, yt)]
-                outs = env_layer_reference(*ins, w, K, inv_avg)
+                outs = env_layer_reference(*ins, w, K, inv_avg, mode)
                 grads = torch.autograd.grad(outs, ins, (dout, dinv))
         nan_w = [torch.full_like(t, float("nan")) for t in w.leaves]
         return (*grads, None, None, None, *nan_w)

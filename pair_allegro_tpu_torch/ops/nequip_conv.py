@@ -27,7 +27,18 @@ registers, computes in f32 and returns an f32 ``agg``; its backward returns
 ``dhj`` at hj's dtype, bf16, and the rest at f32.  The plain version
 upcasts hj the same way.  What bounds the kernel on the
 card and what its design does about it is written at the top of the CUDA
-source.  Weight cotangents come back NaN-filled, the contract of the TPU
+source.
+
+The radial MLP's products follow the matmul precision policy
+(``ops/prec.py``), as JAX's ``pallas_nequip._dot`` / ``_dot_t`` do: the
+call's :func:`prec.kernel_mode` of the radial activations' dtype (f32, for
+either hj) picks the build, ``tf32x3`` (``nequip_conv.cu``), ``bf16x3``
+(``nequip_conv_bf16x3.cu``) or one pass (``nequip_conv_onepass.cu``; with a
+bf16 hj ``nequip_conv_bf16_{bf16x3,onepass}.cu``), each splitting or
+rounding its operands as they load, and the plain version computes the
+same mode's products (``mlp_apply(..., mode=)``).  The forward fixes the
+mode its backward uses.  The per-center sum is an f32 sum under every
+policy.  Weight cotangents come back NaN-filled, the contract of the TPU
 kernel (``pallas_nequip.py:645-647``).
 """
 
@@ -39,7 +50,9 @@ import math
 
 import torch
 
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
+from pair_allegro_tpu_torch.ops.fused_layer import build_for, count
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply
 from pair_allegro_tpu_torch.ops.tp import tp_entry_table, tp_num_paths
 
@@ -51,8 +64,12 @@ _MAX_W = 8  # radial MLP weight matrices the kernel takes (K3P::wdim in the sour
 NT, SMEM_MAX = 256, 232448
 ET_FWD, ET_BWD = (64, 32, 16, 8), (128, 64, 32, 16, 8)
 
-launches = LaunchCounts()  # the f32 kernel's
-launches_bf16 = LaunchCounts()  # the bf16-hj build's
+launches = LaunchCounts()  # the f32-hj 3xTF32 build's
+launches_bf16 = LaunchCounts()  # the bf16-hj 3xTF32 build's
+launches_bf16x3 = LaunchCounts()  # the f32-hj bf16x3 build's
+launches_onepass = LaunchCounts()  # the f32-hj one-pass build's
+launches_bf16_bf16x3 = LaunchCounts()  # the bf16-hj bf16x3 build's
+launches_bf16_onepass = LaunchCounts()  # the bf16-hj one-pass build's
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -133,7 +150,9 @@ def kernel_takes(C: int, n_tracks: int, lmax: int, dims) -> bool:
     backward: the wrapper's channel and width conditions (``widths_ok``),
     ``k3_plan``'s refusals (csrc/nequip_conv.cu) and its layouts
     (``block_layout``), mirrored here so that a caller decides before any
-    launch."""
+    launch.  Every build of the policy's modes keeps the f32 weights and
+    tiles (it splits or rounds operands as they load), so the answer does
+    not depend on the policy."""
     nw = len(dims) - 1
     if lmax not in (1, 2) or n_tracks not in (1, 2) or not 1 <= nw <= _MAX_W or min(dims) < 1:
         return False
@@ -206,16 +225,22 @@ def msg_generic_cl(hj, Y, w, lmax: int):
     return torch.stack(blocks, dim=-3)
 
 
-def nequip_conv_reference(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float):
+def nequip_conv_reference(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float,
+                          mode: str | None = None):
     """The same function as the kernel, in plain PyTorch on the same layout:
     hj (E, D*T*C), bessel (E, B), u (E, 1), Y (E, D) -> agg (E / K, D*T*C).
     A bf16 hj is upcast once to bessel's dtype, as the kernel does (its
-    cotangent then comes back at bf16).  Goes through torch autograd."""
+    cotangent then comes back at bf16).  The radial MLP's products are
+    ``prec.kmm`` in kernel ``mode`` (default: the policy's for bessel's
+    dtype), so its backward splits the cotangent as it stands and scales
+    after, as JAX's ``_dot_t(g, w) * scale``; the per-center sum is an f32
+    sum.  Goes through torch autograd."""
+    mode = mode or prec.kernel_mode(bessel.dtype)
     e = hj.shape[0]
     hj = hj.to(bessel.dtype)
     C, T, lmax = w.C, w.n_tracks, w.lmax
     D, P = (lmax + 1) ** 2, tp_num_paths(lmax)
-    wr = mlp_apply({"w": w.ws}, bessel) * u
+    wr = mlp_apply({"w": w.ws}, bessel, mode) * u
     msg = msg_generic_cl(hj.reshape(e, D, T, C), Y, wr.reshape(e, T, P, C), lmax)
     return msg.reshape(e // K, K, D * T * C).sum(dim=1) * inv_avg
 
@@ -267,10 +292,29 @@ def _bind(lib):
         raise RuntimeError("kernel weight table size differs from the wrapper's")
 
 
-LIB = CudaLibrary("k3_nequip_conv", [CSRC / "nequip_conv.cu", HEADER, CSRC / "mma_ptx.cuh"],
-                  _bind)
-LIB_BF16 = CudaLibrary("k3_nequip_conv_bf16", [CSRC / "nequip_conv_bf16.cu", CSRC / "nequip_conv.cu",
-                                              HEADER, CSRC / "mma_ptx.cuh"], _bind)
+_HEADERS = [HEADER, CSRC / "mma_ptx.cuh"]
+LIB = CudaLibrary("k3_nequip_conv", [CSRC / "nequip_conv.cu", *_HEADERS], _bind)
+LIB_BF16, LIB_BF16X3, LIB_ONEPASS, LIB_BF16_BF16X3, LIB_BF16_ONEPASS = (
+    CudaLibrary(f"k3_nequip_conv_{b}", [CSRC / f"nequip_conv_{b}.cu", CSRC / "nequip_conv.cu",
+                                        *_HEADERS], _bind)
+    for b in ("bf16", "bf16x3", "onepass", "bf16_bf16x3", "bf16_onepass"))
+
+# each build's (library, launch counts) by (hj's dtype, fused_layer.build_for
+# of the radial activations' mode), looked up at each launch
+BUILDS = {
+    (torch.float32, "tf32x3"): (LIB, launches),
+    (torch.float32, "bf16x3"): (LIB_BF16X3, launches_bf16x3),
+    (torch.float32, "onepass"): (LIB_ONEPASS, launches_onepass),
+    (torch.bfloat16, "tf32x3"): (LIB_BF16, launches_bf16),
+    (torch.bfloat16, "bf16x3"): (LIB_BF16_BF16X3, launches_bf16_bf16x3),
+    (torch.bfloat16, "onepass"): (LIB_BF16_ONEPASS, launches_bf16_onepass),
+}
+
+
+def build_of(hj_dtype: torch.dtype, mode: str | None = None) -> tuple:
+    """The BUILDS key of a launch with hj at ``hj_dtype`` in kernel
+    ``mode`` (default: the policy's for the f32 radial activations)."""
+    return hj_dtype, build_for(torch.float32, mode)
 
 
 def launch_dims(w: K3Weights, K: int, E: int):
@@ -280,9 +324,9 @@ def launch_dims(w: K3Weights, K: int, E: int):
                                              *([0] * (_MAX_W + 1 - len(dims))))
 
 
-def _launch(bwd: bool, w: K3Weights, K: int, E: int, inv_avg: float, ptrs, device,
-            bf16: bool = False):
-    lib = (LIB_BF16 if bf16 else LIB).load()
+def _launch(bwd: bool, w: K3Weights, K: int, E: int, inv_avg: float, ptrs, device, build):
+    lib, counts = BUILDS[build]
+    lib = lib.load()
     dm = launch_dims(w, K, E)
     arr = (ctypes.c_ulonglong * 12)(*ptrs)
     with torch.cuda.device(device):
@@ -290,25 +334,26 @@ def _launch(bwd: bool, w: K3Weights, K: int, E: int, inv_avg: float, ptrs, devic
         rc = lib.k3_launch(int(bwd), w.lmax, w.n_tracks, arr, dm, ctypes.c_float(inv_avg),
                            ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"K3{' bf16-hj' if bf16 else ''} {'backward' if bwd else 'forward'} "
+        hjs = " bf16-hj" if build[0] == torch.bfloat16 else ""
+        raise RuntimeError(f"K3{hjs} ({build[1]}) {'backward' if bwd else 'forward'} "
                            f"launch failed (code {rc})")
-    counts = launches_bf16 if bf16 else launches
-    if bwd:
-        counts.bwd += 1
-    else:
-        counts.fwd += 1
+    count(counts, bwd)
 
 
-def _kernel_fwd(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float):
+def _kernel_fwd(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float, mode=None):
+    """One forward launch of the build of hj's dtype and ``mode``
+    (default: the policy's)."""
     e, df = hj.shape
     agg = torch.empty((e // K, df), dtype=bessel.dtype, device=hj.device)
     ptrs = [hj.data_ptr(), bessel.data_ptr(), u.data_ptr(), Y.data_ptr(), w.flat.data_ptr(),
             w.last.data_ptr(), 0, agg.data_ptr(), 0, 0, 0, 0]
-    _launch(False, w, K, e, inv_avg, ptrs, hj.device, hj.dtype == torch.bfloat16)
+    _launch(False, w, K, e, inv_avg, ptrs, hj.device, build_of(hj.dtype, mode))
     return agg
 
 
-def _kernel_bwd(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float, dagg):
+def _kernel_bwd(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float, dagg, mode=None):
+    """One backward launch of the build of hj's dtype and ``mode``
+    (default: the policy's)."""
     dhj = torch.empty_like(hj)
     dbes = torch.empty_like(bessel)
     du = torch.empty_like(u)
@@ -316,7 +361,7 @@ def _kernel_bwd(hj, bessel, u, Y, w: K3Weights, K: int, inv_avg: float, dagg):
     ptrs = [hj.data_ptr(), bessel.data_ptr(), u.data_ptr(), Y.data_ptr(), w.flat.data_ptr(),
             w.last.data_ptr(), dagg.data_ptr(), 0, dhj.data_ptr(), dbes.data_ptr(),
             du.data_ptr(), dY.data_ptr()]
-    _launch(True, w, K, hj.shape[0], inv_avg, ptrs, hj.device, hj.dtype == torch.bfloat16)
+    _launch(True, w, K, hj.shape[0], inv_avg, ptrs, hj.device, build_of(hj.dtype, mode))
     return dhj, dbes, du, dY
 
 
@@ -327,22 +372,23 @@ class _Conv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hj, bessel, u, Y, w, K, inv_avg, *weights):
-        ctx.cfg = (w, K, inv_avg)
+        mode = prec.kernel_mode(bessel.dtype)
+        ctx.cfg = (w, K, inv_avg, mode)
         ctx.save_for_backward(hj, bessel, u, Y)
         if hj.is_cuda:
-            return _kernel_fwd(hj, bessel, u, Y, w, K, inv_avg)
-        return nequip_conv_reference(hj, bessel, u, Y, w, K, inv_avg)
+            return _kernel_fwd(hj, bessel, u, Y, w, K, inv_avg, mode)
+        return nequip_conv_reference(hj, bessel, u, Y, w, K, inv_avg, mode)
 
     @staticmethod
     def backward(ctx, dagg):
-        w, K, inv_avg = ctx.cfg
+        w, K, inv_avg, mode = ctx.cfg
         hj, bessel, u, Y = ctx.saved_tensors
         if hj.is_cuda:
-            grads = _kernel_bwd(hj, bessel, u, Y, w, K, inv_avg, dagg.contiguous())
+            grads = _kernel_bwd(hj, bessel, u, Y, w, K, inv_avg, dagg.contiguous(), mode)
         else:
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_(True) for t in (hj, bessel, u, Y)]
-                out = nequip_conv_reference(*ins, w, K, inv_avg)
+                out = nequip_conv_reference(*ins, w, K, inv_avg, mode)
                 grads = torch.autograd.grad(out, ins, dagg)
         nan_w = [torch.full_like(t, float("nan")) for t in w.tensors()]
         return (*grads, None, None, None, *nan_w)

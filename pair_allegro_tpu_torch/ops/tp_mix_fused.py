@@ -18,6 +18,16 @@ kernel pair in ``csrc/tp_mix_fused.cu``; on a CPU tensor it runs
 :func:`tp_mix_fused_reference`, the plain PyTorch version of the same
 function.  Weight cotangents come back NaN-filled, the contract of the TPU
 kernel (``pallas_tp.py:322-324``).
+
+The mix follows the matmul precision policy (``ops/prec.py``), as JAX's
+``pallas_tp._kdot`` does: the call's :func:`prec.kernel_mode` picks the
+build (``fused_layer.build_for``), ``tf32x3`` (``tp_mix_fused.cu``),
+``bf16x3`` (``tp_mix_fused_bf16x3.cu``, on ``fused_layer.pack_x3``-ed
+weights) or one pass (``tp_mix_fused_onepass.cu``, on pair-packed ones),
+and the plain version computes the same mode's products
+(``tp_mix_apply(..., mode=)``).  The forward fixes the mode its backward
+uses.  The kernel takes f32 operands only: a bf16 layer stays on the plain
+path, as JAX's ``use_fused`` keeps it.
 """
 
 from __future__ import annotations
@@ -28,8 +38,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
-from pair_allegro_tpu_torch.ops.env_layer import mix_leaves
+from pair_allegro_tpu_torch.ops.env_layer import MixLayouts, mix_leaves
 from pair_allegro_tpu_torch.ops.fused_layer import (
     _MAX_D,
     _MAX_ENT,
@@ -43,16 +54,20 @@ from pair_allegro_tpu_torch.ops.fused_layer import (
     SMEM_MAX,
     _ceil4,
     _meta_table,
+    build_for,
+    count,
     table_fits,
 )
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l, scalar_part, tp_mix_apply, uniform_tp
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()
+launches = LaunchCounts()  # the 3xTF32 build's
+launches_bf16x3 = LaunchCounts()  # the bf16x3 build's
+launches_onepass = LaunchCounts()  # the one-pass build's
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class K4Weights:
+class K4Weights(MixLayouts):
     """One layer's mix weights in the kernel's layout: the tree's c-major
     leaves flat (the forward reads them as they are) and their transposes
     flat (the backward), and the 3j row table; detached copies made from
@@ -76,6 +91,10 @@ class K4Weights:
     @property
     def cout(self) -> int:
         return self.leaves[0].shape[1]
+
+    @property
+    def blocks(self) -> tuple:
+        return self.leaves
 
 
 def prepare_mix(mix: dict, lmax: int, parity: bool) -> K4Weights:
@@ -110,16 +129,19 @@ def k4_weights(mix: dict, lmax: int, parity: bool) -> K4Weights:
 # ---------------------------------------------------------------------------
 
 
-def tp_mix_fused_reference(Vt, envt, w: K4Weights):
+def tp_mix_fused_reference(Vt, envt, w: K4Weights, mode: str | None = None):
     """The same function as the kernel in plain PyTorch (``uniform_tp``,
     ``tp_mix_apply`` and ``scalar_part`` on the (E, C, D) layout, as
     ``pallas_tp.tp_mix_fused_ref``): Vt, envt (D, C, E) -> (Vt' (D, Cout,
-    E), inv (E, C*P0)), contiguous as the kernel's.  Goes through torch
-    autograd."""
+    E), inv (E, C*P0)), contiguous as the kernel's.  The mix is
+    ``prec.kmm`` in kernel ``mode`` (default: the policy's for the
+    operands' dtype, ``prec.kernel_mode``).  Goes through torch autograd."""
+    mode = mode or prec.kernel_mode(Vt.dtype)
     V, env = Vt.permute(2, 1, 0), envt.permute(2, 1, 0)
     T = uniform_tp(V, env, w.lmax, w.parity)
     ws = {f"l{l3}": leaf for l3, leaf in enumerate(w.leaves)}
-    return tp_mix_apply(ws, T).permute(2, 1, 0).contiguous(), scalar_part(T).contiguous()
+    return (tp_mix_apply(ws, T, mode).permute(2, 1, 0).contiguous(),
+            scalar_part(T).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -144,8 +166,17 @@ def _bind(lib):
         raise RuntimeError("kernel table layout differs from the wrapper's")
 
 
-LIB = CudaLibrary("k4_tp_mix_fused", [CSRC / "tp_mix_fused.cu", CSRC / "allegro_mma.cuh",
-                                       CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"], _bind)
+_HEADERS = [CSRC / "allegro_mma.cuh", CSRC / "allegro_tiles.cuh", CSRC / "mma_ptx.cuh"]
+LIB = CudaLibrary("k4_tp_mix_fused", [CSRC / "tp_mix_fused.cu", *_HEADERS], _bind)
+LIB_BF16X3, LIB_ONEPASS = (
+    CudaLibrary(f"k4_tp_mix_fused_{b}",
+                [CSRC / f"tp_mix_fused_{b}.cu", CSRC / "tp_mix_fused.cu", *_HEADERS], _bind)
+    for b in ("bf16x3", "onepass"))
+
+# each build's (library, launch counts), looked up at each launch; the
+# kernel has no bf16 build (a bf16 layer runs the plain path)
+BUILDS = {"tf32x3": (LIB, launches), "bf16x3": (LIB_BF16X3, launches_bf16x3),
+          "onepass": (LIB_ONEPASS, launches_onepass)}
 
 _CODES = {-1: "D above 16", -3: "no edges", -4: "C and Cout must be multiples of 4",
           -6: "the block's shared memory exceeds 227 KB even at 8 edges per tile"}
@@ -195,10 +226,13 @@ def block_layout(c: int, cout: int, d: int, lmax: int, parity: bool,
 
 
 def kernel_takes(c: int, cout: int, d: int, lmax: int, parity: bool) -> bool:
-    """Whether ``k4_launch`` (csrc/tp_mix_fused.cu) takes these widths,
-    forward and backward: its refusals (``_CODES``), the 3j table the
-    wrapper builds, and a block that fits (``block_layout``), mirrored here
-    so that a caller decides before any launch."""
+    """Whether ``k4_launch`` (csrc/tp_mix_fused.cu, or a build of the
+    policy's mode) takes these widths, forward and backward: its refusals
+    (``_CODES``), the 3j table the wrapper builds, and a block that fits
+    (``block_layout``), mirrored here so that a caller decides before any
+    launch.  Every build lays out the same block (its ring as many words; a
+    ring too shallow for a 16-row bf16x3 chunk reads its weights without
+    it), so the answer does not depend on the policy."""
     if d > _MAX_D or not table_fits(lmax, parity) or c < 4 or c % 4 or cout < 4 or cout % 4:
         return False
     return all(block_layout(c, cout, d, lmax, parity, bwd) for bwd in (False, True))
@@ -210,49 +244,52 @@ def _dims(w: K4Weights, Vt):
     return (ctypes.c_int * 6)(c, w.cout, d, e, max(P) * c, P[0])
 
 
-def kernel_tile(w: K4Weights, Vt, bwd: bool) -> int:
-    """The edge tile the kernel takes for these operands (32, 16 or 8), or
-    its negative refusal code (the library is built and loaded first)."""
-    return LIB.load().k4_tile(int(bwd), _dims(w, Vt))
+def kernel_tile(w: K4Weights, Vt, bwd: bool, mode: str | None = None) -> int:
+    """The edge tile the build of ``mode`` (default: the policy's) takes
+    for these operands (32, 16 or 8), or its negative refusal code (the
+    library is built and loaded first)."""
+    return BUILDS[build_for(Vt.dtype, mode)][0].load().k4_tile(int(bwd), _dims(w, Vt))
 
 
-def _launch(bwd: bool, w: K4Weights, Vt, ptrs):
-    lib = LIB.load()
+def _launch(bwd: bool, w: K4Weights, Vt, ptrs, build: str):
+    lib, counts = BUILDS[build]
+    lib = lib.load()
     arr = (ctypes.c_ulonglong * 11)(*ptrs)
     with torch.cuda.device(Vt.device):
         stream = torch.cuda.current_stream(Vt.device).cuda_stream
         rc = lib.k4_launch(int(bwd), arr, _dims(w, Vt), ctypes.c_void_p(stream))
     if rc != 0:
-        what = f"K4 {'backward' if bwd else 'forward'} launch failed"
+        what = f"K4 ({build}) {'backward' if bwd else 'forward'} launch failed"
         if rc > 0:
             raise RuntimeError(f"{what} (CUDA error {rc})")
         d, c, e = Vt.shape
         raise RuntimeError(
             f"{what} (code {rc}: {_CODES.get(rc, '?')}): the kernel does not take D={d}, C={c}, "
             f"Cout={w.cout}, E={e}, l_max={w.lmax}, parity={w.parity}")
-    if bwd:
-        launches.bwd += 1
-    else:
-        launches.fwd += 1
+    count(counts, bwd)
 
 
-def _kernel_fwd(Vt, envt, w: K4Weights):
+def _kernel_fwd(Vt, envt, w: K4Weights, mode=None):
+    """One forward launch of the build of ``mode`` (default: the policy's)."""
+    build = build_for(Vt.dtype, mode)
     d, c, e = Vt.shape
     p0 = num_paths_per_l(w.lmax, w.lmax, 0, w.parity)[0]
     out = torch.empty((d, w.cout, e), dtype=Vt.dtype, device=Vt.device)
     inv = torch.empty((e, c * p0), dtype=Vt.dtype, device=Vt.device)
-    ptrs = [Vt.data_ptr(), envt.data_ptr(), w.mix_flat.data_ptr(), w.mixT_flat.data_ptr(),
+    ptrs = [Vt.data_ptr(), envt.data_ptr(), *(t.data_ptr() for t in w.layout(build)),
             w.meta.data_ptr(), 0, 0, out.data_ptr(), inv.data_ptr(), 0, 0]
-    _launch(False, w, Vt, ptrs)
+    _launch(False, w, Vt, ptrs, build)
     return out, inv
 
 
-def _kernel_bwd(Vt, envt, w: K4Weights, dout, dinv):
+def _kernel_bwd(Vt, envt, w: K4Weights, dout, dinv, mode=None):
+    """One backward launch of the build of ``mode`` (default: the policy's)."""
+    build = build_for(Vt.dtype, mode)
     dV, denv = torch.empty_like(Vt), torch.empty_like(envt)
-    ptrs = [Vt.data_ptr(), envt.data_ptr(), w.mix_flat.data_ptr(), w.mixT_flat.data_ptr(),
+    ptrs = [Vt.data_ptr(), envt.data_ptr(), *(t.data_ptr() for t in w.layout(build)),
             w.meta.data_ptr(), dout.data_ptr(), dinv.data_ptr(), 0, 0, dV.data_ptr(),
             denv.data_ptr()]
-    _launch(True, w, Vt, ptrs)
+    _launch(True, w, Vt, ptrs, build)
     return dV, denv
 
 
@@ -265,22 +302,23 @@ class _TpMix(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Vt, envt, w, *leaves):
-        ctx.w = w
+        mode = prec.kernel_mode(Vt.dtype)
+        ctx.cfg = (w, mode)
         ctx.save_for_backward(Vt, envt)
         if Vt.is_cuda:
-            return _kernel_fwd(Vt, envt, w)
-        return tp_mix_fused_reference(Vt, envt, w)
+            return _kernel_fwd(Vt, envt, w, mode)
+        return tp_mix_fused_reference(Vt, envt, w, mode)
 
     @staticmethod
     def backward(ctx, dout, dinv):
-        w = ctx.w
+        w, mode = ctx.cfg
         Vt, envt = ctx.saved_tensors
         if Vt.is_cuda:
-            grads = _kernel_bwd(Vt, envt, w, dout.contiguous(), dinv.contiguous())
+            grads = _kernel_bwd(Vt, envt, w, dout.contiguous(), dinv.contiguous(), mode)
         else:
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_(True) for t in (Vt, envt)]
-                outs = tp_mix_fused_reference(*ins, w)
+                outs = tp_mix_fused_reference(*ins, w, mode)
                 grads = torch.autograd.grad(outs, ins, (dout, dinv))
         nan_w = [torch.full_like(t, float("nan")) for t in w.leaves]
         return (*grads, None, *nan_w)

@@ -2468,7 +2468,7 @@ def test_policy_bf16x3_wide_layouts(cuda, ns, c, width, depth, lds, ring):
                                           ("default", "-1pass")])
 @pytest.mark.parametrize("tier,env,want", [
     ({}, {}, {"K1": 3}), ({}, {"PAT_L1_EMBED": "1"}, {"K6": 1, "K1": 1, "K7": 1}),
-    (dict(fused_stack=True), {}, {"K8": 1})])
+    (dict(fused_stack=True), {}, {"K8": 1}), (dict(layer_fused=False), {}, {"K2": 3})])
 def test_policy_routes_count_their_builds(cuda, policy, build, tier, env, want, monkeypatch):
     """A force evaluation of the flagship-width model under each policy
     launches the policy's build of each kernel of its tier and no other,
@@ -2553,3 +2553,193 @@ def test_policy_packed_weights_follow_in_place_updates(cuda, kernel):
                      params["two_body_mlp"]["w"][0], params["layers"][-1]["mix"]["l0"]):
             leaf.mul_(1.5)
     policy_compare(kernel.upper(), "after an in-place update", fn, ref, args, names, outs)
+
+
+# ---------------------------------------------------------------------------
+# The matmul precision policy in K2, K4 and K3: their bf16x3 and one-pass
+# builds
+# ---------------------------------------------------------------------------
+
+# K2 (c, cout, k, centers, l_max, parity): the flagship widths (the
+# forward at the stride 40 with the ring keeping an l3 block, the backward
+# at the stride 32 with a ring too shallow for a 16-row bf16x3 chunk), the
+# margins of K2_MARGINS (K no multiple of 32 nor of 4, the narrowest C, the
+# backward at the stride 32 with the ring in the whole shared memory and
+# without it, C = 256 at l_max 0)
+K2_POLICY = [(32, 32, 40, 6, 2, True), (8, 12, 7, 5, 1, False), (128, 132, 40, 2, 1, False),
+             (64, 256, 16, 3, 2, True), (256, 256, 8, 3, 0, True)]
+
+
+@pytest.mark.parametrize("c,cout,k,nc,lmax,parity", K2_POLICY)
+def test_policy_k2_builds_match_plain(cuda, c, cout, k, nc, lmax, parity):
+    """K2 under kernel_high (the bf16x3 build) and default (the one-pass
+    build) against the plain version at that mode, one launch each way of
+    that build, with the wrong-mode controls (chip_smoke.policy_compare)."""
+    from chip_smoke import K2_NAMES, policy_compare
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+
+    _, w, ins, _, _ = _env_case(cuda, "paths", c, k, nc, lmax, parity, 8, cout=cout)
+    policy_compare("K2", f"C={c} Cout={cout} K={k} l_max={lmax}",
+                   lambda *a: k2.env_layer(*a, w, k, 5.0),
+                   lambda m: (lambda *a: k2.env_layer_reference(*a, w, k, 1.0 / math.sqrt(5.0), m)),
+                   ins, K2_NAMES, ("V'", "inv"))
+
+
+# K4 (c, cout, l_max, parity, E, edge tiles fwd / bwd): every tile the
+# kernel is built for, with a tail tile, tiles that load without cp.async,
+# and the widest width (8-edge tiles without the ring)
+K4_POLICY = [(8, 12, 1, True, 45, (32, 32)), (32, 32, 2, True, 1001, (32, 16)),
+             (48, 24, 2, True, 300, (16, 8)), (96, 32, 2, True, 77, (8, 8)),
+             (152, 152, 2, True, 77, None)]
+
+
+@pytest.mark.parametrize("c,cout,lmax,parity,e,tiles", K4_POLICY)
+def test_policy_k4_builds_match_plain(cuda, c, cout, lmax, parity, e, tiles):
+    """K4's bf16x3 and one-pass builds at each edge tile, with the tail
+    tile: the tile is the 3xTF32 build's (every build lays out the same
+    block)."""
+    from chip_smoke import K4_NAMES, policy_compare
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+
+    w, ins = _k4_case(cuda, c, cout, lmax, parity, e, 11)
+    for mode in ("tf32x3", "bf16x3", "bf16"):
+        got = tuple(k4.kernel_tile(w, ins[0], bwd, mode) for bwd in (False, True))
+        assert got == (tiles or got) and got == tuple(
+            k4.block_layout(c, cout, (lmax + 1) ** 2, lmax, parity, bwd)[1] for bwd in (False, True))
+    policy_compare("K4", f"C={c} Cout={cout} l_max={lmax} E={e}",
+                   lambda *a: k4.tp_mix_fused_t(*a, w),
+                   lambda m: (lambda *a: k4.tp_mix_fused_reference(*a, w, m)),
+                   ins, K4_NAMES, ("V'", "inv"))
+
+
+# K3: K3_LAYOUT_CASES' main-path widths, l_max 2, C = 4 and 128, no hidden
+# layer, and the chunked (LONG) last products at 256, 512 x 512 and
+# 768 x 768 hidden widths (the weight resident and read from device memory)
+K3_POLICY = [K3_LAYOUT_CASES[i] for i in (0, 2, 4, 5, 7, 9, 17, 18)]
+
+
+@pytest.mark.parametrize("hj", ["f32", "bf16"])
+@pytest.mark.parametrize("case", K3_POLICY)
+def test_policy_k3_builds_match_plain(cuda, case, hj):
+    """K3's bf16x3 and one-pass builds, with an f32 and a bf16 hj (the
+    bf16-hj builds: K3hj-bf16x3, K3hj-1pass; a bf16 dhj within BF16_TOLS),
+    against the plain version at the mode."""
+    from chip_smoke import K3_NAMES, K3HJ_IDS, policy_compare
+    from pair_allegro_tpu_torch.ops import nequip_conv as nc_mod
+
+    k = case[3]
+    w, ins = _k3_layout_case(cuda, *case)
+    if hj == "bf16":
+        ins[0] = ins[0].to(torch.bfloat16)
+    policy_compare("K3", f"{hj} hj {case}", lambda *a: nc_mod.nequip_conv(*a, w, k, 12.0),
+                   lambda m: (lambda *a: nc_mod.nequip_conv_reference(
+                       *a, w, k, 1.0 / math.sqrt(12.0), m)),
+                   ins, K3_NAMES, ("agg",), K3HJ_IDS if hj == "bf16" else None)
+
+
+@pytest.mark.parametrize("policy,build", [("highest", ""), ("mixed", ""),
+                                          ("kernel_high", "-bf16x3"), ("high", "-bf16x3"),
+                                          ("default", "-1pass")])
+@pytest.mark.parametrize("hj", ["", "bf16"])
+def test_policy_nequip_routes_count_their_builds(cuda, policy, build, hj, monkeypatch):
+    """A NequIP force evaluation under each policy launches the policy's K3
+    build (with PAT_NEQUIP_HJ=bf16 its bf16-hj build) once a layer each way
+    and no other, and its forces match the CPU path under the same policy
+    within 5e-4 of max|F| (with the hj boundary 1e-2, as
+    test_nequip_hj_bf16_counts_its_launches), or 5e-2 where the glue takes
+    TF32 (the CPU's does not; an H100 read 1.7e-2 with the boundary, whose
+    bf16 casts flip where TF32 moved h)."""
+    from chip_smoke import K3HJ_IDS, MODES, kernel_modules
+    from pair_allegro_tpu_torch.engine import NequIPEngine
+    from pair_allegro_tpu_torch.models.nequip import (
+        NequIPConfig,
+        nequip_init_numpy,
+        nequip_params_from_numpy,
+    )
+    from pair_allegro_tpu_torch.ops.prec import matmul_precision
+
+    monkeypatch.setenv("PAT_NEQUIP_HJ", hj)
+    cfg = NequIPConfig(type_names=("Cu",), r_max=4.5, l_max=1, num_layers=2, num_features=16,
+                       avg_num_neighbors=12.0)
+    mods = kernel_modules()
+    forces = []
+    with matmul_precision(policy):
+        for dev in ("cuda", "cpu"):
+            params = nequip_params_from_numpy(nequip_init_numpy(cfg, 0), cfg, device=dev)
+            pos, cell = fcc_lattice(5)
+            system = System.create(pos, np.zeros(len(pos), np.int64), cell=cell, device=dev)
+            eng = NequIPEngine(cfg, params, system, device=dev)
+            nb = eng.rebuild_fn(system, None)
+            for m in mods.values():
+                m.launches.reset()
+            forces.append(eng.force_fn(system, nb).forces.cpu())
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched = {n: (m.launches.fwd, m.launches.bwd) for n, m in mods.items()
+                            if m.launches.fwd or m.launches.bwd}
+    mode = next(m for m, (_, b, _) in MODES.items() if b == build)
+    want = K3HJ_IDS[mode] if hj else "K3" + build
+    assert launched == {want: (2, 2)}
+    fmax = float(forces[1].abs().max())
+    gate = (1e-2 if hj else 5e-4) if policy in ("highest", "kernel_high") else 5e-2
+    assert float((forces[0] - forces[1]).abs().max()) <= gate * fmax
+
+
+@pytest.mark.parametrize("build", ["K2-bf16x3", "K2-1pass", "K4-bf16x3", "K4-1pass", "K3-bf16x3",
+                                   "K3-1pass", "K3hj-bf16x3", "K3hj-1pass"])
+def test_policy_builds_raise_on_refusal_and_build_failure(cuda, build, tmp_path, monkeypatch):
+    """No fallback on the card: under the build's policy a width the
+    kernels refuse raises at the launch (K2: C = 48, the TP's cells; K4: C
+    = 6) or before it (K3: C = 12, the wrapper's check), and a build that
+    does not compile raises; neither runs the 3xTF32 build or the plain
+    version (no launch is counted, none of that build's)."""
+    from chip_smoke import kernel_modules
+    from pair_allegro_tpu_torch.ops import env_layer as k2
+    from pair_allegro_tpu_torch.ops import nequip_conv as nc_mod
+    from pair_allegro_tpu_torch.ops import tp_mix_fused as k4
+    from pair_allegro_tpu_torch.ops._build import CudaLibrary
+    from pair_allegro_tpu_torch.ops.prec import matmul_precision
+
+    kid, b = build.split("-")
+    policy = "kernel_high" if b == "bf16x3" else "default"
+    key = "bf16x3" if b == "bf16x3" else "onepass"
+    mods = kernel_modules()
+    if kid == "K2":
+        refused = _env_case(cuda, "paths", 48, 24, 2, 2, True, 3)
+        good = _env_case(cuda, "paths", 8, 24, 2, 2, True, 3)
+
+        def call(case):
+            _, w, ins, _, _ = case
+            return k2.env_layer(*ins, w, 24, 5.0)
+        mod, bkey, bind = k2, key, k2._bind
+    elif kid == "K4":
+        refused, good = _k4_case(cuda, 6, 8, 1, True, 40, 5), _k4_case(cuda, 8, 8, 2, True, 40, 3)
+
+        def call(case):
+            w, ins = case
+            return k4.tp_mix_fused_t(*ins, w)
+        mod, bkey, bind = k4, key, k4._bind
+    else:
+        refused = _k3_case(cuda, 1, 2, 12, 20, 3, 1)
+        good = _k3_case(cuda, 1, 2, 8, 20, 3, 1)
+        if kid == "K3hj":
+            refused, good = ((w, [ins[0].to(torch.bfloat16), *ins[1:]]) for w, ins in (refused, good))
+
+        def call(case):
+            w, ins = case
+            return nc_mod.nequip_conv(*ins, w, 20, 12.0)
+        hj = torch.bfloat16 if kid == "K3hj" else torch.float32
+        mod, bkey, bind = nc_mod, (hj, key), nc_mod._bind
+    with matmul_precision(policy):
+        for m in mods.values():
+            m.launches.reset()
+        with pytest.raises((RuntimeError, ValueError), match="launch failed|does not take|takes C"):
+            call(refused)
+        assert not any(m.launches.fwd or m.launches.bwd for m in mods.values())
+        broken = tmp_path / "broken.cu"
+        broken.write_text("this is not CUDA\n")
+        monkeypatch.setitem(mod.BUILDS, bkey, (CudaLibrary(f"broken_{build}", [broken], bind),
+                                               mods[build].launches))
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call(good)
+        assert not any(m.launches.fwd or m.launches.bwd for m in mods.values())

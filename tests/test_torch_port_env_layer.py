@@ -101,9 +101,13 @@ def test_plain_matches_jax_layer_math_f64(mode):
 def test_plain_matches_jax_kernel_interpret_f32(mode, monkeypatch):
     """f32: the plain version (K5's: with the mode's bf16 rounding) against
     the JAX Pallas kernel of the same mode in interpret mode, with exact-f32
-    env averaging (PAT_ENV_MM=highest) and matmuls."""
+    env averaging (PAT_ENV_MM=highest) and matmuls: both packages under the
+    'highest' policy (K2's mix follows the policy; the other policies are
+    tests/test_torch_port_prec_kernels.py's)."""
     import pair_allegro_tpu.ops.pallas_stack as ps
     from pair_allegro_tpu.ops.prec import matmul_precision
+
+    from pair_allegro_tpu_torch.ops import prec
 
     monkeypatch.setenv("PAT_ENV_MM", "highest")
     monkeypatch.setattr(ps, "_INTERPRET", True)
@@ -123,7 +127,8 @@ def test_plain_matches_jax_kernel_interpret_f32(mode, monkeypatch):
         g_j = jax.grad(lambda *a: sum(jnp.sum(o * c) for o, c in zip(kern(*a), cots)),
                        (0, 1, 2))(*jin)
     ins = [t.requires_grad_(True) for t in ins]
-    out = _port(mode, _weights(tmix, mode))(*ins)
+    with prec.matmul_precision("highest"):
+        out = _port(mode, _weights(tmix, mode))(*ins)
     (fa, fr), (ba, br) = TOLS[mode]
     for name, a, b in zip(("out", "inv"), out, j_out):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=fa, rtol=fr, err_msg=name)

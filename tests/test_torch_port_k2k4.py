@@ -457,9 +457,11 @@ def test_k2_k4_products_are_on_the_tensor_cores():
     """No FFMA product, shared-memory TP row or atomic is left in K2 and K4:
     their mix and mixT run mma_tile (3xTF32 mma.sync) with the weights
     staged by mma_stage (cp.async), their TP rows keep sums in registers.
-    K2 reaches them through prod / stage (allegro_mma.cuh), which run
-    mma_tile and mma_stage at f32 and the bf16 product on the same ring at
-    bf16."""
+    K2 and K4 reach them through prod / stage (allegro_mma.cuh: K2 at its
+    activations' type, K4 at f32), which run mma_tile and mma_stage in the
+    form ACT_FORM picks: the build's MIX_MMA at f32 (3xTF32 in env_layer.cu
+    and tp_mix_fused.cu, bf16x3 or one bf16 pass in the policy's builds,
+    which define nothing else), the bf16 product on the same ring at bf16."""
     tiles = SRC["allegro_tiles.cuh"]
     for gone in ("gemm_tile", "tp_row(", "tp_row_edges", "load_tile("):
         assert gone not in tiles
@@ -468,14 +470,22 @@ def test_k2_k4_products_are_on_the_tensor_cores():
                 "stage<Act>": re.search(r"void stage\(.*?\n}\n", mma, re.S).group(0)}
     assert "mma_tile<TW, O, ACT_FORM<Act>>(" in dispatch["prod<Act>"]
     assert "mma_stage(" in dispatch["stage<Act>"]
+    assert "IS_BF16<Act> ? (int)BF16P : (int)MIX_MMA" in mma
+    assert "#ifndef MIX_MMA\n#define MIX_MMA TF32X3\n#endif" in mma
     for name, tp in (("env_layer.cu", ("tp_row_reg(", "tp_row_bwd(")),
                      ("tp_mix_fused.cu", ("tp_row_reg_edges<", "tp_row_bwd_edges<"))):
         src = SRC[name]
         assert "atomicAdd" not in src and "__ldg(A" not in src
-        assert (src.count("mma_tile") + src.count("prod<Act>") >= 2
-                and src.count("mma_stage") + src.count("stage<Act>") >= 2)
+        assert (src.count("mma_tile") + src.count("prod<Act>") + src.count("prod<float, TW>") >= 2
+                and src.count("mma_stage") + src.count("stage<Act>") + src.count("stage<float>")
+                >= 2)
         assert all(t in src for t in tp)
         assert '#include "allegro_mma.cuh"' in src
+        stem = name[:-3]
+        for build, form in (("bf16x3", "BF16X3"), ("onepass", "BF16P")):
+            text = (CSRC / f"{stem}_{build}.cu").read_text()
+            code = [ln for ln in text.splitlines() if ln.strip() and not ln.startswith("//")]
+            assert code == [f"#define MIX_MMA {form}", f'#include "{name}"'], (stem, build)
 
 
 def test_k4_weights_keep_the_leaves_for_cotangents():

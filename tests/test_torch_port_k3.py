@@ -209,16 +209,33 @@ def test_kernel_takes_refusals(c, t, lmax, dims, takes):
 
 
 def test_products_are_on_the_tensor_cores():
-    """Both radial products and the hidden layers run 3xTF32 mma.sync; no
-    FFMA product of the CUDA-core kernel, shared-memory product tile or
-    atomic is left; the last weight is staged by cp.async."""
+    """Both radial products and the hidden layers run mma.sync in the
+    build's form (K3_MMA: split_op splits or rounds each operand as it
+    loads, mma_op runs the three 3xTF32 / bf16x3 passes or the one pass);
+    no FFMA product of the CUDA-core kernel, shared-memory product tile or
+    atomic is left; the last weight is staged by cp.async.  The policy's
+    builds define K3_MMA (and the bf16-hj ones K3_HJ) and nothing else."""
     for gone in ("radial_last", "back_last", "hidden_fwd", "atomicAdd", "o_part", "o_g",
                  "gstride"):
         assert gone not in SRC
-    for func, n_mma in (("product_terms", 3), ("product_bwd", 3), ("small_product", 3)):
+    for func in ("product_terms", "product_bwd", "small_product"):
         body = re.search(rf"void {func}\(.*?\n}}\n", SRC, re.S).group(0)
-        assert body.count("mma_tf32(") == n_mma and body.count("split_tf32(") >= 4, func
+        assert body.count("mma_op(") == 1 and body.count("split_op(") >= 4, func
+        assert "mma_tf32(" not in body and "split_tf32(" not in body, func
+    op = re.search(r"void mma_op\(.*?\n}\n", SRC, re.S).group(0)
+    assert op.count("mma_tf32(") == 3 and "if constexpr (K3_MMA != BF16P)" in op
+    split = re.search(r"void split_op\(.*?\n}\n", SRC, re.S).group(0)
+    assert "split_tf32(x, hi, lo)" in split and split.count("__float2bfloat16_rn(") == 2
+    assert "#ifndef K3_MMA\n#define K3_MMA TF32X3\n#endif" in SRC
+    for stem, defs in (("nequip_conv_bf16x3", ["K3_MMA BF16X3"]),
+                       ("nequip_conv_onepass", ["K3_MMA BF16P"]),
+                       ("nequip_conv_bf16_bf16x3", ["K3_HJ __nv_bfloat16", "K3_MMA BF16X3"]),
+                       ("nequip_conv_bf16_onepass", ["K3_HJ __nv_bfloat16", "K3_MMA BF16P"])):
+        text = (k3.CSRC / f"{stem}.cu").read_text()
+        code = [ln for ln in text.splitlines() if ln.strip() and not ln.startswith("//")]
+        assert code == [f"#define {d}" for d in defs] + ['#include "nequip_conv.cu"'], stem
     # the last product is product_terms on one chain, or in chunks of 64 terms
     body = re.search(r"void product_fwd\(.*?\n}\n", SRC, re.S).group(0)
     assert body.count("product_terms<PG, RES>(") == 2 and "kc += 64" in body
     assert SRC.count("cp_async16(") == 1 and '#include "mma_ptx.cuh"' in SRC
+

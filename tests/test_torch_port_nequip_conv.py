@@ -146,8 +146,12 @@ def test_plain_matches_jax_kernel_interpret_f64(lmax, T):
 @pytest.mark.parametrize("lmax,T", CASES)
 def test_plain_matches_jax_kernel_interpret_f32(lmax, T, monkeypatch):
     """f32 at exact-f32 matmuls and aggregation (PAT_NEQUIP_AGG_MM=highest,
-    so the kernel's bf16 split of the K-sum is not what is measured)."""
+    so the kernel's bf16 split of the K-sum is not what is measured): both
+    packages under the 'highest' policy (the radial MLP's products follow
+    the policy; the other policies are tests/test_torch_port_prec_kernels.py's)."""
     from pair_allegro_tpu.ops.prec import matmul_precision
+
+    from pair_allegro_tpu_torch.ops import prec
 
     monkeypatch.setenv("PAT_NEQUIP_AGG_MM", "highest")
     arrays, ws = _operands(lmax, T, 20 + 10 * lmax + T)
@@ -157,7 +161,8 @@ def test_plain_matches_jax_kernel_interpret_f32(lmax, T, monkeypatch):
         out, vjp = jax.vjp(_jax_conv(ws, lmax, T), *(jnp.asarray(a) for a in arrays))
         dagg = np.random.RandomState(4).randn(*out.shape).astype(np.float32)
         g_j = vjp(jnp.asarray(dagg))
-    _, ins, agg = _port_conv(ws, lmax, T, torch.float32, arrays)
+    with prec.matmul_precision("highest"):
+        _, ins, agg = _port_conv(ws, lmax, T, torch.float32, arrays)
     np.testing.assert_allclose(agg.detach().numpy(), np.asarray(out), atol=5e-6, rtol=5e-5)
     g_t = torch.autograd.grad(agg, ins, torch.tensor(dagg))
     for name, a, b in zip(("dhj", "dbessel", "du", "dY"), g_t, g_j):

@@ -108,8 +108,12 @@ def test_plain_matches_jax_kernel_interpret_bf16_hj(lmax, T, monkeypatch):
     K3's f32 tolerances; dhj is bf16 on both sides, rounded from f32 values
     that agree at those tolerances, so within one bf16 ulp (2^-7 relative
     at the bottom of a binade): a value near a rounding midpoint may round
-    the other way on one side."""
+    the other way on one side.  Both packages run under the 'highest'
+    policy (the radial MLP's products follow the policy; the other
+    policies are tests/test_torch_port_prec_kernels.py's)."""
     from pair_allegro_tpu.ops.prec import matmul_precision
+
+    from pair_allegro_tpu_torch.ops import prec
 
     monkeypatch.setenv("PAT_NEQUIP_AGG_MM", "highest")
     C = 8
@@ -134,7 +138,8 @@ def test_plain_matches_jax_kernel_interpret_bf16_hj(lmax, T, monkeypatch):
                           C, T, lmax)
     ins = [torch.tensor(hj.reshape(N * K, -1)).to(torch.bfloat16).requires_grad_(True)]
     ins += [torch.tensor(a.reshape(N * K, -1)).requires_grad_(True) for a in rest]
-    agg = nc.nequip_conv(*ins, w, K, AVG)
+    with prec.matmul_precision("highest"):
+        agg = nc.nequip_conv(*ins, w, K, AVG)
     assert agg.dtype == torch.float32
     np.testing.assert_allclose(agg.detach().numpy(), np.asarray(out), atol=5e-6, rtol=5e-5)
     g_t = torch.autograd.grad(agg, ins, torch.tensor(dagg))
