@@ -29,7 +29,10 @@ LAMMPS input-script analog.  One YAML config describes the run:
     computes:                      # compute allegro / allegro/atom analogs
       - {name: dip, quantity: dipole, style: global, length: 3}   # thermo columns
       - {name: q, quantity: charges, style: atom, ncols: 1}       # dump columns
-    profile: {phases: true, trace_dir: trace/}  # rebuild / force ms; torch.profiler trace
+    profile: {phases: true, trace_dir: trace/}  # rebuild / force ms; a torch.profiler
+                                   # trace of the run with the port's pat.* spans
+                                   # (tracing.py); any profile: block prints the
+                                   # run's counters, "# counter <name> <value>"
     sharding: {n_devices: 8, mode: replicated, row_chunk: 0}
                                    # multi-device run (the mpirun -np N analog):
                                    # replicated (positions replicated, work sharded)
@@ -113,6 +116,7 @@ import torch
 
 from pair_allegro_tpu_torch import checkpoint as ckpt
 from pair_allegro_tpu_torch import import_torch as imp
+from pair_allegro_tpu_torch import tracing
 from pair_allegro_tpu_torch.compile_cache import cache_dir as compile_cache_dir
 from pair_allegro_tpu_torch.compile_cache import enable_compile_cache, maybe_enable_from_env
 from pair_allegro_tpu_torch.computes import GlobalCompute, PerAtomCompute
@@ -355,7 +359,10 @@ def cmd_run(args) -> int:
             if device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             tracer = torch.profiler.profile(activities=activities)
+            stack.callback(tracing.enable, tracing.enabled())
+            tracing.enable(True)
             tracer.start()
+        counts0 = tracing.counters()
         t0 = time.perf_counter()
         sim.run(steps, log_every=log_every, callback=callback)
         _sync(device)
@@ -365,6 +372,10 @@ def cmd_run(args) -> int:
             os.makedirs(trace_dir, exist_ok=True)
             tracer.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
             print(f"# torch.profiler trace -> {os.path.join(trace_dir, 'trace.json')}")
+        if "profile" in conf:
+            for name, v in tracing.counters().items():
+                if v != counts0[name]:
+                    print(f"# counter {name} {v - counts0[name]}")
         sps = steps / wall if wall > 0 else float("inf")
         print(f"# {steps} steps in {wall:.1f} s ({sps:.2f} steps/s, "
               f"{sps * float(conf.get('dt_fs', 1.0)) * 1e-6 * 86400:.3f} ns/day)")

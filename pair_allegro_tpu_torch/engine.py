@@ -19,6 +19,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch import tracing
+from pair_allegro_tpu_torch.io.dump import host
 from pair_allegro_tpu_torch.models.allegro import AllegroConfig, allegro_energy
 from pair_allegro_tpu_torch.models.nequip import NequIPConfig, nequip_energy
 from pair_allegro_tpu_torch.neighbors.device import (
@@ -96,16 +98,16 @@ def _round_k(k_max: int) -> int:
 
 
 def _host_stats(system: System, cutoff: float, cutoff_table):
-    pos = system.positions.detach().cpu().double().numpy()
-    cell = system.cell.detach().cpu().double().numpy()
-    mask = system.valid_mask().cpu().numpy()
+    pos = host(system.positions).astype(np.float64)
+    cell = host(system.cell).astype(np.float64)
+    mask = host(system.valid_mask())
     typed = cutoff_table is not None
     return host_neighbor_stats(
         pos[mask],
         cell if any(system.pbc) else None,
         system.pbc,
         cutoff,
-        types=system.types.cpu().numpy()[mask] if typed else None,
+        types=host(system.types)[mask] if typed else None,
         cutoff_matrix=cutoff_table if typed else None,
     )
 
@@ -119,7 +121,7 @@ def _estimate_capacities(system: System, cutoff: float, skin: float, capacity_fa
     experiments); else the dense build over the image shifts that cover the
     cutoff, with max_edges the edge count * capacity_factor rounded up to a
     multiple of 128, plus 128."""
-    cell = system.cell.detach().cpu().double().numpy()
+    cell = host(system.cell).astype(np.float64)
     rc = cutoff + skin
     n = system.n_atoms
     grid = choose_grid(cell, rc) if all(system.pbc) else None
@@ -216,14 +218,20 @@ def skin_checked(build: Callable, skin: float) -> Callable:
     """rebuild(system, prev) over ``build(system)``: with skin > 0 the
     previous data (which keeps ``ref_positions``) stands until some atom
     moved more than skin / 2 since it was built (one device reduction and
-    one host read per call)."""
+    one host read per call).  Each build counts one ``neighbors.builds``
+    (``tracing``)."""
 
     def rebuild(system: System, prev):
-        if prev is None or skin <= 0.0 or prev.ref_positions is None:
+        if prev is not None and skin > 0.0 and prev.ref_positions is not None:
+            with tracing.span("neighbors.check"):
+                d = system.positions - prev.ref_positions
+                d2 = torch.where(system.valid_mask(), torch.sum(d * d, dim=-1), 0.0).max()
+                moved = bool(host(d2 > (0.5 * skin) ** 2))
+            if not moved:
+                return prev
+        with tracing.span("neighbors.build"):
+            tracing.count("neighbors.builds")
             return build(system)
-        d = system.positions - prev.ref_positions
-        d2 = torch.where(system.valid_mask(), torch.sum(d * d, dim=-1), 0.0).max()
-        return build(system) if bool(d2 > (0.5 * skin) ** 2) else prev
 
     return rebuild
 
@@ -315,7 +323,7 @@ def reestimate_spec(spec: NeighborSpec, system: System, factor: float = 1.5) -> 
     the grown and the freshly estimated capacities.  The strategy stays."""
     grown = grow_spec(spec, factor)
     n_edges, max_count = _host_stats(system, spec.cutoff, spec.cutoff_table)
-    cell = system.cell.detach().cpu().double().numpy()
+    cell = host(system.cell).astype(np.float64)
     if spec.strategy == "dense":
         shifts = static_image_shifts(cell, system.pbc, spec.cutoff, extra_images=1)
         cap = int(np.ceil(n_edges * factor / 128.0)) * 128 + 128

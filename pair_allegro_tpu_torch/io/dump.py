@@ -7,10 +7,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch import tracing
+
 
 def host(x) -> np.ndarray:
-    """A tensor (any device) or array-like as a numpy array."""
+    """A tensor (any device) or array-like as a numpy array; each tensor
+    read counts one ``host_reads`` (``tracing``)."""
     if isinstance(x, torch.Tensor):
+        tracing.count("host_reads")
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

@@ -29,6 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch import tracing
 from pair_allegro_tpu_torch.md.thermo import pressure_tensor, thermo_row
 from pair_allegro_tpu_torch.neighbors.device import NeighborData
 from pair_allegro_tpu_torch.ops.geometry import det3x3
@@ -387,43 +388,45 @@ class Simulation:
             step = self._step_fn()
             state = dataclasses.replace(backup, overflow=backup.neighbors.overflow)
             for _ in range(n_sub):
-                state = step(state)
+                with tracing.span("md.step"):
+                    state = step(state)
             self.state = state
-            row = thermo_row(state)
-            if row["overflow"]:
-                # drift past the halo's margin raises the flag too: re-sort
-                # first; a second overflow of the re-run chunk is capacity
-                if self.migrate_fn is not None:
+            with tracing.span("md.chunk_end"):
+                row = thermo_row(state)
+                if row["overflow"]:
+                    # drift past the halo's margin raises the flag too: re-sort
+                    # first; a second overflow of the re-run chunk is capacity
+                    if self.migrate_fn is not None:
+                        backup.generator.set_state(rng_backup)
+                        if self._apply_migration(backup):
+                            migrate_retries += 1
+                            if migrate_retries > self.MAX_MIGRATE_RETRIES:
+                                raise RuntimeError(
+                                    "atom drift exceeds the halo coverage margin "
+                                    f"within a single {n_sub}-step chunk even after "
+                                    f"{self.MAX_MIGRATE_RETRIES} re-sorts — use a shorter "
+                                    "log_every/chunk, more halo hops, or a larger skin"
+                                )
+                            continue
+                    if self.grow_fn is None:
+                        raise RuntimeError(
+                            "neighbor capacity overflow during chunk: pass grow_fn "
+                            "(results in this chunk are invalid)"
+                        )
                     backup.generator.set_state(rng_backup)
-                    if self._apply_migration(backup):
-                        migrate_retries += 1
-                        if migrate_retries > self.MAX_MIGRATE_RETRIES:
-                            raise RuntimeError(
-                                "atom drift exceeds the halo coverage margin "
-                                f"within a single {n_sub}-step chunk even after "
-                                f"{self.MAX_MIGRATE_RETRIES} re-sorts — use a shorter "
-                                "log_every/chunk, more halo hops, or a larger skin"
-                            )
-                        continue
-                if self.grow_fn is None:
-                    raise RuntimeError(
-                        "neighbor capacity overflow during chunk: pass grow_fn "
-                        "(results in this chunk are invalid)"
-                    )
-                backup.generator.set_state(rng_backup)
-                self._regrow(backup)
-                continue
-            rows.append(row)
-            if callback is not None:
-                callback(self.state, row)
-            done += n_sub
-            migrate_retries = 0  # the cap is per chunk
-            if self.migrate_fn is not None:
-                # re-sort at half the margin, before the guard trips
-                self._apply_migration(self.state)
-            if self.shrink_fn is not None:
-                self._chunks_since_shrink += 1
-                if self._chunks_since_shrink >= self.shrink_every:
-                    self._chunks_since_shrink = 0
-                    self._maybe_shrink()
+                    self._regrow(backup)
+                    continue
+                rows.append(row)
+                if callback is not None:
+                    callback(self.state, row)
+                done += n_sub
+                migrate_retries = 0  # the cap is per chunk
+                if self.migrate_fn is not None:
+                    # re-sort at half the margin, before the guard trips
+                    self._apply_migration(self.state)
+                if self.shrink_fn is not None:
+                    self._chunks_since_shrink += 1
+                    if self._chunks_since_shrink >= self.shrink_every:
+                        self._chunks_since_shrink = 0
+                        self._maybe_shrink()
         return rows

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from pair_allegro_tpu_torch.io.dump import host
 from pair_allegro_tpu_torch.ops.geometry import volume
 from pair_allegro_tpu_torch.system import Units
 
@@ -78,10 +79,10 @@ def thermo_row(state) -> dict:
         "overflow": state.overflow,
     }
     # one device -> host transfer for the whole row
-    vec = torch.cat(
+    vec = host(torch.cat(
         [torch.stack([v.to(torch.float64).reshape(()) for v in dev_vals.values()]),
          press.reshape(9).to(torch.float64)]
-    ).cpu().numpy()
+    ))
     row = {"step": int(state.step)}
     row.update({k: float(x) for k, x in zip(dev_vals, vec)})
     row["n_edges"] = int(row["n_edges"])

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pair_allegro_tpu_torch import tracing
 from pair_allegro_tpu_torch.models.edges import flat_edges, is_flat, table_edges
 from pair_allegro_tpu_torch.ops.embed_layer import embed_layer, k6_weights
 from pair_allegro_tpu_torch.ops.embed_layer import kernel_takes as k6_takes
@@ -697,103 +698,113 @@ def allegro_energy(params: dict, cfg: AllegroConfig, positions, types, edge_inde
 
     Returns 'atomic_energy' (Nc,), 'total_energy' (), 'edge_energy' (Nc, K)
     or (E,) and, with ``output_charges``, 'charges' (Nc,) and 'dipole' (3,) =
-    sum_i q_i r_i over the centers."""
+    sum_i q_i r_i over the centers.  The three stretches, inputs, layers and
+    readout, are the spans ``model.inputs``, ``model.layers`` and
+    ``model.readout`` (``tracing``)."""
     check_supported(cfg)
     dtype = positions.dtype
     cdtype = cfg.interior_dtype(dtype)
     flat = is_flat(edge_index)
     tier = layer_tier(cfg, flat, capture is not None, cdtype, positions.is_cuda)
     remat = remat_on(cfg, capture)
-    if flat:
-        if edge_vec is not None:
-            raise ValueError("edge_vec takes the TABLE layout only")
-        c0 = int(center_offset)
-        n = positions.shape[0] - c0 if num_centers is None else num_centers
-        whole = c0 == 0 and n == positions.shape[0]
-        types_c = types if whole else types[c0:c0 + n]
-        pos_c = positions if whole else positions[c0:c0 + n]
-        geo = flat_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
-                         edge_mask=edge_mask)
-        agg, per_edge, spread = flat_reducers(edge_index[0] - c0 if c0 else edge_index[0], n)
-        agg_rows = agg
-    else:
-        n, k = edge_index.shape
-        if num_centers is not None and num_centers != n:
-            raise ValueError(f"num_centers={num_centers} != table rows {n}")
-        c0 = int(center_offset)
-        types_c, pos_c = types[c0:c0 + n], positions[c0:c0 + n]
-        geo = table_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
-                          edge_mask=edge_mask, edge_rev=edge_rev, center_offset=c0,
-                          edge_vec=edge_vec, edge_tjf=edge_tjf)
-
-        def agg(a):
-            return a.sum(dim=1)
-
-        def agg_rows(a):
-            return a.reshape(n, k, *a.shape[1:]).sum(dim=1)
-
-        def per_edge(a):
-            return a[:, None]
-
-        def spread(a):
-            return a[:, :, None].expand(*a.shape, k).reshape(a.shape[0], n * k)
-    u = geo["u"]
-    if tier == "k1-embed":
-        ins = _embed_major(cfg, types_c, geo, n, k, cdtype)
-        rows = _embed_layers(params, cfg, ins["in_T"], ins["Y_T"], ins["uT"], k, remat)
-        rows = dict(zip(("readout_mlp", "charge_mlp"), rows))
-
-        def head(name):  # the heads ran in K7's epilogue
-            return rows[name].reshape(n, k).to(dtype)
-    elif tier in ("stack", "k1", "k1-nopos", "perlayer"):
-        ins = _feature_major(params, cfg, types_c, geo, n, k, cdtype)
-        if tier == "stack":  # no remat, as in JAX: K8's backward recomputes its forward
-            xT = fused_stack(ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], params["layers"], k,
-                             cfg.l_max, cfg.avg_num_neighbors, cfg.parity)
-        elif tier == "perlayer":
-            xT = _perlayer_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k,
-                                  remat)
-        else:
-            xT = _k1_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k,
-                            positional=tier == "k1", remat=remat)
-
-        xT = xT.to(dtype)
-
-        def head(name):
-            return mlp_apply_t(params[name], xT)[0].reshape(n, k) * u
-    else:
+    with tracing.span("model.inputs"):
         if flat:
-            x_in = torch.cat([geo["oh_i"], geo["oh_j"], geo["bessel"]], dim=-1)
+            if edge_vec is not None:
+                raise ValueError("edge_vec takes the TABLE layout only")
+            c0 = int(center_offset)
+            n = positions.shape[0] - c0 if num_centers is None else num_centers
+            whole = c0 == 0 and n == positions.shape[0]
+            types_c = types if whole else types[c0:c0 + n]
+            pos_c = positions if whole else positions[c0:c0 + n]
+            geo = flat_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
+                             edge_mask=edge_mask)
+            agg, per_edge, spread = flat_reducers(edge_index[0] - c0 if c0 else edge_index[0], n)
+            agg_rows = agg
         else:
-            x_in = _two_body_in(cfg, types_c, geo, n, k).T.reshape(n, k, -1)
-        x = mlp_apply(params["two_body_mlp"], x_in) * u[..., None]
-        if tier == "plain":
-            x = _plain_layers(params, cfg, x, geo["Y"], u, agg, per_edge, capture, remat, cdtype)
+            n, k = edge_index.shape
+            if num_centers is not None and num_centers != n:
+                raise ValueError(f"num_centers={num_centers} != table rows {n}")
+            c0 = int(center_offset)
+            types_c, pos_c = types[c0:c0 + n], positions[c0:c0 + n]
+            geo = table_edges(cfg, positions, types, edge_index, cell=cell, edge_shifts=edge_shifts,
+                              edge_mask=edge_mask, edge_rev=edge_rev, center_offset=c0,
+                              edge_vec=edge_vec, edge_tjf=edge_tjf)
+
+            def agg(a):
+                return a.sum(dim=1)
+
+            def agg_rows(a):
+                return a.reshape(n, k, *a.shape[1:]).sum(dim=1)
+
+            def per_edge(a):
+                return a[:, None]
+
+            def spread(a):
+                return a[:, :, None].expand(*a.shape, k).reshape(a.shape[0], n * k)
+        u = geo["u"]
+        if tier == "k1-embed":
+            ins = _embed_major(cfg, types_c, geo, n, k, cdtype)
+        elif tier in ("stack", "k1", "k1-nopos", "perlayer"):
+            ins = _feature_major(params, cfg, types_c, geo, n, k, cdtype)
         else:
-            d, ns = geo["Y"].shape[-1], x.shape[-1]
-            x, Y_e, u_e = (t.to(cdtype) for t in (x.reshape(-1, ns), geo["Y"].reshape(-1, d),
-                                                   u.reshape(-1)))
-            x = _k4_layers(params, cfg, x, Y_e, u_e, agg_rows, spread, remat).reshape(*u.shape, ns)
-        x = x.to(dtype)
+            if flat:
+                x_in = torch.cat([geo["oh_i"], geo["oh_j"], geo["bessel"]], dim=-1)
+            else:
+                x_in = _two_body_in(cfg, types_c, geo, n, k).T.reshape(n, k, -1)
+            x = mlp_apply(params["two_body_mlp"], x_in) * u[..., None]
+    with tracing.span("model.layers"):
+        if tier == "k1-embed":
+            rows = _embed_layers(params, cfg, ins["in_T"], ins["Y_T"], ins["uT"], k, remat)
+            rows = dict(zip(("readout_mlp", "charge_mlp"), rows))
 
-        def head(name):
-            return mlp_apply(params[name], x)[..., 0] * u
+            def head(name):  # the heads ran in K7's epilogue
+                return rows[name].reshape(n, k).to(dtype)
+        elif tier in ("stack", "k1", "k1-nopos", "perlayer"):
+            if tier == "stack":  # no remat, as in JAX: K8's backward recomputes its forward
+                xT = fused_stack(ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], params["layers"],
+                                 k, cfg.l_max, cfg.avg_num_neighbors, cfg.parity)
+            elif tier == "perlayer":
+                xT = _perlayer_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"],
+                                      k, remat)
+            else:
+                xT = _k1_layers(params, cfg, ins["xT"], ins["pT"], ins["Y_T"], ins["uT"], k,
+                                positional=tier == "k1", remat=remat)
 
-    e_edge = head("readout_mlp")
-    if capture is not None:
-        capture["edge_energy"] = e_edge
-    e_atom = agg(e_edge)
-    e_atom = (params["per_type_scale"].to(dtype)[types_c] * e_atom
-              + params["per_type_shift"].to(dtype)[types_c])
-    if atom_mask is not None:
-        e_atom = e_atom * atom_mask.to(dtype)
-    out = {"atomic_energy": e_atom, "total_energy": e_atom.sum(), "edge_energy": e_edge}
-    if cfg.output_charges:
-        q_atom = agg(head("charge_mlp"))
+            xT = xT.to(dtype)
+
+            def head(name):
+                return mlp_apply_t(params[name], xT)[0].reshape(n, k) * u
+        else:
+            if tier == "plain":
+                x = _plain_layers(params, cfg, x, geo["Y"], u, agg, per_edge, capture, remat,
+                                  cdtype)
+            else:
+                d, ns = geo["Y"].shape[-1], x.shape[-1]
+                x, Y_e, u_e = (t.to(cdtype) for t in (x.reshape(-1, ns),
+                                                       geo["Y"].reshape(-1, d), u.reshape(-1)))
+                x = _k4_layers(params, cfg, x, Y_e, u_e, agg_rows, spread,
+                               remat).reshape(*u.shape, ns)
+            x = x.to(dtype)
+
+            def head(name):
+                return mlp_apply(params[name], x)[..., 0] * u
+
+    with tracing.span("model.readout"):
+        e_edge = head("readout_mlp")
+        if capture is not None:
+            capture["edge_energy"] = e_edge
+        e_atom = agg(e_edge)
+        e_atom = (params["per_type_scale"].to(dtype)[types_c] * e_atom
+                  + params["per_type_shift"].to(dtype)[types_c])
         if atom_mask is not None:
-            q_atom = q_atom * atom_mask.to(dtype)
-        out["charges"] = q_atom
-        out["dipole"] = torch.sum(q_atom[:, None] * pos_c, dim=0)
+            e_atom = e_atom * atom_mask.to(dtype)
+        out = {"atomic_energy": e_atom, "total_energy": e_atom.sum(), "edge_energy": e_edge}
+        if cfg.output_charges:
+            q_atom = agg(head("charge_mlp"))
+            if atom_mask is not None:
+                q_atom = q_atom * atom_mask.to(dtype)
+            out["charges"] = q_atom
+            out["dipole"] = torch.sum(q_atom[:, None] * pos_c, dim=0)
     return out
 
 

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pair_allegro_tpu_torch import tracing
 from pair_allegro_tpu_torch.models.edges import flat_edges, is_flat, table_edges
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply, mlp_dims, silu_norm_const
 from pair_allegro_tpu_torch.ops.nequip_conv import (
@@ -386,22 +387,32 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
     by the caller (``parallel.sharded.params_on``); without it every
     shard uses ``params``, which must then live on its device.
 
+    The spans ``model.inputs``, ``model.layers`` and ``model.readout``
+    (``tracing``) mark the windows' geometry and the embedding, the layers,
+    and the readout with the per-atom sum.
+
     Returns 'atomic_energy' (N,) and 'total_energy' ()."""
     _check_supported(cfg)
     dtype = positions.dtype
     n, home = positions.shape[0], positions.device
     C, lmax, T = cfg.num_features, cfg.l_max, cfg.n_tracks
     D, P = cfg.feature_dim, tp_num_paths(lmax)
-    parts = _node_windows(cfg, positions, types, edge_index, cell, edge_shifts, edge_mask,
-                          edge_rev, mesh)
-    use_k3 = conv_route(cfg, parts[0].flat, capture is not None, dtype, positions.is_cuda,
-                        sharded=mesh is not None)
-    generic = generic_path(cfg)
-    if use_k3:
-        k = parts[0].k
-        e = n * k
-        u_e, Y_e = parts[0].u.reshape(e, 1), parts[0].Y.reshape(e, D)
-        bes_e = parts[0].bessel.reshape(e, -1)
+    with tracing.span("model.inputs"):
+        parts = _node_windows(cfg, positions, types, edge_index, cell, edge_shifts, edge_mask,
+                              edge_rev, mesh)
+        use_k3 = conv_route(cfg, parts[0].flat, capture is not None, dtype, positions.is_cuda,
+                            sharded=mesh is not None)
+        generic = generic_path(cfg)
+        if use_k3:
+            k = parts[0].k
+            e = n * k
+            u_e, Y_e = parts[0].u.reshape(e, 1), parts[0].Y.reshape(e, D)
+            bes_e = parts[0].bessel.reshape(e, -1)
+        h = torch.zeros((n, C, D, T) if generic else (n, D, T, C), dtype=dtype, device=home)
+        if generic:
+            h[:, :, 0, 0] = params["chem_embed"].to(dtype)[types]
+        else:
+            h[:, 0, 0, :] = params["chem_embed"].to(dtype)[types]
 
     inv_avg = 1.0 / math.sqrt(max(cfg.avg_num_neighbors, 1e-6))
     act_c = silu_norm_const()
@@ -486,23 +497,21 @@ def nequip_energy(params: dict, cfg: NequIPConfig, positions, types, edge_index,
         outs = [step(layers[s][i], h.to(p.dev), p) for s, p in enumerate(parts)]
         return outs[0] if len(outs) == 1 else torch.cat([o.to(home) for o in outs])
 
-    h = torch.zeros((n, C, D, T) if generic else (n, D, T, C), dtype=dtype, device=home)
-    if generic:
-        h[:, :, 0, 0] = params["chem_embed"].to(dtype)[types]
-    else:
-        h[:, 0, 0, :] = params["chem_embed"].to(dtype)[types]
-    for i in range(len(params["layers"])):
-        h = rematerialized(lambda h, i=i: all_windows(i, h), remat)(h)
-    if generic:
-        h = h.permute(0, 2, 3, 1)  # channels-last (N, D, T, C) for the readout
+    with tracing.span("model.layers"):
+        for i in range(len(params["layers"])):
+            h = rematerialized(lambda h, i=i: all_windows(i, h), remat)(h)
+        if generic:
+            h = h.permute(0, 2, 3, 1)  # channels-last (N, D, T, C) for the readout
     if capture is not None:
         capture["node_features"] = h.permute(0, 3, 1, 2) if T == 2 else h[:, :, 0, :].transpose(1, 2)
 
-    e_atom = mlp_apply(params["readout_mlp"], h[:, 0, 0, :])[:, 0]
-    e_atom = params["per_type_scale"].to(dtype)[types] * e_atom + params["per_type_shift"].to(dtype)[types]
-    if atom_mask is not None:
-        e_atom = e_atom * atom_mask.to(dtype)
-    return {"atomic_energy": e_atom, "total_energy": e_atom.sum()}
+    with tracing.span("model.readout"):
+        e_atom = mlp_apply(params["readout_mlp"], h[:, 0, 0, :])[:, 0]
+        e_atom = (params["per_type_scale"].to(dtype)[types] * e_atom
+                  + params["per_type_shift"].to(dtype)[types])
+        if atom_mask is not None:
+            e_atom = e_atom * atom_mask.to(dtype)
+        return {"atomic_energy": e_atom, "total_energy": e_atom.sum()}
 
 
 nequip_energy.per_center_outputs = ("atomic_energy",)

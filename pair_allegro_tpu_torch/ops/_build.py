@@ -23,6 +23,7 @@ from pathlib import Path
 from typing import Callable
 
 from pair_allegro_tpu_torch import compile_cache
+from pair_allegro_tpu_torch.tracing import LaunchCounts  # noqa: F401 (the kernels import it here)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "pair_allegro_tpu_torch"
@@ -33,18 +34,6 @@ def build_dir() -> Path:
     directory when one is enabled, else :data:`BUILD_DIR`."""
     cached = compile_cache.cache_dir()
     return Path(cached) if cached else BUILD_DIR
-
-
-class LaunchCounts:
-    """Kernel launches since the last :meth:`reset` (plain integers)."""
-
-    def __init__(self):
-        self.fwd = 0
-        self.bwd = 0
-
-    def reset(self):
-        self.fwd = 0
-        self.bwd = 0
 
 
 class CudaLibrary:

@@ -53,10 +53,10 @@ from pair_allegro_tpu_torch.ops._build import CSRC, CudaLibrary, LaunchCounts
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t, weak_scalar
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()  # the f32 kernel's (K6, 3xTF32 products)
-launches_bf16 = LaunchCounts()  # the bf16 build's (K6)
-launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's (K6)
-launches_onepass = LaunchCounts()  # the f32 one-pass build's (K6)
+launches = LaunchCounts("K6.tf32x3")  # the f32 kernel's (K6, 3xTF32 products)
+launches_bf16 = LaunchCounts("K6.bf16")  # the bf16 build's (K6)
+launches_bf16x3 = LaunchCounts("K6.bf16x3")  # the f32 bf16x3 build's (K6)
+launches_onepass = LaunchCounts("K6.onepass")  # the f32 one-pass build's (K6)
 
 MT_WORDS = fl.MT_WORDS
 

@@ -72,10 +72,10 @@ from pair_allegro_tpu_torch.ops.fused_layer import (
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()  # the f32 kernel's (3xTF32 mix)
-launches_bf16 = LaunchCounts()  # the bf16 build's (bf16 operands)
-launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's
-launches_onepass = LaunchCounts()  # the f32 one-pass build's
+launches = LaunchCounts("K2.tf32x3")  # the f32 kernel's (3xTF32 mix)
+launches_bf16 = LaunchCounts("K2.bf16")  # the bf16 build's (bf16 operands)
+launches_bf16x3 = LaunchCounts("K2.bf16x3")  # the f32 bf16x3 build's
+launches_onepass = LaunchCounts("K2.onepass")  # the f32 one-pass build's
 
 
 def widths_ok(c: int, cout: int, d: int) -> bool:

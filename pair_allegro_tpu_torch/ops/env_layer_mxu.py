@@ -44,7 +44,7 @@ _MAX_D = 16
 # the kernel's table of the l3=0 entries per (i, j) pair (struct Inv0 in the source)
 _INV0_DTYPE = np.dtype([("p", np.int32, _MAX_D * _MAX_D), ("w", np.float32, _MAX_D * _MAX_D)])
 
-launches = LaunchCounts()
+launches = LaunchCounts("K5.mxu")
 
 # the launcher's constants (csrc/env_layer_mxu.cu): chunk depth, edge tile,
 # rows of a pass, row strides of the staged chunks (f32, bf16 pairs) and of

@@ -68,10 +68,10 @@ _META_DTYPE = np.dtype(
 )
 
 
-launches = LaunchCounts()  # the f32 kernel's (3xTF32 products)
-launches_bf16 = LaunchCounts()  # the bf16 build's (bf16 operands)
-launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's
-launches_onepass = LaunchCounts()  # the f32 one-pass build's
+launches = LaunchCounts("K1.tf32x3")  # the f32 kernel's (3xTF32 products)
+launches_bf16 = LaunchCounts("K1.bf16")  # the bf16 build's (bf16 operands)
+launches_bf16x3 = LaunchCounts("K1.bf16x3")  # the f32 bf16x3 build's
+launches_onepass = LaunchCounts("K1.onepass")  # the f32 one-pass build's
 
 # the launchers' constants (csrc/allegro_tiles.cuh): threads per block, the
 # edge tile, the shared memory a block may use, and what it may use where

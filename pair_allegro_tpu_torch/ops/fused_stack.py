@@ -41,10 +41,10 @@ from pair_allegro_tpu_torch.ops.embed_layer import check_operands
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply, weak_scalar
 from pair_allegro_tpu_torch.ops.tp import scalar_part, tp_mix_apply, uniform_tp
 
-launches = LaunchCounts()  # the f32 kernel's (3xTF32 products)
-launches_bf16 = LaunchCounts()  # the bf16 build's
-launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's
-launches_onepass = LaunchCounts()  # the f32 one-pass build's
+launches = LaunchCounts("K8.tf32x3")  # the f32 kernel's (3xTF32 products)
+launches_bf16 = LaunchCounts("K8.bf16")  # the bf16 build's
+launches_bf16x3 = LaunchCounts("K8.bf16x3")  # the f32 bf16x3 build's
+launches_onepass = LaunchCounts("K8.onepass")  # the f32 one-pass build's
 
 MAX_LAYERS = 8  # K8P::layer in csrc/fused_stack.cu (one kernel argument of <= 4 KB)
 

@@ -64,12 +64,12 @@ _MAX_W = 8  # radial MLP weight matrices the kernel takes (K3P::wdim in the sour
 NT, SMEM_MAX = 256, 232448
 ET_FWD, ET_BWD = (64, 32, 16, 8), (128, 64, 32, 16, 8)
 
-launches = LaunchCounts()  # the f32-hj 3xTF32 build's
-launches_bf16 = LaunchCounts()  # the bf16-hj 3xTF32 build's
-launches_bf16x3 = LaunchCounts()  # the f32-hj bf16x3 build's
-launches_onepass = LaunchCounts()  # the f32-hj one-pass build's
-launches_bf16_bf16x3 = LaunchCounts()  # the bf16-hj bf16x3 build's
-launches_bf16_onepass = LaunchCounts()  # the bf16-hj one-pass build's
+launches = LaunchCounts("K3.tf32x3")  # the f32-hj 3xTF32 build's
+launches_bf16 = LaunchCounts("K3.bf16hj.tf32x3")  # the bf16-hj 3xTF32 build's
+launches_bf16x3 = LaunchCounts("K3.bf16x3")  # the f32-hj bf16x3 build's
+launches_onepass = LaunchCounts("K3.onepass")  # the f32-hj one-pass build's
+launches_bf16_bf16x3 = LaunchCounts("K3.bf16hj.bf16x3")  # the bf16-hj bf16x3 build's
+launches_bf16_onepass = LaunchCounts("K3.bf16hj.onepass")  # the bf16-hj one-pass build's
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

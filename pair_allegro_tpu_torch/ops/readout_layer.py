@@ -52,10 +52,10 @@ from pair_allegro_tpu_torch.ops import prec
 from pair_allegro_tpu_torch.ops.mlp import mlp_apply_t
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()  # the f32 kernel's (K7, 3xTF32 products)
-launches_bf16 = LaunchCounts()  # the bf16 build's (K7)
-launches_bf16x3 = LaunchCounts()  # the f32 bf16x3 build's (K7)
-launches_onepass = LaunchCounts()  # the f32 one-pass build's (K7)
+launches = LaunchCounts("K7.tf32x3")  # the f32 kernel's (K7, 3xTF32 products)
+launches_bf16 = LaunchCounts("K7.bf16")  # the bf16 build's (K7)
+launches_bf16x3 = LaunchCounts("K7.bf16x3")  # the f32 bf16x3 build's (K7)
+launches_onepass = LaunchCounts("K7.onepass")  # the f32 one-pass build's (K7)
 # each build's (library, K7 launch counts): K6's libraries
 BUILDS = {"tf32x3": (LIB, launches), "bf16": (LIB_BF16, launches_bf16),
           "bf16x3": (LIB_BF16X3, launches_bf16x3), "onepass": (LIB_ONEPASS, launches_onepass)}

@@ -61,9 +61,9 @@ from pair_allegro_tpu_torch.ops.fused_layer import (
 from pair_allegro_tpu_torch.ops.tp import num_paths_per_l, scalar_part, tp_mix_apply, uniform_tp
 from pair_allegro_tpu_torch.ops.weight_cache import LAYOUTS
 
-launches = LaunchCounts()  # the 3xTF32 build's
-launches_bf16x3 = LaunchCounts()  # the bf16x3 build's
-launches_onepass = LaunchCounts()  # the one-pass build's
+launches = LaunchCounts("K4.tf32x3")  # the 3xTF32 build's
+launches_bf16x3 = LaunchCounts("K4.bf16x3")  # the bf16x3 build's
+launches_onepass = LaunchCounts("K4.onepass")  # the one-pass build's
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

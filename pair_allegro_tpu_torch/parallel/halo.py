@@ -41,6 +41,7 @@ import types as _types
 import numpy as np
 import torch
 
+from pair_allegro_tpu_torch import tracing
 from pair_allegro_tpu_torch.engine import _resolve_remat, _round_k, skin_checked
 from pair_allegro_tpu_torch.io.dump import host
 from pair_allegro_tpu_torch.models.allegro import allegro_energy
@@ -231,12 +232,13 @@ class HaloShardedAllegroEngine:
         hop wraps the box.  The moves and the concatenation are
         differentiable: their reverse is the ghost-force communication."""
         s = self.n_shards
-        parts = [blocks[r].to(dev)]
-        for dd in self.hop_offsets[1:]:
-            recv = blocks[(r + dd) % s].to(dev)
-            k = (r + dd) // s
-            parts.append(recv + k * cell[2] if k else recv)
-        return torch.cat(parts)
+        with tracing.span("halo.exchange"):
+            parts = [blocks[r].to(dev)]
+            for dd in self.hop_offsets[1:]:
+                recv = blocks[(r + dd) % s].to(dev)
+                k = (r + dd) // s
+                parts.append(recv + k * cell[2] if k else recv)
+            return torch.cat(parts)
 
     def _ext_gather(self, arr, r: int):
         """A per-atom array (N, ...) in shard r's extended frame (n_ext, ...)."""

@@ -33,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pair_allegro_tpu_torch import native
+from pair_allegro_tpu_torch import native, tracing
 from pair_allegro_tpu_torch.engine import (
     _estimate_capacities,
     _make_chunked_energy,
@@ -309,9 +309,10 @@ def gather_outputs(outs: list, home, per_center) -> dict:
     (the total energy, a dipole) summed, as JAX splits its extras
     (``sharded.py:311-345``)."""
     res = {}
-    for key in outs[0]:
-        vals = [o[key].to(home) for o in outs]
-        res[key] = torch.cat(vals) if key in per_center else torch.stack(vals).sum(0)
+    with tracing.span("halo.gather"):
+        for key in outs[0]:
+            vals = [o[key].to(home) for o in outs]
+            res[key] = torch.cat(vals) if key in per_center else torch.stack(vals).sum(0)
     return res
 
 

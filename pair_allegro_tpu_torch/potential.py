@@ -12,6 +12,7 @@ from typing import Any, Callable
 
 import torch
 
+from pair_allegro_tpu_torch import tracing
 from pair_allegro_tpu_torch.ops import prec
 
 
@@ -49,16 +50,20 @@ def make_potential(energy_fn: Callable[..., dict],
                   **kw: Any) -> ModelOutputs:
         dtype, dev = positions.dtype, positions.device
         with torch.enable_grad(), prec.glue_scope():
-            pos = positions.detach().requires_grad_(True)
-            strain = torch.zeros((3, 3), dtype=dtype, device=dev, requires_grad=compute_virial)
-            defm = torch.eye(3, dtype=dtype, device=dev) + strain
-            out = energy_fn(
-                prec.exact_mm(pos, defm), types, edge_index,
-                cell=None if cell is None else prec.exact_mm(cell, defm),
-                edge_shifts=edge_shifts, atom_mask=atom_mask, edge_mask=edge_mask, **kw,
-            )
+            with tracing.span("force.forward"):
+                pos = positions.detach().requires_grad_(True)
+                strain = torch.zeros((3, 3), dtype=dtype, device=dev,
+                                     requires_grad=compute_virial)
+                defm = torch.eye(3, dtype=dtype, device=dev) + strain
+                out = energy_fn(
+                    prec.exact_mm(pos, defm), types, edge_index,
+                    cell=None if cell is None else prec.exact_mm(cell, defm),
+                    edge_shifts=edge_shifts, atom_mask=atom_mask, edge_mask=edge_mask, **kw,
+                )
             inputs = [pos, strain] if compute_virial else [pos]
-            grads = torch.autograd.grad(out["total_energy"], inputs, create_graph=create_graph)
+            with tracing.span("force.backward"):
+                grads = torch.autograd.grad(out["total_energy"], inputs,
+                                            create_graph=create_graph)
         if compute_virial:
             virial = -0.5 * (grads[1] + grads[1].T)
         else:

@@ -25,7 +25,7 @@ from pair_allegro_tpu.models.allegro import allegro_init
 from pair_allegro_tpu.neighbors.device import cell_list_neighbors as jax_cell_list
 from pair_allegro_tpu.system import System as JaxSystem
 from pair_allegro_tpu_torch import checkpoint as ckpt
-from pair_allegro_tpu_torch import compile_cache
+from pair_allegro_tpu_torch import compile_cache, tracing
 from pair_allegro_tpu_torch.calculator import Calculator
 from pair_allegro_tpu_torch.cli import main
 from pair_allegro_tpu_torch.debug import edge_set
@@ -207,7 +207,8 @@ def test_run_without_a_gpu_raises(tmp_path):
 
 def test_debug_dump_and_trace(tmp_path, capsys, monkeypatch):
     """PAT_LOG_LEVEL=DEBUG prints the first build's edges; profile writes
-    phase times and a torch.profiler trace; compile_cache is accepted."""
+    phase times, a torch.profiler trace that holds the port's spans, and
+    the run's counters; compile_cache is accepted."""
     monkeypatch.setenv("PAT_LOG_LEVEL", "DEBUG")
     # the cache directory is process-wide: give it back after this test
     monkeypatch.setattr(compile_cache, "_ENABLED", None)
@@ -219,7 +220,10 @@ def test_debug_dump_and_trace(tmp_path, capsys, monkeypatch):
     total = int(re.search(r"EDGES TOTAL (\d+)", out).group(1))
     assert total == out.count("\nEDGE ") + out.startswith("EDGE ") > 0
     assert "# phase force_eval_ms" in out and "# compile_cache" in out
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    trace = (tmp_path / "trace" / "trace.json").read_text()
+    assert '"pat.force.forward"' in trace and '"pat.md.step"' in trace
+    assert re.search(r"^# counter host_reads [1-9]\d*$", out, re.M)
+    assert not tracing.enabled()
 
 
 def test_cli_run_shrinks_spiked_capacity(tmp_path, capsys, monkeypatch):
